@@ -5,12 +5,14 @@
 
 Builds the port's CUDA kernels from ``pixelrec_multimodal_tpu_torch/ops/
 csrc`` into ``build/kernels/``, holds each kernel against its plain PyTorch
-version on the card, drives the main path (full-catalog top-K serving of
-the flagship concatenate-fusion model at bench.py's geometry, random
-weights from a seed), checks what comes out against the plain version, and
-times the kernel. Every phase prints one JSON line; any failure raises and
-exits non-zero. The second-to-last line is the ``kernels`` JSON object and
-the last line is ``{"ok": true, "device": {...}}``.
+version on the card, drives the main paths (full-catalog top-K serving at
+bench.py's geometry, random weights from a seed: the flagship
+concatenate-fusion model through kernel K1, then its gated-fusion twin
+through K2, exact, and K3, factored), checks what comes out against the
+plain versions, and times the kernels. Every phase prints one JSON line;
+any failure raises and exits non-zero. The second-to-last line is the
+``kernels`` JSON object and the last line is ``{"ok": true, "device":
+{...}}``.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -41,16 +43,18 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
-# Kernel-vs-plain tolerance, relative to max(1, |score|): the kernel and
-# pairwise_scores_plain(bfloat16) round at the same points and differ only
-# in the order of the float32 sums; a hidden activation may then round to
-# the neighbouring bf16 value (2**-8 relative), which moves a score by
-# well under 2e-3 of its scale.
+# Kernel-vs-plain tolerance, relative to max(1, |score|): each kernel and
+# its plain bf16 version round at the same points and differ only in the
+# order of the float32 sums (and, in the gated kernels, in exp by an ulp);
+# a hidden activation may then round to the neighbouring bf16 value
+# (2**-8 relative), which moves a score by well under 2e-3 of its scale.
 KERNEL_TOL = 2e-3
 # Main path against the plain bf16 version at the full catalog: mean top-50
 # overlap. The 50th and 51st of 65,536 scores can lie closer together than
 # the kernel's rounding differences, so an item may swap at the boundary.
 MIN_OVERLAP = 0.95
+# Timed block of every kernel: the flagship widths, 256 users x 8,192 items.
+TIME_B, TIME_C = 256, 8192
 
 
 def emit(phase: str, **fields):
@@ -75,7 +79,8 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def build_flagship(seed: int = SEED, device='cuda'):
+def build_flagship(seed: int = SEED, device='cuda',
+                   fusion_type: str = 'concatenate'):
     """(model, store) at bench.py's geometry: random weights from ``seed``,
     BatchNorm with non-trivial running statistics, bf16 compute."""
     from pixelrec_multimodal_tpu_torch.data.feature_store import (
@@ -90,7 +95,7 @@ def build_flagship(seed: int = SEED, device='cuda'):
         num_numerical_features=NUM_FEAT, embedding_dim=EMB,
         vision_feature_dim=VISION_DIM, language_feature_dim=LANG_DIM,
         use_contrastive=False, fusion_hidden_dims=HIDDEN,
-        fusion_type='concatenate', use_batch_norm=True, dropout_rate=0.0,
+        fusion_type=fusion_type, use_batch_norm=True, dropout_rate=0.0,
         dtype=torch.bfloat16, generator=gen, device=device)
     with torch.no_grad():
         for i in range(len(HIDDEN)):
@@ -112,19 +117,33 @@ def build_flagship(seed: int = SEED, device='cuda'):
     return model, store
 
 
-def pair_ops(head: dict, h1: int) -> tuple:
+def pair_ops(head: dict, h1: int, kernel: str = 'K1') -> tuple:
     """Operations per pair, split by the unit that runs them: (the hidden
-    products, on the tensor cores; the assembly add + act + bf16 rounding
-    over h1 and the one-column dot, outside them). Their sum is bench.py's
-    formula, 329,472 at the flagship head."""
+    products, on the tensor cores; the assembly and the one-column dot, in
+    float32 outside them). The assemblies, per pair:
+      K1: add + act + bf16 rounding over h1, 3*h1 (with the products and
+          the dot, bench.py's formula: 329,472 at the flagship head);
+      K2: the softmax over M gates, ~6*M, and the weighted sum of M rows
+          plus the activation, 2*M*h1 + h1;
+      K3: Z and p0 from M products, 2*M + 2, and per column the Mi-term
+          contraction, the user term, the 1/Z scale and the activation,
+          (2*Mi + 4)*h1."""
     hidden = head['layers'][:-1]
+    dot = 2 * head['layers'][-1][0].shape[0]
+    if kernel == 'K1':
+        assembly = 3 * h1
+    else:
+        n_mod = head['n_item_mods'] + 1
+        assembly = (2 * n_mod * h1 + h1 + 6 * n_mod if kernel == 'K2'
+                    else (2 * (n_mod - 1) + 4) * h1 + 2 * n_mod + 2)
     return (sum(2 * w.shape[0] * w.shape[1] for w, _ in hidden),
-            3 * h1 + 2 * head['layers'][-1][0].shape[0])
+            assembly + dot)
 
 
-def random_head(widths, activation, final, gen, device):
+def random_head(widths, activation, final, gen, device, n_item_mods=None):
     """A folded head of the given widths with random weights (the kernel
-    check at widths other than the flagship's)."""
+    checks at widths other than the flagship's); ``n_item_mods`` makes it
+    a gated head."""
     layers = []
     for k, n in zip(widths[:-1], widths[1:]):
         layers.append(((torch.randn(k, n, generator=gen) / k ** 0.5),
@@ -132,26 +151,168 @@ def random_head(widths, activation, final, gen, device):
     w_last = torch.zeros(widths[-1], 128)
     w_last[:, 0] = torch.randn(widths[-1], generator=gen) / widths[-1] ** 0.5
     layers.append((w_last, torch.randn(128, generator=gen) * 0.1))
-    return {'layers': [(w.to(device), b.to(device)) for w, b in layers],
+    head = {'layers': [(w.to(device), b.to(device)) for w, b in layers],
             'activation': activation, 'final_activation': final,
             'b1': torch.zeros(widths[0], device=device), 'b1_folded': True}
+    if n_item_mods:
+        head.update(n_item_mods=n_item_mods, h1=widths[0])
+    return head
 
 
-def kernel_error(head, uf, itf) -> tuple:
-    """(max |kernel - plain bf16|, tolerance) over a block."""
+def random_gated_rows(head, B, C, gen, device):
+    """Seeded rows of a gated head: (exact (uf, ug, itf, ig), factored
+    (uf, a, T, igb)), the factored ones derived from the exact ones as the
+    scorer derives them."""
     from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
-        pairwise_scores,
-        pairwise_scores_plain,
+        GATE_PAD,
+        factor_gated_tables,
+        factor_gated_user,
     )
-    out = pairwise_scores(head, uf, itf)
+    h1, mi = head['h1'], head['n_item_mods']
+    gates = torch.zeros(B + C, GATE_PAD)
+    gates[:, :mi + 1] = torch.randn(B + C, mi + 1, generator=gen)
+    exact = (torch.randn(B, h1, generator=gen), gates[:B],
+             torch.randn(C, mi * h1, generator=gen), gates[B:])
+    exact = tuple(t.to(device).contiguous() for t in exact)
+    return exact, (factor_gated_user(head, *exact[:2])
+                   + factor_gated_tables(head, *exact[2:]))
+
+
+def kernel_error(kernel, plain, head, users: tuple, items: tuple) -> tuple:
+    """(max |kernel - plain bf16|, tolerance) over a block; the plain
+    version runs in item slices of 2,048 to bound its memory."""
+    out = kernel(head, *users, *items)
     torch.cuda.synchronize()
-    ref = torch.cat([pairwise_scores_plain(head, uf, itf[c:c + 2048],
-                                           torch.bfloat16)
-                     for c in range(0, itf.shape[0], 2048)], dim=1)
+    ref = torch.cat([plain(head, *users, *(t[c:c + 2048] for t in items),
+                           compute_dtype=torch.bfloat16)
+                     for c in range(0, items[0].shape[0], 2048)], dim=1)
     if not torch.isfinite(out).all():
         raise AssertionError('kernel produced non-finite scores')
     err = (out - ref).abs().max().item()
     return err, KERNEL_TOL * max(1.0, ref.abs().max().item())
+
+
+def reset_launches():
+    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+    for fn in (tpm.pairwise_scores, tpm.pairwise_scores_gated,
+               tpm.pairwise_scores_gated_factored):
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+    return {'K1': tpm.pairwise_scores.launches,
+            'K2': tpm.pairwise_scores_gated.launches,
+            'K3': tpm.pairwise_scores_gated_factored.launches}
+
+
+def drive_top_k(scorer, users, kernel: str, phase: str, **fields):
+    """One warm-up ``top_k``, then three timed calls with every launch count
+    set to 0 just before them and read just after; fails unless ``kernel``
+    and no other launched once per (user block, item chunk) of each call,
+    or if the output is malformed. Returns (scores, items, launches,
+    median seconds)."""
+    scorer.top_k(users, TOP_K)  # warm-up
+    reset_launches()
+    times = []
+    for _ in range(3):
+        t0 = time.time()
+        v, i = scorer.top_k(users, TOP_K)
+        times.append(time.time() - t0)
+    counts = launch_counts()
+    per_call = (-(-len(users) // scorer.user_chunk)
+                * (scorer.n_pad // scorer.item_chunk))
+    expected = {k: 3 * per_call if k == kernel else 0 for k in counts}
+    if counts != expected:
+        raise AssertionError(f'{phase}: kernel launches {counts} != '
+                             f'expected {expected}')
+    if v.shape != (len(users), TOP_K) or not np.isfinite(v).all() \
+            or (i < 0).any() or (i >= N_ITEMS).any() \
+            or (np.diff(v, axis=1) > 0).any():
+        raise AssertionError(f'{phase}: top_k output malformed')
+    median = statistics.median(times)
+    emit(phase, users=len(users), items=N_ITEMS, k=TOP_K, seconds=times,
+         median_seconds=median, pairs_per_sec=len(users) * N_ITEMS / median,
+         kernel_launches=counts, expected_launches=expected, **fields)
+    return v, i, counts[kernel], median
+
+
+def check_against_plain(scorer, plain, users, v, i, phase, f32=True):
+    """The main path's top-50 over 64 users against the plain bf16 version
+    of the same tables at the full catalog: overlap >= MIN_OVERLAP, values
+    and ``score_full`` within KERNEL_TOL. Optionally reports the overlap
+    with the plain float32 version too (bf16 against f32, not a fault)."""
+    with torch.no_grad():
+        side = scorer._fast_user_side(
+            torch.from_numpy(users[:64].astype(np.int64)).to('cuda'))
+
+        def scores(dtype):
+            return torch.cat([plain(scorer._head, *side,
+                                    *(t[c:min(c + 4096, N_ITEMS)]
+                                      for t in scorer._scan_tables),
+                                    compute_dtype=dtype)
+                              for c in range(0, N_ITEMS, 4096)], dim=1)
+        ref = scores(torch.bfloat16)
+        ref_v, ref_i = (t.cpu().numpy() for t in torch.topk(ref, TOP_K, 1))
+        extra = {}
+        if f32:
+            f32_i = torch.topk(scores(torch.float32), TOP_K, 1)[1]
+            extra['top50_overlap_vs_plain_f32'] = float(np.mean(
+                [len(set(a) & set(b)) / TOP_K
+                 for a, b in zip(i[:64], f32_i.cpu().numpy())]))
+    overlap = float(np.mean([len(set(a) & set(b)) / TOP_K
+                             for a, b in zip(i[:64], ref_i)]))
+    value_err = float(np.abs(v[:64] - ref_v).max())
+    full_err = float(np.abs(scorer.score_full(users[:64])
+                            - ref.cpu().numpy()).max())
+    tol = KERNEL_TOL * max(1.0, float(np.abs(ref_v).max()))
+    emit(phase, users=64, items=N_ITEMS,
+         top50_overlap_vs_plain_bf16=overlap, min_overlap=MIN_OVERLAP,
+         top50_value_max_abs_diff=value_err,
+         score_full_max_abs_diff=full_err, tol=tol, **extra)
+    if overlap < MIN_OVERLAP or not value_err <= tol \
+            or not full_err <= tol:
+        raise AssertionError(f'{phase}: main path disagrees with the plain '
+                             f'version')
+    if v.min() <= -1e30 / 2:
+        raise AssertionError(f'{phase}: masked scores in the top-k')
+
+
+def kernel_line(name, kernel_id, source, replaces, tpu, head, h1, args,
+                kernel, plain, launches, err, tol, library_note):
+    """The ``kernels`` entry of one kernel, timed at the TIME_B x TIME_C
+    flagship block ``args`` (users first, then items)."""
+    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import kernel_chain
+    with torch.no_grad():
+        ms = cuda_ms(lambda: kernel(head, *args), reps=20)
+        plain_ms = cuda_ms(lambda: plain(head, *args,
+                                         compute_dtype=torch.bfloat16),
+                           reps=3)
+    mma_flops, other_ops = (TIME_B * TIME_C * n
+                            for n in pair_ops(head, h1, kernel_id))
+    chain = kernel_chain(head)  # the tensors the kernel reads
+    n_bytes = (sum(t.numel() * t.element_size() for t in args)
+               + TIME_B * TIME_C * 4
+               + sum(chain[k].numel() * chain[k].element_size()
+                     for k in ('w', 'b', 'w_last', 'b_last')))
+    op_ms = max(mma_flops / PEAK_BF16_FLOPS, other_ops / PEAK_F32_FLOPS) * 1e3
+    byte_ms = n_bytes / PEAK_HBM_BYTES * 1e3
+    return {
+        'name': name, 'route': 'cuda',
+        'source': f'pixelrec_multimodal_tpu_torch/ops/csrc/{source}',
+        'replaces': f'pixelrec_multimodal_tpu/ops/pairwise_mlp.py:{replaces}',
+        'tpu': f'ops/pairwise_mlp.py:{tpu}', 'kernel': kernel_id,
+        'launches': launches, 'max_abs_err': err, 'tol': tol,
+        'ms': ms, 'plain_ms': plain_ms,
+        'bound_ms': max(op_ms, byte_ms),
+        'bound_by': 'operations' if op_ms >= byte_ms else 'bytes',
+        'bound_ms_tensor_ops': mma_flops / PEAK_BF16_FLOPS * 1e3,
+        'bound_ms_f32_ops': other_ops / PEAK_F32_FLOPS * 1e3,
+        'bound_ms_bytes': byte_ms,
+        'library_ms': None, 'library_note': library_note,
+        'shape': [TIME_B, TIME_C],
+        'tflops': (mma_flops + other_ops) / (ms * 1e-3) / 1e12,
+    }
 
 
 def main() -> int:
@@ -164,11 +325,13 @@ def main() -> int:
     from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
         ACTIVATIONS,
         compute_user_first,
-        kernel_chain,
         pairwise_scores,
+        pairwise_scores_gated,
+        pairwise_scores_gated_factored,
+        pairwise_scores_gated_factored_plain,
+        pairwise_scores_gated_plain,
         pairwise_scores_plain,
     )
-    from pixelrec_multimodal_tpu_torch.ops.topk import NEG_INF
 
     t_start = time.time()
     dev = torch.device('cuda')
@@ -192,7 +355,7 @@ def main() -> int:
          libraries=[str(p.relative_to(_build.BUILD_DIR.parents[1]))
                     for p in libs.values()])
 
-    # ---- set-up of the main path (catalog tables built on the card)
+    # ---- set-up of the concat main path (catalog tables built on the card)
     t0 = time.time()
     model, store = build_flagship()
     scorer = CatalogScorer(model, store)
@@ -209,17 +372,18 @@ def main() -> int:
          item_chunk=scorer.item_chunk, user_chunk=scorer.user_chunk,
          n_pad=scorer.n_pad, h1=h1)
 
-    # ---- 3. kernel against its plain version
+    # ---- 3. K1 against its plain version
     t0 = time.time()
+    gen = torch.Generator().manual_seed(SEED + 2)
     with torch.no_grad():
-        flag_err, flag_tol = kernel_error(head, user_first[:200],
-                                          item_first[:8000])
-        emit('kernel_vs_plain', widths='flagship', B=200, C=8000,
-             max_abs_err=flag_err, tol=flag_tol)
+        flag_err, flag_tol = kernel_error(
+            pairwise_scores, pairwise_scores_plain, head,
+            (user_first[:200],), (item_first[:8000],))
+        emit('kernel_vs_plain', kernel='K1', widths='flagship', B=200,
+             C=8000, max_abs_err=flag_err, tol=flag_tol)
         if not flag_err <= flag_tol:
             raise AssertionError(f'flagship kernel error {flag_err} > '
                                  f'{flag_tol}')
-        gen = torch.Generator().manual_seed(SEED + 2)
         worst = 0.0
         for widths in ((48, 32, 16), (128, 256), (64,)):
             for act in ACTIVATIONS:
@@ -227,107 +391,125 @@ def main() -> int:
                     h = random_head(widths, act, final, gen, dev)
                     uf = torch.randn(37, widths[0], generator=gen).to(dev)
                     itf = torch.randn(301, widths[0], generator=gen).to(dev)
-                    err, tol = kernel_error(h, uf, itf)
+                    err, tol = kernel_error(pairwise_scores,
+                                            pairwise_scores_plain, h,
+                                            (uf,), (itf,))
                     worst = max(worst, err / tol)
                     if not err <= tol:
                         raise AssertionError(
                             f'kernel error {err} > {tol} at widths '
                             f'{widths}, {act}/{final}')
-        emit('kernel_vs_plain', widths='small, every activation x final',
+        emit('kernel_vs_plain', kernel='K1',
+             widths='small, every activation x final',
              combos=3 * len(ACTIVATIONS) * 3, worst_err_over_tol=worst,
              seconds=round(time.time() - t0, 3))
 
-    # ---- 4. the main path: top_k for 8,192 users over 65,536 items
-    scorer.top_k(users, TOP_K)  # warm-up
-    pairwise_scores.launches = 0
-    times = []
-    for _ in range(3):
-        t0 = time.time()
-        v, i = scorer.top_k(users, TOP_K)
-        times.append(time.time() - t0)
-    launches = pairwise_scores.launches
-    per_call = (-(-N_USERS // scorer.user_chunk)
-                * (scorer.n_pad // scorer.item_chunk))
-    if launches != 3 * per_call:
-        raise AssertionError(f'kernel launches {launches} != expected '
-                             f'{3 * per_call}')
-    if v.shape != (N_USERS, TOP_K) or not np.isfinite(v).all() \
-            or (i < 0).any() or (i >= N_ITEMS).any() \
-            or (np.diff(v, axis=1) > 0).any():
-        raise AssertionError('top_k output malformed')
-    median = statistics.median(times)
-    emit('main_path', users=N_USERS, items=N_ITEMS, k=TOP_K,
-         seconds=times, median_seconds=median,
-         pairs_per_sec=N_USERS * N_ITEMS / median,
-         kernel_launches=launches, expected_launches=3 * per_call)
+    # ---- 4. the concat main path: top_k for 8,192 users over 65,536 items
+    v, i, k1_launches, _ = drive_top_k(scorer, users, 'K1', 'main_path')
+    check_against_plain(scorer, pairwise_scores_plain, users, v, i,
+                        'main_path_vs_plain')
 
-    # Output against the plain bf16 version over the full catalog, 64 users.
+    # ---- 5. K1's time at one flagship-width call
     with torch.no_grad():
-        ref = torch.cat([pairwise_scores_plain(head, user_first[:64],
-                                               item_first[c:c + 4096],
-                                               torch.bfloat16)
-                         for c in range(0, N_ITEMS, 4096)], dim=1)
-        ref_v, ref_i = torch.topk(ref, TOP_K, dim=1)
-        f32 = torch.cat([pairwise_scores_plain(head, user_first[:64],
-                                               item_first[c:c + 4096])
-                         for c in range(0, N_ITEMS, 4096)], dim=1)
-        f32_i = torch.topk(f32, TOP_K, dim=1)[1].cpu().numpy()
-    ref_v, ref_i = ref_v.cpu().numpy(), ref_i.cpu().numpy()
-    overlap = float(np.mean([len(set(a) & set(b)) / TOP_K
-                             for a, b in zip(i[:64], ref_i)]))
-    overlap_f32 = float(np.mean([len(set(a) & set(b)) / TOP_K
-                                 for a, b in zip(i[:64], f32_i)]))
-    value_err = float(np.abs(v[:64] - ref_v).max())
-    full_err = float(np.abs(scorer.score_full(users[:64])
-                            - ref.cpu().numpy()).max())
-    emit('main_path_vs_plain', users=64, items=N_ITEMS,
-         top50_overlap_vs_plain_bf16=overlap, min_overlap=MIN_OVERLAP,
-         top50_value_max_abs_diff=value_err,
-         score_full_max_abs_diff=full_err, tol=KERNEL_TOL,
-         top50_overlap_vs_plain_f32=overlap_f32)
-    if overlap < MIN_OVERLAP or not value_err <= KERNEL_TOL \
-            or not full_err <= KERNEL_TOL:
-        raise AssertionError('main path disagrees with the plain version')
-    if v.min() <= NEG_INF / 2:
-        raise AssertionError('masked scores in the top-k')
-
-    # ---- 5. kernel time at one flagship-width call
-    B, C = 256, 8192
-    uf, itf = user_first[:B].contiguous(), item_first[:C]
-    with torch.no_grad():
-        ms = cuda_ms(lambda: pairwise_scores(head, uf, itf), reps=20)
-        plain_ms = cuda_ms(lambda: pairwise_scores_plain(
-            head, uf, itf, torch.bfloat16), reps=3)
         a = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
         mm_ms = cuda_ms(lambda: a @ a, reps=10)
-    measured_peak = 2 * 8192 ** 3 / (mm_ms * 1e-3)
-    mma_flops, other_ops = (B * C * n for n in pair_ops(head, h1))
-    flops = mma_flops + other_ops
-    chain = kernel_chain(head)  # the tensors the kernel reads
-    n_bytes = ((B + C) * h1 * 4 + B * C * 4 + sum(
-        chain[k].numel() * chain[k].element_size()
-        for k in ('w', 'b', 'w_last', 'b_last')))
-    op_ms = max(mma_flops / PEAK_BF16_FLOPS, other_ops / PEAK_F32_FLOPS) * 1e3
-    byte_ms = n_bytes / PEAK_HBM_BYTES * 1e3
-    line = {
-        'name': 'pairwise_mlp', 'route': 'cuda',
-        'source': 'pixelrec_multimodal_tpu_torch/ops/csrc/pairwise_mlp.cu',
-        'replaces': 'pixelrec_multimodal_tpu/ops/pairwise_mlp.py:421',
-        'tpu': 'ops/pairwise_mlp.py:_pairwise_kernel',
-        'launches': launches, 'max_abs_err': flag_err, 'tol': flag_tol,
-        'ms': ms, 'kernel_ms': ms, 'plain_ms': plain_ms,
-        'bound_ms': max(op_ms, byte_ms),
-        'bound_by': 'operations' if op_ms >= byte_ms else 'bytes',
-        'bound_ms_measured_peak': mma_flops / measured_peak * 1e3,
-        'library_ms': None,
-        'library_note': 'no single PyTorch call computes the fused '
-                        'assembly + Dense chain + one-column reduce',
-        'shape': [B, C], 'tflops': flops / (ms * 1e-3) / 1e12,
-        'measured_bf16_matmul_tflops': measured_peak / 1e12,
-        'datasheet_bf16_tflops': PEAK_BF16_FLOPS / 1e12,
-    }
+        del a
+    lines = [kernel_line(
+        'pairwise_mlp', 'K1', 'pairwise_mlp.cu', 421, '_pairwise_kernel',
+        head, h1, (user_first[:TIME_B].contiguous(), item_first[:TIME_C]),
+        pairwise_scores, pairwise_scores_plain, k1_launches, flag_err,
+        flag_tol, 'no single PyTorch call computes the fused assembly + '
+        'Dense chain + one-column reduce')]
+    lines[0]['measured_bf16_matmul_tflops'] = 2 * 8192 ** 3 / mm_ms / 1e9
+    del scorer, item_first, user_first
+    torch.cuda.empty_cache()
+
+    # ---- 6. set-up of the gated main paths: bench_fusion.py's gated model
+    # (the flagship with fusion_type='gated'), one scorer per variant.
+    t0 = time.time()
+    gmodel, gstore = build_flagship(fusion_type='gated')
+    gated = {v: CatalogScorer(gmodel, gstore, gated_variant=v)
+             for v in ('exact', 'factored')}
+    torch.cuda.synchronize()
+    ghead = gated['exact']._head
+    emit('setup_gated', seconds=round(time.time() - t0, 3),
+         n_item_mods=ghead['n_item_mods'], h1=ghead['h1'],
+         item_first_shape=list(gated['exact']._item_fast[0].shape),
+         factored_table_shape=list(gated['factored']._scan_tables[0].shape),
+         factored_table_bytes=sum(t.numel() * t.element_size()
+                                  for t in gated['factored']._scan_tables))
+    # variant: (kernel id, wrapper, plain version, source name, the TPU
+    # kernel's def line in pixelrec_multimodal_tpu/ops/pairwise_mlp.py)
+    kernels = {'exact': ('K2', pairwise_scores_gated,
+                         pairwise_scores_gated_plain, 'gated_pairwise_mlp',
+                         453, '_gated_pairwise_kernel'),
+               'factored': ('K3', pairwise_scores_gated_factored,
+                            pairwise_scores_gated_factored_plain,
+                            'gated_factored_mlp', 780,
+                            '_gated_factored_kernel')}
+
+    # ---- 7. K2 and K3 against their plain versions
+    t0 = time.time()
+    flag = {}
+    with torch.no_grad():
+        for variant, s in gated.items():
+            kid, kernel, plain = kernels[variant][:3]
+            side = s._fast_user_side(
+                torch.from_numpy(users[:200].astype(np.int64)).to(dev))
+            err, tol = kernel_error(kernel, plain, ghead, side,
+                                    tuple(t[:8000] for t in s._scan_tables))
+            flag[variant] = (err, tol)
+            emit('kernel_vs_plain', kernel=kid, widths='flagship', B=200,
+                 C=8000, max_abs_err=err, tol=tol)
+            if not err <= tol:
+                raise AssertionError(f'{kid} flagship error {err} > {tol}')
+        worst = {'exact': 0.0, 'factored': 0.0}
+        for widths in ((48, 32, 16), (128, 256), (64,)):
+            for act in ACTIVATIONS:
+                for final in ('sigmoid', 'tanh', 'none'):
+                    h = random_head(widths, act, final, gen, dev,
+                                    n_item_mods=5)
+                    rows = dict(zip(('exact', 'factored'),
+                                    random_gated_rows(h, 37, 301, gen, dev)))
+                    for variant, (kid, kernel, plain, *_) in \
+                            kernels.items():
+                        r = rows[variant]
+                        err, tol = kernel_error(kernel, plain, h, r[:2],
+                                                r[2:])
+                        worst[variant] = max(worst[variant], err / tol)
+                        if not err <= tol:
+                            raise AssertionError(
+                                f'{kid} error {err} > {tol} at widths '
+                                f'{widths}, {act}/{final}')
+        for variant, (kid, *_) in kernels.items():
+            emit('kernel_vs_plain', kernel=kid,
+                 widths='small, every activation x final',
+                 combos=3 * len(ACTIVATIONS) * 3,
+                 worst_err_over_tol=worst[variant],
+                 seconds=round(time.time() - t0, 3))
+
+    # ---- 8. the gated main paths, one per variant, then their kernels'
+    # times at the flagship block
+    for variant, s in gated.items():
+        kid, kernel, plain, source, line, tpu = kernels[variant]
+        v, i, launches, _ = drive_top_k(s, users, kid,
+                                        f'main_path_gated_{variant}',
+                                        gated_variant=s.gated_variant)
+        check_against_plain(s, plain, users, v, i,
+                            f'main_path_gated_{variant}_vs_plain',
+                            f32=False)
+        with torch.no_grad():
+            side = s._fast_user_side(
+                torch.from_numpy(users[:TIME_B].astype(np.int64)).to(dev))
+        lines.append(kernel_line(
+            source, kid, f'{source}.cu', line, tpu, ghead, ghead['h1'],
+            tuple(side) + tuple(t[:TIME_C] for t in s._scan_tables),
+            kernel, plain, launches, *flag[variant],
+            'no single PyTorch call computes the fused gated assembly + '
+            'Dense chain + one-column reduce'))
+
     emit('timing', seconds_total=round(time.time() - t_start, 3))
-    print(json.dumps({'kernels': [line]}), flush=True)
+    print(json.dumps({'kernels': lines}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}), flush=True)

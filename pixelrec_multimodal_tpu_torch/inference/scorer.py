@@ -2,17 +2,22 @@
 """Full-catalog pair scoring on the card.
 
 Counterpart of ``CatalogScorer`` in
-``pixelrec_multimodal_tpu/inference/scorer.py``, concatenate fusion:
+``pixelrec_multimodal_tpu/inference/scorer.py``, concatenate and gated
+fusion:
 
   * the item tower (item and tag embeddings plus modality projections) is
     computed once for the padded catalog, streamed host -> device in
     chunks, and kept on the device as ``[n_pad, M, D]``;
-  * the BN-folded, factorized head turns it into per-item first-layer rows
-    ``[n_pad, h1]`` once per catalog;
+  * the BN-folded, factorized head turns it into per-item tables once per
+    catalog: concat ``item_first [n_pad, h1]``; gated ``item_first
+    [n_pad, Mi*h1]`` and ``item_gates [n_pad, GATE_PAD]``, plus, for the
+    factored variant, ``T [n_pad, Mi, h1]`` bf16 and ``igb [n_pad,
+    GATE_PAD]`` (``ops/pairwise_mlp.py:factor_gated_tables``);
   * ``top_k`` scans the catalog in item chunks: one fused kernel launch
-    scores a user block against a chunk (``ops/pairwise_mlp.py``), and a
-    running top-k merges each chunk (``ops/topk.py``), so the
-    [users, items] matrix is never held whole.
+    scores a user block against a chunk (``ops/pairwise_mlp.py``: K1 for
+    concat, K2 for exact gated, K3 for factored gated), and a running
+    top-k merges each chunk (``ops/topk.py``), so the [users, items]
+    matrix is never held whole.
 
 Blocks and chunks may be ragged: the kernel masks its own edges, so user
 blocks are not padded to size classes (the JAX package pads them to keep
@@ -21,6 +26,7 @@ one compiled shape per class; PyTorch compiles nothing per shape).
 from __future__ import annotations
 
 import contextlib
+from functools import partial
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -28,11 +34,19 @@ import torch
 
 from ..device import resolve_device
 from ..ops.pairwise_mlp import (
+    GATE_PAD,
     build_factorized_head,
     candidate_scores,
+    candidate_scores_gated,
     compute_item_first,
+    compute_item_side_gated,
     compute_user_first,
+    compute_user_side_gated,
+    factor_gated_tables,
+    factor_gated_user,
     pairwise_scores,
+    pairwise_scores_gated,
+    pairwise_scores_gated_factored,
 )
 from ..ops.topk import NEG_INF, init_topk, merge_topk
 from ..parallel.mesh import pad_to_multiple
@@ -43,6 +57,12 @@ from ..parallel.mesh import pad_to_multiple
 # small blocks that keep the plain float32 path's [users x chunk x h1]
 # activations bounded.
 DEFAULT_CHUNKS = {'cuda': (8192, 8192), 'cpu': (8192, 64)}
+
+# The gated variant ``gated_variant=None`` resolves to. On the H100 the
+# exact kernel (K2) serves bench.py's geometry faster than the factored one
+# (K3), 246.6M against 241.2M pairs/s (chip_smoke.py, PERF.md); on the CPU
+# the JAX package also runs 'exact' off the TPU.
+DEFAULT_GATED_VARIANT = 'exact'
 
 
 @contextlib.contextmanager
@@ -69,16 +89,26 @@ class CatalogScorer:
     ``precision`` other than ``'bf16'`` and ``mesh`` are not ported yet.
     The model is moved to ``device`` and put in eval mode. Every call runs
     its float32 products with TF32 off (``_exact_f32``).
+
+    ``gated_variant`` picks the kernel of a gated model's fast path:
+    ``'exact'`` (K2) or ``'factored'`` (K3, approximate: bf16 tables and
+    coefficients); ``None`` is ``DEFAULT_GATED_VARIANT``. It is fixed here:
+    ``'factored'`` raises where its tables would pass ``_FACTORED_BYTES``,
+    and no call switches variants. ``self.gated_variant`` holds the
+    variant every call runs (None without a gated fast path).
     """
 
     # Rows of raw encoder features moved host -> device per item-tower step.
     _TOWER_BUILD_CHUNK = 65536
+    # Device memory the factored gated tables may take (T and igb).
+    _FACTORED_BYTES = 16 << 30
 
     def __init__(self, model, feature_store,
                  item_chunk: Optional[int] = None,
                  user_chunk: Optional[int] = None,
                  mesh=None, fast_path: bool = True,
                  precision: str = 'bf16',
+                 gated_variant: Optional[str] = None,
                  device: Union[str, torch.device] = 'cuda'):
         if mesh is not None:
             raise NotImplementedError(
@@ -87,7 +117,10 @@ class CatalogScorer:
         if precision != 'bf16':
             raise NotImplementedError(
                 f"precision={precision!r} is not ported yet: int8 scoring is "
-                "ROADMAP item A10 (kernel K1q)")
+                "ROADMAP item A10 (kernels K1q, K2q, K3q)")
+        if gated_variant not in (None, 'exact', 'factored'):
+            raise ValueError(f"gated_variant must be 'exact', 'factored' or "
+                             f"None, got {gated_variant!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.store = feature_store
@@ -103,15 +136,43 @@ class CatalogScorer:
 
         with _exact_f32():
             self._item_feats = self._build_item_tower()  # [n_pad, M, D]
-            # Fused factorized head; ``_item_fast`` is the tuple of per-item
-            # tables (concat: (item_first [n_pad, h1],)).
+            # Fused factorized head. ``_item_fast`` is the tuple of per-item
+            # tables (concat: (item_first,); gated: (item_first,
+            # item_gates)); ``_scan_tables`` the tuple the kernel scans
+            # (the factored gated variant: (T, igb); else ``_item_fast``).
             self._head = None
-            self._item_fast = None
+            self._item_fast = self._scan_tables = None
+            self.gated_variant = None
             if fast_path:
-                self._head = build_factorized_head(self.model)
-                self._item_fast = self._build_item_fast(
-                    lambda feats: (compute_item_first(
-                        self._head, feats.reshape(feats.shape[0], -1)),))
+                head = self._head = build_factorized_head(self.model)
+                if head['fusion'] == 'concatenate':
+                    self._item_fast = self._build_item_fast(
+                        lambda feats: (compute_item_first(
+                            head, feats.reshape(feats.shape[0], -1)),))
+                else:
+                    self.gated_variant = (gated_variant
+                                          or DEFAULT_GATED_VARIANT)
+                    self._check_factored_budget()
+                    self._item_fast = self._build_item_fast(
+                        partial(compute_item_side_gated, head))
+                self._scan_tables = self._item_fast
+                if self.gated_variant == 'factored':
+                    self._scan_tables = self._build_item_fast(
+                        lambda feats: factor_gated_tables(
+                            head, *compute_item_side_gated(head, feats)))
+
+    def _check_factored_budget(self):
+        """Raise if the factored variant's tables (T bf16, igb f32) would
+        pass ``_FACTORED_BYTES``."""
+        head = self._head
+        nbytes = self.n_pad * (head['n_item_mods'] * head['h1'] * 2
+                               + GATE_PAD * 4)
+        if self.gated_variant == 'factored' \
+                and nbytes > self._FACTORED_BYTES:
+            raise ValueError(
+                f'the factored gated tables would take {nbytes} bytes, past '
+                f'the budget of {self._FACTORED_BYTES}; use '
+                f"gated_variant='exact'")
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -201,15 +262,27 @@ class CatalogScorer:
     # ------------------------------------------------------ fast (factorized)
     def _fast_user_side(self, user_idx: torch.Tensor
                         ) -> Tuple[torch.Tensor, ...]:
-        """User tower + user-side first-layer rows."""
-        return (compute_user_first(self._head,
-                                   self.model.user_tower(user_idx)),)
+        """User tower + the user-side rows the scan's kernel takes: concat
+        (user_first,); gated (user_first, user_gates), or (user_first,
+        a) for the factored variant."""
+        user_emb = self.model.user_tower(user_idx)
+        if self._head['fusion'] == 'concatenate':
+            return (compute_user_first(self._head, user_emb),)
+        side = compute_user_side_gated(self._head, user_emb)
+        if self.gated_variant == 'factored':
+            return factor_gated_user(self._head, *side)
+        return side
 
     def _fast_pair_scores(self, user_side: Tuple[torch.Tensor, ...],
                           chunk: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-        """[B, C] pair scores for one item chunk through the fused kernel
-        (its plain float32 version for CPU tensors)."""
-        return pairwise_scores(self._head, user_side[0], chunk[0])
+        """[B, C] pair scores for one chunk of ``_scan_tables`` through the
+        fused kernel (its plain float32 version for CPU tensors)."""
+        if self._head['fusion'] == 'concatenate':
+            return pairwise_scores(self._head, user_side[0], chunk[0])
+        if self.gated_variant == 'factored':
+            return pairwise_scores_gated_factored(self._head, *user_side,
+                                                  *chunk)
+        return pairwise_scores_gated(self._head, *user_side, *chunk)
 
     def _fast_topk_body(self, user_idx: torch.Tensor,
                         seen_items: torch.Tensor, k: int
@@ -226,7 +299,7 @@ class CatalogScorer:
         carry = init_topk(B, k, self.device)
         for off in range(0, self.n_pad, C):
             s = self._fast_pair_scores(
-                user_side, tuple(a[off:off + C] for a in self._item_fast))
+                user_side, tuple(a[off:off + C] for a in self._scan_tables))
             if off + C > self.n_items:  # catalog padding
                 s[:, max(0, self.n_items - off):] = NEG_INF
             if seen_items.shape[1] > 0:
@@ -291,7 +364,7 @@ class CatalogScorer:
                     user_side = self._fast_user_side(users_t)
                     parts = [self._fast_pair_scores(
                         user_side, tuple(a[off:off + C]
-                                         for a in self._item_fast))
+                                         for a in self._scan_tables))
                         for off in range(0, self.n_pad, C)]
                 else:
                     parts = [self._score_block(self._item_feats[off:off + C],
@@ -309,8 +382,9 @@ class CatalogScorer:
 
         candidate_mask: [B, C] bool, True = valid entry; invalid entries
         score NEG_INF. The fused path gathers the precomputed first-layer
-        rows and runs the float32 chain (the JAX package's
-        ``xla_candidate_scores``).
+        rows (gated: and gate rows) and runs the float32 chain (the JAX
+        package's ``xla_candidate_scores``, ``xla_candidate_scores_gated``);
+        gated candidates take the exact math whatever ``gated_variant``.
         """
         user_indices = np.asarray(user_indices, np.int32)
         candidate_idx = np.asarray(candidate_idx, np.int32)
@@ -322,9 +396,18 @@ class CatalogScorer:
                 cands = self._tensor(
                     candidate_idx[s:s + self.user_chunk].astype(np.int64))
                 if self._head is not None:
-                    uf = self._fast_user_side(users_t)[0]
-                    v = candidate_scores(self._head, uf,
-                                         self._item_fast[0][cands])
+                    user_emb = self.model.user_tower(users_t)
+                    if self._head['fusion'] == 'concatenate':
+                        v = candidate_scores(
+                            self._head,
+                            compute_user_first(self._head, user_emb),
+                            self._item_fast[0][cands])
+                    else:
+                        v = candidate_scores_gated(
+                            self._head,
+                            compute_user_side_gated(self._head, user_emb),
+                            self._item_fast[0][cands],
+                            self._item_fast[1][cands])
                 else:
                     B, C = cands.shape
                     user_emb = self.model.user_tower(users_t)

@@ -21,21 +21,21 @@ Semantics kept from the JAX model:
   ``torch.Generator``. The numbers differ from JAX's for the same seed;
   parity tests convert Flax weights instead.
 
-This slice ports eval mode of ``concatenate`` fusion: the module is built
-in eval mode and its forward raises in train mode until training is
-ported. ``gated`` and ``attention`` fusion raise ``NotImplementedError``.
+Eval mode of ``concatenate`` and ``gated`` fusion is ported: the module is
+built in eval mode and its forward raises in train mode until training is
+ported. ``attention`` fusion raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
-import math
 from functools import partial
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from .layers import GatedFusionLayer, apply_dense, dense, variance_scaling
 
 MODALITY_ORDER = ('user', 'item', 'tag', 'vision', 'language', 'numerical')
 
@@ -63,24 +63,6 @@ def final_activation_fn(x: torch.Tensor, name: str) -> torch.Tensor:
     return x
 
 
-def _variance_scaling(shape: Tuple[int, int], scale: float, mode: str,
-                      distribution: str,
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Flax ``variance_scaling`` on a [fan_in, fan_out] shape (Flax
-    layout: rows are the input axis)."""
-    fan_in, fan_out = shape
-    denom = {'fan_in': fan_in, 'fan_out': fan_out,
-             'fan_avg': (fan_in + fan_out) / 2}[mode]
-    variance = scale / max(1.0, denom)
-    if distribution == 'uniform':
-        limit = math.sqrt(3.0 * variance)
-        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * limit
-    # truncated normal on [-2, 2], rescaled to the target variance
-    out = torch.empty(shape)
-    nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return out * (math.sqrt(variance) / 0.87962566103423978)
-
-
 _EMBEDDING_INITS = {
     'xavier_uniform': (1.0, 'fan_avg', 'uniform'),
     'xavier_normal': (1.0, 'fan_avg', 'truncated_normal'),
@@ -99,26 +81,7 @@ def embedding_init(method: str):
 
 
 def _init_with(shape, generator, *, scale, mode, distribution):
-    return _variance_scaling(shape, scale, mode, distribution, generator)
-
-
-def _dense(in_dim: int, out_dim: int,
-           generator: Optional[torch.Generator]) -> nn.Linear:
-    """nn.Linear with Flax Dense's default init (LeCun normal kernel,
-    zero bias)."""
-    layer = nn.Linear(in_dim, out_dim)
-    with torch.no_grad():
-        layer.weight.copy_(_variance_scaling(
-            (in_dim, out_dim), 1.0, 'fan_in', 'truncated_normal',
-            generator).T)
-        layer.bias.zero_()
-    return layer
-
-
-def _apply_dense(layer: nn.Linear, x: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
-    """Flax Dense with ``dtype``: input, kernel and bias cast to dtype."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    return variance_scaling(shape, scale, mode, distribution, generator)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -146,12 +109,12 @@ class ProjectionMLP(nn.Module):
         dims = [in_dim] + ([hidden_dim] if hidden_dim else []) + [out_dim]
         self.n_layers = len(dims) - 1
         for i in range(self.n_layers):
-            setattr(self, f'Dense_{i}', _dense(dims[i], dims[i + 1], generator))
+            setattr(self, f'Dense_{i}', dense(dims[i], dims[i + 1], generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         act = activation_fn(self.activation)
         for i in range(self.n_layers):
-            x = act(_apply_dense(getattr(self, f'Dense_{i}'), x, self.dtype))
+            x = act(apply_dense(getattr(self, f'Dense_{i}'), x, self.dtype))
         return x
 
 
@@ -171,19 +134,19 @@ class PredictionMLP(nn.Module):
         self.dtype = dtype
         prev = in_dim
         for i, h in enumerate(self.hidden_dims):
-            setattr(self, f'Dense_{i}', _dense(prev, h, generator))
+            setattr(self, f'Dense_{i}', dense(prev, h, generator))
             if use_batch_norm:
                 setattr(self, f'BatchNorm_{i}',
                         nn.BatchNorm1d(h, eps=1e-5, momentum=0.1))
             prev = h
         setattr(self, f'Dense_{len(self.hidden_dims)}',
-                _dense(prev, 1, generator))
+                dense(prev, 1, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         act = activation_fn(self.activation)
         x = x.to(self.dtype)
         for i in range(len(self.hidden_dims)):
-            x = act(_apply_dense(getattr(self, f'Dense_{i}'), x, self.dtype))
+            x = act(apply_dense(getattr(self, f'Dense_{i}'), x, self.dtype))
             if self.use_batch_norm:
                 bn = getattr(self, f'BatchNorm_{i}')
                 # Statistics are float32: normalise in float32, then cast.
@@ -191,7 +154,7 @@ class PredictionMLP(nn.Module):
                                  bn.weight, bn.bias, False, 0.0,
                                  bn.eps).to(self.dtype)
         last = getattr(self, f'Dense_{len(self.hidden_dims)}')
-        x = _apply_dense(last, x.float(), torch.float32)
+        x = apply_dense(last, x.float(), torch.float32)
         return final_activation_fn(x, self.final_activation)
 
 
@@ -222,11 +185,11 @@ class MultimodalRecommender(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device: Union[str, torch.device] = 'cuda'):
         super().__init__()
-        if fusion_type in ('gated', 'attention'):
+        if fusion_type == 'attention':
             raise NotImplementedError(
-                f"fusion_type={fusion_type!r} is not ported yet: gated fusion "
-                "is ROADMAP item A8, attention fusion item A9")
-        if fusion_type != 'concatenate':
+                "fusion_type='attention' is not ported yet: attention "
+                "fusion is ROADMAP item A9")
+        if fusion_type not in ('concatenate', 'gated'):
             raise ValueError(f"Unknown fusion type: '{fusion_type}'")
         device = resolve_device(device)
         if generator is None:
@@ -274,14 +237,18 @@ class MultimodalRecommender(nn.Module):
         if num_numerical_features > 0:
             self.numerical_projection = projection(num_numerical_features)
         if self.contrastive_active:
-            self.vision_contrastive_projection = _dense(
+            self.vision_contrastive_projection = dense(
                 vision_feature_dim, d, generator)
-            self.text_contrastive_projection = _dense(
+            self.text_contrastive_projection = dense(
                 clip_text_feature_dim, d, generator)
             self.temperature = nn.Parameter(
                 torch.tensor(contrastive_temperature, dtype=torch.float32))
+        if fusion_type == 'gated':
+            self.fusion_layer = GatedFusionLayer(
+                d, self.num_modalities, dropout_rate, dtype, generator)
         self.prediction_network = PredictionMLP(
-            self.num_modalities * d, self.fusion_hidden_dims,
+            d if fusion_type == 'gated' else self.num_modalities * d,
+            self.fusion_hidden_dims,
             fusion_activation, use_batch_norm, final_activation, dtype,
             generator)
         self.to(device)
@@ -330,7 +297,9 @@ class MultimodalRecommender(nn.Module):
                                  numerical_features)]
 
     def fuse(self, feats: List[torch.Tensor]) -> torch.Tensor:
-        return torch.cat(feats, dim=-1)
+        if self.fusion_type == 'concatenate':
+            return torch.cat(feats, dim=-1)
+        return self.fusion_layer(torch.stack(feats, dim=1))  # (B, M, D)
 
     def _check_eval(self):
         if self.training:

@@ -3,9 +3,10 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, ``build/kernels/<name>-<hash>.so``
-at the root of the checkout, on first use. The hash covers the source and
-the compiler flags, so an edited source builds anew and an unchanged one
-loads the library already built. Libraries load through ``ctypes``: every
+at the root of the checkout, on first use. The hash covers the source, the
+shared headers (``csrc/*.cuh``) and the compiler flags, so an edited source
+or header builds anew and an unchanged one loads the library already
+built. Libraries load through ``ctypes``: every
 pointer and the stream pass as ``c_void_p``, every integer as ``c_int``.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -41,8 +42,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, named by its content hash."""
+    """Where ``csrc/<name>.cu`` builds to, named by the hash of its source,
+    of every header in ``csrc`` (``*.cuh``, which the sources include) and
+    of the compiler flags, so an edited header builds anew too."""
     h = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.name.encode() + b'\0' + header.read_bytes())
     h.update(' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
 

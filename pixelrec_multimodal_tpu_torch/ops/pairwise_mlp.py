@@ -2,23 +2,29 @@
 """Fused pairwise-MLP scoring: the full-catalog hot path.
 
 Counterpart of ``pixelrec_multimodal_tpu/ops/pairwise_mlp.py`` for
-concatenate fusion. Scoring every (user, item) pair through the prediction
-MLP is made compute-bound in three steps:
+concatenate and gated fusion. Scoring every (user, item) pair through the
+prediction MLP is made compute-bound in three steps:
 
   1. BatchNorm folding: eval-mode BN is affine and folds into the next
      Dense, so the MLP becomes a Dense -> act chain.
   2. First-layer factorization: the first Dense over
      ``concat(user_emb, item_block)`` splits into a per-user row
      ``user_emb @ W_user`` and a per-item row ``item_block @ W_item + b1``
-     (computed once per catalog), so a pair only adds two rows.
-  3. One kernel (``csrc/pairwise_mlp.cu``) scores a [users x items] block
-     with every activation kept on chip.
+     (computed once per catalog), so a pair only adds two rows. Gated
+     fusion splits its gate logits the same way, and a pair forms the
+     softmax-weighted sum of the user row and the Mi item rows.
+  3. One kernel scores a [users x items] block with every activation kept
+     on chip: K1 (``csrc/pairwise_mlp.cu``) for concatenate fusion, K2
+     (``csrc/gated_pairwise_mlp.cu``) for exact gated fusion, K3
+     (``csrc/gated_factored_mlp.cu``) for its factored form. They share
+     the Dense chain of ``csrc/mlp_chain.cuh``.
 
-``pairwise_scores`` is the kernel's wrapper: CUDA tensors go through the
-kernel, CPU tensors through ``pairwise_scores_plain`` in float32 (the JAX
-package's XLA fallback math). ``pairwise_scores_plain(compute_dtype=
-torch.bfloat16)`` repeats the kernel's bf16 rounding points and is the
-plain version the kernel is held against on the card.
+``pairwise_scores``, ``pairwise_scores_gated`` and
+``pairwise_scores_gated_factored`` are the kernels' wrappers: CUDA tensors
+go through the kernel, CPU tensors through the plain version in float32
+(the JAX package's XLA fallback math). The plain versions with
+``compute_dtype=torch.bfloat16`` repeat each kernel's bf16 rounding points
+and are what the kernels are held against on the card.
 
 Head tensors keep the JAX package's 128-lane zero padding, so they compare
 one to one with the JAX head; the padding is exact (zero rows and columns).
@@ -40,6 +46,7 @@ LANE = 128
 ACTIVATIONS = {'relu': 0, 'gelu': 1, 'tanh': 2, 'leaky_relu': 3, 'silu': 4}
 FINAL_ACTIVATIONS = {'sigmoid': 0, 'tanh': 1}  # anything else: none (2)
 MAX_HIDDEN = 8  # hidden Dense layers after the first one the kernel takes
+GATE_PAD = 8  # gated fusion pads the modality axis of its gates to this
 
 
 def _round_up(x: int, m: int) -> int:
@@ -116,30 +123,54 @@ def pack_mlp_chain(kernels: List[np.ndarray], biases: List[np.ndarray],
 
 
 def build_factorized_head(model) -> Optional[dict]:
-    """The factorized, BN-folded head of a concatenate-fusion model, its
-    tensors on the model's device. ``b1`` folds into the per-item rows
-    (``compute_item_first``), so pair scoring adds no first-layer bias.
-    ``head['kernel']`` holds the tensors the CUDA kernel reads
-    (``kernel_chain``), built once here."""
-    if model.fusion_type != 'concatenate':
-        return None  # the model refuses gated and attention fusion itself
+    """The factorized, BN-folded head of a concatenate- or gated-fusion
+    model, its tensors on the model's device. ``head['kernel']`` holds the
+    tensors the CUDA kernels read (``kernel_chain``), built once here.
+
+    * ``concatenate``: the first Dense over ``concat(user, items...)``
+      splits by rows into ``w_user`` and ``w_item``; ``b1`` folds into the
+      per-item rows (``compute_item_first``).
+    * ``gated``: the gate logits ``concat @ W_g`` split the same way into
+      ``wg_user [d, M]`` and ``wg_item [Mi, d, M]`` (user first, then the
+      Mi item-side modalities), and the first Dense distributes over the
+      softmax-weighted sum, ``fused @ W1 = sum_m g_m * (feat_m @ W1)``, so
+      every ``feat_m @ w_fused`` is a per-user or per-item row. ``b1``
+      folds into every one of them (the gates sum to 1).
+    """
+    if model.fusion_type not in ('concatenate', 'gated'):
+        return None  # the model refuses attention fusion itself
     kernels, biases = fold_prediction_mlp(model)
     n_hidden = len(model.fusion_hidden_dims)
     d = model.embedding_dim
     device = model.device
     w1 = kernels[0]
     h1, padded_b1, layers = pack_mlp_chain(kernels, biases, n_hidden, device)
-    w_item = w1[d:]
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
     head = {
         'fusion': model.fusion_type,
         'b1': padded_b1,
         'layers': layers,
         'activation': model.fusion_activation,
         'final_activation': model.final_activation,
-        'w_user': torch.from_numpy(pad2(w1[:d], d, h1)).to(device),
-        'w_item': torch.from_numpy(pad2(w_item, w_item.shape[0], h1)).to(device),
         'b1_folded': True,
     }
+    if model.fusion_type == 'concatenate':
+        w_item = w1[d:]
+        head['w_user'] = tensor(pad2(w1[:d], d, h1))
+        head['w_item'] = tensor(pad2(w_item, w_item.shape[0], h1))
+    else:
+        wg = _kernel_of(model.fusion_layer.gating)             # [M*d, M]
+        n_mod = wg.shape[1]
+        head['w_fused'] = tensor(pad2(w1, d, h1))
+        head['wg_user'] = tensor(wg[:d])
+        head['wg_item'] = tensor(wg[d:].reshape(n_mod - 1, d, n_mod))
+        head['bg'] = tensor(model.fusion_layer.gating.bias.detach().cpu()
+                            .numpy().astype(np.float32))
+        head['n_item_mods'] = n_mod - 1
+        head['h1'] = h1
     head['kernel'] = kernel_chain(head)
     return head
 
@@ -155,10 +186,87 @@ def compute_user_first(head: dict, user_emb: torch.Tensor) -> torch.Tensor:
     return user_emb.float() @ head['w_user']
 
 
-def _check_folded(head: dict):
+def _pad_gates(g: torch.Tensor) -> torch.Tensor:
+    """Pad the modality axis of [n, M] gate values to GATE_PAD columns of
+    float32 zeros."""
+    if g.shape[1] > GATE_PAD:
+        raise ValueError(f'gated fusion takes at most {GATE_PAD} '
+                         f'modalities, got {g.shape[1]}')
+    out = torch.zeros((g.shape[0], GATE_PAD), dtype=torch.float32,
+                      device=g.device)
+    out[:, :g.shape[1]] = g.float()
+    return out
+
+
+def compute_item_side_gated(head: dict, item_feats: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-item rows of a gated head, once per catalog: item_feats
+    [N, Mi, d] -> (item_first [N, Mi*h1], each modality's ``feat @
+    w_fused + b1`` side by side; item_gates [N, GATE_PAD], the item-side
+    gate logits plus the gate bias, zero-padded)."""
+    f32 = item_feats.float()
+    first = torch.einsum('nmd,dh->nmh', f32, head['w_fused']) + head['b1']
+    gates = torch.einsum('nmd,mdg->ng', f32, head['wg_item']) + head['bg']
+    return first.reshape(first.shape[0], -1), _pad_gates(gates)
+
+
+def compute_user_side_gated(head: dict, user_emb: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-user rows of a gated head: (user_first [B, h1] with b1 folded
+    in, user_gates [B, GATE_PAD] zero-padded)."""
+    f32 = user_emb.float()
+    return (f32 @ head['w_fused'] + head['b1'],
+            _pad_gates(f32 @ head['wg_user']))
+
+
+# The factored form of the gated softmax: per side,
+#     g_m = exp(ug_m + ig_m) / Z = a_m[user] * b_m[item] / Z,
+#     a = exp(ug - max ug),  b = exp(ig - max ig),  Z = sum_m a_m b_m
+# (the per-side max subtractions cancel in the ratio), so the item part of
+# the assembly is a contraction of the user's coefficient row against
+# per-item tables b_m * item_first_m built once per catalog:
+#     x1 = (a_0 b_0 * uf + sum_{m>=1} bf16(a_m) * T[item, m-1]) / Z.
+# It is approximate (the tables and the coefficients are bf16), so it is
+# held against the JAX package's factored math, never against the exact.
+def factor_gated_user(head: dict, user_first: torch.Tensor,
+                      user_gates: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(user_first, a [B, GATE_PAD]): the user's exp'd, max-subtracted
+    gate coefficients, zero in the padding slots."""
+    ug = user_gates[:, :head['n_item_mods'] + 1].float()
+    return user_first, _pad_gates(
+        torch.exp(ug - ug.max(dim=1, keepdim=True).values))
+
+
+def factor_gated_tables(head: dict, item_first: torch.Tensor,
+                        item_gates: torch.Tensor,
+                        table_dtype: torch.dtype = torch.bfloat16
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-catalog factored tables from the exact gated tables, item-major
+    so that an item chunk is a slice of the leading axis:
+
+      T   [N, Mi, h1] ``table_dtype``: T[n, m-1] = b_m[n] * item_first_m[n]
+          for the item-side modalities m = 1..Mi (the user slot, which the
+          JAX package's T4 layout keeps as a zero row, is left out);
+      igb [N, GATE_PAD] float32: b[n], zero in the padding slots.
+
+    The JAX package lays T out as T4 [h1/128, GATE_PAD, N*128] for the
+    TPU's lanes; ``T4[blk, m, n*128 + l] == T[n, m-1, blk*128 + l]``.
+    """
+    Mi, h1 = head['n_item_mods'], head['h1']
+    ig = item_gates[:, :Mi + 1].float()
+    b = torch.exp(ig - ig.max(dim=1, keepdim=True).values)    # [N, M]
+    t = item_first.float().reshape(-1, Mi, h1) * b[:, 1:, None]
+    return t.to(table_dtype).contiguous(), _pad_gates(b)
+
+
+def _check_head(head: dict):
     if not head.get('b1_folded'):
         raise ValueError('pair scoring takes heads with b1 folded into the '
                          'item rows (build_factorized_head)')
+    if head.get('qlayers') is not None:
+        raise NotImplementedError('int8 heads (qlayers) are not ported yet '
+                                  '(ROADMAP item A10)')
 
 
 def _chain_scores_f32(head: dict, x: torch.Tensor) -> torch.Tensor:
@@ -191,6 +299,27 @@ def _chain_scores_bf16(head: dict, x: torch.Tensor) -> torch.Tensor:
     return final_activation_fn(s, head['final_activation'])
 
 
+def _check_compute_dtype(compute_dtype: torch.dtype):
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'compute_dtype must be float32 or bfloat16, got '
+                         f'{compute_dtype}')
+
+
+def _finish(head: dict, x: torch.Tensor,
+            compute_dtype: torch.dtype) -> torch.Tensor:
+    """Scores [..., C] from float32 first-layer pre-activations
+    [..., C, h1]: the activation in float32, then the float32 chain, or,
+    for bfloat16, one bf16 rounding and ``_chain_scores_bf16`` (the gated
+    kernels' rounding points)."""
+    _check_compute_dtype(compute_dtype)
+    x = activation_fn(head['activation'])(x)
+    lead = x.shape[:-1]
+    x = x.reshape(-1, x.shape[-1])
+    if compute_dtype == torch.float32:
+        return _chain_scores_f32(head, x).reshape(lead)
+    return _chain_scores_bf16(head, x.to(torch.bfloat16)).reshape(lead)
+
+
 def pairwise_scores_plain(head: dict, user_first: torch.Tensor,
                           item_first: torch.Tensor,
                           compute_dtype: torch.dtype = torch.float32
@@ -204,15 +333,13 @@ def pairwise_scores_plain(head: dict, user_first: torch.Tensor,
     tensors the float32 products need TF32 off, which is torch's default
     (``torch.backends.cuda.matmul.allow_tf32 = False``).
     """
-    _check_folded(head)
+    _check_head(head)
+    _check_compute_dtype(compute_dtype)
     act = activation_fn(head['activation'])
     B, C = user_first.shape[0], item_first.shape[0]
     if compute_dtype == torch.float32:
         x = act(user_first[:, None, :] + item_first[None, :, :])
         return _chain_scores_f32(head, x.reshape(B * C, -1)).reshape(B, C)
-    if compute_dtype != torch.bfloat16:
-        raise ValueError(f'compute_dtype must be float32 or bfloat16, got '
-                         f'{compute_dtype}')
     bf16 = torch.bfloat16
     x = (user_first.to(bf16).float()[:, None, :]
          + item_first.to(bf16).float()[None, :, :]).to(bf16)
@@ -224,27 +351,104 @@ def candidate_scores(head: dict, user_first: torch.Tensor,
                      item_first_rows: torch.Tensor) -> torch.Tensor:
     """Per-user candidate scoring, float32: [B, h1] x [B, C, h1] -> [B, C];
     each user pairs only with its own gathered candidate rows."""
-    _check_folded(head)
+    _check_head(head)
     act = activation_fn(head['activation'])
     B, C = item_first_rows.shape[:2]
     x = act(user_first[:, None, :] + item_first_rows)
     return _chain_scores_f32(head, x.reshape(B * C, -1)).reshape(B, C)
 
 
-# ------------------------------------------------------------ CUDA kernel
-def _forward_fn():
-    lib = _build.load('pairwise_mlp')
-    fn = lib.pairwise_mlp_forward
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.pairwise_mlp_error_string.argtypes = [ctypes.c_int]
-        lib.pairwise_mlp_error_string.restype = ctypes.c_char_p
-    return lib, fn
+def _gated_first_layer(head: dict, user_first: torch.Tensor,
+                       user_gates: torch.Tensor, item_first: torch.Tensor,
+                       item_gates: torch.Tensor) -> torch.Tensor:
+    """Gated first-layer pre-activations in float32, in kernel K2's order
+    of operations (every sum left to right, each product and sum rounded
+    on its own): softmax gates ``e_m * (1 / sum e)`` of the pairwise-added
+    logits over the M live columns, then ``g_0 * uf + sum_m g_m * part_m``.
+    The user tensors are [B, 1, ...] and the item tensors [1 or B, C, ...];
+    returns [B, C, h1]."""
+    n_mod, h1 = head['n_item_mods'] + 1, head['h1']
+    logits = user_gates[..., :n_mod] + item_gates[..., :n_mod]
+    e = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
+    tot = e[..., 0]
+    for m in range(1, n_mod):
+        tot = tot + e[..., m]
+    g = e * (1.0 / tot)[..., None]
+    x = g[..., 0, None] * user_first
+    for m in range(n_mod - 1):
+        x = x + g[..., m + 1, None] * item_first[..., m * h1:(m + 1) * h1]
+    return x
 
 
+def pairwise_scores_gated_plain(head: dict, user_first: torch.Tensor,
+                                user_gates: torch.Tensor,
+                                item_first: torch.Tensor,
+                                item_gates: torch.Tensor,
+                                compute_dtype: torch.dtype = torch.float32
+                                ) -> torch.Tensor:
+    """Plain exact gated pair scoring: user_first [B, h1], user_gates
+    [B, GATE_PAD], item_first [C, Mi*h1], item_gates [C, GATE_PAD] ->
+    [B, C] float32.
+
+    ``torch.float32`` is the JAX package's XLA fallback math
+    (``xla_pairwise_scores_gated``). ``torch.bfloat16`` repeats kernel K2's
+    rounding points: the gates, the weighted sum and the activation in
+    float32, one bf16 rounding, then ``_chain_scores_bf16`` (unlike K1, the
+    user and item parts are not rounded before they are combined).
+    """
+    _check_head(head)
+    x = _gated_first_layer(head, user_first[:, None], user_gates[:, None],
+                           item_first[None], item_gates[None])
+    return _finish(head, x, compute_dtype)
+
+
+def candidate_scores_gated(head: dict,
+                           user_side: Tuple[torch.Tensor, torch.Tensor],
+                           item_first_rows: torch.Tensor,
+                           item_gates_rows: torch.Tensor) -> torch.Tensor:
+    """Gated per-user candidate scoring, float32
+    (``xla_candidate_scores_gated``): each user pairs with its own gathered
+    rows, item_first_rows [B, C, Mi*h1] and item_gates_rows [B, C,
+    GATE_PAD] -> [B, C]."""
+    _check_head(head)
+    user_first, user_gates = user_side
+    x = _gated_first_layer(head, user_first[:, None], user_gates[:, None],
+                           item_first_rows, item_gates_rows)
+    return _finish(head, x, torch.float32)
+
+
+def pairwise_scores_gated_factored_plain(
+        head: dict, user_first: torch.Tensor, user_coefs: torch.Tensor,
+        tables: torch.Tensor, item_coefs: torch.Tensor,
+        compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain factored gated pair scoring: user_first [B, h1], user_coefs
+    a [B, GATE_PAD] (``factor_gated_user``), tables T [C, Mi, h1] and
+    item_coefs igb [C, GATE_PAD] (``factor_gated_tables``) -> [B, C]
+    float32.
+
+    The JAX package's factored math: Z from the unrounded float32 a and b,
+    floored at 1e-30; the contraction of a rounded to T's type against T
+    with float32 sums; ``x = (a_0 b_0 * uf + r) * (1 / Z)``, every sum left
+    to right as kernel K3 takes it. Then the activation and the chain as
+    ``pairwise_scores_gated_plain``: float32, or K3's bf16 rounding points.
+    """
+    _check_head(head)
+    n_mod = head['n_item_mods'] + 1
+    a, b = user_coefs.float(), item_coefs.float()
+    p0 = a[:, None, 0] * b[None, :, 0]
+    z = p0
+    for m in range(1, n_mod):
+        z = z + a[:, None, m] * b[None, :, m]
+    inv = 1.0 / torch.clamp(z, min=1e-30)
+    coefs = a[:, 1:n_mod].to(tables.dtype).float()
+    r = coefs[:, None, 0, None] * tables[None, :, 0].float()
+    for m in range(1, n_mod - 1):
+        r = r + coefs[:, None, m, None] * tables[None, :, m].float()
+    x = (p0[..., None] * user_first[:, None, :] + r) * inv[..., None]
+    return _finish(head, x, compute_dtype)
+
+
+# ------------------------------------------------------------ CUDA kernels
 def kernel_chain(head: dict,
                  device: Optional[Union[str, torch.device]] = None) -> dict:
     """The head's tensors in the kernel's layout on ``device`` (default:
@@ -290,18 +494,89 @@ def kernel_chain(head: dict,
     }
 
 
-def _check_rows(name: str, t: torch.Tensor, device: torch.device, h1: int):
-    if t.device != device or t.dtype != torch.float32 or t.dim() != 2 \
-            or t.shape[1] != h1 or not t.is_contiguous() \
-            or t.data_ptr() % 16:
-        raise ValueError(f'{name} must be a contiguous, 16-byte aligned '
-                         f'float32 [n, {h1}] tensor on {device}; got '
-                         f'{t.dtype} {tuple(t.shape)} on {t.device}')
+def _chain_on(head: dict, device: torch.device) -> dict:
+    """``head['kernel']`` where it lies on ``device``, else built for this
+    call."""
+    chain = head.get('kernel')
+    if chain is None or chain['w'].device != device:
+        chain = kernel_chain(head, device)
+    return chain
+
+
+def _check_tensor(name: str, t: torch.Tensor, device: torch.device,
+                  dtype: torch.dtype, rows: int, tail: Tuple[int, ...],
+                  align: int = 16):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of shape
+    ``(rows, *tail)`` on ``device`` (rows < 0: any) whose data is aligned
+    to ``align`` bytes, as the kernels' vector loads need."""
+    if t.device != device or t.dtype != dtype or t.dim() != 1 + len(tail) \
+            or tuple(t.shape[1:]) != tail \
+            or (rows >= 0 and t.shape[0] != rows) \
+            or not t.is_contiguous() or t.data_ptr() % align:
+        want = ('n' if rows < 0 else str(rows),) + tuple(map(str, tail))
+        raise ValueError(f'{name} must be a contiguous, {align}-byte aligned '
+                         f'{dtype} [{", ".join(want)}] tensor on {device}; '
+                         f'got {t.dtype} {tuple(t.shape)} on {t.device}')
+
+
+def _device_of(name: str, *tensors: torch.Tensor) -> Optional[torch.device]:
+    """None when every tensor lies on the CPU (the plain version runs),
+    the CUDA device of the first one otherwise; raises for another
+    device."""
+    devices = {t.device for t in tensors}
+    if all(d.type == 'cpu' for d in devices):
+        return None
+    device = tensors[0].device
+    if device.type != 'cuda':
+        raise ValueError(f'{name} runs on cuda or cpu tensors, got '
+                         f'{sorted(map(str, devices))}')
+    return device
+
+
+def _n_mod(head: dict) -> int:
+    n_mod = head['n_item_mods'] + 1
+    if not 2 <= n_mod <= GATE_PAD:
+        raise ValueError(f'the gated kernels take 2 to {GATE_PAD} '
+                         f'modalities, got {n_mod}')
+    return n_mod
+
+
+def _launch(name: str, out: torch.Tensor, tensors, chain: dict, B: int,
+            C: int, extra=()) -> None:
+    """Launch ``csrc/<name>.cu`` on the current stream: the pointers of
+    ``tensors``, then the chain's, then ``out``; then B, C, the chain's
+    shape and codes, the ``extra`` ints and the stream. Raises if the
+    launch fails."""
+    lib = _build.load(name)
+    fn = getattr(lib, f'{name}_forward')
+    n_ptrs = len(tensors) + 5
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] + [ctypes.c_int] * (2 + len(extra))
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+    device = out.device
+    with torch.cuda.device(device):
+        err = fn(*(t.data_ptr() for t in tensors),
+                 chain['w'].data_ptr(), chain['b'].data_ptr(),
+                 chain['w_last'].data_ptr(), chain['b_last'].data_ptr(),
+                 out.data_ptr(), B, C, chain['n_hidden'],
+                 chain['widths'].ctypes.data, chain['act'], chain['final'],
+                 *extra, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        hint = (' (widths beyond the shared-memory budget?)' if err == 1
+                else '')
+        raise RuntimeError(f'{name} kernel failed: '
+                           f'{lib.kernel_error_string(err).decode()} '
+                           f'({err}){hint}')
 
 
 def pairwise_scores(head: dict, user_first: torch.Tensor,
                     item_first: torch.Tensor) -> torch.Tensor:
-    """Fused [B, h1] x [C, h1] -> [B, C] float32 pair scoring.
+    """Fused [B, h1] x [C, h1] -> [B, C] float32 pair scoring (kernel K1,
+    ``csrc/pairwise_mlp.cu``).
 
     CUDA tensors launch the kernel on the current stream (bf16 operands,
     float32 accumulation); B and C need not be tile multiples. The kernel's
@@ -310,39 +585,108 @@ def pairwise_scores(head: dict, user_first: torch.Tensor,
     ``pairwise_scores_plain`` in float32. Anything else raises.
     ``pairwise_scores.launches`` counts kernel launches.
     """
-    _check_folded(head)
-    device = user_first.device
-    if device.type == 'cpu' and item_first.device.type == 'cpu':
+    _check_head(head)
+    device = _device_of('pairwise_scores', user_first, item_first)
+    if device is None:
         return pairwise_scores_plain(head, user_first, item_first)
-    if device.type != 'cuda':
-        raise ValueError(f'pairwise_scores runs on cuda or cpu tensors, got '
-                         f'{device} and {item_first.device}')
-    chain = head.get('kernel')
-    if chain is None or chain['w'].device != device:
-        chain = kernel_chain(head, device)
+    chain = _chain_on(head, device)
     h1 = int(chain['widths'][0])
-    _check_rows('user_first', user_first, device, h1)
-    _check_rows('item_first', item_first, device, h1)
     B, C = user_first.shape[0], item_first.shape[0]
+    _check_tensor('user_first', user_first, device, torch.float32, -1, (h1,))
+    _check_tensor('item_first', item_first, device, torch.float32, -1, (h1,))
     out = torch.empty((B, C), dtype=torch.float32, device=device)
     if B == 0 or C == 0:
         return out
-    lib, fn = _forward_fn()
-    with torch.cuda.device(device):
-        err = fn(user_first.data_ptr(), item_first.data_ptr(),
-                 chain['w'].data_ptr(), chain['b'].data_ptr(),
-                 chain['w_last'].data_ptr(), chain['b_last'].data_ptr(),
-                 out.data_ptr(), B, C, chain['n_hidden'],
-                 chain['widths'].ctypes.data, chain['act'], chain['final'],
-                 torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        hint = (' (widths beyond the shared-memory budget?)' if err == 1
-                else '')
-        raise RuntimeError(
-            f'pairwise_mlp kernel failed: '
-            f'{lib.pairwise_mlp_error_string(err).decode()} ({err}){hint}')
+    _launch('pairwise_mlp', out, (user_first, item_first), chain, B, C)
     pairwise_scores.launches += 1
     return out
 
 
 pairwise_scores.launches = 0
+
+
+def pairwise_scores_gated(head: dict, user_first: torch.Tensor,
+                          user_gates: torch.Tensor, item_first: torch.Tensor,
+                          item_gates: torch.Tensor) -> torch.Tensor:
+    """Fused exact gated pair scoring (kernel K2,
+    ``csrc/gated_pairwise_mlp.cu``): user_first [B, h1], user_gates
+    [B, GATE_PAD], item_first [C, Mi*h1], item_gates [C, GATE_PAD], all
+    float32 -> [B, C] float32.
+
+    CUDA tensors launch the kernel on the current stream; B and C need not
+    be tile multiples. CPU tensors take ``pairwise_scores_gated_plain`` in
+    float32. Anything else raises. ``pairwise_scores_gated.launches``
+    counts kernel launches.
+    """
+    _check_head(head)
+    device = _device_of('pairwise_scores_gated', user_first, user_gates,
+                        item_first, item_gates)
+    if device is None:
+        return pairwise_scores_gated_plain(head, user_first, user_gates,
+                                           item_first, item_gates)
+    n_mod = _n_mod(head)
+    chain = _chain_on(head, device)
+    h1 = int(chain['widths'][0])
+    B, C = user_first.shape[0], item_first.shape[0]
+    f32 = torch.float32
+    _check_tensor('user_first', user_first, device, f32, -1, (h1,))
+    _check_tensor('user_gates', user_gates, device, f32, B, (GATE_PAD,))
+    _check_tensor('item_first', item_first, device, f32, -1,
+                  ((n_mod - 1) * h1,))
+    _check_tensor('item_gates', item_gates, device, f32, C, (GATE_PAD,))
+    out = torch.empty((B, C), dtype=f32, device=device)
+    if B == 0 or C == 0:
+        return out
+    _launch('gated_pairwise_mlp', out,
+            (user_first, user_gates, item_first, item_gates), chain, B, C,
+            (n_mod,))
+    pairwise_scores_gated.launches += 1
+    return out
+
+
+pairwise_scores_gated.launches = 0
+
+
+def pairwise_scores_gated_factored(head: dict, user_first: torch.Tensor,
+                                   user_coefs: torch.Tensor,
+                                   tables: torch.Tensor,
+                                   item_coefs: torch.Tensor) -> torch.Tensor:
+    """Fused factored gated pair scoring (kernel K3,
+    ``csrc/gated_factored_mlp.cu``): user_first [B, h1] and user_coefs
+    [B, GATE_PAD] float32 (``factor_gated_user``), tables [C, Mi, h1]
+    bfloat16 and item_coefs [C, GATE_PAD] float32
+    (``factor_gated_tables``) -> [B, C] float32.
+
+    CUDA tensors launch the kernel on the current stream; B and C need not
+    be tile multiples. CPU tensors take
+    ``pairwise_scores_gated_factored_plain`` in float32. Anything else
+    raises. ``pairwise_scores_gated_factored.launches`` counts kernel
+    launches.
+    """
+    _check_head(head)
+    device = _device_of('pairwise_scores_gated_factored', user_first,
+                        user_coefs, tables, item_coefs)
+    if device is None:
+        return pairwise_scores_gated_factored_plain(
+            head, user_first, user_coefs, tables, item_coefs)
+    n_mod = _n_mod(head)
+    chain = _chain_on(head, device)
+    h1 = int(chain['widths'][0])
+    B, C = user_first.shape[0], tables.shape[0]
+    f32 = torch.float32
+    _check_tensor('user_first', user_first, device, f32, -1, (h1,))
+    _check_tensor('user_coefs', user_coefs, device, f32, B, (GATE_PAD,))
+    _check_tensor('tables', tables, device, torch.bfloat16, -1,
+                  (n_mod - 1, h1), align=8)
+    _check_tensor('item_coefs', item_coefs, device, f32, C, (GATE_PAD,))
+    out = torch.empty((B, C), dtype=f32, device=device)
+    if B == 0 or C == 0:
+        return out
+    _launch('gated_factored_mlp', out,
+            (user_first, user_coefs, tables, item_coefs), chain, B, C,
+            (n_mod,))
+    pairwise_scores_gated_factored.launches += 1
+    return out
+
+
+pairwise_scores_gated_factored.launches = 0

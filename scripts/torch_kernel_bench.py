@@ -3,16 +3,18 @@
 
     python3 scripts/torch_kernel_bench.py
 
-1. ``layers``: the pairwise kernel at the flagship block (256 users x 8,192
-   items, relu, sigmoid, random weights from a seed) with the chain cut
-   after the assembly (h1 512 -> 1), after the first hidden layer
+1. ``layers``: each pair-scoring kernel (K1 concat, K2 exact gated, K3
+   factored gated with M = 6 modalities) at the flagship block (256 users x
+   8,192 items, relu, sigmoid, random weights from a seed) with the chain
+   cut after the assembly (h1 512 -> 1), after the first hidden layer
    (512 -> 256 -> 1) and whole (512 -> 256 -> 128 -> 1). The differences
    between the three times are the cost of each hidden layer. CUDA-event
    timing, mean of 20 launches after a warm-up.
 2. ``profile``: one ``CatalogScorer.top_k`` call at bench.py's geometry
    (chip_smoke.py's flagship model, 8,192 users, 65,536 items, k=50) under
-   ``torch.profiler``: device time by kernel name, the union of device
-   busy intervals, and the device's idle share of the call's wall time.
+   ``torch.profiler``, for the concat model and for its gated twin in each
+   variant: device time by kernel name, the union of device busy
+   intervals, and the device's idle share of the call's wall time.
 
 Prints one JSON line per measurement, the card's ``nvidia-smi`` name and
 power limit first. Exits 2 without a CUDA device.
@@ -38,6 +40,7 @@ from chip_smoke import (  # noqa: E402
     TOP_K,
     build_flagship,
     cuda_ms,
+    random_gated_rows,
     random_head,
 )
 
@@ -50,25 +53,36 @@ def emit(what: str, **fields):
 
 
 def time_layers(dev):
-    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import pairwise_scores
+    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
+        pairwise_scores,
+        pairwise_scores_gated,
+        pairwise_scores_gated_factored,
+    )
     gen = torch.Generator().manual_seed(SEED + 3)
-    uf = torch.randn(B, 512, generator=gen).to(dev)
-    itf = torch.randn(C, 512, generator=gen).to(dev)
+    h1 = CHAINS[0][0]
+    uf = torch.randn(B, h1, generator=gen).to(dev)
+    itf = torch.randn(C, h1, generator=gen).to(dev)
     for widths in CHAINS:
-        head = random_head(widths, 'relu', 'sigmoid', gen, dev)
+        head = random_head(widths, 'relu', 'sigmoid', gen, dev,
+                           n_item_mods=5)
+        exact, factored = random_gated_rows(head, B, C, gen, dev)
         mma = sum(2 * k * n for k, n in zip(widths[:-1], widths[1:]))
-        with torch.no_grad():
-            ms = cuda_ms(lambda: pairwise_scores(head, uf, itf), reps=20)
-        emit('layers', widths=list(widths), B=B, C=C, ms=ms,
-             mma_tflops=B * C * mma / (ms * 1e-3) / 1e12)
+        for kernel, fn, args in (('K1', pairwise_scores, (uf, itf)),
+                                 ('K2', pairwise_scores_gated, exact),
+                                 ('K3', pairwise_scores_gated_factored,
+                                  factored)):
+            with torch.no_grad():
+                ms = cuda_ms(lambda: fn(head, *args), reps=20)
+            emit('layers', kernel=kernel, widths=list(widths), B=B, C=C,
+                 ms=ms, mma_tflops=B * C * mma / (ms * 1e-3) / 1e12)
 
 
-def profile_top_k(dev):
+def profile_top_k(dev, fusion_type='concatenate', gated_variant=None):
     from torch.profiler import ProfilerActivity, profile
 
     from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
-    model, store = build_flagship()
-    scorer = CatalogScorer(model, store)
+    model, store = build_flagship(fusion_type=fusion_type)
+    scorer = CatalogScorer(model, store, gated_variant=gated_variant)
     users = np.random.default_rng(SEED + 1).integers(
         0, N_MODEL_USERS, N_USERS).astype(np.int32)
     scorer.top_k(users, TOP_K)  # warm-up
@@ -91,7 +105,9 @@ def profile_top_k(dev):
             busy_us += t - max(s, end)
             end = t
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit('profile', users=N_USERS, items=scorer.n_items, k=TOP_K,
+    emit('profile', fusion_type=fusion_type,
+         gated_variant=scorer.gated_variant, users=N_USERS,
+         items=scorer.n_items, k=TOP_K,
          item_chunk=scorer.item_chunk, user_chunk=scorer.user_chunk,
          wall_ms=wall_s * 1e3, device_events=len(device),
          device_busy_ms=busy_us / 1e3,
@@ -110,6 +126,8 @@ def main() -> int:
     dev = torch.device('cuda')
     time_layers(dev)
     profile_top_k(dev)
+    for variant in ('exact', 'factored'):
+        profile_top_k(dev, 'gated', variant)
     return 0
 
 

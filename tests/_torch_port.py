@@ -1,6 +1,6 @@
-"""Shared fixtures of the port's parity tests: one small concatenate-fusion
-model built in both packages from the same Flax variables, and item tables
-drawn from a numpy seed."""
+"""Shared fixtures of the port's parity tests: one small model
+(concatenate or gated fusion) built in both packages from the same Flax
+variables, and item tables drawn from a numpy seed."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,13 +22,14 @@ N_USERS, N_TAGS = 50, 7
 
 
 def model_kwargs(n_items, activation='relu', final='sigmoid',
-                 use_batch_norm=True):
+                 use_batch_norm=True, fusion_type='concatenate'):
     return dict(n_users=N_USERS, n_items=n_items, n_tags=N_TAGS,
                 num_numerical_features=NUMERICAL, embedding_dim=EMB,
                 vision_feature_dim=VISION, language_feature_dim=LANGUAGE,
                 use_contrastive=False, fusion_hidden_dims=HIDDEN,
                 fusion_activation=activation, final_activation=final,
-                use_batch_norm=use_batch_norm, dropout_rate=0.0)
+                use_batch_norm=use_batch_norm, dropout_rate=0.0,
+                fusion_type=fusion_type)
 
 
 def randomize_batchnorm(variables, seed=3):
@@ -48,10 +49,11 @@ def randomize_batchnorm(variables, seed=3):
 
 
 def make_pair(n_items, activation='relu', final='sigmoid', seed=0,
-              use_batch_norm=True):
+              use_batch_norm=True, fusion_type='concatenate'):
     """(jax_model, numpy variables, torch_model on the CPU) with equal
     weights."""
-    kw = model_kwargs(n_items, activation, final, use_batch_norm)
+    kw = model_kwargs(n_items, activation, final, use_batch_norm,
+                      fusion_type)
     jmodel = JaxRecommender(**kw)
     B = 4
     variables = jmodel.init(

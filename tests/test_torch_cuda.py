@@ -1,4 +1,5 @@
-"""The port's CUDA kernel and its scorer on a card.
+"""The port's CUDA kernels (K1 concat, K2 exact gated, K3 factored gated)
+and its scorer on a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX:
@@ -6,8 +7,8 @@ with a card and no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (``--noconftest`` because the suite's conftest.py sets JAX up). Without a
-CUDA device every test here skips: the kernel has no CPU mode. Inputs come
-from numpy and torch seeds; each test states its tolerance.
+CUDA device every test here skips: the kernels have no CPU mode. Inputs
+come from numpy and torch seeds; each test states its tolerance.
 """
 import copy
 
@@ -44,8 +45,8 @@ def dev():
     return torch.device('cuda')
 
 
-def make_model(activation='relu', final='sigmoid'):
-    """A small concat model on the CPU, BatchNorm statistics non-trivial."""
+def make_model(activation='relu', final='sigmoid', fusion='concatenate'):
+    """A small model on the CPU, BatchNorm statistics non-trivial."""
     gen = torch.Generator().manual_seed(0)
     model = MultimodalRecommender(
         n_users=N_USERS, n_items=N_ITEMS, n_tags=N_TAGS,
@@ -53,7 +54,7 @@ def make_model(activation='relu', final='sigmoid'):
         vision_feature_dim=VISION, language_feature_dim=LANGUAGE,
         use_contrastive=False, fusion_hidden_dims=(64, 32),
         fusion_activation=activation, final_activation=final,
-        dropout_rate=0.0, generator=gen, device='cpu')
+        fusion_type=fusion, dropout_rate=0.0, generator=gen, device='cpu')
     with torch.no_grad():
         for i in range(2):
             bn = getattr(model.prediction_network, f'BatchNorm_{i}')
@@ -181,6 +182,140 @@ def test_scorer_score_full_and_candidates_on_card(dev):
     rng = np.random.default_rng(7)
     cands = rng.integers(0, N_ITEMS, (20, 12)).astype(np.int32)
     valid = rng.random((20, 12)) < 0.8
+    np.testing.assert_allclose(gpu.score_candidates(users, cands, valid),
+                               cpu.score_candidates(users, cands, valid),
+                               atol=1e-4)
+
+
+# ------------------------------------------------------------ gated fusion
+def gated_inputs(head, B, C, device, seed=4):
+    """Seeded gated rows for a [B] x [C] block on ``device``: the exact
+    variant's (uf, ug, itf, ig) and the factored variant's (uf, a, T, igb),
+    built from the same towers."""
+    rng = np.random.default_rng(seed)
+    d, mi = head['w_fused'].shape[0], head['n_item_mods']
+    users = torch.from_numpy(rng.standard_normal((B, d), np.float32))
+    feats = torch.from_numpy(rng.standard_normal((C, mi, d), np.float32))
+    cpu = head_on(head, 'cpu')
+    exact = (tpm.compute_user_side_gated(cpu, users)
+             + tpm.compute_item_side_gated(cpu, feats))
+    factored = (tpm.factor_gated_user(cpu, *exact[:2])
+                + tpm.factor_gated_tables(cpu, *exact[2:]))
+    return ([t.to(device) for t in exact], [t.to(device) for t in factored])
+
+
+# The gated kernels against their plain bf16 versions. The assembly rounds
+# where the plain version does, operation for operation, so nearly every
+# pair agrees to float32 rounding; a few differ where a hidden activation
+# lands on the neighbouring bf16 value (the tensor-core products are summed
+# in another order), each such flip moving its score by a few 1e-3 (3.0e-3
+# in this test's gelu cases on an H100). So: at most
+# MAX_DIFFERING of the pairs differ by more than AGREE (the float32 plain
+# version differs in over 99%), and none by more than FLIP_TOL, relative to
+# max(1, |score|).
+AGREE, MAX_DIFFERING, FLIP_TOL = 1e-6, 0.01, 1e-2
+
+GATED = {'exact': (tpm.pairwise_scores_gated,
+                   tpm.pairwise_scores_gated_plain),
+         'factored': (tpm.pairwise_scores_gated_factored,
+                      tpm.pairwise_scores_gated_factored_plain)}
+
+
+@pytest.mark.parametrize('variant', ['exact', 'factored'])
+@pytest.mark.parametrize('final', ['sigmoid', 'tanh', 'none'])
+@pytest.mark.parametrize('activation', list(tpm.ACTIVATIONS))
+def test_gated_kernels_match_bf16_plain(dev, activation, final, variant):
+    """K2 and K3, one launch each on a ragged 37 x 301 block, against their
+    plain bf16 versions (the same rounding points; AGREE, MAX_DIFFERING,
+    FLIP_TOL)."""
+    head = head_on(tpm.build_factorized_head(
+        make_model(activation, final, 'gated')), dev)
+    exact, factored = gated_inputs(head, 37, 301, dev)
+    args = exact if variant == 'exact' else factored
+    kernel, plain = GATED[variant]
+    before = kernel.launches
+    out = kernel(head, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = plain(head, *args, compute_dtype=torch.bfloat16)
+    assert out.shape == (37, 301) and torch.isfinite(out).all()
+    scale = max(1.0, ref.abs().max().item())
+    diff = (out - ref).abs()
+    assert (diff > AGREE * scale).float().mean().item() <= MAX_DIFFERING
+    assert diff.max().item() <= FLIP_TOL * scale
+
+
+def test_gated_kernels_reject_what_they_do_not_take(dev):
+    head = head_on(tpm.build_factorized_head(make_model(fusion='gated')), dev)
+    (uf, ug, itf, ig), (_, a, T, igb) = gated_inputs(head, 8, 32, dev)
+    launches = (tpm.pairwise_scores_gated.launches,
+                tpm.pairwise_scores_gated_factored.launches)
+    for bad in ((uf.double(), ug, itf, ig), (uf, ug[:, :6], itf, ig),
+                (uf, ug, itf[:, :-16], ig), (uf, ug, itf, ig[:7]),
+                (uf, ug, itf.t().contiguous().t(), ig),
+                (uf, ug, itf.cpu(), ig)):
+        with pytest.raises(ValueError):
+            tpm.pairwise_scores_gated(head, *bad)
+    for bad in ((uf, a, T.float(), igb), (uf, a, T[:, :-1], igb),
+                (uf, a[:4], T, igb), (uf, a, T, igb.cpu())):
+        with pytest.raises(ValueError):
+            tpm.pairwise_scores_gated_factored(head, *bad)
+    with pytest.raises(ValueError, match='b1 folded'):
+        tpm.pairwise_scores_gated(dict(head, b1_folded=False), uf, ug, itf,
+                                  ig)
+    with pytest.raises(NotImplementedError, match='A10'):
+        tpm.pairwise_scores_gated_factored(dict(head, qlayers=[]), uf, a, T,
+                                           igb)
+    with pytest.raises(ValueError, match='modalities'):
+        tpm.pairwise_scores_gated(dict(head, n_item_mods=8), uf, ug, itf, ig)
+    assert (tpm.pairwise_scores_gated.launches,
+            tpm.pairwise_scores_gated_factored.launches) == launches
+
+
+@pytest.mark.parametrize('variant', ['exact', 'factored'])
+def test_gated_scorer_on_card(dev, variant):
+    """Gated top_k and score_full through K2 or K3 against the plain bf16
+    scores of the same tables (KERNEL_TOL; top-10 sets equal but for
+    near-ties at the boundary) and against the CPU scorer of the same
+    variant, whose plain path is float32 (F32_TOL). 70 users in 64-user
+    blocks, 1,000 items in 256-item chunks: 2 x 4 launches per call.
+    score_candidates is the exact float32 math on both devices: atol
+    1e-4."""
+    model = make_model('gelu', 'sigmoid', 'gated')
+    users = np.random.default_rng(5).integers(0, N_USERS, 70).astype(
+        np.int32)
+    seen = np.random.default_rng(6).random((70, N_ITEMS)) < 0.05
+    k = 10
+    kw = dict(item_chunk=256, user_chunk=64, gated_variant=variant)
+    gpu = CatalogScorer(copy.deepcopy(model), store(), **kw, device=dev)
+    cpu = CatalogScorer(model, store(), **kw, device='cpu')
+    assert gpu.gated_variant == cpu.gated_variant == variant
+    kernel, plain = GATED[variant]
+    before = kernel.launches
+    v, i = gpu.top_k(users, k, seen_mask=seen)
+    assert kernel.launches == before + 8
+    assert not seen[np.arange(70)[:, None], i].any()
+    with torch.no_grad():
+        side = gpu._fast_user_side(torch.from_numpy(
+            users.astype(np.int64)).to(dev))
+        ref = plain(gpu._head, *side,
+                    *(t[:N_ITEMS] for t in gpu._scan_tables),
+                    compute_dtype=torch.bfloat16)
+    full = gpu.score_full(users)
+    tol = KERNEL_TOL * max(1.0, float(ref.abs().max()))
+    np.testing.assert_allclose(full, ref.cpu().numpy(), atol=tol)
+    np.testing.assert_allclose(full, cpu.score_full(users), atol=F32_TOL)
+    ref[torch.from_numpy(seen).to(dev)] = NEG_INF
+    rv, ri = (t.cpu().numpy() for t in torch.topk(ref, k, dim=1))
+    np.testing.assert_allclose(v, rv, atol=tol)
+    for a, b, vals in zip(i, ri, rv):
+        clear = vals > vals[-1] + 2 * tol  # not tied with the boundary
+        assert set(b[clear]) <= set(a)
+    np.testing.assert_allclose(v, cpu.top_k(users, k, seen_mask=seen)[0],
+                               atol=F32_TOL)
+    rng = np.random.default_rng(7)
+    cands = rng.integers(0, N_ITEMS, (70, 12)).astype(np.int32)
+    valid = rng.random((70, 12)) < 0.8
     np.testing.assert_allclose(gpu.score_candidates(users, cands, valid),
                                cpu.score_candidates(users, cands, valid),
                                atol=1e-4)

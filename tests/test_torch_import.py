@@ -88,13 +88,33 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
         resolve_device('meta')
 
 
+def test_gated_fusion_builds_on_cpu_and_defaults_to_cuda(monkeypatch):
+    """Gated fusion is ported: a gated model and its scorer build on the
+    CPU when asked, and raise without a card by default."""
+    kw = dict(n_users=4, n_items=8, n_tags=2, num_numerical_features=0,
+              embedding_dim=8, fusion_hidden_dims=(16,),
+              use_contrastive=False, fusion_type='gated')
+    store = ItemFeatureStore(8, [str(i) for i in range(8)])
+    store.tables['tag_idx'] = torch.zeros(8, dtype=torch.int32).numpy()
+    model = MultimodalRecommender(**kw, device='cpu')
+    scorer = CatalogScorer(model, store, device='cpu')
+    assert scorer.gated_variant == 'exact'
+    assert scorer.top_k([0, 1], 3)[1].shape == (2, 3)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        MultimodalRecommender(**kw)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        CatalogScorer(model, store)
+
+
 def test_unported_options_raise():
     kw = dict(n_users=4, n_items=8, n_tags=2, num_numerical_features=0,
               embedding_dim=8, fusion_hidden_dims=(16,),
               use_contrastive=False, device='cpu')
-    for fusion, item in (('gated', 'A8'), ('attention', 'A9')):
-        with pytest.raises(NotImplementedError, match=item):
-            MultimodalRecommender(**kw, fusion_type=fusion)
+    with pytest.raises(NotImplementedError, match='A9'):
+        MultimodalRecommender(**kw, fusion_type='attention')
+    assert MultimodalRecommender(**kw, fusion_type='gated').fusion_type \
+        == 'gated'
     model = MultimodalRecommender(**kw)
     store = ItemFeatureStore(8, [str(i) for i in range(8)])
     store.tables['tag_idx'] = torch.zeros(8, dtype=torch.int32).numpy()
