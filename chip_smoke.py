@@ -8,7 +8,8 @@ csrc`` into ``build/kernels/``, holds each kernel against its plain PyTorch
 version on the card, drives the main paths (full-catalog top-K serving at
 bench.py's geometry, random weights from a seed: the flagship
 concatenate-fusion model through kernel K1, then its gated-fusion twin
-through K2, exact, and K3, factored), checks what comes out against the
+through K2, exact, and K3, factored, then its attention-fusion twin
+through K4, stream, and K5, gram), checks what comes out against the
 plain versions, and times the kernels. Every phase prints one JSON line;
 any failure raises and exits non-zero. The second-to-last line is the
 ``kernels`` JSON object and the last line is ``{"ok": true, "device":
@@ -49,6 +50,18 @@ PEAK_HBM_BYTES = 3.35e12
 # a hidden activation may then round to the neighbouring bf16 value
 # (2**-8 relative), which moves a score by well under 2e-3 of its scale.
 KERNEL_TOL = 2e-3
+# The attention kernels, as tests/test_torch_cuda.py holds K2 to K5: their
+# assemblies round where the plain versions do (the fused vector equals the
+# plain version's bit for bit), so a pair differs by more than AGREE only
+# where a hidden activation lands on the neighbouring bf16 value, the
+# tensor-core sums running in another order than the plain version's. That
+# happens to 0.25% to 0.46% of the pairs per hidden layer (w1 alone, d 32
+# and 64, NVIDIA H100), so at most MAX_DIFFERING_PER_LAYER of the pairs per
+# hidden layer of the chain may differ by more than AGREE (the float32 plain
+# version differs in nearly all), and none by more than FLIP_TOL, both
+# relative to max(1, |score|). At the flagship KERNEL_TOL holds for every
+# pair too.
+AGREE, MAX_DIFFERING_PER_LAYER, FLIP_TOL = 1e-6, 0.0075, 1e-2
 # Main path against the plain bf16 version at the full catalog: mean top-50
 # overlap. The 50th and 51st of 65,536 scores can lie closer together than
 # the kernel's rounding differences, so an item may swap at the boundary.
@@ -117,6 +130,32 @@ def build_flagship(seed: int = SEED, device='cuda',
     return model, store
 
 
+def attention_ops(head: dict, kernel: str) -> int:
+    """Float32 operations per pair of an attention kernel's assembly,
+    counted from its code (exps and divisions as one each):
+      both: the 2*Mi*H logit dots over dh; token 0's softmax per head,
+          5*Mi + 4; the clamped exp, a and b per item token and head, 6;
+      K4: token 0's weighted sum, 2*H*(1 + Mi)*d, and each item token's,
+          4*H*d, each plus the residual d; LayerNorm per token, 7*d; the
+          affine, 2*d;
+      K5: the cross-Grams, 2*d per entry of (1 + H)*Mi*H + H*(Mi*H + Mi);
+          the statistics (token 0: 5*H + 3*H*H + (2*H + 6)*Mi*H +
+          2*(Mi*H)**2; each item token 9*H*H + 8*H + 9); the combination
+          weights, H*(1 + 2*Mi) + Mi*H*(1 + 3*Mi) + 2*Mi; the combination
+          pass, 2*d*(1 + H + Mi*H + Mi) plus d, and the affine, 2*d."""
+    d, H, Mi, dh = head['d'], head['H'], head['n_item_mods'], head['dh']
+    n_vo = Mi * H
+    ops = 2 * (2 * n_vo) * dh + H * (5 * Mi + 4) + 6 * n_vo
+    if kernel == 'K4':
+        return (ops + 2 * H * (1 + Mi) * d + d + Mi * (4 * H * d + d)
+                + (1 + Mi) * 7 * d + 2 * d)
+    return (ops + 2 * d * (n_vo * (1 + H) + (n_vo + Mi) * H)
+            + 5 * H + 3 * H * H + (2 * H + 6) * n_vo + 2 * n_vo * n_vo
+            + Mi * (9 * H * H + 8 * H + 9)
+            + H * (1 + 2 * Mi) + n_vo * (1 + 3 * Mi) + 2 * Mi
+            + 2 * d * (1 + H + n_vo + Mi) + 3 * d)
+
+
 def pair_ops(head: dict, h1: int, kernel: str = 'K1') -> tuple:
     """Operations per pair, split by the unit that runs them: (the hidden
     products, on the tensor cores; the assembly and the one-column dot, in
@@ -127,10 +166,14 @@ def pair_ops(head: dict, h1: int, kernel: str = 'K1') -> tuple:
           plus the activation, 2*M*h1 + h1;
       K3: Z and p0 from M products, 2*M + 2, and per column the Mi-term
           contraction, the user term, the 1/Z scale and the activation,
-          (2*Mi + 4)*h1."""
+          (2*Mi + 4)*h1;
+      K4, K5: ``attention_ops``, with w1 [d, h1] among the products."""
     hidden = head['layers'][:-1]
     dot = 2 * head['layers'][-1][0].shape[0]
-    if kernel == 'K1':
+    if kernel in ('K4', 'K5'):
+        hidden = [(head['w1'], head['b1'])] + list(hidden)
+        assembly = attention_ops(head, kernel)
+    elif kernel == 'K1':
         assembly = 3 * h1
     else:
         n_mod = head['n_item_mods'] + 1
@@ -178,8 +221,53 @@ def random_gated_rows(head, B, C, gen, device):
                    + factor_gated_tables(head, *exact[2:]))
 
 
-def kernel_error(kernel, plain, head, users: tuple, items: tuple) -> tuple:
-    """(max |kernel - plain bf16|, tolerance) over a block; the plain
+def random_attention_head(d, heads, widths, activation, final, gen, device):
+    """An attention head of embedding width d with random weights: the
+    folded chain of ``random_head`` after w1 [d, widths[0]], the LayerNorm
+    affine and the attention projections (Mi = 5 item tokens)."""
+    head = random_head(widths, activation, final, gen, device)
+    del head['b1_folded']
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    head.update(fusion='attention', d=d, H=heads, dh=d // heads,
+                n_item_mods=5, h1=widths[0],
+                w1=rnd(d, widths[0], scale=d ** -0.5),
+                b1=rnd(widths[0], scale=0.05),
+                ln_scale=(torch.rand(d, generator=gen) + 0.5).to(device),
+                ln_bias=rnd(d, scale=0.1), b_out=rnd(d, scale=0.1))
+    for name in ('query', 'key', 'value', 'out'):
+        head[f'w_{name}'] = rnd(d, d, scale=d ** -0.5)
+        head[f'b_{name}'] = rnd(d, scale=0.1)
+    return head
+
+
+def random_attention_rows(head, B, C, gen, device, with_gram):
+    """Attention tables of seeded towers: (user side, item side)."""
+    from pixelrec_multimodal_tpu_torch.ops.attention_scorer import (
+        compute_item_side_attention,
+        compute_user_side_attention,
+    )
+    d = head['d']
+    users = torch.randn(B, d, generator=gen).to(device)
+    feats = torch.randn(C, head['n_item_mods'], d, generator=gen).to(device)
+    return (compute_user_side_attention(head, users, with_gram),
+            compute_item_side_attention(head, feats, with_gram))
+
+
+def user_item_call(fn, n_user: int):
+    """An attention wrapper or plain version, (head, user_side, item_side),
+    called as the other kernels are: (head, *user tensors, *item
+    tensors)."""
+    def call(head, *tensors, **kw):
+        return fn(head, tensors[:n_user], tensors[n_user:], **kw)
+    return call
+
+
+def kernel_diff(kernel, plain, head, users: tuple, items: tuple) -> tuple:
+    """(max |kernel - plain bf16|, the share of pairs that differ by more
+    than AGREE, the score scale max(1, |plain|)) over a block; the plain
     version runs in item slices of 2,048 to bound its memory."""
     out = kernel(head, *users, *items)
     torch.cuda.synchronize()
@@ -188,22 +276,35 @@ def kernel_error(kernel, plain, head, users: tuple, items: tuple) -> tuple:
                      for c in range(0, items[0].shape[0], 2048)], dim=1)
     if not torch.isfinite(out).all():
         raise AssertionError('kernel produced non-finite scores')
-    err = (out - ref).abs().max().item()
-    return err, KERNEL_TOL * max(1.0, ref.abs().max().item())
+    scale = max(1.0, ref.abs().max().item())
+    diff = (out - ref).abs()
+    return (diff.max().item(),
+            (diff > AGREE * scale).float().mean().item(), scale)
+
+
+def kernel_error(kernel, plain, head, users: tuple, items: tuple) -> tuple:
+    """(max |kernel - plain bf16|, tolerance) over a block."""
+    err, _, scale = kernel_diff(kernel, plain, head, users, items)
+    return err, KERNEL_TOL * scale
 
 
 def reset_launches():
+    from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
     from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
     for fn in (tpm.pairwise_scores, tpm.pairwise_scores_gated,
-               tpm.pairwise_scores_gated_factored):
+               tpm.pairwise_scores_gated_factored, tas.attention_scores,
+               tas.attention_scores_gram):
         fn.launches = 0
 
 
 def launch_counts() -> dict:
+    from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
     from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
     return {'K1': tpm.pairwise_scores.launches,
             'K2': tpm.pairwise_scores_gated.launches,
-            'K3': tpm.pairwise_scores_gated_factored.launches}
+            'K3': tpm.pairwise_scores_gated_factored.launches,
+            'K4': tas.attention_scores.launches,
+            'K5': tas.attention_scores_gram.launches}
 
 
 def drive_top_k(scorer, users, kernel: str, phase: str, **fields):
@@ -279,40 +380,55 @@ def check_against_plain(scorer, plain, users, v, i, phase, f32=True):
 
 
 def kernel_line(name, kernel_id, source, replaces, tpu, head, h1, args,
-                kernel, plain, launches, err, tol, library_note):
+                kernel, plain, launches, err, tol, library_note,
+                tpu_module='pairwise_mlp', function_of=None):
     """The ``kernels`` entry of one kernel, timed at the TIME_B x TIME_C
-    flagship block ``args`` (users first, then items)."""
+    flagship block ``args`` (users first, then items); ``replaces`` is the
+    line of the TPU kernel in ``pixelrec_multimodal_tpu/ops/<tpu_module>.py``.
+    The bound counts the operations of kernel ``function_of`` where that
+    kernel computes the same function with less work (K5 computes K4's
+    scores): ``bound_ms_algorithm`` is then the bound of this kernel's own
+    operations.
+    """
     from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import kernel_chain
     with torch.no_grad():
         ms = cuda_ms(lambda: kernel(head, *args), reps=20)
         plain_ms = cuda_ms(lambda: plain(head, *args,
                                          compute_dtype=torch.bfloat16),
                            reps=3)
-    mma_flops, other_ops = (TIME_B * TIME_C * n
-                            for n in pair_ops(head, h1, kernel_id))
+
+    def ops_ms(kid):  # (tensor-core ms, f32 ms) at the timed block
+        return tuple(TIME_B * TIME_C * n / peak * 1e3 for n, peak in zip(
+            pair_ops(head, h1, kid), (PEAK_BF16_FLOPS, PEAK_F32_FLOPS)))
+
+    mma_ms, f32_ms = ops_ms(function_of or kernel_id)
     chain = kernel_chain(head)  # the tensors the kernel reads
     n_bytes = (sum(t.numel() * t.element_size() for t in args)
                + TIME_B * TIME_C * 4
                + sum(chain[k].numel() * chain[k].element_size()
                      for k in ('w', 'b', 'w_last', 'b_last')))
-    op_ms = max(mma_flops / PEAK_BF16_FLOPS, other_ops / PEAK_F32_FLOPS) * 1e3
+    op_ms = max(mma_ms, f32_ms)
     byte_ms = n_bytes / PEAK_HBM_BYTES * 1e3
-    return {
+    line = {
         'name': name, 'route': 'cuda',
         'source': f'pixelrec_multimodal_tpu_torch/ops/csrc/{source}',
-        'replaces': f'pixelrec_multimodal_tpu/ops/pairwise_mlp.py:{replaces}',
-        'tpu': f'ops/pairwise_mlp.py:{tpu}', 'kernel': kernel_id,
+        'replaces': f'pixelrec_multimodal_tpu/ops/{tpu_module}.py:{replaces}',
+        'tpu': f'ops/{tpu_module}.py:{tpu}', 'kernel': kernel_id,
         'launches': launches, 'max_abs_err': err, 'tol': tol,
         'ms': ms, 'plain_ms': plain_ms,
         'bound_ms': max(op_ms, byte_ms),
         'bound_by': 'operations' if op_ms >= byte_ms else 'bytes',
-        'bound_ms_tensor_ops': mma_flops / PEAK_BF16_FLOPS * 1e3,
-        'bound_ms_f32_ops': other_ops / PEAK_F32_FLOPS * 1e3,
+        'bound_ms_tensor_ops': mma_ms, 'bound_ms_f32_ops': f32_ms,
         'bound_ms_bytes': byte_ms,
         'library_ms': None, 'library_note': library_note,
         'shape': [TIME_B, TIME_C],
-        'tflops': (mma_flops + other_ops) / (ms * 1e-3) / 1e12,
+        'tflops': TIME_B * TIME_C * sum(pair_ops(head, h1, kernel_id))
+        / (ms * 1e-3) / 1e12,
     }
+    if function_of:
+        line['bound_ops_of'] = function_of
+        line['bound_ms_algorithm'] = max(max(ops_ms(kernel_id)), byte_ms)
+    return line
 
 
 def main() -> int:
@@ -322,6 +438,7 @@ def main() -> int:
         return 2
     from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
     from pixelrec_multimodal_tpu_torch.ops import _build
+    from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
     from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
         ACTIVATIONS,
         compute_user_first,
@@ -507,6 +624,120 @@ def main() -> int:
             kernel, plain, launches, *flag[variant],
             'no single PyTorch call computes the fused gated assembly + '
             'Dense chain + one-column reduce'))
+
+    del gated, gmodel, gstore, ghead, side
+    torch.cuda.empty_cache()
+
+    # ---- 9. set-up of the attention main paths: bench_fusion.py's
+    # attention model (the flagship with fusion_type='attention', 4 heads),
+    # one scorer per variant
+    t0 = time.time()
+    amodel, astore = build_flagship(fusion_type='attention')
+    attn = {v: CatalogScorer(amodel, astore, attention_variant=v)
+            for v in ('stream', 'gram')}
+    torch.cuda.synchronize()
+    ahead = attn['stream']._head
+    emit('setup_attention', seconds=round(time.time() - t0, 3),
+         d=ahead['d'], heads=ahead['H'], n_item_mods=ahead['n_item_mods'],
+         h1=ahead['h1'], chain_widths=ahead['kernel']['widths'].tolist(),
+         **{f'{v}_tables': [list(t.shape) for t in s._scan_tables]
+            for v, s in attn.items()},
+         **{f'{v}_bytes_per_item': sum(t[0].numel() * t.element_size()
+                                       for t in s._scan_tables)
+            for v, s in attn.items()},
+         **{f'{v}_table_bytes': sum(t.numel() * t.element_size()
+                                    for t in s._scan_tables)
+            for v, s in attn.items()})
+    # variant: (kernel id, wrapper, plain version, source name, the TPU
+    # kernel's def line in pixelrec_multimodal_tpu/ops/attention_scorer.py)
+    akernels = {
+        'stream': ('K4', user_item_call(tas.attention_scores, 5),
+                   user_item_call(tas.attention_scores_plain, 5),
+                   'attention_mlp', 368, '_attention_kernel'),
+        'gram': ('K5', user_item_call(tas.attention_scores_gram, 6),
+                 user_item_call(tas.attention_scores_gram_plain, 6),
+                 'attention_gram_mlp', 525, '_attention_gram_kernel')}
+
+    # ---- 10. K4 and K5 against their plain versions
+    t0 = time.time()
+    aflag = {}
+    with torch.no_grad():
+        for variant, s in attn.items():
+            kid, kernel, plain = akernels[variant][:3]
+            side = s._fast_user_side(
+                torch.from_numpy(users[:200].astype(np.int64)).to(dev))
+            err, frac, scale = kernel_diff(
+                kernel, plain, ahead, side,
+                tuple(t[:8000] for t in s._scan_tables))
+            tol = KERNEL_TOL * scale
+            max_share = (MAX_DIFFERING_PER_LAYER
+                         * ahead['kernel']['n_hidden'])
+            aflag[variant] = (err, tol)
+            emit('kernel_vs_plain', kernel=kid, widths='flagship', B=200,
+                 C=8000, max_abs_err=err, tol=tol,
+                 share_over_agree=frac, agree=AGREE * scale,
+                 max_share=max_share)
+            if not (err <= tol and frac <= max_share):
+                raise AssertionError(f'{kid} flagship error {err} > {tol} '
+                                     f'or share {frac} > {max_share}')
+        worst = {'stream': 0.0, 'gram': 0.0}
+        share = {'stream': 0.0, 'gram': 0.0}
+        combos = 0
+        for d, heads in ((32, 1), (32, 2), (32, 4), (64, 1), (64, 2),
+                         (64, 4)):
+            for n, (act, final) in enumerate(
+                    (a, f) for a in ACTIVATIONS
+                    for f in ('sigmoid', 'tanh', 'none')):
+                widths = ((64, 32), (128, 256), (48,))[n % 3]
+                h = random_attention_head(d, heads, widths, act, final, gen,
+                                          dev)
+                u, it = random_attention_rows(h, 37, 301, gen, dev, True)
+                # w1 and the len(widths) - 1 hidden layers after it
+                max_share = MAX_DIFFERING_PER_LAYER * len(widths)
+                combos += 1
+                for variant, (kid, kernel, plain, *_) in akernels.items():
+                    nu = 5 if variant == 'stream' else 6
+                    err, frac, scale = kernel_diff(kernel, plain, h, u[:nu],
+                                                   it[:nu + 1])
+                    worst[variant] = max(worst[variant],
+                                         err / (FLIP_TOL * scale))
+                    share[variant] = max(share[variant], frac / max_share)
+                    if not (err <= FLIP_TOL * scale and frac <= max_share):
+                        raise AssertionError(
+                            f'{kid} error {err} (share {frac} over '
+                            f'{AGREE * scale}) at d={d}, heads={heads}, '
+                            f'widths {widths}, {act}/{final}')
+        for variant, (kid, *_) in akernels.items():
+            emit('kernel_vs_plain', kernel=kid,
+                 widths='small: d 32, 64 x heads 1, 2, 4 x every '
+                        'activation x final', combos=combos,
+                 worst_err_over_flip_tol=worst[variant],
+                 worst_share_over_max_share=share[variant],
+                 max_share_per_hidden_layer=MAX_DIFFERING_PER_LAYER,
+                 seconds=round(time.time() - t0, 3))
+
+    # ---- 11. the attention main paths, one per variant, then their
+    # kernels' times at the flagship block
+    for variant, s in attn.items():
+        kid, kernel, plain, source, line, tpu = akernels[variant]
+        v, i, launches, _ = drive_top_k(s, users, kid,
+                                        f'main_path_attention_{variant}',
+                                        attention_variant=s.attention_variant,
+                                        nvidia_smi=smi)
+        check_against_plain(s, plain, users, v, i,
+                            f'main_path_attention_{variant}_vs_plain',
+                            f32=False)
+        with torch.no_grad():
+            side = s._fast_user_side(
+                torch.from_numpy(users[:TIME_B].astype(np.int64)).to(dev))
+        lines.append(kernel_line(
+            source, kid, f'{source}.cu', line, tpu, ahead, ahead['h1'],
+            tuple(side) + tuple(t[:TIME_C] for t in s._scan_tables),
+            kernel, plain, launches, *aflag[variant],
+            'no single PyTorch call computes the fused attention assembly '
+            '+ LayerNorm + Dense chain + one-column reduce',
+            tpu_module='attention_scorer',
+            function_of='K4' if kid == 'K5' else None))
 
     emit('timing', seconds_total=round(time.time() - t_start, 3))
     print(json.dumps({'kernels': lines}), flush=True)

@@ -2,8 +2,8 @@
 """Full-catalog pair scoring on the card.
 
 Counterpart of ``CatalogScorer`` in
-``pixelrec_multimodal_tpu/inference/scorer.py``, concatenate and gated
-fusion:
+``pixelrec_multimodal_tpu/inference/scorer.py``, concatenate, gated and
+attention fusion:
 
   * the item tower (item and tag embeddings plus modality projections) is
     computed once for the padded catalog, streamed host -> device in
@@ -12,12 +12,15 @@ fusion:
     catalog: concat ``item_first [n_pad, h1]``; gated ``item_first
     [n_pad, Mi*h1]`` and ``item_gates [n_pad, GATE_PAD]``, plus, for the
     factored variant, ``T [n_pad, Mi, h1]`` bf16 and ``igb [n_pad,
-    GATE_PAD]`` (``ops/pairwise_mlp.py:factor_gated_tables``);
+    GATE_PAD]`` (``ops/pairwise_mlp.py:factor_gated_tables``); attention
+    the d-wide per-item attention tables, plus the scalar table for the
+    gram variant (``ops/attention_scorer.py``);
   * ``top_k`` scans the catalog in item chunks: one fused kernel launch
     scores a user block against a chunk (``ops/pairwise_mlp.py``: K1 for
-    concat, K2 for exact gated, K3 for factored gated), and a running
-    top-k merges each chunk (``ops/topk.py``), so the [users, items]
-    matrix is never held whole.
+    concat, K2 for exact gated, K3 for factored gated;
+    ``ops/attention_scorer.py``: K4 for stream attention, K5 for gram
+    attention), and a running top-k merges each chunk (``ops/topk.py``),
+    so the [users, items] matrix is never held whole.
 
 Blocks and chunks may be ragged: the kernel masks its own edges, so user
 blocks are not padded to size classes (the JAX package pads them to keep
@@ -33,6 +36,15 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.attention_cascade import attention_candidate_scores
+from ..ops.attention_scorer import (
+    attention_scores,
+    attention_scores_gram,
+    build_attention_head,
+    check_kernel_fits,
+    compute_item_side_attention,
+    compute_user_side_attention,
+)
 from ..ops.pairwise_mlp import (
     GATE_PAD,
     build_factorized_head,
@@ -63,6 +75,20 @@ DEFAULT_CHUNKS = {'cuda': (8192, 8192), 'cpu': (8192, 64)}
 # (K3), 246.6M against 241.2M pairs/s (chip_smoke.py, PERF.md); on the CPU
 # the JAX package also runs 'exact' off the TPU.
 DEFAULT_GATED_VARIANT = 'exact'
+
+# The attention variant ``attention_variant=None`` resolves to: the kernel
+# that serves bench.py's geometry faster on the H100 (chip_smoke.py,
+# PERF.md). The JAX package's TPU default, 'gram', was measured on a TPU.
+DEFAULT_ATTENTION_VARIANT = 'stream'
+
+# Pairs of gathered candidate rows scored at once by the attention
+# candidate path (~14 KB of tables and ~2 KB of temporaries per pair).
+_ATTENTION_CANDIDATE_PAIRS = 1 << 16
+
+_CASCADE_NOT_PORTED = (
+    'is not ported yet: the attention cascade (screen kernel K6, the '
+    'additive screen, calibration and the funnel) is the cascade slice, '
+    'ROADMAP item A9 / B7')
 
 
 @contextlib.contextmanager
@@ -96,6 +122,18 @@ class CatalogScorer:
     ``'factored'`` raises where its tables would pass ``_FACTORED_BYTES``,
     and no call switches variants. ``self.gated_variant`` holds the
     variant every call runs (None without a gated fast path).
+
+    ``attention_variant`` picks the kernel of an attention model's fast
+    path: ``'stream'`` (K4) or ``'gram'`` (K5, which needs the scalar
+    tables too); ``None`` is ``DEFAULT_ATTENTION_VARIANT``, resolved here
+    and held in ``self.attention_variant`` (None without an attention fast
+    path). On the card the variant's kernel must take the model: K5 keeps
+    per-pair cross-Grams in shared memory and refuses 8 heads, or d 128
+    and wider at the flagship chain (``check_kernel_fits``), so ``'gram'``
+    raises here for such a model, before any table is built. The generic
+    path of an attention model (``fast_path=False``) scores at most 64
+    users per block, as the JAX package does: the model's attention holds
+    [users x items x H x T x T] intermediates.
     """
 
     # Rows of raw encoder features moved host -> device per item-tower step.
@@ -109,6 +147,7 @@ class CatalogScorer:
                  mesh=None, fast_path: bool = True,
                  precision: str = 'bf16',
                  gated_variant: Optional[str] = None,
+                 attention_variant: Optional[str] = None,
                  device: Union[str, torch.device] = 'cuda'):
         if mesh is not None:
             raise NotImplementedError(
@@ -121,6 +160,9 @@ class CatalogScorer:
         if gated_variant not in (None, 'exact', 'factored'):
             raise ValueError(f"gated_variant must be 'exact', 'factored' or "
                              f"None, got {gated_variant!r}")
+        if attention_variant not in (None, 'stream', 'gram'):
+            raise ValueError(f"attention_variant must be 'stream', 'gram' or "
+                             f"None, got {attention_variant!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.store = feature_store
@@ -131,6 +173,8 @@ class CatalogScorer:
         self.item_chunk = min(item_chunk, pad_to_multiple(self.n_items, 128))
         self.n_pad = pad_to_multiple(self.n_items, self.item_chunk)
         self.user_chunk = user_chunk or default_users
+        if model.fusion_type == 'attention' and not fast_path:
+            self.user_chunk = min(self.user_chunk, 64)
         self._pad_mask = np.zeros(self.n_pad, dtype=bool)
         self._pad_mask[self.n_items:] = True  # True = invalid (padding)
 
@@ -142,8 +186,17 @@ class CatalogScorer:
             # (the factored gated variant: (T, igb); else ``_item_fast``).
             self._head = None
             self._item_fast = self._scan_tables = None
-            self.gated_variant = None
-            if fast_path:
+            self.gated_variant = self.attention_variant = None
+            if fast_path and self.model.fusion_type == 'attention':
+                head = self._head = build_attention_head(self.model)
+                self.attention_variant = (attention_variant
+                                          or DEFAULT_ATTENTION_VARIANT)
+                if self.device.type == 'cuda':
+                    check_kernel_fits(head, self.attention_variant == 'gram')
+                self._item_fast = self._scan_tables = self._build_item_fast(
+                    partial(compute_item_side_attention, head,
+                            with_gram=self.attention_variant == 'gram'))
+            elif fast_path:
                 head = self._head = build_factorized_head(self.model)
                 if head['fusion'] == 'concatenate':
                     self._item_fast = self._build_item_fast(
@@ -264,8 +317,13 @@ class CatalogScorer:
                         ) -> Tuple[torch.Tensor, ...]:
         """User tower + the user-side rows the scan's kernel takes: concat
         (user_first,); gated (user_first, user_gates), or (user_first,
-        a) for the factored variant."""
+        a) for the factored variant; attention (raw, q, k, vo, suu), plus
+        the scalar table for the gram variant."""
         user_emb = self.model.user_tower(user_idx)
+        if self._head['fusion'] == 'attention':
+            return compute_user_side_attention(
+                self._head, user_emb,
+                with_gram=self.attention_variant == 'gram')
         if self._head['fusion'] == 'concatenate':
             return (compute_user_first(self._head, user_emb),)
         side = compute_user_side_gated(self._head, user_emb)
@@ -277,6 +335,10 @@ class CatalogScorer:
                           chunk: Tuple[torch.Tensor, ...]) -> torch.Tensor:
         """[B, C] pair scores for one chunk of ``_scan_tables`` through the
         fused kernel (its plain float32 version for CPU tensors)."""
+        if self._head['fusion'] == 'attention':
+            if self.attention_variant == 'gram':
+                return attention_scores_gram(self._head, user_side, chunk)
+            return attention_scores(self._head, user_side, chunk)
         if self._head['fusion'] == 'concatenate':
             return pairwise_scores(self._head, user_side[0], chunk[0])
         if self.gated_variant == 'factored':
@@ -385,6 +447,9 @@ class CatalogScorer:
         rows (gated: and gate rows) and runs the float32 chain (the JAX
         package's ``xla_candidate_scores``, ``xla_candidate_scores_gated``);
         gated candidates take the exact math whatever ``gated_variant``.
+        Attention gathers its per-item tables and scores them in float32
+        (``ops/attention_cascade.py:attention_candidate_scores``), in user
+        sub-blocks of at most ``_ATTENTION_CANDIDATE_PAIRS`` pairs.
         """
         user_indices = np.asarray(user_indices, np.int32)
         candidate_idx = np.asarray(candidate_idx, np.int32)
@@ -397,7 +462,9 @@ class CatalogScorer:
                     candidate_idx[s:s + self.user_chunk].astype(np.int64))
                 if self._head is not None:
                     user_emb = self.model.user_tower(users_t)
-                    if self._head['fusion'] == 'concatenate':
+                    if self._head['fusion'] == 'attention':
+                        v = self._attention_candidates(user_emb, cands)
+                    elif self._head['fusion'] == 'concatenate':
                         v = candidate_scores(
                             self._head,
                             compute_user_first(self._head, user_emb),
@@ -423,3 +490,28 @@ class CatalogScorer:
                                  float(NEG_INF))
                 out.append(v)
         return np.concatenate(out)
+
+    def _attention_candidates(self, user_emb: torch.Tensor,
+                              cands: torch.Tensor) -> torch.Tensor:
+        """[B] users x [B, C] candidate positions -> [B, C] float32
+        attention scores on gathered table rows, in user sub-blocks."""
+        side = compute_user_side_attention(self._head, user_emb)
+        step = max(1, _ATTENTION_CANDIDATE_PAIRS // max(1, cands.shape[1]))
+        return torch.cat([
+            attention_candidate_scores(
+                self._head, tuple(t[s:s + step] for t in side),
+                tuple(t[cands[s:s + step]] for t in self._item_fast[:6]))
+            for s in range(0, cands.shape[0], step)])
+
+    # ------------------------------------------------ attention cascade
+    def top_k_cascade(self, *args, **kwargs):
+        raise NotImplementedError(f'top_k_cascade {_CASCADE_NOT_PORTED}')
+
+    def calibrate_cascade(self, *args, **kwargs):
+        raise NotImplementedError(f'calibrate_cascade {_CASCADE_NOT_PORTED}')
+
+    def calibrate_funnel(self, *args, **kwargs):
+        raise NotImplementedError(f'calibrate_funnel {_CASCADE_NOT_PORTED}')
+
+    def auto_cascade(self, *args, **kwargs):
+        raise NotImplementedError(f'auto_cascade {_CASCADE_NOT_PORTED}')

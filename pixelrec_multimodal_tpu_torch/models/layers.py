@@ -1,10 +1,10 @@
 # pixelrec_multimodal_tpu_torch/models/layers.py
 """Layer building blocks of the port's model, in PyTorch.
 
-Counterpart of ``pixelrec_multimodal_tpu/models/layers.py``: the fusion
-layers, plus the Flax-style Dense helpers the model's modules share.
-``AttentionFusionLayer`` and ``CrossModalAttention`` are not ported yet
-(ROADMAP item A9).
+Counterpart of ``pixelrec_multimodal_tpu/models/layers.py``: the gated
+and attention fusion layers, plus the Flax-style Dense helpers the model's
+modules share. ``CrossModalAttention`` is not ported yet (ROADMAP item A2:
+the recommender does not use it).
 """
 from __future__ import annotations
 
@@ -77,3 +77,67 @@ class GatedFusionLayer(nn.Module):
         gates = torch.softmax(apply_dense(self.gating, concat, self.dtype),
                               dim=-1)
         return (features * gates[:, :, None]).sum(dim=1)
+
+
+class MultiHeadAttention(nn.Module):
+    """Flax ``MultiHeadDotProductAttention`` in eval mode, called as
+    ``(x, x)``: queries, keys and values all come from the same tokens. The
+    query is scaled by 1/sqrt(dh) before the logits, and the softmax runs
+    over the keys. ``query``, ``key``, ``value`` and ``out`` are the Flax
+    names; the heads of each projection are flattened heads-major
+    (``utils/flax_convert.py`` reshapes Flax's [D, H, dh] kernels)."""
+
+    def __init__(self, embedding_dim: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if embedding_dim % num_heads:
+            raise ValueError(f'embedding_dim {embedding_dim} is not a '
+                             f'multiple of num_heads {num_heads}')
+        self.num_heads = num_heads
+        self.head_dim = embedding_dim // num_heads
+        self.dtype = dtype
+        for name in ('query', 'key', 'value'):
+            setattr(self, name, dense(embedding_dim, embedding_dim,
+                                      generator))
+        self.out = dense(embedding_dim, embedding_dim, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, T, D) -> (B, T, D)."""
+        B, T, _ = x.shape
+        H, dh = self.num_heads, self.head_dim
+
+        def heads(layer):
+            return apply_dense(layer, x, self.dtype).reshape(B, T, H, dh)
+
+        q = heads(self.query) / math.sqrt(dh)
+        k, v = heads(self.key), heads(self.value)
+        w = torch.softmax(torch.einsum('bqhd,bkhd->bhqk', q, k), dim=-1)
+        o = torch.einsum('bhqk,bkhd->bqhd', w, v).reshape(B, T, H * dh)
+        return apply_dense(self.out, o, self.dtype)
+
+
+class AttentionFusionLayer(nn.Module):
+    """Self-attention fusion over the modality tokens, eval mode (dropout
+    is then the identity): multi-head self-attention, the residual,
+    LayerNorm with Flax's eps 1e-6 (torch's default is 1e-5) in float32,
+    then the mean over tokens. The children are named ``attention`` and
+    ``norm`` as in Flax, so ``params/fusion_layer/{attention,norm}``
+    convert by name."""
+
+    def __init__(self, embedding_dim: int, num_heads: int,
+                 dropout_rate: float, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.embedding_dim = embedding_dim
+        self.dropout_rate = dropout_rate
+        self.dtype = dtype
+        self.attention = MultiHeadAttention(embedding_dim, num_heads, dtype,
+                                            generator)
+        self.norm = nn.LayerNorm(embedding_dim, eps=1e-6)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        """features: (B, T, D) -> (B, D) float32."""
+        x = (features + self.attention(features)).float()
+        return F.layer_norm(x, (self.embedding_dim,), self.norm.weight,
+                            self.norm.bias, self.norm.eps).mean(dim=1)

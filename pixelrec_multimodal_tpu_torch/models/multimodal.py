@@ -21,9 +21,9 @@ Semantics kept from the JAX model:
   ``torch.Generator``. The numbers differ from JAX's for the same seed;
   parity tests convert Flax weights instead.
 
-Eval mode of ``concatenate`` and ``gated`` fusion is ported: the module is
-built in eval mode and its forward raises in train mode until training is
-ported. ``attention`` fusion raises ``NotImplementedError``.
+Eval mode of ``concatenate``, ``gated`` and ``attention`` fusion is
+ported: the module is built in eval mode and its forward raises in train
+mode until training is ported.
 """
 from __future__ import annotations
 
@@ -35,7 +35,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from .layers import GatedFusionLayer, apply_dense, dense, variance_scaling
+from .layers import (
+    AttentionFusionLayer,
+    GatedFusionLayer,
+    apply_dense,
+    dense,
+    variance_scaling,
+)
 
 MODALITY_ORDER = ('user', 'item', 'tag', 'vision', 'language', 'numerical')
 
@@ -185,11 +191,7 @@ class MultimodalRecommender(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device: Union[str, torch.device] = 'cuda'):
         super().__init__()
-        if fusion_type == 'attention':
-            raise NotImplementedError(
-                "fusion_type='attention' is not ported yet: attention "
-                "fusion is ROADMAP item A9")
-        if fusion_type not in ('concatenate', 'gated'):
+        if fusion_type not in ('concatenate', 'gated', 'attention'):
             raise ValueError(f"Unknown fusion type: '{fusion_type}'")
         device = resolve_device(device)
         if generator is None:
@@ -246,8 +248,11 @@ class MultimodalRecommender(nn.Module):
         if fusion_type == 'gated':
             self.fusion_layer = GatedFusionLayer(
                 d, self.num_modalities, dropout_rate, dtype, generator)
+        elif fusion_type == 'attention':
+            self.fusion_layer = AttentionFusionLayer(
+                d, num_attention_heads, attention_dropout, dtype, generator)
         self.prediction_network = PredictionMLP(
-            d if fusion_type == 'gated' else self.num_modalities * d,
+            self.num_modalities * d if fusion_type == 'concatenate' else d,
             self.fusion_hidden_dims,
             fusion_activation, use_batch_norm, final_activation, dtype,
             generator)

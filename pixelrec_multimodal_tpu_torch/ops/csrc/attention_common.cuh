@@ -1,0 +1,270 @@
+// pixelrec_multimodal_tpu_torch/ops/csrc/attention_common.cuh
+//
+// What the two attention-fusion kernels share (attention_mlp.cu, K4, the
+// stream form; attention_gram_mlp.cu, K5, the gram form): the block's
+// scratch layout, the load of the tile's user rows, the per-pair logits and
+// softmax coefficients, the warp sums, and the launch set-up. Each kernel
+// then forms its pairs' fused d-vectors its own way, writes them as bf16
+// into buf_a and calls run_chain (mlp_chain.cuh) with the first Dense w1 as
+// the chain's layer 0.
+//
+// Block: the chain's 8 users x 16 items (128 pair rows), 16 warps. Shared
+// memory is the chain's (two activation buffers and the weight ring). Until
+// the assembly ends, buffer B and the ring behind it are the assembly's
+// scratch (buffer B is first written by the chain's layer 0):
+//   U    [TB][urow]   the tile's user rows: raw, q, k, vo_0 .. vo_{H-1} (d
+//                     each, vs = d + 4 apart, so that float4 reads of
+//                     different vectors fall in different banks), suu
+//                     (SUU_PAD), and for K5 the user scalars (n_usc)
+//   coef [ROWS][ncoef] per pair: token 0's softmax weights per head (the
+//                     user key first, then the Mi item keys), then per item
+//                     token t and head h the pair (a, b) of the stream form
+//   X    [ROWS][nx]   K5 only: cross-Grams, later the combination weights
+// Every float32 operation of the assembly is an unfused __f*_rn intrinsic in
+// the order the module's plain version (ops/attention_scorer.py) takes, so
+// kernel and plain version round the fused vector to the same bf16 values.
+
+#pragma once
+
+#include "mlp_chain.cuh"
+
+namespace attn {
+
+using namespace pairwise;
+
+constexpr int MAX_HEADS = 8;
+constexpr int MAX_ITEM_MODS = 7;
+constexpr int SUU_PAD = 8;       // columns of the per-user self-logit table
+constexpr int MAX_D = 256;       // 4 float2 slots per lane
+constexpr float LN_EPS = 1e-6f;  // Flax nn.LayerNorm
+constexpr float EXP_CLAMP = 80.f;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(WARPS == TC, "the assembly runs one warp per item of the tile");
+
+struct Dims {
+  int d, H, dh, Mi;
+  int n_usc, n_sc;  // user / item scalar columns (K5), 0 for K4
+  int vs;           // stride of the vectors in a user row, d + 4
+  int urow;         // floats per user row in scratch, a multiple of 4
+  int ncoef;        // coefficient row stride, odd (no bank conflicts)
+  int nx;           // K5 row stride of X, odd; 0 for K4
+};
+
+// Offsets within a user row and a coefficient row.
+// raw, q and k are vectors 0, 1 and 2 of the row, vo_h vector 3 + h.
+__host__ __device__ __forceinline__ int u_vo_off(const Dims& D, int h) {
+  return (3 + h) * D.vs;
+}
+__host__ __device__ __forceinline__ int u_suu_off(const Dims& D) {
+  return (3 + D.H) * D.vs;
+}
+__host__ __device__ __forceinline__ int c0_off(const Dims& D, int h, int j) {
+  return h * (D.Mi + 1) + j;  // j = 0: the user key, 1 + m: item key m
+}
+__host__ __device__ __forceinline__ int ct_off(const Dims& D, int t, int h) {
+  return D.H * (D.Mi + 1) + (t * D.H + h) * 2;  // + 0: a, + 1: b
+}
+
+inline cudaError_t make_dims(int d, int H, int Mi, bool gram, Dims* D) {
+  if (d < 16 || d > MAX_D || d % 16 || H < 1 || H > MAX_HEADS || d % H ||
+      Mi < 1 || Mi > MAX_ITEM_MODS)
+    return cudaErrorInvalidValue;
+  *D = Dims{};
+  D->d = d;
+  D->H = H;
+  D->dh = d / H;
+  D->Mi = Mi;
+  D->vs = d + 4;
+  const int n_vo = Mi * H;
+  if (gram) {
+    D->n_usc = 2 + 2 * H + H * H;
+    D->n_sc = 3 * n_vo + Mi + n_vo * n_vo + Mi + Mi * H * H + Mi * Mi * H;
+    const int n_x = n_vo * (1 + H) + (n_vo + Mi) * H;  // cross-Grams
+    const int n_w = 2 + H + n_vo + Mi;                 // combination weights
+    D->nx = (n_x > n_w ? n_x : n_w) | 1;
+  }
+  D->urow = (u_suu_off(*D) + SUU_PAD + D->n_usc + 3) / 4 * 4;
+  D->ncoef = (H * (Mi + 1) + 2 * Mi * H) | 1;
+  return cudaSuccess;
+}
+
+inline size_t scratch_bytes(const Dims& D) {
+  return ((size_t)TB * D.urow + (size_t)ROWS * (D.ncoef + D.nx)) * 4;
+}
+
+__device__ __forceinline__ float2 f2_add_mul(float2 y, float w, float2 v) {
+  return make_float2(__fadd_rn(y.x, __fmul_rn(w, v.x)),
+                     __fadd_rn(y.y, __fmul_rn(w, v.y)));
+}
+
+__device__ __forceinline__ float warp_sum(float p) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    p = __fadd_rn(p, __shfl_xor_sync(FULL, p, o));
+  return p;
+}
+
+// The tile's user rows into U; rows past B, and the padding after each
+// vector, are zeros.
+__device__ __forceinline__ void load_users(
+    float* U, const Dims& D, const float* __restrict__ u_raw,
+    const float* __restrict__ u_q, const float* __restrict__ u_k,
+    const float* __restrict__ u_vo, const float* __restrict__ u_suu,
+    const float* __restrict__ u_sc, int u0, int B) {
+  const int d = D.d, so = u_suu_off(D);
+  for (int e = threadIdx.x; e < TB * D.urow; e += THREADS) {
+    const int bu = e / D.urow, j = e - bu * D.urow;
+    const int vec = j / D.vs, k = j - vec * D.vs;
+    const size_t u = u0 + bu;
+    float v = 0.f;
+    if (u0 + bu < B) {
+      if (j < so) {
+        if (k < d)
+          v = vec == 0 ? u_raw[u * d + k]
+            : vec == 1 ? u_q[u * d + k]
+            : vec == 2 ? u_k[u * d + k]
+                       : u_vo[(u * D.H + vec - 3) * d + k];
+      } else if (j < so + SUU_PAD) v = u_suu[u * SUU_PAD + j - so];
+      else if (j < so + SUU_PAD + D.n_usc)
+        v = u_sc[u * D.n_usc + j - so - SUU_PAD];
+    }
+    U[e] = v;
+  }
+}
+
+// Per-pair logits into the coefficient rows. One thread per (item, key or
+// query, token, head) forms the dot over dh for all 8 users of the tile,
+// left to right: token 0's user query against item key m (slot
+// c0_off(h, 1 + m)) and item query t against the user key (slot ct_off(t,
+// h)). Items past C give zero logits.
+__device__ __forceinline__ void pair_logits(const float* U, float* coef,
+                                            const Dims& D,
+                                            const float* __restrict__ it_q,
+                                            const float* __restrict__ it_k,
+                                            int c0, int C) {
+  const int d = D.d, H = D.H, dh = D.dh, Mi = D.Mi;
+  for (int e = threadIdx.x; e < TC * 2 * Mi * H; e += THREADS) {
+    const int h = e % H, m = (e / H) % Mi, kind = (e / (H * Mi)) % 2;
+    const int ci = e / (2 * H * Mi), c = c0 + ci;
+    float acc[TB];
+#pragma unroll
+    for (int bu = 0; bu < TB; ++bu) acc[bu] = 0.f;
+    if (c < C) {
+      const float* iv =
+          (kind ? it_q : it_k) + ((size_t)c * Mi + m) * d + h * dh;
+      const float* uv = U + (kind ? 2 : 1) * D.vs + h * dh;
+#pragma unroll 4
+      for (int i = 0; i < dh; ++i) {
+        const float x = __ldg(iv + i);
+#pragma unroll
+        for (int bu = 0; bu < TB; ++bu)
+          acc[bu] = __fadd_rn(acc[bu], __fmul_rn(uv[bu * D.urow + i], x));
+      }
+    }
+    const int slot = kind ? ct_off(D, m, h) : c0_off(D, h, 1 + m);
+#pragma unroll
+    for (int bu = 0; bu < TB; ++bu)
+      coef[(bu * TC + ci) * D.ncoef + slot] = acc[bu];
+  }
+}
+
+// The logits into softmax coefficients, in place. Token 0, per (pair,
+// head): exp(l - max) over the user's self logit and the Mi item-key
+// logits, each times 1 / their sum. Item token t, per (pair, head):
+// e_u = exp(min(s - mx, 80)) against the item-key softmax mass (dsum, mx)
+// of the dm table, a = e_u * r and b = r with r = 1 / (e_u + dsum).
+__device__ __forceinline__ void softmax_coefs(const float* U, float* coef,
+                                              const Dims& D,
+                                              const float* __restrict__ it_dm,
+                                              int c0, int C) {
+  const int H = D.H, Mi = D.Mi, n0 = ROWS * H;
+  for (int e = threadIdx.x; e < n0 + ROWS * Mi * H; e += THREADS) {
+    if (e < n0) {
+      const int r = e / H, h = e - r * H, bu = r / TC;
+      float* cf = coef + r * D.ncoef + c0_off(D, h, 0);
+      const float lu = U[bu * D.urow + u_suu_off(D) + h];
+      float mx = lu;
+      for (int m = 0; m < Mi; ++m) mx = fmaxf(mx, cf[1 + m]);
+      const float e0 = expf(__fsub_rn(lu, mx));
+      float tot = e0;
+      for (int m = 0; m < Mi; ++m) {
+        const float em = expf(__fsub_rn(cf[1 + m], mx));
+        cf[1 + m] = em;
+        tot = __fadd_rn(tot, em);
+      }
+      const float inv = __fdiv_rn(1.f, tot);
+      cf[0] = __fmul_rn(e0, inv);
+      for (int m = 0; m < Mi; ++m) cf[1 + m] = __fmul_rn(cf[1 + m], inv);
+    } else {
+      const int k = e - n0, h = k % H, t = (k / H) % Mi, r = k / (H * Mi);
+      const int c = c0 + r % TC;
+      float* cf = coef + r * D.ncoef + ct_off(D, t, h);
+      float dsum = 1.f, mx = 0.f;
+      if (c < C) {
+        const float* dm = it_dm + (size_t)c * H * Mi * 2 + (h * Mi + t) * 2;
+        dsum = dm[0];
+        mx = dm[1];
+      }
+      const float eu = expf(fminf(__fsub_rn(cf[0], mx), EXP_CLAMP));
+      const float rr = __fdiv_rn(1.f, __fadd_rn(eu, dsum));
+      cf[0] = __fmul_rn(eu, rr);
+      cf[1] = rr;
+    }
+  }
+}
+
+// One warp's pairs of its item: zero rows for an item past C (never
+// written out), and the LayerNorm affine plus the bf16 rounding of a fused
+// vector held as J float2 slots per lane (slot s = lane + 32 j covers
+// entries 2s, 2s + 1).
+__device__ __forceinline__ void zero_rows(__nv_bfloat16* buf_a, int stride_a,
+                                          int ci, int d) {
+  const int lane = threadIdx.x & 31;
+  for (int bu = 0; bu < TB; ++bu)
+    for (int k = lane; k < d; k += 32)
+      buf_a[(bu * TC + ci) * stride_a + k] = __float2bfloat16_rn(0.f);
+}
+
+template <int J>
+__device__ __forceinline__ void store_fused(const float2 (&f)[J],
+                                            float2 (&g)[J], float2 (&be)[J],
+                                            __nv_bfloat16* row, int half) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int s = lane + 32 * j;
+    if (s < half)
+      *reinterpret_cast<__nv_bfloat162*>(row + 2 * s) = __floats2bfloat162_rn(
+          __fadd_rn(__fmul_rn(f[j].x, g[j].x), be[j].x),
+          __fadd_rn(__fmul_rn(f[j].y, g[j].y), be[j].y));
+  }
+}
+
+// Launch set-up: the chain's, with the assembly's scratch counted from
+// buffer B on (only what passes buffer B grows the ring); the grid puts the
+// user tiles on x, so the blocks of one item tile run together and the
+// tile stays in L2.
+template <typename Kernel>
+inline cudaError_t prepare_attention(Kernel kernel, const Chain& ch,
+                                     const Dims& D, int B, int C, dim3* grid,
+                                     size_t* smem) {
+  const size_t buf_b = (size_t)ROWS * ch.stride_b * 2;
+  const size_t need = scratch_bytes(D);
+  cudaError_t err = prepare_launch(kernel, ch, need > buf_b ? need - buf_b : 0,
+                                   B, C, grid, smem);
+  if (err != cudaSuccess) return err;
+  if (grid->x > 65535) return cudaErrorInvalidConfiguration;
+  *grid = dim3(grid->y, grid->x);
+  return cudaSuccess;
+}
+
+__device__ __forceinline__ void tile_origin(int* u0, int* c0) {
+  *u0 = blockIdx.x * TB;
+  *c0 = blockIdx.y * TC;
+}
+
+// Slots per lane for an embedding width: 1 up to d = 64, 2 up to 128, 4 up
+// to MAX_D.
+inline int slots_per_lane(int d) { return d <= 64 ? 1 : d <= 128 ? 2 : 4; }
+
+}  // namespace attn

@@ -1,0 +1,319 @@
+// pixelrec_multimodal_tpu_torch/ops/csrc/attention_mlp.cu
+//
+// Fused attention-fusion pair scoring for Hopper (sm_90a), stream form
+// (kernel K4): one launch scores a [B users] x [C items] block through the
+// attention layer's per-side tables, LayerNorm, the token mean and the
+// BatchNorm-folded MLP, and writes the [B, C] f32 score matrix.
+//
+// Replaces: pixelrec_multimodal_tpu/ops/attention_scorer.py:_attention_kernel
+// (reached through pallas_attention_scores, variant 'stream').
+//
+// What it computes, per (user b, item c) pair, with T = 1 + Mi tokens and H
+// heads, in f32 (ops/attention_scorer.py:attention_scores_plain repeats it
+// operation for operation):
+//   token 0 (the user), per head: w = softmax(suu, q_b . k_cm for m < Mi)
+//        y_0 = raw_b + sum_h (w_0h vo_bh + sum_m w_mh vo_cmh)
+//   item token t, per head: e_u = exp(min(q_ct . k_b - mx_cth, 80)),
+//        r = 1 / (e_u + dsum_cth), a = e_u r, b = r
+//        y_t = raw_ct + sum_h (a_th vo_bh + b_th sexp_cth)
+//   fused = gamma * sum_t LN(y_t) / T + beta   (LN: centred, eps 1e-6)
+//   x     = bf16(fused), then the chain of mlp_chain.cuh from w1 on:
+//           bf16(act(bf16(x @ w1 + bf16(b1)))), the hidden layers, the dot.
+// b_out is folded into raw; vo is the value row times the head's block of
+// W_out; sexp and (dsum, mx) are the item keys' softmax mass of item query
+// t, built once per catalog.
+//
+// Bound: per pair at the flagship head (d 64 -> 512 -> 256 -> 128 -> 1, H 4,
+// Mi 5) the chain is 2*64*512 + 2*512*256 + 2*256*128 = 393,216 tensor-core
+// operations; the assembly is about 12k f32 operations (the 40 logit dots
+// over dh, 44 exps, the weighted sums over d per token, 6 LayerNorms) and
+// the last dot 2*128. At the data-sheet rates (989 TFLOP/s bf16 tensor, 67
+// TFLOP/s f32) the tensor-core work takes the longer, so the kernel is
+// bound by tensor-core operations; the bytes (each table row read once) are
+// far below either.
+//
+// Design: the block and the chain are K1's (8 users x 16 items, 16 warps,
+// the two activation buffers and the weight ring: 226,816 B of shared memory
+// at the flagship widths). The tile's user rows (15.5 KB) and the per-pair
+// coefficients (33 KB) fit in buffer B, which the chain first writes in its
+// layer 0; the 16 items' tables (228 KB) do not, and stream from global
+// memory: one warp per item, lanes across d (a float2 each), each item row
+// read once and combined with the tile's 8 users (a head's or a token's
+// rows loaded together), warp butterflies for the LayerNorm sums. The
+// logits are dot products per thread, the softmax one thread per (pair,
+// head). The grid runs the user tiles of an item tile
+// together, so an item tile is read from HBM once and from L2 after.
+
+#include "attention_common.cuh"
+
+namespace {
+
+using namespace pairwise;
+using namespace attn;
+
+// Residual + LayerNorm of one token of one pair, scaled by 1/T and added to
+// f: mean and centred variance are warp sums, each lane adding its entries
+// in order first.
+template <int J>
+__device__ __forceinline__ void layer_norm_add(const float2 (&y)[J],
+                                               float2 (&f)[J], int half,
+                                               float inv_d, float inv_t) {
+  const int lane = threadIdx.x & 31;
+  float p = 0.f;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (lane + 32 * j < half) {
+      p = __fadd_rn(p, y[j].x);
+      p = __fadd_rn(p, y[j].y);
+    }
+  const float mu = __fmul_rn(warp_sum(p), inv_d);
+  float2 yc[J];
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    yc[j] = make_float2(__fsub_rn(y[j].x, mu), __fsub_rn(y[j].y, mu));
+    if (lane + 32 * j < half) {
+      q = __fadd_rn(q, __fmul_rn(yc[j].x, yc[j].x));
+      q = __fadd_rn(q, __fmul_rn(yc[j].y, yc[j].y));
+    }
+  }
+  const float var = __fmul_rn(warp_sum(q), inv_d);
+  const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, LN_EPS)));
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    f[j].x = __fadd_rn(f[j].x, __fmul_rn(__fmul_rn(yc[j].x, rs), inv_t));
+    f[j].y = __fadd_rn(f[j].y, __fmul_rn(__fmul_rn(yc[j].y, rs), inv_t));
+  }
+}
+
+template <int J>
+__device__ __forceinline__ void load_f2(float2 (&v)[J],
+                                        const float* __restrict__ p,
+                                        int half) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int s = lane + 32 * j;
+    v[j] = s < half ? __ldg(reinterpret_cast<const float2*>(p) + s)
+                    : make_float2(0.f, 0.f);
+  }
+}
+
+// The fused vectors of warp ci's 8 pairs into buf_a, as bf16.
+template <int J>
+__device__ __forceinline__ void stream_assemble(
+    const float* U, const float* coef, const Dims& D,
+    const float* __restrict__ it_raw, const float* __restrict__ it_vo,
+    const float* __restrict__ it_sexp, const float* __restrict__ ln_scale,
+    const float* __restrict__ ln_bias, __nv_bfloat16* buf_a, int stride_a,
+    int c0, int C) {
+  const int lane = threadIdx.x & 31, ci = threadIdx.x >> 5, c = c0 + ci;
+  const int d = D.d, H = D.H, Mi = D.Mi, half = d / 2;
+  if (c >= C) {
+    zero_rows(buf_a, stride_a, ci, d);
+    return;
+  }
+  const float inv_d = __fdiv_rn(1.f, (float)d);
+  const float inv_t = __fdiv_rn(1.f, (float)(Mi + 1));
+  const float2 zero = make_float2(0.f, 0.f);
+  float2 f[TB][J], y[TB][J];
+#pragma unroll
+  for (int bu = 0; bu < TB; ++bu)
+#pragma unroll
+    for (int j = 0; j < J; ++j) f[bu][j] = y[bu][j] = zero;
+
+  // u_vo of user bu, head h, at this lane's slot j.
+  auto uvo = [&](int bu, int h, int j) {
+    const int s = lane + 32 * j;
+    return s < half ? reinterpret_cast<const float2*>(
+                          U + bu * D.urow + u_vo_off(D, h))[s]
+                    : zero;
+  };
+
+  // ---- token 0: y = raw + sum_h (w_0h u_vo_h + sum_m w_mh vo_mh). A
+  // head's Mi item rows are loaded together before they are used, so the
+  // warp waits on global memory once per head, not once per row.
+  float2 rows[MAX_HEADS > MAX_ITEM_MODS ? MAX_HEADS : MAX_ITEM_MODS][J];
+  for (int h = 0; h < H; ++h) {
+#pragma unroll
+    for (int m = 0; m < MAX_ITEM_MODS; ++m)
+      if (m < Mi) load_f2(rows[m], it_vo + (((size_t)c * Mi + m) * H + h) * d, half);
+#pragma unroll
+    for (int bu = 0; bu < TB; ++bu) {
+      const float w = coef[(bu * TC + ci) * D.ncoef + c0_off(D, h, 0)];
+#pragma unroll
+      for (int j = 0; j < J; ++j) y[bu][j] = f2_add_mul(y[bu][j], w, uvo(bu, h, j));
+    }
+#pragma unroll
+    for (int m = 0; m < MAX_ITEM_MODS; ++m) {
+      if (m >= Mi) break;
+#pragma unroll
+      for (int bu = 0; bu < TB; ++bu) {
+        const float w = coef[(bu * TC + ci) * D.ncoef + c0_off(D, h, 1 + m)];
+#pragma unroll
+        for (int j = 0; j < J; ++j) y[bu][j] = f2_add_mul(y[bu][j], w, rows[m][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int bu = 0; bu < TB; ++bu) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int s = lane + 32 * j;
+      const float2 r = s < half
+          ? reinterpret_cast<const float2*>(U + bu * D.urow)[s] : zero;
+      y[bu][j] = make_float2(__fadd_rn(r.x, y[bu][j].x),
+                             __fadd_rn(r.y, y[bu][j].y));
+    }
+    layer_norm_add(y[bu], f[bu], half, inv_d, inv_t);
+  }
+
+  // ---- item tokens: y = raw_t + sum_h (a_th u_vo_h + b_th sexp_th), the
+  // token's H sexp rows and its raw row loaded together
+  for (int t = 0; t < Mi; ++t) {
+    float2 raw[J];
+    load_f2(raw, it_raw + ((size_t)c * Mi + t) * d, half);
+#pragma unroll
+    for (int h = 0; h < MAX_HEADS; ++h)
+      if (h < H) load_f2(rows[h], it_sexp + (((size_t)c * Mi + t) * H + h) * d, half);
+#pragma unroll
+    for (int bu = 0; bu < TB; ++bu)
+#pragma unroll
+      for (int j = 0; j < J; ++j) y[bu][j] = zero;
+#pragma unroll
+    for (int h = 0; h < MAX_HEADS; ++h) {
+      if (h >= H) break;
+#pragma unroll
+      for (int bu = 0; bu < TB; ++bu) {
+        const float* cf = coef + (bu * TC + ci) * D.ncoef + ct_off(D, t, h);
+        const float a = cf[0], b = cf[1];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          y[bu][j] = f2_add_mul(y[bu][j], a, uvo(bu, h, j));
+          y[bu][j] = f2_add_mul(y[bu][j], b, rows[h][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int bu = 0; bu < TB; ++bu) {
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        y[bu][j] = make_float2(__fadd_rn(raw[j].x, y[bu][j].x),
+                               __fadd_rn(raw[j].y, y[bu][j].y));
+      layer_norm_add(y[bu], f[bu], half, inv_d, inv_t);
+    }
+  }
+
+  // ---- the LayerNorm affine, once, and the one bf16 rounding
+  float2 g[J], be[J];
+  load_f2(g, ln_scale, half);
+  load_f2(be, ln_bias, half);
+#pragma unroll
+  for (int bu = 0; bu < TB; ++bu)
+    store_fused(f[bu], g, be, buf_a + (bu * TC + ci) * stride_a, half);
+}
+
+template <int J>
+__global__ void __launch_bounds__(THREADS)
+attention_kernel(const float* __restrict__ u_raw, const float* __restrict__ u_q,
+                 const float* __restrict__ u_k, const float* __restrict__ u_vo,
+                 const float* __restrict__ u_suu,
+                 const float* __restrict__ it_raw,
+                 const float* __restrict__ it_q, const float* __restrict__ it_k,
+                 const float* __restrict__ it_vo,
+                 const float* __restrict__ it_sexp,
+                 const float* __restrict__ it_dm,
+                 const float* __restrict__ ln_scale,
+                 const float* __restrict__ ln_bias,
+                 const __nv_bfloat16* __restrict__ w,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ w_last,
+                 const float* __restrict__ b_last, float* __restrict__ out,
+                 int B, int C, Dims D, Chain ch, int act, int fin) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* buf_a = reinterpret_cast<__nv_bfloat16*>(smem);
+  int u0, c0;
+  tile_origin(&u0, &c0);
+  float* U = reinterpret_cast<float*>(buffer_b(buf_a, ch));
+  float* coef = U + TB * D.urow;
+
+  load_users(U, D, u_raw, u_q, u_k, u_vo, u_suu, nullptr, u0, B);
+  __syncthreads();
+  pair_logits(U, coef, D, it_q, it_k, c0, C);
+  __syncthreads();
+  softmax_coefs(U, coef, D, it_dm, c0, C);
+  __syncthreads();
+  stream_assemble<J>(U, coef, D, it_raw, it_vo, it_sexp, ln_scale, ln_bias,
+                     buf_a, ch.stride_a, c0, C);
+  __syncthreads();
+  run_chain(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act, fin);
+}
+
+template <int J>
+cudaError_t launch(const void* const* p, const void* w, const void* bias,
+                   const void* w_last, const void* b_last, void* out, int B,
+                   int C, const Dims& D, const Chain& ch, int act, int fin,
+                   cudaStream_t stream) {
+  dim3 grid;
+  size_t smem = 0;
+  cudaError_t err = prepare_attention(attention_kernel<J>, ch, D, B, C, &grid,
+                                      &smem);
+  if (err != cudaSuccess) return err;
+  const float* const* f = reinterpret_cast<const float* const*>(p);
+  attention_kernel<J><<<grid, THREADS, smem, stream>>>(
+      f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
+      f[11], f[12], static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(bias), static_cast<const float*>(w_last),
+      static_cast<const float*>(b_last), static_cast<float*>(out), B, C, D,
+      ch, act, fin);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Scores out[B, C] (f32, row-major) from the user rows u_raw, u_q, u_k
+// [B, d], u_vo [B, H*d], u_suu [B, 8] and the item tables it_raw, it_q,
+// it_k [C, Mi*d], it_vo, it_sexp [C, Mi*H*d], it_dm [C, H*Mi*2], with the
+// LayerNorm affine ln_scale, ln_bias [d]; all f32, row-major, 16-byte
+// aligned. The chain arguments (w, bias, w_last, b_last, n_hidden, widths,
+// act, fin) are pairwise_mlp_forward's, with widths[0] = d and w1 as layer
+// 0 (a chain with no hidden layer takes the last dot on the fused vector
+// itself: the assembly alone, for measurements). Returns cudaSuccess or the
+// first CUDA error (launch included); shapes the kernel does not take, or
+// widths that do not fit in shared memory, return cudaErrorInvalidValue.
+int attention_mlp_forward(const void* u_raw, const void* u_q, const void* u_k,
+                          const void* u_vo, const void* u_suu,
+                          const void* it_raw, const void* it_q,
+                          const void* it_k, const void* it_vo,
+                          const void* it_sexp, const void* it_dm,
+                          const void* ln_scale, const void* ln_bias,
+                          const void* w, const void* bias, const void* w_last,
+                          const void* b_last, void* out, int B, int C,
+                          int n_hidden, const void* widths, int act, int fin,
+                          int H, int Mi, void* stream) {
+  Chain ch;
+  cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
+  if (err != cudaSuccess) return err;
+  Dims D;
+  err = make_dims(ch.width[0], H, Mi, false, &D);
+  if (err != cudaSuccess) return err;
+  const void* p[13] = {u_raw, u_q,     u_k,   u_vo,     u_suu,
+                       it_raw, it_q,   it_k,  it_vo,    it_sexp,
+                       it_dm,  ln_scale, ln_bias};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (slots_per_lane(D.d)) {
+    case 1:
+      return launch<1>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
+                       s);
+    case 2:
+      return launch<2>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
+                       s);
+    default:
+      return launch<4>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
+                       s);
+  }
+}
+
+}  // extern "C"

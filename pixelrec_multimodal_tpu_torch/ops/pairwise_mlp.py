@@ -138,7 +138,7 @@ def build_factorized_head(model) -> Optional[dict]:
       folds into every one of them (the gates sum to 1).
     """
     if model.fusion_type not in ('concatenate', 'gated'):
-        return None  # the model refuses attention fusion itself
+        return None  # attention: ops/attention_scorer.build_attention_head
     kernels, biases = fold_prediction_mlp(model)
     n_hidden = len(model.fusion_hidden_dims)
     d = model.embedding_dim
@@ -454,13 +454,19 @@ def kernel_chain(head: dict,
     """The head's tensors in the kernel's layout on ``device`` (default:
     the head's): hidden weights as one bf16 buffer, biases and the live last
     column rounded to bf16 (held as float32), the width list from h1 on,
-    and the activation codes. Raises for a head the kernel does not take."""
+    and the activation codes. A head with an unfolded first Dense (``w1``
+    [d, h1] and ``b1``, the attention head) takes it as the chain's layer
+    0, so the widths start at d. Raises for a head the kernel does not
+    take."""
     bf16 = torch.bfloat16
     h1 = head['b1'].shape[0]
     device = head['b1'].device if device is None else torch.device(device)
-    hidden = head['layers'][:-1]
+    hidden = list(head['layers'][:-1])
     w_last, b_last = head['layers'][-1]
     widths = [h1]
+    if 'w1' in head:
+        hidden.insert(0, (head['w1'], head['b1']))
+        widths = [head['w1'].shape[0]]
     for w, _ in hidden:
         if w.shape[0] != widths[-1]:
             raise ValueError(f'layer input width {w.shape[0]} != previous '

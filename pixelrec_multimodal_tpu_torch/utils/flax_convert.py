@@ -4,7 +4,15 @@
 The port's modules carry the Flax submodule names, so a leaf at Flax path
 ``('prediction_network', 'Dense_0', 'kernel')`` lands in state-dict key
 ``prediction_network.Dense_0.weight``. Layouts differ only for Dense
-kernels: Flax ``kernel [in, out]`` becomes torch ``weight [out, in]``.
+kernels and the attention projections:
+
+* a Dense ``kernel [in, out]`` becomes torch ``weight [out, in]``;
+* Flax ``MultiHeadDotProductAttention`` keeps heads on their own axis:
+  ``query``, ``key`` and ``value`` kernels are ``[D, H, dh]`` with biases
+  ``[H, dh]``, the ``out`` kernel is ``[H, dh, D]``. The port's
+  projections are ``nn.Linear(D, H*dh)`` and ``nn.Linear(H*dh, D)``, so
+  the heads flatten into one axis (heads major) before the transpose. A
+  3-D kernel under any other name raises instead of being guessed at.
 
 The tree comes in as nested dicts of numpy arrays, e.g.
 ``jax.tree.map(np.asarray, variables)``; this module imports no JAX.
@@ -21,6 +29,8 @@ from torch import nn
 _PARAM_NAMES = {'kernel': 'weight', 'bias': 'bias', 'embedding': 'weight',
                 'scale': 'weight'}
 _STAT_NAMES = {'mean': 'running_mean', 'var': 'running_var'}
+# Flax attention projections whose kernels are [D, H, dh].
+_QKV = ('query', 'key', 'value')
 
 # Torch tensors a Flax tree may lack: BatchNorm's step counter has no Flax
 # counterpart, and Flax creates the contrastive projections' parameters
@@ -48,6 +58,25 @@ def _torch_key(path: Tuple[str, ...], names: Dict[str, str]) -> str:
     return '.'.join(path[:-1] + (leaf,))
 
 
+def _to_torch_layout(path: Tuple[str, ...], value: np.ndarray) -> np.ndarray:
+    """A Flax parameter in the layout of its torch tensor."""
+    name, owner = path[-1], path[-2] if len(path) > 1 else ''
+    if name == 'kernel':
+        if value.ndim == 2:
+            return value.T
+        if value.ndim == 3 and owner in _QKV:
+            d, h, dh = value.shape
+            return value.reshape(d, h * dh).T
+        if value.ndim == 3 and owner == 'out':
+            h, dh, d = value.shape
+            return value.reshape(h * dh, d).T
+        raise ValueError(f"no torch layout for the {value.ndim}-D Flax kernel "
+                         f"{'/'.join(path)} {value.shape}")
+    if name == 'bias' and owner in _QKV and value.ndim == 2:
+        return value.reshape(-1)
+    return value
+
+
 def load_flax_variables(model: nn.Module, variables: Mapping) -> List[str]:
     """Copy ``{'params': ..., 'batch_stats': ...}`` into ``model``.
 
@@ -64,8 +93,7 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> List[str]:
             if key not in state:
                 raise KeyError(f"Flax leaf {collection}/{'/'.join(path)} "
                                f"has no torch tensor {key!r}")
-            if path[-1] == 'kernel':
-                value = value.T
+            value = _to_torch_layout(path, value)
             target = state[key]
             if tuple(value.shape) != tuple(target.shape):
                 raise ValueError(f'{key}: Flax shape {value.shape} != torch '

@@ -1,6 +1,6 @@
 """Shared fixtures of the port's parity tests: one small model
-(concatenate or gated fusion) built in both packages from the same Flax
-variables, and item tables drawn from a numpy seed."""
+(concatenate, gated or attention fusion) built in both packages from the
+same Flax variables, and item tables drawn from a numpy seed."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,13 +22,14 @@ N_USERS, N_TAGS = 50, 7
 
 
 def model_kwargs(n_items, activation='relu', final='sigmoid',
-                 use_batch_norm=True, fusion_type='concatenate'):
+                 use_batch_norm=True, fusion_type='concatenate', heads=4):
     return dict(n_users=N_USERS, n_items=n_items, n_tags=N_TAGS,
                 num_numerical_features=NUMERICAL, embedding_dim=EMB,
                 vision_feature_dim=VISION, language_feature_dim=LANGUAGE,
                 use_contrastive=False, fusion_hidden_dims=HIDDEN,
                 fusion_activation=activation, final_activation=final,
                 use_batch_norm=use_batch_norm, dropout_rate=0.0,
+                attention_dropout=0.0, num_attention_heads=heads,
                 fusion_type=fusion_type)
 
 
@@ -49,11 +50,11 @@ def randomize_batchnorm(variables, seed=3):
 
 
 def make_pair(n_items, activation='relu', final='sigmoid', seed=0,
-              use_batch_norm=True, fusion_type='concatenate'):
+              use_batch_norm=True, fusion_type='concatenate', heads=4):
     """(jax_model, numpy variables, torch_model on the CPU) with equal
-    weights."""
+    weights; ``heads`` is the attention model's head count."""
     kw = model_kwargs(n_items, activation, final, use_batch_norm,
-                      fusion_type)
+                      fusion_type, heads)
     jmodel = JaxRecommender(**kw)
     B = 4
     variables = jmodel.init(

@@ -20,9 +20,16 @@ def test_library_path_follows_sources_and_headers(tmp_path, monkeypatch):
 
 
 def test_every_source_is_a_kernel_with_the_shared_header():
+    """Every kernel includes the shared chain, the attention kernels
+    through their own shared header."""
     sources = _build.all_sources()
-    assert sources == ['gated_factored_mlp', 'gated_pairwise_mlp',
+    assert sources == ['attention_gram_mlp', 'attention_mlp',
+                       'gated_factored_mlp', 'gated_pairwise_mlp',
                        'pairwise_mlp']
+    assert '#include "mlp_chain.cuh"' in (
+        _build.CSRC / 'attention_common.cuh').read_text()
     for name in sources:
-        assert '#include "mlp_chain.cuh"' in (
+        header = ('attention_common.cuh' if name.startswith('attention')
+                  else 'mlp_chain.cuh')
+        assert f'#include "{header}"' in (
             _build.CSRC / f'{name}.cu').read_text()

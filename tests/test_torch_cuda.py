@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 concat, K2 exact gated, K3 factored gated)
-and its scorer on a card.
+"""The port's CUDA kernels (K1 concat, K2 exact gated, K3 factored gated,
+K4 stream attention, K5 gram attention) and its scorer on a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX:
@@ -21,6 +21,7 @@ from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
 from pixelrec_multimodal_tpu_torch.models.multimodal import (
     MultimodalRecommender,
 )
+from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
 from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
 from pixelrec_multimodal_tpu_torch.ops.topk import NEG_INF
 
@@ -45,16 +46,18 @@ def dev():
     return torch.device('cuda')
 
 
-def make_model(activation='relu', final='sigmoid', fusion='concatenate'):
+def make_model(activation='relu', final='sigmoid', fusion='concatenate',
+               emb=EMB, heads=4):
     """A small model on the CPU, BatchNorm statistics non-trivial."""
     gen = torch.Generator().manual_seed(0)
     model = MultimodalRecommender(
         n_users=N_USERS, n_items=N_ITEMS, n_tags=N_TAGS,
-        num_numerical_features=NUMERICAL, embedding_dim=EMB,
+        num_numerical_features=NUMERICAL, embedding_dim=emb,
         vision_feature_dim=VISION, language_feature_dim=LANGUAGE,
         use_contrastive=False, fusion_hidden_dims=(64, 32),
         fusion_activation=activation, final_activation=final,
-        fusion_type=fusion, dropout_rate=0.0, generator=gen, device='cpu')
+        fusion_type=fusion, num_attention_heads=heads, dropout_rate=0.0,
+        generator=gen, device='cpu')
     with torch.no_grad():
         for i in range(2):
             bn = getattr(model.prediction_network, f'BatchNorm_{i}')
@@ -300,6 +303,185 @@ def test_gated_scorer_on_card(dev, variant):
             users.astype(np.int64)).to(dev))
         ref = plain(gpu._head, *side,
                     *(t[:N_ITEMS] for t in gpu._scan_tables),
+                    compute_dtype=torch.bfloat16)
+    full = gpu.score_full(users)
+    tol = KERNEL_TOL * max(1.0, float(ref.abs().max()))
+    np.testing.assert_allclose(full, ref.cpu().numpy(), atol=tol)
+    np.testing.assert_allclose(full, cpu.score_full(users), atol=F32_TOL)
+    ref[torch.from_numpy(seen).to(dev)] = NEG_INF
+    rv, ri = (t.cpu().numpy() for t in torch.topk(ref, k, dim=1))
+    np.testing.assert_allclose(v, rv, atol=tol)
+    for a, b, vals in zip(i, ri, rv):
+        clear = vals > vals[-1] + 2 * tol  # not tied with the boundary
+        assert set(b[clear]) <= set(a)
+    np.testing.assert_allclose(v, cpu.top_k(users, k, seen_mask=seen)[0],
+                               atol=F32_TOL)
+    rng = np.random.default_rng(7)
+    cands = rng.integers(0, N_ITEMS, (70, 12)).astype(np.int32)
+    valid = rng.random((70, 12)) < 0.8
+    np.testing.assert_allclose(gpu.score_candidates(users, cands, valid),
+                               cpu.score_candidates(users, cands, valid),
+                               atol=1e-4)
+
+
+# -------------------------------------------------------- attention fusion
+ATTENTION = {'stream': (tas.attention_scores, tas.attention_scores_plain),
+             'gram': (tas.attention_scores_gram,
+                      tas.attention_scores_gram_plain)}
+
+
+def attention_inputs(head, B, C, device, seed=4):
+    """Seeded attention tables for a [B] x [C] block on ``device``, with the
+    gram variant's scalar tables: (user side, item side)."""
+    rng = np.random.default_rng(seed)
+    d, mi = head['d'], head['n_item_mods']
+    users = torch.from_numpy(rng.standard_normal((B, d), np.float32))
+    feats = torch.from_numpy(rng.standard_normal((C, mi, d), np.float32))
+    cpu = head_on(head, 'cpu')
+    side = (tas.compute_user_side_attention(cpu, users, True),
+            tas.compute_item_side_attention(cpu, feats, True))
+    return tuple(tuple(t.to(device) for t in s) for s in side)
+
+
+# K4 and K5 against their plain bf16 versions, as the gated kernels: the
+# assembly rounds where the plain version does, operation for operation,
+# so nearly every pair agrees to float32 rounding, and a few differ where a
+# hidden activation lands on the neighbouring bf16 value (AGREE,
+# MAX_DIFFERING, FLIP_TOL).
+@pytest.mark.parametrize('final', ['sigmoid', 'tanh', 'none'])
+@pytest.mark.parametrize('activation', list(tpm.ACTIVATIONS))
+@pytest.mark.parametrize('heads', [1, 2, 4])
+@pytest.mark.parametrize('emb', [32, 64])
+@pytest.mark.parametrize('variant', ['stream', 'gram'])
+def test_attention_kernels_match_bf16_plain(dev, variant, emb, heads,
+                                            activation, final):
+    """One launch on a ragged 37 x 301 block."""
+    head = head_on(tas.build_attention_head(
+        make_model(activation, final, 'attention', emb, heads)), dev)
+    users, items = attention_inputs(head, 37, 301, dev)
+    kernel, plain = ATTENTION[variant]
+    before = kernel.launches
+    out = kernel(head, users, items)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = plain(head, users, items, compute_dtype=torch.bfloat16)
+    assert out.shape == (37, 301) and torch.isfinite(out).all()
+    scale = max(1.0, ref.abs().max().item())
+    diff = (out - ref).abs()
+    assert (diff > AGREE * scale).float().mean().item() <= MAX_DIFFERING
+    assert diff.max().item() <= FLIP_TOL * scale
+
+
+@pytest.mark.parametrize('act_final', [('relu', 'sigmoid'),
+                                       ('gelu', 'tanh')])
+@pytest.mark.parametrize('heads', [4, 8])
+@pytest.mark.parametrize('emb', [128, 256])
+@pytest.mark.parametrize('variant', ['stream', 'gram'])
+def test_attention_kernels_at_wide_embeddings(dev, variant, emb, heads,
+                                              act_final):
+    """The kernels' wider instances (two and four float2 slots per lane)
+    and the most heads they take, as
+    test_attention_kernels_match_bf16_plain; d 128 is the advanced
+    configuration's width, d 256 the widest the kernels take. K5 keeps
+    each pair's cross-Grams in shared memory and fits only d 128 with 4
+    heads here (at 8 heads or d 256 it would need 263 KB or more of the
+    card's 227 KB): elsewhere its launch is refused and raises, as
+    ``kernel_smem_bytes`` counts."""
+    head = head_on(tas.build_attention_head(
+        make_model(*act_final, 'attention', emb, heads)), dev)
+    users, items = attention_inputs(head, 21, 150, dev)
+    kernel, plain = ATTENTION[variant]
+    refused = variant == 'gram' and (emb, heads) != (128, 4)
+    assert refused == (tas.kernel_smem_bytes(head, variant == 'gram')
+                       > tas.SMEM_OPTIN)
+    if refused:
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match='shared-memory'):
+            kernel(head, users, items)
+        assert kernel.launches == before
+        return
+    out = kernel(head, users, items)
+    torch.cuda.synchronize()
+    ref = plain(head, users, items, compute_dtype=torch.bfloat16)
+    assert out.shape == (21, 150) and torch.isfinite(out).all()
+    scale = max(1.0, ref.abs().max().item())
+    diff = (out - ref).abs()
+    assert (diff > AGREE * scale).float().mean().item() <= MAX_DIFFERING
+    assert diff.max().item() <= FLIP_TOL * scale
+
+
+@pytest.mark.parametrize('emb_heads', [(128, 8), (256, 4)])
+def test_attention_scorer_refuses_gram_that_does_not_fit(dev, emb_heads):
+    """A model K5 does not take raises at construction of a gram scorer,
+    before any table is built, and names the stream variant, which
+    serves it."""
+    model = make_model('relu', 'sigmoid', 'attention', *emb_heads)
+    launches = tas.attention_scores_gram.launches
+    with pytest.raises(ValueError, match="attention_variant='stream'"):
+        CatalogScorer(copy.deepcopy(model), store(), item_chunk=256,
+                      user_chunk=64, attention_variant='gram', device=dev)
+    assert tas.attention_scores_gram.launches == launches
+    scorer = CatalogScorer(model, store(), item_chunk=256, user_chunk=64,
+                           attention_variant='stream', device=dev)
+    v, i = scorer.top_k(np.arange(5, dtype=np.int32), 10)
+    assert v.shape == (5, 10) and np.isfinite(v).all()
+
+
+def test_attention_kernels_reject_what_they_do_not_take(dev):
+    head = head_on(tas.build_attention_head(make_model(fusion='attention')),
+                   dev)
+    users, items = attention_inputs(head, 8, 32, dev)
+    launches = (tas.attention_scores.launches,
+                tas.attention_scores_gram.launches)
+    for bad_users, bad_items in (
+            ((users[0].double(),) + users[1:], items),
+            (users, (items[0][:, :-16],) + items[1:]),
+            (users, items[:3] + (items[3].t().contiguous().t(),) + items[4:]),
+            (users, items[:5] + (items[5][:7],) + items[6:]),
+            (users, (items[0].cpu(),) + items[1:])):
+        for kernel, _ in ATTENTION.values():
+            with pytest.raises(ValueError):
+                kernel(head, bad_users, bad_items)
+    for bad, match in ((dict(head, d=40), 'multiple of 16'),
+                       (dict(head, H=9), 'heads'),
+                       (dict(head, n_item_mods=8), 'item-side')):
+        for kernel, _ in ATTENTION.values():
+            with pytest.raises(ValueError, match=match):
+                kernel(bad, users, items)
+    with pytest.raises(ValueError, match='scalar tables'):
+        tas.attention_scores_gram(head, users[:5], items[:6])
+    assert (tas.attention_scores.launches,
+            tas.attention_scores_gram.launches) == launches
+
+
+@pytest.mark.parametrize('variant', ['stream', 'gram'])
+def test_attention_scorer_on_card(dev, variant):
+    """Attention top_k and score_full through K4 or K5 against the plain
+    bf16 scores of the same tables (KERNEL_TOL; top-10 sets equal but for
+    near-ties at the boundary) and against the CPU scorer of the same
+    variant, whose plain path is float32 (F32_TOL). 70 users in 64-user
+    blocks, 1,000 items in 256-item chunks: 2 x 4 launches per call.
+    score_candidates is the float32 stream math on both devices: atol
+    1e-4."""
+    model = make_model('gelu', 'sigmoid', 'attention')
+    users = np.random.default_rng(5).integers(0, N_USERS, 70).astype(
+        np.int32)
+    seen = np.random.default_rng(6).random((70, N_ITEMS)) < 0.05
+    k = 10
+    kw = dict(item_chunk=256, user_chunk=64, attention_variant=variant)
+    gpu = CatalogScorer(copy.deepcopy(model), store(), **kw, device=dev)
+    cpu = CatalogScorer(model, store(), **kw, device='cpu')
+    assert gpu.attention_variant == cpu.attention_variant == variant
+    kernel, plain = ATTENTION[variant]
+    before = kernel.launches
+    v, i = gpu.top_k(users, k, seen_mask=seen)
+    assert kernel.launches == before + 8
+    assert not seen[np.arange(70)[:, None], i].any()
+    with torch.no_grad():
+        side = gpu._fast_user_side(torch.from_numpy(
+            users.astype(np.int64)).to(dev))
+        ref = plain(gpu._head, side,
+                    tuple(t[:N_ITEMS] for t in gpu._scan_tables),
                     compute_dtype=torch.bfloat16)
     full = gpu.score_full(users)
     tol = KERNEL_TOL * max(1.0, float(ref.abs().max()))

@@ -107,12 +107,40 @@ def test_gated_fusion_builds_on_cpu_and_defaults_to_cuda(monkeypatch):
         CatalogScorer(model, store)
 
 
+@pytest.mark.parametrize('variant', ['stream', 'gram'])
+def test_attention_fusion_builds_on_cpu_and_defaults_to_cuda(monkeypatch,
+                                                             variant):
+    """Attention fusion is ported: an attention model and its scorer build
+    on the CPU when asked, and raise without a card by default; the
+    cascade entry points raise and name the cascade slice."""
+    kw = dict(n_users=4, n_items=8, n_tags=2, num_numerical_features=0,
+              embedding_dim=16, fusion_hidden_dims=(16,),
+              use_contrastive=False, fusion_type='attention',
+              num_attention_heads=2)
+    store = ItemFeatureStore(8, [str(i) for i in range(8)])
+    store.tables['tag_idx'] = torch.zeros(8, dtype=torch.int32).numpy()
+    model = MultimodalRecommender(**kw, device='cpu')
+    scorer = CatalogScorer(model, store, attention_variant=variant,
+                           device='cpu')
+    assert scorer.attention_variant == variant
+    assert scorer.top_k([0, 1], 3)[1].shape == (2, 3)
+    with pytest.raises(NotImplementedError, match='cascade slice'):
+        scorer.top_k_cascade([0, 1], 3)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        MultimodalRecommender(**kw)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        CatalogScorer(model, store)
+
+
 def test_unported_options_raise():
     kw = dict(n_users=4, n_items=8, n_tags=2, num_numerical_features=0,
               embedding_dim=8, fusion_hidden_dims=(16,),
               use_contrastive=False, device='cpu')
-    with pytest.raises(NotImplementedError, match='A9'):
-        MultimodalRecommender(**kw, fusion_type='attention')
+    assert MultimodalRecommender(**kw, fusion_type='attention').fusion_type \
+        == 'attention'
+    with pytest.raises(ValueError, match='fusion type'):
+        MultimodalRecommender(**kw, fusion_type='bilinear')
     assert MultimodalRecommender(**kw, fusion_type='gated').fusion_type \
         == 'gated'
     model = MultimodalRecommender(**kw)
