@@ -9,8 +9,11 @@ version on the card, drives the main paths (full-catalog top-K serving at
 bench.py's geometry, random weights from a seed: the flagship
 concatenate-fusion model through kernel K1, then its gated-fusion twin
 through K2, exact, and K3, factored, then its attention-fusion twin
-through K4, stream, and K5, gram), checks what comes out against the
-plain versions, and times the kernels. Every phase prints one JSON line;
+through K4, stream, and K5, gram, then the attention cascade at
+scripts/bench_cascade.py's geometry: its screens through K6, token 0, and
+K1, additive, each tier of ``top_k_cascade`` and ``auto_cascade``), checks
+what comes out against the plain versions and the exact scan, and times
+the kernels. Every phase prints one JSON line;
 any failure raises and exits non-zero. The second-to-last line is the
 ``kernels`` JSON object and the last line is ``{"ok": true, "device":
 {...}}``.
@@ -133,6 +136,9 @@ def build_flagship(seed: int = SEED, device='cuda',
 def attention_ops(head: dict, kernel: str) -> int:
     """Float32 operations per pair of an attention kernel's assembly,
     counted from its code (exps and divisions as one each):
+      K6: token 0 alone, the Mi*H logit dots over dh, its softmax per head,
+          5*Mi + 4, its weighted sum, 2*H*(1 + Mi)*d, plus the residual d,
+          one LayerNorm, 7*d, the affine, 2*d, and the tail, d;
       both: the 2*Mi*H logit dots over dh; token 0's softmax per head,
           5*Mi + 4; the clamped exp, a and b per item token and head, 6;
       K4: token 0's weighted sum, 2*H*(1 + Mi)*d, and each item token's,
@@ -145,6 +151,9 @@ def attention_ops(head: dict, kernel: str) -> int:
           pass, 2*d*(1 + H + Mi*H + Mi) plus d, and the affine, 2*d."""
     d, H, Mi, dh = head['d'], head['H'], head['n_item_mods'], head['dh']
     n_vo = Mi * H
+    if kernel == 'K6':
+        return (2 * n_vo * dh + H * (5 * Mi + 4) + 2 * H * (1 + Mi) * d
+                + d + 7 * d + 3 * d)
     ops = 2 * (2 * n_vo) * dh + H * (5 * Mi + 4) + 6 * n_vo
     if kernel == 'K4':
         return (ops + 2 * H * (1 + Mi) * d + d + Mi * (4 * H * d + d)
@@ -167,10 +176,10 @@ def pair_ops(head: dict, h1: int, kernel: str = 'K1') -> tuple:
       K3: Z and p0 from M products, 2*M + 2, and per column the Mi-term
           contraction, the user term, the 1/Z scale and the activation,
           (2*Mi + 4)*h1;
-      K4, K5: ``attention_ops``, with w1 [d, h1] among the products."""
+      K4, K5, K6: ``attention_ops``, with w1 [d, h1] among the products."""
     hidden = head['layers'][:-1]
     dot = 2 * head['layers'][-1][0].shape[0]
-    if kernel in ('K4', 'K5'):
+    if kernel in ('K4', 'K5', 'K6'):
         hidden = [(head['w1'], head['b1'])] + list(hidden)
         assembly = attention_ops(head, kernel)
     elif kernel == 'K1':
@@ -256,6 +265,21 @@ def random_attention_rows(head, B, C, gen, device, with_gram):
             compute_item_side_attention(head, feats, with_gram))
 
 
+def screen_call(fn):
+    """K6's wrapper or plain version, (head, user_side, item_side, tail),
+    called as the other kernels are: (head, 5 user tensors, k, vo, tail);
+    K6 reads only k and vo of the item tables."""
+    def call(head, *t, **kw):
+        return fn(head, t[:5], (None, None) + t[5:7], t[7], **kw)
+    return call
+
+
+def topc_overlap(a: np.ndarray, b: np.ndarray) -> float:
+    """Mean share of row a's entries found in row b."""
+    return float(np.mean([len(set(x) & set(y)) / len(x)
+                          for x, y in zip(a, b)]))
+
+
 def user_item_call(fn, n_user: int):
     """An attention wrapper or plain version, (head, user_side, item_side),
     called as the other kernels are: (head, *user tensors, *item
@@ -289,22 +313,25 @@ def kernel_error(kernel, plain, head, users: tuple, items: tuple) -> tuple:
 
 
 def reset_launches():
+    from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
     from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
     from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
     for fn in (tpm.pairwise_scores, tpm.pairwise_scores_gated,
                tpm.pairwise_scores_gated_factored, tas.attention_scores,
-               tas.attention_scores_gram):
+               tas.attention_scores_gram, tac.attention_screen_scores):
         fn.launches = 0
 
 
 def launch_counts() -> dict:
+    from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
     from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
     from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
     return {'K1': tpm.pairwise_scores.launches,
             'K2': tpm.pairwise_scores_gated.launches,
             'K3': tpm.pairwise_scores_gated_factored.launches,
             'K4': tas.attention_scores.launches,
-            'K5': tas.attention_scores_gram.launches}
+            'K5': tas.attention_scores_gram.launches,
+            'K6': tac.attention_screen_scores.launches}
 
 
 def drive_top_k(scorer, users, kernel: str, phase: str, **fields):
@@ -438,6 +465,7 @@ def main() -> int:
         return 2
     from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
     from pixelrec_multimodal_tpu_torch.ops import _build
+    from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
     from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
     from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
         ACTIVATIONS,
@@ -458,8 +486,8 @@ def main() -> int:
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    name = torch.cuda.get_device_name(0)
-    emit('card', nvidia_smi=smi, name=name,
+    device_name = torch.cuda.get_device_name(0)
+    emit('card', nvidia_smi=smi, name=device_name,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
@@ -718,12 +746,14 @@ def main() -> int:
 
     # ---- 11. the attention main paths, one per variant, then their
     # kernels' times at the flagship block
+    exact = {}
     for variant, s in attn.items():
         kid, kernel, plain, source, line, tpu = akernels[variant]
-        v, i, launches, _ = drive_top_k(s, users, kid,
-                                        f'main_path_attention_{variant}',
-                                        attention_variant=s.attention_variant,
-                                        nvidia_smi=smi)
+        v, i, launches, exact[variant] = drive_top_k(
+            s, users, kid, f'main_path_attention_{variant}',
+            attention_variant=s.attention_variant, nvidia_smi=smi)
+        if variant == 'stream':
+            exact_v, exact_i = v, i
         check_against_plain(s, plain, users, v, i,
                             f'main_path_attention_{variant}_vs_plain',
                             f32=False)
@@ -739,10 +769,237 @@ def main() -> int:
             tpu_module='attention_scorer',
             function_of='K4' if kid == 'K5' else None))
 
+    # ---- 12. set-up of the attention cascade: scripts/bench_cascade.py's
+    # geometry, the stream scorer's tables plus the screens' (the tail and
+    # the additive item rows), built on first use
+    stream = attn['stream']
+    del attn, side, s
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    stream._ensure_screen('additive')
+    torch.cuda.synchronize()
+    tail, add = stream._screen_tail, stream._screen_add
+    emit('setup_cascade', seconds=round(time.time() - t0, 3),
+         tail_shape=list(tail.shape),
+         tail_bytes=tail.numel() * tail.element_size(),
+         additive_shape=list(add.shape),
+         additive_bytes=add.numel() * add.element_size())
+    k6, k6_plain = (screen_call(tac.attention_screen_scores),
+                    screen_call(tac.attention_screen_scores_plain))
+    it_k, it_vo = stream._item_fast[2], stream._item_fast[3]
+
+    # ---- 13. K6 against its plain version: at the flagship on the
+    # scorer's tables, then over the small widths (K4's tolerances)
+    t0 = time.time()
+    with torch.no_grad():
+        side = stream._fast_user_side(
+            torch.from_numpy(users[:200].astype(np.int64)).to(dev))
+        err, frac, scale = kernel_diff(
+            k6, k6_plain, ahead, side,
+            (it_k[:8000], it_vo[:8000], tail[:8000]))
+        k6_flag = (err, KERNEL_TOL * scale)
+        max_share = MAX_DIFFERING_PER_LAYER * ahead['kernel']['n_hidden']
+        emit('kernel_vs_plain', kernel='K6', widths='flagship', B=200,
+             C=8000, max_abs_err=err, tol=k6_flag[1], share_over_agree=frac,
+             agree=AGREE * scale, max_share=max_share)
+        if not (err <= k6_flag[1] and frac <= max_share):
+            raise AssertionError(f'K6 flagship error {err} > {k6_flag[1]} '
+                                 f'or share {frac} > {max_share}')
+        worst = share = 0.0
+        combos = 0
+        for d, heads in ((32, 1), (32, 2), (32, 4), (64, 1), (64, 2),
+                         (64, 4)):
+            for n, (act, final) in enumerate(
+                    (a, f) for a in ACTIVATIONS
+                    for f in ('sigmoid', 'tanh', 'none')):
+                widths = ((64, 32), (128, 256), (48,))[n % 3]
+                h = random_attention_head(d, heads, widths, act, final, gen,
+                                          dev)
+                u, it = random_attention_rows(h, 37, 301, gen, dev, False)
+                max_share = MAX_DIFFERING_PER_LAYER * len(widths)
+                combos += 1
+                err, frac, scale = kernel_diff(
+                    k6, k6_plain, h, u,
+                    (it[2], it[3], tac.compute_screen_tail(h, it)))
+                worst = max(worst, err / (FLIP_TOL * scale))
+                share = max(share, frac / max_share)
+                if not (err <= FLIP_TOL * scale and frac <= max_share):
+                    raise AssertionError(
+                        f'K6 error {err} (share {frac} over {AGREE * scale})'
+                        f' at d={d}, heads={heads}, widths {widths}, '
+                        f'{act}/{final}')
+        emit('kernel_vs_plain', kernel='K6',
+             widths='small: d 32, 64 x heads 1, 2, 4 x every activation x '
+                    'final', combos=combos, worst_err_over_flip_tol=worst,
+             worst_share_over_max_share=share,
+             max_share_per_hidden_layer=MAX_DIFFERING_PER_LAYER,
+             seconds=round(time.time() - t0, 3))
+
+    # ---- 14. the screens alone: top_k(_screen=) for 8,192 users over the
+    # catalog at the tiers' default C, one launch per item chunk, against
+    # the plain bf16 screen on 64 users
+    with torch.no_grad():
+        side64 = stream._fast_user_side(
+            torch.from_numpy(users[:64].astype(np.int64)).to(dev))
+        uf64 = tac.compute_screen_additive_user(ahead, side64)
+    plain_screen = {
+        'token0': lambda c: tac.attention_screen_scores_plain(
+            ahead, side64, (None, None, it_k[c], it_vo[c]), tail[c],
+            torch.bfloat16),
+        'additive': lambda c: pairwise_scores_plain(
+            stream._screen_head, uf64, add[c], torch.bfloat16)}
+    screen_launches = {}
+    for screen, n_cand, kid in (('token0', 400, 'K6'),
+                                ('additive', 1024, 'K1')):
+        stream.top_k(users, n_cand, _screen=screen)  # warm-up
+        reset_launches()
+        times = []
+        for _ in range(3):
+            t0 = time.time()
+            v, i = stream.top_k(users, n_cand, _screen=screen)
+            times.append(time.time() - t0)
+        counts = launch_counts()
+        per_call = stream.n_pad // stream.item_chunk
+        expected = {k: 3 * per_call if k == kid else 0 for k in counts}
+        if counts != expected:
+            raise AssertionError(f'screen_{screen}: kernel launches '
+                                 f'{counts} != expected {expected}')
+        if v.shape != (N_USERS, n_cand) or not np.isfinite(v).all() \
+                or (i < 0).any() or (np.diff(v, axis=1) > 0).any():
+            raise AssertionError(f'screen_{screen}: output malformed')
+        with torch.no_grad():
+            ref = torch.cat([plain_screen[screen](slice(c, c + 4096))
+                             for c in range(0, N_ITEMS, 4096)], dim=1)
+        overlap = topc_overlap(i[:64], torch.topk(ref, n_cand, 1)[1]
+                               .cpu().numpy())
+        median = statistics.median(times)
+        screen_launches[kid] = counts[kid]
+        emit(f'screen_{screen}', users=N_USERS, items=N_ITEMS, C=n_cand,
+             seconds=times, median_seconds=median,
+             pairs_per_sec=N_USERS * N_ITEMS / median, kernel_launches=counts,
+             launches_per_call=counts[kid] // 3,
+             topc_overlap_vs_plain_bf16=overlap, min_overlap=MIN_OVERLAP,
+             nvidia_smi=smi)
+        if overlap < MIN_OVERLAP:
+            raise AssertionError(f'screen_{screen}: top-{n_cand} overlap '
+                                 f'{overlap} < {MIN_OVERLAP}')
+    del ref, side64, uf64
+
+    # ---- 15. the cascade's main paths: top_k_cascade for 8,192 users,
+    # k = 50, at the tier defaults: one warm-up, then three timed calls with
+    # the launch counts set to 0 just before them; against the exact stream
+    # scan of phase 11
+    cascade_launches = {}
+    for tier, kid, n_cand in (('token0', 'K6', 400), ('additive', 'K1', 1024),
+                              ('funnel', 'K1', 400)):
+        stream.top_k_cascade(users, TOP_K, screen=tier)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        times = []
+        for _ in range(3):
+            t0 = time.time()
+            v, i = stream.top_k_cascade(users, TOP_K, screen=tier)
+            times.append(time.time() - t0)
+        counts = launch_counts()
+        expected = {k: (3 * stream.n_pad // stream.item_chunk
+                        if k == kid else 0) for k in counts}
+        if counts != expected:
+            raise AssertionError(f'main_path_cascade_{tier}: kernel launches'
+                                 f' {counts} != expected {expected}')
+        if v.shape != (N_USERS, TOP_K) or not np.isfinite(v).all() \
+                or (i < 0).any() or (np.diff(v, axis=1) > 0).any():
+            raise AssertionError(f'main_path_cascade_{tier}: output '
+                                 f'malformed')
+        cascade_launches[kid] = counts[kid]
+        # the rescore alone, on as many candidates per user
+        _, cands = stream.top_k(users, n_cand, _screen=(
+            'additive' if tier == 'additive' else 'token0'))
+        with torch.no_grad():
+            emb = stream.model.user_tower(
+                torch.from_numpy(users.astype(np.int64)).to(dev))
+            ct = torch.from_numpy(cands.astype(np.int64)).to(dev)
+            stream._attention_candidates(emb, ct)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            stream._attention_candidates(emb, ct)
+            torch.cuda.synchronize()
+            rescore_s = time.time() - t0
+        del emb, ct
+        recall = topc_overlap(exact_i, i)
+        ex = [dict(zip(a.tolist(), b.tolist()))
+              for a, b in zip(exact_i, exact_v)]
+        both = np.array([(ex[b][x], y) for b in range(N_USERS)
+                         for x, y in zip(i[b].tolist(), v[b].tolist())
+                         if x in ex[b]]).reshape(-1, 2)
+        score_err = float(np.abs(both[:, 0] - both[:, 1]).max(initial=0.0))
+        tol = KERNEL_TOL * max(1.0, float(np.abs(both).max(initial=0.0)))
+        median = statistics.median(times)
+        emit(f'main_path_cascade_{tier}', users=N_USERS, items=N_ITEMS,
+             k=TOP_K, n_candidates=n_cand,
+             **({'funnel_c1': max(8 * n_cand, 4096)}
+                if tier == 'funnel' else {}),
+             seconds=times, median_seconds=median,
+             effective_pairs_per_sec=N_USERS * N_ITEMS / median,
+             exact_scan_pairs_per_sec=N_USERS * N_ITEMS / exact['stream'],
+             rescore_seconds=rescore_s, rescore_share=rescore_s / median,
+             kernel_launches=counts, recall_vs_exact_top50=recall,
+             shared_items=len(both), shared_score_max_abs_diff=score_err,
+             tol=tol, nvidia_smi=smi)
+        if not score_err <= tol:
+            raise AssertionError(f'main_path_cascade_{tier}: scores of '
+                                 f'shared items differ by {score_err} > '
+                                 f'{tol}')
+
+    # ---- 16. auto_cascade on a sample of those users: its recalls, timed
+    # plans and decision; then a plan installed with both gates open, and
+    # top_k routed through it (by launch counts)
+    t0 = time.time()
+    plan = stream.auto_cascade(users[:1024], TOP_K, sample_users=128)
+    report = stream.auto_cascade_report
+    emit('auto_cascade', users=1024, sample_users=report['sample_users'],
+         grid=report['grid'], recall=report['recall'],
+         funnel_recall=None if report['funnel_recall'] is None else {
+             f'{c1}/{c2}': r for (c1, c2), r in
+             report['funnel_recall'].items()},
+         plans=report['plans'], exact_seconds=report['exact_seconds'],
+         decision=plan or 'exact scan', seconds=round(time.time() - t0, 3),
+         nvidia_smi=smi)
+    forced = stream.auto_cascade(users[:1024], TOP_K, sample_users=128,
+                                 recall_target=0.0, min_speedup=0.0)
+    routed = {}
+    for route, kw in (('plan', {}), ('exact', {'_exact': True})):
+        reset_launches()
+        v, i = stream.top_k(users[:256], TOP_K, **kw)
+        routed[route] = launch_counts()
+    stream.disable_cascade()
+    kid = 'K6' if forced['screen'] == 'token0' else 'K1'
+    emit('auto_cascade_routing', plan=forced, users=256,
+         launches_through_plan=routed['plan'],
+         launches_exact=routed['exact'])
+    if routed['plan']['K4'] or not routed['plan'][kid] \
+            or routed['exact']['K4'] != stream.n_pad // stream.item_chunk:
+        raise AssertionError(f'auto_cascade: top_k did not route through '
+                             f'the plan: {routed}')
+
+    # ---- 17. K6's time at the flagship block
+    with torch.no_grad():
+        side = stream._fast_user_side(
+            torch.from_numpy(users[:TIME_B].astype(np.int64)).to(dev))
+    lines.append(kernel_line(
+        'attention_screen_mlp', 'K6', 'attention_screen_mlp.cu', 406,
+        '_attention_screen_kernel', ahead, ahead['h1'],
+        tuple(side) + (it_k[:TIME_C], it_vo[:TIME_C], tail[:TIME_C]),
+        k6, k6_plain, cascade_launches['K6'], *k6_flag,
+        'no single PyTorch call computes the token-0 attention assembly + '
+        'LayerNorm + Dense chain + one-column reduce',
+        tpu_module='attention_cascade'))
+    lines[-1]['launches_screen_token0'] = screen_launches['K6']
+    lines[0]['launches_additive_cascade'] = cascade_launches['K1']
+
     emit('timing', seconds_total=round(time.time() - t_start, 3))
     print(json.dumps({'kernels': lines}), flush=True)
     print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': name,
+        'platform': 'gpu', 'kind': device_name,
         'count': torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -3,7 +3,7 @@
 
 Counterpart of ``CatalogScorer`` in
 ``pixelrec_multimodal_tpu/inference/scorer.py``, concatenate, gated and
-attention fusion:
+attention fusion, and the attention cascade:
 
   * the item tower (item and tag embeddings plus modality projections) is
     computed once for the padded catalog, streamed host -> device in
@@ -20,7 +20,13 @@ attention fusion:
     concat, K2 for exact gated, K3 for factored gated;
     ``ops/attention_scorer.py``: K4 for stream attention, K5 for gram
     attention), and a running top-k merges each chunk (``ops/topk.py``),
-    so the [users, items] matrix is never held whole.
+    so the [users, items] matrix is never held whole;
+  * for an attention model, ``top_k_cascade`` screens the catalog the same
+    way through a cheaper kernel (K6, the token-0 screen, or K1 on the
+    additive screen's rows; ``ops/attention_cascade.py``), then rescores
+    each user's top candidates exactly on gathered table rows, and
+    ``auto_cascade`` installs a calibrated plan that ``top_k`` then routes
+    through.
 
 Blocks and chunks may be ragged: the kernel masks its own edges, so user
 blocks are not padded to size classes (the JAX package pads them to keep
@@ -29,14 +35,24 @@ one compiled shape per class; PyTorch compiles nothing per shape).
 from __future__ import annotations
 
 import contextlib
+import sys
+import time
 from functools import partial
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.attention_cascade import attention_candidate_scores
+from ..ops.attention_cascade import (
+    attention_candidate_scores,
+    attention_screen_candidate_scores,
+    attention_screen_scores,
+    compute_screen_additive_items,
+    compute_screen_additive_user,
+    compute_screen_tail,
+    screen_additive_head,
+)
 from ..ops.attention_scorer import (
     attention_scores,
     attention_scores_gram,
@@ -81,14 +97,15 @@ DEFAULT_GATED_VARIANT = 'exact'
 # PERF.md). The JAX package's TPU default, 'gram', was measured on a TPU.
 DEFAULT_ATTENTION_VARIANT = 'stream'
 
-# Pairs of gathered candidate rows scored at once by the attention
-# candidate path (~14 KB of tables and ~2 KB of temporaries per pair).
-_ATTENTION_CANDIDATE_PAIRS = 1 << 16
+# Bytes of gathered table rows per user sub-block of the attention
+# candidate paths (the cascade's rescore and the funnel's candidate screen,
+# score_candidates); their temporaries take about as much again. On the
+# H100 budgets of 128 MiB to 4 GiB time within 10% of each other, and 1 GiB
+# within 2.4% of the fastest at a quarter of its memory
+# (scripts/torch_kernel_bench.py rescore, PERF.md).
+_CANDIDATE_BLOCK_BYTES = 1 << 30
 
-_CASCADE_NOT_PORTED = (
-    'is not ported yet: the attention cascade (screen kernel K6, the '
-    'additive screen, calibration and the funnel) is the cascade slice, '
-    'ROADMAP item A9 / B7')
+SCREENS = ('additive', 'token0', 'funnel')
 
 
 @contextlib.contextmanager
@@ -134,6 +151,11 @@ class CatalogScorer:
     path of an attention model (``fast_path=False``) scores at most 64
     users per block, as the JAX package does: the model's attention holds
     [users x items x H x T x T] intermediates.
+
+    An attention fast path also serves the cascade (``top_k_cascade``,
+    ``calibrate_cascade``, ``calibrate_funnel``, ``auto_cascade``,
+    ``disable_cascade``) in either variant; its screen tables are built on
+    first use. Any other scorer raises ValueError there.
     """
 
     # Rows of raw encoder features moved host -> device per item-tower step.
@@ -177,6 +199,13 @@ class CatalogScorer:
             self.user_chunk = min(self.user_chunk, 64)
         self._pad_mask = np.zeros(self.n_pad, dtype=bool)
         self._pad_mask[self.n_items:] = True  # True = invalid (padding)
+        # The cascade's per-item screen tables and the additive screen's K1
+        # head, built on first use (_ensure_screen); the plan auto_cascade
+        # installs ({'screen', 'n_candidates', 'k', ...}), through which
+        # top_k routes requests with k <= its k.
+        self._screen_tail = self._screen_add = self._screen_head = None
+        self._cascade_plan: Optional[Dict] = None
+        self.auto_cascade_report: Optional[Dict] = None
 
         with _exact_f32():
             self._item_feats = self._build_item_tower()  # [n_pad, M, D]
@@ -267,21 +296,24 @@ class CatalogScorer:
                 self._tensor(idx), padded(t['tag_idx'], np.int64), **kw))
         return torch.cat(parts) if len(parts) > 1 else parts[0]
 
-    def _build_item_fast(self, compute: Callable
+    def _build_item_fast(self, compute: Callable,
+                         sources: Optional[Sequence[torch.Tensor]] = None
                          ) -> Tuple[torch.Tensor, ...]:
         """Apply a per-item table compute over the padded catalog in
         chunks written into preallocated tables, so the transient memory is
-        one chunk's temporaries."""
+        one chunk's temporaries. ``compute`` takes a chunk of each of
+        ``sources`` (default: the item tower)."""
+        sources = (self._item_feats,) if sources is None else tuple(sources)
         n_pad = self.n_pad
         chunk = min(self._TOWER_BUILD_CHUNK, n_pad)
-        first = compute(self._item_feats[:chunk])
+        first = compute(*(t[:chunk] for t in sources))
         outs = tuple(torch.empty((n_pad,) + f.shape[1:], dtype=f.dtype,
                                  device=self.device) for f in first)
         for o, f in zip(outs, first):
             o[:chunk] = f
         for start in range(chunk, n_pad, chunk):
             for o, p in zip(outs, compute(
-                    self._item_feats[start:start + chunk])):
+                    *(t[start:start + chunk] for t in sources))):
                 o[start:start + chunk] = p
         return outs
 
@@ -347,21 +379,43 @@ class CatalogScorer:
         return pairwise_scores_gated(self._head, *user_side, *chunk)
 
     def _fast_topk_body(self, user_idx: torch.Tensor,
-                        seen_items: torch.Tensor, k: int
+                        seen_items: torch.Tensor, k: int,
+                        screen: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Streaming exact top-k over the catalog through the fused kernel.
 
         seen_items: [B, H] per-user excluded item positions padded with -1
         (a compact form of the seen mask: no dense [B, n_pad] transfer).
+        ``screen`` scores through a cascade screen instead (its tables
+        built): ``'token0'`` scans (k, vo, tail) through K6, ``'additive'``
+        the additive item table through K1 against the user rows, computed
+        once per user block.
         """
         B, C = user_idx.shape[0], self.item_chunk
         user_side = self._fast_user_side(user_idx)
+        if screen == 'token0':
+            tables = self._item_fast[:6] + (self._screen_tail,)
+
+            def score(chunk):
+                return attention_screen_scores(self._head, user_side,
+                                               chunk[:6], chunk[6])
+        elif screen == 'additive':
+            tables = (self._screen_add,)
+            uf = compute_screen_additive_user(self._head, user_side)
+
+            def score(chunk):
+                return pairwise_scores(self._screen_head, uf, chunk[0])
+        elif screen is None:
+            tables = self._scan_tables
+            score = partial(self._fast_pair_scores, user_side)
+        else:
+            raise ValueError(f"a scan screens with 'token0' or 'additive', "
+                             f'got {screen!r}')
         rows = torch.arange(B, device=self.device)[:, None].expand(
             seen_items.shape)
         carry = init_topk(B, k, self.device)
         for off in range(0, self.n_pad, C):
-            s = self._fast_pair_scores(
-                user_side, tuple(a[off:off + C] for a in self._scan_tables))
+            s = score(tuple(a[off:off + C] for a in tables))
             if off + C > self.n_items:  # catalog padding
                 s[:, max(0, self.n_items - off):] = NEG_INF
             if seen_items.shape[1] > 0:
@@ -373,16 +427,50 @@ class CatalogScorer:
             carry = merge_topk(*carry, s, idx, k)
         return carry
 
+    def _seen_items(self, seen_mask: Optional[np.ndarray], start: int,
+                    B: int) -> torch.Tensor:
+        """The compact seen lists of users [start, start + B) on the
+        device: [B, H] item positions padded with -1 (H = 0 without a
+        mask)."""
+        seen = np.zeros((B, 0), dtype=np.int32)
+        if seen_mask is not None:
+            lists = [np.flatnonzero(r) for r in seen_mask[start:start + B]]
+            seen = np.full((B, max(map(len, lists), default=0)), -1,
+                           dtype=np.int32)
+            for bi, r in enumerate(lists):
+                seen[bi, :len(r)] = r
+        return self._tensor(seen)
+
     # --------------------------------------------------------------- user API
     def top_k(self, user_indices: np.ndarray, k: int,
-              seen_mask: Optional[np.ndarray] = None
-              ) -> Tuple[np.ndarray, np.ndarray]:
+              seen_mask: Optional[np.ndarray] = None,
+              _screen: Optional[str] = None,
+              _exact: bool = False) -> Tuple[np.ndarray, np.ndarray]:
         """Exact top-k items for each user.
 
         seen_mask: optional [B, n_items] bool (True = exclude). Returns
         (scores [B, k], item positions [B, k]; -1 where fewer than k valid).
+        _screen (private; for the cascade and its calibration): rank by a
+        cascade screen, ``'token0'`` or ``'additive'``, instead of the
+        exact scores. _exact (private; for calibration): bypass an
+        installed cascade plan.
+
+        With an ``auto_cascade`` plan installed (attention fusion), requests
+        with k <= the plan's k go through ``top_k_cascade``: the returned
+        scores stay exact (the rescore is the exact attention math), and
+        the items equal the full scan's wherever the calibrated screen
+        recall holds.
         """
         user_indices = np.asarray(user_indices, np.int32)
+        plan = self._cascade_plan
+        if plan is not None and _screen is None and not _exact \
+                and k <= plan['k']:
+            return self.top_k_cascade(
+                user_indices, k, n_candidates=plan['n_candidates'],
+                seen_mask=seen_mask, screen=plan['screen'],
+                funnel_c1=plan.get('c1'), _calibrated=True)
+        if _screen is not None:
+            self._ensure_screen(_screen)
         out_v, out_i = [], []
         with _exact_f32():
             for s in range(0, len(user_indices), self.user_chunk):
@@ -390,15 +478,9 @@ class CatalogScorer:
                 B = len(users)
                 users_t = self._tensor(users.astype(np.int64))
                 if self._head is not None:
-                    seen = np.zeros((B, 0), dtype=np.int32)
-                    if seen_mask is not None:
-                        lists = [np.flatnonzero(r)
-                                 for r in seen_mask[s:s + self.user_chunk]]
-                        seen = np.full((B, max(map(len, lists), default=0)),
-                                       -1, dtype=np.int32)
-                        for bi, r in enumerate(lists):
-                            seen[bi, :len(r)] = r
-                    v, i = self._fast_topk_body(users_t, self._tensor(seen), k)
+                    v, i = self._fast_topk_body(
+                        users_t, self._seen_items(seen_mask, s, B), k,
+                        _screen)
                 else:
                     invalid = np.broadcast_to(self._pad_mask,
                                               (B, self.n_pad)).copy()
@@ -449,7 +531,7 @@ class CatalogScorer:
         gated candidates take the exact math whatever ``gated_variant``.
         Attention gathers its per-item tables and scores them in float32
         (``ops/attention_cascade.py:attention_candidate_scores``), in user
-        sub-blocks of at most ``_ATTENTION_CANDIDATE_PAIRS`` pairs.
+        sub-blocks of at most ``_CANDIDATE_BLOCK_BYTES`` of gathered rows.
         """
         user_indices = np.asarray(user_indices, np.int32)
         candidate_idx = np.asarray(candidate_idx, np.int32)
@@ -491,27 +573,393 @@ class CatalogScorer:
                 out.append(v)
         return np.concatenate(out)
 
-    def _attention_candidates(self, user_emb: torch.Tensor,
-                              cands: torch.Tensor) -> torch.Tensor:
-        """[B] users x [B, C] candidate positions -> [B, C] float32
-        attention scores on gathered table rows, in user sub-blocks."""
+    def _gathered_blocks(self, score: Callable, user_emb: torch.Tensor,
+                         cands: torch.Tensor,
+                         tables: Sequence[torch.Tensor]) -> torch.Tensor:
+        """[B] users x [B, C] candidate positions -> [B, C] float32:
+        ``score(user_side, rows)`` on the rows of ``tables`` gathered per
+        user, in user sub-blocks of at most ``_CANDIDATE_BLOCK_BYTES`` of
+        gathered rows (at least one user)."""
         side = compute_user_side_attention(self._head, user_emb)
-        step = max(1, _ATTENTION_CANDIDATE_PAIRS // max(1, cands.shape[1]))
+        row_bytes = sum(t[0].numel() * t.element_size() for t in tables)
+        step = max(1, _CANDIDATE_BLOCK_BYTES
+                   // max(1, cands.shape[1] * row_bytes))
         return torch.cat([
-            attention_candidate_scores(
-                self._head, tuple(t[s:s + step] for t in side),
-                tuple(t[cands[s:s + step]] for t in self._item_fast[:6]))
+            score(tuple(t[s:s + step] for t in side),
+                  tuple(t[cands[s:s + step]] for t in tables))
             for s in range(0, cands.shape[0], step)])
 
+    def _attention_candidates(self, user_emb: torch.Tensor,
+                              cands: torch.Tensor) -> torch.Tensor:
+        """Exact attention scores of per-user candidates, the cascade's
+        rescore: the rows of (raw, q, k, vo) gathered per user through
+        ``attention_candidate_scores``."""
+        return self._gathered_blocks(
+            partial(attention_candidate_scores, self._head), user_emb, cands,
+            self._item_fast[:4])
+
+    def _screen_candidates(self, user_emb: torch.Tensor,
+                           cands: torch.Tensor) -> torch.Tensor:
+        """Token-0 screen scores of per-user candidates, the funnel's middle
+        stage: the rows of (k, vo, tail) gathered per user through
+        ``attention_screen_candidate_scores``."""
+        return self._gathered_blocks(
+            lambda side, rows: attention_screen_candidate_scores(
+                self._head, side, rows[:2], rows[2]),
+            user_emb, cands,
+            (self._item_fast[2], self._item_fast[3], self._screen_tail))
+
     # ------------------------------------------------ attention cascade
-    def top_k_cascade(self, *args, **kwargs):
-        raise NotImplementedError(f'top_k_cascade {_CASCADE_NOT_PORTED}')
+    def _ensure_screen(self, screen: str):
+        """Build, once, the tables of ``screen``: the per-item screen tail
+        [n_pad, d] (``compute_screen_tail``), and for ``'additive'`` (and
+        the funnel) the additive item rows [n_pad, h1] and their K1 head.
+        Raise ValueError without an attention fast path."""
+        if self._head is None or self._head['fusion'] != 'attention':
+            raise ValueError(
+                'cascade screening requires the fused attention head '
+                f'(fusion_type={self.model.fusion_type!r}, fast_path head '
+                f"{'missing' if self._head is None else 'present'})")
+        if screen not in SCREENS:
+            raise ValueError(f'screen must be one of {SCREENS}, got '
+                             f'{screen!r}')
+        head = self._head
+        with _exact_f32():
+            if self._screen_tail is None:
+                self._screen_tail = self._build_item_fast(
+                    lambda *tabs: (compute_screen_tail(head, tabs),),
+                    self._item_fast[:6])[0]
+            if screen != 'token0' and self._screen_add is None:
+                self._screen_add = self._build_item_fast(
+                    lambda tail: (compute_screen_additive_items(head, tail),),
+                    (self._screen_tail,))[0]
+                self._screen_head = screen_additive_head(head)
 
-    def calibrate_cascade(self, *args, **kwargs):
-        raise NotImplementedError(f'calibrate_cascade {_CASCADE_NOT_PORTED}')
+    @staticmethod
+    def _final_topk(scores: torch.Tensor, ids: torch.Tensor,
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Exact top-k of rescored candidates: fewer than k columns pad
+        with NEG_INF and -1; empty slots give -1 ids."""
+        if ids.shape[1] < k:
+            pad = k - ids.shape[1]
+            scores = torch.nn.functional.pad(scores, (0, pad), value=NEG_INF)
+            ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+        v, pos = torch.topk(scores, k, dim=1)
+        i = torch.gather(ids, 1, pos)
+        return v, i.masked_fill(v <= NEG_INF / 2, -1)
 
-    def calibrate_funnel(self, *args, **kwargs):
-        raise NotImplementedError(f'calibrate_funnel {_CASCADE_NOT_PORTED}')
+    def _cascade_block(self, users_t: torch.Tensor, seen: torch.Tensor,
+                       k: int, n_cand: int, screen: str
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One user block of the two-stage cascade: screen scan, top-C,
+        exact rescore, final top-k. The screen value masks too: a screen
+        surfaces seen or padding items as NEG_INF tie-fills when fewer than
+        C items are live, and the rescore must not bring them back."""
+        sv, si = self._fast_topk_body(users_t, seen, n_cand, screen)
+        scores = self._attention_candidates(self.model.user_tower(users_t),
+                                            si.long().clamp(min=0))
+        scores = scores.masked_fill((si < 0) | (sv <= NEG_INF / 2), NEG_INF)
+        return self._final_topk(scores, si, k)
 
-    def auto_cascade(self, *args, **kwargs):
-        raise NotImplementedError(f'auto_cascade {_CASCADE_NOT_PORTED}')
+    def _funnel_block(self, users_t: torch.Tensor, seen: torch.Tensor,
+                      k: int, c1: int, c2: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One user block of the three-stage funnel: additive screen scan to
+        C1 survivors, the token-0 screen on them to C2, exact rescore,
+        final top-k; masked after each screen as ``_cascade_block``."""
+        sv1, si1 = self._fast_topk_body(users_t, seen, c1, 'additive')
+        user_emb = self.model.user_tower(users_t)
+        s2 = self._screen_candidates(user_emb, si1.long().clamp(min=0))
+        s2 = s2.masked_fill((si1 < 0) | (sv1 <= NEG_INF / 2), NEG_INF)
+        v2, pos2 = torch.topk(s2, c2, dim=1)
+        si2 = torch.gather(si1, 1, pos2).masked_fill(v2 <= NEG_INF / 2, -1)
+        scores = self._attention_candidates(user_emb, si2.long().clamp(min=0))
+        return self._final_topk(scores.masked_fill(si2 < 0, NEG_INF), si2, k)
+
+    def _screen_candidate_blocks(self, user_indices: np.ndarray,
+                                 cand_idx: np.ndarray) -> np.ndarray:
+        """Token-0 screen scores of per-user candidate lists in user blocks
+        (invalid ids < 0 are scored at item 0; callers mask them)."""
+        out = []
+        with _exact_f32():
+            for s in range(0, len(user_indices), self.user_chunk):
+                users_t = self._tensor(
+                    user_indices[s:s + self.user_chunk].astype(np.int64))
+                cands = self._tensor(np.clip(
+                    cand_idx[s:s + self.user_chunk], 0, None).astype(
+                        np.int64))
+                out.append(self._screen_candidates(
+                    self.model.user_tower(users_t), cands).cpu().numpy())
+        return np.concatenate(out)
+
+    def top_k_cascade(self, user_indices: np.ndarray, k: int,
+                      n_candidates: Optional[int] = None,
+                      seen_mask: Optional[np.ndarray] = None,
+                      screen: str = 'additive',
+                      funnel_c1: Optional[int] = None,
+                      _calibrated: bool = False
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Cascaded top-k for attention fusion: screen the catalog with a
+        cheap scorer, then rescore each user's top ``n_candidates`` exactly
+        and return their exact top-k (scores [B, k], item positions [B, k];
+        -1 where fewer than k valid).
+
+        screen: ``'additive'`` (K1 on the additive screen's rows, both
+        attention limits frozen; the weakest recall per C), ``'token0'``
+        (K6: the user token's attention row exact) or ``'funnel'``
+        (additive screen to ``funnel_c1`` survivors, the token-0 screen on
+        them to ``n_candidates``, exact rescore). The result equals the
+        exact ``top_k`` whenever the screen's recall at n_candidates
+        covers the exact top-k: measure it with ``calibrate_cascade`` or
+        ``calibrate_funnel``. Defaults: C = max(8k, 256) for token0 and the
+        funnel's C2, max(16k, 1024) for additive (an explicit smaller C
+        warns on stderr), C1 = max(8 C2, 4096).
+        """
+        self._ensure_screen(screen)
+        user_indices = np.asarray(user_indices, np.int32)
+        add_floor = max(16 * k, 1024)
+        if n_candidates is None:
+            n_candidates = (add_floor if screen == 'additive'
+                            else max(8 * k, 256))
+        elif (screen == 'additive' and n_candidates < add_floor
+              and n_candidates < self.n_items and not _calibrated):
+            # The additive screen drops all user-item attention coupling,
+            # so a C calibrated for the token-0 screen loses recall here.
+            print(f'CatalogScorer.top_k_cascade: n_candidates='
+                  f'{n_candidates} is below the additive screen\'s '
+                  f'operating floor {add_floor} (16*k, min 1024). If this '
+                  f"C was calibrated against screen='token0', re-run "
+                  f"calibrate_cascade(screen='additive'): the additive "
+                  f'screen needs a larger C for the same recall.',
+                  file=sys.stderr)
+        n_candidates = min(n_candidates, self.n_items)
+        if screen == 'funnel':
+            if funnel_c1 is None:
+                funnel_c1 = max(8 * n_candidates, 4096)
+            funnel_c1 = min(max(funnel_c1, n_candidates), self.n_items)
+        out_v, out_i = [], []
+        with _exact_f32():
+            for s in range(0, len(user_indices), self.user_chunk):
+                users = user_indices[s:s + self.user_chunk]
+                users_t = self._tensor(users.astype(np.int64))
+                seen = self._seen_items(seen_mask, s, len(users))
+                if screen == 'funnel':
+                    v, i = self._funnel_block(users_t, seen, k, funnel_c1,
+                                              n_candidates)
+                else:
+                    v, i = self._cascade_block(users_t, seen, k,
+                                               n_candidates, screen)
+                out_v.append(v.cpu().numpy())
+                out_i.append(i.cpu().numpy())
+        return np.concatenate(out_v), np.concatenate(out_i)
+
+    def calibrate_cascade(self, user_indices: np.ndarray, k: int,
+                          candidate_grid=(128, 256, 512, 1024),
+                          seen_mask: Optional[np.ndarray] = None,
+                          screen: str = 'additive') -> Dict[int, float]:
+        """Measured screen recall on a user sample: the share of each
+        user's exact top-k found in the screen's top-C, for each C of
+        ``candidate_grid``. The cascade is exact only as far as this recall
+        reaches; pick the smallest C with recall 1.0, with a margin.
+        ``screen`` is ``'additive'`` or ``'token0'``."""
+        if screen not in ('additive', 'token0'):
+            raise ValueError(f"screen must be 'additive' or 'token0', got "
+                             f'{screen!r}')
+        self._ensure_screen(screen)
+        user_indices = np.asarray(user_indices, np.int32)
+        grid = sorted({min(int(c), self.n_items) for c in candidate_grid})
+        _, ei = self.top_k(user_indices, k, seen_mask, _exact=True)
+        _, si = self.top_k(user_indices, grid[-1], seen_mask, _screen=screen)
+        out = {}
+        for cc in grid:
+            hits = total = 0
+            for b in range(len(ei)):
+                exact = set(ei[b][ei[b] >= 0].tolist())
+                if not exact:
+                    continue
+                scr = set(si[b, :cc][si[b, :cc] >= 0].tolist())
+                hits += len(exact & scr)
+                total += len(exact)
+            out[cc] = hits / max(total, 1)
+        return out
+
+    def calibrate_funnel(self, user_indices: np.ndarray, k: int,
+                         c1_grid=(1024, 2048, 4096),
+                         c2_grid=(256, 512, 1024),
+                         seen_mask: Optional[np.ndarray] = None
+                         ) -> Dict[Tuple[int, int], float]:
+        """Measured funnel recall on a user sample: the share of each
+        user's exact top-k that survives the additive screen's top-C1 and
+        then the token-0 screen's top-C2 among those survivors, for every
+        (C1, C2) with C2 <= C1. One additive pass at max(c1_grid) and one
+        token-0 pass over its survivors give the whole grid: the survivors
+        of a smaller C1 are a prefix of the additive ranking. Bounded above
+        by the additive screen's recall at C1."""
+        self._ensure_screen('funnel')
+        user_indices = np.asarray(user_indices, np.int32)
+        c1s = sorted({min(int(c), self.n_items) for c in c1_grid})
+        c2s = sorted({min(int(c), self.n_items) for c in c2_grid})
+        D = c1s[-1]
+        _, ei = self.top_k(user_indices, k, seen_mask, _exact=True)
+        _, ai = self.top_k(user_indices, D, seen_mask, _screen='additive')
+        s2 = self._screen_candidate_blocks(user_indices, ai)
+        s2 = np.where(ai < 0, float(NEG_INF), s2)
+        hits = {(c1, c2): 0 for c1 in c1s for c2 in c2s if c2 <= c1}
+        total = 0
+        for b in range(len(ei)):
+            ks = ei[b][ei[b] >= 0]
+            if not len(ks):
+                continue
+            total += len(ks)
+            a_rank = np.full(self.n_items, D, np.int32)
+            valid = ai[b] >= 0
+            a_rank[ai[b][valid]] = np.flatnonzero(valid).astype(np.int32)
+            ks_a = a_rank[ks]
+            ks_t = np.where(ks_a < D, s2[b][np.minimum(ks_a, D - 1)],
+                            float(NEG_INF))
+            for c1 in c1s:
+                # an item's rank among the C1 survivors = #{better screen}
+                prefix = np.sort(s2[b, :c1])
+                better = c1 - np.searchsorted(prefix, ks_t, side='right')
+                alive = ks_a < c1
+                for c2 in c2s:
+                    if c2 <= c1:
+                        hits[(c1, c2)] += int(np.sum(alive & (better < c2)))
+        return {pair: h / max(total, 1) for pair, h in hits.items()}
+
+    def auto_cascade(self, user_indices: np.ndarray, k: int,
+                     sample_users: int = 512,
+                     recall_target: float = 1.0,
+                     safety: float = 2.0,
+                     seen_mask: Optional[np.ndarray] = None,
+                     max_candidate_frac: float = 0.125,
+                     min_speedup: float = 1.05) -> Optional[Dict]:
+        """Calibrate the cascade on a sample of ``user_indices`` and install
+        the plan that ``top_k`` then routes through (requests with k' <= k).
+
+        For each screen the smallest C of a grid capped at
+        ``max_candidate_frac`` of the catalog whose measured recall reaches
+        ``recall_target`` (the funnel: the cheapest (C1, C2), C1 up to a
+        quarter of the catalog), times ``safety``. The additive screen is
+        preferred unless token0 reaches the target at a C at least 4x
+        smaller. Each qualifying plan is then timed against the exact
+        ``top_k`` on the sample (one warm call each first), and the fastest
+        is installed only if it measures at least ``min_speedup`` x the
+        exact scan. Returns the plan, or None (nothing installed) when no
+        screen reaches the target or none is fast enough. Re-run after
+        changing the catalog or the model. ``self.auto_cascade_report``
+        keeps what the call measured: the sample size, the grid, each
+        screen's recalls, the funnel's, and the timed plans with the exact
+        scan's seconds.
+        """
+        if self._head is None or self._head['fusion'] != 'attention':
+            raise ValueError(
+                'auto_cascade requires the fused attention head '
+                f'(fusion_type={self.model.fusion_type!r})')
+        user_indices = np.asarray(user_indices, np.int32)
+        if len(user_indices) > sample_users:
+            pos = np.random.default_rng(0).choice(
+                len(user_indices), size=sample_users, replace=False)
+            sample = user_indices[pos]
+            sample_mask = None if seen_mask is None else seen_mask[pos]
+        else:
+            sample, sample_mask = user_indices, seen_mask
+        c_cap = max(int(self.n_items * max_candidate_frac), 1)
+        grid = [c for c in (256, 512, 1024, 2048, 4096, 8192)
+                if c <= c_cap] or [c_cap]
+        report = self.auto_cascade_report = {
+            'sample_users': len(sample), 'grid': grid, 'recall': {},
+            'funnel_recall': None, 'plans': [], 'exact_seconds': None}
+        chosen = {}
+        additive_cheap = False
+        for tier in ('additive', 'token0'):
+            rec = report['recall'][tier] = self.calibrate_cascade(
+                sample, k, candidate_grid=grid, seen_mask=sample_mask,
+                screen=tier)
+            ok = [c for c, r in sorted(rec.items()) if r >= recall_target]
+            if ok:
+                chosen[tier] = (ok[0], rec[ok[0]])
+            if tier == 'additive' and ok and ok[0] <= grid[0] * 4:
+                additive_cheap = True
+                break  # the additive screen is cheap enough already
+        funnel = None
+        if not additive_cheap:
+            # The funnel's survivors see only the candidate screen, not the
+            # rescore, so C1 may reach a quarter of the catalog.
+            c1_max = max(self.n_items // 4, 1)
+            c1_grid = [c for c in (1024, 2048, 4096, 8192, 16384)
+                       if c <= c1_max] or [c1_max]
+            rec_f = report['funnel_recall'] = self.calibrate_funnel(
+                sample, k, c1_grid=c1_grid, c2_grid=grid,
+                seen_mask=sample_mask)
+            ok_f = [p for p, r in rec_f.items() if r >= recall_target]
+            if ok_f:
+                # the candidate screen's cost is linear in C1, the
+                # rescore's per pair ~4x the candidate screen's
+                c1, c2 = min(ok_f, key=lambda p: p[0] + 4 * p[1])
+                funnel = (c1, c2, rec_f[(c1, c2)])
+        if not chosen and funnel is None:
+            print(f'auto_cascade: no screen reached recall '
+                  f'>={recall_target} within C<={grid[-1]} on the '
+                  f'{len(sample)}-user sample; keeping the exact full '
+                  f'scan.', file=sys.stderr)
+            self._cascade_plan = None
+            return None
+        plans = []
+        if chosen:
+            tier = ('additive' if 'additive' in chosen
+                    and ('token0' not in chosen
+                         or chosen['token0'][0] * 4 > chosen['additive'][0])
+                    else 'token0')
+            c0, recall = chosen[tier]
+            plans.append({'screen': tier,
+                          'n_candidates': min(int(c0 * safety),
+                                              self.n_items),
+                          'calibrated_c': c0, 'recall': recall})
+        if funnel is not None:
+            c1, c2, rec = funnel
+            c1s = min(int(c1 * safety), self.n_items)
+            plans.append({'screen': 'funnel',
+                          'n_candidates': min(int(c2 * safety), c1s),
+                          'c1': c1s, 'calibrated_c': c2,
+                          'calibrated_c1': c1, 'recall': rec})
+        # The speed gate: both calls return numpy, so the host clock waits
+        # for the card.
+        self.top_k(sample, k, seen_mask=sample_mask, _exact=True)
+        t0 = time.perf_counter()
+        self.top_k(sample, k, seen_mask=sample_mask, _exact=True)
+        t_exact = report['exact_seconds'] = time.perf_counter() - t0
+        report['plans'] = plans
+        for p in plans:
+            kw = dict(n_candidates=p['n_candidates'], screen=p['screen'],
+                      seen_mask=sample_mask, funnel_c1=p.get('c1'),
+                      _calibrated=True)
+            self.top_k_cascade(sample, k, **kw)
+            t0 = time.perf_counter()
+            self.top_k_cascade(sample, k, **kw)
+            p['measured_speedup'] = round(
+                t_exact / max(time.perf_counter() - t0, 1e-9), 3)
+        best = max(plans, key=lambda p: p['measured_speedup'])
+        if best['measured_speedup'] < min_speedup:
+            print(f"auto_cascade: screen={best['screen']} "
+                  f"C={best['n_candidates']} reaches recall "
+                  f"{best['recall']:.4f} but measured only "
+                  f"{best['measured_speedup']:.2f}x the exact scan on the "
+                  f'{len(sample)}-user sample; keeping the exact full '
+                  f'scan.', file=sys.stderr)
+            self._cascade_plan = None
+            return None
+        self._cascade_plan = dict(best, k=k, sample_users=len(sample))
+        c1_note = f" C1={best['c1']}" if best['screen'] == 'funnel' else ''
+        print(f"auto_cascade: screen={best['screen']} "
+              f"C={best['n_candidates']}{c1_note} (calibrated "
+              f"recall@{best['calibrated_c']}={best['recall']:.4f} at k={k} "
+              f'on {len(sample)} users, safety x{safety:g}, measured '
+              f"{best['measured_speedup']:.2f}x the exact scan); top_k now "
+              f'routes through the cascade.', file=sys.stderr)
+        return dict(self._cascade_plan)
+
+    def disable_cascade(self) -> None:
+        """Drop an installed ``auto_cascade`` plan: ``top_k`` returns to the
+        exact full scan."""
+        self._cascade_plan = None

@@ -285,23 +285,16 @@ def _sides(head: dict, user_side: Sequence[torch.Tensor],
     return u, i, it[6:]
 
 
-def _softmax_coefs(head: dict, u: dict, i: dict):
-    """The kernels' per-pair coefficients, [B, C, ...] float32 planes:
-
-      token 0, per head: the softmax over the self logit and the Mi user
-      query x item key logits, (w0 [B, C, H], w [B, C, Mi, H]);
-      item token t, per head: ``e_u = exp(min(s_tu - mx, 80))`` of the item
-      query x user key logit, ``a = e_u / (e_u + dsum)`` on the user's vo
-      and ``b = 1 / (e_u + dsum)`` on sexp, (a, b [B, C, Mi, H]).
-
-    Logits are ``_seq_dot`` over each head's dh entries."""
+def _token0_coefs(head: dict, u: dict, i: dict):
+    """Token 0's softmax weights per pair and head, [B, C, ...] float32
+    planes: the softmax over the self logit and the Mi user query x item
+    key logits (``_seq_dot`` over each head's dh entries), (w0 [B, C, H],
+    w [B, C, Mi, H])."""
     H, dh = head['H'], head['dh']
     lead_u = u['q'].shape[:2]
     uq = u['q'].reshape(lead_u + (1, H, dh))
-    uk = u['k'].reshape(lead_u + (1, H, dh))
     lead_i = i['k'].shape[:3]
     l_key = _seq_dot(uq, i['k'].reshape(lead_i + (H, dh)))   # [B, C, Mi, H]
-    s_iu = _seq_dot(uk, i['q'].reshape(lead_i + (H, dh)))    # [B, C, Mi, H]
     lu = u['suu']                                            # [B, 1, H]
     mx = lu
     for m in range(l_key.shape[2]):
@@ -313,8 +306,23 @@ def _softmax_coefs(head: dict, u: dict, i: dict):
         es.append(torch.exp(l_key[:, :, m] - mx))
         tot = tot + es[-1]
     inv = 1.0 / tot
-    w0 = e0 * inv
-    w = torch.stack([e * inv for e in es], dim=2)
+    return e0 * inv, torch.stack([e * inv for e in es], dim=2)
+
+
+def _softmax_coefs(head: dict, u: dict, i: dict):
+    """The kernels' per-pair coefficients, [B, C, ...] float32 planes:
+
+      token 0, per head: ``_token0_coefs``, (w0 [B, C, H], w [B, C, Mi, H]);
+      item token t, per head: ``e_u = exp(min(s_tu - mx, 80))`` of the item
+      query x user key logit, ``a = e_u / (e_u + dsum)`` on the user's vo
+      and ``b = 1 / (e_u + dsum)`` on sexp, (a, b [B, C, Mi, H]).
+
+    Logits are ``_seq_dot`` over each head's dh entries."""
+    H, dh = head['H'], head['dh']
+    w0, w = _token0_coefs(head, u, i)
+    uk = u['k'].reshape(u['k'].shape[:2] + (1, H, dh))
+    lead_i = i['q'].shape[:3]
+    s_iu = _seq_dot(uk, i['q'].reshape(lead_i + (H, dh)))    # [B, C, Mi, H]
     dsum = i['dm'][..., 0].transpose(-1, -2)                 # [1|B, C, Mi, H]
     imx = i['dm'][..., 1].transpose(-1, -2)
     e_u = torch.exp(torch.clamp(s_iu - imx, max=EXP_CLAMP))
@@ -333,24 +341,33 @@ def _layernorm_token(y: torch.Tensor, inv_d: float,
     return (yc * (1.0 / torch.sqrt(var + LN_EPS))[..., None]) * inv_t
 
 
-def _stream_fused(head: dict, user_side, item_side) -> torch.Tensor:
-    """Kernel K4's fused vector [B, C, d] in float32, operation for
-    operation: per token the attention output as a running sum over heads
-    (token 0: user term, then the Mi item terms; item tokens: ``a*u_vo``,
-    then ``b*sexp``), the residual, LayerNorm (``_layernorm_token``) and
-    the token sum; then the LayerNorm affine."""
+def _token0_input(head: dict, u: dict, i: dict, w0: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """Token 0's pre-LayerNorm vector [B, C, d] as kernels K4 and K6 form
+    it: the attention output as a running sum over heads (the user term,
+    then the Mi item terms), then the residual."""
     H, Mi, d = head['H'], head['n_item_mods'], head['d']
-    u, i, _ = _sides(head, user_side, item_side)
-    w0, w, a, b = _softmax_coefs(head, u, i)
-    inv_d, inv_t = _f32_reciprocal(d), _f32_reciprocal(Mi + 1)
     attn = torch.zeros(w0.shape[:2] + (d,), dtype=torch.float32,
                        device=w0.device)
     for h in range(H):
         attn = attn + w0[..., h, None] * u['vo'][:, :, h]
         for m in range(Mi):
             attn = attn + w[:, :, m, h, None] * i['vo'][:, :, m, h]
-    fused = torch.zeros_like(attn) + _layernorm_token(u['raw'] + attn,
-                                                      inv_d, inv_t)
+    return u['raw'] + attn
+
+
+def _stream_fused(head: dict, user_side, item_side) -> torch.Tensor:
+    """Kernel K4's fused vector [B, C, d] in float32, operation for
+    operation: per token the attention output as a running sum over heads
+    (token 0: ``_token0_input``; item tokens: ``a*u_vo``, then
+    ``b*sexp``), the residual, LayerNorm (``_layernorm_token``) and the
+    token sum; then the LayerNorm affine."""
+    H, Mi, d = head['H'], head['n_item_mods'], head['d']
+    u, i, _ = _sides(head, user_side, item_side)
+    w0, w, a, b = _softmax_coefs(head, u, i)
+    inv_d, inv_t = _f32_reciprocal(d), _f32_reciprocal(Mi + 1)
+    y0 = _token0_input(head, u, i, w0, w)
+    fused = torch.zeros_like(y0) + _layernorm_token(y0, inv_d, inv_t)
     for t in range(Mi):
         attn = torch.zeros_like(fused)
         for h in range(H):
@@ -547,15 +564,17 @@ def _kernel_dims(head: dict) -> Tuple[int, int, int]:
     return d, H, Mi
 
 
-def kernel_smem_bytes(head: dict, gram: bool) -> int:
-    """Shared memory one block of K5 (``gram``) or K4 takes for ``head``,
-    counted as the launch set-up counts it (``csrc/attention_common.cuh``
-    ``make_dims`` and ``scratch_bytes``, ``csrc/mlp_chain.cuh``
-    ``make_chain`` and ``smem_bytes``): the chain's two activation buffers
-    of 128 pair rows and its weight ring, which the assembly's scratch (the
-    8 user rows, each pair's coefficients and, for K5, its cross-Grams)
-    grows where it passes buffer B. 226,816 B for either kernel at the
-    flagship head (d 64, 4 heads, chain [512, 256, 128])."""
+def kernel_smem_bytes(head: dict, gram: bool, screen: bool = False) -> int:
+    """Shared memory one block of K5 (``gram``), K6 (``screen``, the
+    cascade's token-0 screen, ``ops/attention_cascade.py``) or K4 takes for
+    ``head``, counted as the launch set-up counts it
+    (``csrc/attention_common.cuh`` ``make_dims`` and ``scratch_bytes``,
+    ``csrc/mlp_chain.cuh`` ``make_chain`` and ``smem_bytes``): the chain's
+    two activation buffers of 128 pair rows and its weight ring, which the
+    assembly's scratch (the 8 user rows, each pair's coefficients (K6:
+    token 0's only) and, for K5, its cross-Grams) grows where it passes
+    buffer B. 226,816 B for each kernel at the flagship head (d 64, 4
+    heads, chain [512, 256, 128])."""
     d, H, Mi = _kernel_dims(head)
     widths = ([d, head['w1'].shape[1]]
               + [w.shape[1] for w, _ in head['layers'][:-1]])
@@ -566,7 +585,7 @@ def kernel_smem_bytes(head: dict, gram: bool) -> int:
     n_vo = Mi * H
     n_usc = 2 + 2 * H + H * H if gram else 0
     urow = -(-((3 + H) * (d + 4) + SUU_PAD + n_usc) // 4) * 4
-    ncoef = (H * (Mi + 1) + 2 * n_vo) | 1
+    ncoef = (H * (Mi + 1) + (0 if screen else 2 * n_vo)) | 1
     nx = (max(n_vo * (1 + H) + (n_vo + Mi) * H, 2 + H + n_vo + Mi) | 1
           if gram else 0)
     scratch = (users * urow + rows * (ncoef + nx)) * 4
@@ -574,13 +593,15 @@ def kernel_smem_bytes(head: dict, gram: bool) -> int:
             + max(ring, scratch - rows * stride_b * 2))
 
 
-def check_kernel_fits(head: dict, gram: bool):
-    """Raise ValueError unless K5 (``gram``) or K4 takes ``head``: its
-    widths, heads and item tokens, and a block within ``SMEM_OPTIN``."""
-    need = kernel_smem_bytes(head, gram)
+def check_kernel_fits(head: dict, gram: bool, screen: bool = False):
+    """Raise ValueError unless K5 (``gram``), K6 (``screen``) or K4 takes
+    ``head``: its widths, heads and item tokens, and a block within
+    ``SMEM_OPTIN``."""
+    need = kernel_smem_bytes(head, gram, screen)
     if need > SMEM_OPTIN:
+        name = 'gram' if gram else 'screen' if screen else 'stream'
         raise ValueError(
-            f"the {'gram' if gram else 'stream'} attention kernel needs "
+            f'the {name} attention kernel needs '
             f'{need} B of shared memory per block for d={head["d"]}, '
             f'{head["H"]} heads, past the {SMEM_OPTIN} B a block may take'
             + ("; use attention_variant='stream'" if gram else ''))

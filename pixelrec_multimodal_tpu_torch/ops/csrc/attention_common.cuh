@@ -1,12 +1,14 @@
 // pixelrec_multimodal_tpu_torch/ops/csrc/attention_common.cuh
 //
-// What the two attention-fusion kernels share (attention_mlp.cu, K4, the
-// stream form; attention_gram_mlp.cu, K5, the gram form): the block's
-// scratch layout, the load of the tile's user rows, the per-pair logits and
-// softmax coefficients, the warp sums, and the launch set-up. Each kernel
-// then forms its pairs' fused d-vectors its own way, writes them as bf16
-// into buf_a and calls run_chain (mlp_chain.cuh) with the first Dense w1 as
-// the chain's layer 0.
+// What the attention-fusion kernels share (attention_mlp.cu, K4, the stream
+// form; attention_gram_mlp.cu, K5, the gram form; attention_screen_mlp.cu,
+// K6, the cascade's token-0 screen): the block's scratch layout, the load of
+// the tile's user rows, the per-pair logits and softmax coefficients (K6:
+// token 0's half only, the ITEM_TOKENS flag), token 0's attention input, the
+// warp sums and LayerNorm, and the launch set-up. Each kernel then forms its
+// pairs' fused d-vectors its own way, writes them as bf16 into buf_a and
+// calls run_chain (mlp_chain.cuh) with the first Dense w1 as the chain's
+// layer 0.
 //
 // Block: the chain's 8 users x 16 items (128 pair rows), 16 warps. Shared
 // memory is the chain's (two activation buffers and the weight ring). Until
@@ -17,8 +19,9 @@
 //                     different vectors fall in different banks), suu
 //                     (SUU_PAD), and for K5 the user scalars (n_usc)
 //   coef [ROWS][ncoef] per pair: token 0's softmax weights per head (the
-//                     user key first, then the Mi item keys), then per item
-//                     token t and head h the pair (a, b) of the stream form
+//                     user key first, then the Mi item keys), then (not K6)
+//                     per item token t and head h the pair (a, b) of the
+//                     stream form
 //   X    [ROWS][nx]   K5 only: cross-Grams, later the combination weights
 // Every float32 operation of the assembly is an unfused __f*_rn intrinsic in
 // the order the module's plain version (ops/attention_scorer.py) takes, so
@@ -46,7 +49,8 @@ struct Dims {
   int n_usc, n_sc;  // user / item scalar columns (K5), 0 for K4
   int vs;           // stride of the vectors in a user row, d + 4
   int urow;         // floats per user row in scratch, a multiple of 4
-  int ncoef;        // coefficient row stride, odd (no bank conflicts)
+  int ncoef;        // coefficient row stride, odd (no bank conflicts): the
+                    // item tokens' (a, b) too unless the kernel is K6
   int nx;           // K5 row stride of X, odd; 0 for K4
 };
 
@@ -65,7 +69,8 @@ __host__ __device__ __forceinline__ int ct_off(const Dims& D, int t, int h) {
   return D.H * (D.Mi + 1) + (t * D.H + h) * 2;  // + 0: a, + 1: b
 }
 
-inline cudaError_t make_dims(int d, int H, int Mi, bool gram, Dims* D) {
+inline cudaError_t make_dims(int d, int H, int Mi, bool gram, Dims* D,
+                             bool item_tokens = true) {
   if (d < 16 || d > MAX_D || d % 16 || H < 1 || H > MAX_HEADS || d % H ||
       Mi < 1 || Mi > MAX_ITEM_MODS)
     return cudaErrorInvalidValue;
@@ -84,7 +89,7 @@ inline cudaError_t make_dims(int d, int H, int Mi, bool gram, Dims* D) {
     D->nx = (n_x > n_w ? n_x : n_w) | 1;
   }
   D->urow = (u_suu_off(*D) + SUU_PAD + D->n_usc + 3) / 4 * 4;
-  D->ncoef = (H * (Mi + 1) + 2 * Mi * H) | 1;
+  D->ncoef = (H * (Mi + 1) + (item_tokens ? 2 * Mi * H : 0)) | 1;
   return cudaSuccess;
 }
 
@@ -135,17 +140,20 @@ __device__ __forceinline__ void load_users(
 // Per-pair logits into the coefficient rows. One thread per (item, key or
 // query, token, head) forms the dot over dh for all 8 users of the tile,
 // left to right: token 0's user query against item key m (slot
-// c0_off(h, 1 + m)) and item query t against the user key (slot ct_off(t,
-// h)). Items past C give zero logits.
+// c0_off(h, 1 + m)) and, with ITEM_TOKENS, item query t against the user key
+// (slot ct_off(t, h)). Items past C give zero logits.
+template <bool ITEM_TOKENS = true>
 __device__ __forceinline__ void pair_logits(const float* U, float* coef,
                                             const Dims& D,
                                             const float* __restrict__ it_q,
                                             const float* __restrict__ it_k,
                                             int c0, int C) {
   const int d = D.d, H = D.H, dh = D.dh, Mi = D.Mi;
-  for (int e = threadIdx.x; e < TC * 2 * Mi * H; e += THREADS) {
-    const int h = e % H, m = (e / H) % Mi, kind = (e / (H * Mi)) % 2;
-    const int ci = e / (2 * H * Mi), c = c0 + ci;
+  constexpr int KINDS = ITEM_TOKENS ? 2 : 1;
+  for (int e = threadIdx.x; e < TC * KINDS * Mi * H; e += THREADS) {
+    const int h = e % H, m = (e / H) % Mi;
+    const int kind = ITEM_TOKENS ? (e / (H * Mi)) % 2 : 0;
+    const int ci = e / (KINDS * H * Mi), c = c0 + ci;
     float acc[TB];
 #pragma unroll
     for (int bu = 0; bu < TB; ++bu) acc[bu] = 0.f;
@@ -170,16 +178,19 @@ __device__ __forceinline__ void pair_logits(const float* U, float* coef,
 
 // The logits into softmax coefficients, in place. Token 0, per (pair,
 // head): exp(l - max) over the user's self logit and the Mi item-key
-// logits, each times 1 / their sum. Item token t, per (pair, head):
-// e_u = exp(min(s - mx, 80)) against the item-key softmax mass (dsum, mx)
-// of the dm table, a = e_u * r and b = r with r = 1 / (e_u + dsum).
+// logits, each times 1 / their sum. With ITEM_TOKENS, item token t, per
+// (pair, head): e_u = exp(min(s - mx, 80)) against the item-key softmax
+// mass (dsum, mx) of the dm table, a = e_u * r and b = r with
+// r = 1 / (e_u + dsum).
+template <bool ITEM_TOKENS = true>
 __device__ __forceinline__ void softmax_coefs(const float* U, float* coef,
                                               const Dims& D,
                                               const float* __restrict__ it_dm,
                                               int c0, int C) {
   const int H = D.H, Mi = D.Mi, n0 = ROWS * H;
-  for (int e = threadIdx.x; e < n0 + ROWS * Mi * H; e += THREADS) {
-    if (e < n0) {
+  const int n = n0 + (ITEM_TOKENS ? ROWS * Mi * H : 0);
+  for (int e = threadIdx.x; e < n; e += THREADS) {
+    if (!ITEM_TOKENS || e < n0) {
       const int r = e / H, h = e - r * H, bu = r / TC;
       float* cf = coef + r * D.ncoef + c0_off(D, h, 0);
       const float lu = U[bu * D.urow + u_suu_off(D) + h];
@@ -237,6 +248,115 @@ __device__ __forceinline__ void store_fused(const float2 (&f)[J],
       *reinterpret_cast<__nv_bfloat162*>(row + 2 * s) = __floats2bfloat162_rn(
           __fadd_rn(__fmul_rn(f[j].x, g[j].x), be[j].x),
           __fadd_rn(__fmul_rn(f[j].y, g[j].y), be[j].y));
+  }
+}
+
+template <int J>
+__device__ __forceinline__ void load_f2(float2 (&v)[J],
+                                        const float* __restrict__ p,
+                                        int half) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int s = lane + 32 * j;
+    v[j] = s < half ? __ldg(reinterpret_cast<const float2*>(p) + s)
+                    : make_float2(0.f, 0.f);
+  }
+}
+
+// u_vo of the tile's user bu, head h, at this lane's slot j.
+__device__ __forceinline__ float2 user_vo(const float* U, const Dims& D,
+                                          int bu, int h, int j, int half) {
+  const int s = (threadIdx.x & 31) + 32 * j;
+  return s < half ? reinterpret_cast<const float2*>(U + bu * D.urow +
+                                                    u_vo_off(D, h))[s]
+                  : make_float2(0.f, 0.f);
+}
+
+// Token 0's pre-LayerNorm vectors of warp ci's 8 pairs with item c, added
+// into y (zero on entry): y = raw + sum_h (w_0h u_vo_h + sum_m w_mh vo_mh),
+// the attention output summed first, then the residual. A head's Mi item
+// rows are loaded together before they are used, so the warp waits on
+// global memory once per head, not once per row; `rows` is the caller's
+// scratch for them.
+template <int J, int R>
+__device__ __forceinline__ void token0_input(const float* U, const float* coef,
+                                             const Dims& D,
+                                             const float* __restrict__ it_vo,
+                                             float2 (&rows)[R][J],
+                                             float2 (&y)[TB][J], int c,
+                                             int ci) {
+  static_assert(R >= MAX_ITEM_MODS, "a row per item token");
+  const int lane = threadIdx.x & 31, d = D.d, H = D.H, Mi = D.Mi;
+  const int half = d / 2;
+  for (int h = 0; h < H; ++h) {
+#pragma unroll
+    for (int m = 0; m < MAX_ITEM_MODS; ++m)
+      if (m < Mi) load_f2(rows[m], it_vo + (((size_t)c * Mi + m) * H + h) * d, half);
+#pragma unroll
+    for (int bu = 0; bu < TB; ++bu) {
+      const float w = coef[(bu * TC + ci) * D.ncoef + c0_off(D, h, 0)];
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        y[bu][j] = f2_add_mul(y[bu][j], w, user_vo(U, D, bu, h, j, half));
+    }
+#pragma unroll
+    for (int m = 0; m < MAX_ITEM_MODS; ++m) {
+      if (m >= Mi) break;
+#pragma unroll
+      for (int bu = 0; bu < TB; ++bu) {
+        const float w = coef[(bu * TC + ci) * D.ncoef + c0_off(D, h, 1 + m)];
+#pragma unroll
+        for (int j = 0; j < J; ++j) y[bu][j] = f2_add_mul(y[bu][j], w, rows[m][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int bu = 0; bu < TB; ++bu) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int s = lane + 32 * j;
+      const float2 r = s < half
+          ? reinterpret_cast<const float2*>(U + bu * D.urow)[s]
+          : make_float2(0.f, 0.f);
+      y[bu][j] = make_float2(__fadd_rn(r.x, y[bu][j].x),
+                             __fadd_rn(r.y, y[bu][j].y));
+    }
+  }
+}
+
+// Residual + LayerNorm of one token of one pair, scaled by 1/T and added to
+// f: mean and centred variance are warp sums, each lane adding its entries
+// in order first.
+template <int J>
+__device__ __forceinline__ void layer_norm_add(const float2 (&y)[J],
+                                               float2 (&f)[J], int half,
+                                               float inv_d, float inv_t) {
+  const int lane = threadIdx.x & 31;
+  float p = 0.f;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (lane + 32 * j < half) {
+      p = __fadd_rn(p, y[j].x);
+      p = __fadd_rn(p, y[j].y);
+    }
+  const float mu = __fmul_rn(warp_sum(p), inv_d);
+  float2 yc[J];
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    yc[j] = make_float2(__fsub_rn(y[j].x, mu), __fsub_rn(y[j].y, mu));
+    if (lane + 32 * j < half) {
+      q = __fadd_rn(q, __fmul_rn(yc[j].x, yc[j].x));
+      q = __fadd_rn(q, __fmul_rn(yc[j].y, yc[j].y));
+    }
+  }
+  const float var = __fmul_rn(warp_sum(q), inv_d);
+  const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, LN_EPS)));
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    f[j].x = __fadd_rn(f[j].x, __fmul_rn(__fmul_rn(yc[j].x, rs), inv_t));
+    f[j].y = __fadd_rn(f[j].y, __fmul_rn(__fmul_rn(yc[j].y, rs), inv_t));
   }
 }
 

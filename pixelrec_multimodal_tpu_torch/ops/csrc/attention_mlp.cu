@@ -51,54 +51,6 @@ namespace {
 using namespace pairwise;
 using namespace attn;
 
-// Residual + LayerNorm of one token of one pair, scaled by 1/T and added to
-// f: mean and centred variance are warp sums, each lane adding its entries
-// in order first.
-template <int J>
-__device__ __forceinline__ void layer_norm_add(const float2 (&y)[J],
-                                               float2 (&f)[J], int half,
-                                               float inv_d, float inv_t) {
-  const int lane = threadIdx.x & 31;
-  float p = 0.f;
-#pragma unroll
-  for (int j = 0; j < J; ++j)
-    if (lane + 32 * j < half) {
-      p = __fadd_rn(p, y[j].x);
-      p = __fadd_rn(p, y[j].y);
-    }
-  const float mu = __fmul_rn(warp_sum(p), inv_d);
-  float2 yc[J];
-  float q = 0.f;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    yc[j] = make_float2(__fsub_rn(y[j].x, mu), __fsub_rn(y[j].y, mu));
-    if (lane + 32 * j < half) {
-      q = __fadd_rn(q, __fmul_rn(yc[j].x, yc[j].x));
-      q = __fadd_rn(q, __fmul_rn(yc[j].y, yc[j].y));
-    }
-  }
-  const float var = __fmul_rn(warp_sum(q), inv_d);
-  const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, LN_EPS)));
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    f[j].x = __fadd_rn(f[j].x, __fmul_rn(__fmul_rn(yc[j].x, rs), inv_t));
-    f[j].y = __fadd_rn(f[j].y, __fmul_rn(__fmul_rn(yc[j].y, rs), inv_t));
-  }
-}
-
-template <int J>
-__device__ __forceinline__ void load_f2(float2 (&v)[J],
-                                        const float* __restrict__ p,
-                                        int half) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int s = lane + 32 * j;
-    v[j] = s < half ? __ldg(reinterpret_cast<const float2*>(p) + s)
-                    : make_float2(0.f, 0.f);
-  }
-}
-
 // The fused vectors of warp ci's 8 pairs into buf_a, as bf16.
 template <int J>
 __device__ __forceinline__ void stream_assemble(
@@ -107,7 +59,7 @@ __device__ __forceinline__ void stream_assemble(
     const float* __restrict__ it_sexp, const float* __restrict__ ln_scale,
     const float* __restrict__ ln_bias, __nv_bfloat16* buf_a, int stride_a,
     int c0, int C) {
-  const int lane = threadIdx.x & 31, ci = threadIdx.x >> 5, c = c0 + ci;
+  const int ci = threadIdx.x >> 5, c = c0 + ci;
   const int d = D.d, H = D.H, Mi = D.Mi, half = d / 2;
   if (c >= C) {
     zero_rows(buf_a, stride_a, ci, d);
@@ -122,51 +74,11 @@ __device__ __forceinline__ void stream_assemble(
 #pragma unroll
     for (int j = 0; j < J; ++j) f[bu][j] = y[bu][j] = zero;
 
-  // u_vo of user bu, head h, at this lane's slot j.
-  auto uvo = [&](int bu, int h, int j) {
-    const int s = lane + 32 * j;
-    return s < half ? reinterpret_cast<const float2*>(
-                          U + bu * D.urow + u_vo_off(D, h))[s]
-                    : zero;
-  };
-
-  // ---- token 0: y = raw + sum_h (w_0h u_vo_h + sum_m w_mh vo_mh). A
-  // head's Mi item rows are loaded together before they are used, so the
-  // warp waits on global memory once per head, not once per row.
+  // ---- token 0 (attention_common.cuh), then its LayerNorm
   float2 rows[MAX_HEADS > MAX_ITEM_MODS ? MAX_HEADS : MAX_ITEM_MODS][J];
-  for (int h = 0; h < H; ++h) {
+  token0_input(U, coef, D, it_vo, rows, y, c, ci);
 #pragma unroll
-    for (int m = 0; m < MAX_ITEM_MODS; ++m)
-      if (m < Mi) load_f2(rows[m], it_vo + (((size_t)c * Mi + m) * H + h) * d, half);
-#pragma unroll
-    for (int bu = 0; bu < TB; ++bu) {
-      const float w = coef[(bu * TC + ci) * D.ncoef + c0_off(D, h, 0)];
-#pragma unroll
-      for (int j = 0; j < J; ++j) y[bu][j] = f2_add_mul(y[bu][j], w, uvo(bu, h, j));
-    }
-#pragma unroll
-    for (int m = 0; m < MAX_ITEM_MODS; ++m) {
-      if (m >= Mi) break;
-#pragma unroll
-      for (int bu = 0; bu < TB; ++bu) {
-        const float w = coef[(bu * TC + ci) * D.ncoef + c0_off(D, h, 1 + m)];
-#pragma unroll
-        for (int j = 0; j < J; ++j) y[bu][j] = f2_add_mul(y[bu][j], w, rows[m][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int bu = 0; bu < TB; ++bu) {
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int s = lane + 32 * j;
-      const float2 r = s < half
-          ? reinterpret_cast<const float2*>(U + bu * D.urow)[s] : zero;
-      y[bu][j] = make_float2(__fadd_rn(r.x, y[bu][j].x),
-                             __fadd_rn(r.y, y[bu][j].y));
-    }
-    layer_norm_add(y[bu], f[bu], half, inv_d, inv_t);
-  }
+  for (int bu = 0; bu < TB; ++bu) layer_norm_add(y[bu], f[bu], half, inv_d, inv_t);
 
   // ---- item tokens: y = raw_t + sum_h (a_th u_vo_h + b_th sexp_th), the
   // token's H sexp rows and its raw row loaded together
@@ -189,7 +101,7 @@ __device__ __forceinline__ void stream_assemble(
         const float a = cf[0], b = cf[1];
 #pragma unroll
         for (int j = 0; j < J; ++j) {
-          y[bu][j] = f2_add_mul(y[bu][j], a, uvo(bu, h, j));
+          y[bu][j] = f2_add_mul(y[bu][j], a, user_vo(U, D, bu, h, j, half));
           y[bu][j] = f2_add_mul(y[bu][j], b, rows[h][j]);
         }
       }

@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""The attention kernels K4 and K5 of another checkout against this one's,
+on one CUDA card.
+
+    python3 scripts/torch_parent_compare.py OTHER_CHECKOUT
+
+Builds ``attention_mlp.cu`` (K4) and ``attention_gram_mlp.cu`` (K5) from
+``OTHER_CHECKOUT/pixelrec_multimodal_tpu_torch/ops/csrc`` (for example a
+parent commit unpacked with ``git archive``) into ``build/other/``, beside
+this checkout's builds, and runs both through this checkout's wrappers on
+the same inputs: the flagship attention head (d 64, 4 heads, chain [512,
+256, 128], relu, sigmoid, random weights from a seed) at the 256 x 8,192
+block. Prints one JSON line per measurement, the card's ``nvidia-smi`` name
+and power limit first: whether the scores are equal bit for bit, then each
+kernel's mean of 20 launches (CUDA events) in turns, other, this, this,
+other. The C interface of the two builds must be the same. Exits 2 without
+a CUDA device.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import (  # noqa: E402
+    SEED,
+    TIME_B,
+    TIME_C,
+    cuda_ms,
+    random_attention_head,
+    random_attention_rows,
+)
+
+KERNELS = ('attention_mlp', 'attention_gram_mlp')
+
+
+def emit(what: str, **fields):
+    print(json.dumps({'what': what, **fields}), flush=True)
+
+
+def build_other(checkout: Path) -> dict:
+    """The other checkout's K4 and K5, built in parallel and loaded."""
+    from pixelrec_multimodal_tpu_torch.ops import _build
+    src = checkout / 'pixelrec_multimodal_tpu_torch' / 'ops' / 'csrc'
+    out = _build.BUILD_DIR.parent / 'other'
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {n: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, '-o', str(out / f'{n}.so'),
+         str(src / f'{n}.cu')], stdout=subprocess.DEVNULL)
+        for n in KERNELS}
+    for n, proc in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f'{n} of {checkout} did not build')
+    return {n: ctypes.CDLL(str(out / f'{n}.so')) for n in KERNELS}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print('torch_parent_compare: no CUDA device', file=sys.stderr)
+        return 2
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    from pixelrec_multimodal_tpu_torch.ops import _build
+    from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    emit('card', nvidia_smi=smi, torch=torch.__version__)
+    libs = {'other': build_other(Path(sys.argv[1])),
+            'this': {n: _build.load(n) for n in KERNELS}}
+
+    def use(tag):  # route the wrappers' launches to one build
+        _build._loaded.update(libs[tag])
+
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(SEED + 7)
+    calls = {'K4': lambda h, u, it: tas.attention_scores(h, u[:5], it[:6]),
+             'K5': tas.attention_scores_gram}
+    with torch.no_grad():
+        head = random_attention_head(64, 4, (512, 256, 128), 'relu',
+                                     'sigmoid', gen, dev)
+        users, items = random_attention_rows(head, TIME_B, TIME_C, gen, dev,
+                                             True)
+        scores = {}
+        for tag in ('other', 'this'):
+            use(tag)
+            scores[tag] = {k: fn(head, users, items).clone()
+                           for k, fn in calls.items()}
+        emit('scores', shape=[TIME_B, TIME_C],
+             **{f'{k}_bit_equal': bool(torch.equal(scores['other'][k],
+                                                   scores['this'][k]))
+                for k in calls})
+        times = {k: {'other': [], 'this': []} for k in calls}
+        for tag in ('other', 'this', 'this', 'other'):
+            use(tag)
+            for k, fn in calls.items():
+                times[k][tag].append(
+                    cuda_ms(lambda: fn(head, users, items), reps=20))
+        for k, t in times.items():
+            emit('time', kernel=k, shape=[TIME_B, TIME_C], ms=t,
+                 this_over_other=sum(t['this']) / sum(t['other']))
+    use('this')
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -549,12 +549,25 @@ def test_scorer_resolves_the_variant(scorers):
                              fast_path=False, device='cpu').user_chunk == 64
 
 
-def test_cascade_entry_points_raise(scorers):
-    _, ts = scorers['stream']
-    for name in ('top_k_cascade', 'calibrate_cascade', 'calibrate_funnel',
-                 'auto_cascade'):
-        with pytest.raises(NotImplementedError, match='cascade slice'):
-            getattr(ts, name)(np.arange(3), 5)
+def test_cascade_entry_points_raise(scorers, users):
+    """The cascade entry points run on either variant's scorer (their
+    parity with JAX is tests/test_torch_cascade.py); they raise only for a
+    screen they do not know."""
+    for name in ('stream', 'gram'):
+        _, ts = scorers[name]
+        v, i = ts.top_k_cascade(users[:3], 5, screen='token0')
+        assert v.shape == i.shape == (3, 5) and (i >= 0).all()
+        assert set(ts.calibrate_cascade(users[:3], 5, (8, 16),
+                                        screen='token0')) == {8, 16}
+        assert set(ts.calibrate_funnel(users[:3], 5, (16,), (8,))) \
+            == {(16, 8)}
+        plan = ts.auto_cascade(users[:3], 5, recall_target=0.0,
+                               min_speedup=0.0, max_candidate_frac=0.5)
+        assert plan is not None and ts._cascade_plan is not None
+        ts.disable_cascade()
+        assert ts._cascade_plan is None
+        with pytest.raises(ValueError, match='screen'):
+            ts.top_k_cascade(users[:3], 5, screen='exact')
 
 
 @pytest.mark.parametrize('name', ['stream', 'gram', 'generic'])
@@ -585,10 +598,11 @@ def test_score_full_matches_jax(scorers, users, name):
 
 @pytest.mark.parametrize('name', ['stream', 'gram', 'generic'])
 def test_score_candidates_matches_jax(scorers, users, name, monkeypatch):
-    """The fast paths score gathered table rows (JAX: its rescorer over
-    the item-item logits), in user sub-blocks here of 3 users."""
+    """The fast paths score gathered table rows (both packages take the
+    full softmax over the item-item logits), in user sub-blocks here of 3
+    users (3 x 20 candidates of 8,960 B of gathered rows each)."""
     js, ts = scorers[name]
-    monkeypatch.setattr(tsc, '_ATTENTION_CANDIDATE_PAIRS', 60)
+    monkeypatch.setattr(tsc, '_CANDIDATE_BLOCK_BYTES', 3 * 20 * 8960)
     rng = np.random.default_rng(7)
     cands = rng.integers(0, N_CAT, (70, 20)).astype(np.int32)
     valid = rng.random((70, 20)) < 0.8

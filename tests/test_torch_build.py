@@ -24,8 +24,8 @@ def test_every_source_is_a_kernel_with_the_shared_header():
     through their own shared header."""
     sources = _build.all_sources()
     assert sources == ['attention_gram_mlp', 'attention_mlp',
-                       'gated_factored_mlp', 'gated_pairwise_mlp',
-                       'pairwise_mlp']
+                       'attention_screen_mlp', 'gated_factored_mlp',
+                       'gated_pairwise_mlp', 'pairwise_mlp']
     assert '#include "mlp_chain.cuh"' in (
         _build.CSRC / 'attention_common.cuh').read_text()
     for name in sources:

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 concat, K2 exact gated, K3 factored gated,
-K4 stream attention, K5 gram attention) and its scorer on a card.
+K4 stream attention, K5 gram attention, K6 the attention cascade's token-0
+screen) and its scorer, the attention cascade included, on a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX:
@@ -21,6 +22,7 @@ from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
 from pixelrec_multimodal_tpu_torch.models.multimodal import (
     MultimodalRecommender,
 )
+from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
 from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
 from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
 from pixelrec_multimodal_tpu_torch.ops.topk import NEG_INF
@@ -501,3 +503,115 @@ def test_attention_scorer_on_card(dev, variant):
     np.testing.assert_allclose(gpu.score_candidates(users, cands, valid),
                                cpu.score_candidates(users, cands, valid),
                                atol=1e-4)
+
+
+# ------------------------------------------- attention cascade, screen K6
+def screen_inputs(head, B, C, device, seed=4):
+    """Seeded token-0 screen inputs on ``device``: (user side, item tables,
+    tail), the tail built from the item tables as the scorer builds it."""
+    users, items = attention_inputs(head, B, C, 'cpu', seed)
+    tail = tac.compute_screen_tail(head_on(head, 'cpu'), items)
+    return (tuple(t.to(device) for t in users[:5]),
+            tuple(t.to(device) for t in items[:6]), tail.to(device))
+
+
+def check_screen(head, B, C, dev):
+    """One K6 launch on a ragged B x C block against its plain bf16 version
+    (AGREE, MAX_DIFFERING, FLIP_TOL, as K4)."""
+    users, items, tail = screen_inputs(head, B, C, dev)
+    before = tac.attention_screen_scores.launches
+    out = tac.attention_screen_scores(head, users, items, tail)
+    torch.cuda.synchronize()
+    assert tac.attention_screen_scores.launches == before + 1
+    ref = tac.attention_screen_scores_plain(head, users, items, tail,
+                                            compute_dtype=torch.bfloat16)
+    assert out.shape == (B, C) and torch.isfinite(out).all()
+    scale = max(1.0, ref.abs().max().item())
+    diff = (out - ref).abs()
+    assert (diff > AGREE * scale).float().mean().item() <= MAX_DIFFERING
+    assert diff.max().item() <= FLIP_TOL * scale
+
+
+@pytest.mark.parametrize('final', ['sigmoid', 'tanh', 'none'])
+@pytest.mark.parametrize('activation', list(tpm.ACTIVATIONS))
+@pytest.mark.parametrize('heads', [1, 2, 4])
+@pytest.mark.parametrize('emb', [32, 64])
+def test_screen_kernel_matches_bf16_plain(dev, emb, heads, activation,
+                                          final):
+    """K6, one launch on a ragged 37 x 301 block."""
+    check_screen(head_on(tas.build_attention_head(
+        make_model(activation, final, 'attention', emb, heads)), dev),
+        37, 301, dev)
+
+
+@pytest.mark.parametrize('act_final', [('relu', 'sigmoid'),
+                                       ('gelu', 'tanh')])
+@pytest.mark.parametrize('heads', [4, 8])
+@pytest.mark.parametrize('emb', [128, 256])
+def test_screen_kernel_at_wide_embeddings(dev, emb, heads, act_final):
+    """K6's wider instances (two and four float2 slots per lane) and the
+    most heads it takes; its block fits at every one of them."""
+    head = head_on(tas.build_attention_head(
+        make_model(*act_final, 'attention', emb, heads)), dev)
+    assert tas.kernel_smem_bytes(head, False, screen=True) <= tas.SMEM_OPTIN
+    check_screen(head, 21, 150, dev)
+
+
+def test_screen_kernel_rejects_what_it_does_not_take(dev):
+    """Bad widths, heads, types, shapes or devices raise; nothing launches
+    and nothing falls back to the plain version."""
+    head = head_on(tas.build_attention_head(make_model(fusion='attention')),
+                   dev)
+    users, items, tail = screen_inputs(head, 8, 32, dev)
+    launches = tac.attention_screen_scores.launches
+    for bad, match in ((dict(head, d=40), 'multiple of 16'),
+                       (dict(head, H=9), 'heads'), (dict(head, H=3), 'heads'),
+                       (dict(head, n_item_mods=8), 'item-side')):
+        with pytest.raises(ValueError, match=match):
+            tac.attention_screen_scores(bad, users, items, tail)
+    for bad_users, bad_items, bad_tail in (
+            ((users[0].double(),) + users[1:], items, tail),
+            (users, items[:2] + (items[2][:, :-16],) + items[3:], tail),
+            (users, items[:3] + (items[3][:7],) + items[4:], tail),
+            (users, items, tail[:, :-16]),
+            (users, items, tail.t().contiguous().t()),
+            (users, items, tail.cpu())):
+        with pytest.raises(ValueError):
+            tac.attention_screen_scores(head, bad_users, bad_items, bad_tail)
+    assert tac.attention_screen_scores.launches == launches
+
+
+@pytest.mark.parametrize('screen', ['additive', 'token0', 'funnel'])
+def test_cascade_on_card(dev, screen):
+    """top_k_cascade on the card against the same scorer on the CPU: the
+    card screens in bf16 (K1 or K6: 2 user blocks x 4 item chunks = 8
+    launches per call, no K4), the CPU in float32, and both rescore in
+    float32. At C = 200 of 1,000 items both screens hold every exact
+    top-10, so the items agree but for near-ties at the boundary and the
+    scores within 1e-4 (float32 sums in another order, TF32 off)."""
+    model = make_model('gelu', 'sigmoid', 'attention')
+    users = np.random.default_rng(5).integers(0, N_USERS, 70).astype(
+        np.int32)
+    seen = np.random.default_rng(6).random((70, N_ITEMS)) < 0.05
+    k = 10
+    kw = dict(item_chunk=256, user_chunk=64)
+    gpu = CatalogScorer(copy.deepcopy(model), store(), **kw, device=dev)
+    cpu = CatalogScorer(model, store(), **kw, device='cpu')
+    call = dict(n_candidates=200, seen_mask=seen, screen=screen,
+                funnel_c1=400)
+    k1, k4, k6 = (tpm.pairwise_scores.launches, tas.attention_scores.launches,
+                  tac.attention_screen_scores.launches)
+    v, i = gpu.top_k_cascade(users, k, **call)
+    assert (tpm.pairwise_scores.launches - k1,
+            tas.attention_scores.launches - k4,
+            tac.attention_screen_scores.launches - k6) \
+        == ((0, 0, 8) if screen == 'token0' else (8, 0, 0))
+    assert not seen[np.arange(70)[:, None], i].any()
+    cv, ci = cpu.top_k_cascade(users, k, **call)
+    for a, b, va, vb in zip(i, ci, v, cv):
+        clear = vb > vb[-1] + 1e-4  # not tied with the boundary
+        assert set(b[clear]) <= set(a)
+        ref = dict(zip(b.tolist(), vb.tolist()))
+        both = [(ref[x], y) for x, y in zip(a.tolist(), va.tolist())
+                if x in ref]
+        np.testing.assert_allclose(*zip(*both), atol=1e-4)

@@ -111,8 +111,8 @@ def test_gated_fusion_builds_on_cpu_and_defaults_to_cuda(monkeypatch):
 def test_attention_fusion_builds_on_cpu_and_defaults_to_cuda(monkeypatch,
                                                              variant):
     """Attention fusion is ported: an attention model and its scorer build
-    on the CPU when asked, and raise without a card by default; the
-    cascade entry points raise and name the cascade slice."""
+    on the CPU when asked, the cascade runs there, and both raise without
+    a card by default."""
     kw = dict(n_users=4, n_items=8, n_tags=2, num_numerical_features=0,
               embedding_dim=16, fusion_hidden_dims=(16,),
               use_contrastive=False, fusion_type='attention',
@@ -124,8 +124,9 @@ def test_attention_fusion_builds_on_cpu_and_defaults_to_cuda(monkeypatch,
                            device='cpu')
     assert scorer.attention_variant == variant
     assert scorer.top_k([0, 1], 3)[1].shape == (2, 3)
-    with pytest.raises(NotImplementedError, match='cascade slice'):
-        scorer.top_k_cascade([0, 1], 3)
+    for screen in ('additive', 'token0', 'funnel'):
+        v, i = scorer.top_k_cascade([0, 1], 3, screen=screen)
+        assert v.shape == i.shape == (2, 3) and (i >= 0).all()
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         MultimodalRecommender(**kw)
