@@ -7,9 +7,11 @@ Builds the port's CUDA kernels from ``pixelrec_multimodal_tpu_torch/ops/
 csrc`` into ``build/kernels/``, holds each kernel against its plain PyTorch
 version on the card, drives the main paths (full-catalog top-K serving at
 bench.py's geometry, random weights from a seed: the flagship
-concatenate-fusion model through kernel K1, then its gated-fusion twin
-through K2, exact, and K3, factored, then its attention-fusion twin
-through K4, stream, and K5, gram, then the attention cascade at
+concatenate-fusion model through kernel K1, then in int8 through K1q
+(``precision='int8!'``), with the int8 flip point measured against K1,
+then its gated-fusion twin through K2, exact, and K3, factored, and in
+int8 through K2q and K3q, then its attention-fusion twin through K4,
+stream, and K5, gram, then the attention cascade at
 scripts/bench_cascade.py's geometry: its screens through K6, token 0, and
 K1, additive, each tier of ``top_k_cascade`` and ``auto_cascade``), checks
 what comes out against the plain versions and the exact scan, and times
@@ -41,9 +43,10 @@ EMB, VISION_DIM, LANG_DIM, NUM_FEAT, N_TAGS = 64, 2048, 384, 7, 64
 HIDDEN = (512, 256, 128)
 SEED = 0
 
-# NVIDIA H100 SXM data sheet (dense): bf16 tensor-core rate, float32 rate
-# outside the tensor cores, HBM rate.
+# NVIDIA H100 SXM data sheet (dense): bf16 and int8 tensor-core rates,
+# float32 rate outside the tensor cores, HBM rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -71,6 +74,24 @@ AGREE, MAX_DIFFERING_PER_LAYER, FLIP_TOL = 1e-6, 0.0075, 1e-2
 MIN_OVERLAP = 0.95
 # Timed block of every kernel: the flagship widths, 256 users x 8,192 items.
 TIME_B, TIME_C = 256, 8192
+# The int8 flip point's chains (widths from h1 on, relu, sigmoid): one
+# hidden layer of 32 to 256 at h1 32, 128 and 512 (hidden-chain operations
+# per first-layer lane 2 * width, from 64, the least of any head the int8
+# mode takes), then deeper chains up to 2,560, the flagship's 640 among
+# them; the widest fit K1's shared memory. The flip point counts the chains
+# whose h1 is a multiple of 128, as every head the scorer builds has
+# (ops/pairwise_mlp.py:pack_mlp_chain pads to 128 lanes); h1 32 shows the
+# kernels' fixed costs.
+FLIP_CHAINS = tuple((h1, n) for h1 in (32, 128, 512)
+                    for n in (32, 64, 128, 256)) + (
+    (512, 128, 128), (512, 256, 128), (128, 512, 128), (128, 640, 128))
+# Small int8 widths for the kernel checks (multiples of 32, at least one
+# hidden layer).
+INT8_WIDTHS = ((96, 64, 32), (128, 256), (64, 32, 96, 32))
+# The JAX package's bound for the top-50 agreement of int8 with the
+# unquantized scores (tests/unit/test_pairwise_mlp.py:274-312); printed
+# beside the int8 main paths, not held.
+INT8_FIDELITY = 0.9
 
 
 def emit(phase: str, **fields):
@@ -176,9 +197,18 @@ def pair_ops(head: dict, h1: int, kernel: str = 'K1') -> tuple:
       K3: Z and p0 from M products, 2*M + 2, and per column the Mi-term
           contraction, the user term, the 1/Z scale and the activation,
           (2*Mi + 4)*h1;
-      K4, K5, K6: ``attention_ops``, with w1 [d, h1] among the products."""
+      K4, K5, K6: ``attention_ops``, with w1 [d, h1] among the products.
+    The int8 modes K1q, K2q, K3q: their bf16 mode's assembly, and in
+    float32 besides, the quantize of every hidden layer's input (multiply,
+    add, floor, clamp: 4 per input element) and the rescale of its output
+    (convert, multiply, add, act: 4 per output element); their products
+    are int8 operations."""
     hidden = head['layers'][:-1]
     dot = 2 * head['layers'][-1][0].shape[0]
+    if kernel.endswith('q'):
+        prod, f32 = pair_ops(head, h1, kernel[:-1])
+        return prod, f32 + sum(4 * (w.shape[0] + w.shape[1])
+                               for w, _ in hidden)
     if kernel in ('K4', 'K5', 'K6'):
         hidden = [(head['w1'], head['b1'])] + list(hidden)
         assembly = attention_ops(head, kernel)
@@ -209,6 +239,25 @@ def random_head(widths, activation, final, gen, device, n_item_mods=None):
     if n_item_mods:
         head.update(n_item_mods=n_item_mods, h1=widths[0])
     return head
+
+
+def int8_head(widths, activation, final, gen, device, n_item_mods=None):
+    """A ``random_head`` and its int8 twin (the same weights, quantized on
+    ranges calibrated over seeded rows of 64 users x 512 items)."""
+    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
+        calibrate_head_ranges,
+        calibrate_head_ranges_gated,
+        quantize_head,
+    )
+    head = random_head(widths, activation, final, gen, device, n_item_mods)
+    if n_item_mods:
+        exact, _ = random_gated_rows(head, 64, 512, gen, device)
+        ranges = calibrate_head_ranges_gated(head, exact[:2], exact[2:])
+    else:
+        ranges = calibrate_head_ranges(
+            head, torch.randn(64, widths[0], generator=gen).to(device),
+            torch.randn(512, widths[0], generator=gen).to(device))
+    return head, quantize_head(dict(head), ranges)
 
 
 def random_gated_rows(head, B, C, gen, device):
@@ -320,6 +369,9 @@ def reset_launches():
                tpm.pairwise_scores_gated_factored, tas.attention_scores,
                tas.attention_scores_gram, tac.attention_screen_scores):
         fn.launches = 0
+    for fn in (tpm.pairwise_scores, tpm.pairwise_scores_gated,
+               tpm.pairwise_scores_gated_factored):
+        fn.launches_int8 = 0
 
 
 def launch_counts() -> dict:
@@ -331,7 +383,10 @@ def launch_counts() -> dict:
             'K3': tpm.pairwise_scores_gated_factored.launches,
             'K4': tas.attention_scores.launches,
             'K5': tas.attention_scores_gram.launches,
-            'K6': tac.attention_screen_scores.launches}
+            'K6': tac.attention_screen_scores.launches,
+            'K1q': tpm.pairwise_scores.launches_int8,
+            'K2q': tpm.pairwise_scores_gated.launches_int8,
+            'K3q': tpm.pairwise_scores_gated_factored.launches_int8}
 
 
 def drive_top_k(scorer, users, kernel: str, phase: str, **fields):
@@ -361,7 +416,8 @@ def drive_top_k(scorer, users, kernel: str, phase: str, **fields):
     median = statistics.median(times)
     emit(phase, users=len(users), items=N_ITEMS, k=TOP_K, seconds=times,
          median_seconds=median, pairs_per_sec=len(users) * N_ITEMS / median,
-         kernel_launches=counts, expected_launches=expected, **fields)
+         kernel_launches=counts, expected_launches=expected,
+         launches_per_call=per_call, **fields)
     return v, i, counts[kernel], median
 
 
@@ -415,7 +471,8 @@ def kernel_line(name, kernel_id, source, replaces, tpu, head, h1, args,
     The bound counts the operations of kernel ``function_of`` where that
     kernel computes the same function with less work (K5 computes K4's
     scores): ``bound_ms_algorithm`` is then the bound of this kernel's own
-    operations.
+    operations. An int8 mode (K1q, K2q, K3q) counts its products at the
+    int8 rate and times its plain version in int8 too.
     """
     from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import kernel_chain
     with torch.no_grad():
@@ -425,11 +482,12 @@ def kernel_line(name, kernel_id, source, replaces, tpu, head, h1, args,
                            reps=3)
 
     def ops_ms(kid):  # (tensor-core ms, f32 ms) at the timed block
+        tensor_peak = PEAK_INT8_OPS if kid.endswith('q') else PEAK_BF16_FLOPS
         return tuple(TIME_B * TIME_C * n / peak * 1e3 for n, peak in zip(
-            pair_ops(head, h1, kid), (PEAK_BF16_FLOPS, PEAK_F32_FLOPS)))
+            pair_ops(head, h1, kid), (tensor_peak, PEAK_F32_FLOPS)))
 
     mma_ms, f32_ms = ops_ms(function_of or kernel_id)
-    chain = kernel_chain(head)  # the tensors the kernel reads
+    chain = kernel_chain(head)  # the tensors the kernel reads (its mode's)
     n_bytes = (sum(t.numel() * t.element_size() for t in args)
                + TIME_B * TIME_C * 4
                + sum(chain[k].numel() * chain[k].element_size()
@@ -456,6 +514,126 @@ def kernel_line(name, kernel_id, source, replaces, tpu, head, h1, args,
         line['bound_ops_of'] = function_of
         line['bound_ms_algorithm'] = max(max(ops_ms(kernel_id)), byte_ms)
     return line
+
+
+def int8_kernel_checks(kernels: dict, flag: dict, gen, dev) -> dict:
+    """Each int8 kernel against its plain version in int8 (bf16 mode) on
+    ``flag`` (kernel id: (head, users, items)) and on small int8 heads x
+    every activation x final. Both round where the other does and multiply
+    exactly, so a pair differs by more than AGREE only where a code flips,
+    an input lying within an ulp (of a transcendental, or of K2's and K3's
+    exp) of a boundary: at most MAX_DIFFERING_PER_LAYER of the pairs per
+    int8 layer, none by more than FLIP_TOL, and at the flagship every pair
+    within KERNEL_TOL. ``kernels``: kernel id -> (wrapper, plain version,
+    gated or not). Returns the flagship's (max_abs_err, tol) per kernel."""
+    out = {}
+    for kid, (head, users, items) in flag.items():
+        kernel, plain, _ = kernels[kid]
+        err, frac, scale = kernel_diff(kernel, plain, head, users, items)
+        max_share = MAX_DIFFERING_PER_LAYER * len(head['qlayers'])
+        out[kid] = (err, KERNEL_TOL * scale)
+        emit('kernel_vs_plain', kernel=kid, widths='flagship',
+             B=users[0].shape[0], C=items[0].shape[0], max_abs_err=err,
+             tol=KERNEL_TOL * scale, share_over_agree=frac,
+             agree=AGREE * scale, max_share=max_share)
+        if not (err <= KERNEL_TOL * scale and frac <= max_share):
+            raise AssertionError(f'{kid} flagship error {err} or share '
+                                 f'{frac} past its gates')
+    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import ACTIVATIONS
+    t0 = time.time()
+    worst = {k: 0.0 for k in kernels}
+    share = {k: 0.0 for k in kernels}
+    gated = any(g for *_, g in kernels.values())
+    combos = 0
+    for widths in INT8_WIDTHS:
+        for act in ACTIVATIONS:
+            for final in ('sigmoid', 'tanh', 'none'):
+                combos += 1
+                _, head = int8_head(widths, act, final, gen, dev,
+                                    n_item_mods=5 if gated else None)
+                rows = {}
+                if gated:
+                    rows[True] = random_gated_rows(head, 37, 301, gen, dev)
+                else:
+                    rows[False] = ((torch.randn(37, widths[0], generator=gen)
+                                    .to(dev), torch.randn(
+                                        301, widths[0], generator=gen)
+                                    .to(dev)),)
+                max_share = MAX_DIFFERING_PER_LAYER * (len(widths) - 1)
+                for kid, (kernel, plain, g) in kernels.items():
+                    r = rows[g][1 if kid == 'K3q' else 0]
+                    n_user = 1 if kid == 'K1q' else 2
+                    err, frac, scale = kernel_diff(kernel, plain, head,
+                                                   r[:n_user], r[n_user:])
+                    worst[kid] = max(worst[kid], err / (FLIP_TOL * scale))
+                    share[kid] = max(share[kid], frac / max_share)
+                    if not (err <= FLIP_TOL * scale and frac <= max_share):
+                        raise AssertionError(
+                            f'{kid} error {err} (share {frac} over '
+                            f'{AGREE * scale}) at widths {widths}, '
+                            f'{act}/{final}')
+    for kid in kernels:
+        emit('kernel_vs_plain', kernel=kid,
+             widths='small int8 heads x every activation x final',
+             combos=combos, worst_err_over_flip_tol=worst[kid],
+             worst_share_over_max_share=share[kid],
+             max_share_per_int8_layer=MAX_DIFFERING_PER_LAYER,
+             seconds=round(time.time() - t0, 3))
+    return out
+
+
+def int8_main_path(scorer, plain, users, kid, phase, bf16_items, **fields):
+    """An int8 scorer's main path: ``drive_top_k`` (8 launches of ``kid``
+    per call, no bf16 launch), its top-50 against the plain int8 version
+    (``check_against_plain``), and, printed without a gate, its top-50
+    overlap with the bf16 scan of the same model (``bf16_items``). Returns
+    the launches."""
+    v, i, launches, _ = drive_top_k(scorer, users, kid, phase, **fields)
+    check_against_plain(scorer, plain, users, v, i, f'{phase}_vs_plain',
+                        f32=False)
+    emit(f'{phase}_vs_bf16', users=len(users), items=N_ITEMS, k=TOP_K,
+         top50_overlap_vs_bf16_scan=topc_overlap(i, bf16_items),
+         jax_package_bound=INT8_FIDELITY)
+    return launches
+
+
+def int8_flip_point(smi, gen, dev) -> dict:
+    """K1 against K1q at the timed block on FLIP_CHAINS (the same random
+    weights, relu, sigmoid), in turns (K1, K1q, K1q, K1; 20 launches each).
+    The flip point is the smallest measured ratio (hidden-chain operations
+    per first-layer lane) from which K1q is the faster on every chain of
+    that ratio and of every larger one whose h1 is a multiple of 128;
+    None where K1 wins at the largest."""
+    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
+        INT8_MIN_CHAIN_FLOPS_PER_LANE,
+        int8_chain_flops_per_lane,
+        pairwise_scores,
+    )
+    rows = []
+    with torch.no_grad():
+        for widths in FLIP_CHAINS:
+            head, qhead = int8_head(widths, 'relu', 'sigmoid', gen, dev)
+            uf = torch.randn(TIME_B, widths[0], generator=gen).to(dev)
+            itf = torch.randn(TIME_C, widths[0], generator=gen).to(dev)
+            ms = {'bf16': [], 'int8': []}
+            for mode in ('bf16', 'int8', 'int8', 'bf16'):
+                h = qhead if mode == 'int8' else head
+                ms[mode].append(cuda_ms(lambda: pairwise_scores(h, uf, itf),
+                                        reps=20))
+            k1, k1q = (statistics.mean(ms[m]) for m in ('bf16', 'int8'))
+            rows.append({'widths': list(widths),
+                         'ratio': int8_chain_flops_per_lane(head),
+                         'K1_ms': k1, 'K1q_ms': k1q, 'K1q_over_K1': k1q / k1})
+    flip = None
+    padded = [r for r in rows if r['widths'][0] % 128 == 0]
+    for ratio in sorted({r['ratio'] for r in padded}, reverse=True):
+        if any(r['K1q_over_K1'] >= 1 for r in padded if r['ratio'] == ratio):
+            break
+        flip = ratio
+    emit('int8_flip_point', shape=[TIME_B, TIME_C], chains=rows,
+         flip_point=flip, constant_in_code=INT8_MIN_CHAIN_FLOPS_PER_LANE,
+         nvidia_smi=smi)
+    return {'flip_point': flip, 'chains': rows}
 
 
 def main() -> int:
@@ -566,7 +744,38 @@ def main() -> int:
         flag_tol, 'no single PyTorch call computes the fused assembly + '
         'Dense chain + one-column reduce')]
     lines[0]['measured_bf16_matmul_tflops'] = 2 * 8192 ** 3 / mm_ms / 1e9
-    del scorer, item_first, user_first
+
+    # ---- 5b. the concat model in int8 (precision='int8!': K1q), K1q
+    # against its plain version, its main path, its time; then the int8
+    # flip point against K1
+    # (the int8 phases draw from a generator of their own, so the later
+    # phases draw what they drew before them)
+    qgen = torch.Generator().manual_seed(SEED + 5)
+    t0 = time.time()
+    qscorer = CatalogScorer(model, store, precision='int8!')
+    torch.cuda.synchronize()
+    qhead = qscorer._head
+    emit('setup_int8_concat', seconds=round(time.time() - t0, 3),
+         precision=qscorer.precision,
+         int8_widths=qhead['kernel']['widths'].tolist(),
+         inv_a_off=[q['params'][2, :2].tolist() for q in qhead['qlayers']])
+    k1q = {'K1q': (pairwise_scores, pairwise_scores_plain, False)}
+    with torch.no_grad():
+        k1q_flag = int8_kernel_checks(
+            k1q, {'K1q': (qhead, (user_first[:200],), (item_first[:8000],))},
+            qgen, dev)['K1q']
+    k1q_launches = int8_main_path(qscorer, pairwise_scores_plain, users,
+                                  'K1q', 'main_path_int8_concat', i,
+                                  precision=qscorer.precision, nvidia_smi=smi)
+    lines.append(kernel_line(
+        'pairwise_mlp_int8', 'K1q', 'pairwise_mlp.cu', 441,
+        '_pairwise_kernel (n_quant > 0)', qhead, h1,
+        (user_first[:TIME_B].contiguous(), item_first[:TIME_C]),
+        pairwise_scores, pairwise_scores_plain, k1q_launches, *k1q_flag,
+        'n/a: torch._int_mm computes one int8 product, not the fused '
+        'assembly + quantize + int8 chain + one-column reduce'))
+    int8_flip_point(smi, qgen, dev)
+    del scorer, qscorer, item_first, user_first
     torch.cuda.empty_cache()
 
     # ---- 6. set-up of the gated main paths: bench_fusion.py's gated model
@@ -635,11 +844,13 @@ def main() -> int:
 
     # ---- 8. the gated main paths, one per variant, then their kernels'
     # times at the flagship block
+    gated_items = {}
     for variant, s in gated.items():
         kid, kernel, plain, source, line, tpu = kernels[variant]
         v, i, launches, _ = drive_top_k(s, users, kid,
                                         f'main_path_gated_{variant}',
                                         gated_variant=s.gated_variant)
+        gated_items[variant] = i
         check_against_plain(s, plain, users, v, i,
                             f'main_path_gated_{variant}_vs_plain',
                             f32=False)
@@ -653,7 +864,51 @@ def main() -> int:
             'no single PyTorch call computes the fused gated assembly + '
             'Dense chain + one-column reduce'))
 
-    del gated, gmodel, gstore, ghead, side
+    # ---- 8b. the gated model in int8 (precision='int8!'), one scorer per
+    # variant: K2q and K3q against their plain versions, their main paths
+    # and their times
+    t0 = time.time()
+    qgated = {v: CatalogScorer(gmodel, gstore, gated_variant=v,
+                               precision='int8!')
+              for v in ('exact', 'factored')}
+    torch.cuda.synchronize()
+    emit('setup_int8_gated', seconds=round(time.time() - t0, 3),
+         precision=qgated['exact'].precision,
+         int8_widths=qgated['exact']._head['kernel']['widths'].tolist())
+    qkernels = {'exact': ('K2q', pairwise_scores_gated,
+                          pairwise_scores_gated_plain, 517),
+                'factored': ('K3q', pairwise_scores_gated_factored,
+                             pairwise_scores_gated_factored_plain, 829)}
+    with torch.no_grad():
+        flag_rows = {}
+        for variant, s in qgated.items():
+            side = s._fast_user_side(
+                torch.from_numpy(users[:200].astype(np.int64)).to(dev))
+            flag_rows[qkernels[variant][0]] = (
+                s._head, side, tuple(t[:8000] for t in s._scan_tables))
+        qflag = int8_kernel_checks(
+            {kid: (kernel, plain, True)
+             for kid, kernel, plain, _ in qkernels.values()},
+            flag_rows, qgen, dev)
+    for variant, s in qgated.items():
+        kid, kernel, plain, line = qkernels[variant]
+        source = kernels[variant][3]
+        launches = int8_main_path(
+            s, plain, users, kid, f'main_path_int8_gated_{variant}',
+            gated_items[variant], gated_variant=s.gated_variant,
+            precision=s.precision, nvidia_smi=smi)
+        with torch.no_grad():
+            side = s._fast_user_side(
+                torch.from_numpy(users[:TIME_B].astype(np.int64)).to(dev))
+        lines.append(kernel_line(
+            f'{source}_int8', kid, f'{source}.cu', line,
+            f'{kernels[variant][5]} (n_quant > 0)', s._head, s._head['h1'],
+            tuple(side) + tuple(t[:TIME_C] for t in s._scan_tables),
+            kernel, plain, launches, *qflag[kid],
+            'n/a: torch._int_mm computes one int8 product, not the fused '
+            'gated assembly + quantize + int8 chain + one-column reduce'))
+
+    del gated, qgated, gmodel, gstore, ghead, side
     torch.cuda.empty_cache()
 
     # ---- 9. set-up of the attention main paths: bench_fusion.py's

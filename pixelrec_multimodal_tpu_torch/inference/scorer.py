@@ -3,7 +3,8 @@
 
 Counterpart of ``CatalogScorer`` in
 ``pixelrec_multimodal_tpu/inference/scorer.py``, concatenate, gated and
-attention fusion, and the attention cascade:
+attention fusion, int8 scoring of the first two, and the attention
+cascade:
 
   * the item tower (item and tag embeddings plus modality projections) is
     computed once for the padded catalog, streamed host -> device in
@@ -17,7 +18,8 @@ attention fusion, and the attention cascade:
     gram variant (``ops/attention_scorer.py``);
   * ``top_k`` scans the catalog in item chunks: one fused kernel launch
     scores a user block against a chunk (``ops/pairwise_mlp.py``: K1 for
-    concat, K2 for exact gated, K3 for factored gated;
+    concat, K2 for exact gated, K3 for factored gated, or their int8 modes
+    K1q, K2q, K3q with ``precision='int8'``;
     ``ops/attention_scorer.py``: K4 for stream attention, K5 for gram
     attention), and a running top-k merges each chunk (``ops/topk.py``),
     so the [users, items] matrix is never held whole;
@@ -63,7 +65,10 @@ from ..ops.attention_scorer import (
 )
 from ..ops.pairwise_mlp import (
     GATE_PAD,
+    INT8_MIN_CHAIN_FLOPS_PER_LANE,
     build_factorized_head,
+    calibrate_head_ranges,
+    calibrate_head_ranges_gated,
     candidate_scores,
     candidate_scores_gated,
     compute_item_first,
@@ -72,9 +77,11 @@ from ..ops.pairwise_mlp import (
     compute_user_side_gated,
     factor_gated_tables,
     factor_gated_user,
+    int8_chain_flops_per_lane,
     pairwise_scores,
     pairwise_scores_gated,
     pairwise_scores_gated_factored,
+    quantize_head,
 )
 from ..ops.topk import NEG_INF, init_topk, merge_topk
 from ..parallel.mesh import pad_to_multiple
@@ -129,9 +136,20 @@ class CatalogScorer:
 
     ``fast_path=False`` scores through the model's own layers
     (``score_from_towers``) instead of the factorized head and kernel.
-    ``precision`` other than ``'bf16'`` and ``mesh`` are not ported yet.
-    The model is moved to ``device`` and put in eval mode. Every call runs
-    its float32 products with TF32 off (``_exact_f32``).
+    ``mesh`` is not ported yet. The model is moved to ``device`` and put in
+    eval mode. Every call runs its float32 products with TF32 off
+    (``_exact_f32``).
+
+    ``precision``: ``'bf16'``, or opt-in int8 scoring of a concatenate or
+    gated fast path (``'int8'`` or ``'int8!'``; anything else, an attention
+    model or ``fast_path=False`` raises ValueError). The head's hidden
+    chain is quantized once here from ranges calibrated on a sample of the
+    catalog's pairs (``_quantize``), and ``top_k``, ``score_full`` and
+    ``score_candidates`` then score in int8: on the card through the
+    kernels' int8 mode (K1q, K2q, K3q), on the CPU through the plain int8
+    chain in float32. Scores are approximate. ``'int8'`` passes the
+    auto-precision gate first and may serve bf16 (``_resolve_precision``);
+    ``'int8!'`` forces int8. ``self.precision`` holds what is served.
 
     ``gated_variant`` picks the kernel of a gated model's fast path:
     ``'exact'`` (K2) or ``'factored'`` (K3, approximate: bf16 tables and
@@ -175,10 +193,9 @@ class CatalogScorer:
             raise NotImplementedError(
                 'catalog sharding over several devices is not ported yet '
                 '(ROADMAP item A11)')
-        if precision != 'bf16':
-            raise NotImplementedError(
-                f"precision={precision!r} is not ported yet: int8 scoring is "
-                "ROADMAP item A10 (kernels K1q, K2q, K3q)")
+        if precision not in ('bf16', 'int8', 'int8!'):
+            raise ValueError(f"precision must be 'bf16', 'int8' or "
+                             f"'int8!' (force), got {precision!r}")
         if gated_variant not in (None, 'exact', 'factored'):
             raise ValueError(f"gated_variant must be 'exact', 'factored' or "
                              f"None, got {gated_variant!r}")
@@ -189,7 +206,6 @@ class CatalogScorer:
         self.model = model.to(self.device).eval()
         self.store = feature_store
         self.n_items = feature_store.n_items
-        self.precision = precision
         default_items, default_users = DEFAULT_CHUNKS[self.device.type]
         item_chunk = item_chunk or default_items
         self.item_chunk = min(item_chunk, pad_to_multiple(self.n_items, 128))
@@ -242,6 +258,59 @@ class CatalogScorer:
                     self._scan_tables = self._build_item_fast(
                         lambda feats: factor_gated_tables(
                             head, *compute_item_side_gated(head, feats)))
+            self.precision = self._resolve_precision(precision)
+            if self.precision == 'int8':
+                self._quantize()
+
+    def _resolve_precision(self, precision: str) -> str:
+        """'bf16' or 'int8'. int8 takes a fused concatenate or gated head
+        (ValueError otherwise). The auto-precision gate: below
+        ``INT8_MIN_CHAIN_FLOPS_PER_LANE`` hidden-chain operations per
+        first-layer lane, where the H100 measured the int8 kernel no faster
+        than the bf16 one, 'int8' warns on stderr and serves bf16; 'int8!'
+        quantizes whatever the head."""
+        if precision == 'bf16':
+            return precision
+        if self._head is None or self._head['fusion'] not in (
+                'concatenate', 'gated'):
+            raise ValueError(
+                "precision='int8' requires a fused concatenate or gated head "
+                f'(fusion_type={self.model.fusion_type!r}, fast_path head '
+                f"{'missing' if self._head is None else 'present'})")
+        rho = int8_chain_flops_per_lane(self._head)
+        if precision == 'int8' and rho < INT8_MIN_CHAIN_FLOPS_PER_LANE:
+            print(f"CatalogScorer: precision='int8' requested but the head "
+                  f'is below the int8 flip point measured on the H100 '
+                  f'(hidden-chain operations per first-layer lane {rho:.0f} '
+                  f'< {INT8_MIN_CHAIN_FLOPS_PER_LANE}: there the int8 kernel '
+                  f'is no faster than the bf16 one; PERF.md). Serving in '
+                  f"bf16; pass precision='int8!' to force.", file=sys.stderr)
+            return 'bf16'
+        return 'int8'
+
+    def _quantize(self):
+        """Calibrate each hidden layer's input range on the JAX package's
+        sample (``np.random.default_rng(0)``: min(64, n_users) users
+        without replacement, then the sorted min(1024, n_items) items),
+        through the exact tables (gated: ``(item_first, item_gates)``
+        whatever the variant), and put the head in int8 mode."""
+        head, model = self._head, self.model
+        rng = np.random.default_rng(0)
+        cal_users = rng.choice(model.n_users, size=min(64, model.n_users),
+                               replace=False).astype(np.int64)
+        cal_items = self._tensor(np.sort(rng.choice(
+            self.n_items, size=min(1024, self.n_items),
+            replace=False)).astype(np.int64))
+        user_emb = model.user_tower(self._tensor(cal_users))
+        if head['fusion'] == 'gated':
+            ranges = calibrate_head_ranges_gated(
+                head, compute_user_side_gated(head, user_emb),
+                tuple(t[cal_items] for t in self._item_fast))
+        else:
+            ranges = calibrate_head_ranges(
+                head, compute_user_first(head, user_emb),
+                self._item_fast[0][cal_items])
+        quantize_head(head, ranges)
 
     def _check_factored_budget(self):
         """Raise if the factored variant's tables (T bf16, igb f32) would
@@ -526,9 +595,10 @@ class CatalogScorer:
 
         candidate_mask: [B, C] bool, True = valid entry; invalid entries
         score NEG_INF. The fused path gathers the precomputed first-layer
-        rows (gated: and gate rows) and runs the float32 chain (the JAX
-        package's ``xla_candidate_scores``, ``xla_candidate_scores_gated``);
-        gated candidates take the exact math whatever ``gated_variant``.
+        rows (gated: and gate rows) and runs the float32 chain, or the int8
+        chain in float32 for an int8 scorer (the JAX package's
+        ``xla_candidate_scores``, ``xla_candidate_scores_gated``); gated
+        candidates take the exact math whatever ``gated_variant``.
         Attention gathers its per-item tables and scores them in float32
         (``ops/attention_cascade.py:attention_candidate_scores``), in user
         sub-blocks of at most ``_CANDIDATE_BLOCK_BYTES`` of gathered rows.

@@ -6,7 +6,9 @@
 // the BatchNorm-folded chain, and writes the [B, C] f32 score matrix.
 //
 // Replaces: pixelrec_multimodal_tpu/ops/pairwise_mlp.py:_gated_factored_kernel
-// (bf16 mode, reached through pallas_pairwise_scores_gated_factored).
+// (bf16 mode, reached through pallas_pairwise_scores_gated_factored), and, as
+// gated_factored_mlp_int8_forward, the same kernel's int8 mode (n_quant > 0:
+// K3q).
 //
 // What it computes, per (user b, item c) pair, with M = n_mod modalities and
 // Mi = M - 1 (ops/pairwise_mlp.py, factored form of the gated softmax):
@@ -41,8 +43,13 @@
 // (p0, 1/Z) live in the weight ring until the chain starts. Every product
 // and sum of the assembly is unfused (__fmul_rn, __fadd_rn) and in the
 // plain version's order, so that both round the same f32 values to bf16.
+//
+// int8 mode (K3q, the template flag Q): the same assembly, each bf16
+// activation then quantized with layer 0's (inv_a, off) into an int8 code,
+// and the int8 chain of mlp_chain_int8.cuh; like K2q, bound by its f32
+// operations rather than its int8 products.
 
-#include "mlp_chain.cuh"
+#include "mlp_chain_int8.cuh"
 
 namespace {
 
@@ -54,11 +61,12 @@ __device__ __forceinline__ float4 bf16x4_to_float4(uint2 v) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
+template <bool Q>
 __global__ void __launch_bounds__(THREADS)
 gated_factored_kernel(const float* __restrict__ uf, const float* __restrict__ a,
                       const __nv_bfloat16* __restrict__ T,
                       const float* __restrict__ igb,
-                      const __nv_bfloat16* __restrict__ w,
+                      const Weight<Q>* __restrict__ w,
                       const float* __restrict__ bias,
                       const float* __restrict__ w_last,
                       const float* __restrict__ b_last,
@@ -77,7 +85,7 @@ gated_factored_kernel(const float* __restrict__ uf, const float* __restrict__ a,
   // coefficients (as f32) and each pair row's (p0, 1/Z). Rows past B or C
   // have zero coefficients or tables, assemble to zeros and are never
   // written out.
-  float* users = reinterpret_cast<float*>(ring(buf_a, ch));  // [TB, h1]
+  float* users = reinterpret_cast<float*>(scratch_of<Q>(smem, ch));  // [TB, h1]
   float* coef = users + TB * h1;                             // [TB, GATE_PAD]
   float2* row_z = reinterpret_cast<float2*>(coef + TB * GATE_PAD);  // [ROWS]
   for (int e = tid; e < TB * q; e += THREADS) {
@@ -107,9 +115,16 @@ gated_factored_kernel(const float* __restrict__ uf, const float* __restrict__ a,
       }
     row_z[r] = make_float2(p0, 1.f / fmaxf(z, 1e-30f));
   }
+  // int8 mode: layer 0's (inv_a, off), bias[0] and bias[1]
+  float inv_a = 0.f, off = 0.f;
+  if constexpr (Q) {
+    inv_a = bias[0];
+    off = bias[1];
+  }
   __syncthreads();
 
-  // ---- assembly: buf_a[bu * TC + ci] = bf16(act((p0 * u + r) / Z)).
+  // ---- assembly: buf_a[bu * TC + ci] = bf16(act((p0 * u + r) / Z))
+  // (int8 mode: its codes).
   for (int e = tid; e < TC * q; e += THREADS) {
     const int ci = e / q, k = (e - ci * q) * 4;
     float4 t[GATE_PAD - 1];
@@ -142,12 +157,48 @@ gated_factored_kernel(const float* __restrict__ uf, const float* __restrict__ a,
           __fmul_rn(__fadd_rn(__fmul_rn(pz.x, u.y), acc.y), pz.y),
           __fmul_rn(__fadd_rn(__fmul_rn(pz.x, u.z), acc.z), pz.y),
           __fmul_rn(__fadd_rn(__fmul_rn(pz.x, u.w), acc.w), pz.y));
-      *reinterpret_cast<uint2*>(buf_a + r * ch.stride_a + k) =
-          act_to_bf16x4(x, act);
+      if constexpr (Q) {
+        *reinterpret_cast<uint32_t*>(smem + r * ch.stride_a + k) =
+            quantize_bf16x4(act_to_bf16x4(x, act), inv_a, off);
+      } else {
+        *reinterpret_cast<uint2*>(buf_a + r * ch.stride_a + k) =
+            act_to_bf16x4(x, act);
+      }
     }
   }
   __syncthreads();
-  run_chain(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act, fin);
+  if constexpr (Q) {
+    run_chain_int8(smem, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
+                   fin);
+  } else {
+    run_chain(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act, fin);
+  }
+}
+
+template <bool Q>
+int forward(const void* uf, const void* a, const void* T, const void* igb,
+            const void* w, const void* bias, const void* w_last,
+            const void* b_last, void* out, int B, int C, int n_hidden,
+            const void* widths, int act, int fin, int n_mod, void* stream) {
+  if (n_mod < 2 || n_mod > GATE_PAD) return cudaErrorInvalidValue;
+  Chain ch;
+  cudaError_t err = make_chain_of<Q>(n_hidden, widths, &ch);
+  if (err != cudaSuccess) return err;
+  const size_t scratch =
+      ((size_t)TB * ch.width[0] + TB * GATE_PAD + 2 * ROWS) * 4;
+  dim3 grid;
+  size_t smem = 0;
+  err = prepare_launch(gated_factored_kernel<Q>, ch, scratch, B, C, &grid,
+                       &smem, Q ? smem_bytes_int8 : smem_bytes);
+  if (err != cudaSuccess) return err;
+  gated_factored_kernel<Q><<<grid, THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(uf), static_cast<const float*>(a),
+      static_cast<const __nv_bfloat16*>(T), static_cast<const float*>(igb),
+      static_cast<const Weight<Q>*>(w), static_cast<const float*>(bias),
+      static_cast<const float*>(w_last), static_cast<const float*>(b_last),
+      static_cast<float*>(out), B, C, n_mod, ch, act, fin);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -168,24 +219,21 @@ int gated_factored_mlp_forward(const void* uf, const void* a, const void* T,
                                const void* b_last, void* out, int B, int C,
                                int n_hidden, const void* widths, int act,
                                int fin, int n_mod, void* stream) {
-  if (n_mod < 2 || n_mod > GATE_PAD) return cudaErrorInvalidValue;
-  Chain ch;
-  cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
-  if (err != cudaSuccess) return err;
-  const size_t scratch =
-      ((size_t)TB * ch.width[0] + TB * GATE_PAD + 2 * ROWS) * 4;
-  dim3 grid;
-  size_t smem = 0;
-  err = prepare_launch(gated_factored_kernel, ch, scratch, B, C, &grid, &smem);
-  if (err != cudaSuccess) return err;
-  gated_factored_kernel<<<grid, THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(uf), static_cast<const float*>(a),
-      static_cast<const __nv_bfloat16*>(T), static_cast<const float*>(igb),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-      static_cast<const float*>(w_last), static_cast<const float*>(b_last),
-      static_cast<float*>(out), B, C, n_mod, ch, act, fin);
-  return cudaGetLastError();
+  return forward<false>(uf, a, T, igb, w, bias, w_last, b_last, out, B, C,
+                        n_hidden, widths, act, fin, n_mod, stream);
+}
+
+// The int8 mode (K3q): the arguments of gated_factored_mlp_forward, with the
+// chain arguments of pairwise_mlp_int8_forward.
+int gated_factored_mlp_int8_forward(const void* uf, const void* a,
+                                    const void* T, const void* igb,
+                                    const void* w, const void* bias,
+                                    const void* w_last, const void* b_last,
+                                    void* out, int B, int C, int n_hidden,
+                                    const void* widths, int act, int fin,
+                                    int n_mod, void* stream) {
+  return forward<true>(uf, a, T, igb, w, bias, w_last, b_last, out, B, C,
+                       n_hidden, widths, act, fin, n_mod, stream);
 }
 
 }  // extern "C"

@@ -5,7 +5,9 @@
 // BatchNorm-folded gated head and writes the [B, C] f32 score matrix.
 //
 // Replaces: pixelrec_multimodal_tpu/ops/pairwise_mlp.py:_gated_pairwise_kernel
-// (bf16 mode, reached through pallas_pairwise_scores_gated).
+// (bf16 mode, reached through pallas_pairwise_scores_gated), and, as
+// gated_pairwise_mlp_int8_forward, the same kernel's int8 mode (n_quant > 0:
+// K2q).
 //
 // What it computes, per (user b, item c) pair, with M = n_mod modalities
 // (the user, then Mi = M - 1 item-side ones), all in f32:
@@ -42,18 +44,27 @@
 // so that kernel and plain version round the same f32 values to bf16; a
 // fused multiply-add would round differently and move some activations to
 // the neighbouring bf16 value.
+//
+// int8 mode (K2q, the template flag Q): the same assembly, each bf16
+// activation then quantized with layer 0's (inv_a, off) into an int8 code,
+// and the int8 chain of mlp_chain_int8.cuh. Its int8 products take 0.35 ms
+// at the data-sheet rate for 256 x 8,192 flagship pairs, while the f32 work
+// (the assembly as above plus each hidden layer's quantize and rescale,
+// about 11,500 operations per pair) takes about 0.36 ms: bound by f32
+// operations.
 
-#include "mlp_chain.cuh"
+#include "mlp_chain_int8.cuh"
 
 namespace {
 
 using namespace pairwise;
 
+template <bool Q>
 __global__ void __launch_bounds__(THREADS)
 gated_pairwise_kernel(const float* __restrict__ uf, const float* __restrict__ ug,
                       const float* __restrict__ itf,
                       const float* __restrict__ ig,
-                      const __nv_bfloat16* __restrict__ w,
+                      const Weight<Q>* __restrict__ w,
                       const float* __restrict__ bias,
                       const float* __restrict__ w_last,
                       const float* __restrict__ b_last,
@@ -71,7 +82,7 @@ gated_pairwise_kernel(const float* __restrict__ uf, const float* __restrict__ ug
   // Scratch in the ring: the tile's f32 user rows, then the gates of its
   // pair rows. Rows past B or C assemble from zeros (uniform gates over
   // zero parts) and are never written out.
-  float* users = reinterpret_cast<float*>(ring(buf_a, ch));  // [TB, h1]
+  float* users = reinterpret_cast<float*>(scratch_of<Q>(smem, ch));  // [TB, h1]
   float* gates = users + TB * h1;                            // [ROWS, GATE_PAD]
   for (int e = tid; e < TB * q; e += THREADS) {
     const int bu = e / q, k = (e - bu * q) * 4;
@@ -105,9 +116,16 @@ gated_pairwise_kernel(const float* __restrict__ uf, const float* __restrict__ ug
     for (int m = 0; m < GATE_PAD; ++m)
       gates[r * GATE_PAD + m] = m < n_mod ? l[m] * inv : 0.f;
   }
+  // int8 mode: layer 0's (inv_a, off), bias[0] and bias[1]
+  float inv_a = 0.f, off = 0.f;
+  if constexpr (Q) {
+    inv_a = bias[0];
+    off = bias[1];
+  }
   __syncthreads();
 
-  // ---- assembly: buf_a[bu * TC + ci] = bf16(act(sum_m g_m * part_m)).
+  // ---- assembly: buf_a[bu * TC + ci] = bf16(act(sum_m g_m * part_m))
+  // (int8 mode: its codes).
   for (int e = tid; e < TC * q; e += THREADS) {
     const int ci = e / q, k = (e - ci * q) * 4;
     float4 it[GATE_PAD - 1];
@@ -135,12 +153,47 @@ gated_pairwise_kernel(const float* __restrict__ uf, const float* __restrict__ ug
           x.z = __fadd_rn(x.z, __fmul_rn(gm, it[m].z));
           x.w = __fadd_rn(x.w, __fmul_rn(gm, it[m].w));
         }
-      *reinterpret_cast<uint2*>(buf_a + r * ch.stride_a + k) =
-          act_to_bf16x4(x, act);
+      if constexpr (Q) {
+        *reinterpret_cast<uint32_t*>(smem + r * ch.stride_a + k) =
+            quantize_bf16x4(act_to_bf16x4(x, act), inv_a, off);
+      } else {
+        *reinterpret_cast<uint2*>(buf_a + r * ch.stride_a + k) =
+            act_to_bf16x4(x, act);
+      }
     }
   }
   __syncthreads();
-  run_chain(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act, fin);
+  if constexpr (Q) {
+    run_chain_int8(smem, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
+                   fin);
+  } else {
+    run_chain(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act, fin);
+  }
+}
+
+template <bool Q>
+int forward(const void* uf, const void* ug, const void* itf, const void* ig,
+            const void* w, const void* bias, const void* w_last,
+            const void* b_last, void* out, int B, int C, int n_hidden,
+            const void* widths, int act, int fin, int n_mod, void* stream) {
+  if (n_mod < 2 || n_mod > GATE_PAD) return cudaErrorInvalidValue;
+  Chain ch;
+  cudaError_t err = make_chain_of<Q>(n_hidden, widths, &ch);
+  if (err != cudaSuccess) return err;
+  const size_t scratch = ((size_t)TB * ch.width[0] + ROWS * GATE_PAD) * 4;
+  dim3 grid;
+  size_t smem = 0;
+  err = prepare_launch(gated_pairwise_kernel<Q>, ch, scratch, B, C, &grid,
+                       &smem, Q ? smem_bytes_int8 : smem_bytes);
+  if (err != cudaSuccess) return err;
+  gated_pairwise_kernel<Q><<<grid, THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(uf), static_cast<const float*>(ug),
+      static_cast<const float*>(itf), static_cast<const float*>(ig),
+      static_cast<const Weight<Q>*>(w), static_cast<const float*>(bias),
+      static_cast<const float*>(w_last), static_cast<const float*>(b_last),
+      static_cast<float*>(out), B, C, n_mod, ch, act, fin);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -161,23 +214,21 @@ int gated_pairwise_mlp_forward(const void* uf, const void* ug, const void* itf,
                                void* out, int B, int C, int n_hidden,
                                const void* widths, int act, int fin,
                                int n_mod, void* stream) {
-  if (n_mod < 2 || n_mod > GATE_PAD) return cudaErrorInvalidValue;
-  Chain ch;
-  cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
-  if (err != cudaSuccess) return err;
-  const size_t scratch = ((size_t)TB * ch.width[0] + ROWS * GATE_PAD) * 4;
-  dim3 grid;
-  size_t smem = 0;
-  err = prepare_launch(gated_pairwise_kernel, ch, scratch, B, C, &grid, &smem);
-  if (err != cudaSuccess) return err;
-  gated_pairwise_kernel<<<grid, THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(uf), static_cast<const float*>(ug),
-      static_cast<const float*>(itf), static_cast<const float*>(ig),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-      static_cast<const float*>(w_last), static_cast<const float*>(b_last),
-      static_cast<float*>(out), B, C, n_mod, ch, act, fin);
-  return cudaGetLastError();
+  return forward<false>(uf, ug, itf, ig, w, bias, w_last, b_last, out, B, C,
+                        n_hidden, widths, act, fin, n_mod, stream);
+}
+
+// The int8 mode (K2q): the arguments of gated_pairwise_mlp_forward, with the
+// chain arguments of pairwise_mlp_int8_forward.
+int gated_pairwise_mlp_int8_forward(const void* uf, const void* ug,
+                                    const void* itf, const void* ig,
+                                    const void* w, const void* bias,
+                                    const void* w_last, const void* b_last,
+                                    void* out, int B, int C, int n_hidden,
+                                    const void* widths, int act, int fin,
+                                    int n_mod, void* stream) {
+  return forward<true>(uf, ug, itf, ig, w, bias, w_last, b_last, out, B, C,
+                       n_hidden, widths, act, fin, n_mod, stream);
 }
 
 }  // extern "C"

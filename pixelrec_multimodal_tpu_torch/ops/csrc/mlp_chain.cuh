@@ -329,12 +329,13 @@ inline size_t smem_bytes(const Chain& ch, size_t scratch) {
 }
 
 // Shared-memory opt-in and grid of a [B users] x [C items] launch of
-// `kernel`. A block that does not fit in shared memory returns
-// cudaErrorInvalidValue.
+// `kernel`, whose block takes smem_of(ch, scratch) bytes (the int8 mode
+// passes smem_bytes_int8). A block that does not fit in shared memory
+// returns cudaErrorInvalidValue.
 template <typename Kernel>
-inline cudaError_t prepare_launch(Kernel kernel, const Chain& ch,
-                                  size_t scratch, int B, int C, dim3* grid,
-                                  size_t* smem) {
+inline cudaError_t prepare_launch(
+    Kernel kernel, const Chain& ch, size_t scratch, int B, int C, dim3* grid,
+    size_t* smem, size_t (*smem_of)(const Chain&, size_t) = smem_bytes) {
   if (B <= 0 || C <= 0) return cudaErrorInvalidValue;
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -342,7 +343,7 @@ inline cudaError_t prepare_launch(Kernel kernel, const Chain& ch,
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  *smem = smem_bytes(ch, scratch);
+  *smem = smem_of(ch, scratch);
   if (*smem > (size_t)max_smem) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -5,7 +5,8 @@
 // prediction MLP and writes the [B, C] f32 score matrix.
 //
 // Replaces: pixelrec_multimodal_tpu/ops/pairwise_mlp.py:_pairwise_kernel
-// (bf16 mode, reached through pallas_pairwise_scores).
+// (bf16 mode, reached through pallas_pairwise_scores), and, as
+// pairwise_mlp_int8_forward, the same kernel's int8 mode (n_quant > 0: K1q).
 //
 // What it computes, per (user b, item c) pair:
 //   x  = act(bf16(bf16(user_first[b]) + bf16(item_first[c])))   (b1 already
@@ -30,16 +31,25 @@
 // mlp_chain.cuh (mma.sync on the tensor cores, weights through a cp.async
 // ring), which the gated kernels share.
 // wgmma, TMA and persistent blocks are left for later work.
+//
+// int8 mode (K1q, the template flag Q): the same bf16 assembly, each
+// activation then quantized with layer 0's (inv_a, off) into an int8 code
+// instead of stored as bf16, and the int8 chain of mlp_chain_int8.cuh. Its
+// bound: 327,680 int8 tensor-core operations per pair at the flagship head,
+// half the bf16 time at the data-sheet rates (1,979 TOP/s int8), with the
+// quantize and rescale of every hidden layer's input and output on the f32
+// units beside it.
 
-#include "mlp_chain.cuh"
+#include "mlp_chain_int8.cuh"
 
 namespace {
 
 using namespace pairwise;
 
+template <bool Q>
 __global__ void __launch_bounds__(THREADS)
 pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
-                    const __nv_bfloat16* __restrict__ w,
+                    const Weight<Q>* __restrict__ w,
                     const float* __restrict__ bias,
                     const float* __restrict__ w_last,
                     const float* __restrict__ b_last, float* __restrict__ out,
@@ -52,17 +62,25 @@ pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
   const int h1 = ch.width[0];
   const int q = h1 / 4;
 
-  // ---- assembly: buf_a[bu * TC + ci] = act(bf16(u) + bf16(i)), as bf16.
-  // The TB user rows are rounded to bf16 once, into the ring; each item
-  // float4 is read once from global memory and paired with all TB users.
-  // Rows past B or C assemble from zeros and are never written out.
-  __nv_bfloat16* users = ring(buf_a, ch);  // [TB, h1]
+  // ---- assembly: buf_a[bu * TC + ci] = act(bf16(u) + bf16(i)), as bf16
+  // (int8 mode: its codes). The TB user rows are rounded to bf16 once, into
+  // the ring; each item float4 is read once from global memory and paired
+  // with all TB users. Rows past B or C assemble from zeros and are never
+  // written out.
+  __nv_bfloat16* users =
+      reinterpret_cast<__nv_bfloat16*>(scratch_of<Q>(smem, ch));  // [TB, h1]
   for (int e = tid; e < TB * q; e += THREADS) {
     const int bu = e / q, k = (e - bu * q) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (u0 + bu < B)
       v = __ldg(reinterpret_cast<const float4*>(uf + (size_t)(u0 + bu) * h1 + k));
     *reinterpret_cast<uint2*>(users + bu * h1 + k) = to_bf16x4(v);
+  }
+  // int8 mode: layer 0's (inv_a, off), bias[0] and bias[1]
+  float inv_a = 0.f, off = 0.f;
+  if constexpr (Q) {
+    inv_a = bias[0];
+    off = bias[1];
   }
   __syncthreads();
   for (int e = tid; e < TC * q; e += THREADS) {
@@ -77,12 +95,46 @@ pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
       // bf16 adds, rounded to nearest even: the Pallas kernel's bf16 add.
       const __nv_bfloat162 lo = __hadd2(as_bf162(u.x), as_bf162(it.x));
       const __nv_bfloat162 hi = __hadd2(as_bf162(u.y), as_bf162(it.y));
-      *reinterpret_cast<uint2*>(buf_a + (bu * TC + ci) * ch.stride_a + k) =
+      const uint2 x =
           make_uint2(as_u32(act_pair(lo, act)), as_u32(act_pair(hi, act)));
+      if constexpr (Q) {
+        *reinterpret_cast<uint32_t*>(smem + (bu * TC + ci) * ch.stride_a + k) =
+            quantize_bf16x4(x, inv_a, off);
+      } else {
+        *reinterpret_cast<uint2*>(buf_a + (bu * TC + ci) * ch.stride_a + k) = x;
+      }
     }
   }
   __syncthreads();
-  run_chain(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act, fin);
+  if constexpr (Q) {
+    run_chain_int8(smem, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
+                   fin);
+  } else {
+    run_chain(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act, fin);
+  }
+}
+
+template <bool Q>
+int forward(const void* uf, const void* itf, const void* w, const void* bias,
+            const void* w_last, const void* b_last, void* out, int B, int C,
+            int n_hidden, const void* widths, int act, int fin, void* stream) {
+  Chain ch;
+  cudaError_t err = make_chain_of<Q>(n_hidden, widths, &ch);
+  if (err != cudaSuccess) return err;
+  // The bf16 user rows are the assembly's scratch in the ring.
+  const size_t scratch = (size_t)TB * ch.width[0] * 2;
+  dim3 grid;
+  size_t smem = 0;
+  err = prepare_launch(pairwise_mlp_kernel<Q>, ch, scratch, B, C, &grid, &smem,
+                       Q ? smem_bytes_int8 : smem_bytes);
+  if (err != cudaSuccess) return err;
+  pairwise_mlp_kernel<Q><<<grid, THREADS, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(uf), static_cast<const float*>(itf),
+      static_cast<const Weight<Q>*>(w), static_cast<const float*>(bias),
+      static_cast<const float*>(w_last), static_cast<const float*>(b_last),
+      static_cast<float*>(out), B, C, ch, act, fin);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -102,21 +154,21 @@ int pairwise_mlp_forward(const void* uf, const void* itf, const void* w,
                          const void* b_last, void* out, int B, int C,
                          int n_hidden, const void* widths, int act, int fin,
                          void* stream) {
-  Chain ch;
-  cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
-  if (err != cudaSuccess) return err;
-  // The bf16 user rows are the assembly's scratch in the ring.
-  const size_t scratch = (size_t)TB * ch.width[0] * 2;
-  dim3 grid;
-  size_t smem = 0;
-  err = prepare_launch(pairwise_mlp_kernel, ch, scratch, B, C, &grid, &smem);
-  if (err != cudaSuccess) return err;
-  pairwise_mlp_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(uf), static_cast<const float*>(itf),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-      static_cast<const float*>(w_last), static_cast<const float*>(b_last),
-      static_cast<float*>(out), B, C, ch, act, fin);
-  return cudaGetLastError();
+  return forward<false>(uf, itf, w, bias, w_last, b_last, out, B, C, n_hidden,
+                        widths, act, fin, stream);
+}
+
+// The int8 mode (K1q): the arguments of pairwise_mlp_forward, with w the
+// hidden layers' transposed int8 weights [N, K] back to back, bias the
+// quantization parameters (mlp_chain_int8.cuh), w_last the unrounded live
+// column; widths are multiples of 32, 1 <= n_hidden <= MAX_HIDDEN.
+int pairwise_mlp_int8_forward(const void* uf, const void* itf, const void* w,
+                              const void* bias, const void* w_last,
+                              const void* b_last, void* out, int B, int C,
+                              int n_hidden, const void* widths, int act,
+                              int fin, void* stream) {
+  return forward<true>(uf, itf, w, bias, w_last, b_last, out, B, C, n_hidden,
+                       widths, act, fin, stream);
 }
 
 }  // extern "C"

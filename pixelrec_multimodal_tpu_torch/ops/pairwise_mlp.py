@@ -26,13 +26,20 @@ go through the kernel, CPU tensors through the plain version in float32
 ``compute_dtype=torch.bfloat16`` repeat each kernel's bf16 rounding points
 and are what the kernels are held against on the card.
 
+A head that carries ``qlayers`` (``quantize_head``) scores in int8: each
+hidden Dense quantizes its input affinely to int8 codes, multiplies them
+with per-column int8 weights into int32 sums and rescales in float32
+(``_chain_scores_int8``). The same three kernels then run their int8 mode
+(K1q, K2q, K3q): the assembly of the bf16 mode, then the int8 chain of
+``csrc/mlp_chain_int8.cuh``.
+
 Head tensors keep the JAX package's 128-lane zero padding, so they compare
 one to one with the JAX head; the padding is exact (zero rows and columns).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -260,18 +267,184 @@ def factor_gated_tables(head: dict, item_first: torch.Tensor,
     return t.to(table_dtype).contiguous(), _pad_gates(b)
 
 
+# ------------------------------------------------------------- int8 head
+# Opt-in int8 scoring (CatalogScorer(precision='int8')). Each hidden Dense
+# quantizes its input affinely, x ~ (xq + 128) * a + mn with xq in
+# [-128, 127] and a = (mx - mn) / 255 from a calibrated range [mn, mx], and
+# its weights symmetrically per column, W ~ wq * wscale. Then
+#     x @ W + b = a * wscale * (xq @ wq) + [b + 128 a wscale colsum(wq)
+#                                          + mn colsum(W)],
+# an int32 product rescaled by the per-column out_scale = a * wscale and
+# shifted by bias_eff. Scores are approximate; never a default.
+
+# The auto-precision gate of CatalogScorer(precision='int8'): int8 serves
+# only heads whose hidden chain does at least this many operations per
+# first-layer lane (``int8_chain_flops_per_lane``), where K1q beats K1. The
+# int8 products run at twice the bf16 rate, but each pair's h1-wide
+# quantize and every layer's rescale run outside the tensor cores. On an
+# NVIDIA H100 80GB HBM3 (700 W) K1q beat K1 on every chain measured whose
+# h1 is a multiple of 128, as the scorer's heads are, down to 64, the
+# least of any head with a hidden layer (one layer 32 wide: 2 * 32), so the
+# gate passes every head the int8 mode takes (chip_smoke.py's
+# int8_flip_point phase, PERF.md). The JAX package's 1000 is the TPU's.
+INT8_MIN_CHAIN_FLOPS_PER_LANE = 64
+
+
+def int8_chain_flops_per_lane(head: dict) -> float:
+    """Hidden-chain operations per pair over the first-layer width: the
+    auto-precision gate's measure."""
+    chain = sum(2 * w.shape[0] * w.shape[1] for w, _ in head['layers'][:-1])
+    h1 = head.get('h1') or head['b1'].shape[0]
+    return chain / max(h1, 1)
+
+
+def quantize_mlp_chain(head: dict, ranges: Sequence[Tuple[float, float]]
+                       ) -> List[dict]:
+    """Quantize the hidden layers of a head to int8, in the JAX package's
+    numpy arithmetic (``np.round`` half to even, so ``wq`` equals JAX's
+    for equal weights).
+
+    ranges: the calibrated (min, max) of each hidden layer's input
+    (``calibrate_head_ranges``). Returns one dict per hidden layer on the
+    head's device: ``wq`` int8 [in, out] and ``params`` float32 [3, out],
+    row 0 out_scale (a * wscale), row 1 bias_eff, row 2 (inv_a, off, 0...)
+    for the quantize ``xq = floor(x * inv_a + off)``, where off folds the
+    zero point and the rounding: -mn / a + 0.5 - 128.
+    """
+    qlayers = []
+    for j, (w, b) in enumerate(head['layers'][:-1]):
+        device = w.device
+        w = w.detach().cpu().numpy().astype(np.float32)
+        b = b.detach().cpu().numpy().astype(np.float32)
+        mn, mx = float(ranges[j][0]), float(ranges[j][1])
+        a = max(mx - mn, 1e-12) / 255.0
+        wscale = np.maximum(np.abs(w).max(axis=0), 1e-12) / 127.0
+        wq = np.clip(np.round(w / wscale[None, :]), -127, 127)
+        out_scale = (a * wscale).astype(np.float32)
+        bias_eff = (b + out_scale * 128.0 * wq.sum(axis=0)
+                    + mn * w.sum(axis=0)).astype(np.float32)
+        params = np.zeros((3, w.shape[1]), np.float32)
+        params[0] = out_scale
+        params[1] = bias_eff
+        params[2, 0] = 1.0 / a
+        params[2, 1] = -mn / a + 0.5 - 128.0
+        qlayers.append({'wq': torch.from_numpy(wq.astype(np.int8)).to(device),
+                        'params': torch.from_numpy(params).to(device)})
+    return qlayers
+
+
+def quantize_head(head: dict, ranges: Sequence[Tuple[float, float]]) -> dict:
+    """Put the head in int8 mode in place: ``qlayers`` from ``ranges``, and
+    ``head['kernel']`` rebuilt for the kernels' int8 mode (the bf16 chain
+    cached by ``build_factorized_head`` would otherwise stay there).
+    Returns the head."""
+    head['qlayers'] = quantize_mlp_chain(head, ranges)
+    head['kernel'] = kernel_chain(head)
+    return head
+
+
+def _chain_input_ranges(head: dict, x: torch.Tensor
+                        ) -> List[Tuple[float, float]]:
+    """(min, max) of each hidden layer's input through the float32 chain;
+    x: the assembled first-layer activations [rows, h1]."""
+    act = activation_fn(head['activation'])
+    out = []
+    for w, b in head['layers'][:-1]:
+        out.append((x.min().item(), x.max().item()))
+        x = act(x @ w + b)
+    return out
+
+
+def calibrate_head_ranges(head: dict, user_first: torch.Tensor,
+                          item_first: torch.Tensor
+                          ) -> List[Tuple[float, float]]:
+    """Each hidden layer's input (min, max) over every pair of a
+    calibration sample ([B, h1] x [C, h1]), through the float32 chain, on
+    the rows' device."""
+    act = activation_fn(head['activation'])
+    B, C = user_first.shape[0], item_first.shape[0]
+    x = user_first.float()[:, None, :] + item_first.float()[None, :, :]
+    if not head.get('b1_folded'):
+        x = x + head['b1']
+    return _chain_input_ranges(head, act(x).reshape(B * C, -1))
+
+
+def calibrate_head_ranges_gated(head: dict,
+                                user_side: Tuple[torch.Tensor, torch.Tensor],
+                                item_side: Tuple[torch.Tensor, torch.Tensor]
+                                ) -> List[Tuple[float, float]]:
+    """Gated calibration: the ranges through the exact gated assembly
+    (softmax-weighted first-layer parts) and the float32 chain, from the
+    exact gated rows (user_first, user_gates) and (item_first,
+    item_gates)."""
+    act = activation_fn(head['activation'])
+    (uf, ug), (itf, ig) = user_side, item_side
+    n_mod, h1 = head['n_item_mods'] + 1, head['h1']
+    B, C = uf.shape[0], itf.shape[0]
+    g = torch.softmax(ug[:, None, :n_mod] + ig[None, :, :n_mod], dim=-1)
+    x = g[:, :, 0, None] * uf[:, None, :]
+    for m in range(n_mod - 1):
+        x = x + g[:, :, m + 1, None] * itf[None, :, m * h1:(m + 1) * h1]
+    if not head.get('b1_folded'):
+        x = x + head['b1']
+    return _chain_input_ranges(head, act(x).reshape(B * C, h1))
+
+
+def _int8_product(codes: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The int32 product of int8 codes [rows, K] (held as float32) with
+    int8 weights [K, N], exact, rounded once to float32. In float32 every
+    partial sum is an integer of at most K * 128 * 127 in magnitude, exact
+    below 2**24 in any order (K <= 1032, TF32 included: the codes fit its
+    mantissa); wider layers multiply in float64."""
+    if wq.shape[0] * 128 * 127 < 2 ** 24:
+        return codes @ wq.float()
+    return (codes.double() @ wq.double()).float()
+
+
+def _chain_scores_int8(head: dict, x: torch.Tensor) -> torch.Tensor:
+    """The int8 chain on first-layer activations [rows, h1] (float32, or
+    bf16 where a kernel rounds them), JAX's ``_quantize_rows`` and
+    ``_mlp_chain_int8``: per hidden layer the codes clip(floor(x * inv_a +
+    off), -128, 127), their exact integer product, then act(f32(acc) *
+    out_scale + bias_eff) in float32, every product and sum rounded on its
+    own; the last layer an f32 dot against the unrounded float32 column 0
+    of W_last plus b_last[0]. Nothing after the first layer is rounded to
+    bf16."""
+    act = activation_fn(head['activation'])
+    x = x.float()
+    for q in head['qlayers']:
+        p = q['params']
+        codes = torch.clamp(torch.floor(x * p[2, 0] + p[2, 1]), -128, 127)
+        x = act(_int8_product(codes, q['wq']) * p[0] + p[1])
+    w_last, b_last = head['layers'][-1]
+    s = (x * w_last[:, 0].float()).sum(dim=1) + b_last[0].float()
+    return final_activation_fn(s, head['final_activation'])
+
+
 def _check_head(head: dict):
     if not head.get('b1_folded'):
         raise ValueError('pair scoring takes heads with b1 folded into the '
                          'item rows (build_factorized_head)')
-    if head.get('qlayers') is not None:
-        raise NotImplementedError('int8 heads (qlayers) are not ported yet '
-                                  '(ROADMAP item A10)')
+    qlayers = head.get('qlayers')
+    if qlayers is not None:
+        n_hidden = len(head['layers']) - 1
+        if len(qlayers) != n_hidden or not qlayers:
+            raise ValueError(f'an int8 head carries one quantized layer '
+                             f'(qlayers) per hidden layer, at least one: '
+                             f'got {len(qlayers)} for {n_hidden}')
+        widths = [head['layers'][0][0].shape[0]] + [
+            q['wq'].shape[1] for q in qlayers]
+        if any(wd % 32 for wd in widths):
+            raise ValueError(f'int8 layers take widths that are multiples '
+                             f'of 32, got {widths}')
 
 
 def _chain_scores_f32(head: dict, x: torch.Tensor) -> torch.Tensor:
     """Float32 Dense chain on assembled first-layer activations [rows, h1]
-    -> [rows] scores."""
+    -> [rows] scores; the int8 chain for a head with ``qlayers`` (JAX's
+    ``_xla_chain_scores``)."""
+    if head.get('qlayers') is not None:
+        return _chain_scores_int8(head, x)
     act = activation_fn(head['activation'])
     n = len(head['layers'])
     for i, (w, b) in enumerate(head['layers']):
@@ -287,7 +460,11 @@ def _chain_scores_bf16(head: dict, x: torch.Tensor) -> torch.Tensor:
     values is exact), bias rounded to bf16 and added in f32, the sum
     rounded to bf16 before the activation, whose result is rounded to bf16
     again; the last layer is an f32 dot against the bf16-rounded column 0
-    of W_last plus the unrounded f32 b_last[0]."""
+    of W_last plus the unrounded f32 b_last[0]. A head with ``qlayers``
+    takes the int8 chain on the bf16 activations instead, as the kernels'
+    int8 mode does."""
+    if head.get('qlayers') is not None:
+        return _chain_scores_int8(head, x)
     bf16 = torch.bfloat16
     act = activation_fn(head['activation'])
     for w, b in head['layers'][:-1]:
@@ -456,11 +633,14 @@ def kernel_chain(head: dict,
     column rounded to bf16 (held as float32), the width list from h1 on,
     and the activation codes. A head with an unfolded first Dense (``w1``
     [d, h1] and ``b1``, the attention head) takes it as the chain's layer
-    0, so the widths start at d. Raises for a head the kernel does not
-    take."""
+    0, so the widths start at d. A head with ``qlayers`` gets the int8
+    mode's tensors (``_kernel_chain_int8``). Raises for a head the kernel
+    does not take."""
     bf16 = torch.bfloat16
     h1 = head['b1'].shape[0]
     device = head['b1'].device if device is None else torch.device(device)
+    if head.get('qlayers') is not None:
+        return _kernel_chain_int8(head, device)
     hidden = list(head['layers'][:-1])
     w_last, b_last = head['layers'][-1]
     widths = [h1]
@@ -488,6 +668,7 @@ def kernel_chain(head: dict,
         w_all = torch.zeros(8, dtype=bf16, device=device)
         b_all = torch.zeros(1, dtype=torch.float32, device=device)
     return {
+        'int8': False,
         'n_hidden': len(hidden),
         'widths': np.asarray(widths, np.int32),
         'w': w_all.contiguous(), 'b': b_all.contiguous(),
@@ -500,11 +681,61 @@ def kernel_chain(head: dict,
     }
 
 
+def _kernel_chain_int8(head: dict, device: torch.device) -> dict:
+    """The int8 mode's tensors (``csrc/mlp_chain_int8.cuh``):
+
+      w       every hidden layer's wq transposed to [N, K] (K contiguous,
+              as the tensor cores' B operand wants it), back to back, int8;
+      b       float32: (inv_a, off) of each layer in 2 * MAX_HIDDEN slots,
+              then each layer's out_scale [N] and bias_eff [N];
+      w_last  column 0 of W_last in float32, unrounded (the bf16 mode
+              rounds it), and b_last [1].
+    """
+    if 'w1' in head:
+        raise ValueError('the int8 mode takes concatenate and gated heads')
+    _check_head(head)
+    qlayers = head['qlayers']
+    widths = [head['b1'].shape[0]] + [q['wq'].shape[1] for q in qlayers]
+    w_last, b_last = head['layers'][-1]
+    for q, k in zip(qlayers, widths):
+        if q['wq'].shape[0] != k:
+            raise ValueError(f"layer input width {q['wq'].shape[0]} != "
+                             f'previous width {k}')
+    if w_last.shape[0] != widths[-1]:
+        raise ValueError(f'last layer input width {w_last.shape[0]} != '
+                         f'{widths[-1]}')
+    if len(qlayers) > MAX_HIDDEN:  # _check_head held the widths
+        raise ValueError(f'the int8 kernels take at most {MAX_HIDDEN} '
+                         f'hidden layers, got {len(qlayers)}')
+    scalars = torch.zeros(2 * MAX_HIDDEN, dtype=torch.float32)
+    for j, q in enumerate(qlayers):
+        scalars[2 * j:2 * j + 2] = q['params'][2, :2].cpu()
+    rows = [scalars.to(device)] + [q['params'][r].to(device).float()
+                                   for q in qlayers for r in (0, 1)]
+    return {
+        'int8': True,
+        'n_hidden': len(qlayers),
+        'widths': np.asarray(widths, np.int32),
+        'w': torch.cat([q['wq'].to(device).t().contiguous().reshape(-1)
+                        for q in qlayers]),
+        'b': torch.cat(rows).contiguous(),
+        'w_last': w_last[:, 0].to(device=device, dtype=torch.float32)
+                                .contiguous(),
+        'b_last': b_last[:1].to(device=device, dtype=torch.float32)
+                            .contiguous(),
+        'act': ACTIVATIONS.get(head['activation'].lower(), 0),
+        'final': FINAL_ACTIVATIONS.get(head['final_activation'], 2),
+    }
+
+
 def _chain_on(head: dict, device: torch.device) -> dict:
-    """``head['kernel']`` where it lies on ``device``, else built for this
-    call."""
+    """``head['kernel']`` where it lies on ``device`` and is in the head's
+    mode (int8 when it carries ``qlayers``), else built for this call: a
+    head quantized after its bf16 chain was cached never launches the bf16
+    chain."""
     chain = head.get('kernel')
-    if chain is None or chain['w'].device != device:
+    if chain is None or chain['w'].device != device \
+            or chain.get('int8', False) != (head.get('qlayers') is not None):
         chain = kernel_chain(head, device)
     return chain
 
@@ -549,12 +780,14 @@ def _n_mod(head: dict) -> int:
 
 def _launch(name: str, out: torch.Tensor, tensors, chain: dict, B: int,
             C: int, extra=()) -> None:
-    """Launch ``csrc/<name>.cu`` on the current stream: the pointers of
+    """Launch ``csrc/<name>.cu`` on the current stream, its int8 mode
+    (``<name>_int8_forward``) for an int8 chain: the pointers of
     ``tensors``, then the chain's, then ``out``; then B, C, the chain's
     shape and codes, the ``extra`` ints and the stream. Raises if the
     launch fails."""
     lib = _build.load(name)
-    fn = getattr(lib, f'{name}_forward')
+    fn = getattr(lib, f'{name}_int8_forward' if chain.get('int8')
+                 else f'{name}_forward')
     n_ptrs = len(tensors) + 5
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3
@@ -589,7 +822,9 @@ def pairwise_scores(head: dict, user_first: torch.Tensor,
     tensors come from ``head['kernel']`` when they lie on the rows' device,
     else ``kernel_chain`` builds them for this call. CPU tensors take
     ``pairwise_scores_plain`` in float32. Anything else raises.
-    ``pairwise_scores.launches`` counts kernel launches.
+    ``pairwise_scores.launches`` counts kernel launches of the bf16 mode,
+    ``pairwise_scores.launches_int8`` those of the int8 mode (K1q), which a
+    head with ``qlayers`` launches.
     """
     _check_head(head)
     device = _device_of('pairwise_scores', user_first, item_first)
@@ -604,11 +839,15 @@ def pairwise_scores(head: dict, user_first: torch.Tensor,
     if B == 0 or C == 0:
         return out
     _launch('pairwise_mlp', out, (user_first, item_first), chain, B, C)
-    pairwise_scores.launches += 1
+    if chain['int8']:
+        pairwise_scores.launches_int8 += 1
+    else:
+        pairwise_scores.launches += 1
     return out
 
 
 pairwise_scores.launches = 0
+pairwise_scores.launches_int8 = 0
 
 
 def pairwise_scores_gated(head: dict, user_first: torch.Tensor,
@@ -622,7 +861,8 @@ def pairwise_scores_gated(head: dict, user_first: torch.Tensor,
     CUDA tensors launch the kernel on the current stream; B and C need not
     be tile multiples. CPU tensors take ``pairwise_scores_gated_plain`` in
     float32. Anything else raises. ``pairwise_scores_gated.launches``
-    counts kernel launches.
+    counts kernel launches of the bf16 mode, ``.launches_int8`` those of
+    the int8 mode (K2q), which a head with ``qlayers`` launches.
     """
     _check_head(head)
     device = _device_of('pairwise_scores_gated', user_first, user_gates,
@@ -646,11 +886,15 @@ def pairwise_scores_gated(head: dict, user_first: torch.Tensor,
     _launch('gated_pairwise_mlp', out,
             (user_first, user_gates, item_first, item_gates), chain, B, C,
             (n_mod,))
-    pairwise_scores_gated.launches += 1
+    if chain['int8']:
+        pairwise_scores_gated.launches_int8 += 1
+    else:
+        pairwise_scores_gated.launches += 1
     return out
 
 
 pairwise_scores_gated.launches = 0
+pairwise_scores_gated.launches_int8 = 0
 
 
 def pairwise_scores_gated_factored(head: dict, user_first: torch.Tensor,
@@ -667,7 +911,8 @@ def pairwise_scores_gated_factored(head: dict, user_first: torch.Tensor,
     be tile multiples. CPU tensors take
     ``pairwise_scores_gated_factored_plain`` in float32. Anything else
     raises. ``pairwise_scores_gated_factored.launches`` counts kernel
-    launches.
+    launches of the bf16 mode, ``.launches_int8`` those of the int8 mode
+    (K3q), which a head with ``qlayers`` launches.
     """
     _check_head(head)
     device = _device_of('pairwise_scores_gated_factored', user_first,
@@ -691,8 +936,12 @@ def pairwise_scores_gated_factored(head: dict, user_first: torch.Tensor,
     _launch('gated_factored_mlp', out,
             (user_first, user_coefs, tables, item_coefs), chain, B, C,
             (n_mod,))
-    pairwise_scores_gated_factored.launches += 1
+    if chain['int8']:
+        pairwise_scores_gated_factored.launches_int8 += 1
+    else:
+        pairwise_scores_gated_factored.launches += 1
     return out
 
 
 pairwise_scores_gated_factored.launches = 0
+pairwise_scores_gated_factored.launches_int8 = 0

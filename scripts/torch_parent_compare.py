@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""The attention kernels K4 and K5 of another checkout against this one's,
-on one CUDA card.
+"""The bf16 pair-scoring kernels K1-K6 of another checkout against this
+one's, on one CUDA card.
 
     python3 scripts/torch_parent_compare.py OTHER_CHECKOUT
 
-Builds ``attention_mlp.cu`` (K4) and ``attention_gram_mlp.cu`` (K5) from
+Builds ``pairwise_mlp.cu`` (K1), ``gated_pairwise_mlp.cu`` (K2),
+``gated_factored_mlp.cu`` (K3), ``attention_mlp.cu`` (K4),
+``attention_gram_mlp.cu`` (K5) and ``attention_screen_mlp.cu`` (K6) from
 ``OTHER_CHECKOUT/pixelrec_multimodal_tpu_torch/ops/csrc`` (for example a
 parent commit unpacked with ``git archive``) into ``build/other/``, beside
 this checkout's builds, and runs both through this checkout's wrappers on
-the same inputs: the flagship attention head (d 64, 4 heads, chain [512,
-256, 128], relu, sigmoid, random weights from a seed) at the 256 x 8,192
-block. Prints one JSON line per measurement, the card's ``nvidia-smi`` name
-and power limit first: whether the scores are equal bit for bit, then each
-kernel's mean of 20 launches (CUDA events) in turns, other, this, this,
-other. The C interface of the two builds must be the same. Exits 2 without
-a CUDA device.
+the same inputs at the 256 x 8,192 block: the flagship chain [512, 256,
+128] (relu, sigmoid, random weights from a seed) on seeded rows for K1,
+on the gated rows of M = 6 modalities for K2 and K3, and after the
+flagship attention head (d 64, 4 heads) for K4, K5 and K6 (with its
+screen tail). Prints one JSON
+line per measurement, the card's ``nvidia-smi`` name and power limit
+first: whether the scores are equal bit for bit, then each kernel's mean
+of 20 launches (CUDA events) in turns, other, this, this, other. The C
+interface of the two builds' bf16 entry points must be the same. Exits 2
+without a CUDA device.
 """
 from __future__ import annotations
 
@@ -29,15 +34,19 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (  # noqa: E402
+    HIDDEN,
     SEED,
     TIME_B,
     TIME_C,
     cuda_ms,
     random_attention_head,
     random_attention_rows,
+    random_gated_rows,
+    random_head,
 )
 
-KERNELS = ('attention_mlp', 'attention_gram_mlp')
+KERNELS = ('pairwise_mlp', 'gated_pairwise_mlp', 'gated_factored_mlp',
+           'attention_mlp', 'attention_gram_mlp', 'attention_screen_mlp')
 
 
 def emit(what: str, **fields):
@@ -45,7 +54,7 @@ def emit(what: str, **fields):
 
 
 def build_other(checkout: Path) -> dict:
-    """The other checkout's K4 and K5, built in parallel and loaded."""
+    """The other checkout's kernels, built in parallel and loaded."""
     from pixelrec_multimodal_tpu_torch.ops import _build
     src = checkout / 'pixelrec_multimodal_tpu_torch' / 'ops' / 'csrc'
     out = _build.BUILD_DIR.parent / 'other'
@@ -68,7 +77,9 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 2
     from pixelrec_multimodal_tpu_torch.ops import _build
+    from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
     from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
+    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -81,18 +92,32 @@ def main() -> int:
 
     dev = torch.device('cuda')
     gen = torch.Generator().manual_seed(SEED + 7)
-    calls = {'K4': lambda h, u, it: tas.attention_scores(h, u[:5], it[:6]),
-             'K5': tas.attention_scores_gram}
     with torch.no_grad():
-        head = random_attention_head(64, 4, (512, 256, 128), 'relu',
-                                     'sigmoid', gen, dev)
+        pair_head = random_head(HIDDEN, 'relu', 'sigmoid', gen, dev,
+                                n_item_mods=5)
+        exact, factored = random_gated_rows(pair_head, TIME_B, TIME_C, gen,
+                                            dev)
+        concat = (torch.randn(TIME_B, HIDDEN[0], generator=gen).to(dev),
+                  torch.randn(TIME_C, HIDDEN[0], generator=gen).to(dev))
+        head = random_attention_head(64, 4, HIDDEN, 'relu', 'sigmoid', gen,
+                                     dev)
         users, items = random_attention_rows(head, TIME_B, TIME_C, gen, dev,
                                              True)
+        tail = tac.compute_screen_tail(head, items)
+        # kernel: a call of this checkout's wrapper on the shared inputs
+        calls = {
+            'K1': lambda: tpm.pairwise_scores(pair_head, *concat),
+            'K2': lambda: tpm.pairwise_scores_gated(pair_head, *exact),
+            'K3': lambda: tpm.pairwise_scores_gated_factored(pair_head,
+                                                             *factored),
+            'K4': lambda: tas.attention_scores(head, users[:5], items[:6]),
+            'K5': lambda: tas.attention_scores_gram(head, users, items),
+            'K6': lambda: tac.attention_screen_scores(head, users[:5],
+                                                      items[:6], tail)}
         scores = {}
         for tag in ('other', 'this'):
             use(tag)
-            scores[tag] = {k: fn(head, users, items).clone()
-                           for k, fn in calls.items()}
+            scores[tag] = {k: fn().clone() for k, fn in calls.items()}
         emit('scores', shape=[TIME_B, TIME_C],
              **{f'{k}_bit_equal': bool(torch.equal(scores['other'][k],
                                                    scores['this'][k]))
@@ -101,8 +126,7 @@ def main() -> int:
         for tag in ('other', 'this', 'this', 'other'):
             use(tag)
             for k, fn in calls.items():
-                times[k][tag].append(
-                    cuda_ms(lambda: fn(head, users, items), reps=20))
+                times[k][tag].append(cuda_ms(fn, reps=20))
         for k, t in times.items():
             emit('time', kernel=k, shape=[TIME_B, TIME_C], ms=t,
                  this_over_other=sum(t['this']) / sum(t['other']))

@@ -20,16 +20,18 @@ def test_library_path_follows_sources_and_headers(tmp_path, monkeypatch):
 
 
 def test_every_source_is_a_kernel_with_the_shared_header():
-    """Every kernel includes the shared chain, the attention kernels
-    through their own shared header."""
+    """Every kernel includes the shared chain: the attention kernels
+    through their own shared header, the pair kernels through the int8
+    chain's header (their int8 modes)."""
     sources = _build.all_sources()
     assert sources == ['attention_gram_mlp', 'attention_mlp',
                        'attention_screen_mlp', 'gated_factored_mlp',
                        'gated_pairwise_mlp', 'pairwise_mlp']
-    assert '#include "mlp_chain.cuh"' in (
-        _build.CSRC / 'attention_common.cuh').read_text()
+    for shared in ('attention_common.cuh', 'mlp_chain_int8.cuh'):
+        assert '#include "mlp_chain.cuh"' in (
+            _build.CSRC / shared).read_text()
     for name in sources:
         header = ('attention_common.cuh' if name.startswith('attention')
-                  else 'mlp_chain.cuh')
+                  else 'mlp_chain_int8.cuh')
         assert f'#include "{header}"' in (
             _build.CSRC / f'{name}.cu').read_text()

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 concat, K2 exact gated, K3 factored gated,
-K4 stream attention, K5 gram attention, K6 the attention cascade's token-0
-screen) and its scorer, the attention cascade included, on a card.
+and their int8 modes K1q, K2q, K3q; K4 stream attention, K5 gram
+attention, K6 the attention cascade's token-0 screen) and its scorer, int8
+and the attention cascade included, on a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX:
@@ -268,7 +269,7 @@ def test_gated_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match='b1 folded'):
         tpm.pairwise_scores_gated(dict(head, b1_folded=False), uf, ug, itf,
                                   ig)
-    with pytest.raises(NotImplementedError, match='A10'):
+    with pytest.raises(ValueError, match='qlayers'):
         tpm.pairwise_scores_gated_factored(dict(head, qlayers=[]), uf, a, T,
                                            igb)
     with pytest.raises(ValueError, match='modalities'):
@@ -324,6 +325,129 @@ def test_gated_scorer_on_card(dev, variant):
     np.testing.assert_allclose(gpu.score_candidates(users, cands, valid),
                                cpu.score_candidates(users, cands, valid),
                                atol=1e-4)
+
+
+# ------------------------------------------------------------- int8 mode
+INT8 = {'K1q': (tpm.pairwise_scores, tpm.pairwise_scores_plain),
+        'K2q': GATED['exact'], 'K3q': GATED['factored']}
+
+
+def int8_inputs(model, kid, dev, B=37, C=301):
+    """The model's head on ``dev`` in int8 mode, calibrated on seeded rows
+    of 16 x 64 pairs, and the kernel's seeded rows of a [B] x [C] block."""
+    head = head_on(tpm.build_factorized_head(model), dev)
+    if kid == 'K1q':
+        cal = rows(head['b1'].shape[0], 16, 64, dev, seed=8)
+        ranges = tpm.calibrate_head_ranges(head, *cal)
+        args = rows(head['b1'].shape[0], B, C, dev)
+    else:
+        exact, factored = gated_inputs(head, 16, 64, dev, seed=8)
+        ranges = tpm.calibrate_head_ranges_gated(head, exact[:2], exact[2:])
+        exact, factored = gated_inputs(head, B, C, dev)
+        args = exact if kid == 'K2q' else factored
+    return tpm.quantize_head(head, ranges), args
+
+
+# The int8 kernels against their plain versions in int8 (bf16 mode): the
+# same bf16 assembly, the same codes (every product and sum rounded on its
+# own on both sides, the integer products exact), float32 sums in another
+# order in the last dot. A pair differs by more than AGREE only where an
+# input lies within an ulp (of an activation, or of K2's and K3's exp) of a
+# code boundary and its code flips (chip_smoke.py saw none on an H100): at
+# most MAX_DIFFERING of the pairs, none by more than FLIP_TOL.
+@pytest.mark.parametrize('kid', ['K1q', 'K2q', 'K3q'])
+@pytest.mark.parametrize('final', ['sigmoid', 'tanh', 'none'])
+@pytest.mark.parametrize('activation', list(tpm.ACTIVATIONS))
+def test_int8_kernels_match_plain(dev, activation, final, kid):
+    """K1q, K2q and K3q, one launch each on a ragged 37 x 301 block, and no
+    launch of the bf16 mode."""
+    fusion = 'concatenate' if kid == 'K1q' else 'gated'
+    head, args = int8_inputs(make_model(activation, final, fusion), kid, dev)
+    kernel, plain = INT8[kid]
+    before = (kernel.launches, kernel.launches_int8)
+    out = kernel(head, *args)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.launches_int8) == (before[0],
+                                                       before[1] + 1)
+    ref = plain(head, *args, compute_dtype=torch.bfloat16)
+    assert out.shape == (37, 301) and torch.isfinite(out).all()
+    scale = max(1.0, ref.abs().max().item())
+    diff = (out - ref).abs()
+    assert (diff > AGREE * scale).float().mean().item() <= MAX_DIFFERING
+    assert diff.max().item() <= FLIP_TOL * scale
+
+
+def test_int8_kernels_refuse_widths_not_multiple_of_32(dev):
+    """A quantized width that is not a multiple of 32 (the depth of one int8
+    product) is refused before any launch, on the card as on the CPU."""
+    head, (uf, itf) = int8_inputs(make_model(), 'K1q', dev)
+    w, b = head['layers'][0]
+    narrow = dict(head, layers=[(w[:, :48], b[:48]),
+                                (head['layers'][1][0][:48],
+                                 head['layers'][1][1])])
+    narrow['qlayers'] = tpm.quantize_mlp_chain(narrow, [(0.0, 1.0)])
+    narrow.pop('kernel')
+    launches = tpm.pairwise_scores.launches_int8
+    with pytest.raises(ValueError, match='multiples of 32'):
+        tpm.pairwise_scores(narrow, uf, itf)
+    with pytest.raises(ValueError, match='multiples of 32'):
+        tpm.kernel_chain(narrow)
+    assert tpm.pairwise_scores.launches_int8 == launches
+
+
+@pytest.mark.parametrize('variant', ['concatenate', 'exact', 'factored'])
+def test_int8_scorer_on_card(dev, variant):
+    """CatalogScorer(precision='int8!') on the card: top_k and score_full
+    through K1q, K2q or K3q (2 user blocks x 4 item chunks = 8 int8
+    launches per call, no bf16 launch) against the plain int8 scores of the
+    same tables (KERNEL_TOL; top-10 sets equal but for near-ties at the
+    boundary) and against the CPU scorer, whose plain int8 path is float32
+    (F32_TOL: the bf16 assembly moves codes, and the two calibrations
+    differ by float32 ulps). score_candidates is the float32 int8 chain on
+    both devices (F32_TOL, for the same calibrations)."""
+    fusion = 'concatenate' if variant == 'concatenate' else 'gated'
+    model = make_model('gelu', 'sigmoid', fusion)
+    users = np.random.default_rng(5).integers(0, N_USERS, 70).astype(
+        np.int32)
+    seen = np.random.default_rng(6).random((70, N_ITEMS)) < 0.05
+    k = 10
+    kw = dict(item_chunk=256, user_chunk=64, precision='int8!')
+    if fusion == 'gated':
+        kw['gated_variant'] = variant
+    gpu = CatalogScorer(copy.deepcopy(model), store(), **kw, device=dev)
+    cpu = CatalogScorer(model, store(), **kw, device='cpu')
+    assert gpu.precision == cpu.precision == 'int8'
+    kid = {'concatenate': 'K1q', 'exact': 'K2q', 'factored': 'K3q'}[variant]
+    kernel, plain = INT8[kid]
+    before = (kernel.launches, kernel.launches_int8)
+    v, i = gpu.top_k(users, k, seen_mask=seen)
+    assert (kernel.launches, kernel.launches_int8) == (before[0],
+                                                       before[1] + 8)
+    assert not seen[np.arange(70)[:, None], i].any()
+    with torch.no_grad():
+        side = gpu._fast_user_side(torch.from_numpy(
+            users.astype(np.int64)).to(dev))
+        ref = plain(gpu._head, *side,
+                    *(t[:N_ITEMS] for t in gpu._scan_tables),
+                    compute_dtype=torch.bfloat16)
+    full = gpu.score_full(users)
+    tol = KERNEL_TOL * max(1.0, float(ref.abs().max()))
+    np.testing.assert_allclose(full, ref.cpu().numpy(), atol=tol)
+    np.testing.assert_allclose(full, cpu.score_full(users), atol=F32_TOL)
+    ref[torch.from_numpy(seen).to(dev)] = NEG_INF
+    rv, ri = (t.cpu().numpy() for t in torch.topk(ref, k, dim=1))
+    np.testing.assert_allclose(v, rv, atol=tol)
+    for a, b, vals in zip(i, ri, rv):
+        clear = vals > vals[-1] + 2 * tol  # not tied with the boundary
+        assert set(b[clear]) <= set(a)
+    np.testing.assert_allclose(v, cpu.top_k(users, k, seen_mask=seen)[0],
+                               atol=F32_TOL)
+    rng = np.random.default_rng(7)
+    cands = rng.integers(0, N_ITEMS, (70, 12)).astype(np.int32)
+    valid = rng.random((70, 12)) < 0.8
+    np.testing.assert_allclose(gpu.score_candidates(users, cands, valid),
+                               cpu.score_candidates(users, cands, valid),
+                               atol=F32_TOL)
 
 
 # -------------------------------------------------------- attention fusion

@@ -356,7 +356,7 @@ def test_wrappers_on_cpu():
         tpm.pairwise_scores_gated(th, *meta)
     with pytest.raises(ValueError, match='b1 folded'):
         tpm.pairwise_scores_gated(dict(th, b1_folded=False), *tu, *ti)
-    with pytest.raises(NotImplementedError, match='A10'):
+    with pytest.raises(ValueError, match='qlayers'):
         tpm.pairwise_scores_gated_factored(dict(th, qlayers=[]), *fu, *ft)
     with pytest.raises(ValueError, match='float32 or bfloat16'):
         tpm.pairwise_scores_gated_plain(th, *tu, *ti, torch.float16)

@@ -147,8 +147,14 @@ def test_unported_options_raise():
     model = MultimodalRecommender(**kw)
     store = ItemFeatureStore(8, [str(i) for i in range(8)])
     store.tables['tag_idx'] = torch.zeros(8, dtype=torch.int32).numpy()
-    with pytest.raises(NotImplementedError, match='A10'):
-        CatalogScorer(model, store, device='cpu', precision='int8')
+    # int8 is ported: this head has no hidden layer to quantize, so 'int8'
+    # falls below the flip point and serves bf16, and 'int8!' raises
+    assert CatalogScorer(model, store, device='cpu',
+                         precision='int8').precision == 'bf16'
+    with pytest.raises(ValueError, match='qlayers'):
+        CatalogScorer(model, store, device='cpu', precision='int8!')
+    with pytest.raises(ValueError, match='precision'):
+        CatalogScorer(model, store, device='cpu', precision='int4')
     with pytest.raises(NotImplementedError, match='A11'):
         CatalogScorer(model, store, device='cpu', mesh=object())
     model.train()
