@@ -4,7 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pixelrec_multimodal_tpu_torch/ops/
-csrc`` into ``build/kernels/``, holds each kernel against its plain PyTorch
+csrc`` and its probes from ``pixelrec_multimodal_tpu_torch/probes/csrc``
+into ``build/kernels/``, runs the probes (P1: the FFMA and expf rates; P2:
+K4's weighted-sum pattern; P3: the pair kernels' bf16 and int8 product
+loop; beside the library's square bf16 and int8 products) against their
+plain versions and measures the card's peaks, which every kernel's bound
+then divides by, holds each kernel against its plain PyTorch
 version on the card, drives the main paths (full-catalog top-K serving at
 bench.py's geometry, random weights from a seed: the flagship
 concatenate-fusion model through kernel K1, then in int8 through K1q
@@ -13,9 +18,11 @@ then its gated-fusion twin through K2, exact, and K3, factored, and in
 int8 through K2q and K3q, then its attention-fusion twin through K4,
 stream, and K5, gram, then the attention cascade at
 scripts/bench_cascade.py's geometry: its screens through K6, token 0, and
-K1, additive, each tier of ``top_k_cascade`` and ``auto_cascade``), checks
-what comes out against the plain versions and the exact scan, and times
-the kernels. Every phase prints one JSON line;
+K1, additive, each tier of ``top_k_cascade`` and ``auto_cascade``, then
+the wide models that take smaller blocks: attention at d 512, K4 and the
+token-0 screen K6, and concat and gated chains [1024, 512, 256] in bf16
+and int8), checks what comes out against the plain versions and the exact
+scan, and times the kernels. Every phase prints one JSON line;
 any failure raises and exits non-zero. The second-to-last line is the
 ``kernels`` JSON object and the last line is ``{"ok": true, "device":
 {...}}``.
@@ -37,6 +44,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from pixelrec_multimodal_tpu_torch.probes import cuda_ms  # noqa: E402
+
 # bench.py's geometry: the flagship model and the served catalog.
 N_ITEMS, N_USERS, N_MODEL_USERS, TOP_K = 65536, 8192, 4096, 50
 EMB, VISION_DIM, LANG_DIM, NUM_FEAT, N_TAGS = 64, 2048, 384, 7, 64
@@ -44,11 +53,21 @@ HIDDEN = (512, 256, 128)
 SEED = 0
 
 # NVIDIA H100 SXM data sheet (dense): bf16 and int8 tensor-core rates,
-# float32 rate outside the tensor cores, HBM rate.
+# float32 rate outside the tensor cores (one FFMA counted as two operations:
+# 33.5T FFMA/s, 132 SMs x 128 lanes x 1.98 GHz), HBM rate; and the exp2 rate
+# of the special-function units at the same clock, 16 a cycle per SM (CUDA C++
+# Programming Guide, throughput of arithmetic instructions, compute
+# capability 9.0), which bounds P1's exp chain. Every ``bound_ms`` divides
+# by these rates; ``bound_ms_measured`` divides the same operations by the
+# rates the probes measure in the same run (PEAKS, set by the probes
+# phase), and a measured rate above its data-sheet figure is an error.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+DATASHEET = {'bf16': PEAK_BF16_FLOPS, 'int8': PEAK_INT8_OPS,
+             'ffma': PEAK_F32_FLOPS / 2, 'exp': 132 * 16 * 1.98e9}
+PEAKS: dict = {}
 
 # Kernel-vs-plain tolerance, relative to max(1, |score|): each kernel and
 # its plain bf16 version round at the same points and differ only in the
@@ -68,10 +87,27 @@ KERNEL_TOL = 2e-3
 # relative to max(1, |score|). At the flagship KERNEL_TOL holds for every
 # pair too.
 AGREE, MAX_DIFFERING_PER_LAYER, FLIP_TOL = 1e-6, 0.0075, 1e-2
+# Wide heads sum more products per hidden activation (w1 at d 512 sums 512,
+# where the d 64 head sums 64; h1 1,024 and 2,048 likewise), so more of
+# their bf16 activations round to the other neighbour when the tensor cores
+# sum in another order than the plain version. Shares of pairs past AGREE
+# read on an H100: the d 512 flagship model 3.4% (the d 64 flagship: 1.3%),
+# a random gelu/tanh d 512 head 7.2%, random gelu heads at h1 1,024 up to
+# 12.9% and at h1 2,048 up to 22.0% (K1, chain [2048, 512, 256]), every
+# pair within FLIP_TOL. Wide heads are held to WIDE_MAX_DIFFERING, above the
+# largest share read and well below half (tests/test_torch_cuda.py holds
+# its wide heads to the same constant); a wide head whose chain cannot flip
+# (w1 = I, then the last dot) is held to MAX_DIFFERING_PER_LAYER, which
+# shows its assembly exact.
+WIDE_MAX_DIFFERING = 0.3
 # Main path against the plain bf16 version at the full catalog: mean top-50
 # overlap. The 50th and 51st of 65,536 scores can lie closer together than
 # the kernel's rounding differences, so an item may swap at the boundary.
 MIN_OVERLAP = 0.95
+# The kernels' sources by id (ops/csrc/<name>.cu).
+SOURCES = {'K1': 'pairwise_mlp', 'K2': 'gated_pairwise_mlp',
+           'K3': 'gated_factored_mlp', 'K4': 'attention_mlp',
+           'K5': 'attention_gram_mlp', 'K6': 'attention_screen_mlp'}
 # Timed block of every kernel: the flagship widths, 256 users x 8,192 items.
 TIME_B, TIME_C = 256, 8192
 # The int8 flip point's chains (widths from h1 on, relu, sigmoid): one
@@ -85,6 +121,21 @@ TIME_B, TIME_C = 256, 8192
 FLIP_CHAINS = tuple((h1, n) for h1 in (32, 128, 512)
                     for n in (32, 64, 128, 256)) + (
     (512, 128, 128), (512, 256, 128), (128, 512, 128), (128, 640, 128))
+# The wide models' phases: 1,024 users (8,192 at bench.py's geometry) over
+# the full catalog, one warm-up and one timed call, so that the run stays
+# within its time limit; attention at d 512 (the JAX package's HPO draws
+# embedding_dim from 64 to 512) and concat and gated at the hidden widths
+# [1024, 512, 256].
+WIDE_USERS, WIDE_EMB, WIDE_HIDDEN = 1024, 512, (1024, 512, 256)
+# The probes against their plain versions: P1's FMA rounds once where the
+# plain a*x + 1 rounds twice and its exp is the card's expf against
+# torch.exp, each an ulp or so per step of a contracting chain: 1e-5 of the
+# value's scale; P2 rounds where its plain version does: 1e-6; P3's int8
+# modes multiply exactly on both sides and round once per step: equal; its
+# bf16 mode sums in another order than the plain float32 products, which
+# moves a bf16 rounding of h or of the fold now and then: 2e-2 of the
+# output's scale.
+PROBE_TOL = {'P1': 1e-5, 'P2': 1e-6, 'P3 bf16': 2e-2}
 # Small int8 widths for the kernel checks (multiples of 32, at least one
 # hidden layer).
 INT8_WIDTHS = ((96, 64, 32), (128, 256), (64, 32, 96, 32))
@@ -102,24 +153,12 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` on the card, by CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    fn()
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def build_flagship(seed: int = SEED, device='cuda',
-                   fusion_type: str = 'concatenate'):
+                   fusion_type: str = 'concatenate', emb: int = EMB,
+                   hidden: tuple = HIDDEN):
     """(model, store) at bench.py's geometry: random weights from ``seed``,
-    BatchNorm with non-trivial running statistics, bf16 compute."""
+    BatchNorm with non-trivial running statistics, bf16 compute; ``emb``
+    and ``hidden`` change the embedding width and the MLP's widths."""
     from pixelrec_multimodal_tpu_torch.data.feature_store import (
         ItemFeatureStore,
     )
@@ -129,13 +168,13 @@ def build_flagship(seed: int = SEED, device='cuda',
     gen = torch.Generator().manual_seed(seed)
     model = MultimodalRecommender(
         n_users=N_MODEL_USERS, n_items=N_ITEMS, n_tags=N_TAGS,
-        num_numerical_features=NUM_FEAT, embedding_dim=EMB,
+        num_numerical_features=NUM_FEAT, embedding_dim=emb,
         vision_feature_dim=VISION_DIM, language_feature_dim=LANG_DIM,
-        use_contrastive=False, fusion_hidden_dims=HIDDEN,
+        use_contrastive=False, fusion_hidden_dims=hidden,
         fusion_type=fusion_type, use_batch_norm=True, dropout_rate=0.0,
         dtype=torch.bfloat16, generator=gen, device=device)
     with torch.no_grad():
-        for i in range(len(HIDDEN)):
+        for i in range(len(hidden)):
             bn = getattr(model.prediction_network, f'BatchNorm_{i}')
             n = bn.num_features
             bn.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
@@ -220,6 +259,23 @@ def pair_ops(head: dict, h1: int, kernel: str = 'K1') -> tuple:
                     else (2 * (n_mod - 1) + 4) * h1 + 2 * n_mod + 2)
     return (sum(2 * w.shape[0] * w.shape[1] for w, _ in hidden),
             assembly + dot)
+
+
+def pair_exps(head: dict, kernel: str) -> int:
+    """The exps among ``pair_ops``'s float32 operations per pair, which run
+    at P1's expf rate: the final sigmoid's; K2's softmax over its M gates;
+    the attention kernels' token-0 softmax, H*(1 + Mi), and (K4, K5) each
+    item token's clamped exp per head, Mi*H. The activations' own
+    transcendentals stay among the other operations (relu at the
+    flagship)."""
+    kernel = kernel.rstrip('q')
+    n = int(head['final_activation'] == 'sigmoid')
+    if kernel == 'K2':
+        n += head['n_item_mods'] + 1
+    elif kernel in ('K4', 'K5', 'K6'):
+        H, Mi = head['H'], head['n_item_mods']
+        n += H * (1 + Mi) + (0 if kernel == 'K6' else Mi * H)
+    return n
 
 
 def random_head(widths, activation, final, gen, device, n_item_mods=None):
@@ -338,15 +394,18 @@ def user_item_call(fn, n_user: int):
     return call
 
 
-def kernel_diff(kernel, plain, head, users: tuple, items: tuple) -> tuple:
+def kernel_diff(kernel, plain, head, users: tuple, items: tuple,
+                slice_items: int = 2048) -> tuple:
     """(max |kernel - plain bf16|, the share of pairs that differ by more
     than AGREE, the score scale max(1, |plain|)) over a block; the plain
-    version runs in item slices of 2,048 to bound its memory."""
+    version runs in item slices of ``slice_items`` to bound its memory."""
     out = kernel(head, *users, *items)
     torch.cuda.synchronize()
-    ref = torch.cat([plain(head, *users, *(t[c:c + 2048] for t in items),
+    ref = torch.cat([plain(head, *users,
+                           *(t[c:c + slice_items] for t in items),
                            compute_dtype=torch.bfloat16)
-                     for c in range(0, items[0].shape[0], 2048)], dim=1)
+                     for c in range(0, items[0].shape[0], slice_items)],
+                    dim=1)
     if not torch.isfinite(out).all():
         raise AssertionError('kernel produced non-finite scores')
     scale = max(1.0, ref.abs().max().item())
@@ -389,23 +448,24 @@ def launch_counts() -> dict:
             'K3q': tpm.pairwise_scores_gated_factored.launches_int8}
 
 
-def drive_top_k(scorer, users, kernel: str, phase: str, **fields):
-    """One warm-up ``top_k``, then three timed calls with every launch count
-    set to 0 just before them and read just after; fails unless ``kernel``
-    and no other launched once per (user block, item chunk) of each call,
-    or if the output is malformed. Returns (scores, items, launches,
-    median seconds)."""
+def drive_top_k(scorer, users, kernel: str, phase: str, calls: int = 3,
+                **fields):
+    """One warm-up ``top_k``, then ``calls`` timed calls with every launch
+    count set to 0 just before them and read just after; fails unless
+    ``kernel`` and no other launched once per (user block, item chunk) of
+    each call, or if the output is malformed. Returns (scores, items,
+    launches, median seconds)."""
     scorer.top_k(users, TOP_K)  # warm-up
     reset_launches()
     times = []
-    for _ in range(3):
+    for _ in range(calls):
         t0 = time.time()
         v, i = scorer.top_k(users, TOP_K)
         times.append(time.time() - t0)
     counts = launch_counts()
     per_call = (-(-len(users) // scorer.user_chunk)
                 * (scorer.n_pad // scorer.item_chunk))
-    expected = {k: 3 * per_call if k == kernel else 0 for k in counts}
+    expected = {k: calls * per_call if k == kernel else 0 for k in counts}
     if counts != expected:
         raise AssertionError(f'{phase}: kernel launches {counts} != '
                              f'expected {expected}')
@@ -417,7 +477,7 @@ def drive_top_k(scorer, users, kernel: str, phase: str, **fields):
     emit(phase, users=len(users), items=N_ITEMS, k=TOP_K, seconds=times,
          median_seconds=median, pairs_per_sec=len(users) * N_ITEMS / median,
          kernel_launches=counts, expected_launches=expected,
-         launches_per_call=per_call, **fields)
+         launches_per_call=per_call, block_rows=scorer.block_rows, **fields)
     return v, i, counts[kernel], median
 
 
@@ -472,7 +532,13 @@ def kernel_line(name, kernel_id, source, replaces, tpu, head, h1, args,
     kernel computes the same function with less work (K5 computes K4's
     scores): ``bound_ms_algorithm`` is then the bound of this kernel's own
     operations. An int8 mode (K1q, K2q, K3q) counts its products at the
-    int8 rate and times its plain version in int8 too.
+    int8 rate and times its plain version in int8 too. The float32
+    operations count a multiply and an add as two, one FFMA for the pair:
+    the function needs no more, though the kernels write them unfused.
+    ``bound_ms`` divides by the data sheet's rates (the float32 operations,
+    exps among them, at 67 TFLOP/s); ``bound_ms_measured`` by the probes'
+    (PEAKS): products at the measured bf16 or int8 peak, each pair of
+    float32 operations at P1's FFMA rate and the exps at P1's expf rate.
     """
     from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import kernel_chain
     with torch.no_grad():
@@ -481,12 +547,16 @@ def kernel_line(name, kernel_id, source, replaces, tpu, head, h1, args,
                                          compute_dtype=torch.bfloat16),
                            reps=3)
 
-    def ops_ms(kid):  # (tensor-core ms, f32 ms) at the timed block
-        tensor_peak = PEAK_INT8_OPS if kid.endswith('q') else PEAK_BF16_FLOPS
-        return tuple(TIME_B * TIME_C * n / peak * 1e3 for n, peak in zip(
-            pair_ops(head, h1, kid), (tensor_peak, PEAK_F32_FLOPS)))
+    def ops_ms(kid, peaks):  # (tensor-core ms, f32 ms) at the timed block
+        prod, f32 = pair_ops(head, h1, kid)
+        exps = 0 if peaks is DATASHEET else pair_exps(head, kid)
+        tensor = peaks['int8' if kid.endswith('q') else 'bf16']
+        f32_s = (f32 - exps) / (2 * peaks['ffma']) + (
+            exps / peaks['exp'] if exps else 0.0)
+        return (TIME_B * TIME_C * prod / tensor * 1e3,
+                TIME_B * TIME_C * f32_s * 1e3)
 
-    mma_ms, f32_ms = ops_ms(function_of or kernel_id)
+    mma_ms, f32_ms = ops_ms(function_of or kernel_id, DATASHEET)
     chain = kernel_chain(head)  # the tensors the kernel reads (its mode's)
     n_bytes = (sum(t.numel() * t.element_size() for t in args)
                + TIME_B * TIME_C * 4
@@ -505,15 +575,205 @@ def kernel_line(name, kernel_id, source, replaces, tpu, head, h1, args,
         'bound_by': 'operations' if op_ms >= byte_ms else 'bytes',
         'bound_ms_tensor_ops': mma_ms, 'bound_ms_f32_ops': f32_ms,
         'bound_ms_bytes': byte_ms,
+        'bound_ms_measured': max(max(ops_ms(function_of or kernel_id,
+                                            PEAKS)), byte_ms),
+        'exps_per_pair': pair_exps(head, function_of or kernel_id),
         'library_ms': None, 'library_note': library_note,
         'shape': [TIME_B, TIME_C],
         'tflops': TIME_B * TIME_C * sum(pair_ops(head, h1, kernel_id))
         / (ms * 1e-3) / 1e12,
+        **block_of(kernel_id, head),
     }
     if function_of:
         line['bound_ops_of'] = function_of
-        line['bound_ms_algorithm'] = max(max(ops_ms(kernel_id)), byte_ms)
+        line['bound_ms_algorithm'] = max(max(ops_ms(kernel_id, DATASHEET)),
+                                         byte_ms)
     return line
+
+
+def probe_checks(dev) -> dict:
+    """Each probe against its plain version on the card at a small grid
+    (three passes; P3 on 1,000 rows), PROBE_TOL relative to the output's
+    scale (int8 modes: equal). Returns (max_abs_err, tol) per probe."""
+    from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
+    from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
+    out = {}
+
+    def hold(key, got, ref, tol_rel, **fields):
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f'{key}: non-finite output')
+        err = (got - ref).abs().max().item()
+        tol = tol_rel * max(1.0, ref.abs().max().item())
+        emit('probe_vs_plain', probe=key, max_abs_err=err, tol=tol,
+             bit_equal=bool(torch.equal(got, ref)), **fields)
+        if not err <= tol:
+            raise AssertionError(f'{key}: error {err} > {tol}')
+        out[key] = (err, tol)
+
+    x = tvr.chain_inputs(dev, SEED)
+    for kind in tvr.KINDS:
+        hold(f'P1 {kind}', tvr.vpu_chain(x, tvr.K_LO, kind, steps=3),
+             tvr.chain_plain(x, tvr.K_LO, kind), PROBE_TOL['P1'],
+             shape=list(x.shape), k=tvr.K_LO)
+    w, v = tvr.bcast_inputs(dev, SEED)
+    hold('P2', tvr.vpu_bcast(w, v, tvr.BC_K_HI, steps=3),
+         tvr.bcast_plain(w, v, tvr.BC_K_HI), PROBE_TOL['P2'],
+         shape=[tvr.BC_TB, tvr.BC_TC, tvr.BC_DP], k=tvr.BC_K_HI)
+    for mode in tmx.MODES:
+        t = tmx.inputs(mode, dev, rows=1000, seed=SEED)
+        hold(f'P3 {mode}', tmx.mxu_chain(*t, mode, instances=3),
+             tmx.chain_plain(*t, mode), PROBE_TOL.get(f'P3 {mode}', 0.0),
+             rows=1000, k=tmx.K)
+    return out
+
+
+def probe_rates(smi) -> dict:
+    """The probes' rates at the Pallas scripts' sizes, with every probe's
+    launch count set to 0 just before and read just after, and the library's
+    square products. Sets PEAKS: bf16 and int8 the higher of P3's rate and
+    the square product's, ffma and exp P1's; raises if one passes its
+    data-sheet figure. Returns the measurements by probe."""
+    from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
+    from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
+    for fn in (tvr.vpu_chain, tvr.vpu_bcast, tmx.mxu_chain):
+        fn.launches = 0
+    with torch.no_grad():
+        rates = {'P1': {k: tvr.measure_chain(k) for k in tvr.KINDS},
+                 'P2': tvr.measure_bcast(),
+                 'P3': {m: tmx.measure(m) for m in tmx.MODES}}
+    launches = {'P1': tvr.vpu_chain.launches, 'P2': tvr.vpu_bcast.launches,
+                'P3': tmx.mxu_chain.launches}
+    if not all(launches.values()):
+        raise AssertionError(f'a probe was not launched: {launches}')
+    rates['square'] = tmx.measure_square()
+    for key in ('P1', 'P2', 'P3'):
+        emit(f'probe_{key}', launches=launches[key], nvidia_smi=smi,
+             **({'rates': rates[key]} if key != 'P2' else rates[key]))
+    sq = rates['square']
+    PEAKS.update(
+        bf16=max(rates['P3']['bf16']['ops_per_s'],
+                 sq['matmul_bf16_ops_per_s']),
+        int8=max(rates['P3']['int8_raw']['ops_per_s'],
+                 sq['int_mm_ops_per_s']),
+        ffma=rates['P1']['fma']['ffma_per_s'],
+        exp=rates['P1']['exp']['exp_per_s'])
+    emit('peaks', measured=PEAKS, datasheet=DATASHEET, square=sq,
+         units='bf16, int8: tensor-core operations/s; ffma: FFMA '
+               'instructions/s (two operations each on the data sheet); '
+               'exp: expf calls/s', nvidia_smi=smi)
+    for key, limit in DATASHEET.items():
+        if PEAKS[key] > limit:
+            raise AssertionError(f'measured {key} rate {PEAKS[key]} passes '
+                                 f'its data-sheet figure {limit}')
+    rates['launches'] = launches
+    return rates
+
+
+def probe_lines(rates: dict, errs: dict, dev) -> list:
+    """The ``kernels`` entries of P1-P3 at the Pallas scripts' sizes: each
+    launch's time and its plain version's on the same work (P1: the FMA
+    chain at K_HI, the exp chain beside it; P2 at BC_K_HI; P3 the bf16 mode,
+    the int8 modes beside it, with the torch.matmul chain of the same work
+    as the library's time), the bound of that work at the data sheet's
+    rates (P1: an FFMA, or an exp on the special-function units, per
+    element-op; P2: one FFMA per multiply-add) and at the measured ones."""
+    from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
+    from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
+    lines = []
+    x = tvr.chain_inputs(dev, SEED)
+    steps = tvr.STEPS
+    n_chain = x.numel() * steps * tvr.K_HI
+    with torch.no_grad():
+        wide = x.expand((steps,) + tuple(x.shape))
+        p1 = {}
+        for kind in tvr.KINDS:
+            p1[kind] = (rates['P1'][kind]['ms'][1],
+                        cuda_ms(lambda: tvr.chain_plain(wide, tvr.K_HI, kind),
+                                reps=1))
+        rate_key = {'fma': 'ffma', 'exp': 'exp'}
+
+        def chain_ms(peaks):  # one FFMA, or one exp, per element-op
+            return {k: n_chain / peaks[rate_key[k]] * 1e3 for k in tvr.KINDS}
+
+        bound, measured = chain_ms(DATASHEET), chain_ms(PEAKS)
+        lines.append({
+            'name': 'vpu_roofline_chain', 'route': 'cuda', 'kernel': 'P1',
+            'source': 'pixelrec_multimodal_tpu_torch/probes/csrc/'
+                      'vpu_roofline.cu',
+            'replaces': 'scripts/profile_vpu_roofline.py:90',
+            'launches': rates['launches']['P1'],
+            'max_abs_err': errs['P1 fma'][0], 'tol': errs['P1 fma'][1],
+            'ms': p1['fma'][0], 'plain_ms': p1['fma'][1],
+            'bound_ms': bound['fma'], 'bound_by': 'operations',
+            'bound_ms_measured': measured['fma'],
+            'library_ms': None,
+            'library_note': 'no PyTorch call computes an FMA chain',
+            'shape': [steps] + list(x.shape), 'k': tvr.K_HI,
+            'ffma_per_s': PEAKS['ffma'],
+            'exp_ms': p1['exp'][0], 'exp_plain_ms': p1['exp'][1],
+            'exp_bound_ms': bound['exp'],
+            'exp_bound_ms_measured': measured['exp'],
+            'exp_per_s': PEAKS['exp'],
+            'exp_max_abs_err': errs['P1 exp'][0]})
+        w, v = tvr.bcast_inputs(dev, SEED)
+        wide_w = w.expand((steps,) + tuple(w.shape))
+        p2_plain = cuda_ms(lambda: tvr.bcast_plain(wide_w, v, tvr.BC_K_HI),
+                           reps=1)
+        # one FFMA per multiply-add of an entry and step
+        n_bcast = steps * w.numel() * tvr.BC_DP * tvr.BC_K_HI
+        lines.append({
+            'name': 'vpu_roofline_bcast', 'route': 'cuda', 'kernel': 'P2',
+            'source': 'pixelrec_multimodal_tpu_torch/probes/csrc/'
+                      'vpu_roofline.cu',
+            'replaces': 'scripts/profile_vpu_roofline.py:121',
+            'launches': rates['launches']['P2'],
+            'max_abs_err': errs['P2'][0], 'tol': errs['P2'][1],
+            'ms': rates['P2']['ms'][1], 'plain_ms': p2_plain,
+            'bound_ms': n_bcast / DATASHEET['ffma'] * 1e3,
+            'bound_by': 'operations',
+            'bound_ms_measured': n_bcast / PEAKS['ffma'] * 1e3,
+            'library_ms': None,
+            'library_note': 'no PyTorch call computes the dependent chain',
+            'shape': [steps, tvr.BC_TB, tvr.BC_TC, tvr.BC_DP],
+            'k': tvr.BC_K_HI,
+            'fp32_instructions_per_s': rates['P2']['fp32_instructions_per_s'],
+            'share_of_ffma_rate': rates['P2']['fp32_instructions_per_s']
+            / PEAKS['ffma']})
+        n_mxu = tmx.flops()
+        modes = {}
+        for mode in tmx.MODES:
+            t = tmx.inputs(mode, dev, seed=SEED)
+            plain = cuda_ms(lambda: [tmx.chain_plain(*t, mode)
+                                     for _ in range(tmx.INSTANCES)], reps=1)
+            peak = PEAKS['bf16' if mode == 'bf16' else 'int8']
+            ds = DATASHEET['bf16' if mode == 'bf16' else 'int8']
+            r = rates['P3'][mode]
+            modes[mode] = {'ms': r['ms'], 'plain_ms': plain,
+                           'ops_per_s': r['ops_per_s'],
+                           'bound_ms': n_mxu / ds * 1e3,
+                           'bound_ms_measured': n_mxu / peak * 1e3,
+                           'library_chain_ms': r['library_chain_ms'],
+                           'max_abs_err': errs[f'P3 {mode}'][0]}
+        b = modes['bf16']
+        lines.append({
+            'name': 'int8_mxu_chain', 'route': 'cuda', 'kernel': 'P3',
+            'source': 'pixelrec_multimodal_tpu_torch/probes/csrc/int8_mxu.cu',
+            'replaces': 'scripts/profile_int8_mxu.py:95',
+            'launches': rates['launches']['P3'],
+            'max_abs_err': b['max_abs_err'], 'tol': errs['P3 bf16'][1],
+            'ms': b['ms'], 'plain_ms': b['plain_ms'],
+            'bound_ms': b['bound_ms'], 'bound_by': 'operations',
+            'bound_ms_measured': b['bound_ms_measured'],
+            'library_ms': None,
+            'library_chain_ms': b['library_chain_ms'],
+            'library_note': 'no single PyTorch call computes the chain; '
+                            'library_chain_ms: torch.matmul per product of '
+                            'the same chain (int8 modes: torch._int_mm), a '
+                            'yardstick',
+            'shape': [tmx.ROWS, tmx.H1, tmx.H2, tmx.H3], 'k': tmx.K,
+            'instances': tmx.INSTANCES, 'modes': modes})
+    return lines
 
 
 def int8_kernel_checks(kernels: dict, flag: dict, gen, dev) -> dict:
@@ -636,6 +896,151 @@ def int8_flip_point(smi, gen, dev) -> dict:
     return {'flip_point': flip, 'chains': rows}
 
 
+def block_of(kernel_id: str, head: dict) -> dict:
+    """The block a kernel takes for ``head`` (its mode's): the pair rows
+    chosen (``ops/pairwise_mlp.py:block_rows``) and the shared memory the
+    kernel's launch set-up counts for them (``<source>_block_bytes``)."""
+    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+    chain = tpm.kernel_chain(head)
+    base = kernel_id.rstrip('q')
+    widths = tuple(int(w) for w in chain['widths'])
+    mode = ((head['H'], head['n_item_mods']) if base in ('K4', 'K5', 'K6')
+            else (int(chain['int8']),))
+    rows = tpm.block_rows(SOURCES[base], widths, mode)
+    return {'block_rows': rows,
+            'block_bytes': tpm.block_bytes(SOURCES[base], widths, rows, mode)}
+
+
+def wide_main_paths(users, smi, dev):
+    """The models the kernels serve in blocks of fewer than 128 pair rows,
+    each through ``CatalogScorer`` at the full catalog, k = 50, one warm-up
+    and one timed call (``drive_top_k``), the launch counts set to 0 just
+    before it: bench.py's flagship at embedding_dim WIDE_EMB (attention,
+    'stream', K4, then the token-0 screen through K6, with K4 and K6 held to
+    their plain versions at the timed block), and at WIDE_HIDDEN (concat
+    K1 and gated exact K2, in bf16 and in int8, K1q and K2q). Each prints
+    the block rows its scorer chose and its top-50 overlap with the plain
+    version on 64 users (>= MIN_OVERLAP)."""
+    from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
+    from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
+    from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
+    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+
+    # attention at d 512
+    t0 = time.time()
+    model, store = build_flagship(fusion_type='attention', emb=WIDE_EMB)
+    scorer = CatalogScorer(model, store)
+    scorer._ensure_screen('token0')
+    torch.cuda.synchronize()
+    head = scorer._head
+    blocks = {kid: block_of(kid, head) for kid in ('K4', 'K6')}
+    rows = {kid: b['block_rows'] for kid, b in blocks.items()}
+    if rows['K4'] != scorer.block_rows:
+        raise AssertionError(f'K4 rows {rows} != the scorer\'s '
+                             f'{scorer.block_rows}')
+    emit('setup_attention_d512', seconds=round(time.time() - t0, 3),
+         d=head['d'], heads=head['H'], h1=head['h1'],
+         chain_widths=head['kernel']['widths'].tolist(), blocks=blocks,
+         table_bytes=sum(t.numel() * t.element_size()
+                         for t in scorer._scan_tables))
+    k4 = user_item_call(tas.attention_scores, 5)
+    k4_plain = user_item_call(tas.attention_scores_plain, 5)
+    k6, k6_plain = (screen_call(tac.attention_screen_scores),
+                    screen_call(tac.attention_screen_scores_plain))
+    it_k, it_vo, tail = (scorer._item_fast[2], scorer._item_fast[3],
+                         scorer._screen_tail)
+    # a d 512 head whose chain cannot flip: w1 = I, then the last dot
+    gen = torch.Generator().manual_seed(SEED + 8)
+    exact = random_attention_head(WIDE_EMB, 4, (WIDE_EMB,), 'gelu', 'tanh',
+                                  gen, dev)
+    exact['w1'] = torch.eye(WIDE_EMB, device=dev)
+    eu, ei = random_attention_rows(exact, TIME_B, 2048, gen, dev, False)
+    from pixelrec_multimodal_tpu_torch.ops.attention_cascade import (
+        compute_screen_tail,
+    )
+    with torch.no_grad():
+        side = scorer._fast_user_side(
+            torch.from_numpy(users[:TIME_B].astype(np.int64)).to(dev))
+        for kid, kernel, plain, h, u, items, gate, what in (
+                ('K4', k4, k4_plain, head, side,
+                 tuple(t[:TIME_C] for t in scorer._scan_tables),
+                 WIDE_MAX_DIFFERING, 'd 512'),
+                ('K6', k6, k6_plain, head, side,
+                 (it_k[:TIME_C], it_vo[:TIME_C], tail[:TIME_C]),
+                 WIDE_MAX_DIFFERING, 'd 512'),
+                ('K4', k4, k4_plain, exact, eu[:5], ei[:6],
+                 MAX_DIFFERING_PER_LAYER, 'd 512, w1 = I'),
+                ('K6', k6, k6_plain, exact, eu[:5],
+                 (ei[2], ei[3], compute_screen_tail(exact, ei)),
+                 MAX_DIFFERING_PER_LAYER, 'd 512, w1 = I')):
+            # the plain attention holds [users, items, tokens, d] f32
+            # intermediates: slices of 256 items at d 512
+            err, frac, scale = kernel_diff(kernel, plain, h, u, items,
+                                           slice_items=256)
+            emit('kernel_vs_plain', kernel=kid, widths=what,
+                 B=u[0].shape[0], C=items[0].shape[0],
+                 block_rows=tas.check_kernel_fits(h, False, kid == 'K6'),
+                 max_abs_err=err, tol=FLIP_TOL * scale,
+                 share_over_agree=frac, agree=AGREE * scale, max_share=gate)
+            if not (err <= FLIP_TOL * scale and frac <= gate):
+                raise AssertionError(f'{kid} at {what}: error {err} or share '
+                                     f'{frac} past its gates')
+    v, i, launches, _ = drive_top_k(scorer, users, 'K4',
+                                    'main_path_attention_d512', calls=1,
+                                    nvidia_smi=smi)
+    check_against_plain(scorer, k4_plain, users, v, i,
+                        'main_path_attention_d512_vs_plain', f32=False)
+    scorer.top_k_cascade(users, TOP_K, screen='token0')  # warm-up
+    reset_launches()
+    t0 = time.time()
+    cv, ci = scorer.top_k_cascade(users, TOP_K, screen='token0')
+    seconds = time.time() - t0
+    counts = launch_counts()
+    expected = {k: (scorer.n_pad // scorer.item_chunk if k == 'K6' else 0)
+                for k in counts}
+    emit('main_path_attention_d512_token0', users=len(users),
+         items=N_ITEMS, k=TOP_K, seconds=seconds,
+         effective_pairs_per_sec=len(users) * N_ITEMS / seconds,
+         kernel_launches=counts, expected_launches=expected,
+         block_rows=rows['K6'],
+         recall_vs_exact_top50=topc_overlap(i, ci), nvidia_smi=smi)
+    if counts != expected or not np.isfinite(cv).all():
+        raise AssertionError(f'main_path_attention_d512_token0: launches '
+                             f'{counts} or output malformed')
+    del scorer, model, store, side, it_k, it_vo, tail, exact, eu, ei
+    torch.cuda.empty_cache()
+
+    # concat and gated at [1024, 512, 256], bf16 and int8
+    plains = {'K1': tpm.pairwise_scores_plain,
+              'K2': tpm.pairwise_scores_gated_plain}
+    for fusion, kid in (('concatenate', 'K1'), ('gated', 'K2')):
+        model, store = build_flagship(fusion_type=fusion,
+                                      hidden=WIDE_HIDDEN)
+        for precision in ('bf16', 'int8!'):
+            t0 = time.time()
+            scorer = CatalogScorer(model, store, precision=precision)
+            torch.cuda.synchronize()
+            k = kid + ('q' if precision == 'int8!' else '')
+            block = block_of(k, scorer._head)
+            emit('setup_wide_chain', fusion=fusion, precision=precision,
+                 kernel=k, seconds=round(time.time() - t0, 3),
+                 widths=scorer._head['kernel']['widths'].tolist(),
+                 scorer_block_rows=scorer.block_rows, **block)
+            if scorer.block_rows != block['block_rows'] \
+                    or block['block_rows'] != 64 + 64 * (k == 'K1q'):
+                raise AssertionError(f'{k}: rows {scorer.block_rows} / '
+                                     f'{block}')
+            v, i, _, _ = drive_top_k(
+                scorer, users, k, f'main_path_wide_chain_{fusion}_{k}',
+                calls=1, precision=scorer.precision, nvidia_smi=smi)
+            check_against_plain(scorer, plains[kid], users, v, i,
+                                f'main_path_wide_chain_{fusion}_{k}_vs_plain',
+                                f32=False)
+            del scorer
+            torch.cuda.empty_cache()
+        del model, store
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA device (torch.cuda.is_available() is '
@@ -669,14 +1074,22 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
-    # ---- 2. build every kernel source, one nvcc each, in parallel
+    # ---- 2. build every kernel and probe source, one nvcc each, in
+    # parallel
     t0 = time.time()
-    libs = _build.build(_build.all_sources())
+    libs = _build.build(_build.all_sources() + _build.probe_sources())
     for lib in libs.values():
         log(lib.with_suffix('.log').read_text())
     emit('build', seconds=round(time.time() - t0, 3),
          libraries=[str(p.relative_to(_build.BUILD_DIR.parents[1]))
                     for p in libs.values()])
+
+    # ---- 2b. the probes: P1-P3 against their plain versions, then the
+    # card's rates, which every kernel's bound below divides by
+    t0 = time.time()
+    probe_errs = probe_checks(dev)
+    probe_rate = probe_rates(smi)
+    emit('probes', seconds=round(time.time() - t0, 3))
 
     # ---- set-up of the concat main path (catalog tables built on the card)
     t0 = time.time()
@@ -733,17 +1146,12 @@ def main() -> int:
                         'main_path_vs_plain')
 
     # ---- 5. K1's time at one flagship-width call
-    with torch.no_grad():
-        a = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
-        mm_ms = cuda_ms(lambda: a @ a, reps=10)
-        del a
     lines = [kernel_line(
         'pairwise_mlp', 'K1', 'pairwise_mlp.cu', 421, '_pairwise_kernel',
         head, h1, (user_first[:TIME_B].contiguous(), item_first[:TIME_C]),
         pairwise_scores, pairwise_scores_plain, k1_launches, flag_err,
         flag_tol, 'no single PyTorch call computes the fused assembly + '
         'Dense chain + one-column reduce')]
-    lines[0]['measured_bf16_matmul_tflops'] = 2 * 8192 ** 3 / mm_ms / 1e9
 
     # ---- 5b. the concat model in int8 (precision='int8!': K1q), K1q
     # against its plain version, its main path, its time; then the int8
@@ -1251,6 +1659,13 @@ def main() -> int:
     lines[-1]['launches_screen_token0'] = screen_launches['K6']
     lines[0]['launches_additive_cascade'] = cascade_launches['K1']
 
+    del stream, amodel, astore, it_k, it_vo, tail, add, side
+    torch.cuda.empty_cache()
+
+    # ---- 18. the wide models that take smaller blocks, at WIDE_USERS users
+    wide_main_paths(users[:WIDE_USERS], smi, dev)
+
+    lines += probe_lines(probe_rate, probe_errs, dev)
     emit('timing', seconds_total=round(time.time() - t_start, 3))
     print(json.dumps({'kernels': lines}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -70,6 +70,7 @@ from ..ops.pairwise_mlp import (
     calibrate_head_ranges,
     calibrate_head_ranges_gated,
     candidate_scores,
+    check_pair_kernel_fits,
     candidate_scores_gated,
     compute_item_first,
     compute_item_side_gated,
@@ -162,13 +163,19 @@ class CatalogScorer:
     path: ``'stream'`` (K4) or ``'gram'`` (K5, which needs the scalar
     tables too); ``None`` is ``DEFAULT_ATTENTION_VARIANT``, resolved here
     and held in ``self.attention_variant`` (None without an attention fast
-    path). On the card the variant's kernel must take the model: K5 keeps
-    per-pair cross-Grams in shared memory and refuses 8 heads, or d 128
-    and wider at the flagship chain (``check_kernel_fits``), so ``'gram'``
-    raises here for such a model, before any table is built. The generic
+    path). The generic
     path of an attention model (``fast_path=False``) scores at most 64
     users per block, as the JAX package does: the model's attention holds
     [users x items x H x T x T] intermediates.
+
+    On the card the fast path's kernel must take the head in a block of
+    128, 64, 32 or 16 pair rows (``check_kernel_fits`` for attention,
+    ``check_pair_kernel_fits`` for concatenate and gated, in the precision
+    served): the rows, which every launch of that kernel on this head then
+    reads (``ops/pairwise_mlp.py:block_rows``, chosen once per shape), are
+    held in ``self.block_rows`` (None off the card), and a head that fits
+    no block raises ValueError here, before any table is built. Any head whose d is a multiple of 16 up to 512 and whose
+    block fits in 16 rows is served.
 
     An attention fast path also serves the cascade (``top_k_cascade``,
     ``calibrate_cascade``, ``calibrate_funnel``, ``auto_cascade``,
@@ -224,33 +231,45 @@ class CatalogScorer:
         self.auto_cascade_report: Optional[Dict] = None
 
         with _exact_f32():
-            self._item_feats = self._build_item_tower()  # [n_pad, M, D]
-            # Fused factorized head. ``_item_fast`` is the tuple of per-item
-            # tables (concat: (item_first,); gated: (item_first,
-            # item_gates)); ``_scan_tables`` the tuple the kernel scans
-            # (the factored gated variant: (T, igb); else ``_item_fast``).
+            # The fused head, the precision served and, on the card, the
+            # kernel's block, before any table is built.
             self._head = None
-            self._item_fast = self._scan_tables = None
             self.gated_variant = self.attention_variant = None
+            self.block_rows = None
             if fast_path and self.model.fusion_type == 'attention':
                 head = self._head = build_attention_head(self.model)
                 self.attention_variant = (attention_variant
                                           or DEFAULT_ATTENTION_VARIANT)
-                if self.device.type == 'cuda':
+            elif fast_path:
+                head = self._head = build_factorized_head(self.model)
+                if head['fusion'] == 'gated':
+                    self.gated_variant = (gated_variant
+                                          or DEFAULT_GATED_VARIANT)
+                    self._check_factored_budget()
+            self.precision = self._resolve_precision(precision)
+            if self._head is not None and self.device.type == 'cuda':
+                self.block_rows = (
                     check_kernel_fits(head, self.attention_variant == 'gram')
+                    if self.attention_variant else check_pair_kernel_fits(
+                        head, self.gated_variant, self.precision == 'int8'))
+
+            self._item_feats = self._build_item_tower()  # [n_pad, M, D]
+            # ``_item_fast`` is the tuple of per-item tables (concat:
+            # (item_first,); gated: (item_first, item_gates)); attention:
+            # the d-wide tables); ``_scan_tables`` the tuple the kernel
+            # scans (the factored gated variant: (T, igb); else
+            # ``_item_fast``).
+            self._item_fast = self._scan_tables = None
+            if self.attention_variant:
                 self._item_fast = self._scan_tables = self._build_item_fast(
                     partial(compute_item_side_attention, head,
                             with_gram=self.attention_variant == 'gram'))
-            elif fast_path:
-                head = self._head = build_factorized_head(self.model)
+            elif self._head is not None:
                 if head['fusion'] == 'concatenate':
                     self._item_fast = self._build_item_fast(
                         lambda feats: (compute_item_first(
                             head, feats.reshape(feats.shape[0], -1)),))
                 else:
-                    self.gated_variant = (gated_variant
-                                          or DEFAULT_GATED_VARIANT)
-                    self._check_factored_budget()
                     self._item_fast = self._build_item_fast(
                         partial(compute_item_side_gated, head))
                 self._scan_tables = self._item_fast
@@ -258,7 +277,6 @@ class CatalogScorer:
                     self._scan_tables = self._build_item_fast(
                         lambda feats: factor_gated_tables(
                             head, *compute_item_side_gated(head, feats)))
-            self.precision = self._resolve_precision(precision)
             if self.precision == 'int8':
                 self._quantize()
 

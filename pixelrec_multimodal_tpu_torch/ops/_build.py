@@ -1,12 +1,15 @@
 # pixelrec_multimodal_tpu_torch/ops/_build.py
-"""Build and load the hand-written CUDA kernels in ``ops/csrc``.
+"""Build and load the hand-written CUDA kernels in ``ops/csrc`` and the
+measurement probes in ``probes/csrc``.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-a shared library with a plain C interface, ``build/kernels/<name>-<hash>.so``
-at the root of the checkout, on first use. The hash covers the source, the
-shared headers (``csrc/*.cuh``) and the compiler flags, so an edited source
-or header builds anew and an unchanged one loads the library already
-built. Libraries load through ``ctypes``: every
+Each ``<dir>/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface,
+``build/kernels/<name>-<hash>.so`` at the root of the checkout, on first
+use. The hash covers the source, the shared headers (``*.cuh`` of its
+directory and of ``ops/csrc``, which every source may include) and the
+compiler flags, so an edited source or header builds anew and an unchanged
+one loads the library already built. Names are unique across the two
+directories. Libraries load through ``ctypes``: every
 pointer and the stream pass as ``c_void_p``, every integer as ``c_int``.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -24,6 +27,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
+PROBES_CSRC = Path(__file__).resolve().parents[1] / 'probes' / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -41,12 +45,20 @@ def _nvcc() -> str:
     return path
 
 
+def _source_dir(name: str) -> Path:
+    """``ops/csrc`` for a kernel, ``probes/csrc`` for a probe."""
+    return PROBES_CSRC if (PROBES_CSRC / f'{name}.cu').exists() else CSRC
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, named by the hash of its source,
-    of every header in ``csrc`` (``*.cuh``, which the sources include) and
-    of the compiler flags, so an edited header builds anew too."""
-    h = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
-    for header in sorted(CSRC.glob('*.cuh')):
+    """Where ``<dir>/<name>.cu`` builds to, named by the hash of its source,
+    of every header it may include (``*.cuh`` of its directory and of
+    ``ops/csrc``) and of the compiler flags, so an edited header builds
+    anew too."""
+    src = _source_dir(name)
+    h = hashlib.sha256((src / f'{name}.cu').read_bytes())
+    headers = {p.resolve() for d in (src, CSRC) for p in d.glob('*.cuh')}
+    for header in sorted(headers, key=lambda p: (p.name, str(p))):
         h.update(header.name.encode() + b'\0' + header.read_bytes())
     h.update(' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
@@ -64,7 +76,8 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         if lib.exists():
             continue
         tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+        cmd = [_nvcc(), *NVCC_FLAGS, '-I', str(CSRC), '-o', str(tmp),
+               str(_source_dir(name) / f'{name}.cu')]
         procs.append((name, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
@@ -83,7 +96,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``<dir>/<name>.cu``, built first if needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -93,5 +106,10 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def all_sources() -> list:
-    """Names of every kernel source in ``csrc``."""
+    """Names of every kernel source in ``ops/csrc``."""
     return sorted(p.stem for p in CSRC.glob('*.cu'))
+
+
+def probe_sources() -> list:
+    """Names of every probe source in ``probes/csrc``."""
+    return sorted(p.stem for p in PROBES_CSRC.glob('*.cu'))

@@ -28,7 +28,7 @@ vo, sexp, dm), so the tail reads indices 0, 4 and 5 and K6 reads 2 and 3.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -43,7 +43,6 @@ from .attention_scorer import (
     _score_fused,
     _token0_coefs,
     _token0_input,
-    check_kernel_fits,
 )
 from .pairwise_mlp import (
     _chain_on,
@@ -149,7 +148,9 @@ def attention_screen_scores_plain(head: dict,
 
 def attention_screen_scores(head: dict, user_side: Sequence[torch.Tensor],
                             item_side: Sequence[torch.Tensor],
-                            tail: torch.Tensor) -> torch.Tensor:
+                            tail: torch.Tensor,
+                            _block_rows: Optional[int] = None
+                            ) -> torch.Tensor:
     """Fused token-0 screen scoring (kernel K6,
     ``csrc/attention_screen_mlp.cu``): user_side (raw, q, k, vo, suu), the
     per-item tables item_side (raw, q, k, vo, ...), of which the kernel
@@ -159,7 +160,9 @@ def attention_screen_scores(head: dict, user_side: Sequence[torch.Tensor],
     CUDA tensors launch the kernel on the current stream; B and C need not
     be tile multiples. CPU tensors take ``attention_screen_scores_plain`` in
     float32. Anything else raises: other devices, widths or head counts the
-    kernel does not take, a block past the shared memory, launch errors.
+    kernel does not take, a head that fits no block, launch errors. The
+    block's pair rows are ``check_kernel_fits``'s (``_block_rows`` forces a
+    smaller block, for tests).
     ``attention_screen_scores.launches`` counts kernel launches.
     """
     _check_attention_head(head)
@@ -170,7 +173,6 @@ def attention_screen_scores(head: dict, user_side: Sequence[torch.Tensor],
     if device is None:
         return attention_screen_scores_plain(head, user_side, item_side, tail)
     d, H, Mi = _kernel_dims(head)
-    check_kernel_fits(head, gram=False, screen=True)
     chain = _chain_on(head, device)
     B, C = user_side[0].shape[0], it_k.shape[0]
     f32 = torch.float32
@@ -186,7 +188,8 @@ def attention_screen_scores(head: dict, user_side: Sequence[torch.Tensor],
     if B == 0 or C == 0:
         return out
     _launch('attention_screen_mlp', out,
-            user_side + (it_k, it_vo, tail) + ln, chain, B, C, (H, Mi))
+            user_side + (it_k, it_vo, tail) + ln, chain, B, C, (H, Mi),
+            mode=(H, Mi), forced=_block_rows)
     attention_screen_scores.launches += 1
     return out
 

@@ -58,6 +58,8 @@ from .pairwise_mlp import (
     _device_of,
     _kernel_of,
     _launch,
+    block_rows,
+    chain_widths,
     fold_prediction_mlp,
     kernel_chain,
     pack_mlp_chain,
@@ -69,8 +71,7 @@ EXP_CLAMP = 80.0   # item-token exponent clamp of the stream form
 SUU_PAD = 8        # columns of the per-user self-logit table
 MAX_HEADS = SUU_PAD
 MAX_ITEM_MODS = 7
-MAX_D = 256        # the kernels hold at most 8 values per lane of a warp
-SMEM_OPTIN = 232448  # shared memory a block may opt in to on sm_90, 227 KB
+MAX_D = 512        # the kernels hold at most 16 values per lane of a warp
 
 
 # ------------------------------------------------------------ table layouts
@@ -564,51 +565,36 @@ def _kernel_dims(head: dict) -> Tuple[int, int, int]:
     return d, H, Mi
 
 
-def kernel_smem_bytes(head: dict, gram: bool, screen: bool = False) -> int:
-    """Shared memory one block of K5 (``gram``), K6 (``screen``, the
-    cascade's token-0 screen, ``ops/attention_cascade.py``) or K4 takes for
-    ``head``, counted as the launch set-up counts it
-    (``csrc/attention_common.cuh`` ``make_dims`` and ``scratch_bytes``,
-    ``csrc/mlp_chain.cuh`` ``make_chain`` and ``smem_bytes``): the chain's
-    two activation buffers of 128 pair rows and its weight ring, which the
-    assembly's scratch (the 8 user rows, each pair's coefficients (K6:
-    token 0's only) and, for K5, its cross-Grams) grows where it passes
-    buffer B. 226,816 B for each kernel at the flagship head (d 64, 4
-    heads, chain [512, 256, 128])."""
+def check_kernel_fits(head: dict, gram: bool, screen: bool = False) -> int:
+    """The block rows K5 (``gram``), K6 (``screen``, the cascade's token-0
+    screen, ``ops/attention_cascade.py``) or K4 takes ``head`` at:
+    ``block_rows`` on the kernel's own count of its shared memory (the
+    chain's two activation buffers and its weight ring, which the
+    assembly's scratch grows where it passes buffer B). ValueError for a
+    head the kernel does not take (its widths, heads and item tokens) or
+    that fits no block, naming the stream variant where K4 serves the
+    head."""
     d, H, Mi = _kernel_dims(head)
-    widths = ([d, head['w1'].shape[1]]
-              + [w.shape[1] for w, _ in head['layers'][:-1]])
-    rows, users, pad = 128, 8, 8
-    ring = 3 * 32 * (128 + pad) * 2
-    stride_a = max(widths[0::2]) + pad
-    stride_b = max(widths[1::2]) + pad
-    n_vo = Mi * H
-    n_usc = 2 + 2 * H + H * H if gram else 0
-    urow = -(-((3 + H) * (d + 4) + SUU_PAD + n_usc) // 4) * 4
-    ncoef = (H * (Mi + 1) + (0 if screen else 2 * n_vo)) | 1
-    nx = (max(n_vo * (1 + H) + (n_vo + Mi) * H, 2 + H + n_vo + Mi) | 1
-          if gram else 0)
-    scratch = (users * urow + rows * (ncoef + nx)) * 4
-    return (rows * (stride_a + stride_b) * 2
-            + max(ring, scratch - rows * stride_b * 2))
+    widths = chain_widths(head)
+    try:
+        return block_rows(_kernel_name(gram, screen), widths, (H, Mi))
+    except ValueError as err:
+        if not gram:
+            raise
+        try:
+            block_rows(_kernel_name(False, False), widths, (H, Mi))
+        except ValueError:
+            raise err from None
+        raise ValueError(f"{err}; use attention_variant='stream'") from None
 
 
-def check_kernel_fits(head: dict, gram: bool, screen: bool = False):
-    """Raise ValueError unless K5 (``gram``), K6 (``screen``) or K4 takes
-    ``head``: its widths, heads and item tokens, and a block within
-    ``SMEM_OPTIN``."""
-    need = kernel_smem_bytes(head, gram, screen)
-    if need > SMEM_OPTIN:
-        name = 'gram' if gram else 'screen' if screen else 'stream'
-        raise ValueError(
-            f'the {name} attention kernel needs '
-            f'{need} B of shared memory per block for d={head["d"]}, '
-            f'{head["H"]} heads, past the {SMEM_OPTIN} B a block may take'
-            + ("; use attention_variant='stream'" if gram else ''))
+def _kernel_name(gram: bool, screen: bool) -> str:
+    return ('attention_gram_mlp' if gram else
+            'attention_screen_mlp' if screen else 'attention_mlp')
 
 
-def _launch_attention(name: str, head: dict, user_side,
-                      item_side) -> torch.Tensor:
+def _launch_attention(name: str, head: dict, user_side, item_side,
+                      forced: Optional[int]) -> torch.Tensor:
     d, H, Mi = _kernel_dims(head)
     device = user_side[0].device
     chain = _chain_on(head, device)
@@ -632,27 +618,31 @@ def _launch_attention(name: str, head: dict, user_side,
     if B == 0 or C == 0:
         return out
     _launch(name, out, tuple(user_side) + tuple(item_side) + ln, chain, B, C,
-            (H, Mi))
+            (H, Mi), mode=(H, Mi), forced=forced)
     return out
 
 
 def attention_scores(head: dict, user_side: Sequence[torch.Tensor],
-                     item_side: Sequence[torch.Tensor]) -> torch.Tensor:
+                     item_side: Sequence[torch.Tensor],
+                     _block_rows: Optional[int] = None) -> torch.Tensor:
     """Fused stream-form attention scoring (kernel K4,
     ``csrc/attention_mlp.cu``): user_side (raw, q, k, vo, suu) and
     item_side (raw, q, k, vo, sexp, dm), all float32 -> [B, C] float32.
 
     CUDA tensors launch the kernel on the current stream; B and C need not
-    be tile multiples. CPU tensors take ``attention_scores_plain`` in
-    float32. Anything else raises: other devices, widths or head counts
-    the kernel does not take, launch errors.
+    be tile multiples. The block's pair rows are ``check_kernel_fits``'s
+    (``_block_rows`` forces a smaller block, for tests). CPU tensors take
+    ``attention_scores_plain`` in float32. Anything else raises: other
+    devices, widths or head counts the kernel does not take, a head that
+    fits no block, launch errors.
     ``attention_scores.launches`` counts kernel launches.
     """
     _check_attention_head(head)
     user_side, item_side = tuple(user_side[:5]), tuple(item_side[:6])
     if _device_of('attention_scores', *user_side, *item_side) is None:
         return attention_scores_plain(head, user_side, item_side)
-    out = _launch_attention('attention_mlp', head, user_side, item_side)
+    out = _launch_attention('attention_mlp', head, user_side, item_side,
+                            _block_rows)
     if out.numel():
         attention_scores.launches += 1
     return out
@@ -662,17 +652,17 @@ attention_scores.launches = 0
 
 
 def attention_scores_gram(head: dict, user_side: Sequence[torch.Tensor],
-                          item_side: Sequence[torch.Tensor]) -> torch.Tensor:
+                          item_side: Sequence[torch.Tensor],
+                          _block_rows: Optional[int] = None) -> torch.Tensor:
     """Fused gram-form attention scoring (kernel K5,
     ``csrc/attention_gram_mlp.cu``): user_side (raw, q, k, vo, suu, u_sc)
     and item_side (raw, q, k, vo, sexp, dm, it_sc), all float32 -> [B, C]
     float32. As ``attention_scores`` otherwise; CPU tensors take
     ``attention_scores_gram_plain`` in float32. The kernel keeps each
     pair's cross-Grams, (1 + H)*Mi*H + H*(Mi*H + Mi) floats, in shared
-    memory, so many heads or a wide embedding do not fit
-    (``check_kernel_fits``; at Mi = 5 and the chain [512, 256, 128]: 8
-    heads, or d 128 and wider): the launch is then refused and raises, and
-    the stream variant takes the shape.
+    memory, so many heads or a wide embedding take a block of fewer pair
+    rows than K4's (``check_kernel_fits``; at Mi = 5 and the chain [512,
+    256, 128], d 128 and 4 heads: 64 rows).
     ``attention_scores_gram.launches`` counts kernel launches.
     """
     _check_attention_head(head)
@@ -683,7 +673,7 @@ def attention_scores_gram(head: dict, user_side: Sequence[torch.Tensor],
     if _device_of('attention_scores_gram', *user_side, *item_side) is None:
         return attention_scores_gram_plain(head, user_side, item_side)
     out = _launch_attention('attention_gram_mlp', head, user_side,
-                            item_side)
+                            item_side, _block_rows)
     if out.numel():
         attention_scores_gram.launches += 1
     return out

@@ -10,10 +10,12 @@
 // calls run_chain (mlp_chain.cuh) with the first Dense w1 as the chain's
 // layer 0.
 //
-// Block: the chain's 8 users x 16 items (128 pair rows), 16 warps. Shared
-// memory is the chain's (two activation buffers and the weight ring). Until
-// the assembly ends, buffer B and the ring behind it are the assembly's
-// scratch (buffer B is first written by the chain's layer 0):
+// Block: the chain's TB users x 16 items (TB = 8, 4, 2 or 1: 128 to 16 pair
+// rows, the largest whose block fits by <name>_block_bytes;
+// ops/pairwise_mlp.py:block_rows), 16 warps. Shared memory is the chain's (two
+// activation buffers and the weight ring). Until the assembly ends, buffer B
+// and the ring behind it are the assembly's scratch (buffer B is first
+// written by the chain's layer 0):
 //   U    [TB][urow]   the tile's user rows: raw, q, k, vo_0 .. vo_{H-1} (d
 //                     each, vs = d + 4 apart, so that float4 reads of
 //                     different vectors fall in different banks), suu
@@ -26,6 +28,11 @@
 // Every float32 operation of the assembly is an unfused __f*_rn intrinsic in
 // the order the module's plain version (ops/attention_scorer.py) takes, so
 // kernel and plain version round the fused vector to the same bf16 values.
+// A warp holds J float2 slots per lane of each d-wide vector (J = 1, 2, 4 or
+// 8 up to d 64, 128, 256, 512); at J = 8 the assembly takes its users in
+// groups of two and streams the item rows one at a time (assembly_users,
+// row_buffers), so that its registers stay within the 128 a thread of a
+// 512-thread block may hold. Neither changes any pair's operations.
 
 #pragma once
 
@@ -38,7 +45,7 @@ using namespace pairwise;
 constexpr int MAX_HEADS = 8;
 constexpr int MAX_ITEM_MODS = 7;
 constexpr int SUU_PAD = 8;       // columns of the per-user self-logit table
-constexpr int MAX_D = 256;       // 4 float2 slots per lane
+constexpr int MAX_D = 512;       // 8 float2 slots per lane
 constexpr float LN_EPS = 1e-6f;  // Flax nn.LayerNorm
 constexpr float EXP_CLAMP = 80.f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -93,8 +100,20 @@ inline cudaError_t make_dims(int d, int H, int Mi, bool gram, Dims* D,
   return cudaSuccess;
 }
 
-inline size_t scratch_bytes(const Dims& D) {
-  return ((size_t)TB * D.urow + (size_t)ROWS * (D.ncoef + D.nx)) * 4;
+// The assembly's scratch of a block of `rows` pair rows, in bytes.
+inline size_t scratch_bytes(const Dims& D, int rows) {
+  return ((size_t)(rows / TC) * D.urow + (size_t)rows * (D.ncoef + D.nx)) * 4;
+}
+
+// Users the assembly holds in registers at once, and item rows it loads
+// ahead, for J float2 slots per lane.
+template <int J, int TB>
+__host__ __device__ constexpr int assembly_users() {
+  return J >= 8 ? (TB < 2 ? TB : 2) : TB;
+}
+template <int J>
+__host__ __device__ constexpr int row_buffers() {
+  return J >= 8 ? 1 : (MAX_HEADS > MAX_ITEM_MODS ? MAX_HEADS : MAX_ITEM_MODS);
 }
 
 __device__ __forceinline__ float2 f2_add_mul(float2 y, float w, float2 v) {
@@ -111,6 +130,7 @@ __device__ __forceinline__ float warp_sum(float p) {
 
 // The tile's user rows into U; rows past B, and the padding after each
 // vector, are zeros.
+template <int TB>
 __device__ __forceinline__ void load_users(
     float* U, const Dims& D, const float* __restrict__ u_raw,
     const float* __restrict__ u_q, const float* __restrict__ u_k,
@@ -142,7 +162,7 @@ __device__ __forceinline__ void load_users(
 // left to right: token 0's user query against item key m (slot
 // c0_off(h, 1 + m)) and, with ITEM_TOKENS, item query t against the user key
 // (slot ct_off(t, h)). Items past C give zero logits.
-template <bool ITEM_TOKENS = true>
+template <bool ITEM_TOKENS, int TB>
 __device__ __forceinline__ void pair_logits(const float* U, float* coef,
                                             const Dims& D,
                                             const float* __restrict__ it_q,
@@ -182,11 +202,12 @@ __device__ __forceinline__ void pair_logits(const float* U, float* coef,
 // (pair, head): e_u = exp(min(s - mx, 80)) against the item-key softmax
 // mass (dsum, mx) of the dm table, a = e_u * r and b = r with
 // r = 1 / (e_u + dsum).
-template <bool ITEM_TOKENS = true>
+template <bool ITEM_TOKENS, int TB>
 __device__ __forceinline__ void softmax_coefs(const float* U, float* coef,
                                               const Dims& D,
                                               const float* __restrict__ it_dm,
                                               int c0, int C) {
+  constexpr int ROWS = Tile<TB>::ROWS;
   const int H = D.H, Mi = D.Mi, n0 = ROWS * H;
   const int n = n0 + (ITEM_TOKENS ? ROWS * Mi * H : 0);
   for (int e = threadIdx.x; e < n; e += THREADS) {
@@ -228,6 +249,7 @@ __device__ __forceinline__ void softmax_coefs(const float* U, float* coef,
 // written out), and the LayerNorm affine plus the bf16 rounding of a fused
 // vector held as J float2 slots per lane (slot s = lane + 32 j covers
 // entries 2s, 2s + 1).
+template <int TB>
 __device__ __forceinline__ void zero_rows(__nv_bfloat16* buf_a, int stride_a,
                                           int ci, int d) {
   const int lane = threadIdx.x & 31;
@@ -273,51 +295,58 @@ __device__ __forceinline__ float2 user_vo(const float* U, const Dims& D,
                   : make_float2(0.f, 0.f);
 }
 
-// Token 0's pre-LayerNorm vectors of warp ci's 8 pairs with item c, added
-// into y (zero on entry): y = raw + sum_h (w_0h u_vo_h + sum_m w_mh vo_mh),
-// the attention output summed first, then the residual. A head's Mi item
-// rows are loaded together before they are used, so the warp waits on
-// global memory once per head, not once per row; `rows` is the caller's
-// scratch for them.
-template <int J, int R>
+// Token 0's pre-LayerNorm vectors of warp ci's pairs with item c for the
+// UB users b0 .. b0 + UB - 1 of the tile, added into y (zero on entry):
+// y = raw + sum_h (w_0h u_vo_h + sum_m w_mh vo_mh), the attention output
+// summed first, then the residual. With R >= MAX_ITEM_MODS row buffers a
+// head's Mi item rows are loaded together before they are used, so the warp
+// waits on global memory once per head, not once per row; with R = 1 each
+// row is loaded where it is used. `rows` is the caller's scratch for them.
+template <int J, int R, int UB>
 __device__ __forceinline__ void token0_input(const float* U, const float* coef,
                                              const Dims& D,
                                              const float* __restrict__ it_vo,
                                              float2 (&rows)[R][J],
-                                             float2 (&y)[TB][J], int c,
-                                             int ci) {
-  static_assert(R >= MAX_ITEM_MODS, "a row per item token");
+                                             float2 (&y)[UB][J], int c,
+                                             int ci, int b0) {
+  constexpr bool AHEAD = R >= MAX_ITEM_MODS;
   const int lane = threadIdx.x & 31, d = D.d, H = D.H, Mi = D.Mi;
   const int half = d / 2;
   for (int h = 0; h < H; ++h) {
+    if constexpr (AHEAD) {
 #pragma unroll
-    for (int m = 0; m < MAX_ITEM_MODS; ++m)
-      if (m < Mi) load_f2(rows[m], it_vo + (((size_t)c * Mi + m) * H + h) * d, half);
+      for (int m = 0; m < MAX_ITEM_MODS; ++m)
+        if (m < Mi) load_f2(rows[m], it_vo + (((size_t)c * Mi + m) * H + h) * d, half);
+    }
 #pragma unroll
-    for (int bu = 0; bu < TB; ++bu) {
-      const float w = coef[(bu * TC + ci) * D.ncoef + c0_off(D, h, 0)];
+    for (int bu = 0; bu < UB; ++bu) {
+      const float w = coef[((b0 + bu) * TC + ci) * D.ncoef + c0_off(D, h, 0)];
 #pragma unroll
       for (int j = 0; j < J; ++j)
-        y[bu][j] = f2_add_mul(y[bu][j], w, user_vo(U, D, bu, h, j, half));
+        y[bu][j] = f2_add_mul(y[bu][j], w, user_vo(U, D, b0 + bu, h, j, half));
     }
 #pragma unroll
     for (int m = 0; m < MAX_ITEM_MODS; ++m) {
       if (m >= Mi) break;
+      if constexpr (!AHEAD)
+        load_f2(rows[0], it_vo + (((size_t)c * Mi + m) * H + h) * d, half);
+      const float2 (&row)[J] = rows[AHEAD ? m : 0];
 #pragma unroll
-      for (int bu = 0; bu < TB; ++bu) {
-        const float w = coef[(bu * TC + ci) * D.ncoef + c0_off(D, h, 1 + m)];
+      for (int bu = 0; bu < UB; ++bu) {
+        const float w =
+            coef[((b0 + bu) * TC + ci) * D.ncoef + c0_off(D, h, 1 + m)];
 #pragma unroll
-        for (int j = 0; j < J; ++j) y[bu][j] = f2_add_mul(y[bu][j], w, rows[m][j]);
+        for (int j = 0; j < J; ++j) y[bu][j] = f2_add_mul(y[bu][j], w, row[j]);
       }
     }
   }
 #pragma unroll
-  for (int bu = 0; bu < TB; ++bu) {
+  for (int bu = 0; bu < UB; ++bu) {
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int s = lane + 32 * j;
       const float2 r = s < half
-          ? reinterpret_cast<const float2*>(U + bu * D.urow)[s]
+          ? reinterpret_cast<const float2*>(U + (b0 + bu) * D.urow)[s]
           : make_float2(0.f, 0.f);
       y[bu][j] = make_float2(__fadd_rn(r.x, y[bu][j].x),
                              __fadd_rn(r.y, y[bu][j].y));
@@ -360,31 +389,39 @@ __device__ __forceinline__ void layer_norm_add(const float2 (&y)[J],
   }
 }
 
-// Launch set-up: the chain's, with the assembly's scratch counted from
-// buffer B on (only what passes buffer B grows the ring); the grid puts the
-// user tiles on x, so the blocks of one item tile run together and the
-// tile stays in L2.
+// Shared memory of a block of `rows` pair rows: the chain's, with the
+// assembly's scratch counted from buffer B on (only what passes buffer B
+// grows the ring).
+inline size_t attention_smem_bytes(const Chain& ch, const Dims& D, int rows) {
+  const size_t buf_b = (size_t)rows * ch.stride_b * 2;
+  const size_t need = scratch_bytes(D, rows);
+  return smem_bytes(ch, need > buf_b ? need - buf_b : 0, rows);
+}
+
+// Launch set-up: the chain's; the grid puts the user tiles on x, so the
+// blocks of one item tile run together and the tile stays in L2.
 template <typename Kernel>
 inline cudaError_t prepare_attention(Kernel kernel, const Chain& ch,
-                                     const Dims& D, int B, int C, dim3* grid,
-                                     size_t* smem) {
-  const size_t buf_b = (size_t)ROWS * ch.stride_b * 2;
-  const size_t need = scratch_bytes(D);
-  cudaError_t err = prepare_launch(kernel, ch, need > buf_b ? need - buf_b : 0,
-                                   B, C, grid, smem);
+                                     const Dims& D, int B, int C, int rows,
+                                     dim3* grid, size_t* smem) {
+  *smem = attention_smem_bytes(ch, D, rows);
+  cudaError_t err = prepare_launch(kernel, *smem, B, C, rows, grid);
   if (err != cudaSuccess) return err;
   if (grid->x > 65535) return cudaErrorInvalidConfiguration;
   *grid = dim3(grid->y, grid->x);
   return cudaSuccess;
 }
 
+template <int TB>
 __device__ __forceinline__ void tile_origin(int* u0, int* c0) {
   *u0 = blockIdx.x * TB;
   *c0 = blockIdx.y * TC;
 }
 
 // Slots per lane for an embedding width: 1 up to d = 64, 2 up to 128, 4 up
-// to MAX_D.
-inline int slots_per_lane(int d) { return d <= 64 ? 1 : d <= 128 ? 2 : 4; }
+// to 256, 8 up to MAX_D.
+inline int slots_per_lane(int d) {
+  return d <= 64 ? 1 : d <= 128 ? 2 : d <= 256 ? 4 : 8;
+}
 
 }  // namespace attn

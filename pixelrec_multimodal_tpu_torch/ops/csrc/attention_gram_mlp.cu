@@ -60,6 +60,7 @@ using namespace attn;
 // (0: raw, 1 + h: vo_h), vo_j x (raw, vo_0..vo_{H-1}) at j*(1+H) + u, then
 // sexp_j x vo_h at n_a + j*H + h and raw_t x vo_h at n_a + (n_vo + t)*H + h,
 // n_a = n_vo*(1+H).
+template <int TB>
 __device__ __forceinline__ void cross_grams(const float* U, float* X,
                                             const Dims& D,
                                             const float* __restrict__ it_raw,
@@ -116,11 +117,12 @@ __device__ __forceinline__ float inv_sigma(float s, float mu, float inv_d) {
 // Grams, then the combination weights into the start of the pair's X row
 // (read after the statistics): sig_0, wu_h (H), wv_mh (Mi*H, m*H + h),
 // sig_t (Mi), ones.
+template <int TB>
 __device__ __forceinline__ void gram_stats(const float* U, const float* coef,
                                            float* X, const Dims& D,
                                            const float* __restrict__ it_sc,
                                            int c0, int C) {
-  if (threadIdx.x >= ROWS) return;
+  if (threadIdx.x >= Tile<TB>::ROWS) return;
   const int H = D.H, Mi = D.Mi, n_vo = Mi * H, n_a = n_vo * (1 + H);
   const int ci = threadIdx.x / TB, bu = threadIdx.x - ci * TB;
   const int r = bu * TC + ci, c = c0 + ci;
@@ -234,30 +236,19 @@ __device__ __forceinline__ void gram_stats(const float* U, const float* coef,
   x[1 + H + n_vo + Mi] = ones;
 }
 
-template <int J>
-__device__ __forceinline__ void load_f2(float2 (&v)[J],
-                                        const float* __restrict__ p,
-                                        int half) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int s = lane + 32 * j;
-    v[j] = s < half ? __ldg(reinterpret_cast<const float2*>(p) + s)
-                    : make_float2(0.f, 0.f);
-  }
-}
-
-// The combination pass of warp ci's 8 pairs into buf_a, as bf16.
-template <int J>
+// The combination pass of warp ci's TB pairs into buf_a, as bf16, UB users
+// at a time.
+template <int J, int TB>
 __device__ __forceinline__ void gram_combine(
     const float* U, const float* X, const Dims& D,
     const float* __restrict__ it_raw, const float* __restrict__ it_vo,
     const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
     __nv_bfloat16* buf_a, int stride_a, int c0, int C) {
+  constexpr int UB = assembly_users<J, TB>();
   const int lane = threadIdx.x & 31, ci = threadIdx.x >> 5, c = c0 + ci;
   const int d = D.d, H = D.H, Mi = D.Mi, n_vo = Mi * H, half = d / 2;
   if (c >= C) {
-    zero_rows(buf_a, stride_a, ci, d);
+    zero_rows<TB>(buf_a, stride_a, ci, d);
     return;
   }
   const float2 zero = make_float2(0.f, 0.f);
@@ -267,63 +258,67 @@ __device__ __forceinline__ void gram_combine(
         ? reinterpret_cast<const float2*>(U + bu * D.urow + off)[s] : zero;
   };
   auto wt = [&](int bu, int k) { return X[(bu * TC + ci) * D.nx + k]; };
-  float2 acc[TB][J], v[J];
+  for (int b0 = 0; b0 < TB; b0 += UB) {
+    float2 acc[UB][J], v[J];
 #pragma unroll
-  for (int bu = 0; bu < TB; ++bu) {
-    const float s0 = wt(bu, 0);
+    for (int bu = 0; bu < UB; ++bu) {
+      const float s0 = wt(b0 + bu, 0);
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const float2 r = urow(bu, 0, j);
-      acc[bu][j] = make_float2(__fmul_rn(s0, r.x), __fmul_rn(s0, r.y));
+      for (int j = 0; j < J; ++j) {
+        const float2 r = urow(b0 + bu, 0, j);
+        acc[bu][j] = make_float2(__fmul_rn(s0, r.x), __fmul_rn(s0, r.y));
+      }
     }
-  }
-  for (int h = 0; h < H; ++h)
+    for (int h = 0; h < H; ++h)
 #pragma unroll
-    for (int bu = 0; bu < TB; ++bu) {
-      const float w = wt(bu, 1 + h);
+      for (int bu = 0; bu < UB; ++bu) {
+        const float w = wt(b0 + bu, 1 + h);
 #pragma unroll
-      for (int j = 0; j < J; ++j)
-        acc[bu][j] = f2_add_mul(acc[bu][j], w, urow(bu, u_vo_off(D, h), j));
-    }
-  for (int m = 0; m < Mi; ++m)
-    for (int h = 0; h < H; ++h) {
-      load_f2(v, it_vo + (((size_t)c * Mi + m) * H + h) * d, half);
+        for (int j = 0; j < J; ++j)
+          acc[bu][j] =
+              f2_add_mul(acc[bu][j], w, urow(b0 + bu, u_vo_off(D, h), j));
+      }
+    for (int m = 0; m < Mi; ++m)
+      for (int h = 0; h < H; ++h) {
+        load_f2(v, it_vo + (((size_t)c * Mi + m) * H + h) * d, half);
 #pragma unroll
-      for (int bu = 0; bu < TB; ++bu) {
-        const float w = wt(bu, 1 + H + m * H + h);
+        for (int bu = 0; bu < UB; ++bu) {
+          const float w = wt(b0 + bu, 1 + H + m * H + h);
+#pragma unroll
+          for (int j = 0; j < J; ++j) acc[bu][j] = f2_add_mul(acc[bu][j], w, v[j]);
+        }
+      }
+    for (int t = 0; t < Mi; ++t) {
+      load_f2(v, it_raw + ((size_t)c * Mi + t) * d, half);
+#pragma unroll
+      for (int bu = 0; bu < UB; ++bu) {
+        const float w = wt(b0 + bu, 1 + H + n_vo + t);
 #pragma unroll
         for (int j = 0; j < J; ++j) acc[bu][j] = f2_add_mul(acc[bu][j], w, v[j]);
       }
     }
-  for (int t = 0; t < Mi; ++t) {
-    load_f2(v, it_raw + ((size_t)c * Mi + t) * d, half);
-#pragma unroll
-    for (int bu = 0; bu < TB; ++bu) {
-      const float w = wt(bu, 1 + H + n_vo + t);
-#pragma unroll
-      for (int j = 0; j < J; ++j) acc[bu][j] = f2_add_mul(acc[bu][j], w, v[j]);
-    }
-  }
-  // gamma * (1/T) carries the token mean; the affine and the bf16 rounding
-  float2 g[J], be[J];
-  load_f2(g, ln_scale, half);
-  load_f2(be, ln_bias, half);
-  const float inv_t = __fdiv_rn(1.f, (float)(Mi + 1));
-#pragma unroll
-  for (int j = 0; j < J; ++j)
-    g[j] = make_float2(__fmul_rn(g[j].x, inv_t), __fmul_rn(g[j].y, inv_t));
-#pragma unroll
-  for (int bu = 0; bu < TB; ++bu) {
-    const float ones = wt(bu, 1 + H + n_vo + Mi);
+    // gamma * (1/T) carries the token mean; the affine and the bf16 rounding
+    float2 g[J], be[J];
+    load_f2(g, ln_scale, half);
+    load_f2(be, ln_bias, half);
+    const float inv_t = __fdiv_rn(1.f, (float)(Mi + 1));
 #pragma unroll
     for (int j = 0; j < J; ++j)
-      acc[bu][j] = make_float2(__fsub_rn(acc[bu][j].x, ones),
-                               __fsub_rn(acc[bu][j].y, ones));
-    store_fused(acc[bu], g, be, buf_a + (bu * TC + ci) * stride_a, half);
+      g[j] = make_float2(__fmul_rn(g[j].x, inv_t), __fmul_rn(g[j].y, inv_t));
+#pragma unroll
+    for (int bu = 0; bu < UB; ++bu) {
+      const float ones = wt(b0 + bu, 1 + H + n_vo + Mi);
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        acc[bu][j] = make_float2(__fsub_rn(acc[bu][j].x, ones),
+                                 __fsub_rn(acc[bu][j].y, ones));
+      store_fused(acc[bu], g, be, buf_a + ((b0 + bu) * TC + ci) * stride_a,
+                  half);
+    }
   }
 }
 
-template <int J>
+template <int J, int TB>
 __global__ void __launch_bounds__(THREADS)
 attention_gram_kernel(const float* __restrict__ u_raw,
                       const float* __restrict__ u_q,
@@ -349,44 +344,48 @@ attention_gram_kernel(const float* __restrict__ u_raw,
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* buf_a = reinterpret_cast<__nv_bfloat16*>(smem);
   int u0, c0;
-  tile_origin(&u0, &c0);
-  float* U = reinterpret_cast<float*>(buffer_b(buf_a, ch));
+  tile_origin<TB>(&u0, &c0);
+  float* U = reinterpret_cast<float*>(buffer_b<TB>(buf_a, ch));
   float* coef = U + TB * D.urow;
-  float* X = coef + ROWS * D.ncoef;
+  float* X = coef + Tile<TB>::ROWS * D.ncoef;
 
-  load_users(U, D, u_raw, u_q, u_k, u_vo, u_suu, u_sc, u0, B);
+  load_users<TB>(U, D, u_raw, u_q, u_k, u_vo, u_suu, u_sc, u0, B);
   __syncthreads();
-  pair_logits(U, coef, D, it_q, it_k, c0, C);
-  cross_grams(U, X, D, it_raw, it_vo, it_sexp, c0, C);
+  pair_logits<true, TB>(U, coef, D, it_q, it_k, c0, C);
+  cross_grams<TB>(U, X, D, it_raw, it_vo, it_sexp, c0, C);
   __syncthreads();
-  softmax_coefs(U, coef, D, it_dm, c0, C);
+  softmax_coefs<true, TB>(U, coef, D, it_dm, c0, C);
   __syncthreads();
-  gram_stats(U, coef, X, D, it_sc, c0, C);
+  gram_stats<TB>(U, coef, X, D, it_sc, c0, C);
   __syncthreads();
-  gram_combine<J>(U, X, D, it_raw, it_vo, ln_scale, ln_bias, buf_a,
-                  ch.stride_a, c0, C);
+  gram_combine<J, TB>(U, X, D, it_raw, it_vo, ln_scale, ln_bias, buf_a,
+                      ch.stride_a, c0, C);
   __syncthreads();
-  run_chain(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act, fin);
+  run_chain<TB>(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
+                fin);
 }
 
 template <int J>
 cudaError_t launch(const void* const* p, const void* w, const void* bias,
                    const void* w_last, const void* b_last, void* out, int B,
                    int C, const Dims& D, const Chain& ch, int act, int fin,
-                   cudaStream_t stream) {
-  dim3 grid;
-  size_t smem = 0;
-  cudaError_t err = prepare_attention(attention_gram_kernel<J>, ch, D, B, C,
-                                      &grid, &smem);
-  if (err != cudaSuccess) return err;
-  const float* const* f = reinterpret_cast<const float* const*>(p);
-  attention_gram_kernel<J><<<grid, THREADS, smem, stream>>>(
-      f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
-      f[11], f[12], f[13], f[14], static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(w_last),
-      static_cast<const float*>(b_last), static_cast<float*>(out), B, C, D,
-      ch, act, fin);
-  return cudaGetLastError();
+                   int rows, cudaStream_t stream) {
+  return dispatch_rows(rows, [&](auto tb) {
+    constexpr int TB = decltype(tb)::value;
+    dim3 grid;
+    size_t smem = 0;
+    cudaError_t err = prepare_attention(attention_gram_kernel<J, TB>, ch, D,
+                                        B, C, rows, &grid, &smem);
+    if (err != cudaSuccess) return err;
+    const float* const* f = reinterpret_cast<const float* const*>(p);
+    attention_gram_kernel<J, TB><<<grid, THREADS, smem, stream>>>(
+        f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
+        f[11], f[12], f[13], f[14], static_cast<const __nv_bfloat16*>(w),
+        static_cast<const float*>(bias), static_cast<const float*>(w_last),
+        static_cast<const float*>(b_last), static_cast<float*>(out), B, C, D,
+        ch, act, fin);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -395,10 +394,10 @@ extern "C" {
 
 // Scores out[B, C] (f32, row-major) as attention_mlp_forward, with the
 // per-user scalar table u_sc [B, 2 + 2H + H*H] after u_suu and the per-item
-// scalar table it_sc [C, gram_layout width] after it_dm. Returns
-// cudaSuccess or the first CUDA error; shapes the kernel does not take, or
-// widths whose scratch does not fit in shared memory, return
-// cudaErrorInvalidValue.
+// scalar table it_sc [C, gram_layout width] after it_dm, and rows the
+// block's pair rows. Returns cudaSuccess or the first CUDA error; shapes the
+// kernel does not take, or a block that does not fit in shared memory,
+// return cudaErrorInvalidValue.
 int attention_gram_mlp_forward(
     const void* u_raw, const void* u_q, const void* u_k, const void* u_vo,
     const void* u_suu, const void* u_sc, const void* it_raw,
@@ -407,7 +406,7 @@ int attention_gram_mlp_forward(
     const void* ln_scale, const void* ln_bias, const void* w,
     const void* bias, const void* w_last, const void* b_last, void* out,
     int B, int C, int n_hidden, const void* widths, int act, int fin, int H,
-    int Mi, void* stream) {
+    int Mi, int rows, void* stream) {
   Chain ch;
   cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
   if (err != cudaSuccess) return err;
@@ -421,14 +420,31 @@ int attention_gram_mlp_forward(
   switch (slots_per_lane(D.d)) {
     case 1:
       return launch<1>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
-                       s);
+                       rows, s);
     case 2:
       return launch<2>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
-                       s);
-    default:
+                       rows, s);
+    case 4:
       return launch<4>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
-                       s);
+                       rows, s);
+    default:
+      return launch<8>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
+                       rows, s);
   }
+}
+
+// Shared memory a block of `rows` pair rows takes, as the launch set-up
+// counts it; a negative CUDA error for shapes the kernel does not take.
+int attention_gram_mlp_block_bytes(int n_hidden, const void* widths, int H,
+                                   int Mi, int rows) {
+  Chain ch;
+  cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
+  if (err == cudaSuccess) {
+    Dims D;
+    err = make_dims(ch.width[0], H, Mi, true, &D);
+    if (err == cudaSuccess) return (int)attention_smem_bytes(ch, D, rows);
+  }
+  return -(int)err;
 }
 
 }  // extern "C"

@@ -42,7 +42,11 @@
 // rows loaded together), warp butterflies for the LayerNorm sums. The
 // logits are dot products per thread, the softmax one thread per (pair,
 // head). The grid runs the user tiles of an item tile
-// together, so an item tile is read from HBM once and from L2 after.
+// together, so an item tile is read from HBM once and from L2 after. A
+// wider head takes a block of 4, 2 or 1 users (d 512 at the flagship chain:
+// 4 users, 159,232 B), and at d past 256 the assembly holds two users' vectors
+// at a time and reads each item row once per pair of users
+// (attention_common.cuh).
 
 #include "attention_common.cuh"
 
@@ -51,81 +55,98 @@ namespace {
 using namespace pairwise;
 using namespace attn;
 
-// The fused vectors of warp ci's 8 pairs into buf_a, as bf16.
-template <int J>
+// The fused vectors of warp ci's TB pairs into buf_a, as bf16, UB users at
+// a time.
+template <int J, int TB>
 __device__ __forceinline__ void stream_assemble(
     const float* U, const float* coef, const Dims& D,
     const float* __restrict__ it_raw, const float* __restrict__ it_vo,
     const float* __restrict__ it_sexp, const float* __restrict__ ln_scale,
     const float* __restrict__ ln_bias, __nv_bfloat16* buf_a, int stride_a,
     int c0, int C) {
+  constexpr int UB = assembly_users<J, TB>(), R = row_buffers<J>();
+  constexpr bool AHEAD = R >= MAX_HEADS;
   const int ci = threadIdx.x >> 5, c = c0 + ci;
   const int d = D.d, H = D.H, Mi = D.Mi, half = d / 2;
   if (c >= C) {
-    zero_rows(buf_a, stride_a, ci, d);
+    zero_rows<TB>(buf_a, stride_a, ci, d);
     return;
   }
   const float inv_d = __fdiv_rn(1.f, (float)d);
   const float inv_t = __fdiv_rn(1.f, (float)(Mi + 1));
   const float2 zero = make_float2(0.f, 0.f);
-  float2 f[TB][J], y[TB][J];
+  float2 rows[R][J];
+  for (int b0 = 0; b0 < TB; b0 += UB) {
+    float2 f[UB][J], y[UB][J];
 #pragma unroll
-  for (int bu = 0; bu < TB; ++bu)
+    for (int bu = 0; bu < UB; ++bu)
 #pragma unroll
-    for (int j = 0; j < J; ++j) f[bu][j] = y[bu][j] = zero;
+      for (int j = 0; j < J; ++j) f[bu][j] = y[bu][j] = zero;
 
-  // ---- token 0 (attention_common.cuh), then its LayerNorm
-  float2 rows[MAX_HEADS > MAX_ITEM_MODS ? MAX_HEADS : MAX_ITEM_MODS][J];
-  token0_input(U, coef, D, it_vo, rows, y, c, ci);
+    // ---- token 0 (attention_common.cuh), then its LayerNorm
+    token0_input<J, R, UB>(U, coef, D, it_vo, rows, y, c, ci, b0);
 #pragma unroll
-  for (int bu = 0; bu < TB; ++bu) layer_norm_add(y[bu], f[bu], half, inv_d, inv_t);
+    for (int bu = 0; bu < UB; ++bu)
+      layer_norm_add(y[bu], f[bu], half, inv_d, inv_t);
 
-  // ---- item tokens: y = raw_t + sum_h (a_th u_vo_h + b_th sexp_th), the
-  // token's H sexp rows and its raw row loaded together
-  for (int t = 0; t < Mi; ++t) {
-    float2 raw[J];
-    load_f2(raw, it_raw + ((size_t)c * Mi + t) * d, half);
+    // ---- item tokens: y = raw_t + sum_h (a_th u_vo_h + b_th sexp_th), the
+    // token's H sexp rows (with R row buffers) and its raw row loaded
+    // together
+    for (int t = 0; t < Mi; ++t) {
+      float2 raw[J];
+      load_f2(raw, it_raw + ((size_t)c * Mi + t) * d, half);
+      if constexpr (AHEAD) {
 #pragma unroll
-    for (int h = 0; h < MAX_HEADS; ++h)
-      if (h < H) load_f2(rows[h], it_sexp + (((size_t)c * Mi + t) * H + h) * d, half);
+        for (int h = 0; h < MAX_HEADS; ++h)
+          if (h < H)
+            load_f2(rows[h], it_sexp + (((size_t)c * Mi + t) * H + h) * d,
+                    half);
+      }
 #pragma unroll
-    for (int bu = 0; bu < TB; ++bu)
+      for (int bu = 0; bu < UB; ++bu)
 #pragma unroll
-      for (int j = 0; j < J; ++j) y[bu][j] = zero;
+        for (int j = 0; j < J; ++j) y[bu][j] = zero;
 #pragma unroll
-    for (int h = 0; h < MAX_HEADS; ++h) {
-      if (h >= H) break;
+      for (int h = 0; h < MAX_HEADS; ++h) {
+        if (h >= H) break;
+        if constexpr (!AHEAD)
+          load_f2(rows[0], it_sexp + (((size_t)c * Mi + t) * H + h) * d, half);
+        const float2 (&row)[J] = rows[AHEAD ? h : 0];
 #pragma unroll
-      for (int bu = 0; bu < TB; ++bu) {
-        const float* cf = coef + (bu * TC + ci) * D.ncoef + ct_off(D, t, h);
-        const float a = cf[0], b = cf[1];
+        for (int bu = 0; bu < UB; ++bu) {
+          const float* cf =
+              coef + ((b0 + bu) * TC + ci) * D.ncoef + ct_off(D, t, h);
+          const float a = cf[0], b = cf[1];
 #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          y[bu][j] = f2_add_mul(y[bu][j], a, user_vo(U, D, bu, h, j, half));
-          y[bu][j] = f2_add_mul(y[bu][j], b, rows[h][j]);
+          for (int j = 0; j < J; ++j) {
+            y[bu][j] =
+                f2_add_mul(y[bu][j], a, user_vo(U, D, b0 + bu, h, j, half));
+            y[bu][j] = f2_add_mul(y[bu][j], b, row[j]);
+          }
         }
       }
-    }
 #pragma unroll
-    for (int bu = 0; bu < TB; ++bu) {
+      for (int bu = 0; bu < UB; ++bu) {
 #pragma unroll
-      for (int j = 0; j < J; ++j)
-        y[bu][j] = make_float2(__fadd_rn(raw[j].x, y[bu][j].x),
-                               __fadd_rn(raw[j].y, y[bu][j].y));
-      layer_norm_add(y[bu], f[bu], half, inv_d, inv_t);
+        for (int j = 0; j < J; ++j)
+          y[bu][j] = make_float2(__fadd_rn(raw[j].x, y[bu][j].x),
+                                 __fadd_rn(raw[j].y, y[bu][j].y));
+        layer_norm_add(y[bu], f[bu], half, inv_d, inv_t);
+      }
     }
-  }
 
-  // ---- the LayerNorm affine, once, and the one bf16 rounding
-  float2 g[J], be[J];
-  load_f2(g, ln_scale, half);
-  load_f2(be, ln_bias, half);
+    // ---- the LayerNorm affine, once, and the one bf16 rounding
+    float2 g[J], be[J];
+    load_f2(g, ln_scale, half);
+    load_f2(be, ln_bias, half);
 #pragma unroll
-  for (int bu = 0; bu < TB; ++bu)
-    store_fused(f[bu], g, be, buf_a + (bu * TC + ci) * stride_a, half);
+    for (int bu = 0; bu < UB; ++bu)
+      store_fused(f[bu], g, be, buf_a + ((b0 + bu) * TC + ci) * stride_a,
+                  half);
+  }
 }
 
-template <int J>
+template <int J, int TB>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const float* __restrict__ u_raw, const float* __restrict__ u_q,
                  const float* __restrict__ u_k, const float* __restrict__ u_vo,
@@ -145,40 +166,44 @@ attention_kernel(const float* __restrict__ u_raw, const float* __restrict__ u_q,
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* buf_a = reinterpret_cast<__nv_bfloat16*>(smem);
   int u0, c0;
-  tile_origin(&u0, &c0);
-  float* U = reinterpret_cast<float*>(buffer_b(buf_a, ch));
+  tile_origin<TB>(&u0, &c0);
+  float* U = reinterpret_cast<float*>(buffer_b<TB>(buf_a, ch));
   float* coef = U + TB * D.urow;
 
-  load_users(U, D, u_raw, u_q, u_k, u_vo, u_suu, nullptr, u0, B);
+  load_users<TB>(U, D, u_raw, u_q, u_k, u_vo, u_suu, nullptr, u0, B);
   __syncthreads();
-  pair_logits(U, coef, D, it_q, it_k, c0, C);
+  pair_logits<true, TB>(U, coef, D, it_q, it_k, c0, C);
   __syncthreads();
-  softmax_coefs(U, coef, D, it_dm, c0, C);
+  softmax_coefs<true, TB>(U, coef, D, it_dm, c0, C);
   __syncthreads();
-  stream_assemble<J>(U, coef, D, it_raw, it_vo, it_sexp, ln_scale, ln_bias,
-                     buf_a, ch.stride_a, c0, C);
+  stream_assemble<J, TB>(U, coef, D, it_raw, it_vo, it_sexp, ln_scale,
+                         ln_bias, buf_a, ch.stride_a, c0, C);
   __syncthreads();
-  run_chain(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act, fin);
+  run_chain<TB>(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
+                fin);
 }
 
 template <int J>
 cudaError_t launch(const void* const* p, const void* w, const void* bias,
                    const void* w_last, const void* b_last, void* out, int B,
                    int C, const Dims& D, const Chain& ch, int act, int fin,
-                   cudaStream_t stream) {
-  dim3 grid;
-  size_t smem = 0;
-  cudaError_t err = prepare_attention(attention_kernel<J>, ch, D, B, C, &grid,
-                                      &smem);
-  if (err != cudaSuccess) return err;
-  const float* const* f = reinterpret_cast<const float* const*>(p);
-  attention_kernel<J><<<grid, THREADS, smem, stream>>>(
-      f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
-      f[11], f[12], static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(w_last),
-      static_cast<const float*>(b_last), static_cast<float*>(out), B, C, D,
-      ch, act, fin);
-  return cudaGetLastError();
+                   int rows, cudaStream_t stream) {
+  return dispatch_rows(rows, [&](auto tb) {
+    constexpr int TB = decltype(tb)::value;
+    dim3 grid;
+    size_t smem = 0;
+    cudaError_t err = prepare_attention(attention_kernel<J, TB>, ch, D, B, C,
+                                        rows, &grid, &smem);
+    if (err != cudaSuccess) return err;
+    const float* const* f = reinterpret_cast<const float* const*>(p);
+    attention_kernel<J, TB><<<grid, THREADS, smem, stream>>>(
+        f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
+        f[11], f[12], static_cast<const __nv_bfloat16*>(w),
+        static_cast<const float*>(bias), static_cast<const float*>(w_last),
+        static_cast<const float*>(b_last), static_cast<float*>(out), B, C, D,
+        ch, act, fin);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -190,11 +215,12 @@ extern "C" {
 // it_k [C, Mi*d], it_vo, it_sexp [C, Mi*H*d], it_dm [C, H*Mi*2], with the
 // LayerNorm affine ln_scale, ln_bias [d]; all f32, row-major, 16-byte
 // aligned. The chain arguments (w, bias, w_last, b_last, n_hidden, widths,
-// act, fin) are pairwise_mlp_forward's, with widths[0] = d and w1 as layer
-// 0 (a chain with no hidden layer takes the last dot on the fused vector
-// itself: the assembly alone, for measurements). Returns cudaSuccess or the
-// first CUDA error (launch included); shapes the kernel does not take, or
-// widths that do not fit in shared memory, return cudaErrorInvalidValue.
+// act, fin, rows) are pairwise_mlp_forward's, with widths[0] = d and w1 as
+// layer 0 (a chain with no hidden layer takes the last dot on the fused
+// vector itself: the assembly alone, for measurements). Returns cudaSuccess
+// or the first CUDA error (launch included); shapes the kernel does not
+// take, or a block that does not fit in shared memory, return
+// cudaErrorInvalidValue.
 int attention_mlp_forward(const void* u_raw, const void* u_q, const void* u_k,
                           const void* u_vo, const void* u_suu,
                           const void* it_raw, const void* it_q,
@@ -204,7 +230,7 @@ int attention_mlp_forward(const void* u_raw, const void* u_q, const void* u_k,
                           const void* w, const void* bias, const void* w_last,
                           const void* b_last, void* out, int B, int C,
                           int n_hidden, const void* widths, int act, int fin,
-                          int H, int Mi, void* stream) {
+                          int H, int Mi, int rows, void* stream) {
   Chain ch;
   cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
   if (err != cudaSuccess) return err;
@@ -218,14 +244,32 @@ int attention_mlp_forward(const void* u_raw, const void* u_q, const void* u_k,
   switch (slots_per_lane(D.d)) {
     case 1:
       return launch<1>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
-                       s);
+                       rows, s);
     case 2:
       return launch<2>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
-                       s);
-    default:
+                       rows, s);
+    case 4:
       return launch<4>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
-                       s);
+                       rows, s);
+    default:
+      return launch<8>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
+                       rows, s);
   }
+}
+
+// Shared memory a block of `rows` pair rows takes for these widths, heads
+// and item tokens, as the launch set-up counts it; a negative CUDA error for
+// shapes the kernel does not take.
+int attention_mlp_block_bytes(int n_hidden, const void* widths, int H, int Mi,
+                              int rows) {
+  Chain ch;
+  cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
+  if (err == cudaSuccess) {
+    Dims D;
+    err = make_dims(ch.width[0], H, Mi, false, &D);
+    if (err == cudaSuccess) return (int)attention_smem_bytes(ch, D, rows);
+  }
+  return -(int)err;
 }
 
 }  // extern "C"

@@ -31,11 +31,12 @@
 //
 // Design: K4 without the item tokens, with the tail added. The block, the 16
 // warps and the chain are K4's (8 users x 16 items, 226,816 B of shared
-// memory at the flagship widths); the tile's user rows and token 0's
-// coefficients (H * (Mi + 1) per pair) live in buffer B until the chain's
-// layer 0 writes it. Logits and softmax are attention_common.cuh's token-0
-// halves, the assembly K4's token-0 loop (one warp per item, its Mi * H vo
-// rows streamed from global memory and combined with the tile's 8 users),
+// memory at the flagship widths; 4, 2 or 1 users for wider heads); the
+// tile's user rows and token 0's coefficients (H * (Mi + 1) per pair) live
+// in buffer B until the chain's layer 0 writes it. Logits and softmax are
+// attention_common.cuh's token-0 halves, the assembly K4's token-0 loop (one
+// warp per item, its Mi * H vo rows streamed from global memory and combined
+// with the tile's users),
 // then one LayerNorm per pair and the affine with the item's tail folded into
 // beta, and the one bf16 rounding into buf_a.
 
@@ -46,48 +47,55 @@ namespace {
 using namespace pairwise;
 using namespace attn;
 
-// The fused vectors of warp ci's 8 pairs into buf_a, as bf16.
-template <int J>
+// The fused vectors of warp ci's TB pairs into buf_a, as bf16, UB users at
+// a time.
+template <int J, int TB>
 __device__ __forceinline__ void screen_assemble(
     const float* U, const float* coef, const Dims& D,
     const float* __restrict__ it_vo, const float* __restrict__ it_tail,
     const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
     __nv_bfloat16* buf_a, int stride_a, int c0, int C) {
+  constexpr int UB = assembly_users<J, TB>();
+  constexpr int R = row_buffers<J>() < MAX_ITEM_MODS ? 1 : MAX_ITEM_MODS;
   const int ci = threadIdx.x >> 5, c = c0 + ci;
   const int d = D.d, half = d / 2;
   if (c >= C) {
-    zero_rows(buf_a, stride_a, ci, d);
+    zero_rows<TB>(buf_a, stride_a, ci, d);
     return;
   }
   const float inv_d = __fdiv_rn(1.f, (float)d);
   const float inv_t = __fdiv_rn(1.f, (float)(D.Mi + 1));
   const float2 zero = make_float2(0.f, 0.f);
-  float2 f[TB][J], y[TB][J];
+  float2 rows[R][J];
+  for (int b0 = 0; b0 < TB; b0 += UB) {
+    float2 f[UB][J], y[UB][J];
 #pragma unroll
-  for (int bu = 0; bu < TB; ++bu)
+    for (int bu = 0; bu < UB; ++bu)
 #pragma unroll
-    for (int j = 0; j < J; ++j) f[bu][j] = y[bu][j] = zero;
+      for (int j = 0; j < J; ++j) f[bu][j] = y[bu][j] = zero;
 
-  float2 rows[MAX_ITEM_MODS][J];
-  token0_input(U, coef, D, it_vo, rows, y, c, ci);
+    token0_input<J, R, UB>(U, coef, D, it_vo, rows, y, c, ci, b0);
 #pragma unroll
-  for (int bu = 0; bu < TB; ++bu) layer_norm_add(y[bu], f[bu], half, inv_d, inv_t);
+    for (int bu = 0; bu < UB; ++bu)
+      layer_norm_add(y[bu], f[bu], half, inv_d, inv_t);
 
-  // ---- the affine, beta + tail once per item, and the one bf16 rounding
-  float2 g[J], be[J], tl[J];
-  load_f2(g, ln_scale, half);
-  load_f2(be, ln_bias, half);
-  load_f2(tl, it_tail + (size_t)c * d, half);
+    // ---- the affine, beta + tail once per item, and the one bf16 rounding
+    float2 g[J], be[J], tl[J];
+    load_f2(g, ln_scale, half);
+    load_f2(be, ln_bias, half);
+    load_f2(tl, it_tail + (size_t)c * d, half);
 #pragma unroll
-  for (int j = 0; j < J; ++j)
-    be[j] = make_float2(__fadd_rn(be[j].x, tl[j].x),
-                        __fadd_rn(be[j].y, tl[j].y));
+    for (int j = 0; j < J; ++j)
+      be[j] = make_float2(__fadd_rn(be[j].x, tl[j].x),
+                          __fadd_rn(be[j].y, tl[j].y));
 #pragma unroll
-  for (int bu = 0; bu < TB; ++bu)
-    store_fused(f[bu], g, be, buf_a + (bu * TC + ci) * stride_a, half);
+    for (int bu = 0; bu < UB; ++bu)
+      store_fused(f[bu], g, be, buf_a + ((b0 + bu) * TC + ci) * stride_a,
+                  half);
+  }
 }
 
-template <int J>
+template <int J, int TB>
 __global__ void __launch_bounds__(THREADS)
 screen_kernel(const float* __restrict__ u_raw, const float* __restrict__ u_q,
               const float* __restrict__ u_k, const float* __restrict__ u_vo,
@@ -103,39 +111,43 @@ screen_kernel(const float* __restrict__ u_raw, const float* __restrict__ u_q,
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* buf_a = reinterpret_cast<__nv_bfloat16*>(smem);
   int u0, c0;
-  tile_origin(&u0, &c0);
-  float* U = reinterpret_cast<float*>(buffer_b(buf_a, ch));
+  tile_origin<TB>(&u0, &c0);
+  float* U = reinterpret_cast<float*>(buffer_b<TB>(buf_a, ch));
   float* coef = U + TB * D.urow;
 
-  load_users(U, D, u_raw, u_q, u_k, u_vo, u_suu, nullptr, u0, B);
+  load_users<TB>(U, D, u_raw, u_q, u_k, u_vo, u_suu, nullptr, u0, B);
   __syncthreads();
-  pair_logits<false>(U, coef, D, nullptr, it_k, c0, C);
+  pair_logits<false, TB>(U, coef, D, nullptr, it_k, c0, C);
   __syncthreads();
-  softmax_coefs<false>(U, coef, D, nullptr, c0, C);
+  softmax_coefs<false, TB>(U, coef, D, nullptr, c0, C);
   __syncthreads();
-  screen_assemble<J>(U, coef, D, it_vo, it_tail, ln_scale, ln_bias, buf_a,
-                     ch.stride_a, c0, C);
+  screen_assemble<J, TB>(U, coef, D, it_vo, it_tail, ln_scale, ln_bias, buf_a,
+                         ch.stride_a, c0, C);
   __syncthreads();
-  run_chain(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act, fin);
+  run_chain<TB>(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
+                fin);
 }
 
 template <int J>
 cudaError_t launch(const void* const* p, const void* w, const void* bias,
                    const void* w_last, const void* b_last, void* out, int B,
                    int C, const Dims& D, const Chain& ch, int act, int fin,
-                   cudaStream_t stream) {
-  dim3 grid;
-  size_t smem = 0;
-  cudaError_t err =
-      prepare_attention(screen_kernel<J>, ch, D, B, C, &grid, &smem);
-  if (err != cudaSuccess) return err;
-  const float* const* f = reinterpret_cast<const float* const*>(p);
-  screen_kernel<J><<<grid, THREADS, smem, stream>>>(
-      f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9],
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-      static_cast<const float*>(w_last), static_cast<const float*>(b_last),
-      static_cast<float*>(out), B, C, D, ch, act, fin);
-  return cudaGetLastError();
+                   int rows, cudaStream_t stream) {
+  return dispatch_rows(rows, [&](auto tb) {
+    constexpr int TB = decltype(tb)::value;
+    dim3 grid;
+    size_t smem = 0;
+    cudaError_t err = prepare_attention(screen_kernel<J, TB>, ch, D, B, C,
+                                        rows, &grid, &smem);
+    if (err != cudaSuccess) return err;
+    const float* const* f = reinterpret_cast<const float* const*>(p);
+    screen_kernel<J, TB><<<grid, THREADS, smem, stream>>>(
+        f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9],
+        static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
+        static_cast<const float*>(w_last), static_cast<const float*>(b_last),
+        static_cast<float*>(out), B, C, D, ch, act, fin);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -146,7 +158,8 @@ extern "C" {
 // [B, d], u_vo [B, H*d], u_suu [B, 8] and the item tables it_k [C, Mi*d],
 // it_vo [C, Mi*H*d] and it_tail [C, d], with the LayerNorm affine ln_scale,
 // ln_bias [d]; all f32, row-major, 16-byte aligned. The chain arguments are
-// attention_mlp_forward's (widths[0] = d, w1 as layer 0). Returns cudaSuccess
+// attention_mlp_forward's (widths[0] = d, w1 as layer 0, rows the block's
+// pair rows). Returns cudaSuccess
 // or the first CUDA error (launch included); shapes the kernel does not
 // take, or widths that do not fit in shared memory, return
 // cudaErrorInvalidValue.
@@ -156,7 +169,7 @@ int attention_screen_mlp_forward(
     const void* it_tail, const void* ln_scale, const void* ln_bias,
     const void* w, const void* bias, const void* w_last, const void* b_last,
     void* out, int B, int C, int n_hidden, const void* widths, int act,
-    int fin, int H, int Mi, void* stream) {
+    int fin, int H, int Mi, int rows, void* stream) {
   Chain ch;
   cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
   if (err != cudaSuccess) return err;
@@ -169,14 +182,31 @@ int attention_screen_mlp_forward(
   switch (slots_per_lane(D.d)) {
     case 1:
       return launch<1>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
-                       s);
+                       rows, s);
     case 2:
       return launch<2>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
-                       s);
-    default:
+                       rows, s);
+    case 4:
       return launch<4>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
-                       s);
+                       rows, s);
+    default:
+      return launch<8>(p, w, bias, w_last, b_last, out, B, C, D, ch, act, fin,
+                       rows, s);
   }
+}
+
+// Shared memory a block of `rows` pair rows takes, as the launch set-up
+// counts it; a negative CUDA error for shapes the kernel does not take.
+int attention_screen_mlp_block_bytes(int n_hidden, const void* widths, int H,
+                                     int Mi, int rows) {
+  Chain ch;
+  cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
+  if (err == cudaSuccess) {
+    Dims D;
+    err = make_dims(ch.width[0], H, Mi, false, &D, false);
+    if (err == cudaSuccess) return (int)attention_smem_bytes(ch, D, rows);
+  }
+  return -(int)err;
 }
 
 }  // extern "C"

@@ -61,7 +61,7 @@ __device__ __forceinline__ float4 bf16x4_to_float4(uint2 v) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-template <bool Q>
+template <bool Q, int TB>
 __global__ void __launch_bounds__(THREADS)
 gated_factored_kernel(const float* __restrict__ uf, const float* __restrict__ a,
                       const __nv_bfloat16* __restrict__ T,
@@ -75,6 +75,7 @@ gated_factored_kernel(const float* __restrict__ uf, const float* __restrict__ a,
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* buf_a = reinterpret_cast<__nv_bfloat16*>(smem);
 
+  constexpr int ROWS = Tile<TB>::ROWS;
   const int c0 = blockIdx.x * TC, u0 = blockIdx.y * TB;
   const int tid = threadIdx.x;
   const int h1 = ch.width[0];
@@ -85,7 +86,7 @@ gated_factored_kernel(const float* __restrict__ uf, const float* __restrict__ a,
   // coefficients (as f32) and each pair row's (p0, 1/Z). Rows past B or C
   // have zero coefficients or tables, assemble to zeros and are never
   // written out.
-  float* users = reinterpret_cast<float*>(scratch_of<Q>(smem, ch));  // [TB, h1]
+  float* users = reinterpret_cast<float*>(scratch_of<Q, TB>(smem, ch));  // [TB, h1]
   float* coef = users + TB * h1;                             // [TB, GATE_PAD]
   float2* row_z = reinterpret_cast<float2*>(coef + TB * GATE_PAD);  // [ROWS]
   for (int e = tid; e < TB * q; e += THREADS) {
@@ -168,37 +169,44 @@ gated_factored_kernel(const float* __restrict__ uf, const float* __restrict__ a,
   }
   __syncthreads();
   if constexpr (Q) {
-    run_chain_int8(smem, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
-                   fin);
+    run_chain_int8<TB>(smem, w, bias, w_last, b_last, out, B, C, u0, c0, ch,
+                       act, fin);
   } else {
-    run_chain(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act, fin);
+    run_chain<TB>(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
+                  fin);
   }
+}
+
+// The assembly's scratch in the ring (see the kernel).
+inline size_t scratch_bytes(const Chain& ch, int rows) {
+  return ((size_t)(rows / TC) * (ch.width[0] + GATE_PAD) + 2 * (size_t)rows) * 4;
 }
 
 template <bool Q>
 int forward(const void* uf, const void* a, const void* T, const void* igb,
             const void* w, const void* bias, const void* w_last,
             const void* b_last, void* out, int B, int C, int n_hidden,
-            const void* widths, int act, int fin, int n_mod, void* stream) {
+            const void* widths, int act, int fin, int n_mod, int rows,
+            void* stream) {
   if (n_mod < 2 || n_mod > GATE_PAD) return cudaErrorInvalidValue;
   Chain ch;
-  cudaError_t err = make_chain_of<Q>(n_hidden, widths, &ch);
+  cudaError_t err = make_chain_of<Q>(n_hidden, widths, rows, &ch);
   if (err != cudaSuccess) return err;
-  const size_t scratch =
-      ((size_t)TB * ch.width[0] + TB * GATE_PAD + 2 * ROWS) * 4;
-  dim3 grid;
-  size_t smem = 0;
-  err = prepare_launch(gated_factored_kernel<Q>, ch, scratch, B, C, &grid,
-                       &smem, Q ? smem_bytes_int8 : smem_bytes);
-  if (err != cudaSuccess) return err;
-  gated_factored_kernel<Q><<<grid, THREADS, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(uf), static_cast<const float*>(a),
-      static_cast<const __nv_bfloat16*>(T), static_cast<const float*>(igb),
-      static_cast<const Weight<Q>*>(w), static_cast<const float*>(bias),
-      static_cast<const float*>(w_last), static_cast<const float*>(b_last),
-      static_cast<float*>(out), B, C, n_mod, ch, act, fin);
-  return cudaGetLastError();
+  const size_t smem = smem_of<Q>(ch, scratch_bytes(ch, rows), rows);
+  return dispatch_rows(rows, [&](auto tb) {
+    constexpr int TB = decltype(tb)::value;
+    dim3 grid;
+    cudaError_t e = prepare_launch(gated_factored_kernel<Q, TB>, smem, B, C, rows, &grid);
+    if (e != cudaSuccess) return e;
+    gated_factored_kernel<Q, TB><<<grid, THREADS, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(uf), static_cast<const float*>(a),
+        static_cast<const __nv_bfloat16*>(T), static_cast<const float*>(igb),
+        static_cast<const Weight<Q>*>(w), static_cast<const float*>(bias),
+        static_cast<const float*>(w_last), static_cast<const float*>(b_last),
+        static_cast<float*>(out), B, C, n_mod, ch, act, fin);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -212,15 +220,16 @@ extern "C" {
 // GATE_PAD, Mi = n_mod - 1). The chain arguments (w, bias, w_last, b_last,
 // n_hidden, widths, act, fin) are pairwise_mlp_forward's. Returns
 // cudaSuccess or the first CUDA error (launch included); a width that does
-// not fit in shared memory returns cudaErrorInvalidValue.
+// not fit in shared memory returns cudaErrorInvalidValue; rows is the
+// block's pair rows (128, 64, 32 or 16: ops/pairwise_mlp.py:block_rows).
 int gated_factored_mlp_forward(const void* uf, const void* a, const void* T,
                                const void* igb, const void* w,
                                const void* bias, const void* w_last,
                                const void* b_last, void* out, int B, int C,
                                int n_hidden, const void* widths, int act,
-                               int fin, int n_mod, void* stream) {
+                               int fin, int n_mod, int rows, void* stream) {
   return forward<false>(uf, a, T, igb, w, bias, w_last, b_last, out, B, C,
-                        n_hidden, widths, act, fin, n_mod, stream);
+                        n_hidden, widths, act, fin, n_mod, rows, stream);
 }
 
 // The int8 mode (K3q): the arguments of gated_factored_mlp_forward, with the
@@ -231,9 +240,22 @@ int gated_factored_mlp_int8_forward(const void* uf, const void* a,
                                     const void* w_last, const void* b_last,
                                     void* out, int B, int C, int n_hidden,
                                     const void* widths, int act, int fin,
-                                    int n_mod, void* stream) {
+                                    int n_mod, int rows, void* stream) {
   return forward<true>(uf, a, T, igb, w, bias, w_last, b_last, out, B, C,
-                       n_hidden, widths, act, fin, n_mod, stream);
+                       n_hidden, widths, act, fin, n_mod, rows, stream);
+}
+
+// Shared memory a block of `rows` pair rows takes in either mode (int8 != 0),
+// as the launch set-up counts it; a negative CUDA error for widths the kernel
+// does not take.
+int gated_factored_mlp_block_bytes(int n_hidden, const void* widths, int int8, int rows) {
+  Chain ch;
+  const cudaError_t err = int8 ? make_chain_of<true>(n_hidden, widths, rows, &ch)
+                               : make_chain_of<false>(n_hidden, widths, rows, &ch);
+  if (err != cudaSuccess) return -(int)err;
+  const size_t scratch = scratch_bytes(ch, rows);
+  return (int)(int8 ? smem_of<true>(ch, scratch, rows)
+                    : smem_of<false>(ch, scratch, rows));
 }
 
 }  // extern "C"

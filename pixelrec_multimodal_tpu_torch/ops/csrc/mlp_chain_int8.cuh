@@ -26,15 +26,18 @@
 // buffer is kept and a block of small widths leaves room for others on
 // its SM.
 //
-// Block shape and tiling are run_chain's (mlp_chain.cuh): 16 warps, 128 pair
-// rows, each warp 16 rows x 64 columns of a 128-column pass, weights through
+// Block shape and tiling are run_chain's (mlp_chain.cuh): 16 warps, TB
+// users x 16 items (128, 64, 32 or 16 pair rows), the warps over each
+// 128-column pass as TB row groups x 16 / TB column groups, weights through
 // a three-slice cp.async ring. The products run on the tensor cores as
 // mma.sync m16n8k32 s8 x s8 -> s32 (twice the bf16 operations per
 // instruction). ldmatrix moves 16-bit elements only, and the B operand must
 // be K-contiguous per output column, so the weights are kept transposed,
 // [N, K] (ops/pairwise_mlp.py:_kernel_chain_int8), and loaded without .trans;
 // the A operand (row-major codes) loads as ldmatrix .b16 x4, two codes per
-// element. The int32 sums are exact (|sum| <= K * 128 * 127).
+// element. The int32 sums are exact (|sum| <= K * 128 * 127). The last
+// dot's partial sums are per (row, pass, column group), so its order of
+// float32 additions, unlike the hidden layers', depends on the row count.
 //
 // Operands: w holds every layer's wq^T [N, K] back to back; qp (the
 // kernels' `bias` argument) holds (inv_a, off) of layer l at qp[2l], qp[2l+1]
@@ -107,19 +110,82 @@ __device__ __forceinline__ void load_slice_int8(const int8_t* __restrict__ W,
 // Shared memory of an int8-mode block, in bytes: the two activation buffers
 // (row strides ch.stride_a, ch.stride_b in bytes), then the weight ring,
 // which first holds the assembly's scratch.
+template <int TB>
 __host__ __device__ __forceinline__ unsigned char* ring_int8(
     unsigned char* smem, const Chain& ch) {
-  return smem + ROWS * (ch.stride_a + ch.stride_b);
+  return smem + Tile<TB>::ROWS * (ch.stride_a + ch.stride_b);
 }
 // The assembly's scratch of either mode (the start of the weight ring).
-template <bool Q>
+template <bool Q, int TB>
 __device__ __forceinline__ unsigned char* scratch_of(unsigned char* smem,
                                                      const Chain& ch) {
   if constexpr (Q) {
-    return ring_int8(smem, ch);
+    return ring_int8<TB>(smem, ch);
   } else {
     return reinterpret_cast<unsigned char*>(
-        ring(reinterpret_cast<__nv_bfloat16*>(smem), ch));
+        ring<TB>(reinterpret_cast<__nv_bfloat16*>(smem), ch));
+  }
+}
+
+// One 128-column pass of an int8 Dense on the tensor cores: acc (zero on
+// entry) += in[rows, :K] @ W^T[:K, n0 : n0 + NB] (codes, W kept [N, K]) for
+// the warp's 16 rows and NT n8 tiles, exact int32 sums, the weights through
+// the ring at wbuf. Every thread calls it; the caller's epilogue ends with
+// a __syncthreads before the ring is loaded again.
+template <int TB>
+__device__ __forceinline__ void chain_pass_int8(
+    const int8_t* in, int in_stride, const int8_t* __restrict__ W, int K,
+    int N, int n0, int8_t* wbuf, int (&acc)[Tile<TB>::NT][4]) {
+  using T = Tile<TB>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp % T::RG, wc = warp / T::RG;
+  const int nk = (K + KSQ - 1) / KSQ;
+  // The ring as in chain_pass: every iteration commits one (possibly
+  // empty) group, so "all but the newest STAGES-2 groups are done" means
+  // slice s has landed.
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < nk) load_slice_int8(W, K, N, p * KSQ, n0, wbuf + p * NB * QWSTRIDE);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nk; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int nxt = s + STAGES - 1;
+    if (nxt < nk)
+      load_slice_int8(W, K, N, nxt * KSQ, n0,
+                      wbuf + (nxt % STAGES) * NB * QWSTRIDE);
+    cp_async_commit();
+    const int8_t* ws = wbuf + (s % STAGES) * NB * QWSTRIDE;
+    for (int kk = 0; kk < KSQ && s * KSQ + kk < K; kk += 32) {
+      uint32_t a[4];
+      ldmatrix_x4(a, in + (wr * 16 + (lane & 15)) * in_stride + s * KSQ + kk +
+                         (lane >> 4) * 16);
+      if constexpr (T::NT >= 2) {
+#pragma unroll
+        for (int jp = 0; jp < T::NT / 2; ++jp) {
+          const int col = wc * T::WN + jp * 16;
+          if (n0 + col < N) {
+            // lanes 0-7: columns 0-7, bytes 0-15; 8-15: columns 0-7,
+            // bytes 16-31; 16-23 and 24-31: columns 8-15.
+            uint32_t b[4];
+            ldmatrix_x4(b, ws + (col + (lane & 7) + ((lane >> 4) << 3)) *
+                                    QWSTRIDE +
+                               kk + ((lane >> 3) & 1) * 16);
+            mma_s8(acc[2 * jp], a, b[0], b[1]);
+            mma_s8(acc[2 * jp + 1], a, b[2], b[3]);
+          }
+        }
+      } else {
+        const int col = wc * T::WN;
+        if (n0 + col < N) {
+          uint32_t b[2];
+          ldmatrix_x2(b, ws + (col + (lane & 7)) * QWSTRIDE + kk +
+                             ((lane >> 3) & 1) * 16);
+          mma_s8(acc[0], a, b[0], b[1]);
+        }
+      }
+    }
   }
 }
 
@@ -128,19 +194,21 @@ __device__ __forceinline__ unsigned char* scratch_of(unsigned char* smem,
 // bytes, and every thread has passed a __syncthreads since writing them.
 // Row r is user u0 + r / TC, item c0 + r % TC; only rows inside [B, C] are
 // written to out.
+template <int TB>
 __device__ __forceinline__ void run_chain_int8(
     unsigned char* smem, const int8_t* __restrict__ w,
     const float* __restrict__ qp, const float* __restrict__ w_last,
     const float* __restrict__ b_last, float* __restrict__ out, int B, int C,
     int u0, int c0, const Chain& ch, int act, int fin) {
+  using T = Tile<TB>;
   int8_t* buf_a = reinterpret_cast<int8_t*>(smem);
-  int8_t* buf_b = buf_a + ROWS * ch.stride_a;
-  int8_t* wbuf = reinterpret_cast<int8_t*>(ring_int8(smem, ch));
+  int8_t* buf_b = buf_a + T::ROWS * ch.stride_a;
+  int8_t* wbuf = reinterpret_cast<int8_t*>(ring_int8<TB>(smem, ch));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // Warp (wr, wc) owns rows [wr * 16, +16) and columns [wc * 64, +64) of
+  // Warp (wr, wc) owns rows [wr * 16, +16) and columns [wc * WN, +WN) of
   // each pass.
-  const int wr = warp % RG, wc = warp / RG;
+  const int wr = warp % T::RG, wc = warp / T::RG;
   const int g = lane >> 2, t = lane & 3;
   int8_t* in = buf_a;
   int in_stride = ch.stride_a;
@@ -156,52 +224,13 @@ __device__ __forceinline__ void run_chain_int8(
     // the next layer's quantize (the last hidden layer feeds the last dot)
     const float inv_a = last ? 0.f : qp[2 * (l + 1)];
     const float off = last ? 0.f : qp[2 * (l + 1) + 1];
-    const int nk = (K + KSQ - 1) / KSQ;
     for (int n0 = 0; n0 < N; n0 += NB) {
-      int acc[8][4];
+      int acc[T::NT][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < T::NT; ++j)
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[j][r] = 0;
-
-      // The ring as in run_chain: every iteration commits one (possibly
-      // empty) group, so "all but the newest STAGES-2 groups are done"
-      // means slice s has landed.
-#pragma unroll
-      for (int p = 0; p < STAGES - 1; ++p) {
-        if (p < nk)
-          load_slice_int8(W, K, N, p * KSQ, n0, wbuf + p * NB * QWSTRIDE);
-        cp_async_commit();
-      }
-      for (int s = 0; s < nk; ++s) {
-        cp_async_wait<STAGES - 2>();
-        __syncthreads();
-        const int nxt = s + STAGES - 1;
-        if (nxt < nk)
-          load_slice_int8(W, K, N, nxt * KSQ, n0,
-                          wbuf + (nxt % STAGES) * NB * QWSTRIDE);
-        cp_async_commit();
-        const int8_t* ws = wbuf + (s % STAGES) * NB * QWSTRIDE;
-        for (int kk = 0; kk < KSQ && s * KSQ + kk < K; kk += 32) {
-          uint32_t a[4];
-          ldmatrix_x4(a, in + (wr * 16 + (lane & 15)) * in_stride + s * KSQ +
-                             kk + (lane >> 4) * 16);
-#pragma unroll
-          for (int jp = 0; jp < 4; ++jp) {
-            const int col = wc * 64 + jp * 16;
-            if (n0 + col < N) {
-              // lanes 0-7: columns 0-7, bytes 0-15; 8-15: columns 0-7,
-              // bytes 16-31; 16-23 and 24-31: columns 8-15.
-              uint32_t b[4];
-              ldmatrix_x4(b, ws + (col + (lane & 7) + ((lane >> 4) << 3)) *
-                                      QWSTRIDE +
-                                 kk + ((lane >> 3) & 1) * 16);
-              mma_s8(acc[2 * jp], a, b[0], b[1]);
-              mma_s8(acc[2 * jp + 1], a, b[2], b[3]);
-            }
-          }
-        }
-      }
+      chain_pass_int8<TB>(in, in_stride, W, K, N, n0, wbuf, acc);
 
       // Epilogue on the accumulators: act(f32(acc) * out_scale +
       // bias_eff), then the next layer's codes; in the last hidden layer,
@@ -209,9 +238,9 @@ __device__ __forceinline__ void run_chain_int8(
       // the thread's columns in order, then over the quad's four threads.
       float part[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + wc * 64 + j * 8 + 2 * t;
-        if (n0 + wc * 64 + j * 8 < N) {
+      for (int j = 0; j < T::NT; ++j) {
+        const int col = n0 + wc * T::WN + j * 8 + 2 * t;
+        if (n0 + wc * T::WN + j * 8 < N) {
           const float s0 = scale[col], s1 = scale[col + 1];
           const float e0 = beff[col], e1 = beff[col + 1];
 #pragma unroll
@@ -236,8 +265,8 @@ __device__ __forceinline__ void run_chain_int8(
         }
       }
       if (last) {
-        // The warp's share of rows g and g + 8 over its 64 columns of the
-        // pass, one float per (row, pass, column half) in dst.
+        // The warp's share of rows g and g + 8 over its WN columns of the
+        // pass, one float per (row, pass, column group) in dst.
         float* sums = reinterpret_cast<float*>(dst);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -246,8 +275,8 @@ __device__ __forceinline__ void run_chain_int8(
           part[h] =
               __fadd_rn(part[h], __shfl_xor_sync(0xffffffffu, part[h], 2));
           if (t == 0)
-            sums[(wr * 16 + g + 8 * h) * (dst_stride / 4) + 2 * (n0 / NB) +
-                 wc] = part[h];
+            sums[(wr * 16 + g + 8 * h) * (dst_stride / 4) +
+                 T::CG * (n0 / NB) + wc] = part[h];
         }
       }
       // The layer output is complete before it is read, and every warp is
@@ -264,10 +293,10 @@ __device__ __forceinline__ void run_chain_int8(
 
   // ---- last layer: the one live column's dot, from the last hidden
   // layer's partial sums per row (in `in` after the swap), in order.
-  const int n_part = 2 * ((ch.width[ch.n_hidden] + NB - 1) / NB);
+  const int n_part = T::CG * ((ch.width[ch.n_hidden] + NB - 1) / NB);
   const float* sums = reinterpret_cast<const float*>(in);
   const float bias_last = b_last[0];
-  for (int r = tid; r < ROWS; r += THREADS) {
+  for (int r = tid; r < T::ROWS; r += THREADS) {
     float s = 0.f;
     for (int p = 0; p < n_part; ++p)
       s = __fadd_rn(s, sums[r * (in_stride / 4) + p]);
@@ -279,24 +308,28 @@ __device__ __forceinline__ void run_chain_int8(
 
 // ---- host side
 
-// The int8 chain's layout from the HOST array of n_hidden + 1 widths (each
-// a positive multiple of 32, 1 <= n_hidden <= MAX_HIDDEN): weight offsets
-// in bytes, row offsets into qp, buffer strides in bytes. Layer l's input
-// codes live in buffer l % 2; the last hidden layer's partial sums of the
-// last dot (two floats per 128-column pass) in buffer n_hidden % 2. Rows
+// The int8 chain's layout for a block of `rows` pair rows from the HOST
+// array of n_hidden + 1 widths (each a positive multiple of 32, 1 <=
+// n_hidden <= MAX_HIDDEN): weight offsets in bytes, row offsets into qp,
+// buffer strides in bytes. Layer l's input codes live in buffer l % 2; the
+// last hidden layer's partial sums of the last dot (one float per 128-column
+// pass and column group, 256 / rows groups) in buffer n_hidden % 2. Rows
 // are padded by QPAD bytes to a stride of 16 modulo 32: the eight 16-byte
 // rows an ldmatrix reads fall in distinct banks.
-inline cudaError_t make_chain_int8(int n_hidden, const int* wd, Chain* ch) {
-  if (n_hidden < 1 || n_hidden > MAX_HIDDEN) return cudaErrorInvalidValue;
+inline cudaError_t make_chain_int8(int n_hidden, const int* wd, int rows,
+                                   Chain* ch) {
+  if (n_hidden < 1 || n_hidden > MAX_HIDDEN || !valid_rows(rows))
+    return cudaErrorInvalidValue;
   *ch = Chain{};
   ch->n_hidden = n_hidden;
+  const int groups = WARPS / (rows / 16);  // column groups of a pass
   int bytes[2] = {0, 0};
   long long w_off = 0;
   int b_off = QPARAM0;
   for (int l = 0; l <= n_hidden; ++l) {
     if (wd[l] <= 0 || wd[l] % 32) return cudaErrorInvalidValue;
     ch->width[l] = wd[l];
-    const int sums = 8 * ((wd[l] + NB - 1) / NB);  // bytes of partial sums
+    const int sums = 4 * groups * ((wd[l] + NB - 1) / NB);  // partial sums
     const int row = (l < n_hidden ? wd[l] : (sums + 31) / 32 * 32) + QPAD;
     bytes[l % 2] = row > bytes[l % 2] ? row : bytes[l % 2];
     if (l < n_hidden) {
@@ -311,19 +344,26 @@ inline cudaError_t make_chain_int8(int n_hidden, const int* wd, Chain* ch) {
   return cudaSuccess;
 }
 
-// Two activation buffers plus the weight ring, which first holds `scratch`
-// bytes of the assembly's data.
-inline size_t smem_bytes_int8(const Chain& ch, size_t scratch) {
+// Two activation buffers of `rows` pair rows plus the weight ring, which
+// first holds `scratch` bytes of the assembly's data.
+inline size_t smem_bytes_int8(const Chain& ch, size_t scratch, int rows) {
   const size_t ring = (size_t)STAGES * NB * QWSTRIDE;
-  return (size_t)ROWS * (ch.stride_a + ch.stride_b) +
+  return (size_t)rows * (ch.stride_a + ch.stride_b) +
          (ring > scratch ? ring : scratch);
 }
 
-// The chain of a launch in either mode, from the HOST width array.
+// The chain of a launch in either mode and its block's shared memory, from
+// the HOST width array.
 template <bool Q>
-inline cudaError_t make_chain_of(int n_hidden, const void* widths, Chain* ch) {
+inline cudaError_t make_chain_of(int n_hidden, const void* widths, int rows,
+                                 Chain* ch) {
   const int* wd = static_cast<const int*>(widths);
-  return Q ? make_chain_int8(n_hidden, wd, ch) : make_chain(n_hidden, wd, ch);
+  return Q ? make_chain_int8(n_hidden, wd, rows, ch)
+           : make_chain(n_hidden, wd, ch);
+}
+template <bool Q>
+inline size_t smem_of(const Chain& ch, size_t scratch, int rows) {
+  return Q ? smem_bytes_int8(ch, scratch, rows) : smem_bytes(ch, scratch, rows);
 }
 
 }  // namespace pairwise

@@ -25,7 +25,8 @@
 //
 // Design against that bound: every activation stays on chip. A block of 16
 // warps owns a tile of 8 users x 16 items (128 pair rows; at the flagship
-// widths the block's ~222 KB of shared memory fill one SM). It assembles
+// widths the block's ~222 KB of shared memory fill one SM), or of 4, 2 or 1
+// users where wider chains need it (mlp_chain.cuh). It assembles
 // the first-layer activations into shared memory as bf16 with packed
 // bf16x2 arithmetic, then runs the hidden chain and the last layer of
 // mlp_chain.cuh (mma.sync on the tensor cores, weights through a cp.async
@@ -46,7 +47,7 @@ namespace {
 
 using namespace pairwise;
 
-template <bool Q>
+template <bool Q, int TB>
 __global__ void __launch_bounds__(THREADS)
 pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
                     const Weight<Q>* __restrict__ w,
@@ -68,7 +69,7 @@ pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
   // with all TB users. Rows past B or C assemble from zeros and are never
   // written out.
   __nv_bfloat16* users =
-      reinterpret_cast<__nv_bfloat16*>(scratch_of<Q>(smem, ch));  // [TB, h1]
+      reinterpret_cast<__nv_bfloat16*>(scratch_of<Q, TB>(smem, ch));  // [TB, h1]
   for (int e = tid; e < TB * q; e += THREADS) {
     const int bu = e / q, k = (e - bu * q) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -107,34 +108,42 @@ pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
   }
   __syncthreads();
   if constexpr (Q) {
-    run_chain_int8(smem, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
-                   fin);
+    run_chain_int8<TB>(smem, w, bias, w_last, b_last, out, B, C, u0, c0, ch,
+                       act, fin);
   } else {
-    run_chain(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act, fin);
+    run_chain<TB>(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
+                  fin);
   }
+}
+
+// The bf16 user rows are the assembly's scratch in the ring.
+inline size_t scratch_bytes(const Chain& ch, int rows) {
+  return (size_t)(rows / TC) * ch.width[0] * 2;
 }
 
 template <bool Q>
 int forward(const void* uf, const void* itf, const void* w, const void* bias,
             const void* w_last, const void* b_last, void* out, int B, int C,
-            int n_hidden, const void* widths, int act, int fin, void* stream) {
+            int n_hidden, const void* widths, int act, int fin, int rows,
+            void* stream) {
   Chain ch;
-  cudaError_t err = make_chain_of<Q>(n_hidden, widths, &ch);
+  cudaError_t err = make_chain_of<Q>(n_hidden, widths, rows, &ch);
   if (err != cudaSuccess) return err;
-  // The bf16 user rows are the assembly's scratch in the ring.
-  const size_t scratch = (size_t)TB * ch.width[0] * 2;
-  dim3 grid;
-  size_t smem = 0;
-  err = prepare_launch(pairwise_mlp_kernel<Q>, ch, scratch, B, C, &grid, &smem,
-                       Q ? smem_bytes_int8 : smem_bytes);
-  if (err != cudaSuccess) return err;
-  pairwise_mlp_kernel<Q><<<grid, THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(uf), static_cast<const float*>(itf),
-      static_cast<const Weight<Q>*>(w), static_cast<const float*>(bias),
-      static_cast<const float*>(w_last), static_cast<const float*>(b_last),
-      static_cast<float*>(out), B, C, ch, act, fin);
-  return cudaGetLastError();
+  const size_t smem = smem_of<Q>(ch, scratch_bytes(ch, rows), rows);
+  return dispatch_rows(rows, [&](auto tb) {
+    constexpr int TB = decltype(tb)::value;
+    dim3 grid;
+    cudaError_t e =
+        prepare_launch(pairwise_mlp_kernel<Q, TB>, smem, B, C, rows, &grid);
+    if (e != cudaSuccess) return e;
+    pairwise_mlp_kernel<Q, TB><<<grid, THREADS, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(uf), static_cast<const float*>(itf),
+        static_cast<const Weight<Q>*>(w), static_cast<const float*>(bias),
+        static_cast<const float*>(w_last), static_cast<const float*>(b_last),
+        static_cast<float*>(out), B, C, ch, act, fin);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -147,15 +156,17 @@ extern "C" {
 // bf16-rounded values), w_last the bf16-rounded live column of the last
 // layer [width[n_hidden]] (f32), b_last its bias (element 0 is read).
 // widths is a HOST array of n_hidden + 1 ints, each a positive multiple of
-// 16. Returns cudaSuccess or the first CUDA error (launch included); a width
-// that does not fit in shared memory returns cudaErrorInvalidValue.
+// 16; rows the block's pair rows (128, 64, 32 or 16:
+// ops/pairwise_mlp.py:block_rows). Returns cudaSuccess or the first CUDA
+// error (launch included); a block that does not fit in shared memory
+// returns cudaErrorInvalidValue.
 int pairwise_mlp_forward(const void* uf, const void* itf, const void* w,
                          const void* bias, const void* w_last,
                          const void* b_last, void* out, int B, int C,
                          int n_hidden, const void* widths, int act, int fin,
-                         void* stream) {
+                         int rows, void* stream) {
   return forward<false>(uf, itf, w, bias, w_last, b_last, out, B, C, n_hidden,
-                        widths, act, fin, stream);
+                        widths, act, fin, rows, stream);
 }
 
 // The int8 mode (K1q): the arguments of pairwise_mlp_forward, with w the
@@ -166,9 +177,23 @@ int pairwise_mlp_int8_forward(const void* uf, const void* itf, const void* w,
                               const void* bias, const void* w_last,
                               const void* b_last, void* out, int B, int C,
                               int n_hidden, const void* widths, int act,
-                              int fin, void* stream) {
+                              int fin, int rows, void* stream) {
   return forward<true>(uf, itf, w, bias, w_last, b_last, out, B, C, n_hidden,
-                       widths, act, fin, stream);
+                       widths, act, fin, rows, stream);
+}
+
+// Shared memory a block of `rows` pair rows takes in either mode (int8 != 0:
+// K1q), as the launch set-up counts it; a negative CUDA error for widths
+// the kernel does not take.
+int pairwise_mlp_block_bytes(int n_hidden, const void* widths, int int8,
+                             int rows) {
+  Chain ch;
+  const cudaError_t err = int8 ? make_chain_of<true>(n_hidden, widths, rows, &ch)
+                               : make_chain_of<false>(n_hidden, widths, rows, &ch);
+  if (err != cudaSuccess) return -(int)err;
+  const size_t scratch = scratch_bytes(ch, rows);
+  return (int)(int8 ? smem_of<true>(ch, scratch, rows)
+                    : smem_of<false>(ch, scratch, rows));
 }
 
 }  // extern "C"

@@ -33,12 +33,22 @@ with per-column int8 weights into int32 sums and rescales in float32
 (K1q, K2q, K3q): the assembly of the bf16 mode, then the int8 chain of
 ``csrc/mlp_chain_int8.cuh``.
 
+A kernel's block holds 8, 4, 2 or 1 users x 16 items (128 to 16 pair
+rows): ``block_rows`` takes the largest whose shared memory, as the
+kernel's own launch set-up counts it (``block_bytes``), fits the card's 227
+KB, once per kernel and chain, and every launch passes it to the kernel,
+which checks it again. Every output's sums run in the same order whatever
+the row count, so the bf16 kernels give the same scores at any of them.
+``check_pair_kernel_fits`` refuses a head that fits no block before a
+scorer builds its tables.
+
 Head tensors keep the JAX package's 128-lane zero padding, so they compare
 one to one with the JAX head; the padding is exact (zero rows and columns).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -54,6 +64,10 @@ ACTIVATIONS = {'relu': 0, 'gelu': 1, 'tanh': 2, 'leaky_relu': 3, 'silu': 4}
 FINAL_ACTIVATIONS = {'sigmoid': 0, 'tanh': 1}  # anything else: none (2)
 MAX_HIDDEN = 8  # hidden Dense layers after the first one the kernel takes
 GATE_PAD = 8  # gated fusion pads the modality axis of its gates to this
+
+# A block's shape (csrc/mlp_chain.cuh) and the shared memory it may take.
+SMEM_OPTIN = 232448  # shared memory a block may opt in to on sm_90, 227 KB
+BLOCK_ROWS = (128, 64, 32, 16)  # pair rows: 8, 4, 2 or 1 users x 16 items
 
 
 def _round_up(x: int, m: int) -> int:
@@ -778,24 +792,120 @@ def _n_mod(head: dict) -> int:
     return n_mod
 
 
+def chain_widths(head: dict) -> Tuple[int, ...]:
+    """The widths of the head's chain as its kernel takes them
+    (``kernel_chain``'s, in either mode): h1, or d then h1 for a head with
+    an unfolded first Dense (the attention head), then each hidden layer's
+    output."""
+    first = (list(head['w1'].shape) if 'w1' in head
+             else [head['b1'].shape[0]])
+    return tuple(int(w) for w in first
+                 + [w.shape[1] for w, _ in head['layers'][:-1]])
+
+
+def _error_string(lib, err: int) -> str:
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return f'{lib.kernel_error_string(err).decode()} ({err})'
+
+
+def block_bytes(name: str, widths: Sequence[int], rows: int,
+                mode: Tuple[int, ...]) -> int:
+    """The shared memory ``csrc/<name>.cu``'s launch set-up counts for a
+    block of ``rows`` pair rows on the chain of ``widths`` (its
+    ``<name>_block_bytes``): ``mode`` is (int8,) for the pair kernels, (H,
+    Mi) for the attention kernels. Negative (a CUDA error) for a shape the
+    kernel does not take. It loads the kernel's library, so it runs where
+    the kernels run: the launch's own count is the only one."""
+    lib = _build.load(name)
+    fn = getattr(lib, f'{name}_block_bytes')
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * (len(mode) + 1))
+        fn.restype = ctypes.c_int
+    wd = np.asarray(widths, np.int32)
+    return fn(len(wd) - 1, wd.ctypes.data, *mode, rows)
+
+
+def _what(name: str, widths: Sequence[int], mode: Tuple[int, ...]) -> str:
+    kind = (f'{mode[0]} heads' if len(mode) == 2
+            else 'int8' if mode[0] else 'bf16')
+    return f'the {name} kernel ({kind}) on the chain {list(widths)}'
+
+
+@functools.lru_cache(maxsize=None)
+def block_rows(name: str, widths: Tuple[int, ...],
+               mode: Tuple[int, ...]) -> int:
+    """The pair rows of ``csrc/<name>.cu``'s block on the chain of
+    ``widths`` in ``mode`` (``block_bytes``'s arguments): the largest of
+    BLOCK_ROWS whose block fits SMEM_OPTIN. Chosen once per shape: a
+    scorer's check at construction and every launch after read the same
+    choice. ValueError if even 16 rows do not fit, or for a shape the
+    kernel does not take."""
+    for rows in BLOCK_ROWS:
+        need = block_bytes(name, widths, rows, mode)
+        if need < 0:
+            raise ValueError(f'{_what(name, widths, mode)}: '
+                             f'{_error_string(_build.load(name), -need)}')
+        if need <= SMEM_OPTIN:
+            return rows
+    raise ValueError(
+        f'{_what(name, widths, mode)} needs {need} B of shared memory per '
+        f'block even at {BLOCK_ROWS[-1]} pair rows, past the {SMEM_OPTIN} B '
+        f'a block may take')
+
+
+def launch_rows(name: str, chain: dict, mode: Tuple[int, ...],
+                forced: Optional[int] = None) -> int:
+    """The pair rows a launch of ``csrc/<name>.cu`` on ``chain`` passes to
+    its kernel: ``block_rows``, or ``forced`` (the wrappers' private
+    ``_block_rows``, which tests use to compare row counts), which must be
+    one of BLOCK_ROWS whose block fits."""
+    widths = tuple(int(w) for w in chain['widths'])
+    if forced is None:
+        return block_rows(name, widths, mode)
+    if forced not in BLOCK_ROWS \
+            or not 0 <= block_bytes(name, widths, forced, mode) <= SMEM_OPTIN:
+        raise ValueError(f'_block_rows must be one of {BLOCK_ROWS} whose '
+                         f'block fits; got {forced} for '
+                         f'{_what(name, widths, mode)}')
+    return forced
+
+
+PAIR_KERNELS = {None: 'pairwise_mlp', 'exact': 'gated_pairwise_mlp',
+                'factored': 'gated_factored_mlp'}
+
+
+def check_pair_kernel_fits(head: dict, gated_variant: Optional[str] = None,
+                           int8: bool = False) -> int:
+    """The block rows of the kernel a concatenate head (K1) or a gated head
+    (K2 for ``'exact'``, K3 for ``'factored'``) launches, in the bf16 mode
+    or, with ``int8``, the int8 mode; ValueError for a head that fits no
+    block. A scorer calls it on the card before it builds any table."""
+    return block_rows(PAIR_KERNELS[gated_variant], chain_widths(head),
+                      (int(int8),))
+
+
 def _launch(name: str, out: torch.Tensor, tensors, chain: dict, B: int,
-            C: int, extra=()) -> None:
+            C: int, extra=(), mode: Optional[Tuple[int, ...]] = None,
+            forced: Optional[int] = None) -> None:
     """Launch ``csrc/<name>.cu`` on the current stream, its int8 mode
     (``<name>_int8_forward``) for an int8 chain: the pointers of
     ``tensors``, then the chain's, then ``out``; then B, C, the chain's
-    shape and codes, the ``extra`` ints and the stream. Raises if the
-    launch fails."""
+    shape and codes, the ``extra`` ints, the block's pair rows
+    (``launch_rows`` in ``mode``, by default the chain's (int8,)) and the
+    stream. Raises if the launch fails."""
+    rows = launch_rows(name, chain, (int(chain['int8']),) if mode is None
+                       else mode, forced)
     lib = _build.load(name)
     fn = getattr(lib, f'{name}_int8_forward' if chain.get('int8')
                  else f'{name}_forward')
     n_ptrs = len(tensors) + 5
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] + [ctypes.c_int] * (2 + len(extra))
+                       + [ctypes.c_void_p] + [ctypes.c_int] * (3 + len(extra))
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
     device = out.device
     with torch.cuda.device(device):
         err = fn(*(t.data_ptr() for t in tensors),
@@ -803,24 +913,24 @@ def _launch(name: str, out: torch.Tensor, tensors, chain: dict, B: int,
                  chain['w_last'].data_ptr(), chain['b_last'].data_ptr(),
                  out.data_ptr(), B, C, chain['n_hidden'],
                  chain['widths'].ctypes.data, chain['act'], chain['final'],
-                 *extra, torch.cuda.current_stream(device).cuda_stream)
+                 *extra, rows, torch.cuda.current_stream(device).cuda_stream)
     if err:
-        hint = (' (widths beyond the shared-memory budget?)' if err == 1
-                else '')
         raise RuntimeError(f'{name} kernel failed: '
-                           f'{lib.kernel_error_string(err).decode()} '
-                           f'({err}){hint}')
+                           f'{_error_string(lib, err)}')
 
 
 def pairwise_scores(head: dict, user_first: torch.Tensor,
-                    item_first: torch.Tensor) -> torch.Tensor:
+                    item_first: torch.Tensor,
+                    _block_rows: Optional[int] = None) -> torch.Tensor:
     """Fused [B, h1] x [C, h1] -> [B, C] float32 pair scoring (kernel K1,
     ``csrc/pairwise_mlp.cu``).
 
     CUDA tensors launch the kernel on the current stream (bf16 operands,
     float32 accumulation); B and C need not be tile multiples. The kernel's
     tensors come from ``head['kernel']`` when they lie on the rows' device,
-    else ``kernel_chain`` builds them for this call. CPU tensors take
+    else ``kernel_chain`` builds them for this call. The block's pair rows
+    are ``block_rows``'s (a head that fits no block raises ValueError;
+    ``_block_rows`` forces a smaller block, for tests). CPU tensors take
     ``pairwise_scores_plain`` in float32. Anything else raises.
     ``pairwise_scores.launches`` counts kernel launches of the bf16 mode,
     ``pairwise_scores.launches_int8`` those of the int8 mode (K1q), which a
@@ -838,7 +948,8 @@ def pairwise_scores(head: dict, user_first: torch.Tensor,
     out = torch.empty((B, C), dtype=torch.float32, device=device)
     if B == 0 or C == 0:
         return out
-    _launch('pairwise_mlp', out, (user_first, item_first), chain, B, C)
+    _launch('pairwise_mlp', out, (user_first, item_first), chain, B, C,
+            forced=_block_rows)
     if chain['int8']:
         pairwise_scores.launches_int8 += 1
     else:
@@ -852,17 +963,19 @@ pairwise_scores.launches_int8 = 0
 
 def pairwise_scores_gated(head: dict, user_first: torch.Tensor,
                           user_gates: torch.Tensor, item_first: torch.Tensor,
-                          item_gates: torch.Tensor) -> torch.Tensor:
+                          item_gates: torch.Tensor,
+                          _block_rows: Optional[int] = None) -> torch.Tensor:
     """Fused exact gated pair scoring (kernel K2,
     ``csrc/gated_pairwise_mlp.cu``): user_first [B, h1], user_gates
     [B, GATE_PAD], item_first [C, Mi*h1], item_gates [C, GATE_PAD], all
     float32 -> [B, C] float32.
 
     CUDA tensors launch the kernel on the current stream; B and C need not
-    be tile multiples. CPU tensors take ``pairwise_scores_gated_plain`` in
-    float32. Anything else raises. ``pairwise_scores_gated.launches``
-    counts kernel launches of the bf16 mode, ``.launches_int8`` those of
-    the int8 mode (K2q), which a head with ``qlayers`` launches.
+    be tile multiples; the block's pair rows as ``pairwise_scores``. CPU
+    tensors take ``pairwise_scores_gated_plain`` in float32. Anything else
+    raises. ``pairwise_scores_gated.launches`` counts kernel launches of
+    the bf16 mode, ``.launches_int8`` those of the int8 mode (K2q), which a
+    head with ``qlayers`` launches.
     """
     _check_head(head)
     device = _device_of('pairwise_scores_gated', user_first, user_gates,
@@ -885,7 +998,7 @@ def pairwise_scores_gated(head: dict, user_first: torch.Tensor,
         return out
     _launch('gated_pairwise_mlp', out,
             (user_first, user_gates, item_first, item_gates), chain, B, C,
-            (n_mod,))
+            (n_mod,), forced=_block_rows)
     if chain['int8']:
         pairwise_scores_gated.launches_int8 += 1
     else:
@@ -900,7 +1013,9 @@ pairwise_scores_gated.launches_int8 = 0
 def pairwise_scores_gated_factored(head: dict, user_first: torch.Tensor,
                                    user_coefs: torch.Tensor,
                                    tables: torch.Tensor,
-                                   item_coefs: torch.Tensor) -> torch.Tensor:
+                                   item_coefs: torch.Tensor,
+                                   _block_rows: Optional[int] = None
+                                   ) -> torch.Tensor:
     """Fused factored gated pair scoring (kernel K3,
     ``csrc/gated_factored_mlp.cu``): user_first [B, h1] and user_coefs
     [B, GATE_PAD] float32 (``factor_gated_user``), tables [C, Mi, h1]
@@ -908,11 +1023,11 @@ def pairwise_scores_gated_factored(head: dict, user_first: torch.Tensor,
     (``factor_gated_tables``) -> [B, C] float32.
 
     CUDA tensors launch the kernel on the current stream; B and C need not
-    be tile multiples. CPU tensors take
-    ``pairwise_scores_gated_factored_plain`` in float32. Anything else
-    raises. ``pairwise_scores_gated_factored.launches`` counts kernel
-    launches of the bf16 mode, ``.launches_int8`` those of the int8 mode
-    (K3q), which a head with ``qlayers`` launches.
+    be tile multiples; the block's pair rows as ``pairwise_scores``. CPU
+    tensors take ``pairwise_scores_gated_factored_plain`` in float32.
+    Anything else raises. ``pairwise_scores_gated_factored.launches``
+    counts kernel launches of the bf16 mode, ``.launches_int8`` those of
+    the int8 mode (K3q), which a head with ``qlayers`` launches.
     """
     _check_head(head)
     device = _device_of('pairwise_scores_gated_factored', user_first,
@@ -935,7 +1050,7 @@ def pairwise_scores_gated_factored(head: dict, user_first: torch.Tensor,
         return out
     _launch('gated_factored_mlp', out,
             (user_first, user_coefs, tables, item_coefs), chain, B, C,
-            (n_mod,))
+            (n_mod,), forced=_block_rows)
     if chain['int8']:
         pairwise_scores_gated_factored.launches_int8 += 1
     else:

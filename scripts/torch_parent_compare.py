@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The bf16 pair-scoring kernels K1-K6 of another checkout against this
-one's, on one CUDA card.
+"""The pair-scoring kernels K1-K6 and the int8 modes K1q-K3q of another
+checkout against this one's, on one CUDA card.
 
     python3 scripts/torch_parent_compare.py OTHER_CHECKOUT
 
@@ -14,11 +14,15 @@ the same inputs at the 256 x 8,192 block: the flagship chain [512, 256,
 128] (relu, sigmoid, random weights from a seed) on seeded rows for K1,
 on the gated rows of M = 6 modalities for K2 and K3, and after the
 flagship attention head (d 64, 4 heads) for K4, K5 and K6 (with its
-screen tail). Prints one JSON
+screen tail), and the int8 modes of K1-K3 on the same rows with the
+flagship chain quantized. Prints one JSON
 line per measurement, the card's ``nvidia-smi`` name and power limit
 first: whether the scores are equal bit for bit, then each kernel's mean
 of 20 launches (CUDA events) in turns, other, this, this, other. The C
-interface of the two builds' bf16 entry points must be the same. Exits 2
+interface of the two builds' entry points must be the same, but for
+the block's pair rows: a checkout whose kernels take none (every block 128
+rows) is called without them, with this checkout's count of the block's
+shared memory, and only where that count chooses 128 rows. Exits 2
 without a CUDA device.
 """
 from __future__ import annotations
@@ -42,6 +46,7 @@ from chip_smoke import (  # noqa: E402
     random_attention_head,
     random_attention_rows,
     random_gated_rows,
+    int8_head,
     random_head,
 )
 
@@ -53,8 +58,38 @@ def emit(what: str, **fields):
     print(json.dumps({'what': what, **fields}), flush=True)
 
 
-def build_other(checkout: Path) -> dict:
-    """The other checkout's kernels, built in parallel and loaded."""
+class WithoutRows:
+    """A library whose entry points take no block rows (a checkout from
+    before the kernels chose their block): its ``<name>_forward`` drops the
+    rows argument the wrappers pass, which must be 128, and its
+    ``<name>_block_bytes`` is this checkout's (``this``)."""
+
+    def __init__(self, lib, this):
+        self._lib, self._this = lib, this
+        self._calls = {}
+
+    def __getattr__(self, attr):
+        if attr.endswith('_block_bytes'):
+            return getattr(self._this, attr)
+        fn = getattr(self._lib, attr)
+        if not attr.endswith('_forward'):
+            return fn
+        if attr not in self._calls:
+            def call(*args):
+                if args[-2] != 128:
+                    raise ValueError(f'{attr} of the other checkout takes '
+                                     f'128-row blocks only, got {args[-2]}')
+                if fn.argtypes is None:
+                    fn.argtypes = call.argtypes[:-2] + call.argtypes[-1:]
+                    fn.restype = ctypes.c_int
+                return fn(*args[:-2], args[-1])
+            call.argtypes = None
+            self._calls[attr] = call
+        return self._calls[attr]
+
+
+def compile_other(checkout: Path) -> dict:
+    """The other checkout's kernels, built in parallel: their paths."""
     from pixelrec_multimodal_tpu_torch.ops import _build
     src = checkout / 'pixelrec_multimodal_tpu_torch' / 'ops' / 'csrc'
     out = _build.BUILD_DIR.parent / 'other'
@@ -66,7 +101,16 @@ def build_other(checkout: Path) -> dict:
     for n, proc in procs.items():
         if proc.wait() != 0:
             raise RuntimeError(f'{n} of {checkout} did not build')
-    return {n: ctypes.CDLL(str(out / f'{n}.so')) for n in KERNELS}
+    return {n: out / f'{n}.so' for n in KERNELS}
+
+
+def build_other(checkout: Path, this: dict) -> dict:
+    """The other checkout's kernels, built and loaded; ``this`` is this
+    checkout's, by name."""
+    libs = {n: ctypes.CDLL(str(path))
+            for n, path in compile_other(checkout).items()}
+    return {n: lib if hasattr(lib, f'{n}_block_bytes')
+            else WithoutRows(lib, this[n]) for n, lib in libs.items()}
 
 
 def main() -> int:
@@ -84,8 +128,8 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     emit('card', nvidia_smi=smi, torch=torch.__version__)
-    libs = {'other': build_other(Path(sys.argv[1])),
-            'this': {n: _build.load(n) for n in KERNELS}}
+    this = {n: _build.load(n) for n in KERNELS}
+    libs = {'other': build_other(Path(sys.argv[1]), this), 'this': this}
 
     def use(tag):  # route the wrappers' launches to one build
         _build._loaded.update(libs[tag])
@@ -104,6 +148,8 @@ def main() -> int:
         users, items = random_attention_rows(head, TIME_B, TIME_C, gen, dev,
                                              True)
         tail = tac.compute_screen_tail(head, items)
+        _, qhead = int8_head(HIDDEN, 'relu', 'sigmoid', gen, dev,
+                             n_item_mods=5)
         # kernel: a call of this checkout's wrapper on the shared inputs
         calls = {
             'K1': lambda: tpm.pairwise_scores(pair_head, *concat),
@@ -113,7 +159,11 @@ def main() -> int:
             'K4': lambda: tas.attention_scores(head, users[:5], items[:6]),
             'K5': lambda: tas.attention_scores_gram(head, users, items),
             'K6': lambda: tac.attention_screen_scores(head, users[:5],
-                                                      items[:6], tail)}
+                                                      items[:6], tail),
+            'K1q': lambda: tpm.pairwise_scores(qhead, *concat),
+            'K2q': lambda: tpm.pairwise_scores_gated(qhead, *exact),
+            'K3q': lambda: tpm.pairwise_scores_gated_factored(qhead,
+                                                              *factored)}
         scores = {}
         for tag in ('other', 'this'):
             use(tag)

@@ -31,9 +31,11 @@ from pixelrec_multimodal_tpu_torch.models.multimodal import (
 )
 from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
 from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
+from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
 from pixelrec_multimodal_tpu_torch.utils.flax_convert import (
     load_flax_variables,
 )
+from tests._torch_smem import hand_count  # noqa: F401 (a fixture)
 from tests._torch_port import (
     EMB,
     LANGUAGE,
@@ -461,7 +463,13 @@ def test_wrappers_on_cpu():
 # chain's two buffers, 128 rows x (max even width + 8, max odd width + 8)
 # bf16, then the 26,112 B weight ring or the part of the assembly's scratch
 # (8 user rows, 128 coefficient rows, K5's 128 cross-Gram rows, f32) that
-# passes buffer B, whichever is larger.
+# passes buffer B, whichever is larger. Where K5's 128-row block passes
+# SMEM_OPTIN (227 KB), it takes the largest smaller block that fits: d 128
+# with 4 heads at 64 rows (126,464 B), with 8 heads at 32 (129,856 B), d 256
+# at 64 (131,584 B).
+GRAM_ROWS = {(128, 4, 512): 64, (128, 8, 64): 32, (256, 4, 64): 64}
+
+
 @pytest.mark.parametrize('d, heads, widths, stream, gram', [
     (64, 4, (512, 256, 128), 226816, 226816),  # the flagship
     (128, 4, (512, 256, 128), 226816, 234496),
@@ -469,23 +477,25 @@ def test_wrappers_on_cpu():
     (128, 8, (64, 32), 147584, 519424),
     (256, 4, (64, 32), 159360, 263168),
 ])
-def test_kernel_smem_bytes(d, heads, widths, stream, gram):
-    """kernel_smem_bytes counts as the launch set-up does, and
-    check_kernel_fits refuses past SMEM_OPTIN (227 KB), naming the stream
-    variant for K5."""
+def test_kernel_smem_bytes(hand_count, d, heads, widths, stream, gram):
+    """The hand count (``tests/_torch_smem.py``, which the card's own count
+    is held to) at 128 rows, and check_kernel_fits on it: 128 rows where
+    they fit within SMEM_OPTIN (227 KB), else the largest smaller block
+    that fits (GRAM_ROWS)."""
+    gram_rows = GRAM_ROWS.get((d, heads, widths[0]), 128)
     layers = [(torch.zeros(k, n), torch.zeros(n))
               for k, n in zip(widths[:-1], widths[1:])]
     head = {'d': d, 'H': heads, 'n_item_mods': MI,
             'w1': torch.zeros(d, widths[0]),
             'layers': layers + [(torch.zeros(widths[-1], 128),
                                  torch.zeros(128))]}
-    for is_gram, need in ((False, stream), (True, gram)):
-        assert tas.kernel_smem_bytes(head, is_gram) == need
-        if need > tas.SMEM_OPTIN:
-            with pytest.raises(ValueError, match="variant='stream'"):
-                tas.check_kernel_fits(head, is_gram)
-        else:
-            tas.check_kernel_fits(head, is_gram)
+    for is_gram, need, rows in ((False, stream, 128), (True, gram,
+                                                        gram_rows)):
+        name, full = tas._kernel_name(is_gram, False), tpm.chain_widths(head)
+        assert hand_count(name, full, 128, (heads, MI)) == need
+        assert (need > tpm.SMEM_OPTIN) == (rows < 128)
+        assert tas.check_kernel_fits(head, is_gram) == rows
+        assert hand_count(name, full, rows, (heads, MI)) <= tpm.SMEM_OPTIN
 
 
 # ----------------------------------------------------------------- scorer

@@ -1,0 +1,200 @@
+"""The kernels' block rows: a block holds 8, 4, 2 or 1 users x 16 items
+(128, 64, 32 or 16 pair rows), the largest whose shared memory fits the
+227 KB (232,448 B) a block may take on sm_90. On the card the count is the
+kernel's own launch set-up's (``tpm.block_bytes``); here the hand count of
+``tests/_torch_smem.py`` stands in for it (``hand_count``), and these tests
+hold it to bytes counted by hand and the choice (``tpm.block_rows``,
+``check_pair_kernel_fits``, ``check_kernel_fits``) to the rows; the card's
+count of the same blocks is held to the hand count in
+``tests/test_torch_cuda.py``. Runs on the CPU: it launches nothing."""
+import numpy as np
+import pytest
+import torch
+
+from pixelrec_multimodal_tpu_torch.data.feature_store import ItemFeatureStore
+from pixelrec_multimodal_tpu_torch.inference import scorer as tsc
+from pixelrec_multimodal_tpu_torch.models.multimodal import (
+    MultimodalRecommender,
+)
+from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
+from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+from tests._torch_smem import hand_count  # noqa: F401 (a fixture)
+
+NAME = {'K1': 'pairwise_mlp', 'K2': 'gated_pairwise_mlp',
+        'K3': 'gated_factored_mlp'}
+
+
+def pair_head(widths):
+    """A folded concat head of the given chain widths (zeros)."""
+    layers = [(torch.zeros(k, n), torch.zeros(n))
+              for k, n in zip(widths[:-1], widths[1:])]
+    return {'b1': torch.zeros(widths[0]), 'b1_folded': True,
+            'layers': layers + [(torch.zeros(widths[-1], 128),
+                                 torch.zeros(128))]}
+
+
+def attention_head(d, heads, widths):
+    layers = [(torch.zeros(k, n), torch.zeros(n))
+              for k, n in zip(widths[:-1], widths[1:])]
+    return {'d': d, 'H': heads, 'n_item_mods': 5,
+            'w1': torch.zeros(d, widths[0]),
+            'layers': layers + [(torch.zeros(widths[-1], 128),
+                                 torch.zeros(128))]}
+
+
+# (kernel, chain widths from h1 on, int8, rows chosen, bytes at those rows).
+# bf16: rows x (max even width + 8 + max odd width + 8) x 2 B of buffers,
+# then the 26,112 B ring (3 slices x 32 x 136 x 2 B) or the assembly's
+# scratch, whichever is larger. int8: rows x (max even + 16 + max odd + 16)
+# B, the last hidden layer's row being its partial sums (4 B x 256 / rows
+# column groups x 128-column passes, padded to 32, + 16), then the 30,720 B
+# ring (3 x 128 x 80) or the scratch.
+@pytest.mark.parametrize('kernel, widths, int8, rows, nbytes', [
+    # the flagship: 128 x (520 + 264) x 2 + 26,112
+    ('K1', (512, 256, 128), False, 128, 226816),
+    ('K2', (512, 256, 128), False, 128, 226816),
+    ('K3', (512, 256, 128), False, 128, 226816),
+    # its int8 modes: 128 x (528 + 272) + 30,720
+    ('K1', (512, 256, 128), True, 128, 133120),
+    # [1024, 512, 256]: 128 rows would take 128 x (1,032 + 520) x 2 + 26,112
+    # = 423,424; 64 x 1,552 x 2 + 26,112 = 224,768
+    ('K1', (1024, 512, 256), False, 64, 224768),
+    ('K2', (1024, 512, 256), False, 64, 224768),
+    ('K3', (1024, 512, 256), False, 64, 224768),
+    # int8: 128 x (1,040 + 528) + 30,720 = 231,424 fits K1q; K2q's scratch,
+    # (8 x 1,024 + 128 x 8) x 4 = 36,864, and K3q's, (8 x 1,032 + 256) x 4
+    # = 34,048, pass the ring: 64 x 1,568 + 30,720 = 131,072
+    ('K1', (1024, 512, 256), True, 128, 231424),
+    ('K2', (1024, 512, 256), True, 64, 131072),
+    ('K3', (1024, 512, 256), True, 64, 131072),
+    # h1 2048: 32 x (2,056 + 520) x 2 + 26,112 = 190,976; int8 64 x (2,064 +
+    # 528) + 30,720 = 196,608 (K2q: its scratch (4 x 2,048 + 512) x 4 =
+    # 34,816 = 200,704)
+    ('K1', (2048, 512, 256), False, 32, 190976),
+    ('K2', (2048, 512, 256), False, 32, 190976),
+    ('K1', (2048, 512, 256), True, 64, 196608),
+    ('K2', (2048, 512, 256), True, 64, 200704),
+])
+def test_pair_block_rows(hand_count, kernel, widths, int8, rows, nbytes):
+    """The largest block that fits, and its bytes, by hand; the next larger
+    block does not fit."""
+    mode = (int(int8),)
+    assert tpm.block_rows(NAME[kernel], widths, mode) == rows
+    assert hand_count(NAME[kernel], widths, rows, mode) == nbytes
+    assert nbytes <= tpm.SMEM_OPTIN
+    if rows < 128:
+        assert hand_count(NAME[kernel], widths, 2 * rows, mode) \
+            > tpm.SMEM_OPTIN
+    variant = {'K1': None, 'K2': 'exact', 'K3': 'factored'}[kernel]
+    assert tpm.check_pair_kernel_fits(pair_head(widths), variant,
+                                      int8) == rows
+
+
+@pytest.mark.parametrize('int8', [False, True])
+def test_a_chain_that_fits_no_block_is_refused(hand_count, int8):
+    """h1 8,192: 16 rows of bf16 buffers alone take 16 x (8,200 + 136) x 2
+    = 266,752 B; int8 rows are half as wide, so h1 16,384: 16 x (16,400 +
+    80) = 263,680 B. Every kernel refuses such a head before any launch."""
+    widths = (8192, 128) if not int8 else (16384, 128)
+    for variant in (None, 'exact', 'factored'):
+        with pytest.raises(ValueError, match='even at 16 pair rows'):
+            tpm.check_pair_kernel_fits(pair_head(widths), variant, int8)
+
+
+def test_forced_rows_are_checked(hand_count):
+    """A forced block (the wrappers' private ``_block_rows``) must be one of
+    the four and fit; without one a launch takes the chosen block."""
+    chain = {'widths': [1024, 512, 256]}
+    assert tpm.launch_rows('pairwise_mlp', chain, (0,)) == 64
+    assert tpm.launch_rows('pairwise_mlp', chain, (0,), 16) == 16
+    for bad in (128, 48, 0):
+        with pytest.raises(ValueError, match='_block_rows'):
+            tpm.launch_rows('pairwise_mlp', chain, (0,), bad)
+    head = attention_head(512, 4, (512, 256, 128))
+    chain = {'widths': tpm.chain_widths(head)}
+    assert chain['widths'] == (512, 512, 256, 128)
+    assert tpm.launch_rows('attention_mlp', chain, (4, 5), 32) == 32
+    with pytest.raises(ValueError, match='_block_rows'):
+        tpm.launch_rows('attention_mlp', chain, (4, 5), 128)
+
+
+# The attention flagship chain at d 512, 4 heads (the JAX package's HPO
+# draws embedding_dim 512): buffers 64 x (520 + 520) x 2 = 133,120, then
+# the ring (the scratch, 4 user rows of 3,620 floats and 64 coefficient
+# rows of 65, is 74,560 B, within buffer B's 66,560 + the ring); 128 rows
+# would need 266,240 for the buffers alone. K5 at 64 rows: its scratch
+# (4 x 3,648 + 64 x (65 + 201)) x 4 = 126,464 B passes buffer B by 59,904.
+@pytest.mark.parametrize('d, heads, widths, kernel, rows, nbytes', [
+    (512, 4, (512, 256, 128), 'stream', 64, 159232),
+    (512, 4, (512, 256, 128), 'screen', 64, 159232),
+    (512, 4, (512, 256, 128), 'gram', 64, 193024),
+    (64, 4, (512, 256, 128), 'stream', 128, 226816),
+])
+def test_attention_block_rows(hand_count, d, heads, widths, kernel, rows,
+                              nbytes):
+    head = attention_head(d, heads, widths)
+    gram, screen = kernel == 'gram', kernel == 'screen'
+    name = tas._kernel_name(gram, screen)
+    full = tpm.chain_widths(head)
+    assert tas.check_kernel_fits(head, gram, screen) == rows
+    assert hand_count(name, full, rows, (heads, 5)) == nbytes
+    if rows < 128:
+        assert hand_count(name, full, 2 * rows, (heads, 5)) > tpm.SMEM_OPTIN
+
+
+def test_attention_takes_every_d_up_to_512(hand_count):
+    """No refusal is left for a head whose d is a multiple of 16 up to 512
+    at the flagship chain, in any of the three kernels; a chain that fits
+    no block is refused by all three, and K5 no longer points to 'stream'
+    when 'stream' does not fit either."""
+    for d in range(16, 513, 16):
+        for heads in (1, 2, 4, 8):
+            if d % heads:
+                continue
+            head = attention_head(d, heads, (512, 256, 128))
+            for gram, screen in ((False, False), (True, False),
+                                 (False, True)):
+                assert tas.check_kernel_fits(head, gram, screen) in (
+                    128, 64, 32, 16)
+    with pytest.raises(ValueError, match='d must|multiple of 16'):
+        tas.check_kernel_fits(attention_head(528, 4, (512,)), False)
+    wide = attention_head(512, 8, (8192,))
+    for gram in (False, True):
+        with pytest.raises(ValueError, match='even at 16 pair rows') as err:
+            tas.check_kernel_fits(wide, gram)
+        assert "attention_variant='stream'" not in str(err.value)
+
+
+class _CardDevice:
+    """Stands in for torch.device('cuda') where the scorer only reads the
+    device's type before it builds tables."""
+    type = 'cuda'
+
+
+@pytest.mark.parametrize('fusion, hidden, precision, emb', [
+    ('concatenate', (8192,), 'bf16', 8),
+    ('gated', (8192,), 'bf16', 8),
+    ('concatenate', (16384, 32), 'int8!', 8),
+    ('attention', (8192,), 'bf16', 16),
+])
+def test_scorer_refuses_a_head_that_fits_no_block_before_tables(
+        monkeypatch, hand_count, fusion, hidden, precision, emb):
+    """On the card, CatalogScorer checks the kernel's block right after it
+    builds the head and before any catalog table: a head that fits no
+    block raises ValueError there (the card and its count are stood in
+    for, as the check reads only the head's widths)."""
+    model = MultimodalRecommender(
+        n_users=4, n_items=8, n_tags=2, num_numerical_features=0,
+        embedding_dim=emb, fusion_hidden_dims=hidden, use_contrastive=False,
+        fusion_type=fusion, num_attention_heads=2, device='cpu')
+    model.to = lambda device: model  # the weights stay on the CPU
+    store = ItemFeatureStore(8, [str(i) for i in range(8)])
+    store.tables['tag_idx'] = np.zeros(8, dtype=np.int32)
+    monkeypatch.setattr(tsc, 'resolve_device', lambda device: _CardDevice())
+
+    def no_tables(self, *a, **k):
+        raise AssertionError('a catalog table was built before the check')
+
+    monkeypatch.setattr(tsc.CatalogScorer, '_build_item_tower', no_tables)
+    with pytest.raises(ValueError, match='even at 16 pair rows'):
+        tsc.CatalogScorer(model, store, precision=precision)

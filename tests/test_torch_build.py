@@ -35,3 +35,21 @@ def test_every_source_is_a_kernel_with_the_shared_header():
                   else 'mlp_chain_int8.cuh')
         assert f'#include "{header}"' in (
             _build.CSRC / f'{name}.cu').read_text()
+
+
+def test_probes_build_beside_the_kernels(tmp_path, monkeypatch):
+    """The probes P1-P3 live in ``probes/csrc``, apart from the scorer
+    kernels, and build with the kernels' headers: an edited header of
+    ``ops/csrc`` names a probe's library anew too."""
+    assert _build.probe_sources() == ['int8_mxu', 'vpu_roofline']
+    assert not set(_build.probe_sources()) & set(_build.all_sources())
+    ops, probes = tmp_path / 'ops', tmp_path / 'probes'
+    ops.mkdir()
+    probes.mkdir()
+    monkeypatch.setattr(_build, 'CSRC', ops)
+    monkeypatch.setattr(_build, 'PROBES_CSRC', probes)
+    (ops / 'shared.cuh').write_text('// chain v1\n')
+    (probes / 'p.cu').write_text('#include "shared.cuh"\n')
+    first = _build.library_path('p')
+    (ops / 'shared.cuh').write_text('// chain v2\n')
+    assert _build.library_path('p') != first

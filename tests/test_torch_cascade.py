@@ -26,6 +26,7 @@ from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
 from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
 from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
 from tests._torch_port import EMB, N_USERS, item_tables, make_pair
+from tests._torch_smem import hand_count  # noqa: F401 (a fixture)
 
 # (activation, final) pairs covering every activation and final once; each
 # distinct pair and head count builds one model in both packages.
@@ -152,7 +153,7 @@ def test_screen_plain_bf16_matches_pallas_interpret(activation, final):
                                atol=INTERPRET_TOL.get(activation, 2e-2))
 
 
-def test_screen_wrapper_on_cpu():
+def test_screen_wrapper_on_cpu(hand_count):
     """CPU tensors take the float32 plain version and launch nothing;
     other devices, heads and widths the kernel does not take raise; K6's
     block fits wherever K4's does (its coefficients are token 0's only)."""
@@ -177,13 +178,14 @@ def test_screen_wrapper_on_cpu():
                 'w1': torch.zeros(d, widths[0]),
                 'layers': layers + [(torch.zeros(widths[-1], 128),
                                      torch.zeros(128))]}
-        screen = tas.kernel_smem_bytes(head, False, screen=True)
-        assert screen <= tas.kernel_smem_bytes(head, False)
-        tas.check_kernel_fits(head, False, screen=True)
+        full, mode = tpm.chain_widths(head), (heads, MI)
+        screen = hand_count('attention_screen_mlp', full, 128, mode)
+        assert screen <= hand_count('attention_mlp', full, 128, mode)
+        assert tas.check_kernel_fits(head, False, screen=True) == 128
     # d 256, 4 heads, chain (64, 32), by hand: the buffers 128 x (264 + 72)
     # bf16, then 8 user rows of 1,828 floats and 128 coefficient rows of 25
     # (K4: 65) floats, less buffer B's 18,432 B: 86,016 + 52,864 B.
-    assert tas.kernel_smem_bytes(head, False, screen=True) == 138880
+    assert hand_count('attention_screen_mlp', full, 128, mode) == 138880
 
 
 # ----------------------------------------------- per-user candidate lists

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 concat, K2 exact gated, K3 factored gated,
 and their int8 modes K1q, K2q, K3q; K4 stream attention, K5 gram
-attention, K6 the attention cascade's token-0 screen) and its scorer, int8
-and the attention cascade included, on a card.
+attention, K6 the attention cascade's token-0 screen), their blocks of
+fewer pair rows for wide heads, the probes P1-P3, and its scorer, int8 and
+the attention cascade included, on a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX:
@@ -27,6 +28,10 @@ from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
 from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
 from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
 from pixelrec_multimodal_tpu_torch.ops.topk import NEG_INF
+from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
+from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
+from chip_smoke import WIDE_MAX_DIFFERING
+from tests import _torch_smem as hand
 
 pytestmark = pytest.mark.cuda
 
@@ -508,26 +513,27 @@ def test_attention_kernels_at_wide_embeddings(dev, variant, emb, heads,
     """The kernels' wider instances (two and four float2 slots per lane)
     and the most heads they take, as
     test_attention_kernels_match_bf16_plain; d 128 is the advanced
-    configuration's width, d 256 the widest the kernels take. K5 keeps
-    each pair's cross-Grams in shared memory and fits only d 128 with 4
-    heads here (at 8 heads or d 256 it would need 263 KB or more of the
-    card's 227 KB): elsewhere its launch is refused and raises, as
-    ``kernel_smem_bytes`` counts."""
+    configuration's width. K5 keeps each pair's cross-Grams in shared
+    memory: where its 128-row block would pass the card's 227 KB (8 heads,
+    or d 256) it takes a block of 64 or 32 rows, and the card's own count
+    of that block is the hand count (``tests/_torch_smem.py``)."""
     head = head_on(tas.build_attention_head(
         make_model(*act_final, 'attention', emb, heads)), dev)
     users, items = attention_inputs(head, 21, 150, dev)
     kernel, plain = ATTENTION[variant]
-    refused = variant == 'gram' and (emb, heads) != (128, 4)
-    assert refused == (tas.kernel_smem_bytes(head, variant == 'gram')
-                       > tas.SMEM_OPTIN)
-    if refused:
-        before = kernel.launches
-        with pytest.raises(RuntimeError, match='shared-memory'):
-            kernel(head, users, items)
-        assert kernel.launches == before
-        return
+    gram = variant == 'gram'
+    rows = tas.check_kernel_fits(head, gram)
+    name, full = tas._kernel_name(gram, False), tpm.chain_widths(head)
+    mode = (heads, head['n_item_mods'])
+    assert (rows < 128) == (hand.block_bytes(name, full, 128, mode)
+                            > tpm.SMEM_OPTIN)
+    assert (rows < 128) == (gram and (emb, heads) != (128, 4))
+    assert tpm.block_bytes(name, full, rows, mode) \
+        == hand.block_bytes(name, full, rows, mode)
+    before = kernel.launches
     out = kernel(head, users, items)
     torch.cuda.synchronize()
+    assert kernel.launches == before + 1
     ref = plain(head, users, items, compute_dtype=torch.bfloat16)
     assert out.shape == (21, 150) and torch.isfinite(out).all()
     scale = max(1.0, ref.abs().max().item())
@@ -538,17 +544,33 @@ def test_attention_kernels_at_wide_embeddings(dev, variant, emb, heads,
 
 @pytest.mark.parametrize('emb_heads', [(128, 8), (256, 4)])
 def test_attention_scorer_refuses_gram_that_does_not_fit(dev, emb_heads):
-    """A model K5 does not take raises at construction of a gram scorer,
-    before any table is built, and names the stream variant, which
-    serves it."""
+    """A model whose chain fits no block (a hidden width of 8,192: 16 rows
+    of buffers alone take 266,752 B of the card's 232,448) raises at
+    construction of a gram scorer, before any table is built, and so does
+    the stream scorer, which no longer points to itself; the same
+    embedding and heads at the small chain serve through a gram scorer."""
+    wide = MultimodalRecommender(
+        n_users=N_USERS, n_items=N_ITEMS, n_tags=N_TAGS,
+        num_numerical_features=NUMERICAL, embedding_dim=emb_heads[0],
+        vision_feature_dim=VISION, language_feature_dim=LANGUAGE,
+        use_contrastive=False, fusion_hidden_dims=(8192,),
+        fusion_type='attention', num_attention_heads=emb_heads[1],
+        dropout_rate=0.0, generator=torch.Generator().manual_seed(0),
+        device='cpu')
+    launches = (tas.attention_scores.launches,
+                tas.attention_scores_gram.launches)
+    for variant in ('gram', 'stream'):
+        with pytest.raises(ValueError, match='even at 16 pair rows') as err:
+            CatalogScorer(copy.deepcopy(wide), store(), item_chunk=256,
+                          user_chunk=64, attention_variant=variant,
+                          device=dev)
+        assert "attention_variant='stream'" not in str(err.value)
+    assert (tas.attention_scores.launches,
+            tas.attention_scores_gram.launches) == launches
     model = make_model('relu', 'sigmoid', 'attention', *emb_heads)
-    launches = tas.attention_scores_gram.launches
-    with pytest.raises(ValueError, match="attention_variant='stream'"):
-        CatalogScorer(copy.deepcopy(model), store(), item_chunk=256,
-                      user_chunk=64, attention_variant='gram', device=dev)
-    assert tas.attention_scores_gram.launches == launches
     scorer = CatalogScorer(model, store(), item_chunk=256, user_chunk=64,
-                           attention_variant='stream', device=dev)
+                           attention_variant='gram', device=dev)
+    assert scorer.block_rows == tas.check_kernel_fits(scorer._head, True)
     v, i = scorer.top_k(np.arange(5, dtype=np.int32), 10)
     assert v.shape == (5, 10) and np.isfinite(v).all()
 
@@ -639,9 +661,9 @@ def screen_inputs(head, B, C, device, seed=4):
             tuple(t.to(device) for t in items[:6]), tail.to(device))
 
 
-def check_screen(head, B, C, dev):
+def check_screen(head, B, C, dev, max_differing=MAX_DIFFERING):
     """One K6 launch on a ragged B x C block against its plain bf16 version
-    (AGREE, MAX_DIFFERING, FLIP_TOL, as K4)."""
+    (AGREE, ``max_differing``, FLIP_TOL, as K4)."""
     users, items, tail = screen_inputs(head, B, C, dev)
     before = tac.attention_screen_scores.launches
     out = tac.attention_screen_scores(head, users, items, tail)
@@ -652,7 +674,7 @@ def check_screen(head, B, C, dev):
     assert out.shape == (B, C) and torch.isfinite(out).all()
     scale = max(1.0, ref.abs().max().item())
     diff = (out - ref).abs()
-    assert (diff > AGREE * scale).float().mean().item() <= MAX_DIFFERING
+    assert (diff > AGREE * scale).float().mean().item() <= max_differing
     assert diff.max().item() <= FLIP_TOL * scale
 
 
@@ -674,10 +696,14 @@ def test_screen_kernel_matches_bf16_plain(dev, emb, heads, activation,
 @pytest.mark.parametrize('emb', [128, 256])
 def test_screen_kernel_at_wide_embeddings(dev, emb, heads, act_final):
     """K6's wider instances (two and four float2 slots per lane) and the
-    most heads it takes; its block fits at every one of them."""
+    most heads it takes; its 128-row block fits at every one of them, by
+    the card's count and by hand."""
     head = head_on(tas.build_attention_head(
         make_model(*act_final, 'attention', emb, heads)), dev)
-    assert tas.kernel_smem_bytes(head, False, screen=True) <= tas.SMEM_OPTIN
+    assert tas.check_kernel_fits(head, False, screen=True) == 128
+    full, mode = tpm.chain_widths(head), (heads, head['n_item_mods'])
+    assert tpm.block_bytes('attention_screen_mlp', full, 128, mode) \
+        == hand.block_bytes('attention_screen_mlp', full, 128, mode)
     check_screen(head, 21, 150, dev)
 
 
@@ -739,3 +765,300 @@ def test_cascade_on_card(dev, screen):
         both = [(ref[x], y) for x, y in zip(a.tolist(), va.tolist())
                 if x in ref]
         np.testing.assert_allclose(*zip(*both), atol=1e-4)
+
+
+# ------------------------------------------------------- wide heads, C1/C2
+# Wide heads sum more products per hidden activation, so more of their bf16
+# activations round to the other neighbour than the plain version's (the
+# shares read on an H100 are beside WIDE_MAX_DIFFERING in chip_smoke.py,
+# the largest 22.0%). Random wide heads are held to FLIP_TOL for every pair
+# and AGREE for all but WIDE_MAX_DIFFERING of them, chip_smoke.py's
+# constant; the narrow heads' MAX_DIFFERING holds wide heads whose chain
+# cannot flip (every hidden output one exact product:
+# ``wide_head(exact=True)``, w1 = I in ``d512_head``), which shows the wide
+# blocks and assemblies round where the plain versions do.
+
+
+def wide_head(widths, activation, final, n_item_mods=None, seed=11,
+              exact=False):
+    """A folded head of the given chain widths with seeded random weights
+    on the card (``n_item_mods`` makes it gated). ``exact``: each hidden
+    output takes one input times a power of two (a random one-to-one
+    choice) plus a bias on a 1/16 grid, so its sum is exact in any order."""
+    gen = torch.Generator().manual_seed(seed)
+    layers = []
+    for k, n in zip(widths[:-1], widths[1:]):
+        if exact:
+            w = torch.zeros(k, n)
+            pick = torch.randperm(k, generator=gen)[:n]
+            w[pick, torch.arange(n)] = 2.0 ** torch.randint(
+                -1, 2, (n,), generator=gen).float() * (
+                    torch.randint(0, 2, (n,), generator=gen) * 2 - 1)
+            b = torch.randint(-4, 5, (n,), generator=gen) / 16.0
+        else:
+            w = torch.randn(k, n, generator=gen) / k ** 0.5
+            b = torch.randn(n, generator=gen) * 0.05
+        layers.append((w, b))
+    w_last = torch.zeros(widths[-1], 128)
+    w_last[:, 0] = torch.randn(widths[-1], generator=gen) / widths[-1] ** 0.5
+    head = {'layers': layers + [(w_last, torch.randn(128, generator=gen))],
+            'activation': activation, 'final_activation': final,
+            'b1': torch.zeros(widths[0]), 'b1_folded': True}
+    if n_item_mods:
+        head.update(n_item_mods=n_item_mods, h1=widths[0])
+    return head
+
+
+def pair_args(head, kid, B, C, dev, seed=12):
+    """Seeded rows of K1, K2 or K3 for a [B] x [C] block on the card."""
+    rng = np.random.default_rng(seed)
+    h1 = head['b1'].shape[0]
+    if kid == 'K1':
+        return [torch.from_numpy(rng.standard_normal(s, np.float32)).to(dev)
+                for s in ((B, h1), (C, h1))]
+    mi = head['n_item_mods']
+    gates = np.zeros((B + C, tpm.GATE_PAD), np.float32)
+    gates[:, :mi + 1] = rng.standard_normal((B + C, mi + 1))
+    exact = [torch.from_numpy(a) for a in (
+        rng.standard_normal((B, h1), np.float32), gates[:B],
+        rng.standard_normal((C, mi * h1), np.float32), gates[B:])]
+    if kid == 'K2':
+        return [t.to(dev) for t in exact]
+    return [t.to(dev) for t in (tpm.factor_gated_user(head, *exact[:2])
+                                + tpm.factor_gated_tables(head, *exact[2:]))]
+
+
+PAIR = {'K1': (tpm.pairwise_scores, tpm.pairwise_scores_plain,
+               'pairwise_mlp'),
+        'K2': (*GATED['exact'], 'gated_pairwise_mlp'),
+        'K3': (*GATED['factored'], 'gated_factored_mlp')}
+
+
+@pytest.mark.parametrize('exact', [False, True])
+@pytest.mark.parametrize('int8', [False, True])
+@pytest.mark.parametrize('h1', [1024, 2048])
+@pytest.mark.parametrize('kid', ['K1', 'K2', 'K3'])
+def test_pair_kernels_at_wide_chains(dev, kid, h1, int8, exact):
+    """K1-K3 and K1q-K3q on chains past one 128-row block ([1024, 512, 256]
+    and [2048, 512, 256]) against their plain versions (AGREE, FLIP_TOL and
+    WIDE_MAX_DIFFERING, or the narrow heads' MAX_DIFFERING for a chain that
+    cannot flip), in the block ``block_rows`` chose, whose bytes the card's
+    launch set-up counts as the hand count does."""
+    widths = (h1, 512, 256)
+    head = head_on(wide_head(widths, 'gelu', 'sigmoid',
+                             None if kid == 'K1' else 5, exact=exact), dev)
+    args = pair_args(head, kid, 37, 301, dev)
+    if int8:
+        cal = pair_args(head, kid if kid == 'K1' else 'K2', 16, 64, dev, 13)
+        ranges = (tpm.calibrate_head_ranges(head, *cal) if kid == 'K1' else
+                  tpm.calibrate_head_ranges_gated(head, cal[:2], cal[2:]))
+        head = tpm.quantize_head(head, ranges)
+    kernel, plain, name = PAIR[kid]
+    chain = tpm.kernel_chain(head)
+    full, mode = tuple(int(w) for w in chain['widths']), (int(int8),)
+    rows = tpm.block_rows(name, full, mode)
+    assert rows < 128 or (int8 and kid == 'K1' and h1 == 1024)
+    assert tpm.block_bytes(name, full, rows, mode) \
+        == hand.block_bytes(name, full, rows, mode)
+    out = kernel(head, *args)
+    torch.cuda.synchronize()
+    ref = plain(head, *args, compute_dtype=torch.bfloat16)
+    assert out.shape == (37, 301) and torch.isfinite(out).all()
+    scale = max(1.0, ref.abs().max().item())
+    diff = (out - ref).abs()
+    assert (diff > AGREE * scale).float().mean().item() <= (
+        MAX_DIFFERING if exact else WIDE_MAX_DIFFERING)
+    assert diff.max().item() <= FLIP_TOL * scale
+
+
+@pytest.mark.parametrize('kid', ['K1', 'K2', 'K3', 'K4', 'K5', 'K6'])
+def test_smaller_blocks_give_the_same_scores(dev, kid):
+    """At a flagship-width head (chain [512, 256, 128]; attention d 64, 4
+    heads) a block forced to 64, 32 and 16 pair rows gives the 128-row
+    block's scores bit for bit: every output's sums over K run the same
+    mma steps in the same order whatever the rows."""
+    if kid in ('K1', 'K2', 'K3'):
+        head = head_on(wide_head((512, 256, 128), 'gelu', 'sigmoid',
+                                 None if kid == 'K1' else 5), dev)
+        args = pair_args(head, kid, 37, 301, dev)
+        kernel = PAIR[kid][0]
+
+        def run(rows):
+            return kernel(head, *args, _block_rows=rows)
+    else:
+        head = head_on(tas.build_attention_head(
+            make_model('gelu', 'tanh', 'attention', 64, 4)), dev)
+        users, items, tail = screen_inputs(head, 37, 301, dev)
+        users6, items7 = attention_inputs(head, 37, 301, dev)
+
+        def run(rows):
+            if kid == 'K4':
+                return tas.attention_scores(head, users, items,
+                                            _block_rows=rows)
+            if kid == 'K5':
+                return tas.attention_scores_gram(head, users6, items7,
+                                                 _block_rows=rows)
+            return tac.attention_screen_scores(head, users, items, tail,
+                                               _block_rows=rows)
+    full = run(128)
+    for rows in (64, 32, 16):
+        assert torch.equal(run(rows), full), rows
+
+
+@pytest.mark.parametrize('kid', ['K1', 'K2', 'K3'])
+def test_int8_smaller_blocks_agree(dev, kid):
+    """The int8 modes at forced smaller blocks: the int32 products and every
+    code are the 128-row block's; the last dot's partial sums are per
+    column group of the block, so their float32 order, and at most its last
+    bits, follow the row count (within 1e-6 of the score's scale)."""
+    fusion = 'concatenate' if kid == 'K1' else 'gated'
+    head, args = int8_inputs(make_model('gelu', 'sigmoid', fusion), kid + 'q',
+                             dev)
+    kernel = INT8[kid + 'q'][0]
+    full = kernel(head, *args, _block_rows=128)
+    scale = max(1.0, full.abs().max().item())
+    for rows in (64, 32, 16):
+        assert (kernel(head, *args, _block_rows=rows) - full).abs().max() \
+            .item() <= 1e-6 * scale
+
+
+def d512_head(act_final, heads, dev, exact=False):
+    """The test model's attention head at d 512 on ``dev``; ``exact``
+    replaces its chain by w1 = I (512 -> 512) and the last layer alone,
+    whose products are exact in any order, so that kernel and plain version
+    can differ only where the assembly rounds otherwise or in the last
+    dot's float32 order."""
+    head = tas.build_attention_head(
+        make_model(*act_final, 'attention', 512, heads))
+    if exact:
+        gen = torch.Generator().manual_seed(14)
+        w_last = torch.zeros(512, 128)
+        w_last[:, 0] = torch.randn(512, generator=gen) / 512 ** 0.5
+        head.pop('kernel', None)  # the cached chain of the replaced one
+        head.update(w1=torch.eye(512), h1=512,
+                    b1=torch.randint(-4, 5, (512,), generator=gen) / 16.0,
+                    layers=[(w_last, torch.randn(128, generator=gen))])
+    return head_on(head, dev)
+
+
+def check_attention_kernel(head, kid, dev, max_differing):
+    """One launch of K4, K5 or K6 on a ragged 21 x 150 block in the rows
+    ``check_kernel_fits`` chose, against its plain bf16 version (AGREE,
+    ``max_differing``, FLIP_TOL)."""
+    gram, screen = kid == 'K5', kid == 'K6'
+    assert tas.check_kernel_fits(head, gram, screen) in (64, 32, 16)
+    if screen:
+        check_screen(head, 21, 150, dev, max_differing)
+        return
+    kernel, plain = ATTENTION['gram' if gram else 'stream']
+    users, items = attention_inputs(head, 21, 150, dev)
+    if not gram:
+        users, items = users[:5], items[:6]
+    out = kernel(head, users, items)
+    torch.cuda.synchronize()
+    ref = plain(head, users, items, compute_dtype=torch.bfloat16)
+    assert out.shape == (21, 150) and torch.isfinite(out).all()
+    scale = max(1.0, ref.abs().max().item())
+    diff = (out - ref).abs()
+    assert (diff > AGREE * scale).float().mean().item() <= max_differing
+    assert diff.max().item() <= FLIP_TOL * scale
+
+
+@pytest.mark.parametrize('act_final', [('relu', 'sigmoid'),
+                                       ('gelu', 'tanh')])
+@pytest.mark.parametrize('heads', [4, 8])
+@pytest.mark.parametrize('kid', ['K4', 'K5', 'K6'])
+def test_attention_kernels_at_d512(dev, kid, heads, act_final):
+    """K4, K5 and K6 at d 512 (eight float2 slots per lane, the assembly
+    two users at a time) against their plain versions (AGREE,
+    WIDE_MAX_DIFFERING, FLIP_TOL), in the block ``check_kernel_fits``
+    chose."""
+    check_attention_kernel(d512_head(act_final, heads, dev), kid, dev,
+                           WIDE_MAX_DIFFERING)
+
+
+@pytest.mark.parametrize('heads', [4, 8])
+@pytest.mark.parametrize('kid', ['K4', 'K5', 'K6'])
+def test_attention_assembly_at_d512_is_exact(dev, kid, heads):
+    """At d 512 with a chain that cannot flip (w1 = I, then the last dot),
+    K4, K5 and K6 agree with their plain versions as the narrow heads do
+    (AGREE, MAX_DIFFERING, FLIP_TOL): their fused vectors are the plain
+    version's bit for bit."""
+    check_attention_kernel(d512_head(('gelu', 'tanh'), heads, dev, True),
+                           kid, dev, MAX_DIFFERING)
+
+
+# (fusion, gated variant, precision, the block rows the scorer chooses:
+# tests/test_torch_block_rows.py counts them by hand)
+WIDE_SCORERS = [('concatenate', None, 'bf16', 64),
+                ('gated', 'exact', 'bf16', 64),
+                ('gated', 'factored', 'bf16', 64),
+                ('concatenate', None, 'int8!', 128),
+                ('gated', 'exact', 'int8!', 64),
+                ('gated', 'factored', 'int8!', 64),
+                ('attention', None, 'bf16', 64)]
+
+
+@pytest.mark.parametrize('fusion, variant, precision, rows', WIDE_SCORERS)
+def test_scorer_serves_wide_models_on_card(dev, fusion, variant, precision,
+                                           rows):
+    """CatalogScorer on the card serves heads past one 128-row block (concat
+    and gated, both variants, at hidden widths [1024, 512, 256] in bf16 and
+    int8; attention at d 512): top_k through the kernel in the block rows
+    chosen at construction, against the CPU scorer's float32 (F32_TOL); a
+    chain that fits no block raises ValueError at construction, before any
+    table is built."""
+    kw = dict(n_users=N_USERS, n_items=N_ITEMS, n_tags=N_TAGS,
+              num_numerical_features=NUMERICAL, vision_feature_dim=VISION,
+              language_feature_dim=LANGUAGE, use_contrastive=False,
+              fusion_type=fusion, dropout_rate=0.0, device='cpu')
+    if fusion == 'attention':
+        kw.update(embedding_dim=512, fusion_hidden_dims=(512, 256, 128))
+    else:
+        kw.update(embedding_dim=EMB, fusion_hidden_dims=(1024, 512, 256))
+    model = MultimodalRecommender(
+        **kw, generator=torch.Generator().manual_seed(0))
+    users = np.arange(20, dtype=np.int32)
+    skw = dict(item_chunk=256, user_chunk=16, precision=precision)
+    if variant:
+        skw['gated_variant'] = variant
+    gpu = CatalogScorer(copy.deepcopy(model), store(), **skw, device=dev)
+    cpu = CatalogScorer(model, store(), **skw, device='cpu')
+    assert gpu.block_rows == rows and cpu.block_rows is None
+    np.testing.assert_allclose(gpu.top_k(users, 10)[0],
+                               cpu.top_k(users, 10)[0], atol=F32_TOL)
+    if precision == 'bf16':
+        kw.update(fusion_hidden_dims=(8192,))
+        skw.pop('precision')
+        with pytest.raises(ValueError, match='even at 16 pair rows'):
+            CatalogScorer(MultimodalRecommender(**kw), store(), **skw,
+                          device=dev)
+
+
+def test_probes_match_plain(dev):
+    """P1-P3 at small grids against their plain versions: P1 within 1e-5
+    of the value's scale (one FFMA rounding against two; the card's expf
+    against torch.exp), P2 bit for bit (each product and sum rounded on its
+    own on both sides), P3's int8 modes bit for bit (exact integer
+    products, one rounding per float32 step), its bf16 mode within 2e-2 of
+    the scale (the tensor cores' float32 sums run in another order, which
+    moves a bf16 rounding now and then); one launch each."""
+    x = tvr.chain_inputs(dev)
+    for kind in tvr.KINDS:
+        before = tvr.vpu_chain.launches
+        out = tvr.vpu_chain(x, 24, kind, steps=3)
+        torch.cuda.synchronize()
+        assert tvr.vpu_chain.launches == before + 1
+        ref = tvr.chain_plain(x, 24, kind)
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    w, v = tvr.bcast_inputs(dev)
+    assert torch.equal(tvr.vpu_bcast(w, v, 16, steps=3),
+                       tvr.bcast_plain(w, v, 16))
+    for mode in tmx.MODES:
+        t = tmx.inputs(mode, dev, rows=300)
+        out = tmx.mxu_chain(*t, mode, instances=2)
+        ref = tmx.chain_plain(*t, mode)
+        if mode == 'bf16':
+            assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
+        else:
+            assert torch.equal(out, ref)

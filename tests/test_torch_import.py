@@ -33,6 +33,7 @@ def port_sources():
     which has no JAX."""
     return sorted(Path(port.__path__[0]).rglob('*.py')) + [
         ROOT / 'chip_smoke.py', ROOT / 'tests' / 'test_torch_cuda.py',
+        ROOT / 'tests' / '_torch_smem.py',
         *sorted((ROOT / 'scripts').glob('torch_*.py'))]
 
 
@@ -50,6 +51,17 @@ def test_import_leaves_jax_out():
     bad = [m for m in loaded if m.split('.')[0] in FORBIDDEN]
     assert not bad, bad
     assert 'pixelrec_multimodal_tpu_torch.inference.scorer' in loaded
+    # the Hopper probes P1-P3 stand alone too
+    assert {'pixelrec_multimodal_tpu_torch.probes.int8_mxu',
+            'pixelrec_multimodal_tpu_torch.probes.vpu_roofline'} <= set(loaded)
+
+
+def test_probe_sources_are_checked():
+    """The probes' modules and entry scripts are among the sources held to
+    importing nothing forbidden."""
+    names = {p.name for p in port_sources()}
+    assert {'int8_mxu.py', 'vpu_roofline.py', 'torch_profile_int8_mxu.py',
+            'torch_profile_vpu_roofline.py'} <= names
 
 
 @pytest.mark.parametrize('path', port_sources(), ids=lambda p: p.name)
