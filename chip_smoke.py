@@ -898,8 +898,10 @@ def int8_flip_point(smi, gen, dev) -> dict:
 
 def block_of(kernel_id: str, head: dict) -> dict:
     """The block a kernel takes for ``head`` (its mode's): the pair rows
-    chosen (``ops/pairwise_mlp.py:block_rows``) and the shared memory the
-    kernel's launch set-up counts for them (``<source>_block_bytes``)."""
+    chosen (``ops/pairwise_mlp.py:block_rows``), the shared memory the
+    kernel's launch set-up counts for them (``<source>_block_bytes``) and
+    the tensor-core chain it runs there (``chain_kind``: wgmma or
+    mma.sync)."""
     from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
     chain = tpm.kernel_chain(head)
     base = kernel_id.rstrip('q')
@@ -908,7 +910,8 @@ def block_of(kernel_id: str, head: dict) -> dict:
             else (int(chain['int8']),))
     rows = tpm.block_rows(SOURCES[base], widths, mode)
     return {'block_rows': rows,
-            'block_bytes': tpm.block_bytes(SOURCES[base], widths, rows, mode)}
+            'block_bytes': tpm.block_bytes(SOURCES[base], widths, rows, mode),
+            'chain': tpm.chain_kind(SOURCES[base], rows)}
 
 
 def wide_main_paths(users, smi, dev):
@@ -917,7 +920,8 @@ def wide_main_paths(users, smi, dev):
     and one timed call (``drive_top_k``), the launch counts set to 0 just
     before it: bench.py's flagship at embedding_dim WIDE_EMB (attention,
     'stream', K4, then the token-0 screen through K6, with K4 and K6 held to
-    their plain versions at the timed block), and at WIDE_HIDDEN (concat
+    their plain versions at the timed block and K5 on random rows of the
+    same head), and at WIDE_HIDDEN (concat
     K1 and gated exact K2, in bf16 and in int8, K1q and K2q). Each prints
     the block rows its scorer chose and its top-50 overlap with the plain
     version on 64 users (>= MIN_OVERLAP)."""
@@ -933,7 +937,7 @@ def wide_main_paths(users, smi, dev):
     scorer._ensure_screen('token0')
     torch.cuda.synchronize()
     head = scorer._head
-    blocks = {kid: block_of(kid, head) for kid in ('K4', 'K6')}
+    blocks = {kid: block_of(kid, head) for kid in ('K4', 'K5', 'K6')}
     rows = {kid: b['block_rows'] for kid, b in blocks.items()}
     if rows['K4'] != scorer.block_rows:
         raise AssertionError(f'K4 rows {rows} != the scorer\'s '
@@ -945,6 +949,8 @@ def wide_main_paths(users, smi, dev):
                          for t in scorer._scan_tables))
     k4 = user_item_call(tas.attention_scores, 5)
     k4_plain = user_item_call(tas.attention_scores_plain, 5)
+    k5 = user_item_call(tas.attention_scores_gram, 6)
+    k5_plain = user_item_call(tas.attention_scores_gram_plain, 6)
     k6, k6_plain = (screen_call(tac.attention_screen_scores),
                     screen_call(tac.attention_screen_scores_plain))
     it_k, it_vo, tail = (scorer._item_fast[2], scorer._item_fast[3],
@@ -954,7 +960,10 @@ def wide_main_paths(users, smi, dev):
     exact = random_attention_head(WIDE_EMB, 4, (WIDE_EMB,), 'gelu', 'tanh',
                                   gen, dev)
     exact['w1'] = torch.eye(WIDE_EMB, device=dev)
-    eu, ei = random_attention_rows(exact, TIME_B, 2048, gen, dev, False)
+    eu, ei = random_attention_rows(exact, TIME_B, 2048, gen, dev, True)
+    # K5 on random rows of the d 512 head (the stream scorer builds no
+    # scalar tables)
+    gu, gi = random_attention_rows(head, TIME_B, 2048, gen, dev, True)
     from pixelrec_multimodal_tpu_torch.ops.attention_cascade import (
         compute_screen_tail,
     )
@@ -968,7 +977,11 @@ def wide_main_paths(users, smi, dev):
                 ('K6', k6, k6_plain, head, side,
                  (it_k[:TIME_C], it_vo[:TIME_C], tail[:TIME_C]),
                  WIDE_MAX_DIFFERING, 'd 512'),
+                ('K5', k5, k5_plain, head, gu, gi, WIDE_MAX_DIFFERING,
+                 'd 512, random rows'),
                 ('K4', k4, k4_plain, exact, eu[:5], ei[:6],
+                 MAX_DIFFERING_PER_LAYER, 'd 512, w1 = I'),
+                ('K5', k5, k5_plain, exact, eu, ei,
                  MAX_DIFFERING_PER_LAYER, 'd 512, w1 = I'),
                 ('K6', k6, k6_plain, exact, eu[:5],
                  (ei[2], ei[3], compute_screen_tail(exact, ei)),
@@ -977,9 +990,10 @@ def wide_main_paths(users, smi, dev):
             # intermediates: slices of 256 items at d 512
             err, frac, scale = kernel_diff(kernel, plain, h, u, items,
                                            slice_items=256)
+            rows_h = tas.check_kernel_fits(h, kid == 'K5', kid == 'K6')
             emit('kernel_vs_plain', kernel=kid, widths=what,
-                 B=u[0].shape[0], C=items[0].shape[0],
-                 block_rows=tas.check_kernel_fits(h, False, kid == 'K6'),
+                 B=u[0].shape[0], C=items[0].shape[0], block_rows=rows_h,
+                 chain=tpm.chain_kind(SOURCES[kid], rows_h),
                  max_abs_err=err, tol=FLIP_TOL * scale,
                  share_over_agree=frac, agree=AGREE * scale, max_share=gate)
             if not (err <= FLIP_TOL * scale and frac <= gate):
@@ -1007,7 +1021,7 @@ def wide_main_paths(users, smi, dev):
     if counts != expected or not np.isfinite(cv).all():
         raise AssertionError(f'main_path_attention_d512_token0: launches '
                              f'{counts} or output malformed')
-    del scorer, model, store, side, it_k, it_vo, tail, exact, eu, ei
+    del scorer, model, store, side, it_k, it_vo, tail, exact, eu, ei, gu, gi
     torch.cuda.empty_cache()
 
     # concat and gated at [1024, 512, 256], bf16 and int8
@@ -1367,7 +1381,7 @@ def main() -> int:
             emit('kernel_vs_plain', kernel=kid, widths='flagship', B=200,
                  C=8000, max_abs_err=err, tol=tol,
                  share_over_agree=frac, agree=AGREE * scale,
-                 max_share=max_share)
+                 max_share=max_share, **block_of(kid, ahead))
             if not (err <= tol and frac <= max_share):
                 raise AssertionError(f'{kid} flagship error {err} > {tol} '
                                      f'or share {frac} > {max_share}')

@@ -27,12 +27,15 @@ LayerNorm per token and the MLP. Two kernels compute it:
     precomputed component means and Grams plus per-pair user x item
     cross-Grams, and one pass combines the component vectors.
 
-Both then run the Dense chain of ``csrc/mlp_chain.cuh`` with the first
-Dense ``w1`` as its layer 0. CUDA tensors go through a kernel, CPU tensors
-through its plain version in float32. The plain versions repeat their
-kernel's order of float32 operations (``_seq_dot`` and ``_warp_sum`` are
-the kernels' sums), so with ``compute_dtype=torch.bfloat16`` they round
-where the kernels do and are what the kernels are held against on the card.
+Both then run the Dense chain with the first Dense ``w1`` as its layer 0:
+the wgmma chain of ``csrc/mlp_chain_wgmma.cuh`` (weights packed by
+``wgmma_weights``) in blocks of 128 and 64 pair rows, the mma.sync chain of
+``csrc/mlp_chain.cuh`` in blocks of 32 and 16. CUDA tensors go through a
+kernel, CPU tensors through its plain version in float32. The plain
+versions repeat their kernel's order of float32 operations (``_seq_dot``
+and ``_warp_sum`` are the kernels' sums), so with
+``compute_dtype=torch.bfloat16`` they round where the kernels do and are
+what the kernels are held against on the card.
 
 Tables are d wide (the JAX package pads them to 128 lanes): per item
 ``raw``, ``q`` and ``k`` [Mi*d], ``vo`` and ``sexp`` [Mi*H*d] (index
@@ -64,6 +67,7 @@ from .pairwise_mlp import (
     kernel_chain,
     pack_mlp_chain,
     pad2,
+    wgmma_weights,
 )
 
 LN_EPS = 1e-6      # Flax nn.LayerNorm's default
@@ -617,8 +621,11 @@ def _launch_attention(name: str, head: dict, user_side, item_side,
     out = torch.empty((B, C), dtype=f32, device=device)
     if B == 0 or C == 0:
         return out
-    _launch(name, out, tuple(user_side) + tuple(item_side) + ln, chain, B, C,
-            (H, Mi), mode=(H, Mi), forced=forced)
+    tensors = tuple(user_side) + tuple(item_side) + ln
+    if name != 'attention_screen_mlp':  # K4 and K5 take the wgmma chain's
+        tensors += (wgmma_weights(chain),)
+    _launch(name, out, tensors, chain, B, C, (H, Mi), mode=(H, Mi),
+            forced=forced)
     return out
 
 
@@ -662,7 +669,7 @@ def attention_scores_gram(head: dict, user_side: Sequence[torch.Tensor],
     pair's cross-Grams, (1 + H)*Mi*H + H*(Mi*H + Mi) floats, in shared
     memory, so many heads or a wide embedding take a block of fewer pair
     rows than K4's (``check_kernel_fits``; at Mi = 5 and the chain [512,
-    256, 128], d 128 and 4 heads: 64 rows).
+    256, 128], d 256 and 4 heads: 64 rows).
     ``attention_scores_gram.launches`` counts kernel launches.
     """
     _check_attention_head(head)

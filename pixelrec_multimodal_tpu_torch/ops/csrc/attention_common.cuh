@@ -6,16 +6,19 @@
 // the tile's user rows, the per-pair logits and softmax coefficients (K6:
 // token 0's half only, the ITEM_TOKENS flag), token 0's attention input, the
 // warp sums and LayerNorm, and the launch set-up. Each kernel then forms its
-// pairs' fused d-vectors its own way, writes them as bf16 into buf_a and
-// calls run_chain (mlp_chain.cuh) with the first Dense w1 as the chain's
-// layer 0.
+// pairs' fused d-vectors its own way, writes them as bf16 into buf_a
+// (FusedRows: K4 and K5 in the wgmma chain's swizzled layout at 128 and 64
+// rows) and runs the chain with the first Dense w1 as its layer 0: K4 and
+// K5 run_chain_of (mlp_chain_wgmma.cuh: wgmma at 128 and 64 rows, run_chain
+// below), K6 run_chain (mlp_chain.cuh).
 //
 // Block: the chain's TB users x 16 items (TB = 8, 4, 2 or 1: 128 to 16 pair
 // rows, the largest whose block fits by <name>_block_bytes;
 // ops/pairwise_mlp.py:block_rows), 16 warps. Shared memory is the chain's (two
 // activation buffers and the weight ring). Until the assembly ends, buffer B
 // and the ring behind it are the assembly's scratch (buffer B is first
-// written by the chain's layer 0):
+// written by the chain's layer 0), and for K5 buffer A too until its
+// combination pass writes the fused vectors:
 //   U    [TB][urow]   the tile's user rows: raw, q, k, vo_0 .. vo_{H-1} (d
 //                     each, vs = d + 4 apart, so that float4 reads of
 //                     different vectors fall in different banks), suu
@@ -25,6 +28,9 @@
 //                     per item token t and head h the pair (a, b) of the
 //                     stream form
 //   X    [ROWS][nx]   K5 only: cross-Grams, later the combination weights
+//   S    [ROWS][ng]   K5 only: the statistics' partial sums and each token's
+//                     mean and 1/sigma, at the start of buffer A where they
+//                     fit there (stats_in_a), else after X
 // Every float32 operation of the assembly is an unfused __f*_rn intrinsic in
 // the order the module's plain version (ops/attention_scorer.py) takes, so
 // kernel and plain version round the fused vector to the same bf16 values.
@@ -37,6 +43,7 @@
 #pragma once
 
 #include "mlp_chain.cuh"
+#include "mlp_chain_wgmma.cuh"
 
 namespace attn {
 
@@ -49,6 +56,7 @@ constexpr int MAX_D = 512;       // 8 float2 slots per lane
 constexpr float LN_EPS = 1e-6f;  // Flax nn.LayerNorm
 constexpr float EXP_CLAMP = 80.f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_XG = 4;  // K5's cross-Gram item vectors a thread, at most
 static_assert(WARPS == TC, "the assembly runs one warp per item of the tile");
 
 struct Dims {
@@ -59,6 +67,8 @@ struct Dims {
   int ncoef;        // coefficient row stride, odd (no bank conflicts): the
                     // item tokens' (a, b) too unless the kernel is K6
   int nx;           // K5 row stride of X, odd; 0 for K4
+  int ng;           // K5 row stride of S, odd; 0 for K4
+  int xg;           // K5 cross-Gram item vectors per thread
 };
 
 // Offsets within a user row and a coefficient row.
@@ -94,6 +104,22 @@ inline cudaError_t make_dims(int d, int H, int Mi, bool gram, Dims* D,
     const int n_x = n_vo * (1 + H) + (n_vo + Mi) * H;  // cross-Grams
     const int n_w = 2 + H + n_vo + Mi;                 // combination weights
     D->nx = (n_x > n_w ? n_x : n_w) | 1;
+    // S: token 0's inner sums over the item Gram (n_vo) and its cross-Gram
+    // sums (1 + H), then mu and 1/sigma per token
+    D->ng = (n_vo + 1 + H + 2 * (Mi + 1)) | 1;
+    // cross-Gram item vectors per thread: the most whose cost (rounds of
+    // the block's threads times the vectors each holds) is within a
+    // quarter of the least, as more vectors let each load feed more
+    // products
+    int cost[MAX_XG + 1], least = 0;
+    for (int g = 1; g <= MAX_XG; ++g) {
+      const int units = TC * ((n_vo + g - 1) / g +
+                              H * ((2 * n_vo + Mi + g - 1) / g));
+      cost[g] = (units + THREADS - 1) / THREADS * g;
+      if (!least || cost[g] < least) least = cost[g];
+    }
+    for (int g = 1; g <= MAX_XG; ++g)
+      if (4 * cost[g] <= 5 * least) D->xg = g;
   }
   D->urow = (u_suu_off(*D) + SUU_PAD + D->n_usc + 3) / 4 * 4;
   D->ncoef = (H * (Mi + 1) + (item_tokens ? 2 * Mi * H : 0)) | 1;
@@ -245,32 +271,57 @@ __device__ __forceinline__ void softmax_coefs(const float* U, float* coef,
   }
 }
 
+// Where the assembly writes entry k of pair row r's fused vector in buf_a:
+// row-major rows of `stride` elements for run_chain, the swizzled blocks of
+// run_chain_wgmma (SW: 128 and 64 rows).
+template <int TB, bool SW>
+struct FusedRows {
+  __nv_bfloat16* buf;
+  int stride;
+  __device__ __forceinline__ __nv_bfloat16* at(int r, int k) const {
+    if constexpr (SW) return buf + sw_offset<Tile<TB>::ROWS>(r, k);
+    else return buf + r * stride + k;
+  }
+};
+
 // One warp's pairs of its item: zero rows for an item past C (never
 // written out), and the LayerNorm affine plus the bf16 rounding of a fused
 // vector held as J float2 slots per lane (slot s = lane + 32 j covers
-// entries 2s, 2s + 1).
-template <int TB>
-__device__ __forceinline__ void zero_rows(__nv_bfloat16* buf_a, int stride_a,
-                                          int ci, int d) {
+// entries 2s, 2s + 1), entry k written at at(k).
+template <int TB, bool SW>
+__device__ __forceinline__ void zero_rows_at(const FusedRows<TB, SW>& out,
+                                             int ci, int d) {
   const int lane = threadIdx.x & 31;
   for (int bu = 0; bu < TB; ++bu)
     for (int k = lane; k < d; k += 32)
-      buf_a[(bu * TC + ci) * stride_a + k] = __float2bfloat16_rn(0.f);
+      *out.at(bu * TC + ci, k) = __float2bfloat16_rn(0.f);
+}
+template <int TB>
+__device__ __forceinline__ void zero_rows(__nv_bfloat16* buf_a, int stride_a,
+                                          int ci, int d) {
+  zero_rows_at(FusedRows<TB, false>{buf_a, stride_a}, ci, d);
 }
 
-template <int J>
-__device__ __forceinline__ void store_fused(const float2 (&f)[J],
-                                            float2 (&g)[J], float2 (&be)[J],
-                                            __nv_bfloat16* row, int half) {
+template <int J, typename At>
+__device__ __forceinline__ void store_fused_at(const float2 (&f)[J],
+                                               float2 (&g)[J],
+                                               float2 (&be)[J], At at,
+                                               int half) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int s = lane + 32 * j;
     if (s < half)
-      *reinterpret_cast<__nv_bfloat162*>(row + 2 * s) = __floats2bfloat162_rn(
+      *reinterpret_cast<__nv_bfloat162*>(at(2 * s)) = __floats2bfloat162_rn(
           __fadd_rn(__fmul_rn(f[j].x, g[j].x), be[j].x),
           __fadd_rn(__fmul_rn(f[j].y, g[j].y), be[j].y));
   }
+}
+template <int J>
+__device__ __forceinline__ void store_fused(const float2 (&f)[J],
+                                            float2 (&g)[J], float2 (&be)[J],
+                                            __nv_bfloat16* row, int half) {
+  store_fused_at(f, g, be, [row](int k) { return row + k; }, half);
 }
 
 template <int J>
@@ -389,19 +440,39 @@ __device__ __forceinline__ void layer_norm_add(const float2 (&y)[J],
   }
 }
 
+// K5's statistics scratch S lies at the start of buffer A where its rows
+// fit there (buffer A is free until the combination pass writes it), else
+// after X.
+__host__ __device__ __forceinline__ bool stats_in_a(const Dims& D,
+                                                   const Chain& ch) {
+  return 2 * D.ng <= ch.stride_a;
+}
+
+// The part of the assembly's scratch (K5's statistics included where they
+// do not fit in buffer A) that passes buffer B, in bytes.
+inline size_t scratch_past_b(const Chain& ch, const Dims& D, int rows) {
+  const size_t buf_b = (size_t)rows * ch.stride_b * 2;
+  const size_t need = scratch_bytes(D, rows) +
+                      (stats_in_a(D, ch) ? 0 : (size_t)rows * D.ng * 4);
+  return need > buf_b ? need - buf_b : 0;
+}
+
 // Shared memory of a block of `rows` pair rows: the chain's, with the
 // assembly's scratch counted from buffer B on (only what passes buffer B
-// grows the ring).
+// grows the ring); K6's on the mma.sync chain, K4's and K5's (WgChain) on
+// the wgmma chain at 128 and 64 rows.
 inline size_t attention_smem_bytes(const Chain& ch, const Dims& D, int rows) {
-  const size_t buf_b = (size_t)rows * ch.stride_b * 2;
-  const size_t need = scratch_bytes(D, rows);
-  return smem_bytes(ch, need > buf_b ? need - buf_b : 0, rows);
+  return smem_bytes(ch, scratch_past_b(ch, D, rows), rows);
+}
+inline size_t attention_smem_bytes(const WgChain& ch, const Dims& D,
+                                   int rows) {
+  return smem_bytes_for(ch, scratch_past_b(ch, D, rows), rows);
 }
 
 // Launch set-up: the chain's; the grid puts the user tiles on x, so the
 // blocks of one item tile run together and the tile stays in L2.
-template <typename Kernel>
-inline cudaError_t prepare_attention(Kernel kernel, const Chain& ch,
+template <typename Kernel, typename ChainT>
+inline cudaError_t prepare_attention(Kernel kernel, const ChainT& ch,
                                      const Dims& D, int B, int C, int rows,
                                      dim3* grid, size_t* smem) {
   *smem = attention_smem_bytes(ch, D, rows);

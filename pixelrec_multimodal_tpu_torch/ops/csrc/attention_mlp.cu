@@ -32,9 +32,13 @@
 // bound by tensor-core operations; the bytes (each table row read once) are
 // far below either.
 //
-// Design: the block and the chain are K1's (8 users x 16 items, 16 warps,
-// the two activation buffers and the weight ring: 226,816 B of shared memory
-// at the flagship widths). The tile's user rows (15.5 KB) and the per-pair
+// Design: the block is K1's (8 users x 16 items, 16 warps, two activation
+// buffers and a weight ring), the chain the wgmma chain of
+// mlp_chain_wgmma.cuh at 128 and 64 rows (229,440 B of shared memory at the
+// flagship widths: buffers of 64 and 512 swizzled columns, w1's 512 outputs
+// in B and the later layers over them, and a ring of five 16 KB stages) and
+// K1's mma.sync chain at 32 and 16. The tile's user rows
+// (15.5 KB) and the per-pair
 // coefficients (33 KB) fit in buffer B, which the chain first writes in its
 // layer 0; the 16 items' tables (228 KB) do not, and stream from global
 // memory: one warp per item, lanes across d (a float2 each), each item row
@@ -44,7 +48,8 @@
 // head). The grid runs the user tiles of an item tile
 // together, so an item tile is read from HBM once and from L2 after. A
 // wider head takes a block of 4, 2 or 1 users (d 512 at the flagship chain:
-// 4 users, 159,232 B), and at d past 256 the assembly holds two users' vectors
+// 4 users, 196,672 B, every layer over its input in one 512-column
+// buffer), and at d past 256 the assembly holds two users' vectors
 // at a time and reads each item row once per pair of users
 // (attention_common.cuh).
 
@@ -55,21 +60,21 @@ namespace {
 using namespace pairwise;
 using namespace attn;
 
-// The fused vectors of warp ci's TB pairs into buf_a, as bf16, UB users at
-// a time.
-template <int J, int TB>
+// The fused vectors of warp ci's TB pairs into buf_a (out), as bf16, UB
+// users at a time.
+template <int J, int TB, bool SW>
 __device__ __forceinline__ void stream_assemble(
     const float* U, const float* coef, const Dims& D,
     const float* __restrict__ it_raw, const float* __restrict__ it_vo,
     const float* __restrict__ it_sexp, const float* __restrict__ ln_scale,
-    const float* __restrict__ ln_bias, __nv_bfloat16* buf_a, int stride_a,
-    int c0, int C) {
+    const float* __restrict__ ln_bias, const FusedRows<TB, SW>& out, int c0,
+    int C) {
   constexpr int UB = assembly_users<J, TB>(), R = row_buffers<J>();
   constexpr bool AHEAD = R >= MAX_HEADS;
   const int ci = threadIdx.x >> 5, c = c0 + ci;
   const int d = D.d, H = D.H, Mi = D.Mi, half = d / 2;
   if (c >= C) {
-    zero_rows<TB>(buf_a, stride_a, ci, d);
+    zero_rows_at(out, ci, d);
     return;
   }
   const float inv_d = __fdiv_rn(1.f, (float)d);
@@ -140,9 +145,10 @@ __device__ __forceinline__ void stream_assemble(
     load_f2(g, ln_scale, half);
     load_f2(be, ln_bias, half);
 #pragma unroll
-    for (int bu = 0; bu < UB; ++bu)
-      store_fused(f[bu], g, be, buf_a + ((b0 + bu) * TC + ci) * stride_a,
-                  half);
+    for (int bu = 0; bu < UB; ++bu) {
+      const int r = (b0 + bu) * TC + ci;
+      store_fused_at(f[bu], g, be, [&](int k) { return out.at(r, k); }, half);
+    }
   }
 }
 
@@ -158,12 +164,14 @@ attention_kernel(const float* __restrict__ u_raw, const float* __restrict__ u_q,
                  const float* __restrict__ it_dm,
                  const float* __restrict__ ln_scale,
                  const float* __restrict__ ln_bias,
+                 const __nv_bfloat16* __restrict__ w_sw,
                  const __nv_bfloat16* __restrict__ w,
                  const float* __restrict__ bias,
                  const float* __restrict__ w_last,
                  const float* __restrict__ b_last, float* __restrict__ out,
-                 int B, int C, Dims D, Chain ch, int act, int fin) {
-  extern __shared__ __align__(128) unsigned char smem[];
+                 int B, int C, Dims D, WgChain ch, int act, int fin) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  constexpr bool SW = wgmma_rows<TB>();
   __nv_bfloat16* buf_a = reinterpret_cast<__nv_bfloat16*>(smem);
   int u0, c0;
   tile_origin<TB>(&u0, &c0);
@@ -177,16 +185,17 @@ attention_kernel(const float* __restrict__ u_raw, const float* __restrict__ u_q,
   softmax_coefs<true, TB>(U, coef, D, it_dm, c0, C);
   __syncthreads();
   stream_assemble<J, TB>(U, coef, D, it_raw, it_vo, it_sexp, ln_scale,
-                         ln_bias, buf_a, ch.stride_a, c0, C);
+                         ln_bias, FusedRows<TB, SW>{buf_a, ch.stride_a}, c0,
+                         C);
   __syncthreads();
-  run_chain<TB>(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
-                fin);
+  run_chain_of<TB>(buf_a, w, w_sw, bias, w_last, b_last, out, B, C, u0, c0,
+                   ch, act, fin);
 }
 
 template <int J>
 cudaError_t launch(const void* const* p, const void* w, const void* bias,
                    const void* w_last, const void* b_last, void* out, int B,
-                   int C, const Dims& D, const Chain& ch, int act, int fin,
+                   int C, const Dims& D, const WgChain& ch, int act, int fin,
                    int rows, cudaStream_t stream) {
   return dispatch_rows(rows, [&](auto tb) {
     constexpr int TB = decltype(tb)::value;
@@ -198,7 +207,8 @@ cudaError_t launch(const void* const* p, const void* w, const void* bias,
     const float* const* f = reinterpret_cast<const float* const*>(p);
     attention_kernel<J, TB><<<grid, THREADS, smem, stream>>>(
         f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
-        f[11], f[12], static_cast<const __nv_bfloat16*>(w),
+        f[11], f[12], static_cast<const __nv_bfloat16*>(p[13]),
+        static_cast<const __nv_bfloat16*>(w),
         static_cast<const float*>(bias), static_cast<const float*>(w_last),
         static_cast<const float*>(b_last), static_cast<float*>(out), B, C, D,
         ch, act, fin);
@@ -214,8 +224,10 @@ extern "C" {
 // [B, d], u_vo [B, H*d], u_suu [B, 8] and the item tables it_raw, it_q,
 // it_k [C, Mi*d], it_vo, it_sexp [C, Mi*H*d], it_dm [C, H*Mi*2], with the
 // LayerNorm affine ln_scale, ln_bias [d]; all f32, row-major, 16-byte
-// aligned. The chain arguments (w, bias, w_last, b_last, n_hidden, widths,
-// act, fin, rows) are pairwise_mlp_forward's, with widths[0] = d and w1 as
+// aligned; then w_sw, the hidden weights packed for the wgmma chain
+// (mlp_chain_wgmma.cuh; read at 128 and 64 rows, w below). The chain
+// arguments (w, bias, w_last, b_last, n_hidden, widths, act, fin, rows) are
+// pairwise_mlp_forward's, with widths[0] = d and w1 as
 // layer 0 (a chain with no hidden layer takes the last dot on the fused
 // vector itself: the assembly alone, for measurements). Returns cudaSuccess
 // or the first CUDA error (launch included); shapes the kernel does not
@@ -227,19 +239,21 @@ int attention_mlp_forward(const void* u_raw, const void* u_q, const void* u_k,
                           const void* it_k, const void* it_vo,
                           const void* it_sexp, const void* it_dm,
                           const void* ln_scale, const void* ln_bias,
-                          const void* w, const void* bias, const void* w_last,
-                          const void* b_last, void* out, int B, int C,
-                          int n_hidden, const void* widths, int act, int fin,
-                          int H, int Mi, int rows, void* stream) {
-  Chain ch;
-  cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
+                          const void* w_sw, const void* w, const void* bias,
+                          const void* w_last, const void* b_last, void* out,
+                          int B, int C, int n_hidden, const void* widths,
+                          int act, int fin, int H, int Mi, int rows,
+                          void* stream) {
+  WgChain ch;
+  cudaError_t err = make_chain_for(rows, n_hidden,
+                                   static_cast<const int*>(widths), &ch);
   if (err != cudaSuccess) return err;
   Dims D;
   err = make_dims(ch.width[0], H, Mi, false, &D);
   if (err != cudaSuccess) return err;
-  const void* p[13] = {u_raw, u_q,     u_k,   u_vo,     u_suu,
+  const void* p[14] = {u_raw, u_q,     u_k,   u_vo,     u_suu,
                        it_raw, it_q,   it_k,  it_vo,    it_sexp,
-                       it_dm,  ln_scale, ln_bias};
+                       it_dm,  ln_scale, ln_bias, w_sw};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (slots_per_lane(D.d)) {
     case 1:
@@ -262,8 +276,10 @@ int attention_mlp_forward(const void* u_raw, const void* u_q, const void* u_k,
 // shapes the kernel does not take.
 int attention_mlp_block_bytes(int n_hidden, const void* widths, int H, int Mi,
                               int rows) {
-  Chain ch;
-  cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
+  if (!valid_rows(rows)) return -(int)cudaErrorInvalidValue;
+  WgChain ch;
+  cudaError_t err = make_chain_for(rows, n_hidden,
+                                   static_cast<const int*>(widths), &ch);
   if (err == cudaSuccess) {
     Dims D;
     err = make_dims(ch.width[0], H, Mi, false, &D);
@@ -271,5 +287,8 @@ int attention_mlp_block_bytes(int n_hidden, const void* widths, int H, int Mi,
   }
   return -(int)err;
 }
+
+// The chain a block of `rows` pair rows runs: 2 wgmma, 1 mma.sync.
+int attention_mlp_chain_kind(int rows) { return chain_kind(rows); }
 
 }  // extern "C"

@@ -695,6 +695,41 @@ def kernel_chain(head: dict,
     }
 
 
+WGMMA_TILE = 64  # csrc/mlp_chain_wgmma.cuh: packed weight tiles of 64 x 64
+
+
+def wgmma_weights(chain: dict) -> torch.Tensor:
+    """The bf16 chain's hidden weights packed for the wgmma chain of
+    ``csrc/mlp_chain_wgmma.cuh`` (K4 and K5 at blocks of 128 and 64 pair
+    rows): per layer, W^T [N, K] zero-padded to multiples of 64 and cut
+    into tiles of 64 columns x 64 rows of K in the order (k slice, column
+    group), each tile's rows 128 bytes whose 16-byte chunks are swizzled by
+    the row (stored chunk = chunk ^ n % 8), the layout the kernel's
+    descriptors read. Built once per chain dict (``chain['w_wgmma']``)."""
+    packed = chain.get('w_wgmma')
+    if packed is not None:
+        return packed
+    w, t = chain['w'], WGMMA_TILE
+    widths = [int(x) for x in chain['widths']]
+    rows = torch.arange(t, device=w.device) % 8
+    source = torch.arange(8, device=w.device)[None, :] ^ rows[:, None]
+    parts, off = [], 0
+    for k, n in zip(widths[:-1], widths[1:]):
+        wt = torch.zeros(_round_up(n, t), _round_up(k, t), dtype=w.dtype,
+                         device=w.device)
+        wt[:n, :k] = w[off:off + k * n].view(k, n).t()
+        off += k * n
+        # [column group, n, k slice, chunk, element]
+        tiles = wt.view(wt.shape[0] // t, t, wt.shape[1] // t, 8, 8)
+        tiles = torch.gather(tiles, 3, source[None, :, None, :, None]
+                             .expand_as(tiles))
+        parts.append(tiles.permute(2, 0, 1, 3, 4).reshape(-1))
+    packed = (torch.cat(parts) if parts
+              else torch.zeros(8, dtype=w.dtype, device=w.device))
+    chain['w_wgmma'] = packed.contiguous()
+    return chain['w_wgmma']
+
+
 def _kernel_chain_int8(head: dict, device: torch.device) -> dict:
     """The int8 mode's tensors (``csrc/mlp_chain_int8.cuh``):
 
@@ -825,6 +860,27 @@ def block_bytes(name: str, widths: Sequence[int], rows: int,
         fn.restype = ctypes.c_int
     wd = np.asarray(widths, np.int32)
     return fn(len(wd) - 1, wd.ctypes.data, *mode, rows)
+
+
+CHAIN_KINDS = {1: 'mma.sync', 2: 'wgmma'}
+
+
+def chain_kind(name: str, rows: int) -> str:
+    """The tensor-core chain ``csrc/<name>.cu`` runs in a block of ``rows``
+    pair rows, as its library reports it (``<name>_chain_kind``):
+    'wgmma' (``csrc/mlp_chain_wgmma.cuh``; K4 and K5 at 128 and 64 rows)
+    or 'mma.sync' (``csrc/mlp_chain.cuh``; every kernel without the
+    export). Loads the kernel's library."""
+    lib = _build.load(name)
+    fn = getattr(lib, f'{name}_chain_kind', None)
+    if fn is None:
+        return CHAIN_KINDS[1]
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    kind = fn(rows)
+    if kind not in CHAIN_KINDS:
+        raise ValueError(f'{name}: no chain for {rows} pair rows '
+                         f'({_error_string(lib, -kind)})')
+    return CHAIN_KINDS[kind]
 
 
 def _what(name: str, widths: Sequence[int], mode: Tuple[int, ...]) -> str:

@@ -9,10 +9,12 @@
    cut after the assembly (h1 512 -> 1), after the first hidden layer
    (512 -> 256 -> 1) and whole (512 -> 256 -> 128 -> 1). The differences
    between the three times are the cost of each hidden layer. The attention
-   kernels (K4 stream, K5 gram; d 64, 4 heads, Mi 5) the same way: cut
-   after the assembly (the last dot on the fused vector, 64 -> 1), after
-   w1 (64 -> 512 -> 1) and whole. CUDA-event timing, mean of 20 launches
-   after a warm-up.
+   kernels (K4 stream, K5 gram, K6 token-0 screen; d 64, 4 heads, Mi 5)
+   the same way: cut after the assembly (the last dot on the fused vector,
+   64 -> 1), after w1 (64 -> 512 -> 1) and whole, then each kernel's chain
+   (whole less the cut after the assembly: the chain's products, epilogues
+   and last dot) with its ms and TFLOP/s and the chain it runs (wgmma or
+   mma.sync). CUDA-event timing, mean of 20 launches after a warm-up.
 2. ``profile``: one ``CatalogScorer.top_k`` call at bench.py's geometry
    (chip_smoke.py's flagship model, 8,192 users, 65,536 items, k=50) under
    ``torch.profiler``, for the concat model, for its gated twin in each
@@ -110,8 +112,13 @@ def time_attention_layers(dev):
         attention_scores,
         attention_scores_gram,
     )
+    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
+        chain_kind,
+        kernel_chain,
+    )
     gen = torch.Generator().manual_seed(SEED + 4)
     d, heads = 64, 4
+    times = defaultdict(dict)
     for widths in ((), CHAINS[0], CHAINS[-1]):
         head = random_attention_head(d, heads, widths or CHAINS[0], 'relu',
                                      'sigmoid', gen, dev)
@@ -123,6 +130,8 @@ def time_attention_layers(dev):
                 'w_last': torch.randn(d, generator=gen).to(dev)
                 .bfloat16().float(),
                 'b_last': torch.zeros(1, device=dev), 'act': 0, 'final': 0}
+        else:  # built once, as a scorer's
+            head['kernel'] = kernel_chain(head)
         users, items = random_attention_rows(head, B, C, gen, dev, True)
         tail = compute_screen_tail(head, items)
         chain = (d,) + tuple(widths)
@@ -136,6 +145,14 @@ def time_attention_layers(dev):
                              reps=20)
             emit('layers', kernel=kernel, widths=list(chain), B=B, C=C,
                  ms=ms, mma_tflops=B * C * mma / (ms * 1e-3) / 1e12)
+            times[kernel][len(widths)] = (ms, mma)
+    names = {'K4': 'attention_mlp', 'K5': 'attention_gram_mlp',
+             'K6': 'attention_screen_mlp'}
+    for kernel, by_depth in times.items():
+        (whole, mma), (cut, _) = by_depth[len(CHAINS[-1])], by_depth[0]
+        emit('chain', kernel=kernel, widths=[d, *CHAINS[-1]], B=B, C=C,
+             chain=chain_kind(names[kernel], 128), ms=whole - cut,
+             tflops=B * C * mma / ((whole - cut) * 1e-3) / 1e12)
 
 
 def time_layers_int8(dev):

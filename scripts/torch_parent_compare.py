@@ -17,13 +17,22 @@ flagship attention head (d 64, 4 heads) for K4, K5 and K6 (with its
 screen tail), and the int8 modes of K1-K3 on the same rows with the
 flagship chain quantized. Prints one JSON
 line per measurement, the card's ``nvidia-smi`` name and power limit
-first: whether the scores are equal bit for bit, then each kernel's mean
-of 20 launches (CUDA events) in turns, other, this, this, other. The C
-interface of the two builds' entry points must be the same, but for
-the block's pair rows: a checkout whose kernels take none (every block 128
-rows) is called without them, with this checkout's count of the block's
-shared memory, and only where that count chooses 128 rows. Exits 2
-without a CUDA device.
+first: whether the scores are equal bit for bit; for K4 and K5, whose
+chains may differ between the checkouts (the wgmma chain against the
+mma.sync chain), the kernel-against-plain gates of ``chip_smoke.py``
+between the two builds' scores (every pair within KERNEL_TOL of the score
+scale, at most MAX_DIFFERING_PER_LAYER of the pairs per hidden layer past
+AGREE) and the mean top-50 overlap of each user's row (>= MIN_OVERLAP);
+then each kernel's mean of 20 launches (CUDA events) in turns, other,
+this, this, other, and this checkout's time over the other's. The C
+interface of the two builds' entry points must be the same, but for the
+block's pair rows and K4's and K5's packed weights: a checkout whose
+kernels take no rows (every block 128 rows) is called without them, with
+this checkout's count of the block's shared memory, and only where that
+count chooses 128 rows; one whose K4 and K5 take no packed weights (no
+``<name>_chain_kind``) is called without them. Exits 2 without a CUDA
+device, 1 if a kernel other than K4 and K5 differs from the other
+checkout's or K4 or K5 fails a gate.
 """
 from __future__ import annotations
 
@@ -38,7 +47,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (  # noqa: E402
+    AGREE,
     HIDDEN,
+    KERNEL_TOL,
+    MAX_DIFFERING_PER_LAYER,
+    MIN_OVERLAP,
     SEED,
     TIME_B,
     TIME_C,
@@ -52,6 +65,9 @@ from chip_smoke import (  # noqa: E402
 
 KERNELS = ('pairwise_mlp', 'gated_pairwise_mlp', 'gated_factored_mlp',
            'attention_mlp', 'attention_gram_mlp', 'attention_screen_mlp')
+PACKED = ('attention_mlp', 'attention_gram_mlp')  # take the packed weights
+GATED = ('K4', 'K5')  # held to the other checkout by the gates, not bits
+TOP = 50
 
 
 def emit(what: str, **fields):
@@ -88,6 +104,32 @@ class WithoutRows:
         return self._calls[attr]
 
 
+class WithoutPackedWeights:
+    """A library whose K4 or K5 entry point takes no packed weights (a
+    checkout from before the wgmma chain): its ``<name>_forward`` drops
+    the pointer to them, which the wrappers pass after the LayerNorm
+    affine, 16 arguments from the end."""
+
+    def __init__(self, lib, name):
+        self._lib, self._name = lib, name
+        self._call = None
+
+    def __getattr__(self, attr):
+        fn = getattr(self._lib, attr)
+        if attr != f'{self._name}_forward':
+            return fn
+        if self._call is None:
+            def call(*args):
+                i = len(args) - 16
+                if fn.argtypes is None:
+                    fn.argtypes = call.argtypes[:i] + call.argtypes[i + 1:]
+                    fn.restype = ctypes.c_int
+                return fn(*args[:i], *args[i + 1:])
+            call.argtypes = None
+            self._call = call
+        return self._call
+
+
 def compile_other(checkout: Path) -> dict:
     """The other checkout's kernels, built in parallel: their paths."""
     from pixelrec_multimodal_tpu_torch.ops import _build
@@ -107,10 +149,34 @@ def compile_other(checkout: Path) -> dict:
 def build_other(checkout: Path, this: dict) -> dict:
     """The other checkout's kernels, built and loaded; ``this`` is this
     checkout's, by name."""
-    libs = {n: ctypes.CDLL(str(path))
-            for n, path in compile_other(checkout).items()}
-    return {n: lib if hasattr(lib, f'{n}_block_bytes')
-            else WithoutRows(lib, this[n]) for n, lib in libs.items()}
+    libs = {}
+    for n, path in compile_other(checkout).items():
+        lib = ctypes.CDLL(str(path))
+        if not hasattr(lib, f'{n}_block_bytes'):
+            lib = WithoutRows(lib, this[n])
+        if n in PACKED and not hasattr(lib, f'{n}_chain_kind'):
+            lib = WithoutPackedWeights(lib, n)
+        libs[n] = lib
+    return libs
+
+
+def gates(other: torch.Tensor, this: torch.Tensor, n_hidden: int) -> dict:
+    """``this`` against ``other`` under chip_smoke.py's kernel-against-plain
+    gates, and the mean top-50 overlap of their rows."""
+    scale = max(1.0, other.abs().max().item())
+    diff = (this - other).abs()
+    share = (diff > AGREE * scale).float().mean().item()
+    a = torch.topk(other, TOP, dim=1)[1].cpu().numpy()
+    b = torch.topk(this, TOP, dim=1)[1].cpu().numpy()
+    overlap = sum(len(set(x) & set(y)) for x, y in zip(a, b)) / a.size
+    held = (diff.max().item() <= KERNEL_TOL * scale
+            and share <= MAX_DIFFERING_PER_LAYER * n_hidden
+            and overlap >= MIN_OVERLAP)
+    return {'max_abs_diff': diff.max().item(), 'tol': KERNEL_TOL * scale,
+            'share_over_agree': share,
+            'max_share': MAX_DIFFERING_PER_LAYER * n_hidden,
+            'top50_overlap': overlap, 'min_overlap': MIN_OVERLAP,
+            'held': held}
 
 
 def main() -> int:
@@ -145,6 +211,7 @@ def main() -> int:
                   torch.randn(TIME_C, HIDDEN[0], generator=gen).to(dev))
         head = random_attention_head(64, 4, HIDDEN, 'relu', 'sigmoid', gen,
                                      dev)
+        head['kernel'] = tpm.kernel_chain(head)  # built once, as a scorer's
         users, items = random_attention_rows(head, TIME_B, TIME_C, gen, dev,
                                              True)
         tail = tac.compute_screen_tail(head, items)
@@ -168,10 +235,14 @@ def main() -> int:
         for tag in ('other', 'this'):
             use(tag)
             scores[tag] = {k: fn().clone() for k, fn in calls.items()}
+        equal = {k: bool(torch.equal(scores['other'][k], scores['this'][k]))
+                 for k in calls}
         emit('scores', shape=[TIME_B, TIME_C],
-             **{f'{k}_bit_equal': bool(torch.equal(scores['other'][k],
-                                                   scores['this'][k]))
-                for k in calls})
+             **{f'{k}_bit_equal': v for k, v in equal.items()})
+        held = {k: gates(scores['other'][k], scores['this'][k],
+                         head['kernel']['n_hidden']) for k in GATED}
+        for k, g in held.items():
+            emit('gates', kernel=k, shape=[TIME_B, TIME_C], **g)
         times = {k: {'other': [], 'this': []} for k in calls}
         for tag in ('other', 'this', 'this', 'other'):
             use(tag)
@@ -181,7 +252,8 @@ def main() -> int:
             emit('time', kernel=k, shape=[TIME_B, TIME_C], ms=t,
                  this_over_other=sum(t['this']) / sum(t['other']))
     use('this')
-    return 0
+    return 0 if all(equal[k] for k in calls if k not in GATED) \
+        and all(g['held'] for g in held.values()) else 1
 
 
 if __name__ == '__main__':

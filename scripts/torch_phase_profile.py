@@ -2,31 +2,40 @@
 """Where the time goes inside the attention kernels K4 and K5, phase by
 phase, and what the grid order costs, on one CUDA card.
 
-    python3 scripts/torch_phase_profile.py
+    python3 scripts/torch_phase_profile.py [OTHER_CHECKOUT]
 
-Builds two altered copies of ``ops/csrc/attention_mlp.cu`` (K4) and
+Builds altered copies of ``ops/csrc/attention_mlp.cu`` (K4) and
 ``ops/csrc/attention_gram_mlp.cu`` (K5) under ``build/phase/``:
 
 * ``phases``: thread 0 of every block reads ``clock64()`` after each
   block-wide barrier of the kernel's body (and after the chain) and adds
-  the difference to a device counter per phase;
+  the difference to a device counter per phase; each phase is named by the
+  kernel functions it calls (K4: the user rows, logits, softmax, assembly,
+  chain; K5: the user rows, logits and cross-Grams, softmax, its
+  statistics, the combination, the chain);
 * ``items_fastest``: the kernel as built, with the grid order of
   ``attention_common.cuh`` turned round, item tiles along x, so that the
   blocks of one user tile run together instead of those of one item tile.
 
-The copies replace the built kernels in this process only. Each kernel
-scores the flagship block (256 users x 8,192 items, d 64, 4 heads, Mi 5,
-the chain [512, 256, 128], relu, sigmoid, random weights from a seed).
-Prints one JSON line per kernel: the mean SM cycles per block of each
-phase and its share; the kernel's time by CUDA events as built (before and
-after the copies), with the counters and with the other grid order; and
-whether the other order gives the same scores bit for bit; beside the
-card's ``nvidia-smi`` name and power limit. Exits 2 without a CUDA device.
+With OTHER_CHECKOUT (for example a parent commit unpacked with ``git
+archive``), its K4 and K5 get the ``phases`` copy too, built with its own
+headers and called through this checkout's wrappers as
+``scripts/torch_parent_compare.py`` calls them, so that the shares before
+and after a change print side by side. The copies replace the built
+kernels in this process only. Each kernel scores the flagship block (256
+users x 8,192 items, d 64, 4 heads, Mi 5, the chain [512, 256, 128], relu,
+sigmoid, random weights from a seed). Prints one JSON line per checkout
+and kernel: the mean SM cycles per block of each phase and its share, the
+kernel's time by CUDA events as built and with the counters (and, for this
+checkout, with the other grid order, and whether it gives the same scores
+bit for bit); beside the card's ``nvidia-smi`` name and power limit. Exits
+2 without a CUDA device.
 """
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -43,16 +52,23 @@ from chip_smoke import (  # noqa: E402
     random_attention_head,
     random_attention_rows,
 )
+from scripts.torch_parent_compare import (  # noqa: E402
+    PACKED,
+    WithoutPackedWeights,
+)
 
 B, C = 256, 8192
-KERNELS = {
-    'attention_mlp': ('K4', 'attention_kernel',
-                      ['user rows', 'logits', 'softmax', 'assembly',
-                       'chain']),
-    'attention_gram_mlp': ('K5', 'attention_gram_kernel',
-                           ['user rows', 'logits and cross-Grams', 'softmax',
-                            'statistics', 'combination', 'chain']),
-}
+KERNELS = {'attention_mlp': ('K4', 'attention_kernel'),
+           'attention_gram_mlp': ('K5', 'attention_gram_kernel')}
+# The kernel functions a phase may call, by the name it is printed under.
+PHASE_NAMES = {
+    'load_users': 'user rows', 'pair_logits': 'logits',
+    'cross_grams': 'cross-Grams', 'softmax_coefs': 'softmax',
+    'gram_stats': 'statistics', 'gram_sums': 'statistics: sums',
+    'gram_tokens': 'statistics: tokens',
+    'gram_weights': 'statistics: weights', 'stream_assemble': 'assembly',
+    'gram_combine': 'combination', 'run_chain': 'chain',
+    'run_chain_of': 'chain'}
 COUNTERS = '''
 __device__ unsigned long long phase_cycles[16];
 #define PHASE_START long long phase_t = clock64(); int phase_k = 0;
@@ -71,31 +87,34 @@ extern "C" int phase_reset() {
 '''
 
 
-def instrumented(name: str, kernel: str) -> str:
-    """The source of ``csrc/<name>.cu`` with a phase mark after every
-    barrier of ``kernel``'s body and after its chain."""
-    from pixelrec_multimodal_tpu_torch.ops import _build
-    src = (_build.CSRC / f'{name}.cu').read_text()
+def instrumented(src: str, kernel: str) -> tuple:
+    """``src`` (a kernel source) with a phase mark after every barrier of
+    ``kernel``'s body and after its chain, and the names of the phases."""
     start = src.index(f'{kernel}(')
-    begin = src.index('tile_origin(&u0, &c0);', start)
-    end = src.index('run_chain(', begin)
-    end = src.index(';', end) + 1
-    body = src[begin:end].replace('__syncthreads();',
-                                  '__syncthreads();\n  PHASE_MARK')
-    body = body.replace('tile_origin(&u0, &c0);',
-                        'tile_origin(&u0, &c0);\n  PHASE_START', 1)
-    body += '\n  __syncthreads();\n  PHASE_MARK'
+    origin = re.compile(r'tile_origin(<TB>)?\(&u0, &c0\);').search(src, start)
+    chain = re.compile(r'run_chain\w*(<TB>)?\(').search(src, origin.end())
+    begin, end = origin.end(), src.index(';', chain.end()) + 1
+    body = src[begin:end]
+    names = []
+    for segment in body.split('__syncthreads();'):
+        calls = [PHASE_NAMES[m] for m in re.findall(r'\b(\w+)(?:<[^;()]*>)?\(',
+                                                    segment)
+                 if m in PHASE_NAMES]
+        names.append(' and '.join(dict.fromkeys(calls)) or
+                     f'phase {len(names)}')
+    body = ('\n  PHASE_START' + body.replace('__syncthreads();',
+                                            '__syncthreads();\n  PHASE_MARK')
+            + '\n  __syncthreads();\n  PHASE_MARK')
     out = src[:begin] + body + src[end:]
     include = '#include "attention_common.cuh"\n'
-    return out.replace(include, include + COUNTERS, 1) + READER
+    return out.replace(include, include + COUNTERS, 1) + READER, names
 
 
-def items_fastest_header() -> str:
-    """``csrc/attention_common.cuh`` with the item tiles along the grid's x
-    and the user tiles along y, as the chain's own launch set-up lays
-    them out."""
-    from pixelrec_multimodal_tpu_torch.ops import _build
-    src = (_build.CSRC / 'attention_common.cuh').read_text()
+def items_fastest_header(csrc: Path) -> str:
+    """``attention_common.cuh`` with the item tiles along the grid's x and
+    the user tiles along y, as the chain's own launch set-up lays them
+    out."""
+    src = (csrc / 'attention_common.cuh').read_text()
     for old, new in (
             ('  if (grid->x > 65535) return cudaErrorInvalidConfiguration;\n'
              '  *grid = dim3(grid->y, grid->x);\n', ''),
@@ -108,11 +127,12 @@ def items_fastest_header() -> str:
     return src
 
 
-def build(tag: str, name: str, source: str,
+def build(tag: str, name: str, source: str, csrc: Path,
           header: Optional[str] = None) -> ctypes.CDLL:
-    """``source`` built into ``build/phase/<tag>/<name>.so``; ``header``,
-    when given, is the ``attention_common.cuh`` it includes (the source's
-    own directory comes first in the include search)."""
+    """``source`` built into ``build/phase/<tag>/<name>.so`` with the
+    headers of ``csrc``; ``header``, when given, is the
+    ``attention_common.cuh`` it includes (the source's own directory comes
+    first in the include search)."""
     from pixelrec_multimodal_tpu_torch.ops import _build
     out = ROOT / 'build' / 'phase' / tag
     out.mkdir(parents=True, exist_ok=True)
@@ -121,10 +141,18 @@ def build(tag: str, name: str, source: str,
     src = out / f'{name}.cu'
     src.write_text(source)
     lib = out / f'{name}.so'
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, '-I',
-                    str(_build.CSRC), '-o', str(lib), str(src)], check=True,
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, '-I', str(csrc),
+                    '-o', str(lib), str(src)], check=True,
                    capture_output=True)
     return ctypes.CDLL(str(lib))
+
+
+def routed(lib, name: str):
+    """``lib`` as this checkout's wrappers call it (packed weights dropped
+    for a checkout whose K4 and K5 take none)."""
+    if name in PACKED and not hasattr(lib, f'{name}_chain_kind'):
+        return WithoutPackedWeights(lib, name)
+    return lib
 
 
 def main() -> int:
@@ -133,6 +161,7 @@ def main() -> int:
         return 2
     from pixelrec_multimodal_tpu_torch.ops import _build
     from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
+    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -140,44 +169,53 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED + 5)
     head = random_attention_head(64, 4, (512, 256, 128), 'relu', 'sigmoid',
                                  gen, dev)
+    head['kernel'] = tpm.kernel_chain(head)  # built once, as a scorer's
     users, items = random_attention_rows(head, B, C, gen, dev, True)
     calls = {'attention_mlp': lambda: tas.attention_scores(
                  head, users[:5], items[:6]),
              'attention_gram_mlp': lambda: tas.attention_scores_gram(
                  head, users, items)}
+    checkouts = [('this', _build.CSRC)]
+    if len(sys.argv) > 1:
+        checkouts.insert(0, ('other', Path(sys.argv[1]) / 'pixelrec_'
+                             'multimodal_tpu_torch' / 'ops' / 'csrc'))
     blocks = -(-B // 8) * -(-C // 16)
-    for name, (kid, kernel, phases) in KERNELS.items():
-        with torch.no_grad():
-            ms = cuda_ms(calls[name], reps=20)
-            ref = calls[name]()
-            _build._loaded[name] = build('items_fastest', name,
-                                         (_build.CSRC / f'{name}.cu')
-                                         .read_text(),
-                                         items_fastest_header())
-            items_ms = cuda_ms(calls[name], reps=20)
-            same = bool(torch.equal(calls[name](), ref))
-            lib = build('phases', name, instrumented(name, kernel))
-            _build._loaded[name] = lib
-            counted_ms = cuda_ms(calls[name], reps=3)
-            lib.phase_reset()
-            calls[name]()
-            torch.cuda.synchronize()
-            raw = (ctypes.c_ulonglong * 16)()
-            if lib.phase_read(raw):
-                raise RuntimeError('phase_read failed')
-            _build._loaded.pop(name)
-            ms_after = cuda_ms(calls[name], reps=20)
-        cycles = [raw[k] / blocks for k in range(len(phases))]
-        total = sum(cycles)
-        print(json.dumps({
-            'what': 'phases', 'kernel': kid, 'nvidia_smi': smi, 'B': B,
-            'C': C, 'blocks': blocks, 'ms': ms, 'ms_again': ms_after,
-            'ms_with_counters': counted_ms,
-            'ms_item_tiles_fastest': items_ms,
-            'item_tiles_fastest_same_scores': same,
-            'cycles_per_block': dict(zip(phases, cycles)),
-            'share': {p: c / total for p, c in zip(phases, cycles)}}),
-            flush=True)
+    for tag, csrc in checkouts:
+        for name, (kid, kernel) in KERNELS.items():
+            line = {'what': 'phases', 'checkout': tag, 'kernel': kid,
+                    'nvidia_smi': smi, 'B': B, 'C': C, 'blocks': blocks}
+            with torch.no_grad():
+                _build._loaded.pop(name, None)
+                if tag == 'this':
+                    line['ms'] = cuda_ms(calls[name], reps=20)
+                    ref = calls[name]()
+                    _build._loaded[name] = build(
+                        'items_fastest', name,
+                        (csrc / f'{name}.cu').read_text(), csrc,
+                        items_fastest_header(csrc))
+                    line['ms_item_tiles_fastest'] = cuda_ms(calls[name],
+                                                            reps=20)
+                    line['item_tiles_fastest_same_scores'] = bool(
+                        torch.equal(calls[name](), ref))
+                source, phases = instrumented(
+                    (csrc / f'{name}.cu').read_text(), kernel)
+                lib = build(f'phases_{tag}', name, source, csrc)
+                _build._loaded[name] = routed(lib, name)
+                line['ms_with_counters'] = cuda_ms(calls[name], reps=3)
+                lib.phase_reset()
+                calls[name]()
+                torch.cuda.synchronize()
+                raw = (ctypes.c_ulonglong * 16)()
+                if lib.phase_read(raw):
+                    raise RuntimeError('phase_read failed')
+                _build._loaded.pop(name)
+                if tag == 'this':
+                    line['ms_again'] = cuda_ms(calls[name], reps=20)
+            cycles = [raw[k] / blocks for k in range(len(phases))]
+            total = sum(cycles)
+            line['cycles_per_block'] = dict(zip(phases, cycles))
+            line['share'] = {p: c / total for p, c in zip(phases, cycles)}
+            print(json.dumps(line), flush=True)
     return 0
 
 

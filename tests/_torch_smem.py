@@ -1,6 +1,6 @@
 """The kernels' shared memory per block, counted by hand from their layout
 (``ops/csrc/mlp_chain.cuh``, ``mlp_chain_int8.cuh``,
-``attention_common.cuh``), with the signature of
+``mlp_chain_wgmma.cuh``, ``attention_common.cuh``), with the signature of
 ``ops/pairwise_mlp.py:block_bytes``, which asks the kernel's own launch
 set-up. The CPU tests stand it in for the card's count (``hand_count``);
 ``tests/test_torch_cuda.py`` holds the card's count to it. Imports neither
@@ -14,6 +14,13 @@ from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
 TILE_ITEMS = 16                       # items per tile; a block: rows / 16 users
 RING_BYTES = 3 * 32 * (128 + 8) * 2   # bf16 weight ring: 3 x 32 x 136
 RING_BYTES_INT8 = 3 * 128 * (64 + 16)  # int8 weight ring: 3 x 128 x 80
+# the wgmma chain (K4, K5 at 128 and 64 rows): ring stages of 64 k x 128
+# columns of bf16 (16 KB), as many as the 232,448 B a block may take leave
+# after the buffers and the 64 B of barriers, from two k slices' (4 at 128
+# rows, 8 at 64) to 8; the four warpgroups cover a group of 32,768 / rows
+# columns (256 at 128 rows, 512 at 64) in one sweep
+WGMMA_SMEM = 232448
+WGMMA_BARRIER_BYTES = 64
 SUU_PAD = 8                           # columns of the per-user self-logits
 
 
@@ -47,6 +54,35 @@ def chain_smem_bytes(widths: Sequence[int], rows: int, scratch: int = 0,
     return rows * (stride_a + stride_b) * 2 + max(RING_BYTES, scratch)
 
 
+def wgmma_layout(widths: Sequence[int], rows: int) -> Tuple[int, ...]:
+    """The wgmma chain's buffers and ring for a block of 128 or 64 rows:
+    (columns of buffer A, of buffer B, ring stages, bytes a stage). Buffer
+    A holds the first input; a layer whose output fits one group writes it
+    over its input, any other into the other buffer; each buffer is as wide
+    as the widest it holds, rounded up to 64 columns (swizzled blocks, no
+    padding)."""
+    group = 32768 // rows
+    cols, cur = [_round_up(widths[0], 64), 0], 0
+    for n in widths[1:]:
+        if n > group:
+            cur ^= 1
+        cols[cur] = max(cols[cur], _round_up(n, 64))
+    stage = 64 * 128 * 2
+    left = WGMMA_SMEM - WGMMA_BARRIER_BYTES - rows * sum(cols) * 2
+    return (cols[0], cols[1], min(8, max(2 * 256 // rows, left // stage)),
+            stage)
+
+
+def wgmma_chain_smem_bytes(widths: Sequence[int], rows: int,
+                           scratch: int = 0) -> int:
+    """A block of 128 or 64 rows on the wgmma chain of ``widths``: the two
+    activation buffers (``wgmma_layout``), then the ring and its barriers,
+    or the assembly's ``scratch`` bytes, whichever is larger."""
+    cols_a, cols_b, stages, stage = wgmma_layout(widths, rows)
+    return rows * (cols_a + cols_b) * 2 + max(
+        stages * stage + WGMMA_BARRIER_BYTES, scratch)
+
+
 def pair_scratch_bytes(name: str, h1: int, rows: int) -> int:
     """The assembly's scratch of a pair kernel's block (it lives in the
     weight ring until the chain starts): K1 the tile's users' bf16 rows; K2
@@ -62,11 +98,14 @@ def pair_scratch_bytes(name: str, h1: int, rows: int) -> int:
 def attention_smem_bytes(name: str, widths: Sequence[int], rows: int,
                          H: int, Mi: int) -> int:
     """K4 (``attention_mlp``), K5 (``attention_gram_mlp``) or K6
-    (``attention_screen_mlp``): the chain's (widths from d on), its ring
-    grown by the part of the assembly's scratch (the rows / 16 user rows,
-    each pair's coefficients (K6: token 0's only) and, for K5, its
-    cross-Grams, all f32) that passes buffer B."""
+    (``attention_screen_mlp``): the chain's (widths from d on; K4's and
+    K5's the wgmma chain's at 128 and 64 rows), its ring grown by the part
+    of the assembly's scratch (the rows / 16 user rows, each pair's
+    coefficients (K6: token 0's only) and, for K5, its cross-Grams and,
+    where its rows do not fit in buffer A, its statistics, all f32) that
+    passes buffer B."""
     gram, screen = name == 'attention_gram_mlp', name == 'attention_screen_mlp'
+    wgmma = not screen and rows >= 64
     d = widths[0]
     n_vo = Mi * H
     n_usc = 2 + 2 * H + H * H if gram else 0
@@ -74,9 +113,18 @@ def attention_smem_bytes(name: str, widths: Sequence[int], rows: int,
     ncoef = (H * (Mi + 1) + (0 if screen else 2 * n_vo)) | 1
     nx = (max(n_vo * (1 + H) + (n_vo + Mi) * H, 2 + H + n_vo + Mi) | 1
           if gram else 0)
-    scratch = (rows // TILE_ITEMS * urow + rows * (ncoef + nx)) * 4
-    buf_b = rows * (max(widths[1::2]) + 8) * 2
-    return chain_smem_bytes(widths, rows, max(0, scratch - buf_b))
+    ng = (n_vo + 1 + H + 2 * (Mi + 1)) | 1 if gram else 0
+    if wgmma:
+        cols_a, cols_b = wgmma_layout(widths, rows)[:2]
+    else:
+        cols_a = max(widths[0::2]) + 8
+        cols_b = max(widths[1::2]) + 8 if len(widths) > 1 else 0
+    stats = 0 if 2 * ng <= cols_a else rows * ng * 4
+    scratch = (rows // TILE_ITEMS * urow + rows * (ncoef + nx)) * 4 + stats
+    past_b = max(0, scratch - rows * cols_b * 2)
+    if wgmma:
+        return wgmma_chain_smem_bytes(widths, rows, past_b)
+    return chain_smem_bytes(widths, rows, past_b)
 
 
 def block_bytes(name: str, widths: Sequence[int], rows: int,

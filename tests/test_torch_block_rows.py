@@ -119,16 +119,27 @@ def test_forced_rows_are_checked(hand_count):
 
 
 # The attention flagship chain at d 512, 4 heads (the JAX package's HPO
-# draws embedding_dim 512): buffers 64 x (520 + 520) x 2 = 133,120, then
-# the ring (the scratch, 4 user rows of 3,620 floats and 64 coefficient
-# rows of 65, is 74,560 B, within buffer B's 66,560 + the ring); 128 rows
-# would need 266,240 for the buffers alone. K5 at 64 rows: its scratch
-# (4 x 3,648 + 64 x (65 + 201)) x 4 = 126,464 B passes buffer B by 59,904.
+# draws embedding_dim 512). K4 and K5 run the wgmma chain at 64 rows, where
+# the warpgroups cover a group of 512 columns, so every layer (512, 256, 128
+# wide) writes over its input: one buffer of swizzled 64-column blocks, 64
+# x 512 x 2 = 65,536, then the ring, as many 16 KB stages as fit up to 8,
+# and 64 B of barriers, 131,136 (K4's scratch, 4 user rows of 3,620 floats
+# and 64 coefficient rows of 65, 74,560 B, and K5's, (4 x 3,648 + 64 x (65
+# + 201)) x 4 = 126,464 B, lie within it; K5's statistics, 37 floats a row,
+# in buffer A): 196,672; 128 rows would need 262,144 for the buffers. K6
+# keeps the mma.sync chain: buffers 64 x (520 + 520) x 2 = 133,120, then the
+# 26,112 B ring. At d 64 K4 and K5 take 128 rows on the wgmma chain: w1's
+# 512 columns pass a group of 256, the later layers write over them, so
+# buffer A holds d = 64 and buffer B 512 columns, 128 x 576 x 2 = 147,456,
+# then 5 stages of 16 KB and the barriers, 81,984 (K5's scratch, with its
+# statistics after X as buffer A is too narrow for them, passes buffer B
+# by 40,448, within the ring).
 @pytest.mark.parametrize('d, heads, widths, kernel, rows, nbytes', [
-    (512, 4, (512, 256, 128), 'stream', 64, 159232),
+    (512, 4, (512, 256, 128), 'stream', 64, 196672),
     (512, 4, (512, 256, 128), 'screen', 64, 159232),
-    (512, 4, (512, 256, 128), 'gram', 64, 193024),
-    (64, 4, (512, 256, 128), 'stream', 128, 226816),
+    (512, 4, (512, 256, 128), 'gram', 64, 196672),
+    (64, 4, (512, 256, 128), 'stream', 128, 229440),
+    (64, 4, (512, 256, 128), 'gram', 128, 229440),
 ])
 def test_attention_block_rows(hand_count, d, heads, widths, kernel, rows,
                               nbytes):
@@ -198,3 +209,44 @@ def test_scorer_refuses_a_head_that_fits_no_block_before_tables(
     monkeypatch.setattr(tsc.CatalogScorer, '_build_item_tower', no_tables)
     with pytest.raises(ValueError, match='even at 16 pair rows'):
         tsc.CatalogScorer(model, store, precision=precision)
+
+
+def _swizzled_offset(r, c):
+    """``sw_offset`` of ``csrc/mlp_chain_wgmma.cuh`` within a 64-column
+    block of 64 rows: row r's 128 bytes, its 16-byte chunks swizzled by
+    r % 8."""
+    return r * 64 + (((c >> 3) ^ (r & 7)) << 3) + (c & 7)
+
+
+@pytest.mark.parametrize('widths', [(64, 512, 256, 128), (48, 80, 32),
+                                    (512, 512), (64,)])
+def test_wgmma_weights_layout(widths):
+    """``tpm.wgmma_weights`` packs each hidden layer's W [K, N] as the wgmma
+    chain's descriptors read it: tile (k slice ks, column group g) of 64 x
+    64 at (ks * N64 / 64 + g) * 4,096 past the layer's offset (layers of
+    K64 x N64, K and N rounded up to 64), element (n, k) of the tile at its
+    swizzled offset; the padding is zero, and the packing is built once per
+    chain."""
+    gen = torch.Generator().manual_seed(9)
+    ws = [torch.randn(k, n, generator=gen).bfloat16()
+          for k, n in zip(widths[:-1], widths[1:])]
+    chain = {'w': (torch.cat([w.reshape(-1) for w in ws]) if ws
+                   else torch.zeros(8, dtype=torch.bfloat16)),
+             'widths': np.asarray(widths, np.int32)}
+    packed = tpm.wgmma_weights(chain)
+    assert tpm.wgmma_weights(chain) is packed
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    got = packed.float().numpy()
+    expect = np.zeros_like(got) if ws else got
+    off = 0
+    for w in ws:
+        k, n = w.shape
+        k64, n64 = -(-k // 64) * 64, -(-n // 64) * 64
+        kk, nn = np.meshgrid(np.arange(k), np.arange(n), indexing='ij')
+        idx = (off + ((kk // 64) * (n64 // 64) + nn // 64) * 4096
+               + _swizzled_offset(nn % 64, kk % 64))
+        expect[idx] = w.float().numpy()
+        off += k64 * n64
+    if ws:
+        assert packed.numel() == off
+    np.testing.assert_array_equal(got, expect)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (K1 concat, K2 exact gated, K3 factored gated,
 and their int8 modes K1q, K2q, K3q; K4 stream attention, K5 gram
 attention, K6 the attention cascade's token-0 screen), their blocks of
-fewer pair rows for wide heads, the probes P1-P3, and its scorer, int8 and
-the attention cascade included, on a card.
+fewer pair rows for wide heads, the two chains (wgmma for K4 and K5 at 128
+and 64 rows, mma.sync everywhere else), the probes P1-P3, and its scorer,
+int8 and the attention cascade included, on a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX:
@@ -30,7 +31,12 @@ from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
 from pixelrec_multimodal_tpu_torch.ops.topk import NEG_INF
 from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
 from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
-from chip_smoke import WIDE_MAX_DIFFERING
+from chip_smoke import (
+    MAX_DIFFERING_PER_LAYER,
+    WIDE_MAX_DIFFERING,
+    random_attention_head,
+    random_attention_rows,
+)
 from tests import _torch_smem as hand
 
 pytestmark = pytest.mark.cuda
@@ -871,12 +877,26 @@ def test_pair_kernels_at_wide_chains(dev, kid, h1, int8, exact):
     assert diff.max().item() <= FLIP_TOL * scale
 
 
+def assert_gated(out, ref, max_differing):
+    """``out`` against ``ref`` under the kernels' gates: at most
+    ``max_differing`` of the pairs past AGREE and none past FLIP_TOL, both
+    relative to max(1, |ref|)."""
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    scale = max(1.0, ref.abs().max().item())
+    diff = (out - ref).abs()
+    assert (diff > AGREE * scale).float().mean().item() <= max_differing
+    assert diff.max().item() <= FLIP_TOL * scale
+
+
 @pytest.mark.parametrize('kid', ['K1', 'K2', 'K3', 'K4', 'K5', 'K6'])
 def test_smaller_blocks_give_the_same_scores(dev, kid):
     """At a flagship-width head (chain [512, 256, 128]; attention d 64, 4
     heads) a block forced to 64, 32 and 16 pair rows gives the 128-row
-    block's scores bit for bit: every output's sums over K run the same
-    mma steps in the same order whatever the rows."""
+    block's scores bit for bit on one chain: every output's sums over K
+    run the same mma steps in the same order whatever the rows. K4 and K5
+    run the wgmma chain at 128 and 64 rows and the mma.sync chain at 32
+    and 16: where the two chains meet, the scores agree under the kernels'
+    gates (AGREE, MAX_DIFFERING, FLIP_TOL), and bit for bit within each."""
     if kid in ('K1', 'K2', 'K3'):
         head = head_on(wide_head((512, 256, 128), 'gelu', 'sigmoid',
                                  None if kid == 'K1' else 5), dev)
@@ -901,8 +921,60 @@ def test_smaller_blocks_give_the_same_scores(dev, kid):
             return tac.attention_screen_scores(head, users, items, tail,
                                                _block_rows=rows)
     full = run(128)
+    if kid in ('K4', 'K5'):
+        assert torch.equal(run(64), full)
+        small = run(32)
+        assert_gated(small, full, MAX_DIFFERING)
+        assert torch.equal(run(16), small)
+        return
     for rows in (64, 32, 16):
         assert torch.equal(run(rows), full), rows
+
+
+@pytest.mark.parametrize('name', ['attention_mlp', 'attention_gram_mlp'])
+def test_attention_kernels_report_the_wgmma_chain(dev, name):
+    """K4 and K5 run the wgmma chain (``csrc/mlp_chain_wgmma.cuh``) in
+    blocks of 128 and 64 pair rows and the mma.sync chain in blocks of 32
+    and 16, as their libraries report it (``<name>_chain_kind``); K1 and
+    K6 run mma.sync at every row count."""
+    assert [tpm.chain_kind(name, rows) for rows in tpm.BLOCK_ROWS] == [
+        'wgmma', 'wgmma', 'mma.sync', 'mma.sync']
+    with pytest.raises(ValueError, match='no chain'):
+        tpm.chain_kind(name, 48)
+    for other in ('pairwise_mlp', 'attention_screen_mlp'):
+        assert {tpm.chain_kind(other, rows) for rows in tpm.BLOCK_ROWS} \
+            == {'mma.sync'}
+
+
+@pytest.mark.parametrize('variant', ['stream', 'gram'])
+def test_attention_kernels_at_the_flagship_head(dev, variant):
+    """K4 and K5 at the flagship attention head (d 64, 4 heads, Mi 5, the
+    chain [512, 256, 128], relu, sigmoid, random weights from a seed) in
+    their 128-row wgmma block, one launch on a ragged 300 x 1,000 block,
+    against their plain bf16 versions: every pair within KERNEL_TOL of the
+    score scale, and at most MAX_DIFFERING_PER_LAYER of the pairs per
+    hidden layer past AGREE (chip_smoke.py's gates)."""
+    gen = torch.Generator().manual_seed(21)
+    head = random_attention_head(64, 4, (512, 256, 128), 'relu', 'sigmoid',
+                                 gen, dev)
+    users, items = random_attention_rows(head, 300, 1000, gen, dev, True)
+    gram = variant == 'gram'
+    assert tas.check_kernel_fits(head, gram) == 128
+    assert tpm.chain_kind(tas._kernel_name(gram, False), 128) == 'wgmma'
+    kernel, plain = ATTENTION[variant]
+    nu = 6 if gram else 5
+    before = kernel.launches
+    out = kernel(head, users[:nu], items[:nu + 1])
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = plain(head, users[:nu], items[:nu + 1],
+                compute_dtype=torch.bfloat16)
+    assert out.shape == (300, 1000) and torch.isfinite(out).all()
+    scale = max(1.0, ref.abs().max().item())
+    diff = (out - ref).abs()
+    assert diff.max().item() <= KERNEL_TOL * scale
+    assert (diff > AGREE * scale).float().mean().item() \
+        <= 3 * MAX_DIFFERING_PER_LAYER
 
 
 @pytest.mark.parametrize('kid', ['K1', 'K2', 'K3'])
@@ -975,6 +1047,27 @@ def test_attention_kernels_at_d512(dev, kid, heads, act_final):
     chose."""
     check_attention_kernel(d512_head(act_final, heads, dev), kid, dev,
                            WIDE_MAX_DIFFERING)
+
+
+@pytest.mark.parametrize('heads', [4, 8])
+def test_stream_kernel_at_d512_across_chains(dev, heads):
+    """K4 at d 512 in its 64-row block (the wgmma chain) and forced to 32
+    and 16 rows (the mma.sync chain): each against its plain version, and
+    the two chains against each other, under the wide heads' gates (AGREE,
+    WIDE_MAX_DIFFERING, FLIP_TOL); the two mma.sync blocks agree bit for
+    bit."""
+    head = d512_head(('gelu', 'tanh'), heads, dev)
+    users, items = attention_inputs(head, 21, 150, dev)
+    users, items = users[:5], items[:6]
+    assert tas.check_kernel_fits(head, False) == 64
+    outs = {rows: tas.attention_scores(head, users, items, _block_rows=rows)
+            for rows in (64, 32, 16)}
+    ref = tas.attention_scores_plain(head, users, items,
+                                     compute_dtype=torch.bfloat16)
+    for out in outs.values():
+        assert_gated(out, ref, WIDE_MAX_DIFFERING)
+    assert_gated(outs[32], outs[64], WIDE_MAX_DIFFERING)
+    assert torch.equal(outs[16], outs[32])
 
 
 @pytest.mark.parametrize('heads', [4, 8])
