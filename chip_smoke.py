@@ -19,7 +19,8 @@ int8 through K2q and K3q, then its attention-fusion twin through K4,
 stream, and K5, gram, then the attention cascade at
 scripts/bench_cascade.py's geometry: its screens through K6, token 0, and
 K1, additive, each tier of ``top_k_cascade`` and ``auto_cascade``, then
-the wide models that take smaller blocks: attention at d 512, K4 and the
+the chain alone of K1, K4 and K6 (the kernel whole less the kernel cut
+after the assembly), then the wide models that take smaller blocks: attention at d 512, K4 and the
 token-0 screen K6, and concat and gated chains [1024, 512, 256] in bf16
 and int8), checks what comes out against the plain versions and the exact
 scan, and times the kernels. Every phase prints one JSON line;
@@ -865,7 +866,7 @@ def int8_flip_point(smi, gen, dev) -> dict:
     that ratio and of every larger one whose h1 is a multiple of 128;
     None where K1 wins at the largest."""
     from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
-        INT8_MIN_CHAIN_FLOPS_PER_LANE,
+        INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT,
         int8_chain_flops_per_lane,
         pairwise_scores,
     )
@@ -891,7 +892,8 @@ def int8_flip_point(smi, gen, dev) -> dict:
             break
         flip = ratio
     emit('int8_flip_point', shape=[TIME_B, TIME_C], chains=rows,
-         flip_point=flip, constant_in_code=INT8_MIN_CHAIN_FLOPS_PER_LANE,
+         flip_point=flip,
+         constant_in_code=INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT,
          nvidia_smi=smi)
     return {'flip_point': flip, 'chains': rows}
 
@@ -911,7 +913,78 @@ def block_of(kernel_id: str, head: dict) -> dict:
     rows = tpm.block_rows(SOURCES[base], widths, mode)
     return {'block_rows': rows,
             'block_bytes': tpm.block_bytes(SOURCES[base], widths, rows, mode),
-            'chain': tpm.chain_kind(SOURCES[base], rows)}
+            'chain': tpm.chain_kind(SOURCES[base], rows, widths, mode)}
+
+
+def assembly_only_chain(d: int, gen, dev) -> dict:
+    """An attention head's kernel chain cut after the assembly: no hidden
+    layer, the last dot (random bf16 weights, relu, sigmoid) on the fused
+    d-vector itself."""
+    return {'int8': False, 'n_hidden': 0, 'widths': np.asarray([d], np.int32),
+            'w': torch.zeros(8, dtype=torch.bfloat16, device=dev),
+            'b': torch.zeros(1, device=dev),
+            'w_last': torch.randn(d, generator=gen).to(dev).bfloat16().float(),
+            'b_last': torch.zeros(1, device=dev), 'act': 0, 'final': 0}
+
+
+def chain_phase(smi, dev) -> list:
+    """The chain of K1, K4 and K6 alone: each kernel at the TIME_B x TIME_C
+    block with the flagship chain whole and cut after the assembly (K1:
+    h1 512 -> 1; K4, K6: the last dot on the fused vector, d 64 -> 1), relu,
+    sigmoid, random weights and rows from a generator of its own; the
+    chain's time is the difference (its products, epilogues and last dot),
+    its rate the hidden products over that time. Prints one ``chain`` line
+    per kernel with the chain kind and block rows of the whole chain and
+    returns the lines."""
+    from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
+    from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
+    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+    gen = torch.Generator().manual_seed(SEED + 9)
+    uf = torch.randn(TIME_B, HIDDEN[0], generator=gen).to(dev)
+    itf = torch.randn(TIME_C, HIDDEN[0], generator=gen).to(dev)
+    d, heads = EMB, 4
+    lines = []
+    for kid in ('K1', 'K4', 'K6'):
+        ms, prods = {}, 0
+        for cut in (False, True):
+            if kid == 'K1':
+                head = random_head(HIDDEN[:1] if cut else HIDDEN, 'relu',
+                                   'sigmoid', gen, dev)
+                call = (lambda h: lambda: tpm.pairwise_scores(h, uf, itf))(
+                    head)
+            else:
+                head = random_attention_head(d, heads, HIDDEN, 'relu',
+                                             'sigmoid', gen, dev)
+                if cut:
+                    head['kernel'] = assembly_only_chain(d, gen, dev)
+                u, it = random_attention_rows(head, TIME_B, TIME_C, gen, dev,
+                                              False)
+                if kid == 'K4':
+                    call = (lambda h, u, it: lambda: tas.attention_scores(
+                        h, u[:5], it[:6]))(head, u, it)
+                else:
+                    tail = tac.compute_screen_tail(head, it)
+                    call = (lambda h, u, it, t: lambda:
+                            tac.attention_screen_scores(h, u[:5], it, t))(
+                        head, u, it, tail)
+            if 'kernel' not in head:  # built once, as a scorer's
+                head['kernel'] = tpm.kernel_chain(head)
+            if not cut:
+                widths = tpm.chain_widths(head)
+                prods = sum(2 * k * n for k, n in zip(widths[:-1],
+                                                      widths[1:]))
+                block = block_of(kid, head)
+            with torch.no_grad():
+                ms[cut] = cuda_ms(call, reps=20)
+        chain_ms = ms[False] - ms[True]
+        line = dict(kernel=kid, widths=list(widths), shape=[TIME_B, TIME_C],
+                    ms=ms[False], ms_cut_after_assembly=ms[True],
+                    chain_ms=chain_ms,
+                    chain_tflops=TIME_B * TIME_C * prods / (chain_ms * 1e-3)
+                    / 1e12, **block, nvidia_smi=smi)
+        emit('chain', **line)
+        lines.append(line)
+    return lines
 
 
 def wide_main_paths(users, smi, dev):
@@ -1672,6 +1745,15 @@ def main() -> int:
         tpu_module='attention_cascade'))
     lines[-1]['launches_screen_token0'] = screen_launches['K6']
     lines[0]['launches_additive_cascade'] = cascade_launches['K1']
+
+    # ---- 17b. the chain alone of K1, K4 and K6 (whole less the cut after
+    # the assembly): its time and rate
+    chains = {c['kernel']: c for c in chain_phase(smi, dev)}
+    for line in lines:
+        if line['kernel'] in chains:
+            c = chains[line['kernel']]
+            line.update(chain_ms=c['chain_ms'],
+                        chain_tflops=c['chain_tflops'])
 
     del stream, amodel, astore, it_k, it_vo, tail, add, side
     torch.cuda.empty_cache()

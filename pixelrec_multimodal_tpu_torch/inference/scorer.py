@@ -66,6 +66,7 @@ from ..ops.attention_scorer import (
 from ..ops.pairwise_mlp import (
     GATE_PAD,
     INT8_MIN_CHAIN_FLOPS_PER_LANE,
+    INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT,
     build_factorized_head,
     calibrate_head_ranges,
     calibrate_head_ranges_gated,
@@ -283,10 +284,11 @@ class CatalogScorer:
     def _resolve_precision(self, precision: str) -> str:
         """'bf16' or 'int8'. int8 takes a fused concatenate or gated head
         (ValueError otherwise). The auto-precision gate: below
-        ``INT8_MIN_CHAIN_FLOPS_PER_LANE`` hidden-chain operations per
-        first-layer lane, where the H100 measured the int8 kernel no faster
-        than the bf16 one, 'int8' warns on stderr and serves bf16; 'int8!'
-        quantizes whatever the head."""
+        ``INT8_MIN_CHAIN_FLOPS_PER_LANE`` (a gated head) or
+        ``INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT`` (a concatenate head)
+        hidden-chain operations per first-layer lane, where the H100
+        measured the int8 kernel no faster than the bf16 one, 'int8' warns
+        on stderr and serves bf16; 'int8!' quantizes whatever the head."""
         if precision == 'bf16':
             return precision
         if self._head is None or self._head['fusion'] not in (
@@ -296,13 +298,16 @@ class CatalogScorer:
                 f'(fusion_type={self.model.fusion_type!r}, fast_path head '
                 f"{'missing' if self._head is None else 'present'})")
         rho = int8_chain_flops_per_lane(self._head)
-        if precision == 'int8' and rho < INT8_MIN_CHAIN_FLOPS_PER_LANE:
+        flip = (INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT
+                if self._head['fusion'] == 'concatenate'
+                else INT8_MIN_CHAIN_FLOPS_PER_LANE)
+        if precision == 'int8' and rho < flip:
             print(f"CatalogScorer: precision='int8' requested but the head "
                   f'is below the int8 flip point measured on the H100 '
                   f'(hidden-chain operations per first-layer lane {rho:.0f} '
-                  f'< {INT8_MIN_CHAIN_FLOPS_PER_LANE}: there the int8 kernel '
-                  f'is no faster than the bf16 one; PERF.md). Serving in '
-                  f"bf16; pass precision='int8!' to force.", file=sys.stderr)
+                  f'< {flip}: there the int8 kernel is no faster than the '
+                  f'bf16 one; PERF.md). Serving in bf16; pass '
+                  f"precision='int8!' to force.", file=sys.stderr)
             return 'bf16'
         return 'int8'
 

@@ -50,6 +50,7 @@ from .pairwise_mlp import (
     _device_of,
     _launch,
     kernel_chain,
+    wgmma_weights,
 )
 
 
@@ -157,8 +158,10 @@ def attention_screen_scores(head: dict, user_side: Sequence[torch.Tensor],
     reads k [C, Mi*d] and vo [C, Mi*H*d], and tail [C, d], all float32 ->
     [B, C] float32.
 
-    CUDA tensors launch the kernel on the current stream; B and C need not
-    be tile multiples. CPU tensors take ``attention_screen_scores_plain`` in
+    CUDA tensors launch the kernel on the current stream (the chain of
+    ``attention_scores``: wgmma at 128 and 64 pair rows, the weights packed
+    by ``wgmma_weights``; mma.sync below); B and C need not be tile
+    multiples. CPU tensors take ``attention_screen_scores_plain`` in
     float32. Anything else raises: other devices, widths or head counts the
     kernel does not take, a head that fits no block, launch errors. The
     block's pair rows are ``check_kernel_fits``'s (``_block_rows`` forces a
@@ -188,8 +191,8 @@ def attention_screen_scores(head: dict, user_side: Sequence[torch.Tensor],
     if B == 0 or C == 0:
         return out
     _launch('attention_screen_mlp', out,
-            user_side + (it_k, it_vo, tail) + ln, chain, B, C, (H, Mi),
-            mode=(H, Mi), forced=_block_rows)
+            user_side + (it_k, it_vo, tail) + ln + (wgmma_weights(chain),),
+            chain, B, C, (H, Mi), mode=(H, Mi), forced=_block_rows)
     attention_screen_scores.launches += 1
     return out
 

@@ -27,7 +27,8 @@ LayerNorm per token and the MLP. Two kernels compute it:
     precomputed component means and Grams plus per-pair user x item
     cross-Grams, and one pass combines the component vectors.
 
-Both then run the Dense chain with the first Dense ``w1`` as its layer 0:
+Both, and the cascade's token-0 screen K6 (``ops/attention_cascade.py``),
+then run the Dense chain with the first Dense ``w1`` as its layer 0:
 the wgmma chain of ``csrc/mlp_chain_wgmma.cuh`` (weights packed by
 ``wgmma_weights``) in blocks of 128 and 64 pair rows, the mma.sync chain of
 ``csrc/mlp_chain.cuh`` in blocks of 32 and 16. CUDA tensors go through a
@@ -621,9 +622,8 @@ def _launch_attention(name: str, head: dict, user_side, item_side,
     out = torch.empty((B, C), dtype=f32, device=device)
     if B == 0 or C == 0:
         return out
-    tensors = tuple(user_side) + tuple(item_side) + ln
-    if name != 'attention_screen_mlp':  # K4 and K5 take the wgmma chain's
-        tensors += (wgmma_weights(chain),)
+    tensors = tuple(user_side) + tuple(item_side) + ln + (
+        wgmma_weights(chain),)
     _launch(name, out, tensors, chain, B, C, (H, Mi), mode=(H, Mi),
             forced=forced)
     return out

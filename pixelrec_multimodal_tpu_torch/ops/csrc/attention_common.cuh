@@ -7,10 +7,10 @@
 // token 0's half only, the ITEM_TOKENS flag), token 0's attention input, the
 // warp sums and LayerNorm, and the launch set-up. Each kernel then forms its
 // pairs' fused d-vectors its own way, writes them as bf16 into buf_a
-// (FusedRows: K4 and K5 in the wgmma chain's swizzled layout at 128 and 64
-// rows) and runs the chain with the first Dense w1 as its layer 0: K4 and
-// K5 run_chain_of (mlp_chain_wgmma.cuh: wgmma at 128 and 64 rows, run_chain
-// below), K6 run_chain (mlp_chain.cuh).
+// (FusedRows: in the wgmma chain's swizzled layout at 128 and 64
+// rows) and runs the chain with the first Dense w1 as its layer 0:
+// run_chain_of (mlp_chain_wgmma.cuh: wgmma at 128 and 64 rows, run_chain of
+// mlp_chain.cuh below).
 //
 // Block: the chain's TB users x 16 items (TB = 8, 4, 2 or 1: 128 to 16 pair
 // rows, the largest whose block fits by <name>_block_bytes;
@@ -296,11 +296,6 @@ __device__ __forceinline__ void zero_rows_at(const FusedRows<TB, SW>& out,
     for (int k = lane; k < d; k += 32)
       *out.at(bu * TC + ci, k) = __float2bfloat16_rn(0.f);
 }
-template <int TB>
-__device__ __forceinline__ void zero_rows(__nv_bfloat16* buf_a, int stride_a,
-                                          int ci, int d) {
-  zero_rows_at(FusedRows<TB, false>{buf_a, stride_a}, ci, d);
-}
 
 template <int J, typename At>
 __device__ __forceinline__ void store_fused_at(const float2 (&f)[J],
@@ -316,12 +311,6 @@ __device__ __forceinline__ void store_fused_at(const float2 (&f)[J],
           __fadd_rn(__fmul_rn(f[j].x, g[j].x), be[j].x),
           __fadd_rn(__fmul_rn(f[j].y, g[j].y), be[j].y));
   }
-}
-template <int J>
-__device__ __forceinline__ void store_fused(const float2 (&f)[J],
-                                            float2 (&g)[J], float2 (&be)[J],
-                                            __nv_bfloat16* row, int half) {
-  store_fused_at(f, g, be, [row](int k) { return row + k; }, half);
 }
 
 template <int J>
@@ -457,13 +446,9 @@ inline size_t scratch_past_b(const Chain& ch, const Dims& D, int rows) {
   return need > buf_b ? need - buf_b : 0;
 }
 
-// Shared memory of a block of `rows` pair rows: the chain's, with the
-// assembly's scratch counted from buffer B on (only what passes buffer B
-// grows the ring); K6's on the mma.sync chain, K4's and K5's (WgChain) on
-// the wgmma chain at 128 and 64 rows.
-inline size_t attention_smem_bytes(const Chain& ch, const Dims& D, int rows) {
-  return smem_bytes(ch, scratch_past_b(ch, D, rows), rows);
-}
+// Shared memory of a block of `rows` pair rows: the chain's (the wgmma
+// chain's at 128 and 64 rows), with the assembly's scratch counted from
+// buffer B on (only what passes buffer B grows the ring).
 inline size_t attention_smem_bytes(const WgChain& ch, const Dims& D,
                                    int rows) {
   return smem_bytes_for(ch, scratch_past_b(ch, D, rows), rows);

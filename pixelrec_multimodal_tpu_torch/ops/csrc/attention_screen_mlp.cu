@@ -30,15 +30,20 @@
 // far below either.
 //
 // Design: K4 without the item tokens, with the tail added. The block, the 16
-// warps and the chain are K4's (8 users x 16 items, 226,816 B of shared
-// memory at the flagship widths; 4, 2 or 1 users for wider heads); the
-// tile's user rows and token 0's coefficients (H * (Mi + 1) per pair) live
-// in buffer B until the chain's layer 0 writes it. Logits and softmax are
+// warps and the chain are K4's (8 users x 16 items; 4, 2 or 1 users for
+// wider heads): the wgmma chain of mlp_chain_wgmma.cuh at 128 and 64 rows
+// (229,440 B of shared memory at the flagship widths: buffers of 64 and 512
+// swizzled columns and five 16 KB ring stages; d 512 at the flagship chain:
+// 64 rows, one 512-column buffer, 196,672 B) and the mma.sync chain of
+// mlp_chain.cuh at 32 and 16. The tile's user rows and token 0's
+// coefficients (H * (Mi + 1) per pair) live in buffer B until the chain's
+// layer 0 writes it. Logits and softmax are
 // attention_common.cuh's token-0 halves, the assembly K4's token-0 loop (one
 // warp per item, its Mi * H vo rows streamed from global memory and combined
 // with the tile's users),
 // then one LayerNorm per pair and the affine with the item's tail folded into
-// beta, and the one bf16 rounding into buf_a.
+// beta, and the one bf16 rounding into buf_a (FusedRows: the wgmma chain's
+// swizzled layout at 128 and 64 rows).
 
 #include "attention_common.cuh"
 
@@ -47,20 +52,20 @@ namespace {
 using namespace pairwise;
 using namespace attn;
 
-// The fused vectors of warp ci's TB pairs into buf_a, as bf16, UB users at
-// a time.
-template <int J, int TB>
+// The fused vectors of warp ci's TB pairs into buf_a (out), as bf16, UB
+// users at a time.
+template <int J, int TB, bool SW>
 __device__ __forceinline__ void screen_assemble(
     const float* U, const float* coef, const Dims& D,
     const float* __restrict__ it_vo, const float* __restrict__ it_tail,
     const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
-    __nv_bfloat16* buf_a, int stride_a, int c0, int C) {
+    const FusedRows<TB, SW>& out, int c0, int C) {
   constexpr int UB = assembly_users<J, TB>();
   constexpr int R = row_buffers<J>() < MAX_ITEM_MODS ? 1 : MAX_ITEM_MODS;
   const int ci = threadIdx.x >> 5, c = c0 + ci;
   const int d = D.d, half = d / 2;
   if (c >= C) {
-    zero_rows<TB>(buf_a, stride_a, ci, d);
+    zero_rows_at(out, ci, d);
     return;
   }
   const float inv_d = __fdiv_rn(1.f, (float)d);
@@ -89,9 +94,10 @@ __device__ __forceinline__ void screen_assemble(
       be[j] = make_float2(__fadd_rn(be[j].x, tl[j].x),
                           __fadd_rn(be[j].y, tl[j].y));
 #pragma unroll
-    for (int bu = 0; bu < UB; ++bu)
-      store_fused(f[bu], g, be, buf_a + ((b0 + bu) * TC + ci) * stride_a,
-                  half);
+    for (int bu = 0; bu < UB; ++bu) {
+      const int r = (b0 + bu) * TC + ci;
+      store_fused_at(f[bu], g, be, [&](int k) { return out.at(r, k); }, half);
+    }
   }
 }
 
@@ -104,11 +110,13 @@ screen_kernel(const float* __restrict__ u_raw, const float* __restrict__ u_q,
               const float* __restrict__ it_tail,
               const float* __restrict__ ln_scale,
               const float* __restrict__ ln_bias,
+              const __nv_bfloat16* __restrict__ w_sw,
               const __nv_bfloat16* __restrict__ w,
               const float* __restrict__ bias, const float* __restrict__ w_last,
               const float* __restrict__ b_last, float* __restrict__ out, int B,
-              int C, Dims D, Chain ch, int act, int fin) {
-  extern __shared__ __align__(128) unsigned char smem[];
+              int C, Dims D, WgChain ch, int act, int fin) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  constexpr bool SW = wgmma_rows<TB>();
   __nv_bfloat16* buf_a = reinterpret_cast<__nv_bfloat16*>(smem);
   int u0, c0;
   tile_origin<TB>(&u0, &c0);
@@ -121,17 +129,17 @@ screen_kernel(const float* __restrict__ u_raw, const float* __restrict__ u_q,
   __syncthreads();
   softmax_coefs<false, TB>(U, coef, D, nullptr, c0, C);
   __syncthreads();
-  screen_assemble<J, TB>(U, coef, D, it_vo, it_tail, ln_scale, ln_bias, buf_a,
-                         ch.stride_a, c0, C);
+  screen_assemble<J, TB>(U, coef, D, it_vo, it_tail, ln_scale, ln_bias,
+                         FusedRows<TB, SW>{buf_a, ch.stride_a}, c0, C);
   __syncthreads();
-  run_chain<TB>(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
-                fin);
+  run_chain_of<TB>(buf_a, w, w_sw, bias, w_last, b_last, out, B, C, u0, c0,
+                   ch, act, fin);
 }
 
 template <int J>
 cudaError_t launch(const void* const* p, const void* w, const void* bias,
                    const void* w_last, const void* b_last, void* out, int B,
-                   int C, const Dims& D, const Chain& ch, int act, int fin,
+                   int C, const Dims& D, const WgChain& ch, int act, int fin,
                    int rows, cudaStream_t stream) {
   return dispatch_rows(rows, [&](auto tb) {
     constexpr int TB = decltype(tb)::value;
@@ -143,6 +151,7 @@ cudaError_t launch(const void* const* p, const void* w, const void* bias,
     const float* const* f = reinterpret_cast<const float* const*>(p);
     screen_kernel<J, TB><<<grid, THREADS, smem, stream>>>(
         f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9],
+        static_cast<const __nv_bfloat16*>(p[10]),
         static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
         static_cast<const float*>(w_last), static_cast<const float*>(b_last),
         static_cast<float*>(out), B, C, D, ch, act, fin);
@@ -157,27 +166,29 @@ extern "C" {
 // Scores out[B, C] (f32, row-major) from the user rows u_raw, u_q, u_k
 // [B, d], u_vo [B, H*d], u_suu [B, 8] and the item tables it_k [C, Mi*d],
 // it_vo [C, Mi*H*d] and it_tail [C, d], with the LayerNorm affine ln_scale,
-// ln_bias [d]; all f32, row-major, 16-byte aligned. The chain arguments are
-// attention_mlp_forward's (widths[0] = d, w1 as layer 0, rows the block's
-// pair rows). Returns cudaSuccess
-// or the first CUDA error (launch included); shapes the kernel does not
-// take, or widths that do not fit in shared memory, return
-// cudaErrorInvalidValue.
+// ln_bias [d]; all f32, row-major, 16-byte aligned; then w_sw, the hidden
+// weights packed for the wgmma chain (read at 128 and 64 rows, w below).
+// The chain arguments are attention_mlp_forward's (widths[0] = d, w1 as
+// layer 0, rows the block's pair rows). Returns cudaSuccess or the first
+// CUDA error (launch included); shapes the kernel does not take, or a
+// block that does not fit in shared memory, return cudaErrorInvalidValue.
 int attention_screen_mlp_forward(
     const void* u_raw, const void* u_q, const void* u_k, const void* u_vo,
     const void* u_suu, const void* it_k, const void* it_vo,
     const void* it_tail, const void* ln_scale, const void* ln_bias,
-    const void* w, const void* bias, const void* w_last, const void* b_last,
-    void* out, int B, int C, int n_hidden, const void* widths, int act,
-    int fin, int H, int Mi, int rows, void* stream) {
-  Chain ch;
-  cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
+    const void* w_sw, const void* w, const void* bias, const void* w_last,
+    const void* b_last, void* out, int B, int C, int n_hidden,
+    const void* widths, int act, int fin, int H, int Mi, int rows,
+    void* stream) {
+  WgChain ch;
+  cudaError_t err = make_chain_for(rows, n_hidden,
+                                   static_cast<const int*>(widths), &ch);
   if (err != cudaSuccess) return err;
   Dims D;
   err = make_dims(ch.width[0], H, Mi, false, &D, false);
   if (err != cudaSuccess) return err;
-  const void* p[10] = {u_raw, u_q,   u_k,   u_vo,     u_suu,
-                       it_k,  it_vo, it_tail, ln_scale, ln_bias};
+  const void* p[11] = {u_raw, u_q,     u_k,     u_vo,     u_suu, it_k,
+                       it_vo, it_tail, ln_scale, ln_bias, w_sw};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (slots_per_lane(D.d)) {
     case 1:
@@ -199,8 +210,10 @@ int attention_screen_mlp_forward(
 // counts it; a negative CUDA error for shapes the kernel does not take.
 int attention_screen_mlp_block_bytes(int n_hidden, const void* widths, int H,
                                      int Mi, int rows) {
-  Chain ch;
-  cudaError_t err = make_chain(n_hidden, static_cast<const int*>(widths), &ch);
+  if (!valid_rows(rows)) return -(int)cudaErrorInvalidValue;
+  WgChain ch;
+  cudaError_t err = make_chain_for(rows, n_hidden,
+                                   static_cast<const int*>(widths), &ch);
   if (err == cudaSuccess) {
     Dims D;
     err = make_dims(ch.width[0], H, Mi, false, &D, false);
@@ -208,5 +221,8 @@ int attention_screen_mlp_block_bytes(int n_hidden, const void* widths, int H,
   }
   return -(int)err;
 }
+
+// The chain a block of `rows` pair rows runs: 2 wgmma, 1 mma.sync.
+int attention_screen_mlp_chain_kind(int rows) { return chain_kind(rows); }
 
 }  // extern "C"

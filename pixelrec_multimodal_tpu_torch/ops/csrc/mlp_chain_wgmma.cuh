@@ -1,8 +1,10 @@
 // pixelrec_multimodal_tpu_torch/ops/csrc/mlp_chain_wgmma.cuh
 //
 // The hidden Dense chain of mlp_chain.cuh on Hopper's warpgroup products
-// (wgmma), for the attention kernels K4 (attention_mlp.cu) and K5
-// (attention_gram_mlp.cu) at blocks of 128 and 64 pair rows. It keeps
+// (wgmma), for the concat kernel K1's bf16 mode (pairwise_mlp.cu), the
+// attention kernels K4 (attention_mlp.cu) and K5 (attention_gram_mlp.cu)
+// and the token-0 screen K6 (attention_screen_mlp.cu) at blocks of 128 and
+// 64 pair rows. It keeps
 // run_chain's contract: the assembly's bf16 activations in buf_a, the
 // epilogue's rounding points (an f32 bias add, one bf16 rounding, the
 // activation on the bf16 pair), the warp-shuffle last dot, the scores into
@@ -385,15 +387,17 @@ __device__ __forceinline__ void run_chain_wgmma(
 }
 
 // The block's chain: run_chain_wgmma (w_sw, the packed weights) for 128
-// and 64 rows, run_chain (w) below.
-template <int TB>
+// and 64 rows, run_chain (w) below; WG false keeps run_chain at 64 rows
+// too (a block whose wgmma layout does not fit: make_chain_fit).
+template <int TB, bool WG = wgmma_rows<TB>()>
 __device__ __forceinline__ void run_chain_of(
     __nv_bfloat16* buf_a, const __nv_bfloat16* __restrict__ w,
     const __nv_bfloat16* __restrict__ w_sw, const float* __restrict__ bias,
     const float* __restrict__ w_last, const float* __restrict__ b_last,
     float* __restrict__ out, int B, int C, int u0, int c0, const WgChain& ch,
     int act, int fin) {
-  if constexpr (wgmma_rows<TB>())
+  static_assert(!WG || wgmma_rows<TB>(), "wgmma takes 64-row tiles");
+  if constexpr (WG)
     run_chain_wgmma<TB>(buf_a, w_sw, bias, w_last, b_last, out, B, C, u0, c0,
                         ch, act, fin);
   else
@@ -451,14 +455,34 @@ inline cudaError_t make_chain_for(int rows, int n_hidden, const int* wd,
   return make_chain(n_hidden, wd, ch);
 }
 
-// Shared memory of a block on either chain: the two activation buffers,
-// then the ring (and, on the wgmma chain, its barriers) or the assembly's
-// `scratch` bytes, whichever is larger.
+// Shared memory of a block on either chain (the wgmma chain's has ring
+// stages, the mma.sync chain's none): the two activation buffers, then the
+// ring (and, on the wgmma chain, its barriers) or the assembly's `scratch`
+// bytes, whichever is larger.
 inline size_t smem_bytes_for(const WgChain& ch, size_t scratch, int rows) {
-  if (!wgmma_rows(rows)) return smem_bytes(ch, scratch, rows);
+  if (!ch.stages) return smem_bytes(ch, scratch, rows);
   const size_t ring = (size_t)ch.stages * WG_STAGE_BYTES + WG_BARRIER_BYTES;
   return (size_t)rows * (ch.stride_a + ch.stride_b) * 2 +
          (ring > scratch ? ring : scratch);
+}
+
+// make_chain_for with the blocks in one fixed order by fit: 128 rows on
+// the wgmma chain, 64 on the wgmma chain, 64 on the mma.sync chain, 32, 16.
+// A 64-row block whose wgmma layout (its buffers and at least two k slices'
+// ring stages, with the assembly's `scratch` bytes over the ring) passes
+// WG_SMEM takes the mma.sync chain's layout (ch->stages 0), as K1 does for
+// the wide chain [1024, 512, 256], whose 1,024-column buffer A leaves no
+// room for the ring. The choice follows from the widths alone, so the
+// launch and <name>_block_bytes make the same one; it is no retreat from a
+// failure.
+inline cudaError_t make_chain_fit(int rows, int n_hidden, const int* wd,
+                                  size_t scratch, WgChain* ch) {
+  const cudaError_t err = make_chain_for(rows, n_hidden, wd, ch);
+  if (err != cudaSuccess || rows != 64 ||
+      smem_bytes_for(*ch, scratch, rows) <= (size_t)WG_SMEM)
+    return err;
+  *ch = WgChain{};
+  return make_chain(n_hidden, wd, ch);
 }
 
 // 2: the block of `rows` pair rows runs the wgmma chain, 1: the mma.sync

@@ -24,14 +24,20 @@
 // the kernel is bound by tensor-core operations, not by memory.
 //
 // Design against that bound: every activation stays on chip. A block of 16
-// warps owns a tile of 8 users x 16 items (128 pair rows; at the flagship
-// widths the block's ~222 KB of shared memory fill one SM), or of 4, 2 or 1
-// users where wider chains need it (mlp_chain.cuh). It assembles
-// the first-layer activations into shared memory as bf16 with packed
-// bf16x2 arithmetic, then runs the hidden chain and the last layer of
-// mlp_chain.cuh (mma.sync on the tensor cores, weights through a cp.async
-// ring), which the gated kernels share.
-// wgmma, TMA and persistent blocks are left for later work.
+// warps owns a tile of 8 users x 16 items (128 pair rows), or of 4, 2 or 1
+// users where wider chains need it (mlp_chain.cuh). It assembles the
+// first-layer activations into shared memory as bf16 with packed bf16x2
+// arithmetic, then runs the hidden chain and the last layer. Blocks of 128
+// and 64 rows run the wgmma chain of mlp_chain_wgmma.cuh (the assembly
+// writes its 128-byte-swizzled 64-column blocks; weights packed by the
+// host, ops/pairwise_mlp.py:wgmma_weights, in 16 KB bulk-copied stages):
+// at the flagship widths 229,440 B of shared memory, one 512-column buffer
+// that every layer writes over (each fits one 256-column sweep) and six
+// ring stages. Blocks of 32 and 16 rows run the mma.sync chain of
+// mlp_chain.cuh, which the gated kernels share; so does a 64-row block
+// whose wgmma layout does not fit (make_chain_fit: the chain [1024, 512,
+// 256], whose 1,024-column buffer A leaves no room for two k slices'
+// stages). Persistent blocks and a producer warp are left for later work.
 //
 // int8 mode (K1q, the template flag Q): the same bf16 assembly, each
 // activation then quantized with layer 0's (inv_a, off) into an int8 code
@@ -42,20 +48,25 @@
 // units beside it.
 
 #include "mlp_chain_int8.cuh"
+#include "mlp_chain_wgmma.cuh"
 
 namespace {
 
 using namespace pairwise;
 
-template <bool Q, int TB>
+// WG: the wgmma chain (bf16 mode at 128 and 64 rows, by fit), else the
+// mma.sync chain of the mode.
+template <bool Q, int TB, bool WG>
 __global__ void __launch_bounds__(THREADS)
 pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
+                    const __nv_bfloat16* __restrict__ w_sw,
                     const Weight<Q>* __restrict__ w,
                     const float* __restrict__ bias,
                     const float* __restrict__ w_last,
                     const float* __restrict__ b_last, float* __restrict__ out,
-                    int B, int C, Chain ch, int act, int fin) {
-  extern __shared__ __align__(128) unsigned char smem[];
+                    int B, int C, WgChain ch, int act, int fin) {
+  static_assert(!(Q && WG), "the int8 mode runs the mma.sync chain");
+  extern __shared__ __align__(1024) unsigned char smem[];
   __nv_bfloat16* buf_a = reinterpret_cast<__nv_bfloat16*>(smem);
 
   const int c0 = blockIdx.x * TC, u0 = blockIdx.y * TB;
@@ -64,10 +75,13 @@ pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
   const int q = h1 / 4;
 
   // ---- assembly: buf_a[bu * TC + ci] = act(bf16(u) + bf16(i)), as bf16
-  // (int8 mode: its codes). The TB user rows are rounded to bf16 once, into
-  // the ring; each item float4 is read once from global memory and paired
-  // with all TB users. Rows past B or C assemble from zeros and are never
-  // written out.
+  // (int8 mode: its codes; wgmma chain: at its swizzled offset, the four
+  // values of a store inside one 16-byte chunk). The TB user rows are
+  // rounded to bf16 once, into the ring; each item float4 is read once from
+  // global memory and paired with all TB users. Rows past B or C assemble
+  // from zeros and are never written out. The ring's first bulk copies and
+  // barriers come after the __syncthreads below, once every read of the
+  // user rows is done (run_chain_wgmma).
   __nv_bfloat16* users =
       reinterpret_cast<__nv_bfloat16*>(scratch_of<Q, TB>(smem, ch));  // [TB, h1]
   for (int e = tid; e < TB * q; e += THREADS) {
@@ -101,6 +115,9 @@ pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
       if constexpr (Q) {
         *reinterpret_cast<uint32_t*>(smem + (bu * TC + ci) * ch.stride_a + k) =
             quantize_bf16x4(x, inv_a, off);
+      } else if constexpr (WG) {
+        *reinterpret_cast<uint2*>(
+            buf_a + sw_offset<Tile<TB>::ROWS>(bu * TC + ci, k)) = x;
       } else {
         *reinterpret_cast<uint2*>(buf_a + (bu * TC + ci) * ch.stride_a + k) = x;
       }
@@ -111,38 +128,79 @@ pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
     run_chain_int8<TB>(smem, w, bias, w_last, b_last, out, B, C, u0, c0, ch,
                        act, fin);
   } else {
-    run_chain<TB>(buf_a, w, bias, w_last, b_last, out, B, C, u0, c0, ch, act,
-                  fin);
+    run_chain_of<TB, WG>(buf_a, w, w_sw, bias, w_last, b_last, out, B, C, u0,
+                         c0, ch, act, fin);
   }
 }
 
 // The bf16 user rows are the assembly's scratch in the ring.
-inline size_t scratch_bytes(const Chain& ch, int rows) {
-  return (size_t)(rows / TC) * ch.width[0] * 2;
+inline size_t scratch_bytes(int h1, int rows) {
+  return (size_t)(rows / TC) * h1 * 2;
+}
+
+// The chain of a block of `rows` pair rows in either mode, from the HOST
+// width array: the int8 layout (K1q, mma.sync), or the bf16 chain by fit
+// (make_chain_fit: wgmma at 128 and 64 rows where its block fits); and the
+// block's shared memory.
+template <bool Q>
+inline cudaError_t block_chain(int n_hidden, const void* widths, int rows,
+                               WgChain* ch) {
+  *ch = WgChain{};
+  if (!valid_rows(rows)) return cudaErrorInvalidValue;
+  if (Q) return make_chain_of<true>(n_hidden, widths, rows, ch);
+  const int* wd = static_cast<const int*>(widths);
+  return make_chain_fit(rows, n_hidden, wd, scratch_bytes(wd[0], rows), ch);
+}
+template <bool Q>
+inline size_t block_smem(const WgChain& ch, int rows) {
+  const size_t scratch = scratch_bytes(ch.width[0], rows);
+  return Q ? smem_of<true>(ch, scratch, rows)
+           : smem_bytes_for(ch, scratch, rows);
+}
+
+template <bool Q, int TB, bool WG>
+cudaError_t launch(const void* uf, const void* itf, const void* w_sw,
+                   const void* w, const void* bias, const void* w_last,
+                   const void* b_last, void* out, int B, int C,
+                   const WgChain& ch, int act, int fin, int rows,
+                   cudaStream_t stream) {
+  const size_t smem = block_smem<Q>(ch, rows);
+  dim3 grid;
+  const cudaError_t err = prepare_launch(pairwise_mlp_kernel<Q, TB, WG>, smem,
+                                         B, C, rows, &grid);
+  if (err != cudaSuccess) return err;
+  pairwise_mlp_kernel<Q, TB, WG><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(uf), static_cast<const float*>(itf),
+      static_cast<const __nv_bfloat16*>(w_sw),
+      static_cast<const Weight<Q>*>(w), static_cast<const float*>(bias),
+      static_cast<const float*>(w_last), static_cast<const float*>(b_last),
+      static_cast<float*>(out), B, C, ch, act, fin);
+  return cudaGetLastError();
 }
 
 template <bool Q>
-int forward(const void* uf, const void* itf, const void* w, const void* bias,
-            const void* w_last, const void* b_last, void* out, int B, int C,
-            int n_hidden, const void* widths, int act, int fin, int rows,
-            void* stream) {
-  Chain ch;
-  cudaError_t err = make_chain_of<Q>(n_hidden, widths, rows, &ch);
+int forward(const void* uf, const void* itf, const void* w_sw, const void* w,
+            const void* bias, const void* w_last, const void* b_last,
+            void* out, int B, int C, int n_hidden, const void* widths,
+            int act, int fin, int rows, void* stream) {
+  WgChain ch;
+  const cudaError_t err = block_chain<Q>(n_hidden, widths, rows, &ch);
   if (err != cudaSuccess) return err;
-  const size_t smem = smem_of<Q>(ch, scratch_bytes(ch, rows), rows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch_rows(rows, [&](auto tb) {
     constexpr int TB = decltype(tb)::value;
-    dim3 grid;
-    cudaError_t e =
-        prepare_launch(pairwise_mlp_kernel<Q, TB>, smem, B, C, rows, &grid);
-    if (e != cudaSuccess) return e;
-    pairwise_mlp_kernel<Q, TB><<<grid, THREADS, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(uf), static_cast<const float*>(itf),
-        static_cast<const Weight<Q>*>(w), static_cast<const float*>(bias),
-        static_cast<const float*>(w_last), static_cast<const float*>(b_last),
-        static_cast<float*>(out), B, C, ch, act, fin);
-    return cudaGetLastError();
+    if constexpr (Q || !wgmma_rows<TB>())
+      return launch<Q, TB, false>(uf, itf, w_sw, w, bias, w_last, b_last, out,
+                                  B, C, ch, act, fin, rows, s);
+    else if constexpr (TB == 4)  // 64 rows: the chain make_chain_fit chose
+      return ch.stages
+          ? launch<false, TB, true>(uf, itf, w_sw, w, bias, w_last, b_last,
+                                    out, B, C, ch, act, fin, rows, s)
+          : launch<false, TB, false>(uf, itf, w_sw, w, bias, w_last, b_last,
+                                     out, B, C, ch, act, fin, rows, s);
+    else
+      return launch<false, TB, true>(uf, itf, w_sw, w, bias, w_last, b_last,
+                                     out, B, C, ch, act, fin, rows, s);
   });
 }
 
@@ -151,8 +209,10 @@ int forward(const void* uf, const void* itf, const void* w, const void* bias,
 extern "C" {
 
 // Scores out[B, C] (f32, row-major) from user_first [B, h1] and item_first
-// [C, h1] (f32, row-major, 16-byte aligned rows). w holds the hidden layers'
-// [K, N] bf16 weights back to back, bias their biases (f32 holding
+// [C, h1] (f32, row-major, 16-byte aligned rows). w_sw holds the hidden
+// weights packed for the wgmma chain (mlp_chain_wgmma.cuh; read in the
+// blocks that run it), w the hidden layers' [K, N] bf16 weights back to
+// back (read by the mma.sync chain), bias their biases (f32 holding
 // bf16-rounded values), w_last the bf16-rounded live column of the last
 // layer [width[n_hidden]] (f32), b_last its bias (element 0 is read).
 // widths is a HOST array of n_hidden + 1 ints, each a positive multiple of
@@ -160,40 +220,57 @@ extern "C" {
 // ops/pairwise_mlp.py:block_rows). Returns cudaSuccess or the first CUDA
 // error (launch included); a block that does not fit in shared memory
 // returns cudaErrorInvalidValue.
-int pairwise_mlp_forward(const void* uf, const void* itf, const void* w,
-                         const void* bias, const void* w_last,
+int pairwise_mlp_forward(const void* uf, const void* itf, const void* w_sw,
+                         const void* w, const void* bias, const void* w_last,
                          const void* b_last, void* out, int B, int C,
                          int n_hidden, const void* widths, int act, int fin,
                          int rows, void* stream) {
-  return forward<false>(uf, itf, w, bias, w_last, b_last, out, B, C, n_hidden,
-                        widths, act, fin, rows, stream);
+  return forward<false>(uf, itf, w_sw, w, bias, w_last, b_last, out, B, C,
+                        n_hidden, widths, act, fin, rows, stream);
 }
 
-// The int8 mode (K1q): the arguments of pairwise_mlp_forward, with w the
-// hidden layers' transposed int8 weights [N, K] back to back, bias the
-// quantization parameters (mlp_chain_int8.cuh), w_last the unrounded live
-// column; widths are multiples of 32, 1 <= n_hidden <= MAX_HIDDEN.
+// The int8 mode (K1q): the arguments of pairwise_mlp_forward without w_sw,
+// with w the hidden layers' transposed int8 weights [N, K] back to back,
+// bias the quantization parameters (mlp_chain_int8.cuh), w_last the
+// unrounded live column; widths are multiples of 32, 1 <= n_hidden <=
+// MAX_HIDDEN. It runs the int8 mma.sync chain at every row count.
 int pairwise_mlp_int8_forward(const void* uf, const void* itf, const void* w,
                               const void* bias, const void* w_last,
                               const void* b_last, void* out, int B, int C,
                               int n_hidden, const void* widths, int act,
                               int fin, int rows, void* stream) {
-  return forward<true>(uf, itf, w, bias, w_last, b_last, out, B, C, n_hidden,
-                       widths, act, fin, rows, stream);
+  return forward<true>(uf, itf, nullptr, w, bias, w_last, b_last, out, B, C,
+                       n_hidden, widths, act, fin, rows, stream);
 }
 
 // Shared memory a block of `rows` pair rows takes in either mode (int8 != 0:
-// K1q), as the launch set-up counts it; a negative CUDA error for widths
-// the kernel does not take.
+// K1q), as the launch set-up counts it (the bf16 mode's on the chain
+// make_chain_fit chooses); a negative CUDA error for widths or rows the
+// kernel does not take.
 int pairwise_mlp_block_bytes(int n_hidden, const void* widths, int int8,
                              int rows) {
-  Chain ch;
-  const cudaError_t err = int8 ? make_chain_of<true>(n_hidden, widths, rows, &ch)
-                               : make_chain_of<false>(n_hidden, widths, rows, &ch);
+  WgChain ch;
+  const cudaError_t err = int8 ? block_chain<true>(n_hidden, widths, rows, &ch)
+                               : block_chain<false>(n_hidden, widths, rows, &ch);
   if (err != cudaSuccess) return -(int)err;
-  const size_t scratch = scratch_bytes(ch, rows);
-  return (int)(int8 ? smem_of<true>(ch, scratch, rows)
-                    : smem_of<false>(ch, scratch, rows));
+  return (int)(int8 ? block_smem<true>(ch, rows) : block_smem<false>(ch, rows));
+}
+
+// The chain a block of `rows` pair rows of the bf16 mode runs where its
+// wgmma block fits: 2 wgmma (128, 64), 1 mma.sync (32, 16).
+int pairwise_mlp_chain_kind(int rows) { return chain_kind(rows); }
+
+// The chain a block of `rows` pair rows runs on these widths, in either
+// mode (int8 != 0: K1q, mma.sync at every row count): 2 wgmma, 1 mma.sync
+// (make_chain_fit); a negative CUDA error for widths or rows the kernel
+// does not take.
+int pairwise_mlp_block_chain_kind(int n_hidden, const void* widths, int int8,
+                                  int rows) {
+  WgChain ch;
+  const cudaError_t err = int8 ? block_chain<true>(n_hidden, widths, rows, &ch)
+                               : block_chain<false>(n_hidden, widths, rows, &ch);
+  if (err != cudaSuccess) return -(int)err;
+  return ch.stages ? 2 : 1;
 }
 
 }  // extern "C"

@@ -16,8 +16,11 @@ prediction MLP is made compute-bound in three steps:
   3. One kernel scores a [users x items] block with every activation kept
      on chip: K1 (``csrc/pairwise_mlp.cu``) for concatenate fusion, K2
      (``csrc/gated_pairwise_mlp.cu``) for exact gated fusion, K3
-     (``csrc/gated_factored_mlp.cu``) for its factored form. They share
-     the Dense chain of ``csrc/mlp_chain.cuh``.
+     (``csrc/gated_factored_mlp.cu``) for its factored form. K2 and K3
+     run the Dense chain of ``csrc/mlp_chain.cuh`` (``mma.sync``); K1 runs
+     the wgmma chain of ``csrc/mlp_chain_wgmma.cuh`` (the weights packed
+     by ``wgmma_weights``) in blocks of 128 and 64 pair rows where that
+     block fits, and ``mlp_chain.cuh``'s below (``chain_kind``).
 
 ``pairwise_scores``, ``pairwise_scores_gated`` and
 ``pairwise_scores_gated_factored`` are the kernels' wrappers: CUDA tensors
@@ -38,7 +41,8 @@ rows): ``block_rows`` takes the largest whose shared memory, as the
 kernel's own launch set-up counts it (``block_bytes``), fits the card's 227
 KB, once per kernel and chain, and every launch passes it to the kernel,
 which checks it again. Every output's sums run in the same order whatever
-the row count, so the bf16 kernels give the same scores at any of them.
+the row count, so the bf16 kernels give the same scores at any of them on
+one chain.
 ``check_pair_kernel_fits`` refuses a head that fits no block before a
 scorer builds its tables.
 
@@ -293,15 +297,22 @@ def factor_gated_tables(head: dict, item_first: torch.Tensor,
 
 # The auto-precision gate of CatalogScorer(precision='int8'): int8 serves
 # only heads whose hidden chain does at least this many operations per
-# first-layer lane (``int8_chain_flops_per_lane``), where K1q beats K1. The
-# int8 products run at twice the bf16 rate, but each pair's h1-wide
-# quantize and every layer's rescale run outside the tensor cores. On an
-# NVIDIA H100 80GB HBM3 (700 W) K1q beat K1 on every chain measured whose
-# h1 is a multiple of 128, as the scorer's heads are, down to 64, the
-# least of any head with a hidden layer (one layer 32 wide: 2 * 32), so the
-# gate passes every head the int8 mode takes (chip_smoke.py's
-# int8_flip_point phase, PERF.md). The JAX package's 1000 is the TPU's.
+# first-layer lane (``int8_chain_flops_per_lane``), where the int8 kernel
+# beats the bf16 one. The int8 products run at twice the bf16 rate of the
+# mma.sync chain, but each pair's h1-wide quantize and every layer's
+# rescale run outside the tensor cores. On an NVIDIA H100 80GB HBM3 (700 W;
+# chip_smoke.py's int8_flip_point phase, PERF.md), on the chains whose h1
+# is a multiple of 128, as the scorer's heads are:
+#   gated heads (K2q, K3q against K2, K3, which run the mma.sync chain):
+#     K1q beat K1 on the mma.sync chain down to 64, the least of any head
+#     with a hidden layer (one layer 32 wide: 2 * 32), so the gate passes
+#     every gated head;
+#   concatenate heads (K1q against K1 on the wgmma chain): K1q is the
+#     faster only from 2,560 (at the flagship's 640 it takes 1.2x K1's
+#     time), so 'int8' serves them in bf16 below that.
+# The JAX package's 1000 is the TPU's.
 INT8_MIN_CHAIN_FLOPS_PER_LANE = 64
+INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT = 2560
 
 
 def int8_chain_flops_per_lane(head: dict) -> float:
@@ -700,14 +711,21 @@ WGMMA_TILE = 64  # csrc/mlp_chain_wgmma.cuh: packed weight tiles of 64 x 64
 
 def wgmma_weights(chain: dict) -> torch.Tensor:
     """The bf16 chain's hidden weights packed for the wgmma chain of
-    ``csrc/mlp_chain_wgmma.cuh`` (K4 and K5 at blocks of 128 and 64 pair
-    rows): per layer, W^T [N, K] zero-padded to multiples of 64 and cut
-    into tiles of 64 columns x 64 rows of K in the order (k slice, column
-    group), each tile's rows 128 bytes whose 16-byte chunks are swizzled by
-    the row (stored chunk = chunk ^ n % 8), the layout the kernel's
-    descriptors read. Built once per chain dict (``chain['w_wgmma']``)."""
+    ``csrc/mlp_chain_wgmma.cuh`` (K1's bf16 mode, K4, K5 and K6 at blocks
+    of 128 and 64 pair rows): per layer, W^T [N, K] zero-padded to
+    multiples of 64 and cut into tiles of 64 columns x 64 rows of K in the
+    order (k slice, column group), each tile's rows 128 bytes whose 16-byte
+    chunks are swizzled by the row (stored chunk = chunk ^ n % 8), the
+    layout the kernel's descriptors read. Built once per chain dict and
+    cached in it (``chain['w_wgmma']``) beside the weights it was packed
+    from (``chain['w_wgmma_of']``): packed weights that came with another
+    chain's (a copied dict whose ``w`` was replaced) are packed anew, never
+    launched. ValueError for an int8 chain."""
+    if chain.get('int8'):
+        raise ValueError('the int8 mode runs the mma.sync chain: it takes '
+                         'no packed bf16 weights')
     packed = chain.get('w_wgmma')
-    if packed is not None:
+    if packed is not None and chain.get('w_wgmma_of') is chain['w']:
         return packed
     w, t = chain['w'], WGMMA_TILE
     widths = [int(x) for x in chain['widths']]
@@ -726,7 +744,7 @@ def wgmma_weights(chain: dict) -> torch.Tensor:
         parts.append(tiles.permute(2, 0, 1, 3, 4).reshape(-1))
     packed = (torch.cat(parts) if parts
               else torch.zeros(8, dtype=w.dtype, device=w.device))
-    chain['w_wgmma'] = packed.contiguous()
+    chain['w_wgmma'], chain['w_wgmma_of'] = packed.contiguous(), w
     return chain['w_wgmma']
 
 
@@ -865,13 +883,32 @@ def block_bytes(name: str, widths: Sequence[int], rows: int,
 CHAIN_KINDS = {1: 'mma.sync', 2: 'wgmma'}
 
 
-def chain_kind(name: str, rows: int) -> str:
+def chain_kind(name: str, rows: int,
+               widths: Optional[Sequence[int]] = None,
+               mode: Tuple[int, ...] = (0,)) -> str:
     """The tensor-core chain ``csrc/<name>.cu`` runs in a block of ``rows``
     pair rows, as its library reports it (``<name>_chain_kind``):
-    'wgmma' (``csrc/mlp_chain_wgmma.cuh``; K4 and K5 at 128 and 64 rows)
-    or 'mma.sync' (``csrc/mlp_chain.cuh``; every kernel without the
-    export). Loads the kernel's library."""
+    'wgmma' (``csrc/mlp_chain_wgmma.cuh``; K1's bf16 mode, K4, K5 and K6
+    at 128 and 64 rows) or 'mma.sync' (``csrc/mlp_chain.cuh``; every
+    kernel without the export). With ``widths`` (and ``mode``, as for
+    ``block_bytes``) a kernel that chooses the chain by fit (K1:
+    ``<name>_block_chain_kind``, a 64-row block whose wgmma layout does
+    not fit runs mma.sync, and the int8 mode always does) reports the
+    chain of that block on those widths. Loads the kernel's library."""
     lib = _build.load(name)
+    fn = (getattr(lib, f'{name}_block_chain_kind', None)
+          if widths is not None else None)
+    if fn is not None:
+        wd = np.asarray(widths, np.int32)
+        fn.argtypes = ([ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * (len(mode) + 1))
+        fn.restype = ctypes.c_int
+        kind = fn(len(wd) - 1, wd.ctypes.data, *mode, rows)
+        if kind not in CHAIN_KINDS:
+            raise ValueError(f'{_what(name, widths, mode)}: no chain for '
+                             f'{rows} pair rows '
+                             f'({_error_string(lib, -kind)})')
+        return CHAIN_KINDS[kind]
     fn = getattr(lib, f'{name}_chain_kind', None)
     if fn is None:
         return CHAIN_KINDS[1]
@@ -984,9 +1021,12 @@ def pairwise_scores(head: dict, user_first: torch.Tensor,
     CUDA tensors launch the kernel on the current stream (bf16 operands,
     float32 accumulation); B and C need not be tile multiples. The kernel's
     tensors come from ``head['kernel']`` when they lie on the rows' device,
-    else ``kernel_chain`` builds them for this call. The block's pair rows
-    are ``block_rows``'s (a head that fits no block raises ValueError;
-    ``_block_rows`` forces a smaller block, for tests). CPU tensors take
+    else ``kernel_chain`` builds them for this call; the bf16 mode reads
+    the hidden weights packed for the wgmma chain too (``wgmma_weights``,
+    cached in that dict). The block's pair rows are ``block_rows``'s (a
+    head that fits no block raises ValueError; ``_block_rows`` forces a
+    smaller block, for tests): the wgmma chain at 128 and 64 rows where its
+    block fits, the mma.sync chain below (``chain_kind``). CPU tensors take
     ``pairwise_scores_plain`` in float32. Anything else raises.
     ``pairwise_scores.launches`` counts kernel launches of the bf16 mode,
     ``pairwise_scores.launches_int8`` those of the int8 mode (K1q), which a
@@ -1004,8 +1044,10 @@ def pairwise_scores(head: dict, user_first: torch.Tensor,
     out = torch.empty((B, C), dtype=torch.float32, device=device)
     if B == 0 or C == 0:
         return out
-    _launch('pairwise_mlp', out, (user_first, item_first), chain, B, C,
-            forced=_block_rows)
+    tensors = (user_first, item_first)
+    if not chain['int8']:  # K1q runs the int8 mma.sync chain
+        tensors += (wgmma_weights(chain),)
+    _launch('pairwise_mlp', out, tensors, chain, B, C, forced=_block_rows)
     if chain['int8']:
         pairwise_scores.launches_int8 += 1
     else:

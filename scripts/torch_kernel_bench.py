@@ -8,7 +8,9 @@
    8,192 items, relu, sigmoid, random weights from a seed) with the chain
    cut after the assembly (h1 512 -> 1), after the first hidden layer
    (512 -> 256 -> 1) and whole (512 -> 256 -> 128 -> 1). The differences
-   between the three times are the cost of each hidden layer. The attention
+   between the three times are the cost of each hidden layer; each
+   kernel's chain (whole less the cut after the assembly) is printed with
+   its ms and TFLOP/s and the chain it runs (wgmma or mma.sync). The attention
    kernels (K4 stream, K5 gram, K6 token-0 screen; d 64, 4 heads, Mi 5)
    the same way: cut after the assembly (the last dot on the fused vector,
    64 -> 1), after w1 (64 -> 512 -> 1) and whole, then each kernel's chain
@@ -60,6 +62,7 @@ from chip_smoke import (  # noqa: E402
     N_USERS,
     SEED,
     TOP_K,
+    assembly_only_chain,
     build_flagship,
     cuda_ms,
     random_attention_head,
@@ -78,6 +81,8 @@ def emit(what: str, **fields):
 
 def time_layers(dev):
     from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
+        chain_kind,
+        kernel_chain,
         pairwise_scores,
         pairwise_scores_gated,
         pairwise_scores_gated_factored,
@@ -86,9 +91,11 @@ def time_layers(dev):
     h1 = CHAINS[0][0]
     uf = torch.randn(B, h1, generator=gen).to(dev)
     itf = torch.randn(C, h1, generator=gen).to(dev)
+    times = defaultdict(dict)
     for widths in CHAINS:
         head = random_head(widths, 'relu', 'sigmoid', gen, dev,
                            n_item_mods=5)
+        head['kernel'] = kernel_chain(head)  # built once, as a scorer's
         exact, factored = random_gated_rows(head, B, C, gen, dev)
         mma = sum(2 * k * n for k, n in zip(widths[:-1], widths[1:]))
         for kernel, fn, args in (('K1', pairwise_scores, (uf, itf)),
@@ -99,6 +106,15 @@ def time_layers(dev):
                 ms = cuda_ms(lambda: fn(head, *args), reps=20)
             emit('layers', kernel=kernel, widths=list(widths), B=B, C=C,
                  ms=ms, mma_tflops=B * C * mma / (ms * 1e-3) / 1e12)
+            times[kernel][len(widths)] = (ms, mma)
+    names = {'K1': 'pairwise_mlp', 'K2': 'gated_pairwise_mlp',
+             'K3': 'gated_factored_mlp'}
+    for kernel, by_depth in times.items():
+        (whole, mma), (cut, _) = by_depth[len(CHAINS[-1])], by_depth[1]
+        emit('chain', kernel=kernel, widths=list(CHAINS[-1]), B=B, C=C,
+             chain=chain_kind(names[kernel], 128, CHAINS[-1]),
+             ms=whole - cut,
+             tflops=B * C * mma / ((whole - cut) * 1e-3) / 1e12)
 
 
 def time_attention_layers(dev):
@@ -123,13 +139,7 @@ def time_attention_layers(dev):
         head = random_attention_head(d, heads, widths or CHAINS[0], 'relu',
                                      'sigmoid', gen, dev)
         if not widths:  # no hidden layer: the last dot on the fused vector
-            head['kernel'] = {
-                'n_hidden': 0, 'widths': np.asarray([d], np.int32),
-                'w': torch.zeros(8, dtype=torch.bfloat16, device=dev),
-                'b': torch.zeros(1, device=dev),
-                'w_last': torch.randn(d, generator=gen).to(dev)
-                .bfloat16().float(),
-                'b_last': torch.zeros(1, device=dev), 'act': 0, 'final': 0}
+            head['kernel'] = assembly_only_chain(d, gen, dev)
         else:  # built once, as a scorer's
             head['kernel'] = kernel_chain(head)
         users, items = random_attention_rows(head, B, C, gen, dev, True)

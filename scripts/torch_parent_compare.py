@@ -17,8 +17,8 @@ flagship attention head (d 64, 4 heads) for K4, K5 and K6 (with its
 screen tail), and the int8 modes of K1-K3 on the same rows with the
 flagship chain quantized. Prints one JSON
 line per measurement, the card's ``nvidia-smi`` name and power limit
-first: whether the scores are equal bit for bit; for K4 and K5, whose
-chains may differ between the checkouts (the wgmma chain against the
+first: whether the scores are equal bit for bit; for K1, K4, K5 and K6,
+whose chains may differ between the checkouts (the wgmma chain against the
 mma.sync chain), the kernel-against-plain gates of ``chip_smoke.py``
 between the two builds' scores (every pair within KERNEL_TOL of the score
 scale, at most MAX_DIFFERING_PER_LAYER of the pairs per hidden layer past
@@ -26,13 +26,14 @@ AGREE) and the mean top-50 overlap of each user's row (>= MIN_OVERLAP);
 then each kernel's mean of 20 launches (CUDA events) in turns, other,
 this, this, other, and this checkout's time over the other's. The C
 interface of the two builds' entry points must be the same, but for the
-block's pair rows and K4's and K5's packed weights: a checkout whose
-kernels take no rows (every block 128 rows) is called without them, with
-this checkout's count of the block's shared memory, and only where that
-count chooses 128 rows; one whose K4 and K5 take no packed weights (no
-``<name>_chain_kind``) is called without them. Exits 2 without a CUDA
-device, 1 if a kernel other than K4 and K5 differs from the other
-checkout's or K4 or K5 fails a gate.
+block's pair rows and the packed weights of the kernels on the wgmma
+chain: a checkout whose kernels take no rows (every block 128 rows) is
+called without them, with this checkout's count of the block's shared
+memory, and only where that count chooses 128 rows; one whose K1, K4, K5
+or K6 takes no packed weights (no ``<name>_chain_kind``) is called
+without them. Exits 2 without a CUDA device, 1 if a kernel other than K1,
+K4, K5 and K6 differs from the other checkout's or one of those four
+fails a gate.
 """
 from __future__ import annotations
 
@@ -65,8 +66,13 @@ from chip_smoke import (  # noqa: E402
 
 KERNELS = ('pairwise_mlp', 'gated_pairwise_mlp', 'gated_factored_mlp',
            'attention_mlp', 'attention_gram_mlp', 'attention_screen_mlp')
-PACKED = ('attention_mlp', 'attention_gram_mlp')  # take the packed weights
-GATED = ('K4', 'K5')  # held to the other checkout by the gates, not bits
+# the kernels that take the packed weights, and where: the argument's
+# place counted from the end of the entry point's arguments
+PACKED = {'pairwise_mlp': 14, 'attention_mlp': 16, 'attention_gram_mlp': 16,
+          'attention_screen_mlp': 16}
+# held to the other checkout by the gates, not bits (their chain may be
+# another one there)
+GATED = ('K1', 'K4', 'K5', 'K6')
 TOP = 50
 
 
@@ -105,10 +111,11 @@ class WithoutRows:
 
 
 class WithoutPackedWeights:
-    """A library whose K4 or K5 entry point takes no packed weights (a
-    checkout from before the wgmma chain): its ``<name>_forward`` drops
-    the pointer to them, which the wrappers pass after the LayerNorm
-    affine, 16 arguments from the end."""
+    """A library whose K1, K4, K5 or K6 entry point takes no packed weights
+    (a checkout from before that kernel's wgmma chain): its
+    ``<name>_forward`` drops the pointer to them, which the wrappers pass
+    PACKED[name] arguments from the end (after the LayerNorm affine, or
+    after K1's item rows)."""
 
     def __init__(self, lib, name):
         self._lib, self._name = lib, name
@@ -120,7 +127,7 @@ class WithoutPackedWeights:
             return fn
         if self._call is None:
             def call(*args):
-                i = len(args) - 16
+                i = len(args) - PACKED[self._name]
                 if fn.argtypes is None:
                     fn.argtypes = call.argtypes[:i] + call.argtypes[i + 1:]
                     fn.restype = ctypes.c_int
@@ -205,6 +212,7 @@ def main() -> int:
     with torch.no_grad():
         pair_head = random_head(HIDDEN, 'relu', 'sigmoid', gen, dev,
                                 n_item_mods=5)
+        pair_head['kernel'] = tpm.kernel_chain(pair_head)  # as a scorer's
         exact, factored = random_gated_rows(pair_head, TIME_B, TIME_C, gen,
                                             dev)
         concat = (torch.randn(TIME_B, HIDDEN[0], generator=gen).to(dev),

@@ -1,30 +1,35 @@
 #!/usr/bin/env python3
-"""Where the time goes inside the attention kernels K4 and K5, phase by
-phase, and what the grid order costs, on one CUDA card.
+"""Where the time goes inside the kernels on the wgmma chain (K1 concat,
+K4 stream and K5 gram attention, K6 the token-0 screen), phase by phase,
+and what the attention kernels' grid order costs, on one CUDA card.
 
     python3 scripts/torch_phase_profile.py [OTHER_CHECKOUT]
 
-Builds altered copies of ``ops/csrc/attention_mlp.cu`` (K4) and
-``ops/csrc/attention_gram_mlp.cu`` (K5) under ``build/phase/``:
+Builds altered copies of ``ops/csrc/pairwise_mlp.cu`` (K1),
+``attention_mlp.cu`` (K4), ``attention_gram_mlp.cu`` (K5) and
+``attention_screen_mlp.cu`` (K6) under ``build/phase/``:
 
 * ``phases``: thread 0 of every block reads ``clock64()`` after each
   block-wide barrier of the kernel's body (and after the chain) and adds
   the difference to a device counter per phase; each phase is named by the
-  kernel functions it calls (K4: the user rows, logits, softmax, assembly,
-  chain; K5: the user rows, logits and cross-Grams, softmax, its
-  statistics, the combination, the chain);
-* ``items_fastest``: the kernel as built, with the grid order of
-  ``attention_common.cuh`` turned round, item tiles along x, so that the
-  blocks of one user tile run together instead of those of one item tile.
+  kernel functions it calls (K1: the user rows, the assembly, the chain;
+  K4 and K6: the user rows, logits, softmax, assembly, chain; K5: the user
+  rows, logits and cross-Grams, softmax, its statistics, the combination,
+  the chain);
+* ``items_fastest`` (K4, K5, K6): the kernel as built, with the grid order
+  of ``attention_common.cuh`` turned round, item tiles along x, so that the
+  blocks of one user tile run together instead of those of one item tile
+  (K1's grid has them so already).
 
 With OTHER_CHECKOUT (for example a parent commit unpacked with ``git
-archive``), its K4 and K5 get the ``phases`` copy too, built with its own
+archive``), its kernels get the ``phases`` copy too, built with its own
 headers and called through this checkout's wrappers as
 ``scripts/torch_parent_compare.py`` calls them, so that the shares before
 and after a change print side by side. The copies replace the built
 kernels in this process only. Each kernel scores the flagship block (256
-users x 8,192 items, d 64, 4 heads, Mi 5, the chain [512, 256, 128], relu,
-sigmoid, random weights from a seed). Prints one JSON line per checkout
+users x 8,192 items; K1 on seeded rows of h1 512, the others d 64, 4
+heads, Mi 5; the chain [512, 256, 128], relu, sigmoid, random weights from
+a seed). Prints one JSON line per checkout
 and kernel: the mean SM cycles per block of each phase and its share, the
 kernel's time by CUDA events as built and with the counters (and, for this
 checkout, with the other grid order, and whether it gives the same scores
@@ -51,6 +56,7 @@ from chip_smoke import (  # noqa: E402
     cuda_ms,
     random_attention_head,
     random_attention_rows,
+    random_head,
 )
 from scripts.torch_parent_compare import (  # noqa: E402
     PACKED,
@@ -58,8 +64,10 @@ from scripts.torch_parent_compare import (  # noqa: E402
 )
 
 B, C = 256, 8192
-KERNELS = {'attention_mlp': ('K4', 'attention_kernel'),
-           'attention_gram_mlp': ('K5', 'attention_gram_kernel')}
+KERNELS = {'pairwise_mlp': ('K1', 'pairwise_mlp_kernel'),
+           'attention_mlp': ('K4', 'attention_kernel'),
+           'attention_gram_mlp': ('K5', 'attention_gram_kernel'),
+           'attention_screen_mlp': ('K6', 'screen_kernel')}
 # The kernel functions a phase may call, by the name it is printed under.
 PHASE_NAMES = {
     'load_users': 'user rows', 'pair_logits': 'logits',
@@ -67,8 +75,9 @@ PHASE_NAMES = {
     'gram_stats': 'statistics', 'gram_sums': 'statistics: sums',
     'gram_tokens': 'statistics: tokens',
     'gram_weights': 'statistics: weights', 'stream_assemble': 'assembly',
-    'gram_combine': 'combination', 'run_chain': 'chain',
-    'run_chain_of': 'chain'}
+    'gram_combine': 'combination', 'screen_assemble': 'assembly',
+    'scratch_of': 'user rows', 'act_pair': 'assembly', 'run_chain': 'chain',
+    'run_chain_of': 'chain', 'run_chain_int8': 'chain'}
 COUNTERS = '''
 __device__ unsigned long long phase_cycles[16];
 #define PHASE_START long long phase_t = clock64(); int phase_k = 0;
@@ -89,10 +98,14 @@ extern "C" int phase_reset() {
 
 def instrumented(src: str, kernel: str) -> tuple:
     """``src`` (a kernel source) with a phase mark after every barrier of
-    ``kernel``'s body and after its chain, and the names of the phases."""
+    ``kernel``'s body and after its chain (the last chain call of the body:
+    K1's bf16 mode's), and the names of the phases."""
     start = src.index(f'{kernel}(')
-    origin = re.compile(r'tile_origin(<TB>)?\(&u0, &c0\);').search(src, start)
-    chain = re.compile(r'run_chain\w*(<TB>)?\(').search(src, origin.end())
+    origin = re.compile(r'tile_origin(<TB>)?\(&u0, &c0\);'
+                        r'|u0 = blockIdx\.y \* TB;').search(src, start)
+    stop = src.index('\n}\n', origin.end())
+    chain = list(re.compile(r'run_chain\w*(<[^>(]*>)?\(').finditer(
+        src, origin.end(), stop))[-1]
     begin, end = origin.end(), src.index(';', chain.end()) + 1
     body = src[begin:end]
     names = []
@@ -106,7 +119,7 @@ def instrumented(src: str, kernel: str) -> tuple:
                                             '__syncthreads();\n  PHASE_MARK')
             + '\n  __syncthreads();\n  PHASE_MARK')
     out = src[:begin] + body + src[end:]
-    include = '#include "attention_common.cuh"\n'
+    include = re.findall(r'#include "[^"]+"\n', out)[-1]
     return out.replace(include, include + COUNTERS, 1) + READER, names
 
 
@@ -160,6 +173,7 @@ def main() -> int:
         print('torch_phase_profile: no CUDA device', file=sys.stderr)
         return 2
     from pixelrec_multimodal_tpu_torch.ops import _build
+    from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
     from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
     from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -171,10 +185,18 @@ def main() -> int:
                                  gen, dev)
     head['kernel'] = tpm.kernel_chain(head)  # built once, as a scorer's
     users, items = random_attention_rows(head, B, C, gen, dev, True)
-    calls = {'attention_mlp': lambda: tas.attention_scores(
+    tail = tac.compute_screen_tail(head, items)
+    pair = random_head((512, 256, 128), 'relu', 'sigmoid', gen, dev)
+    pair['kernel'] = tpm.kernel_chain(pair)
+    uf = torch.randn(B, 512, generator=gen).to(dev)
+    itf = torch.randn(C, 512, generator=gen).to(dev)
+    calls = {'pairwise_mlp': lambda: tpm.pairwise_scores(pair, uf, itf),
+             'attention_mlp': lambda: tas.attention_scores(
                  head, users[:5], items[:6]),
              'attention_gram_mlp': lambda: tas.attention_scores_gram(
-                 head, users, items)}
+                 head, users, items),
+             'attention_screen_mlp': lambda: tac.attention_screen_scores(
+                 head, users[:5], items[:6], tail)}
     checkouts = [('this', _build.CSRC)]
     if len(sys.argv) > 1:
         checkouts.insert(0, ('other', Path(sys.argv[1]) / 'pixelrec_'
@@ -188,6 +210,7 @@ def main() -> int:
                 _build._loaded.pop(name, None)
                 if tag == 'this':
                     line['ms'] = cuda_ms(calls[name], reps=20)
+                if tag == 'this' and kid != 'K1':
                     ref = calls[name]()
                     _build._loaded[name] = build(
                         'items_fastest', name,

@@ -14,7 +14,9 @@ from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
 TILE_ITEMS = 16                       # items per tile; a block: rows / 16 users
 RING_BYTES = 3 * 32 * (128 + 8) * 2   # bf16 weight ring: 3 x 32 x 136
 RING_BYTES_INT8 = 3 * 128 * (64 + 16)  # int8 weight ring: 3 x 128 x 80
-# the wgmma chain (K4, K5 at 128 and 64 rows): ring stages of 64 k x 128
+# the wgmma chain (K1's bf16 mode, K4, K5 and K6 at 128 and 64 rows; K1's
+# 64-row block only where it fits, else the mma.sync chain's): ring stages
+# of 64 k x 128
 # columns of bf16 (16 KB), as many as the 232,448 B a block may take leave
 # after the buffers and the 64 B of barriers, from two k slices' (4 at 128
 # rows, 8 at 64) to 8; the four warpgroups cover a group of 32,768 / rows
@@ -98,14 +100,14 @@ def pair_scratch_bytes(name: str, h1: int, rows: int) -> int:
 def attention_smem_bytes(name: str, widths: Sequence[int], rows: int,
                          H: int, Mi: int) -> int:
     """K4 (``attention_mlp``), K5 (``attention_gram_mlp``) or K6
-    (``attention_screen_mlp``): the chain's (widths from d on; K4's and
-    K5's the wgmma chain's at 128 and 64 rows), its ring grown by the part
+    (``attention_screen_mlp``): the chain's (widths from d on; the wgmma
+    chain's at 128 and 64 rows), its ring grown by the part
     of the assembly's scratch (the rows / 16 user rows, each pair's
     coefficients (K6: token 0's only) and, for K5, its cross-Grams and,
     where its rows do not fit in buffer A, its statistics, all f32) that
     passes buffer B."""
     gram, screen = name == 'attention_gram_mlp', name == 'attention_screen_mlp'
-    wgmma = not screen and rows >= 64
+    wgmma = rows >= 64
     d = widths[0]
     n_vo = Mi * H
     n_usc = 2 + 2 * H + H * H if gram else 0
@@ -127,6 +129,19 @@ def attention_smem_bytes(name: str, widths: Sequence[int], rows: int,
     return chain_smem_bytes(widths, rows, past_b)
 
 
+def pair_chain_kind(name: str, widths: Sequence[int], rows: int,
+                    int8: bool) -> str:
+    """The chain a pair kernel's block runs, by hand: K1's bf16 mode the
+    wgmma chain at 128 rows and at 64 where that block (buffers, at least
+    two k slices' stages, the user rows' scratch over the ring) fits, the
+    mma.sync chain otherwise; K2, K3 and every int8 mode mma.sync."""
+    if name != 'pairwise_mlp' or int8 or rows < 64:
+        return 'mma.sync'
+    need = wgmma_chain_smem_bytes(widths, rows,
+                                  pair_scratch_bytes(name, widths[0], rows))
+    return 'wgmma' if rows == 128 or need <= WGMMA_SMEM else 'mma.sync'
+
+
 def block_bytes(name: str, widths: Sequence[int], rows: int,
                 mode: Tuple[int, ...]) -> int:
     """``tpm.block_bytes`` by hand: mode (int8,) for the pair kernels, (H,
@@ -134,9 +149,10 @@ def block_bytes(name: str, widths: Sequence[int], rows: int,
     widths = [int(w) for w in widths]
     if name.startswith('attention'):
         return attention_smem_bytes(name, widths, rows, *mode)
-    return chain_smem_bytes(widths, rows,
-                            pair_scratch_bytes(name, widths[0], rows),
-                            bool(mode[0]))
+    scratch = pair_scratch_bytes(name, widths[0], rows)
+    if pair_chain_kind(name, widths, rows, bool(mode[0])) == 'wgmma':
+        return wgmma_chain_smem_bytes(widths, rows, scratch)
+    return chain_smem_bytes(widths, rows, scratch, bool(mode[0]))
 
 
 @pytest.fixture

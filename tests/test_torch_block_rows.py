@@ -18,6 +18,7 @@ from pixelrec_multimodal_tpu_torch.models.multimodal import (
 )
 from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
 from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+from tests import _torch_smem as hand
 from tests._torch_smem import hand_count  # noqa: F401 (a fixture)
 
 NAME = {'K1': 'pairwise_mlp', 'K2': 'gated_pairwise_mlp',
@@ -43,21 +44,34 @@ def attention_head(d, heads, widths):
 
 
 # (kernel, chain widths from h1 on, int8, rows chosen, bytes at those rows).
-# bf16: rows x (max even width + 8 + max odd width + 8) x 2 B of buffers,
-# then the 26,112 B ring (3 slices x 32 x 136 x 2 B) or the assembly's
-# scratch, whichever is larger. int8: rows x (max even + 16 + max odd + 16)
-# B, the last hidden layer's row being its partial sums (4 B x 256 / rows
-# column groups x 128-column passes, padded to 32, + 16), then the 30,720 B
-# ring (3 x 128 x 80) or the scratch.
+# bf16 on the mma.sync chain (K2, K3; K1 at 32 and 16 rows, and at 64 where
+# the wgmma block does not fit): rows x (max even width + 8 + max odd width
+# + 8) x 2 B of buffers, then the 26,112 B ring (3 slices x 32 x 136 x 2 B)
+# or the assembly's scratch, whichever is larger. K1 bf16 on the wgmma
+# chain (128 rows; 64 where it fits): the swizzled buffers (a layer whose
+# output fits one group of 32,768 / rows columns writes over its input),
+# then 16 KB ring stages up to 8, at least 4 at 128 rows and 8 at 64, and 64
+# B of barriers. int8: rows x (max even + 16 + max odd + 16) B, the last
+# hidden layer's row being its partial sums (4 B x 256 / rows column groups
+# x 128-column passes, padded to 32, + 16), then the 30,720 B ring (3 x 128
+# x 80) or the scratch.
 @pytest.mark.parametrize('kernel, widths, int8, rows, nbytes', [
-    # the flagship: 128 x (520 + 264) x 2 + 26,112
-    ('K1', (512, 256, 128), False, 128, 226816),
+    # the flagship, K1 on the wgmma chain: every layer (256 and 128 wide)
+    # fits a group of 256 and writes over its input, one buffer of 128 x
+    # 512 x 2 = 131,072, then the six 16 KB stages that fit and the
+    # barriers, 98,368 (the user rows' scratch, 8 x 512 x 2 = 8,192, lies in
+    # the ring)
+    ('K1', (512, 256, 128), False, 128, 229440),
+    # K2 and K3 on the mma.sync chain: 128 x (520 + 264) x 2 + 26,112
     ('K2', (512, 256, 128), False, 128, 226816),
     ('K3', (512, 256, 128), False, 128, 226816),
     # its int8 modes: 128 x (528 + 272) + 30,720
     ('K1', (512, 256, 128), True, 128, 133120),
     # [1024, 512, 256]: 128 rows would take 128 x (1,032 + 520) x 2 + 26,112
-    # = 423,424; 64 x 1,552 x 2 + 26,112 = 224,768
+    # = 423,424 (K1 on the wgmma chain: buffers of 1,024 and 512 columns,
+    # 393,216); 64 x 1,552 x 2 + 26,112 = 224,768. K1's 64-row wgmma block
+    # would need 64 x 1,024 x 2 = 131,072 for its buffer and 8 x 16,384 +
+    # 64 for the least ring, 262,208: K1 takes the 64-row mma.sync block
     ('K1', (1024, 512, 256), False, 64, 224768),
     ('K2', (1024, 512, 256), False, 64, 224768),
     ('K3', (1024, 512, 256), False, 64, 224768),
@@ -90,6 +104,33 @@ def test_pair_block_rows(hand_count, kernel, widths, int8, rows, nbytes):
                                       int8) == rows
 
 
+# (chain widths from h1 on, int8, the chain of each of the four blocks by
+# hand): K1's bf16 mode runs the wgmma chain at 128 rows and at 64 where
+# that block fits, in one fixed order by fit (128 wgmma, 64 wgmma, 64
+# mma.sync, 32, 16); its int8 mode K1q runs mma.sync at every row count.
+@pytest.mark.parametrize('widths, int8, chains', [
+    ((512, 256, 128), False, ('wgmma', 'wgmma', 'mma.sync', 'mma.sync')),
+    ((1024, 512, 256), False, ('wgmma', 'mma.sync', 'mma.sync',
+                               'mma.sync')),
+    ((512, 256, 128), True, ('mma.sync',) * 4),
+])
+def test_k1_chain_by_fit(hand_count, widths, int8, chains):
+    """The chain K1's block runs on each row count, by hand; the flagship
+    fits the 128-row wgmma block and the wide chain [1024, 512, 256] takes
+    64 rows on mma.sync (its 64-row wgmma block does not fit), so its block
+    rows stay those of the mma.sync chain."""
+    got = tuple(hand.pair_chain_kind('pairwise_mlp', widths, rows, int8)
+                for rows in tpm.BLOCK_ROWS)
+    assert got == chains
+    rows = tpm.block_rows('pairwise_mlp', widths, (int(int8),))
+    if not int8 and widths[0] == 1024:
+        assert rows == 64 and hand.block_bytes(
+            'pairwise_mlp', widths, 64, (0,)) == hand.chain_smem_bytes(
+                widths, 64, hand.pair_scratch_bytes('pairwise_mlp', 1024,
+                                                    64))
+        assert hand.wgmma_chain_smem_bytes(widths, 64) > tpm.SMEM_OPTIN
+
+
 @pytest.mark.parametrize('int8', [False, True])
 def test_a_chain_that_fits_no_block_is_refused(hand_count, int8):
     """h1 8,192: 16 rows of bf16 buffers alone take 16 x (8,200 + 136) x 2
@@ -119,16 +160,16 @@ def test_forced_rows_are_checked(hand_count):
 
 
 # The attention flagship chain at d 512, 4 heads (the JAX package's HPO
-# draws embedding_dim 512). K4 and K5 run the wgmma chain at 64 rows, where
+# draws embedding_dim 512). K4, K5 and K6 run the wgmma chain at 64 rows, where
 # the warpgroups cover a group of 512 columns, so every layer (512, 256, 128
 # wide) writes over its input: one buffer of swizzled 64-column blocks, 64
 # x 512 x 2 = 65,536, then the ring, as many 16 KB stages as fit up to 8,
 # and 64 B of barriers, 131,136 (K4's scratch, 4 user rows of 3,620 floats
 # and 64 coefficient rows of 65, 74,560 B, and K5's, (4 x 3,648 + 64 x (65
 # + 201)) x 4 = 126,464 B, lie within it; K5's statistics, 37 floats a row,
-# in buffer A): 196,672; 128 rows would need 262,144 for the buffers. K6
-# keeps the mma.sync chain: buffers 64 x (520 + 520) x 2 = 133,120, then the
-# 26,112 B ring. At d 64 K4 and K5 take 128 rows on the wgmma chain: w1's
+# in buffer A; K6's, 4 user rows of 3,620 floats and 64 coefficient rows of
+# 25, 64,320 B, too): 196,672; 128 rows would need 262,144 for the buffers.
+# At d 64 K4, K5 and K6 take 128 rows on the wgmma chain: w1's
 # 512 columns pass a group of 256, the later layers write over them, so
 # buffer A holds d = 64 and buffer B 512 columns, 128 x 576 x 2 = 147,456,
 # then 5 stages of 16 KB and the barriers, 81,984 (K5's scratch, with its
@@ -136,10 +177,11 @@ def test_forced_rows_are_checked(hand_count):
 # by 40,448, within the ring).
 @pytest.mark.parametrize('d, heads, widths, kernel, rows, nbytes', [
     (512, 4, (512, 256, 128), 'stream', 64, 196672),
-    (512, 4, (512, 256, 128), 'screen', 64, 159232),
+    (512, 4, (512, 256, 128), 'screen', 64, 196672),
     (512, 4, (512, 256, 128), 'gram', 64, 196672),
     (64, 4, (512, 256, 128), 'stream', 128, 229440),
     (64, 4, (512, 256, 128), 'gram', 128, 229440),
+    (64, 4, (512, 256, 128), 'screen', 128, 229440),
 ])
 def test_attention_block_rows(hand_count, d, heads, widths, kernel, rows,
                               nbytes):
@@ -218,26 +260,10 @@ def _swizzled_offset(r, c):
     return r * 64 + (((c >> 3) ^ (r & 7)) << 3) + (c & 7)
 
 
-@pytest.mark.parametrize('widths', [(64, 512, 256, 128), (48, 80, 32),
-                                    (512, 512), (64,)])
-def test_wgmma_weights_layout(widths):
-    """``tpm.wgmma_weights`` packs each hidden layer's W [K, N] as the wgmma
-    chain's descriptors read it: tile (k slice ks, column group g) of 64 x
-    64 at (ks * N64 / 64 + g) * 4,096 past the layer's offset (layers of
-    K64 x N64, K and N rounded up to 64), element (n, k) of the tile at its
-    swizzled offset; the padding is zero, and the packing is built once per
-    chain."""
-    gen = torch.Generator().manual_seed(9)
-    ws = [torch.randn(k, n, generator=gen).bfloat16()
-          for k, n in zip(widths[:-1], widths[1:])]
-    chain = {'w': (torch.cat([w.reshape(-1) for w in ws]) if ws
-                   else torch.zeros(8, dtype=torch.bfloat16)),
-             'widths': np.asarray(widths, np.int32)}
-    packed = tpm.wgmma_weights(chain)
-    assert tpm.wgmma_weights(chain) is packed
-    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
-    got = packed.float().numpy()
-    expect = np.zeros_like(got) if ws else got
+def _packed(ws, numel):
+    """The wgmma packing of the bf16 weights ``ws`` ([K, N] each) by hand,
+    as a float32 array of ``numel`` entries, and the entries it fills."""
+    expect = np.zeros(numel, np.float32)
     off = 0
     for w in ws:
         k, n = w.shape
@@ -247,6 +273,111 @@ def test_wgmma_weights_layout(widths):
                + _swizzled_offset(nn % 64, kk % 64))
         expect[idx] = w.float().numpy()
         off += k64 * n64
+    return expect, off
+
+
+def _chain_of(ws, widths):
+    return {'w': (torch.cat([w.reshape(-1) for w in ws]) if ws
+                  else torch.zeros(8, dtype=torch.bfloat16)),
+            'widths': np.asarray(widths, np.int32)}
+
+
+def _random_weights(widths, seed=9):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(k, n, generator=gen).bfloat16()
+            for k, n in zip(widths[:-1], widths[1:])]
+
+
+@pytest.mark.parametrize('widths', [(64, 512, 256, 128), (48, 80, 32),
+                                    (512, 512), (64,), (512, 256, 128)])
+def test_wgmma_weights_layout(widths):
+    """``tpm.wgmma_weights`` packs each hidden layer's W [K, N] as the wgmma
+    chain's descriptors read it: tile (k slice ks, column group g) of 64 x
+    64 at (ks * N64 / 64 + g) * 4,096 past the layer's offset (layers of
+    K64 x N64, K and N rounded up to 64), element (n, k) of the tile at its
+    swizzled offset; the padding is zero, and the packing is built once per
+    chain. The widths are K4's, K5's and K6's (d first) and K1's (h1 512 ->
+    256 -> 128) among others."""
+    ws = _random_weights(widths)
+    chain = _chain_of(ws, widths)
+    packed = tpm.wgmma_weights(chain)
+    assert tpm.wgmma_weights(chain) is packed
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    got = packed.float().numpy()
+    expect, off = _packed(ws, got.size)
     if ws:
         assert packed.numel() == off
+    else:
+        expect = got
     np.testing.assert_array_equal(got, expect)
+
+
+def test_wgmma_weights_of_the_additive_screen_head():
+    """The additive screen's K1 head has a chain of its own, from h1 on
+    (the attention head's has w1 as its layer 0, which K1 must not read),
+    and packs its own hidden weights: not the attention head's."""
+    from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
+    model = MultimodalRecommender(
+        n_users=4, n_items=8, n_tags=2, num_numerical_features=0,
+        embedding_dim=16, fusion_hidden_dims=(64, 32), use_contrastive=False,
+        fusion_type='attention', num_attention_heads=2, device='cpu',
+        generator=torch.Generator().manual_seed(3))
+    head = tas.build_attention_head(model)
+    shead = tac.screen_additive_head(head)
+    chain = shead['kernel']
+    assert 'w_wgmma' not in chain
+    widths = [int(w) for w in chain['widths']]
+    assert widths == [head['h1']] + [w.shape[1]
+                                     for w, _ in head['layers'][:-1]]
+    packed = tpm.wgmma_weights(chain)
+    assert shead['kernel']['w_wgmma'] is packed
+    ws = [w.bfloat16() for w, _ in shead['layers'][:-1]]
+    expect, off = _packed(ws, packed.numel())
+    assert off == packed.numel()
+    np.testing.assert_array_equal(packed.float().numpy(), expect)
+    attention = tpm.wgmma_weights(tpm.kernel_chain(head))
+    assert attention.numel() != packed.numel()
+
+
+def test_wgmma_weights_follow_their_chain():
+    """Packed weights cached in a chain dict are read only with the weights
+    they were packed from: a dict copied from another chain and given its
+    own ``w`` packs anew (its scores never come from the other chain's
+    weights), and an int8 chain takes none."""
+    widths = (512, 256, 128)
+    a = _chain_of(_random_weights(widths, 1), widths)
+    stale = tpm.wgmma_weights(a)
+    b = dict(a, w=_chain_of(_random_weights(widths, 2), widths)['w'])
+    assert b['w_wgmma'] is stale
+    packed = tpm.wgmma_weights(b)
+    assert packed is not stale and b['w_wgmma'] is packed
+    np.testing.assert_array_equal(
+        packed.float().numpy(),
+        tpm.wgmma_weights(_chain_of(_random_weights(widths, 2),
+                                    widths)).float().numpy())
+    assert tpm.wgmma_weights(a) is stale
+    with pytest.raises(ValueError, match='int8'):
+        tpm.wgmma_weights(dict(a, int8=True))
+
+
+def test_quantize_head_drops_the_packed_weights():
+    """``quantize_head`` rebuilds ``head['kernel']`` in the int8 layout, and
+    ``_chain_on`` rebuilds a chain of the wrong mode: neither keeps the
+    bf16 chain's packed weights."""
+    gen = torch.Generator().manual_seed(5)
+    widths = (64, 32, 32)
+    layers = [(torch.randn(k, n, generator=gen), torch.randn(n, generator=gen))
+              for k, n in zip(widths[:-1], widths[1:])]
+    head = {'b1': torch.zeros(64), 'b1_folded': True, 'activation': 'relu',
+            'final_activation': 'sigmoid',
+            'layers': layers + [(torch.randn(32, 128, generator=gen),
+                                 torch.zeros(128))]}
+    head['kernel'] = tpm.kernel_chain(head)
+    tpm.wgmma_weights(head['kernel'])
+    assert 'w_wgmma' in head['kernel']
+    bf16_chain = head['kernel']
+    tpm.quantize_head(head, [(-1.0, 1.0)] * 2)
+    assert head['kernel']['int8'] and 'w_wgmma' not in head['kernel']
+    head['kernel'] = bf16_chain  # a stale bf16 chain on an int8 head
+    chain = tpm._chain_on(head, torch.device('cpu'))
+    assert chain['int8'] and 'w_wgmma' not in chain

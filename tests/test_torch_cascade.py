@@ -182,10 +182,12 @@ def test_screen_wrapper_on_cpu(hand_count):
         screen = hand_count('attention_screen_mlp', full, 128, mode)
         assert screen <= hand_count('attention_mlp', full, 128, mode)
         assert tas.check_kernel_fits(head, False, screen=True) == 128
-    # d 256, 4 heads, chain (64, 32), by hand: the buffers 128 x (264 + 72)
-    # bf16, then 8 user rows of 1,828 floats and 128 coefficient rows of 25
-    # (K4: 65) floats, less buffer B's 18,432 B: 86,016 + 52,864 B.
-    assert hand_count('attention_screen_mlp', full, 128, mode) == 138880
+    # d 256, 4 heads, chain (64, 32), by hand, on the wgmma chain: every
+    # layer fits a group of 256 columns and writes over its input, so one
+    # buffer of 128 x 256 bf16, 65,536 B, then eight 16 KB ring stages and
+    # 64 B of barriers, 131,136 B, over which lie 8 user rows of 1,828
+    # floats and 128 coefficient rows of 25 (K4: 65) floats, 71,296 B.
+    assert hand_count('attention_screen_mlp', full, 128, mode) == 196672
 
 
 # ----------------------------------------------- per-user candidate lists

@@ -375,6 +375,29 @@ def test_precision_gate(monkeypatch, capsys):
     assert v.shape == i.shape == (5, 4) and (i >= 0).all()
 
 
+def test_precision_gate_by_fusion(monkeypatch, capsys):
+    """A concatenate head passes the gate at its own flip point
+    (``INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT``: K1 runs the wgmma chain, so
+    K1q is the faster only on deeper chains), a gated head at the gated
+    one; each is independent of the other."""
+    assert tpm.INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT \
+        > tpm.INT8_MIN_CHAIN_FLOPS_PER_LANE
+    rho = tpm.int8_chain_flops_per_lane(small_scorer()._head)
+    monkeypatch.setattr(tsc, 'INT8_MIN_CHAIN_FLOPS_PER_LANE', rho)
+    monkeypatch.setattr(tsc, 'INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT', rho + 1)
+    concat = small_scorer(precision='int8')
+    err = capsys.readouterr().err
+    assert f'< {rho + 1:.0f}' in err and 'flip point' in err
+    assert concat.precision == 'bf16' and 'qlayers' not in concat._head
+    assert small_scorer('gated', precision='int8').precision == 'int8'
+    monkeypatch.setattr(tsc, 'INT8_MIN_CHAIN_FLOPS_PER_LANE', rho + 1)
+    monkeypatch.setattr(tsc, 'INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT', rho)
+    capsys.readouterr()
+    assert small_scorer(precision='int8').precision == 'int8'
+    assert capsys.readouterr().err == ''
+    assert small_scorer('gated', precision='int8').precision == 'bf16'
+
+
 def test_precision_refusals():
     """int8 takes a fused concatenate or gated head; attention,
     fast_path=False and unknown precisions raise ValueError, as in JAX. A
