@@ -858,17 +858,40 @@ def int8_main_path(scorer, plain, users, kid, phase, bf16_items, **fields):
     return launches
 
 
+def flip_of(rows: list, kid: str):
+    """The flip point of int8 mode ``kid``q against ``kid`` in ``rows``
+    (``int8_flip_point``'s): the smallest measured ratio from which the
+    int8 mode is the faster on every chain of that ratio and of every
+    larger one whose h1 is a multiple of 128; None where the bf16 mode wins
+    at the largest."""
+    flip = None
+    padded = [r for r in rows if r['widths'][0] % 128 == 0]
+    for ratio in sorted({r['ratio'] for r in padded}, reverse=True):
+        if any(r[f'{kid}q_over_{kid}'] >= 1 for r in padded
+               if r['ratio'] == ratio):
+            break
+        flip = ratio
+    return flip
+
+
 def int8_flip_point(smi, gen, dev) -> dict:
-    """K1 against K1q at the timed block on FLIP_CHAINS (the same random
-    weights, relu, sigmoid), in turns (K1, K1q, K1q, K1; 20 launches each).
-    The flip point is the smallest measured ratio (hidden-chain operations
-    per first-layer lane) from which K1q is the faster on every chain of
-    that ratio and of every larger one whose h1 is a multiple of 128;
-    None where K1 wins at the largest."""
+    """Each bf16 pair kernel against its int8 mode at the timed block on
+    FLIP_CHAINS (the same random weights, relu, sigmoid): K1 against K1q on
+    concat rows, then K2 against K2q and K3 against K3q on the gated rows
+    (M = 6) of a gated head of the same widths, in turns (bf16, int8, int8,
+    bf16; 20 launches each). Prints the flip point of each (``flip_of``)
+    beside the gate's constant: the concat one beside
+    INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT, and the gated one, the larger of
+    K2's and K3's (None if either has none), beside
+    INT8_MIN_CHAIN_FLOPS_PER_LANE."""
     from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
+        INT8_MIN_CHAIN_FLOPS_PER_LANE,
         INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT,
         int8_chain_flops_per_lane,
+        kernel_chain,
         pairwise_scores,
+        pairwise_scores_gated,
+        pairwise_scores_gated_factored,
     )
     rows = []
     with torch.no_grad():
@@ -876,26 +899,43 @@ def int8_flip_point(smi, gen, dev) -> dict:
             head, qhead = int8_head(widths, 'relu', 'sigmoid', gen, dev)
             uf = torch.randn(TIME_B, widths[0], generator=gen).to(dev)
             itf = torch.randn(TIME_C, widths[0], generator=gen).to(dev)
-            ms = {'bf16': [], 'int8': []}
-            for mode in ('bf16', 'int8', 'int8', 'bf16'):
-                h = qhead if mode == 'int8' else head
-                ms[mode].append(cuda_ms(lambda: pairwise_scores(h, uf, itf),
-                                        reps=20))
-            k1, k1q = (statistics.mean(ms[m]) for m in ('bf16', 'int8'))
-            rows.append({'widths': list(widths),
-                         'ratio': int8_chain_flops_per_lane(head),
-                         'K1_ms': k1, 'K1q_ms': k1q, 'K1q_over_K1': k1q / k1})
-    flip = None
-    padded = [r for r in rows if r['widths'][0] % 128 == 0]
-    for ratio in sorted({r['ratio'] for r in padded}, reverse=True):
-        if any(r['K1q_over_K1'] >= 1 for r in padded if r['ratio'] == ratio):
-            break
-        flip = ratio
+            ghead, gqhead = int8_head(widths, 'relu', 'sigmoid', gen, dev,
+                                      n_item_mods=5)
+            # the bf16 chains built (and packed) once, as a scorer's, as
+            # quantize_head builds the int8 ones
+            head['kernel'], ghead['kernel'] = (kernel_chain(head),
+                                               kernel_chain(ghead))
+            exact, factored = random_gated_rows(ghead, TIME_B, TIME_C, gen,
+                                                dev)
+            row = {'widths': list(widths),
+                   'ratio': int8_chain_flops_per_lane(head)}
+            for kid, fn, heads, args in (
+                    ('K1', pairwise_scores, (head, qhead), (uf, itf)),
+                    ('K2', pairwise_scores_gated, (ghead, gqhead), exact),
+                    ('K3', pairwise_scores_gated_factored, (ghead, gqhead),
+                     factored)):
+                ms = {'bf16': [], 'int8': []}
+                for mode in ('bf16', 'int8', 'int8', 'bf16'):
+                    h = heads[mode == 'int8']
+                    ms[mode].append(cuda_ms(
+                        lambda: fn(h, *args), reps=20))
+                bf, q = (statistics.mean(ms[m]) for m in ('bf16', 'int8'))
+                row.update({f'{kid}_ms': bf, f'{kid}q_ms': q,
+                            f'{kid}q_over_{kid}': q / bf})
+            rows.append(row)
+            del exact, factored, uf, itf
+    flips = {kid: flip_of(rows, kid) for kid in ('K1', 'K2', 'K3')}
+    gated = (None if flips['K2'] is None or flips['K3'] is None
+             else max(flips['K2'], flips['K3']))
     emit('int8_flip_point', shape=[TIME_B, TIME_C], chains=rows,
-         flip_point=flip,
+         flip_point=flips['K1'],
          constant_in_code=INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT,
+         gated_flip_point=gated, gated_flip_point_exact=flips['K2'],
+         gated_flip_point_factored=flips['K3'],
+         gated_constant_in_code=INT8_MIN_CHAIN_FLOPS_PER_LANE,
          nvidia_smi=smi)
-    return {'flip_point': flip, 'chains': rows}
+    return {'flip_point': flips['K1'], 'gated_flip_point': gated,
+            'chains': rows}
 
 
 def block_of(kernel_id: str, head: dict) -> dict:
@@ -928,14 +968,14 @@ def assembly_only_chain(d: int, gen, dev) -> dict:
 
 
 def chain_phase(smi, dev) -> list:
-    """The chain of K1, K4 and K6 alone: each kernel at the TIME_B x TIME_C
-    block with the flagship chain whole and cut after the assembly (K1:
-    h1 512 -> 1; K4, K6: the last dot on the fused vector, d 64 -> 1), relu,
-    sigmoid, random weights and rows from a generator of its own; the
-    chain's time is the difference (its products, epilogues and last dot),
-    its rate the hidden products over that time. Prints one ``chain`` line
-    per kernel with the chain kind and block rows of the whole chain and
-    returns the lines."""
+    """The chain of K1, K4, K6, K2 and K3 alone: each kernel at the TIME_B
+    x TIME_C block with the flagship chain whole and cut after the assembly
+    (K1, K2, K3: h1 512 -> 1, K2 and K3 on seeded gated rows of M = 6; K4,
+    K6: the last dot on the fused vector, d 64 -> 1), relu, sigmoid, random
+    weights and rows from a generator of its own; the chain's time is the
+    difference (its products, epilogues and last dot), its rate the hidden
+    products over that time. Prints one ``chain`` line per kernel with the
+    chain kind and block rows of the whole chain and returns the lines."""
     from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
     from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
     from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
@@ -943,15 +983,26 @@ def chain_phase(smi, dev) -> list:
     uf = torch.randn(TIME_B, HIDDEN[0], generator=gen).to(dev)
     itf = torch.randn(TIME_C, HIDDEN[0], generator=gen).to(dev)
     d, heads = EMB, 4
+    gated_rows = None
     lines = []
-    for kid in ('K1', 'K4', 'K6'):
+    for kid in ('K1', 'K4', 'K6', 'K2', 'K3'):
         ms, prods = {}, 0
         for cut in (False, True):
-            if kid == 'K1':
+            if kid in ('K1', 'K2', 'K3'):
                 head = random_head(HIDDEN[:1] if cut else HIDDEN, 'relu',
-                                   'sigmoid', gen, dev)
-                call = (lambda h: lambda: tpm.pairwise_scores(h, uf, itf))(
-                    head)
+                                   'sigmoid', gen, dev,
+                                   None if kid == 'K1' else 5)
+                if kid == 'K1':
+                    fn, args = tpm.pairwise_scores, (uf, itf)
+                else:
+                    if gated_rows is None:  # one set for K2 and K3
+                        gated_rows = random_gated_rows(head, TIME_B, TIME_C,
+                                                       gen, dev)
+                    fn, args = ((tpm.pairwise_scores_gated, gated_rows[0])
+                                if kid == 'K2' else
+                                (tpm.pairwise_scores_gated_factored,
+                                 gated_rows[1]))
+                call = (lambda f, h, a: lambda: f(h, *a))(fn, head, args)
             else:
                 head = random_attention_head(d, heads, HIDDEN, 'relu',
                                              'sigmoid', gen, dev)
@@ -1746,8 +1797,8 @@ def main() -> int:
     lines[-1]['launches_screen_token0'] = screen_launches['K6']
     lines[0]['launches_additive_cascade'] = cascade_launches['K1']
 
-    # ---- 17b. the chain alone of K1, K4 and K6 (whole less the cut after
-    # the assembly): its time and rate
+    # ---- 17b. the chain alone of K1, K4, K6, K2 and K3 (whole less the
+    # cut after the assembly): its time and rate
     chains = {c['kernel']: c for c in chain_phase(smi, dev)}
     for line in lines:
         if line['kernel'] in chains:

@@ -6,7 +6,12 @@
 // chain on a block's assembled pair rows, its epilogue and the one-column
 // last layer, plus the host-side set-up of a launch. Each kernel assembles
 // its first-layer activations its own way into buf_a and then calls
-// run_chain.
+// run_chain. The bf16 modes of K1-K3 and the attention kernels K4-K6 run
+// it in blocks of 32 and 16 pair rows, and K1-K3 in a 64-row block whose
+// wgmma layout does not fit (the chain [1024, 512, 256]: 224,768 B of
+// shared memory here); at 128 and 64 rows they run the wgmma chain of
+// mlp_chain_wgmma.cuh, which keeps this chain's contract and rounding
+// points. The int8 modes K1q-K3q run mlp_chain_int8.cuh.
 //
 // Counterpart of pixelrec_multimodal_tpu/ops/pairwise_mlp.py:_mlp_chain:
 //   for each hidden Dense (W [K, N] bf16, b [N]):

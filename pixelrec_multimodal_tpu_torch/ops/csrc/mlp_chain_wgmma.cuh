@@ -1,10 +1,15 @@
 // pixelrec_multimodal_tpu_torch/ops/csrc/mlp_chain_wgmma.cuh
 //
 // The hidden Dense chain of mlp_chain.cuh on Hopper's warpgroup products
-// (wgmma), for the concat kernel K1's bf16 mode (pairwise_mlp.cu), the
-// attention kernels K4 (attention_mlp.cu) and K5 (attention_gram_mlp.cu)
-// and the token-0 screen K6 (attention_screen_mlp.cu) at blocks of 128 and
-// 64 pair rows. It keeps
+// (wgmma), for the bf16 modes of the pair kernels K1 (pairwise_mlp.cu), K2
+// (gated_pairwise_mlp.cu) and K3 (gated_factored_mlp.cu), the attention
+// kernels K4 (attention_mlp.cu) and K5 (attention_gram_mlp.cu) and the
+// token-0 screen K6 (attention_screen_mlp.cu) at blocks of 128 and 64 pair
+// rows (K1-K3 at 64 only where that block fits: make_chain_fit). At the
+// flagship widths [512, 256, 128] a 128-row block takes 229,440 B: one
+// 512-column buffer (131,072 B) that every layer writes over, six 16 KB
+// stages and their barriers (98,368 B), the assembly's scratch within the
+// ring. The int8 modes (K1q-K3q) keep mlp_chain_int8.cuh. It keeps
 // run_chain's contract: the assembly's bf16 activations in buf_a, the
 // epilogue's rounding points (an f32 bias add, one bf16 rounding, the
 // activation on the bf16 pair), the warp-shuffle last dot, the scores into
@@ -470,9 +475,9 @@ inline size_t smem_bytes_for(const WgChain& ch, size_t scratch, int rows) {
 // the wgmma chain, 64 on the wgmma chain, 64 on the mma.sync chain, 32, 16.
 // A 64-row block whose wgmma layout (its buffers and at least two k slices'
 // ring stages, with the assembly's `scratch` bytes over the ring) passes
-// WG_SMEM takes the mma.sync chain's layout (ch->stages 0), as K1 does for
-// the wide chain [1024, 512, 256], whose 1,024-column buffer A leaves no
-// room for the ring. The choice follows from the widths alone, so the
+// WG_SMEM takes the mma.sync chain's layout (ch->stages 0), as K1, K2 and
+// K3 do for the wide chain [1024, 512, 256], whose 1,024-column buffer A
+// leaves no room for the ring (262,208 B). The choice follows from the widths alone, so the
 // launch and <name>_block_bytes make the same one; it is no retreat from a
 // failure.
 inline cudaError_t make_chain_fit(int rows, int n_hidden, const int* wd,
@@ -483,6 +488,24 @@ inline cudaError_t make_chain_fit(int rows, int n_hidden, const int* wd,
     return err;
   *ch = WgChain{};
   return make_chain(n_hidden, wd, ch);
+}
+
+// f(tb, wg) for the block of `rows` pair rows of a pair kernel (K1-K3):
+// tb the tile's users (std::integral_constant<int, TB>, as dispatch_rows
+// gives it), wg whether the block runs the wgmma chain
+// (std::bool_constant): never in the int8 mode (Q) or at 32 and 16 rows,
+// always at 128, and at 64 where make_chain_fit chose it (ch.stages).
+template <bool Q, typename F>
+inline cudaError_t dispatch_chain(int rows, const WgChain& ch, F&& f) {
+  return dispatch_rows(rows, [&](auto tb) -> cudaError_t {
+    constexpr int TB = decltype(tb)::value;
+    if constexpr (Q || !wgmma_rows<TB>())
+      return f(tb, std::false_type());
+    else if constexpr (TB == 4)
+      return ch.stages ? f(tb, std::true_type()) : f(tb, std::false_type());
+    else
+      return f(tb, std::true_type());
+  });
 }
 
 // 2: the block of `rows` pair rows runs the wgmma chain, 1: the mma.sync

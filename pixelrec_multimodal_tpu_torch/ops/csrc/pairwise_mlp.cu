@@ -34,7 +34,7 @@
 // at the flagship widths 229,440 B of shared memory, one 512-column buffer
 // that every layer writes over (each fits one 256-column sweep) and six
 // ring stages. Blocks of 32 and 16 rows run the mma.sync chain of
-// mlp_chain.cuh, which the gated kernels share; so does a 64-row block
+// mlp_chain.cuh; so does a 64-row block
 // whose wgmma layout does not fit (make_chain_fit: the chain [1024, 512,
 // 256], whose 1,024-column buffer A leaves no room for two k slices'
 // stages). Persistent blocks and a producer warp are left for later work.
@@ -187,20 +187,10 @@ int forward(const void* uf, const void* itf, const void* w_sw, const void* w,
   const cudaError_t err = block_chain<Q>(n_hidden, widths, rows, &ch);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch_rows(rows, [&](auto tb) {
-    constexpr int TB = decltype(tb)::value;
-    if constexpr (Q || !wgmma_rows<TB>())
-      return launch<Q, TB, false>(uf, itf, w_sw, w, bias, w_last, b_last, out,
-                                  B, C, ch, act, fin, rows, s);
-    else if constexpr (TB == 4)  // 64 rows: the chain make_chain_fit chose
-      return ch.stages
-          ? launch<false, TB, true>(uf, itf, w_sw, w, bias, w_last, b_last,
-                                    out, B, C, ch, act, fin, rows, s)
-          : launch<false, TB, false>(uf, itf, w_sw, w, bias, w_last, b_last,
-                                     out, B, C, ch, act, fin, rows, s);
-    else
-      return launch<false, TB, true>(uf, itf, w_sw, w, bias, w_last, b_last,
-                                     out, B, C, ch, act, fin, rows, s);
+  return dispatch_chain<Q>(rows, ch, [&](auto tb, auto wg) {
+    return launch<Q, decltype(tb)::value, decltype(wg)::value>(
+        uf, itf, w_sw, w, bias, w_last, b_last, out, B, C, ch, act, fin, rows,
+        s);
   });
 }
 

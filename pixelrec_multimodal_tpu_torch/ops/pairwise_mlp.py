@@ -16,11 +16,12 @@ prediction MLP is made compute-bound in three steps:
   3. One kernel scores a [users x items] block with every activation kept
      on chip: K1 (``csrc/pairwise_mlp.cu``) for concatenate fusion, K2
      (``csrc/gated_pairwise_mlp.cu``) for exact gated fusion, K3
-     (``csrc/gated_factored_mlp.cu``) for its factored form. K2 and K3
-     run the Dense chain of ``csrc/mlp_chain.cuh`` (``mma.sync``); K1 runs
-     the wgmma chain of ``csrc/mlp_chain_wgmma.cuh`` (the weights packed
-     by ``wgmma_weights``) in blocks of 128 and 64 pair rows where that
-     block fits, and ``mlp_chain.cuh``'s below (``chain_kind``).
+     (``csrc/gated_factored_mlp.cu``) for its factored form. In their
+     bf16 mode all three run the wgmma chain of
+     ``csrc/mlp_chain_wgmma.cuh`` (the weights packed by
+     ``wgmma_weights``) in blocks of 128 and 64 pair rows where that block
+     fits, and the ``mma.sync`` chain of ``csrc/mlp_chain.cuh`` below
+     (``chain_kind``).
 
 ``pairwise_scores``, ``pairwise_scores_gated`` and
 ``pairwise_scores_gated_factored`` are the kernels' wrappers: CUDA tensors
@@ -300,18 +301,18 @@ def factor_gated_tables(head: dict, item_first: torch.Tensor,
 # first-layer lane (``int8_chain_flops_per_lane``), where the int8 kernel
 # beats the bf16 one. The int8 products run at twice the bf16 rate of the
 # mma.sync chain, but each pair's h1-wide quantize and every layer's
-# rescale run outside the tensor cores. On an NVIDIA H100 80GB HBM3 (700 W;
+# rescale run outside the tensor cores, and the bf16 modes of all three
+# pair kernels run the wgmma chain. On an NVIDIA H100 80GB HBM3 (700 W;
 # chip_smoke.py's int8_flip_point phase, PERF.md), on the chains whose h1
-# is a multiple of 128, as the scorer's heads are:
-#   gated heads (K2q, K3q against K2, K3, which run the mma.sync chain):
-#     K1q beat K1 on the mma.sync chain down to 64, the least of any head
-#     with a hidden layer (one layer 32 wide: 2 * 32), so the gate passes
-#     every gated head;
-#   concatenate heads (K1q against K1 on the wgmma chain): K1q is the
-#     faster only from 2,560 (at the flagship's 640 it takes 1.2x K1's
-#     time), so 'int8' serves them in bf16 below that.
+# is a multiple of 128, as the scorer's heads are, both flip points are
+# 2,560:
+#   gated heads (K2q against K2, K3q against K3): the int8 modes are the
+#     faster only from 2,560 (at the flagship's 640 K2q takes 1.15x K2's
+#     time, K3q 1.11x K3's), so 'int8' serves them in bf16 below that;
+#   concatenate heads (K1q against K1): likewise from 2,560 (at 640 K1q
+#     takes 1.23x K1's time).
 # The JAX package's 1000 is the TPU's.
-INT8_MIN_CHAIN_FLOPS_PER_LANE = 64
+INT8_MIN_CHAIN_FLOPS_PER_LANE = 2560
 INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT = 2560
 
 
@@ -711,8 +712,8 @@ WGMMA_TILE = 64  # csrc/mlp_chain_wgmma.cuh: packed weight tiles of 64 x 64
 
 def wgmma_weights(chain: dict) -> torch.Tensor:
     """The bf16 chain's hidden weights packed for the wgmma chain of
-    ``csrc/mlp_chain_wgmma.cuh`` (K1's bf16 mode, K4, K5 and K6 at blocks
-    of 128 and 64 pair rows): per layer, W^T [N, K] zero-padded to
+    ``csrc/mlp_chain_wgmma.cuh`` (the bf16 modes of K1, K2 and K3, and K4,
+    K5 and K6, at blocks of 128 and 64 pair rows): per layer, W^T [N, K] zero-padded to
     multiples of 64 and cut into tiles of 64 columns x 64 rows of K in the
     order (k slice, column group), each tile's rows 128 bytes whose 16-byte
     chunks are swizzled by the row (stored chunk = chunk ^ n % 8), the
@@ -888,13 +889,14 @@ def chain_kind(name: str, rows: int,
                mode: Tuple[int, ...] = (0,)) -> str:
     """The tensor-core chain ``csrc/<name>.cu`` runs in a block of ``rows``
     pair rows, as its library reports it (``<name>_chain_kind``):
-    'wgmma' (``csrc/mlp_chain_wgmma.cuh``; K1's bf16 mode, K4, K5 and K6
-    at 128 and 64 rows) or 'mma.sync' (``csrc/mlp_chain.cuh``; every
-    kernel without the export). With ``widths`` (and ``mode``, as for
-    ``block_bytes``) a kernel that chooses the chain by fit (K1:
-    ``<name>_block_chain_kind``, a 64-row block whose wgmma layout does
-    not fit runs mma.sync, and the int8 mode always does) reports the
-    chain of that block on those widths. Loads the kernel's library."""
+    'wgmma' (``csrc/mlp_chain_wgmma.cuh``; the bf16 modes of K1, K2 and
+    K3, and K4, K5 and K6, at 128 and 64 rows) or 'mma.sync'
+    (``csrc/mlp_chain.cuh``; every kernel without the export). With
+    ``widths`` (and ``mode``, as for ``block_bytes``) a kernel that
+    chooses the chain by fit (K1, K2, K3: ``<name>_block_chain_kind``, a
+    64-row block whose wgmma layout does not fit runs mma.sync, and the
+    int8 mode always does) reports the chain of that block on those
+    widths. Loads the kernel's library."""
     lib = _build.load(name)
     fn = (getattr(lib, f'{name}_block_chain_kind', None)
           if widths is not None else None)
@@ -1069,9 +1071,10 @@ def pairwise_scores_gated(head: dict, user_first: torch.Tensor,
     float32 -> [B, C] float32.
 
     CUDA tensors launch the kernel on the current stream; B and C need not
-    be tile multiples; the block's pair rows as ``pairwise_scores``. CPU
-    tensors take ``pairwise_scores_gated_plain`` in float32. Anything else
-    raises. ``pairwise_scores_gated.launches`` counts kernel launches of
+    be tile multiples; the chain's tensors, the packed weights of the bf16
+    mode (``wgmma_weights``), the block's pair rows and the chain each
+    block runs as ``pairwise_scores``. CPU tensors take
+    ``pairwise_scores_gated_plain`` in float32. Anything else raises. ``pairwise_scores_gated.launches`` counts kernel launches of
     the bf16 mode, ``.launches_int8`` those of the int8 mode (K2q), which a
     head with ``qlayers`` launches.
     """
@@ -1094,9 +1097,11 @@ def pairwise_scores_gated(head: dict, user_first: torch.Tensor,
     out = torch.empty((B, C), dtype=f32, device=device)
     if B == 0 or C == 0:
         return out
-    _launch('gated_pairwise_mlp', out,
-            (user_first, user_gates, item_first, item_gates), chain, B, C,
-            (n_mod,), forced=_block_rows)
+    tensors = (user_first, user_gates, item_first, item_gates)
+    if not chain['int8']:  # K2q runs the int8 mma.sync chain
+        tensors += (wgmma_weights(chain),)
+    _launch('gated_pairwise_mlp', out, tensors, chain, B, C, (n_mod,),
+            forced=_block_rows)
     if chain['int8']:
         pairwise_scores_gated.launches_int8 += 1
     else:
@@ -1121,8 +1126,10 @@ def pairwise_scores_gated_factored(head: dict, user_first: torch.Tensor,
     (``factor_gated_tables``) -> [B, C] float32.
 
     CUDA tensors launch the kernel on the current stream; B and C need not
-    be tile multiples; the block's pair rows as ``pairwise_scores``. CPU
-    tensors take ``pairwise_scores_gated_factored_plain`` in float32.
+    be tile multiples; the chain's tensors, the packed weights of the bf16
+    mode (``wgmma_weights``), the block's pair rows and the chain each
+    block runs as ``pairwise_scores``. CPU tensors take
+    ``pairwise_scores_gated_factored_plain`` in float32.
     Anything else raises. ``pairwise_scores_gated_factored.launches``
     counts kernel launches of the bf16 mode, ``.launches_int8`` those of
     the int8 mode (K3q), which a head with ``qlayers`` launches.
@@ -1146,9 +1153,11 @@ def pairwise_scores_gated_factored(head: dict, user_first: torch.Tensor,
     out = torch.empty((B, C), dtype=f32, device=device)
     if B == 0 or C == 0:
         return out
-    _launch('gated_factored_mlp', out,
-            (user_first, user_coefs, tables, item_coefs), chain, B, C,
-            (n_mod,), forced=_block_rows)
+    tensors = (user_first, user_coefs, tables, item_coefs)
+    if not chain['int8']:  # K3q runs the int8 mma.sync chain
+        tensors += (wgmma_weights(chain),)
+    _launch('gated_factored_mlp', out, tensors, chain, B, C, (n_mod,),
+            forced=_block_rows)
     if chain['int8']:
         pairwise_scores_gated_factored.launches_int8 += 1
     else:

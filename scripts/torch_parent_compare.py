@@ -17,9 +17,9 @@ flagship attention head (d 64, 4 heads) for K4, K5 and K6 (with its
 screen tail), and the int8 modes of K1-K3 on the same rows with the
 flagship chain quantized. Prints one JSON
 line per measurement, the card's ``nvidia-smi`` name and power limit
-first: whether the scores are equal bit for bit; for K1, K4, K5 and K6,
-whose chains may differ between the checkouts (the wgmma chain against the
-mma.sync chain), the kernel-against-plain gates of ``chip_smoke.py``
+first: whether the scores are equal bit for bit; for K1-K6, whose chains
+may differ between the checkouts (the wgmma chain against the mma.sync
+chain), the kernel-against-plain gates of ``chip_smoke.py``
 between the two builds' scores (every pair within KERNEL_TOL of the score
 scale, at most MAX_DIFFERING_PER_LAYER of the pairs per hidden layer past
 AGREE) and the mean top-50 overlap of each user's row (>= MIN_OVERLAP);
@@ -29,11 +29,10 @@ interface of the two builds' entry points must be the same, but for the
 block's pair rows and the packed weights of the kernels on the wgmma
 chain: a checkout whose kernels take no rows (every block 128 rows) is
 called without them, with this checkout's count of the block's shared
-memory, and only where that count chooses 128 rows; one whose K1, K4, K5
-or K6 takes no packed weights (no ``<name>_chain_kind``) is called
-without them. Exits 2 without a CUDA device, 1 if a kernel other than K1,
-K4, K5 and K6 differs from the other checkout's or one of those four
-fails a gate.
+memory, and only where that count chooses 128 rows; one whose K1-K6 take
+no packed weights (no ``<name>_chain_kind``) is called without them.
+Exits 2 without a CUDA device, 1 if an int8 mode (K1q-K3q) differs from
+the other checkout's or one of K1-K6 fails a gate.
 """
 from __future__ import annotations
 
@@ -68,11 +67,12 @@ KERNELS = ('pairwise_mlp', 'gated_pairwise_mlp', 'gated_factored_mlp',
            'attention_mlp', 'attention_gram_mlp', 'attention_screen_mlp')
 # the kernels that take the packed weights, and where: the argument's
 # place counted from the end of the entry point's arguments
-PACKED = {'pairwise_mlp': 14, 'attention_mlp': 16, 'attention_gram_mlp': 16,
-          'attention_screen_mlp': 16}
+PACKED = {'pairwise_mlp': 14, 'gated_pairwise_mlp': 15,
+          'gated_factored_mlp': 15, 'attention_mlp': 16,
+          'attention_gram_mlp': 16, 'attention_screen_mlp': 16}
 # held to the other checkout by the gates, not bits (their chain may be
 # another one there)
-GATED = ('K1', 'K4', 'K5', 'K6')
+GATED = ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')
 TOP = 50
 
 
@@ -111,11 +111,11 @@ class WithoutRows:
 
 
 class WithoutPackedWeights:
-    """A library whose K1, K4, K5 or K6 entry point takes no packed weights
-    (a checkout from before that kernel's wgmma chain): its
-    ``<name>_forward`` drops the pointer to them, which the wrappers pass
-    PACKED[name] arguments from the end (after the LayerNorm affine, or
-    after K1's item rows)."""
+    """A library whose K1-K6 entry point takes no packed weights (a
+    checkout from before that kernel's wgmma chain): its ``<name>_forward``
+    drops the pointer to them, which the wrappers pass PACKED[name]
+    arguments from the end (after the LayerNorm affine, or after the pair
+    kernels' item rows)."""
 
     def __init__(self, lib, name):
         self._lib, self._name = lib, name

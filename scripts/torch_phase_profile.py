@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes inside the kernels on the wgmma chain (K1 concat,
-K4 stream and K5 gram attention, K6 the token-0 screen), phase by phase,
-and what the attention kernels' grid order costs, on one CUDA card.
+K2 exact and K3 factored gated, K4 stream and K5 gram attention, K6 the
+token-0 screen), phase by phase, and what the attention kernels' grid
+order costs, on one CUDA card.
 
     python3 scripts/torch_phase_profile.py [OTHER_CHECKOUT]
 
 Builds altered copies of ``ops/csrc/pairwise_mlp.cu`` (K1),
+``gated_pairwise_mlp.cu`` (K2), ``gated_factored_mlp.cu`` (K3),
 ``attention_mlp.cu`` (K4), ``attention_gram_mlp.cu`` (K5) and
 ``attention_screen_mlp.cu`` (K6) under ``build/phase/``:
 
@@ -13,13 +15,15 @@ Builds altered copies of ``ops/csrc/pairwise_mlp.cu`` (K1),
   block-wide barrier of the kernel's body (and after the chain) and adds
   the difference to a device counter per phase; each phase is named by the
   kernel functions it calls (K1: the user rows, the assembly, the chain;
-  K4 and K6: the user rows, logits, softmax, assembly, chain; K5: the user
-  rows, logits and cross-Grams, softmax, its statistics, the combination,
-  the chain);
+  K2 and K3: the user rows, the gates (K2) or coefficients (K3), the
+  assembly, the chain, the copy with one more barrier before the gates or
+  coefficients; K4 and K6: the user rows, logits, softmax, assembly,
+  chain; K5: the user rows, logits and cross-Grams, softmax, its
+  statistics, the combination, the chain);
 * ``items_fastest`` (K4, K5, K6): the kernel as built, with the grid order
   of ``attention_common.cuh`` turned round, item tiles along x, so that the
   blocks of one user tile run together instead of those of one item tile
-  (K1's grid has them so already).
+  (K1's, K2's and K3's grids have them so already).
 
 With OTHER_CHECKOUT (for example a parent commit unpacked with ``git
 archive``), its kernels get the ``phases`` copy too, built with its own
@@ -27,9 +31,9 @@ headers and called through this checkout's wrappers as
 ``scripts/torch_parent_compare.py`` calls them, so that the shares before
 and after a change print side by side. The copies replace the built
 kernels in this process only. Each kernel scores the flagship block (256
-users x 8,192 items; K1 on seeded rows of h1 512, the others d 64, 4
-heads, Mi 5; the chain [512, 256, 128], relu, sigmoid, random weights from
-a seed). Prints one JSON line per checkout
+users x 8,192 items; K1 on seeded rows of h1 512, K2 and K3 on seeded
+gated rows of h1 512 and M = 6, the others d 64, 4 heads, Mi 5; the chain
+[512, 256, 128], relu, sigmoid, random weights from a seed). Prints one JSON line per checkout
 and kernel: the mean SM cycles per block of each phase and its share, the
 kernel's time by CUDA events as built and with the counters (and, for this
 checkout, with the other grid order, and whether it gives the same scores
@@ -56,6 +60,7 @@ from chip_smoke import (  # noqa: E402
     cuda_ms,
     random_attention_head,
     random_attention_rows,
+    random_gated_rows,
     random_head,
 )
 from scripts.torch_parent_compare import (  # noqa: E402
@@ -65,6 +70,8 @@ from scripts.torch_parent_compare import (  # noqa: E402
 
 B, C = 256, 8192
 KERNELS = {'pairwise_mlp': ('K1', 'pairwise_mlp_kernel'),
+           'gated_pairwise_mlp': ('K2', 'gated_pairwise_kernel'),
+           'gated_factored_mlp': ('K3', 'gated_factored_kernel'),
            'attention_mlp': ('K4', 'attention_kernel'),
            'attention_gram_mlp': ('K5', 'attention_gram_kernel'),
            'attention_screen_mlp': ('K6', 'screen_kernel')}
@@ -77,7 +84,12 @@ PHASE_NAMES = {
     'gram_weights': 'statistics: weights', 'stream_assemble': 'assembly',
     'gram_combine': 'combination', 'screen_assemble': 'assembly',
     'scratch_of': 'user rows', 'act_pair': 'assembly', 'run_chain': 'chain',
-    'run_chain_of': 'chain', 'run_chain_int8': 'chain'}
+    'run_chain_of': 'chain', 'run_chain_int8': 'chain', 'pair_gates': 'gates',
+    'pair_coefs': 'coefficients', 'act_to_bf16x4': 'assembly'}
+# Calls that start a phase of their own in the profiled copy: a barrier is
+# put before them (K2's gates and K3's coefficients follow the user rows
+# with none between).
+SPLIT_BEFORE = re.compile(r'\b(pair_gates|pair_coefs)(?=<)')
 COUNTERS = '''
 __device__ unsigned long long phase_cycles[16];
 #define PHASE_START long long phase_t = clock64(); int phase_k = 0;
@@ -107,7 +119,7 @@ def instrumented(src: str, kernel: str) -> tuple:
     chain = list(re.compile(r'run_chain\w*(<[^>(]*>)?\(').finditer(
         src, origin.end(), stop))[-1]
     begin, end = origin.end(), src.index(';', chain.end()) + 1
-    body = src[begin:end]
+    body = SPLIT_BEFORE.sub(r'__syncthreads();\n  \1', src[begin:end])
     names = []
     for segment in body.split('__syncthreads();'):
         calls = [PHASE_NAMES[m] for m in re.findall(r'\b(\w+)(?:<[^;()]*>)?\(',
@@ -162,7 +174,7 @@ def build(tag: str, name: str, source: str, csrc: Path,
 
 def routed(lib, name: str):
     """``lib`` as this checkout's wrappers call it (packed weights dropped
-    for a checkout whose K4 and K5 take none)."""
+    for a checkout whose kernel takes none)."""
     if name in PACKED and not hasattr(lib, f'{name}_chain_kind'):
         return WithoutPackedWeights(lib, name)
     return lib
@@ -190,7 +202,15 @@ def main() -> int:
     pair['kernel'] = tpm.kernel_chain(pair)
     uf = torch.randn(B, 512, generator=gen).to(dev)
     itf = torch.randn(C, 512, generator=gen).to(dev)
+    gated = random_head((512, 256, 128), 'relu', 'sigmoid', gen, dev,
+                        n_item_mods=5)
+    gated['kernel'] = tpm.kernel_chain(gated)
+    exact, factored = random_gated_rows(gated, B, C, gen, dev)
     calls = {'pairwise_mlp': lambda: tpm.pairwise_scores(pair, uf, itf),
+             'gated_pairwise_mlp': lambda: tpm.pairwise_scores_gated(
+                 gated, *exact),
+             'gated_factored_mlp': lambda: tpm.pairwise_scores_gated_factored(
+                 gated, *factored),
              'attention_mlp': lambda: tas.attention_scores(
                  head, users[:5], items[:6]),
              'attention_gram_mlp': lambda: tas.attention_scores_gram(
@@ -210,7 +230,7 @@ def main() -> int:
                 _build._loaded.pop(name, None)
                 if tag == 'this':
                     line['ms'] = cuda_ms(calls[name], reps=20)
-                if tag == 'this' and kid != 'K1':
+                if tag == 'this' and kid not in ('K1', 'K2', 'K3'):
                     ref = calls[name]()
                     _build._loaded[name] = build(
                         'items_fastest', name,

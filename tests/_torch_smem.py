@@ -14,13 +14,13 @@ from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
 TILE_ITEMS = 16                       # items per tile; a block: rows / 16 users
 RING_BYTES = 3 * 32 * (128 + 8) * 2   # bf16 weight ring: 3 x 32 x 136
 RING_BYTES_INT8 = 3 * 128 * (64 + 16)  # int8 weight ring: 3 x 128 x 80
-# the wgmma chain (K1's bf16 mode, K4, K5 and K6 at 128 and 64 rows; K1's
-# 64-row block only where it fits, else the mma.sync chain's): ring stages
-# of 64 k x 128
-# columns of bf16 (16 KB), as many as the 232,448 B a block may take leave
-# after the buffers and the 64 B of barriers, from two k slices' (4 at 128
-# rows, 8 at 64) to 8; the four warpgroups cover a group of 32,768 / rows
-# columns (256 at 128 rows, 512 at 64) in one sweep
+# the wgmma chain (the bf16 modes of K1, K2 and K3, and K4, K5 and K6, at
+# 128 and 64 rows; the pair kernels' 64-row block only where it fits, else
+# the mma.sync chain's): ring stages of 64 k x 128 columns of bf16 (16 KB),
+# as many as the 232,448 B a block may take leave after the buffers and the
+# 64 B of barriers, from two k slices' (4 at 128 rows, 8 at 64) to 8; the
+# four warpgroups cover a group of 32,768 / rows columns (256 at 128 rows,
+# 512 at 64) in one sweep
 WGMMA_SMEM = 232448
 WGMMA_BARRIER_BYTES = 64
 SUU_PAD = 8                           # columns of the per-user self-logits
@@ -131,11 +131,12 @@ def attention_smem_bytes(name: str, widths: Sequence[int], rows: int,
 
 def pair_chain_kind(name: str, widths: Sequence[int], rows: int,
                     int8: bool) -> str:
-    """The chain a pair kernel's block runs, by hand: K1's bf16 mode the
-    wgmma chain at 128 rows and at 64 where that block (buffers, at least
-    two k slices' stages, the user rows' scratch over the ring) fits, the
-    mma.sync chain otherwise; K2, K3 and every int8 mode mma.sync."""
-    if name != 'pairwise_mlp' or int8 or rows < 64:
+    """The chain a pair kernel's block runs, by hand: the bf16 modes of K1,
+    K2 and K3 the wgmma chain at 128 rows and at 64 where that block
+    (buffers, at least two k slices' stages, the kernel's own scratch over
+    the ring) fits, the mma.sync chain otherwise; every int8 mode
+    mma.sync."""
+    if int8 or rows < 64:
         return 'mma.sync'
     need = wgmma_chain_smem_bytes(widths, rows,
                                   pair_scratch_bytes(name, widths[0], rows))

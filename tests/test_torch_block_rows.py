@@ -44,34 +44,37 @@ def attention_head(d, heads, widths):
 
 
 # (kernel, chain widths from h1 on, int8, rows chosen, bytes at those rows).
-# bf16 on the mma.sync chain (K2, K3; K1 at 32 and 16 rows, and at 64 where
+# bf16 on the mma.sync chain (K1, K2, K3 at 32 and 16 rows, and at 64 where
 # the wgmma block does not fit): rows x (max even width + 8 + max odd width
 # + 8) x 2 B of buffers, then the 26,112 B ring (3 slices x 32 x 136 x 2 B)
-# or the assembly's scratch, whichever is larger. K1 bf16 on the wgmma
-# chain (128 rows; 64 where it fits): the swizzled buffers (a layer whose
-# output fits one group of 32,768 / rows columns writes over its input),
-# then 16 KB ring stages up to 8, at least 4 at 128 rows and 8 at 64, and 64
-# B of barriers. int8: rows x (max even + 16 + max odd + 16) B, the last
+# or the assembly's scratch, whichever is larger. bf16 on the wgmma chain
+# (128 rows; 64 where it fits): the swizzled buffers (a layer whose output
+# fits one group of 32,768 / rows columns writes over its input), then 16
+# KB ring stages up to 8, at least 4 at 128 rows and 8 at 64, and 64 B of
+# barriers. int8: rows x (max even + 16 + max odd + 16) B, the last
 # hidden layer's row being its partial sums (4 B x 256 / rows column groups
 # x 128-column passes, padded to 32, + 16), then the 30,720 B ring (3 x 128
 # x 80) or the scratch.
 @pytest.mark.parametrize('kernel, widths, int8, rows, nbytes', [
-    # the flagship, K1 on the wgmma chain: every layer (256 and 128 wide)
-    # fits a group of 256 and writes over its input, one buffer of 128 x
-    # 512 x 2 = 131,072, then the six 16 KB stages that fit and the
-    # barriers, 98,368 (the user rows' scratch, 8 x 512 x 2 = 8,192, lies in
-    # the ring)
+    # the flagship on the wgmma chain: every layer (256 and 128 wide) fits
+    # a group of 256 and writes over its input, one buffer of 128 x 512 x 2
+    # = 131,072, then the six 16 KB stages that fit and the barriers, 98,368;
+    # each kernel's scratch lies in the ring: K1's user rows, 8 x 512 x 2 =
+    # 8,192; K2's f32 user rows and gates, (8 x 512 + 128 x 8) x 4 =
+    # 20,480; K3's f32 user rows, coefficients and (p0, 1/Z), (8 x 520 +
+    # 256) x 4 = 17,664 (on the mma.sync chain K2 and K3 took 128 x (520 +
+    # 264) x 2 + 26,112 = 226,816)
     ('K1', (512, 256, 128), False, 128, 229440),
-    # K2 and K3 on the mma.sync chain: 128 x (520 + 264) x 2 + 26,112
-    ('K2', (512, 256, 128), False, 128, 226816),
-    ('K3', (512, 256, 128), False, 128, 226816),
+    ('K2', (512, 256, 128), False, 128, 229440),
+    ('K3', (512, 256, 128), False, 128, 229440),
     # its int8 modes: 128 x (528 + 272) + 30,720
     ('K1', (512, 256, 128), True, 128, 133120),
     # [1024, 512, 256]: 128 rows would take 128 x (1,032 + 520) x 2 + 26,112
     # = 423,424 (K1 on the wgmma chain: buffers of 1,024 and 512 columns,
     # 393,216); 64 x 1,552 x 2 + 26,112 = 224,768. K1's 64-row wgmma block
     # would need 64 x 1,024 x 2 = 131,072 for its buffer and 8 x 16,384 +
-    # 64 for the least ring, 262,208: K1 takes the 64-row mma.sync block
+    # 64 for the least ring, 262,208: K1, K2 and K3 take the 64-row
+    # mma.sync block
     ('K1', (1024, 512, 256), False, 64, 224768),
     ('K2', (1024, 512, 256), False, 64, 224768),
     ('K3', (1024, 512, 256), False, 64, 224768),
@@ -105,30 +108,37 @@ def test_pair_block_rows(hand_count, kernel, widths, int8, rows, nbytes):
 
 
 # (chain widths from h1 on, int8, the chain of each of the four blocks by
-# hand): K1's bf16 mode runs the wgmma chain at 128 rows and at 64 where
-# that block fits, in one fixed order by fit (128 wgmma, 64 wgmma, 64
-# mma.sync, 32, 16); its int8 mode K1q runs mma.sync at every row count.
+# hand): the bf16 modes of K1, K2 and K3 run the wgmma chain at 128 rows
+# and at 64 where that block fits, in one fixed order by fit (128 wgmma, 64
+# wgmma, 64 mma.sync, 32, 16); their int8 modes K1q, K2q and K3q run
+# mma.sync at every row count. Each kernel's scratch lies within the ring,
+# so the three choose alike.
+@pytest.mark.parametrize('name', ['pairwise_mlp', 'gated_pairwise_mlp',
+                                  'gated_factored_mlp'])
 @pytest.mark.parametrize('widths, int8, chains', [
     ((512, 256, 128), False, ('wgmma', 'wgmma', 'mma.sync', 'mma.sync')),
     ((1024, 512, 256), False, ('wgmma', 'mma.sync', 'mma.sync',
                                'mma.sync')),
     ((512, 256, 128), True, ('mma.sync',) * 4),
 ])
-def test_k1_chain_by_fit(hand_count, widths, int8, chains):
-    """The chain K1's block runs on each row count, by hand; the flagship
-    fits the 128-row wgmma block and the wide chain [1024, 512, 256] takes
-    64 rows on mma.sync (its 64-row wgmma block does not fit), so its block
-    rows stay those of the mma.sync chain."""
-    got = tuple(hand.pair_chain_kind('pairwise_mlp', widths, rows, int8)
+def test_k1_chain_by_fit(hand_count, widths, int8, chains, name):
+    """The chain the block of K1, K2 or K3 runs on each row count, by hand;
+    the flagship fits the 128-row wgmma block and the wide chain [1024,
+    512, 256] takes 64 rows on mma.sync (its 64-row wgmma block does not
+    fit), so its block rows stay those of the mma.sync chain."""
+    got = tuple(hand.pair_chain_kind(name, widths, rows, int8)
                 for rows in tpm.BLOCK_ROWS)
     assert got == chains
-    rows = tpm.block_rows('pairwise_mlp', widths, (int(int8),))
+    rows = tpm.block_rows(name, widths, (int(int8),))
     if not int8 and widths[0] == 1024:
         assert rows == 64 and hand.block_bytes(
-            'pairwise_mlp', widths, 64, (0,)) == hand.chain_smem_bytes(
-                widths, 64, hand.pair_scratch_bytes('pairwise_mlp', 1024,
-                                                    64))
+            name, widths, 64, (0,)) == hand.chain_smem_bytes(
+                widths, 64, hand.pair_scratch_bytes(name, 1024, 64))
         assert hand.wgmma_chain_smem_bytes(widths, 64) > tpm.SMEM_OPTIN
+    elif not int8:
+        assert rows == 128 and hand.block_bytes(
+            name, widths, 64, (0,)) == hand.wgmma_chain_smem_bytes(
+                widths, 64) == 196672
 
 
 @pytest.mark.parametrize('int8', [False, True])
@@ -337,6 +347,27 @@ def test_wgmma_weights_of_the_additive_screen_head():
     np.testing.assert_array_equal(packed.float().numpy(), expect)
     attention = tpm.wgmma_weights(tpm.kernel_chain(head))
     assert attention.numel() != packed.numel()
+
+
+def test_wgmma_weights_of_a_gated_head():
+    """A gated head's chain (K2's and K3's, from h1 on) packs its folded
+    hidden weights as K1's chain does, in both the exact and the factored
+    variant, which share it: the wrappers of K2 and K3 launch these."""
+    model = MultimodalRecommender(
+        n_users=4, n_items=8, n_tags=2, num_numerical_features=3,
+        embedding_dim=16, fusion_hidden_dims=(192, 64, 32),
+        use_contrastive=False, fusion_type='gated', device='cpu',
+        generator=torch.Generator().manual_seed(4))
+    head = tpm.build_factorized_head(model)
+    chain = tpm.kernel_chain(head)
+    widths = [int(w) for w in chain['widths']]
+    assert widths == [head['h1']] + [w.shape[1]
+                                     for w, _ in head['layers'][:-1]]
+    packed = tpm.wgmma_weights(chain)
+    ws = [w.bfloat16() for w, _ in head['layers'][:-1]]
+    expect, off = _packed(ws, packed.numel())
+    assert off == packed.numel()
+    np.testing.assert_array_equal(packed.float().numpy(), expect)
 
 
 def test_wgmma_weights_follow_their_chain():

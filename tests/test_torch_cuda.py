@@ -1,9 +1,9 @@
 """The port's CUDA kernels (K1 concat, K2 exact gated, K3 factored gated,
 and their int8 modes K1q, K2q, K3q; K4 stream attention, K5 gram
 attention, K6 the attention cascade's token-0 screen), their blocks of
-fewer pair rows for wide heads, the two chains (wgmma for K1's bf16 mode,
-K4, K5 and K6 at 128 and 64 rows where the block fits, mma.sync everywhere
-else), the probes P1-P3, and its scorer,
+fewer pair rows for wide heads, the two chains (wgmma for the bf16 modes
+of K1, K2 and K3, and K4, K5 and K6, at 128 and 64 rows where the block
+fits, mma.sync everywhere else), the probes P1-P3, and its scorer,
 int8 and the attention cascade included, on a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -37,6 +37,7 @@ from chip_smoke import (
     WIDE_MAX_DIFFERING,
     random_attention_head,
     random_attention_rows,
+    random_gated_rows,
     random_head,
 )
 from tests import _torch_smem as hand
@@ -895,10 +896,10 @@ def test_smaller_blocks_give_the_same_scores(dev, kid):
     """At a flagship-width head (chain [512, 256, 128]; attention d 64, 4
     heads) a block forced to 64, 32 and 16 pair rows gives the 128-row
     block's scores bit for bit on one chain: every output's sums over K
-    run the same mma steps in the same order whatever the rows. K1, K4,
-    K5 and K6 run the wgmma chain at 128 and 64 rows and the mma.sync
-    chain at 32 and 16: where the two chains meet, the scores agree under
-    the kernels' gates (AGREE, MAX_DIFFERING, FLIP_TOL), and bit for bit
+    run the same mma steps in the same order whatever the rows. Every
+    kernel runs the wgmma chain at 128 and 64 rows and the mma.sync chain
+    at 32 and 16: where the two chains meet, the scores agree under the
+    kernels' gates (AGREE, MAX_DIFFERING, FLIP_TOL), and bit for bit
     within each."""
     if kid in ('K1', 'K2', 'K3'):
         head = head_on(wide_head((512, 256, 128), 'gelu', 'sigmoid',
@@ -924,35 +925,30 @@ def test_smaller_blocks_give_the_same_scores(dev, kid):
             return tac.attention_screen_scores(head, users, items, tail,
                                                _block_rows=rows)
     full = run(128)
-    if kid in ('K1', 'K4', 'K5', 'K6'):
-        assert torch.equal(run(64), full)
-        small = run(32)
-        assert_gated(small, full, MAX_DIFFERING)
-        assert torch.equal(run(16), small)
-        return
-    for rows in (64, 32, 16):
-        assert torch.equal(run(rows), full), rows
+    assert torch.equal(run(64), full)
+    small = run(32)
+    assert_gated(small, full, MAX_DIFFERING)
+    assert torch.equal(run(16), small)
 
 
-@pytest.mark.parametrize('name', ['pairwise_mlp', 'attention_mlp',
+@pytest.mark.parametrize('name', ['pairwise_mlp', 'gated_pairwise_mlp',
+                                  'gated_factored_mlp', 'attention_mlp',
                                   'attention_gram_mlp',
                                   'attention_screen_mlp'])
 def test_kernels_report_their_chain(dev, name):
-    """K1's bf16 mode, K4, K5 and K6 run the wgmma chain
-    (``csrc/mlp_chain_wgmma.cuh``) in blocks of 128 and 64 pair rows and
-    the mma.sync chain in blocks of 32 and 16, as their libraries report it
-    (``<name>_chain_kind``); K1q, K2 and K3 run mma.sync at every row
-    count. K1 chooses by fit (``pairwise_mlp_block_chain_kind``): its
-    64-row block on the wide chain [1024, 512, 256] runs mma.sync, as the
-    hand count says."""
+    """The bf16 modes of K1, K2 and K3, and K4, K5 and K6, run the wgmma
+    chain (``csrc/mlp_chain_wgmma.cuh``) in blocks of 128 and 64 pair rows
+    and the mma.sync chain in blocks of 32 and 16, as their libraries
+    report it (``<name>_chain_kind``). K1, K2 and K3 choose by fit
+    (``<name>_block_chain_kind``): their 64-row block on the wide chain
+    [1024, 512, 256] runs mma.sync, and their int8 modes K1q, K2q and K3q
+    run mma.sync at every row count, as the hand count says."""
     assert [tpm.chain_kind(name, rows) for rows in tpm.BLOCK_ROWS] == [
         'wgmma', 'wgmma', 'mma.sync', 'mma.sync']
     with pytest.raises(ValueError, match='no chain'):
         tpm.chain_kind(name, 48)
-    for other in ('gated_pairwise_mlp', 'gated_factored_mlp'):
-        assert {tpm.chain_kind(other, rows) for rows in tpm.BLOCK_ROWS} \
-            == {'mma.sync'}
-    if name != 'pairwise_mlp':
+    if name not in ('pairwise_mlp', 'gated_pairwise_mlp',
+                    'gated_factored_mlp'):
         return
     for widths in ((512, 256, 128), (1024, 512, 256)):
         for int8 in (0, 1):
@@ -960,26 +956,45 @@ def test_kernels_report_their_chain(dev, name):
                    for rows in tpm.BLOCK_ROWS]
             assert got == [hand.pair_chain_kind(name, widths, rows, int8)
                            for rows in tpm.BLOCK_ROWS], (widths, int8)
+            if int8:
+                assert set(got) == {'mma.sync'}
             for rows in tpm.BLOCK_ROWS:
                 assert tpm.block_bytes(name, widths, rows, (int8,)) \
                     == hand.block_bytes(name, widths, rows, (int8,))
+    assert tpm.chain_kind(name, 64, (512, 256, 128)) == 'wgmma'
     assert tpm.chain_kind(name, 64, (1024, 512, 256)) == 'mma.sync'
 
 
-def flagship_k1_k6(kid, B, C, dev, seed=21):
-    """(head, call, plain call, hidden layers) of K1 or K6 at the flagship
-    head on seeded rows of a B x C block: K1 the concat chain [512, 256,
-    128], K6 the attention head (d 64, 4 heads, Mi 5) before that chain
-    with its screen tail; relu, sigmoid, random weights from ``seed``."""
+FLAGSHIP = {'K1': (tpm.pairwise_scores, 'pairwise_mlp', (0,)),
+            'K2': (tpm.pairwise_scores_gated, 'gated_pairwise_mlp', (0,)),
+            'K3': (tpm.pairwise_scores_gated_factored, 'gated_factored_mlp',
+                   (0,)),
+            'K6': (tac.attention_screen_scores, 'attention_screen_mlp',
+                   (4, 5))}
+
+
+def flagship_call(kid, B, C, dev, seed=21):
+    """(head, call, plain call, hidden layers) of K1, K2, K3 or K6 at the
+    flagship head on seeded rows of a B x C block: K1 the concat chain
+    [512, 256, 128], K2 and K3 that chain after the gated assembly (M = 6,
+    seeded gated rows), K6 the attention head (d 64, 4 heads, Mi 5) before
+    that chain with its screen tail; relu, sigmoid, random weights from
+    ``seed``."""
     gen = torch.Generator().manual_seed(seed)
-    if kid == 'K1':
-        head = random_head((512, 256, 128), 'relu', 'sigmoid', gen, dev)
+    if kid in ('K1', 'K2', 'K3'):
+        head = random_head((512, 256, 128), 'relu', 'sigmoid', gen, dev,
+                           None if kid == 'K1' else 5)
         head['kernel'] = tpm.kernel_chain(head)  # built once, as a scorer's
-        uf = torch.randn(B, 512, generator=gen).to(dev)
-        itf = torch.randn(C, 512, generator=gen).to(dev)
-        return (head, lambda **kw: tpm.pairwise_scores(head, uf, itf, **kw),
-                lambda: tpm.pairwise_scores_plain(head, uf, itf,
-                                                  torch.bfloat16), 2)
+        if kid == 'K1':
+            args = (torch.randn(B, 512, generator=gen).to(dev),
+                    torch.randn(C, 512, generator=gen).to(dev))
+        else:
+            args = random_gated_rows(head, B, C, gen, dev)[kid == 'K3']
+        kernel = FLAGSHIP[kid][0]
+        plain = {'K1': tpm.pairwise_scores_plain, 'K2': GATED['exact'][1],
+                 'K3': GATED['factored'][1]}[kid]
+        return (head, lambda **kw: kernel(head, *args, **kw),
+                lambda: plain(head, *args, compute_dtype=torch.bfloat16), 2)
     head = random_attention_head(64, 4, (512, 256, 128), 'relu', 'sigmoid',
                                  gen, dev)
     head['kernel'] = tpm.kernel_chain(head)
@@ -991,18 +1006,15 @@ def flagship_k1_k6(kid, B, C, dev, seed=21):
                 head, users[:5], items, tail, torch.bfloat16), 3)
 
 
-@pytest.mark.parametrize('kid', ['K1', 'K6'])
+@pytest.mark.parametrize('kid', ['K1', 'K6', 'K2', 'K3'])
 def test_k1_and_k6_at_the_flagship_head(dev, kid):
-    """K1 and K6 at the flagship head in their 128-row wgmma block, one
-    launch on a ragged 300 x 1,000 block, against their plain bf16
+    """K1, K2, K3 and K6 at the flagship head in their 128-row wgmma block,
+    one launch on a ragged 300 x 1,000 block, against their plain bf16
     versions: every pair within KERNEL_TOL of the score scale, and at most
     MAX_DIFFERING_PER_LAYER of the pairs per hidden layer past AGREE
     (chip_smoke.py's gates); the block's bytes are the hand count's."""
-    head, call, plain, n_hidden = flagship_k1_k6(kid, 300, 1000, dev)
-    name = {'K1': 'pairwise_mlp', 'K6': 'attention_screen_mlp'}[kid]
-    wrapper = (tpm.pairwise_scores if kid == 'K1'
-               else tac.attention_screen_scores)
-    mode = (0,) if kid == 'K1' else (4, 5)
+    head, call, plain, n_hidden = flagship_call(kid, 300, 1000, dev)
+    wrapper, name, mode = FLAGSHIP[kid]
     widths = tpm.chain_widths(head)
     assert tpm.block_rows(name, widths, mode) == 128
     assert tpm.chain_kind(name, 128, widths, mode) == 'wgmma'
@@ -1021,14 +1033,14 @@ def test_k1_and_k6_at_the_flagship_head(dev, kid):
         <= n_hidden * MAX_DIFFERING_PER_LAYER
 
 
-@pytest.mark.parametrize('kid', ['K1', 'K6'])
+@pytest.mark.parametrize('kid', ['K1', 'K6', 'K2', 'K3'])
 def test_k1_and_k6_blocks_across_chains(dev, kid):
-    """At the flagship head, K1's and K6's 64-row wgmma block gives the
-    128-row block's scores bit for bit, and the 32- and 16-row mma.sync
-    blocks agree with them under the gates (KERNEL_TOL of the score scale,
-    MAX_DIFFERING_PER_LAYER per hidden layer past AGREE) and with each
-    other bit for bit."""
-    _, call, _, n_hidden = flagship_k1_k6(kid, 300, 1000, dev)
+    """At the flagship head, the 64-row wgmma block of K1, K2, K3 and K6
+    gives the 128-row block's scores bit for bit, and the 32- and 16-row
+    mma.sync blocks agree with them under the gates (KERNEL_TOL of the
+    score scale, MAX_DIFFERING_PER_LAYER per hidden layer past AGREE) and
+    with each other bit for bit."""
+    _, call, _, n_hidden = flagship_call(kid, 300, 1000, dev)
     outs = {rows: call(_block_rows=rows) for rows in tpm.BLOCK_ROWS}
     assert torch.equal(outs[64], outs[128])
     assert torch.equal(outs[16], outs[32])
@@ -1039,24 +1051,29 @@ def test_k1_and_k6_blocks_across_chains(dev, kid):
         <= n_hidden * MAX_DIFFERING_PER_LAYER
 
 
-def test_k1_never_launches_packed_weights_of_another_chain(dev):
-    """A K1 chain dict that carries another chain's packed weights (copied
-    with it, then given its own weights) does not launch them: the scores
-    are those of its own weights, bit for bit, and the packed weights in
-    the dict after the launch are its own."""
+@pytest.mark.parametrize('kid', ['K1', 'K2', 'K3'])
+def test_k1_never_launches_packed_weights_of_another_chain(dev, kid):
+    """A chain dict of K1, K2 or K3 that carries another chain's packed
+    weights (copied with it, then given its own weights) does not launch
+    them: the scores are those of its own weights, bit for bit, and the
+    packed weights in the dict after the launch are its own."""
     gen = torch.Generator().manual_seed(22)
-    heads = [random_head((512, 256, 128), 'gelu', 'sigmoid', gen, dev)
-             for _ in range(2)]
-    uf, itf = rows(512, 37, 301, dev)
-    own = tpm.pairwise_scores(heads[1], uf, itf)
+    heads = [random_head((512, 256, 128), 'gelu', 'sigmoid', gen, dev,
+                         None if kid == 'K1' else 5) for _ in range(2)]
+    kernel = FLAGSHIP[kid][0]
+    if kid == 'K1':
+        args = rows(512, 37, 301, dev)
+    else:
+        args = random_gated_rows(heads[0], 37, 301, gen, dev)[kid == 'K3']
+    own = kernel(heads[1], *args)
     stale = tpm.wgmma_weights(tpm.kernel_chain(heads[0]))
     chain = tpm.kernel_chain(heads[1])
     chain['w_wgmma'] = stale
     heads[1]['kernel'] = chain
-    out = tpm.pairwise_scores(heads[1], uf, itf)
+    out = kernel(heads[1], *args)
     assert chain['w_wgmma'] is not stale
     assert torch.equal(out, own)
-    assert not torch.equal(out, tpm.pairwise_scores(heads[0], uf, itf))
+    assert not torch.equal(out, kernel(heads[0], *args))
 
 
 @pytest.mark.parametrize('variant', ['stream', 'gram'])
