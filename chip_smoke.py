@@ -128,6 +128,10 @@ FLIP_CHAINS = tuple((h1, n) for h1 in (32, 128, 512)
 # embedding_dim from 64 to 512) and concat and gated at the hidden widths
 # [1024, 512, 256].
 WIDE_USERS, WIDE_EMB, WIDE_HIDDEN = 1024, 512, (1024, 512, 256)
+# The int8 modes take one hidden layer at least: the `chain` phase cuts
+# K2q and K3q after the assembly's quantize to one layer of this width,
+# the narrowest they take.
+INT8_CUT_WIDTH = 32
 # The probes against their plain versions: P1's FMA rounds once where the
 # plain a*x + 1 rounds twice and its exp is the card's expf against
 # torch.exp, each an ulp or so per step of a contracting chain: 1e-5 of the
@@ -968,13 +972,17 @@ def assembly_only_chain(d: int, gen, dev) -> dict:
 
 
 def chain_phase(smi, dev) -> list:
-    """The chain of K1, K4, K6, K2 and K3 alone: each kernel at the TIME_B
-    x TIME_C block with the flagship chain whole and cut after the assembly
-    (K1, K2, K3: h1 512 -> 1, K2 and K3 on seeded gated rows of M = 6; K4,
-    K6: the last dot on the fused vector, d 64 -> 1), relu, sigmoid, random
-    weights and rows from a generator of its own; the chain's time is the
-    difference (its products, epilogues and last dot), its rate the hidden
-    products over that time. Prints one ``chain`` line per kernel with the
+    """The chain of K1, K4, K6, K2, K3, K2q and K3q alone: each kernel at
+    the TIME_B x TIME_C block with the flagship chain whole and cut after
+    the assembly (K1, K2, K3: h1 512 -> 1, K2 and K3 on seeded gated rows
+    of M = 6; K4, K6: the last dot on the fused vector, d 64 -> 1; K2q and
+    K3q, which take one hidden layer at least, on the same gated rows: cut
+    after the assembly's quantize to the narrowest chain, h1 512 ->
+    INT8_CUT_WIDTH -> 1), relu, sigmoid, random weights and rows from a
+    generator of its own; the chain's time is the difference (its
+    products, epilogues and last dot), its rate the hidden products of the
+    difference over that time (tera-operations per second: bf16 FLOP, int8
+    OP in K2q and K3q). Prints one ``chain`` line per kernel with the
     chain kind and block rows of the whole chain and returns the lines."""
     from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
     from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
@@ -985,10 +993,19 @@ def chain_phase(smi, dev) -> list:
     d, heads = EMB, 4
     gated_rows = None
     lines = []
-    for kid in ('K1', 'K4', 'K6', 'K2', 'K3'):
+    for kid in ('K1', 'K4', 'K6', 'K2', 'K3', 'K2q', 'K3q'):
         ms, prods = {}, 0
         for cut in (False, True):
-            if kid in ('K1', 'K2', 'K3'):
+            if kid in ('K2q', 'K3q'):  # after K2 and K3: gated_rows are set
+                _, head = int8_head(
+                    (HIDDEN[0], INT8_CUT_WIDTH) if cut else HIDDEN, 'relu',
+                    'sigmoid', gen, dev, 5)
+                fn, args = ((tpm.pairwise_scores_gated, gated_rows[0])
+                            if kid == 'K2q' else
+                            (tpm.pairwise_scores_gated_factored,
+                             gated_rows[1]))
+                call = (lambda f, h, a: lambda: f(h, *a))(fn, head, args)
+            elif kid in ('K1', 'K2', 'K3'):
                 head = random_head(HIDDEN[:1] if cut else HIDDEN, 'relu',
                                    'sigmoid', gen, dev,
                                    None if kid == 'K1' else 5)
@@ -1020,15 +1037,17 @@ def chain_phase(smi, dev) -> list:
                         head, u, it, tail)
             if 'kernel' not in head:  # built once, as a scorer's
                 head['kernel'] = tpm.kernel_chain(head)
+            cut_widths = [int(w) for w in head['kernel']['widths']]
+            prods += (-1 if cut else 1) * sum(
+                2 * k * n for k, n in zip(cut_widths[:-1], cut_widths[1:]))
             if not cut:
-                widths = tpm.chain_widths(head)
-                prods = sum(2 * k * n for k, n in zip(widths[:-1],
-                                                      widths[1:]))
+                widths = cut_widths
                 block = block_of(kid, head)
             with torch.no_grad():
                 ms[cut] = cuda_ms(call, reps=20)
         chain_ms = ms[False] - ms[True]
         line = dict(kernel=kid, widths=list(widths), shape=[TIME_B, TIME_C],
+                    cut_widths=list(cut_widths),
                     ms=ms[False], ms_cut_after_assembly=ms[True],
                     chain_ms=chain_ms,
                     chain_tflops=TIME_B * TIME_C * prods / (chain_ms * 1e-3)
@@ -1797,8 +1816,8 @@ def main() -> int:
     lines[-1]['launches_screen_token0'] = screen_launches['K6']
     lines[0]['launches_additive_cascade'] = cascade_launches['K1']
 
-    # ---- 17b. the chain alone of K1, K4, K6, K2 and K3 (whole less the
-    # cut after the assembly): its time and rate
+    # ---- 17b. the chain alone of K1, K4, K6, K2, K3, K2q and K3q (whole
+    # less the cut after the assembly): its time and rate
     chains = {c['kernel']: c for c in chain_phase(smi, dev)}
     for line in lines:
         if line['kernel'] in chains:

@@ -50,11 +50,15 @@
 //
 // int8 mode (K3q, the template flag Q): the same assembly, each bf16
 // activation then quantized with layer 0's (inv_a, off) into an int8 code,
-// and the int8 chain of mlp_chain_int8.cuh; like K2q, bound by its f32
-// operations rather than its int8 products.
+// and K2q's int8 chains: the s8 wgmma chain of mlp_chain_wgmma_int8.cuh at
+// 128 rows and at 64 where that block fits (196,672 B at the flagship),
+// the mma.sync chain of mlp_chain_int8.cuh below. Like K2q, bound by its
+// f32 operations rather than its int8 products, which the s8 wgmma chain
+// takes off the critical path.
 
 #include "mlp_chain_int8.cuh"
 #include "mlp_chain_wgmma.cuh"
+#include "mlp_chain_wgmma_int8.cuh"
 
 namespace {
 
@@ -98,21 +102,20 @@ __device__ __forceinline__ void pair_coefs(const float* __restrict__ a,
   }
 }
 
-// WG: the wgmma chain (bf16 mode at 128 and 64 rows, by fit), else the
-// mma.sync chain of the mode.
+// WG: the mode's wgmma chain (bf16 or s8, at 128 and 64 rows, by fit),
+// else its mma.sync chain.
 template <bool Q, int TB, bool WG>
 __global__ void __launch_bounds__(THREADS)
 gated_factored_kernel(const float* __restrict__ uf, const float* __restrict__ a,
                       const __nv_bfloat16* __restrict__ T,
                       const float* __restrict__ igb,
-                      const __nv_bfloat16* __restrict__ w_sw,
+                      const Weight<Q>* __restrict__ w_sw,
                       const Weight<Q>* __restrict__ w,
                       const float* __restrict__ bias,
                       const float* __restrict__ w_last,
                       const float* __restrict__ b_last,
                       float* __restrict__ out, int B, int C, int n_mod,
                       WgChain ch, int act, int fin) {
-  static_assert(!(Q && WG), "the int8 mode runs the mma.sync chain");
   extern __shared__ __align__(1024) unsigned char smem[];
   __nv_bfloat16* buf_a = reinterpret_cast<__nv_bfloat16*>(smem);
 
@@ -182,7 +185,11 @@ gated_factored_kernel(const float* __restrict__ uf, const float* __restrict__ a,
           __fmul_rn(__fadd_rn(__fmul_rn(pz.x, u.y), acc.y), pz.y),
           __fmul_rn(__fadd_rn(__fmul_rn(pz.x, u.z), acc.z), pz.y),
           __fmul_rn(__fadd_rn(__fmul_rn(pz.x, u.w), acc.w), pz.y));
-      if constexpr (Q) {
+      if constexpr (Q && WG) {
+        *reinterpret_cast<uint32_t*>(
+            smem + sw_byte_offset<Tile<TB>::ROWS>(r, k)) =
+            quantize_bf16x4(act_to_bf16x4(x, act), inv_a, off);
+      } else if constexpr (Q) {
         *reinterpret_cast<uint32_t*>(smem + r * ch.stride_a + k) =
             quantize_bf16x4(act_to_bf16x4(x, act), inv_a, off);
       } else if constexpr (WG) {
@@ -196,8 +203,8 @@ gated_factored_kernel(const float* __restrict__ uf, const float* __restrict__ a,
   }
   __syncthreads();
   if constexpr (Q) {
-    run_chain_int8<TB>(smem, w, bias, w_last, b_last, out, B, C, u0, c0, ch,
-                       act, fin);
+    run_chain_int8_of<TB, WG>(smem, w, w_sw, bias, w_last, b_last, out, B,
+                              C, u0, c0, ch, act, fin);
   } else {
     run_chain_of<TB, WG>(buf_a, w, w_sw, bias, w_last, b_last, out, B, C, u0,
                          c0, ch, act, fin);
@@ -218,14 +225,15 @@ inline cudaError_t block_chain(int n_hidden, const void* widths, int rows,
                                WgChain* ch) {
   *ch = WgChain{};
   if (!valid_rows(rows)) return cudaErrorInvalidValue;
-  if (Q) return make_chain_of<true>(n_hidden, widths, rows, ch);
   const int* wd = static_cast<const int*>(widths);
-  return make_chain_fit(rows, n_hidden, wd, scratch_bytes(wd[0], rows), ch);
+  const size_t scratch = scratch_bytes(wd[0], rows);
+  return Q ? make_chain_fit_int8(rows, n_hidden, wd, scratch, ch)
+           : make_chain_fit(rows, n_hidden, wd, scratch, ch);
 }
 template <bool Q>
 inline size_t block_smem(const WgChain& ch, int rows) {
   const size_t scratch = scratch_bytes(ch.width[0], rows);
-  return Q ? smem_of<true>(ch, scratch, rows)
+  return Q ? smem_bytes_int8_for(ch, scratch, rows)
            : smem_bytes_for(ch, scratch, rows);
 }
 
@@ -243,7 +251,7 @@ cudaError_t launch(const void* uf, const void* a, const void* T,
   gated_factored_kernel<Q, TB, WG><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(uf), static_cast<const float*>(a),
       static_cast<const __nv_bfloat16*>(T), static_cast<const float*>(igb),
-      static_cast<const __nv_bfloat16*>(w_sw),
+      static_cast<const Weight<Q>*>(w_sw),
       static_cast<const Weight<Q>*>(w), static_cast<const float*>(bias),
       static_cast<const float*>(w_last), static_cast<const float*>(b_last),
       static_cast<float*>(out), B, C, n_mod, ch, act, fin);
@@ -261,7 +269,7 @@ int forward(const void* uf, const void* a, const void* T, const void* igb,
   const cudaError_t err = block_chain<Q>(n_hidden, widths, rows, &ch);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch_chain<Q>(rows, ch, [&](auto tb, auto wg) {
+  return dispatch_chain<Q, true>(rows, ch, [&](auto tb, auto wg) {
     return launch<Q, decltype(tb)::value, decltype(wg)::value>(
         uf, a, T, igb, w_sw, w, bias, w_last, b_last, out, B, C, n_mod, ch,
         act, fin, rows, s);
@@ -294,24 +302,27 @@ int gated_factored_mlp_forward(const void* uf, const void* a, const void* T,
                         C, n_hidden, widths, act, fin, n_mod, rows, stream);
 }
 
-// The int8 mode (K3q): the arguments of gated_factored_mlp_forward without
-// w_sw, with the chain arguments of pairwise_mlp_int8_forward. It runs the
-// int8 mma.sync chain at every row count.
+// The int8 mode (K3q): the arguments of gated_factored_mlp_forward, with the
+// chain arguments of pairwise_mlp_int8_forward and w_sw the quantized
+// weights packed for the s8 wgmma chain (ops/pairwise_mlp.py:wgmma_weights
+// of the int8 chain), read in the blocks that run it: 128 rows, and 64
+// where that block fits (make_chain_fit_int8); the int8 mma.sync chain
+// below.
 int gated_factored_mlp_int8_forward(const void* uf, const void* a,
                                     const void* T, const void* igb,
-                                    const void* w, const void* bias,
-                                    const void* w_last, const void* b_last,
-                                    void* out, int B, int C, int n_hidden,
-                                    const void* widths, int act, int fin,
-                                    int n_mod, int rows, void* stream) {
-  return forward<true>(uf, a, T, igb, nullptr, w, bias, w_last, b_last, out,
+                                    const void* w_sw, const void* w,
+                                    const void* bias, const void* w_last,
+                                    const void* b_last, void* out, int B, int C,
+                                    int n_hidden, const void* widths, int act,
+                                    int fin, int n_mod, int rows, void* stream) {
+  return forward<true>(uf, a, T, igb, w_sw, w, bias, w_last, b_last, out,
                        B, C, n_hidden, widths, act, fin, n_mod, rows, stream);
 }
 
 // Shared memory a block of `rows` pair rows takes in either mode (int8 != 0:
-// K3q), as the launch set-up counts it (the bf16 mode's on the chain
-// make_chain_fit chooses); a negative CUDA error for widths or rows the
-// kernel does not take.
+// K3q), as the launch set-up counts it (on the chain make_chain_fit or
+// make_chain_fit_int8 chooses); a negative CUDA error for widths or rows
+// the kernel does not take.
 int gated_factored_mlp_block_bytes(int n_hidden, const void* widths, int int8,
                                    int rows) {
   WgChain ch;
@@ -326,9 +337,10 @@ int gated_factored_mlp_block_bytes(int n_hidden, const void* widths, int int8,
 int gated_factored_mlp_chain_kind(int rows) { return chain_kind(rows); }
 
 // The chain a block of `rows` pair rows runs on these widths, in either
-// mode (int8 != 0: K3q, mma.sync at every row count): 2 wgmma, 1 mma.sync
-// (make_chain_fit); a negative CUDA error for widths or rows the kernel
-// does not take.
+// mode (int8 != 0: K3q), as chosen by fit (make_chain_fit,
+// make_chain_fit_int8): 2 a wgmma chain (bf16, or s8 in the int8 mode), 1
+// mma.sync; a negative CUDA error for widths or rows the kernel does not
+// take.
 int gated_factored_mlp_block_chain_kind(int n_hidden, const void* widths,
                                         int int8, int rows) {
   WgChain ch;

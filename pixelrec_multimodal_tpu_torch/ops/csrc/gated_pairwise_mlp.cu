@@ -55,15 +55,24 @@
 // bf16 value.
 //
 // int8 mode (K2q, the template flag Q): the same assembly, each bf16
-// activation then quantized with layer 0's (inv_a, off) into an int8 code,
-// and the int8 chain of mlp_chain_int8.cuh. Its int8 products take 0.35 ms
-// at the data-sheet rate for 256 x 8,192 flagship pairs, while the f32 work
-// (the assembly as above plus each hidden layer's quantize and rescale,
-// about 11,500 operations per pair) takes about 0.36 ms: bound by f32
-// operations.
+// activation then quantized with layer 0's (inv_a, off) into an int8 code
+// (at the byte sw_byte_offset in blocks of 128 and 64 rows, four codes of
+// a store inside one 16-byte chunk), and an int8 chain: the s8 wgmma chain
+// of mlp_chain_wgmma_int8.cuh at 128 rows and at 64 where that block fits
+// (make_chain_fit_int8: 196,672 B at the flagship, one 64 KB code buffer
+// and eight 16 KB stages, the scratch within the ring; the weights packed
+// by ops/pairwise_mlp.py:wgmma_weights), the mma.sync chain of
+// mlp_chain_int8.cuh below; the same codes and scores either way. Its int8
+// products take 0.35 ms at the data-sheet rate for 256 x 8,192 flagship
+// pairs, while the f32 work (the assembly as above plus each hidden
+// layer's quantize and rescale, about 11,500 operations per pair) takes
+// about 0.36 ms: bound by f32 operations. On mma.sync the products took
+// about 2.7 ms (329 TOP/s, P3), so the s8 wgmma chain is what lets the
+// assembly, not the products, set K2q's pace.
 
 #include "mlp_chain_int8.cuh"
 #include "mlp_chain_wgmma.cuh"
+#include "mlp_chain_wgmma_int8.cuh"
 
 namespace {
 
@@ -104,21 +113,20 @@ __device__ __forceinline__ void pair_gates(const float* __restrict__ ug,
   }
 }
 
-// WG: the wgmma chain (bf16 mode at 128 and 64 rows, by fit), else the
-// mma.sync chain of the mode.
+// WG: the mode's wgmma chain (bf16 or s8, at 128 and 64 rows, by fit),
+// else its mma.sync chain.
 template <bool Q, int TB, bool WG>
 __global__ void __launch_bounds__(THREADS)
 gated_pairwise_kernel(const float* __restrict__ uf, const float* __restrict__ ug,
                       const float* __restrict__ itf,
                       const float* __restrict__ ig,
-                      const __nv_bfloat16* __restrict__ w_sw,
+                      const Weight<Q>* __restrict__ w_sw,
                       const Weight<Q>* __restrict__ w,
                       const float* __restrict__ bias,
                       const float* __restrict__ w_last,
                       const float* __restrict__ b_last,
                       float* __restrict__ out, int B, int C, int n_mod,
                       WgChain ch, int act, int fin) {
-  static_assert(!(Q && WG), "the int8 mode runs the mma.sync chain");
   extern __shared__ __align__(1024) unsigned char smem[];
   __nv_bfloat16* buf_a = reinterpret_cast<__nv_bfloat16*>(smem);
 
@@ -181,7 +189,11 @@ gated_pairwise_kernel(const float* __restrict__ uf, const float* __restrict__ ug
           x.z = __fadd_rn(x.z, __fmul_rn(gm, it[m].z));
           x.w = __fadd_rn(x.w, __fmul_rn(gm, it[m].w));
         }
-      if constexpr (Q) {
+      if constexpr (Q && WG) {
+        *reinterpret_cast<uint32_t*>(
+            smem + sw_byte_offset<Tile<TB>::ROWS>(r, k)) =
+            quantize_bf16x4(act_to_bf16x4(x, act), inv_a, off);
+      } else if constexpr (Q) {
         *reinterpret_cast<uint32_t*>(smem + r * ch.stride_a + k) =
             quantize_bf16x4(act_to_bf16x4(x, act), inv_a, off);
       } else if constexpr (WG) {
@@ -195,8 +207,8 @@ gated_pairwise_kernel(const float* __restrict__ uf, const float* __restrict__ ug
   }
   __syncthreads();
   if constexpr (Q) {
-    run_chain_int8<TB>(smem, w, bias, w_last, b_last, out, B, C, u0, c0, ch,
-                       act, fin);
+    run_chain_int8_of<TB, WG>(smem, w, w_sw, bias, w_last, b_last, out, B,
+                              C, u0, c0, ch, act, fin);
   } else {
     run_chain_of<TB, WG>(buf_a, w, w_sw, bias, w_last, b_last, out, B, C, u0,
                          c0, ch, act, fin);
@@ -217,14 +229,15 @@ inline cudaError_t block_chain(int n_hidden, const void* widths, int rows,
                                WgChain* ch) {
   *ch = WgChain{};
   if (!valid_rows(rows)) return cudaErrorInvalidValue;
-  if (Q) return make_chain_of<true>(n_hidden, widths, rows, ch);
   const int* wd = static_cast<const int*>(widths);
-  return make_chain_fit(rows, n_hidden, wd, scratch_bytes(wd[0], rows), ch);
+  const size_t scratch = scratch_bytes(wd[0], rows);
+  return Q ? make_chain_fit_int8(rows, n_hidden, wd, scratch, ch)
+           : make_chain_fit(rows, n_hidden, wd, scratch, ch);
 }
 template <bool Q>
 inline size_t block_smem(const WgChain& ch, int rows) {
   const size_t scratch = scratch_bytes(ch.width[0], rows);
-  return Q ? smem_of<true>(ch, scratch, rows)
+  return Q ? smem_bytes_int8_for(ch, scratch, rows)
            : smem_bytes_for(ch, scratch, rows);
 }
 
@@ -242,7 +255,7 @@ cudaError_t launch(const void* uf, const void* ug, const void* itf,
   gated_pairwise_kernel<Q, TB, WG><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(uf), static_cast<const float*>(ug),
       static_cast<const float*>(itf), static_cast<const float*>(ig),
-      static_cast<const __nv_bfloat16*>(w_sw),
+      static_cast<const Weight<Q>*>(w_sw),
       static_cast<const Weight<Q>*>(w), static_cast<const float*>(bias),
       static_cast<const float*>(w_last), static_cast<const float*>(b_last),
       static_cast<float*>(out), B, C, n_mod, ch, act, fin);
@@ -260,7 +273,7 @@ int forward(const void* uf, const void* ug, const void* itf, const void* ig,
   const cudaError_t err = block_chain<Q>(n_hidden, widths, rows, &ch);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch_chain<Q>(rows, ch, [&](auto tb, auto wg) {
+  return dispatch_chain<Q, true>(rows, ch, [&](auto tb, auto wg) {
     return launch<Q, decltype(tb)::value, decltype(wg)::value>(
         uf, ug, itf, ig, w_sw, w, bias, w_last, b_last, out, B, C, n_mod, ch,
         act, fin, rows, s);
@@ -293,24 +306,27 @@ int gated_pairwise_mlp_forward(const void* uf, const void* ug, const void* itf,
                         stream);
 }
 
-// The int8 mode (K2q): the arguments of gated_pairwise_mlp_forward without
-// w_sw, with the chain arguments of pairwise_mlp_int8_forward. It runs the
-// int8 mma.sync chain at every row count.
+// The int8 mode (K2q): the arguments of gated_pairwise_mlp_forward, with the
+// chain arguments of pairwise_mlp_int8_forward and w_sw the quantized
+// weights packed for the s8 wgmma chain (ops/pairwise_mlp.py:wgmma_weights
+// of the int8 chain), read in the blocks that run it: 128 rows, and 64
+// where that block fits (make_chain_fit_int8); the int8 mma.sync chain
+// below.
 int gated_pairwise_mlp_int8_forward(const void* uf, const void* ug,
                                     const void* itf, const void* ig,
-                                    const void* w, const void* bias,
-                                    const void* w_last, const void* b_last,
-                                    void* out, int B, int C, int n_hidden,
-                                    const void* widths, int act, int fin,
-                                    int n_mod, int rows, void* stream) {
-  return forward<true>(uf, ug, itf, ig, nullptr, w, bias, w_last, b_last, out,
+                                    const void* w_sw, const void* w,
+                                    const void* bias, const void* w_last,
+                                    const void* b_last, void* out, int B, int C,
+                                    int n_hidden, const void* widths, int act,
+                                    int fin, int n_mod, int rows, void* stream) {
+  return forward<true>(uf, ug, itf, ig, w_sw, w, bias, w_last, b_last, out,
                        B, C, n_hidden, widths, act, fin, n_mod, rows, stream);
 }
 
 // Shared memory a block of `rows` pair rows takes in either mode (int8 != 0:
-// K2q), as the launch set-up counts it (the bf16 mode's on the chain
-// make_chain_fit chooses); a negative CUDA error for widths or rows the
-// kernel does not take.
+// K2q), as the launch set-up counts it (on the chain make_chain_fit or
+// make_chain_fit_int8 chooses); a negative CUDA error for widths or rows
+// the kernel does not take.
 int gated_pairwise_mlp_block_bytes(int n_hidden, const void* widths, int int8,
                                    int rows) {
   WgChain ch;
@@ -325,9 +341,10 @@ int gated_pairwise_mlp_block_bytes(int n_hidden, const void* widths, int int8,
 int gated_pairwise_mlp_chain_kind(int rows) { return chain_kind(rows); }
 
 // The chain a block of `rows` pair rows runs on these widths, in either
-// mode (int8 != 0: K2q, mma.sync at every row count): 2 wgmma, 1 mma.sync
-// (make_chain_fit); a negative CUDA error for widths or rows the kernel
-// does not take.
+// mode (int8 != 0: K2q), as chosen by fit (make_chain_fit,
+// make_chain_fit_int8): 2 a wgmma chain (bf16, or s8 in the int8 mode), 1
+// mma.sync; a negative CUDA error for widths or rows the kernel does not
+// take.
 int gated_pairwise_mlp_block_chain_kind(int n_hidden, const void* widths,
                                         int int8, int rows) {
   WgChain ch;

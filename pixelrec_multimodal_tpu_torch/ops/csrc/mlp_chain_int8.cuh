@@ -5,7 +5,15 @@
 // assembles its first-layer activations as in its bf16 mode, rounds them to
 // bf16 where that mode does, and ends the assembly by quantizing them into
 // int8 codes in buf_a; run_chain_int8 then runs the quantized hidden chain
-// and the last layer.
+// and the last layer on mma.sync. K1q runs it in every block; K2q and K3q
+// only in blocks of 32 and 16 rows and in a 64-row block whose s8 wgmma
+// layout does not fit: at 128 and 64 rows they run the s8 wgmma chain of
+// mlp_chain_wgmma_int8.cuh, which keeps this chain's contract, its codes
+// and its 128-row block's float32 order in the last dot. Bound on this
+// card: P3 measured this product loop at 329 TOP/s, a sixth of the data
+// sheet's 1,979 and no faster than the bf16 wgmma chain, so K1q loses to
+// K1 at the flagship (ops/pairwise_mlp.py:INT8_MIN_CHAIN_FLOPS_PER_LANE_
+// CONCAT); moving K1q onto the s8 wgmma chain is the lever.
 //
 // Counterpart of pixelrec_multimodal_tpu/ops/pairwise_mlp.py:_quantize_rows
 // and _mlp_chain_int8 (quantize_mlp_chain builds the operands):

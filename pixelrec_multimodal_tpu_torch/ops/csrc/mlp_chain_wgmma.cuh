@@ -9,7 +9,11 @@
 // flagship widths [512, 256, 128] a 128-row block takes 229,440 B: one
 // 512-column buffer (131,072 B) that every layer writes over, six 16 KB
 // stages and their barriers (98,368 B), the assembly's scratch within the
-// ring. The int8 modes (K1q-K3q) keep mlp_chain_int8.cuh. It keeps
+// ring. Its s8 form, in mlp_chain_wgmma_int8.cuh, runs the int8 modes of
+// the gated kernels (K2q, K3q) at 128 and 64 rows on this header's
+// descriptors, ring and weight stream (WeightStream<TB, int8_t>): an s8
+// product reads 32 bytes of k as a bf16 one does, so a stage and a packed
+// tile are the same bytes; K1q keeps mlp_chain_int8.cuh. It keeps
 // run_chain's contract: the assembly's bf16 activations in buf_a, the
 // epilogue's rounding points (an f32 bias add, one bf16 rounding, the
 // activation on the bf16 pair), the warp-shuffle last dot, the scores into
@@ -67,7 +71,6 @@ namespace pairwise {
 
 constexpr int WG_K = 64;          // weight rows (k) per ring stage: one atom
 constexpr int WG_N = 128;         // columns of a warpgroup's tile
-constexpr int WG_TILE = 64 * WG_K;  // elements of a packed weight tile
 constexpr int WG_STAGE = WG_N * WG_K;  // elements of a ring stage
 constexpr int WG_MAX_STAGES = 8;  // stages in the ring, at most
 constexpr int WG_BARRIER_BYTES = WG_MAX_STAGES * 8;  // after the ring
@@ -195,26 +198,31 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 }
 
 // Thread 0's cursor over the weight stages, in the order the sweeps read
-// them: layer, group, k slice, column tile (of 128: two packed tiles).
-template <int TB>
+// them: layer, group, k slice, column tile (of 128: two packed tiles). E is
+// the weights' type: a k slice is one 128-byte swizzle atom, 64 bf16 or 128
+// int8 codes (the s8 chain of mlp_chain_wgmma_int8.cuh), and a packed tile
+// 8 KB either way.
+template <int TB, typename E = __nv_bfloat16>
 struct WeightStream {
   using T = WgTile<TB>;
-  const __nv_bfloat16* w;
+  static constexpr int KS = 128 / (int)sizeof(E);  // k of a slice
+  static constexpr int TILE = 64 * KS;             // elements of a tile
+  const E* w;
   int l = 0, n0 = 0, k0 = 0, p = 0;
 
   __device__ __forceinline__ bool more(const Chain& ch) const {
     return l < ch.n_hidden;
   }
-  __device__ __forceinline__ void issue(const Chain& ch, __nv_bfloat16* dst,
+  __device__ __forceinline__ void issue(const Chain& ch, void* dst,
                                         uint64_t* bar) {
     const int K = ch.width[l], N = ch.width[l + 1];
     const int groups = (N + 63) / 64, g = (n0 + p * WG_N) / 64;
     const int n = min(WG_N / 64, groups - g);
-    bulk_load(dst, w + ch.w_off[l] + ((size_t)(k0 / WG_K) * groups + g) * WG_TILE,
-              (unsigned)(n * WG_TILE * 2), bar);
+    bulk_load(dst, w + ch.w_off[l] + ((size_t)(k0 / KS) * groups + g) * TILE,
+              (unsigned)(n * TILE * sizeof(E)), bar);
     if (++p * WG_N < min(T::GW, N - n0)) return;
     p = 0;
-    if ((k0 += WG_K) < K) return;
+    if ((k0 += KS) < K) return;
     k0 = 0;
     if ((n0 += T::GW) < N) return;
     n0 = 0;
@@ -492,14 +500,17 @@ inline cudaError_t make_chain_fit(int rows, int n_hidden, const int* wd,
 
 // f(tb, wg) for the block of `rows` pair rows of a pair kernel (K1-K3):
 // tb the tile's users (std::integral_constant<int, TB>, as dispatch_rows
-// gives it), wg whether the block runs the wgmma chain
-// (std::bool_constant): never in the int8 mode (Q) or at 32 and 16 rows,
-// always at 128, and at 64 where make_chain_fit chose it (ch.stages).
-template <bool Q, typename F>
+// gives it), wg whether the block runs a wgmma chain
+// (std::bool_constant): never at 32 and 16 rows, always at 128, and at 64
+// where the layout chosen by fit says so (ch.stages: make_chain_fit, or
+// make_chain_fit_int8 in the int8 mode). QWG: the int8 mode (Q) runs the
+// s8 wgmma chain of mlp_chain_wgmma_int8.cuh (K2q, K3q); without it the
+// int8 mode runs mma.sync at every row count (K1q).
+template <bool Q, bool QWG = false, typename F>
 inline cudaError_t dispatch_chain(int rows, const WgChain& ch, F&& f) {
   return dispatch_rows(rows, [&](auto tb) -> cudaError_t {
     constexpr int TB = decltype(tb)::value;
-    if constexpr (Q || !wgmma_rows<TB>())
+    if constexpr ((Q && !QWG) || !wgmma_rows<TB>())
       return f(tb, std::false_type());
     else if constexpr (TB == 4)
       return ch.stages ? f(tb, std::true_type()) : f(tb, std::false_type());

@@ -34,8 +34,12 @@ A head that carries ``qlayers`` (``quantize_head``) scores in int8: each
 hidden Dense quantizes its input affinely to int8 codes, multiplies them
 with per-column int8 weights into int32 sums and rescales in float32
 (``_chain_scores_int8``). The same three kernels then run their int8 mode
-(K1q, K2q, K3q): the assembly of the bf16 mode, then the int8 chain of
-``csrc/mlp_chain_int8.cuh``.
+(K1q, K2q, K3q): the assembly of the bf16 mode, then an int8 chain: for
+K2q and K3q the s8 wgmma chain of ``csrc/mlp_chain_wgmma_int8.cuh`` (the
+quantized weights packed by ``wgmma_weights``) in blocks of 128 rows and
+of 64 where that block fits, and the ``mma.sync`` chain of
+``csrc/mlp_chain_int8.cuh`` below; K1q the ``mma.sync`` chain in every
+block.
 
 A kernel's block holds 8, 4, 2 or 1 users x 16 items (128 to 16 pair
 rows): ``block_rows`` takes the largest whose shared memory, as the
@@ -299,20 +303,21 @@ def factor_gated_tables(head: dict, item_first: torch.Tensor,
 # The auto-precision gate of CatalogScorer(precision='int8'): int8 serves
 # only heads whose hidden chain does at least this many operations per
 # first-layer lane (``int8_chain_flops_per_lane``), where the int8 kernel
-# beats the bf16 one. The int8 products run at twice the bf16 rate of the
-# mma.sync chain, but each pair's h1-wide quantize and every layer's
-# rescale run outside the tensor cores, and the bf16 modes of all three
-# pair kernels run the wgmma chain. On an NVIDIA H100 80GB HBM3 (700 W;
-# chip_smoke.py's int8_flip_point phase, PERF.md), on the chains whose h1
-# is a multiple of 128, as the scorer's heads are, both flip points are
-# 2,560:
-#   gated heads (K2q against K2, K3q against K3): the int8 modes are the
-#     faster only from 2,560 (at the flagship's 640 K2q takes 1.15x K2's
-#     time, K3q 1.11x K3's), so 'int8' serves them in bf16 below that;
-#   concatenate heads (K1q against K1): likewise from 2,560 (at 640 K1q
-#     takes 1.23x K1's time).
+# beats the bf16 one. Each pair's h1-wide quantize and every layer's
+# rescale run outside the tensor cores, so the int8 mode wins only where
+# its products are faster than the bf16 wgmma chain's by more than that.
+# On an NVIDIA H100 80GB HBM3 (700.00 W; chip_smoke.py's int8_flip_point
+# phase, PERF.md), on the chains whose h1 is a multiple of 128, as the
+# scorer's heads are:
+#   gated heads (K2q against K2, K3q against K3): since K2q and K3q run
+#     the s8 wgmma chain, the int8 modes are the faster on every chain
+#     measured, from 64 (the least ratio of any head the int8 mode takes:
+#     K2q 0.94x K2's time at the flagship's 640, K3q 0.91x K3's);
+#   concatenate heads (K1q against K1, the mma.sync s8 chain): the faster
+#     only from 2,560 (at 640 K1q takes 1.25x K1's time), so 'int8' serves
+#     them in bf16 below that.
 # The JAX package's 1000 is the TPU's.
-INT8_MIN_CHAIN_FLOPS_PER_LANE = 2560
+INT8_MIN_CHAIN_FLOPS_PER_LANE = 64
 INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT = 2560
 
 
@@ -707,39 +712,48 @@ def kernel_chain(head: dict,
     }
 
 
-WGMMA_TILE = 64  # csrc/mlp_chain_wgmma.cuh: packed weight tiles of 64 x 64
+WGMMA_TILE = 64  # csrc/mlp_chain_wgmma.cuh: packed weight tiles of 64 columns
 
 
 def wgmma_weights(chain: dict) -> torch.Tensor:
-    """The bf16 chain's hidden weights packed for the wgmma chain of
-    ``csrc/mlp_chain_wgmma.cuh`` (the bf16 modes of K1, K2 and K3, and K4,
-    K5 and K6, at blocks of 128 and 64 pair rows): per layer, W^T [N, K] zero-padded to
-    multiples of 64 and cut into tiles of 64 columns x 64 rows of K in the
-    order (k slice, column group), each tile's rows 128 bytes whose 16-byte
-    chunks are swizzled by the row (stored chunk = chunk ^ n % 8), the
-    layout the kernel's descriptors read. Built once per chain dict and
-    cached in it (``chain['w_wgmma']``) beside the weights it was packed
-    from (``chain['w_wgmma_of']``): packed weights that came with another
-    chain's (a copied dict whose ``w`` was replaced) are packed anew, never
-    launched. ValueError for an int8 chain."""
-    if chain.get('int8'):
-        raise ValueError('the int8 mode runs the mma.sync chain: it takes '
-                         'no packed bf16 weights')
+    """The chain's hidden weights packed for a wgmma chain: the bf16
+    chain's for ``csrc/mlp_chain_wgmma.cuh`` (the bf16 modes of K1, K2 and
+    K3, and K4, K5 and K6, at blocks of 128 and 64 pair rows), an int8
+    chain's for the s8 chain of ``csrc/mlp_chain_wgmma_int8.cuh`` (K2q and
+    K3q). Per layer, W^T [N, K] (the int8 chain's ``wq`` is stored so
+    already) zero-padded to a multiple of 64 columns and of one k slice
+    (64 bf16 or 128 int8 codes: a 128-byte row) and cut into tiles of 64
+    columns x one k slice, 8 KB each, in the order (k slice, column group),
+    each tile's rows 128 bytes whose 16-byte chunks are swizzled by the row
+    (stored chunk = chunk ^ n % 8), the layout the kernel's descriptors
+    read. Built once per chain dict and cached in it (``chain['w_wgmma']``)
+    beside the weights it was packed from (``chain['w_wgmma_of']``):
+    packed weights that came with another chain's (a copied dict whose
+    ``w`` was replaced) are packed anew, never launched. ValueError for
+    weights of the other mode's type (an int8 chain's are int8 codes)."""
+    int8 = bool(chain.get('int8'))
+    w = chain['w']
+    want = torch.int8 if int8 else torch.bfloat16
+    if w.dtype != want:
+        raise ValueError(f"{'an int8' if int8 else 'a bf16'} chain's "
+                         f'weights must be {want}, got {w.dtype}')
     packed = chain.get('w_wgmma')
-    if packed is not None and chain.get('w_wgmma_of') is chain['w']:
+    if packed is not None and chain.get('w_wgmma_of') is w:
         return packed
-    w, t = chain['w'], WGMMA_TILE
+    t = WGMMA_TILE
+    ks, chunk = (128, 16) if int8 else (64, 8)  # a k slice; a chunk's k
     widths = [int(x) for x in chain['widths']]
     rows = torch.arange(t, device=w.device) % 8
     source = torch.arange(8, device=w.device)[None, :] ^ rows[:, None]
     parts, off = [], 0
     for k, n in zip(widths[:-1], widths[1:]):
-        wt = torch.zeros(_round_up(n, t), _round_up(k, t), dtype=w.dtype,
+        wt = torch.zeros(_round_up(n, t), _round_up(k, ks), dtype=w.dtype,
                          device=w.device)
-        wt[:n, :k] = w[off:off + k * n].view(k, n).t()
+        layer = w[off:off + k * n]
+        wt[:n, :k] = layer.view(n, k) if int8 else layer.view(k, n).t()
         off += k * n
         # [column group, n, k slice, chunk, element]
-        tiles = wt.view(wt.shape[0] // t, t, wt.shape[1] // t, 8, 8)
+        tiles = wt.view(wt.shape[0] // t, t, wt.shape[1] // ks, 8, chunk)
         tiles = torch.gather(tiles, 3, source[None, :, None, :, None]
                              .expand_as(tiles))
         parts.append(tiles.permute(2, 0, 1, 3, 4).reshape(-1))
@@ -894,9 +908,11 @@ def chain_kind(name: str, rows: int,
     (``csrc/mlp_chain.cuh``; every kernel without the export). With
     ``widths`` (and ``mode``, as for ``block_bytes``) a kernel that
     chooses the chain by fit (K1, K2, K3: ``<name>_block_chain_kind``, a
-    64-row block whose wgmma layout does not fit runs mma.sync, and the
-    int8 mode always does) reports the chain of that block on those
-    widths. Loads the kernel's library."""
+    64-row block whose wgmma layout does not fit runs mma.sync) reports
+    the chain of that block on those widths; in the int8 mode 'wgmma' is
+    the s8 chain of ``csrc/mlp_chain_wgmma_int8.cuh`` (K2q and K3q by
+    fit), and K1q runs mma.sync at every row count. Loads the kernel's
+    library."""
     lib = _build.load(name)
     fn = (getattr(lib, f'{name}_block_chain_kind', None)
           if widths is not None else None)
@@ -1071,9 +1087,11 @@ def pairwise_scores_gated(head: dict, user_first: torch.Tensor,
     float32 -> [B, C] float32.
 
     CUDA tensors launch the kernel on the current stream; B and C need not
-    be tile multiples; the chain's tensors, the packed weights of the bf16
-    mode (``wgmma_weights``), the block's pair rows and the chain each
-    block runs as ``pairwise_scores``. CPU tensors take
+    be tile multiples; the chain's tensors and the block's pair rows as
+    ``pairwise_scores``; the packed weights of either mode
+    (``wgmma_weights``): the bf16 mode runs the wgmma chain and the int8
+    mode the s8 wgmma chain at 128 rows and at 64 where that block fits,
+    the mma.sync chain of the mode below (``chain_kind``). CPU tensors take
     ``pairwise_scores_gated_plain`` in float32. Anything else raises. ``pairwise_scores_gated.launches`` counts kernel launches of
     the bf16 mode, ``.launches_int8`` those of the int8 mode (K2q), which a
     head with ``qlayers`` launches.
@@ -1098,8 +1116,7 @@ def pairwise_scores_gated(head: dict, user_first: torch.Tensor,
     if B == 0 or C == 0:
         return out
     tensors = (user_first, user_gates, item_first, item_gates)
-    if not chain['int8']:  # K2q runs the int8 mma.sync chain
-        tensors += (wgmma_weights(chain),)
+    tensors += (wgmma_weights(chain),)  # either mode's
     _launch('gated_pairwise_mlp', out, tensors, chain, B, C, (n_mod,),
             forced=_block_rows)
     if chain['int8']:
@@ -1126,9 +1143,11 @@ def pairwise_scores_gated_factored(head: dict, user_first: torch.Tensor,
     (``factor_gated_tables``) -> [B, C] float32.
 
     CUDA tensors launch the kernel on the current stream; B and C need not
-    be tile multiples; the chain's tensors, the packed weights of the bf16
-    mode (``wgmma_weights``), the block's pair rows and the chain each
-    block runs as ``pairwise_scores``. CPU tensors take
+    be tile multiples; the chain's tensors and the block's pair rows as
+    ``pairwise_scores``; the packed weights of either mode
+    (``wgmma_weights``): the bf16 mode runs the wgmma chain and the int8
+    mode the s8 wgmma chain at 128 rows and at 64 where that block fits,
+    the mma.sync chain of the mode below (``chain_kind``). CPU tensors take
     ``pairwise_scores_gated_factored_plain`` in float32.
     Anything else raises. ``pairwise_scores_gated_factored.launches``
     counts kernel launches of the bf16 mode, ``.launches_int8`` those of
@@ -1154,8 +1173,7 @@ def pairwise_scores_gated_factored(head: dict, user_first: torch.Tensor,
     if B == 0 or C == 0:
         return out
     tensors = (user_first, user_coefs, tables, item_coefs)
-    if not chain['int8']:  # K3q runs the int8 mma.sync chain
-        tensors += (wgmma_weights(chain),)
+    tensors += (wgmma_weights(chain),)  # either mode's
     _launch('gated_factored_mlp', out, tensors, chain, B, C, (n_mod,),
             forced=_block_rows)
     if chain['int8']:

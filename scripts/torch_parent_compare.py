@@ -30,7 +30,11 @@ block's pair rows and the packed weights of the kernels on the wgmma
 chain: a checkout whose kernels take no rows (every block 128 rows) is
 called without them, with this checkout's count of the block's shared
 memory, and only where that count chooses 128 rows; one whose K1-K6 take
-no packed weights (no ``<name>_chain_kind``) is called without them.
+no packed weights (no ``<name>_chain_kind``) is called without them, and
+so is one whose K2q and K3q take none (their int8 block of 128 rows on
+the flagship chain runs mma.sync there: ``<name>_block_chain_kind``). The
+int8 modes are held bit for bit: the s8 wgmma chain of K2q and K3q keeps
+the mma.sync chain's 128-row float32 order.
 Exits 2 without a CUDA device, 1 if an int8 mode (K1q-K3q) differs from
 the other checkout's or one of K1-K6 fails a gate.
 """
@@ -42,6 +46,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -66,10 +71,12 @@ from chip_smoke import (  # noqa: E402
 KERNELS = ('pairwise_mlp', 'gated_pairwise_mlp', 'gated_factored_mlp',
            'attention_mlp', 'attention_gram_mlp', 'attention_screen_mlp')
 # the kernels that take the packed weights, and where: the argument's
-# place counted from the end of the entry point's arguments
+# place counted from the end of the entry point's arguments (the int8 entry
+# points of K2 and K3 take them at the same place as their bf16 ones)
 PACKED = {'pairwise_mlp': 14, 'gated_pairwise_mlp': 15,
           'gated_factored_mlp': 15, 'attention_mlp': 16,
           'attention_gram_mlp': 16, 'attention_screen_mlp': 16}
+PACKED_INT8 = ('gated_pairwise_mlp', 'gated_factored_mlp')
 # held to the other checkout by the gates, not bits (their chain may be
 # another one there)
 GATED = ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')
@@ -111,21 +118,22 @@ class WithoutRows:
 
 
 class WithoutPackedWeights:
-    """A library whose K1-K6 entry point takes no packed weights (a
-    checkout from before that kernel's wgmma chain): its ``<name>_forward``
-    drops the pointer to them, which the wrappers pass PACKED[name]
-    arguments from the end (after the LayerNorm affine, or after the pair
-    kernels' item rows)."""
+    """A library whose entry points ``entries`` (``<name>_forward`` of
+    K1-K6, ``<name>_int8_forward`` of K2q and K3q) take no packed weights
+    (a checkout from before that mode's wgmma chain): each drops the
+    pointer to them, which the wrappers pass PACKED[name] arguments from
+    the end (after the LayerNorm affine, or after the pair kernels' item
+    rows)."""
 
-    def __init__(self, lib, name):
-        self._lib, self._name = lib, name
-        self._call = None
+    def __init__(self, lib, name, entries):
+        self._lib, self._name, self._entries = lib, name, set(entries)
+        self._calls = {}
 
     def __getattr__(self, attr):
         fn = getattr(self._lib, attr)
-        if attr != f'{self._name}_forward':
+        if attr not in self._entries:
             return fn
-        if self._call is None:
+        if attr not in self._calls:
             def call(*args):
                 i = len(args) - PACKED[self._name]
                 if fn.argtypes is None:
@@ -133,8 +141,29 @@ class WithoutPackedWeights:
                     fn.restype = ctypes.c_int
                 return fn(*args[:i], *args[i + 1:])
             call.argtypes = None
-            self._call = call
-        return self._call
+            self._calls[attr] = call
+        return self._calls[attr]
+
+
+def unpacked_entries(lib, name: str) -> list:
+    """The entry points of ``lib`` (``csrc/<name>.cu`` of another checkout)
+    that take no packed weights though this checkout's do: ``<name>_forward``
+    where it has no ``<name>_chain_kind``; ``<name>_int8_forward`` of K2
+    and K3 where its 128-row int8 block on the flagship chain runs
+    mma.sync."""
+    entries = []
+    if name in PACKED and not hasattr(lib, f'{name}_chain_kind'):
+        entries.append(f'{name}_forward')
+    kind = getattr(lib, f'{name}_block_chain_kind', None)
+    if name in PACKED_INT8:
+        wd = np.asarray(HIDDEN, np.int32)
+        if kind is not None:
+            kind.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                             ctypes.c_int]
+            kind.restype = ctypes.c_int
+        if kind is None or kind(len(wd) - 1, wd.ctypes.data, 1, 128) != 2:
+            entries.append(f'{name}_int8_forward')
+    return entries
 
 
 def compile_other(checkout: Path) -> dict:
@@ -161,8 +190,9 @@ def build_other(checkout: Path, this: dict) -> dict:
         lib = ctypes.CDLL(str(path))
         if not hasattr(lib, f'{n}_block_bytes'):
             lib = WithoutRows(lib, this[n])
-        if n in PACKED and not hasattr(lib, f'{n}_chain_kind'):
-            lib = WithoutPackedWeights(lib, n)
+        entries = unpacked_entries(lib, n)
+        if entries:
+            lib = WithoutPackedWeights(lib, n, entries)
         libs[n] = lib
     return libs
 

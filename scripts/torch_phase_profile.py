@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time goes inside the kernels on the wgmma chain (K1 concat,
-K2 exact and K3 factored gated, K4 stream and K5 gram attention, K6 the
-token-0 screen), phase by phase, and what the attention kernels' grid
-order costs, on one CUDA card.
+"""Where the time goes inside the kernels on the wgmma chains (K1 concat,
+K2 exact and K3 factored gated, their int8 modes K2q and K3q, K4 stream
+and K5 gram attention, K6 the token-0 screen), phase by phase, and what
+the attention kernels' grid order costs, on one CUDA card.
 
     python3 scripts/torch_phase_profile.py [OTHER_CHECKOUT]
 
@@ -17,7 +17,10 @@ Builds altered copies of ``ops/csrc/pairwise_mlp.cu`` (K1),
   kernel functions it calls (K1: the user rows, the assembly, the chain;
   K2 and K3: the user rows, the gates (K2) or coefficients (K3), the
   assembly, the chain, the copy with one more barrier before the gates or
-  coefficients; K4 and K6: the user rows, logits, softmax, assembly,
+  coefficients; K2q and K3q the same phases of the same copy, their
+  assembly ending in its quantize to codes and their chain the s8 one,
+  which quantizes every later layer's input; K4 and K6: the user rows,
+  logits, softmax, assembly,
   chain; K5: the user rows, logits and cross-Grams, softmax, its
   statistics, the combination, the chain);
 * ``items_fastest`` (K4, K5, K6): the kernel as built, with the grid order
@@ -58,23 +61,27 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import (  # noqa: E402
     SEED,
     cuda_ms,
+    int8_head,
     random_attention_head,
     random_attention_rows,
     random_gated_rows,
     random_head,
 )
 from scripts.torch_parent_compare import (  # noqa: E402
-    PACKED,
     WithoutPackedWeights,
+    unpacked_entries,
 )
 
 B, C = 256, 8192
-KERNELS = {'pairwise_mlp': ('K1', 'pairwise_mlp_kernel'),
-           'gated_pairwise_mlp': ('K2', 'gated_pairwise_kernel'),
-           'gated_factored_mlp': ('K3', 'gated_factored_kernel'),
-           'attention_mlp': ('K4', 'attention_kernel'),
-           'attention_gram_mlp': ('K5', 'attention_gram_kernel'),
-           'attention_screen_mlp': ('K6', 'screen_kernel')}
+# (kernel, source, kernel function): the int8 modes share their source
+KERNELS = (('K1', 'pairwise_mlp', 'pairwise_mlp_kernel'),
+           ('K2', 'gated_pairwise_mlp', 'gated_pairwise_kernel'),
+           ('K3', 'gated_factored_mlp', 'gated_factored_kernel'),
+           ('K2q', 'gated_pairwise_mlp', 'gated_pairwise_kernel'),
+           ('K3q', 'gated_factored_mlp', 'gated_factored_kernel'),
+           ('K4', 'attention_mlp', 'attention_kernel'),
+           ('K5', 'attention_gram_mlp', 'attention_gram_kernel'),
+           ('K6', 'attention_screen_mlp', 'screen_kernel'))
 # The kernel functions a phase may call, by the name it is printed under.
 PHASE_NAMES = {
     'load_users': 'user rows', 'pair_logits': 'logits',
@@ -84,7 +91,9 @@ PHASE_NAMES = {
     'gram_weights': 'statistics: weights', 'stream_assemble': 'assembly',
     'gram_combine': 'combination', 'screen_assemble': 'assembly',
     'scratch_of': 'user rows', 'act_pair': 'assembly', 'run_chain': 'chain',
-    'run_chain_of': 'chain', 'run_chain_int8': 'chain', 'pair_gates': 'gates',
+    'run_chain_of': 'chain', 'run_chain_int8': 'chain',
+    'run_chain_int8_of': 'chain', 'run_chain_wgmma_int8': 'chain',
+    'pair_gates': 'gates',
     'pair_coefs': 'coefficients', 'act_to_bf16x4': 'assembly'}
 # Calls that start a phase of their own in the profiled copy: a barrier is
 # put before them (K2's gates and K3's coefficients follow the user rows
@@ -110,15 +119,12 @@ extern "C" int phase_reset() {
 
 def instrumented(src: str, kernel: str) -> tuple:
     """``src`` (a kernel source) with a phase mark after every barrier of
-    ``kernel``'s body and after its chain (the last chain call of the body:
-    K1's bf16 mode's), and the names of the phases."""
+    ``kernel``'s body and at its end, after its chain (whichever chain the
+    mode calls, in whichever branch), and the names of the phases."""
     start = src.index(f'{kernel}(')
     origin = re.compile(r'tile_origin(<TB>)?\(&u0, &c0\);'
                         r'|u0 = blockIdx\.y \* TB;').search(src, start)
-    stop = src.index('\n}\n', origin.end())
-    chain = list(re.compile(r'run_chain\w*(<[^>(]*>)?\(').finditer(
-        src, origin.end(), stop))[-1]
-    begin, end = origin.end(), src.index(';', chain.end()) + 1
+    begin, end = origin.end(), src.index('\n}\n', origin.end())
     body = SPLIT_BEFORE.sub(r'__syncthreads();\n  \1', src[begin:end])
     names = []
     for segment in body.split('__syncthreads();'):
@@ -174,10 +180,9 @@ def build(tag: str, name: str, source: str, csrc: Path,
 
 def routed(lib, name: str):
     """``lib`` as this checkout's wrappers call it (packed weights dropped
-    for a checkout whose kernel takes none)."""
-    if name in PACKED and not hasattr(lib, f'{name}_chain_kind'):
-        return WithoutPackedWeights(lib, name)
-    return lib
+    for a checkout whose entry point takes none)."""
+    entries = unpacked_entries(lib, name)
+    return WithoutPackedWeights(lib, name, entries) if entries else lib
 
 
 def main() -> int:
@@ -206,54 +211,60 @@ def main() -> int:
                         n_item_mods=5)
     gated['kernel'] = tpm.kernel_chain(gated)
     exact, factored = random_gated_rows(gated, B, C, gen, dev)
-    calls = {'pairwise_mlp': lambda: tpm.pairwise_scores(pair, uf, itf),
-             'gated_pairwise_mlp': lambda: tpm.pairwise_scores_gated(
-                 gated, *exact),
-             'gated_factored_mlp': lambda: tpm.pairwise_scores_gated_factored(
-                 gated, *factored),
-             'attention_mlp': lambda: tas.attention_scores(
-                 head, users[:5], items[:6]),
-             'attention_gram_mlp': lambda: tas.attention_scores_gram(
-                 head, users, items),
-             'attention_screen_mlp': lambda: tac.attention_screen_scores(
+    _, qgated = int8_head((512, 256, 128), 'relu', 'sigmoid', gen, dev,
+                          n_item_mods=5)
+    calls = {'K1': lambda: tpm.pairwise_scores(pair, uf, itf),
+             'K2': lambda: tpm.pairwise_scores_gated(gated, *exact),
+             'K3': lambda: tpm.pairwise_scores_gated_factored(gated,
+                                                             *factored),
+             'K2q': lambda: tpm.pairwise_scores_gated(qgated, *exact),
+             'K3q': lambda: tpm.pairwise_scores_gated_factored(qgated,
+                                                              *factored),
+             'K4': lambda: tas.attention_scores(head, users[:5], items[:6]),
+             'K5': lambda: tas.attention_scores_gram(head, users, items),
+             'K6': lambda: tac.attention_screen_scores(
                  head, users[:5], items[:6], tail)}
     checkouts = [('this', _build.CSRC)]
     if len(sys.argv) > 1:
         checkouts.insert(0, ('other', Path(sys.argv[1]) / 'pixelrec_'
                              'multimodal_tpu_torch' / 'ops' / 'csrc'))
     blocks = -(-B // 8) * -(-C // 16)
+    built = {}  # (checkout, source): the phases copy and its phase names
     for tag, csrc in checkouts:
-        for name, (kid, kernel) in KERNELS.items():
+        for kid, name, kernel in KERNELS:
+            call = calls[kid]
             line = {'what': 'phases', 'checkout': tag, 'kernel': kid,
                     'nvidia_smi': smi, 'B': B, 'C': C, 'blocks': blocks}
             with torch.no_grad():
                 _build._loaded.pop(name, None)
                 if tag == 'this':
-                    line['ms'] = cuda_ms(calls[name], reps=20)
-                if tag == 'this' and kid not in ('K1', 'K2', 'K3'):
-                    ref = calls[name]()
+                    line['ms'] = cuda_ms(call, reps=20)
+                if tag == 'this' and kid in ('K4', 'K5', 'K6'):
+                    ref = call()
                     _build._loaded[name] = build(
                         'items_fastest', name,
                         (csrc / f'{name}.cu').read_text(), csrc,
                         items_fastest_header(csrc))
-                    line['ms_item_tiles_fastest'] = cuda_ms(calls[name],
-                                                            reps=20)
+                    line['ms_item_tiles_fastest'] = cuda_ms(call, reps=20)
                     line['item_tiles_fastest_same_scores'] = bool(
-                        torch.equal(calls[name](), ref))
-                source, phases = instrumented(
-                    (csrc / f'{name}.cu').read_text(), kernel)
-                lib = build(f'phases_{tag}', name, source, csrc)
+                        torch.equal(call(), ref))
+                if (tag, name) not in built:  # the int8 mode shares it
+                    source, phases = instrumented(
+                        (csrc / f'{name}.cu').read_text(), kernel)
+                    built[tag, name] = (build(f'phases_{tag}', name, source,
+                                              csrc), phases)
+                lib, phases = built[tag, name]
                 _build._loaded[name] = routed(lib, name)
-                line['ms_with_counters'] = cuda_ms(calls[name], reps=3)
+                line['ms_with_counters'] = cuda_ms(call, reps=3)
                 lib.phase_reset()
-                calls[name]()
+                call()
                 torch.cuda.synchronize()
                 raw = (ctypes.c_ulonglong * 16)()
                 if lib.phase_read(raw):
                     raise RuntimeError('phase_read failed')
                 _build._loaded.pop(name)
                 if tag == 'this':
-                    line['ms_again'] = cuda_ms(calls[name], reps=20)
+                    line['ms_again'] = cuda_ms(call, reps=20)
             cycles = [raw[k] / blocks for k in range(len(phases))]
             total = sum(cycles)
             line['cycles_per_block'] = dict(zip(phases, cycles))

@@ -1,6 +1,7 @@
 """The kernels' shared memory per block, counted by hand from their layout
 (``ops/csrc/mlp_chain.cuh``, ``mlp_chain_int8.cuh``,
-``mlp_chain_wgmma.cuh``, ``attention_common.cuh``), with the signature of
+``mlp_chain_wgmma.cuh``, ``mlp_chain_wgmma_int8.cuh``,
+``attention_common.cuh``), with the signature of
 ``ops/pairwise_mlp.py:block_bytes``, which asks the kernel's own launch
 set-up. The CPU tests stand it in for the card's count (``hand_count``);
 ``tests/test_torch_cuda.py`` holds the card's count to it. Imports neither
@@ -85,6 +86,37 @@ def wgmma_chain_smem_bytes(widths: Sequence[int], rows: int,
         stages * stage + WGMMA_BARRIER_BYTES, scratch)
 
 
+def wgmma_int8_layout(widths: Sequence[int], rows: int) -> Tuple[int, ...]:
+    """The s8 wgmma chain's buffers and ring (``mlp_chain_wgmma_int8.cuh``:
+    K2q and K3q) for a block of 128 or 64 rows, as ``wgmma_layout`` with
+    widths in bytes, one byte a code: (bytes of a row of buffer A, of
+    buffer B, ring stages, bytes a stage). Each buffer is as wide as the
+    widest it holds, rounded up to 128 bytes (a swizzle atom); the last
+    hidden layer's partial sums of the last dot take the place of its codes
+    and fewer bytes. A stage holds one k slice of 128 codes x 128 columns,
+    16 KB as in bf16."""
+    group = 32768 // rows
+    cols, cur = [_round_up(widths[0], 128), 0], 0
+    for n in widths[1:]:
+        if n > group:
+            cur ^= 1
+        cols[cur] = max(cols[cur], _round_up(n, 128))
+    stage = 128 * 128
+    left = WGMMA_SMEM - WGMMA_BARRIER_BYTES - rows * sum(cols)
+    return (cols[0], cols[1], min(8, max(2 * 256 // rows, left // stage)),
+            stage)
+
+
+def wgmma_int8_chain_smem_bytes(widths: Sequence[int], rows: int,
+                                scratch: int = 0) -> int:
+    """A block of 128 or 64 rows on the s8 wgmma chain of ``widths``: the
+    two code buffers (``wgmma_int8_layout``), then the ring and its
+    barriers, or the assembly's ``scratch`` bytes, whichever is larger."""
+    bytes_a, bytes_b, stages, stage = wgmma_int8_layout(widths, rows)
+    return rows * (bytes_a + bytes_b) + max(
+        stages * stage + WGMMA_BARRIER_BYTES, scratch)
+
+
 def pair_scratch_bytes(name: str, h1: int, rows: int) -> int:
     """The assembly's scratch of a pair kernel's block (it lives in the
     weight ring until the chain starts): K1 the tile's users' bf16 rows; K2
@@ -132,14 +164,15 @@ def attention_smem_bytes(name: str, widths: Sequence[int], rows: int,
 def pair_chain_kind(name: str, widths: Sequence[int], rows: int,
                     int8: bool) -> str:
     """The chain a pair kernel's block runs, by hand: the bf16 modes of K1,
-    K2 and K3 the wgmma chain at 128 rows and at 64 where that block
-    (buffers, at least two k slices' stages, the kernel's own scratch over
-    the ring) fits, the mma.sync chain otherwise; every int8 mode
-    mma.sync."""
-    if int8 or rows < 64:
+    K2 and K3 the wgmma chain, and the int8 modes of K2 and K3 (K2q, K3q)
+    the s8 wgmma chain, at 128 rows and at 64 where that block (buffers,
+    at least two k slices' stages, the kernel's own scratch over the ring)
+    fits, the mode's mma.sync chain otherwise; K1q mma.sync at every row
+    count."""
+    if rows < 64 or (int8 and name == 'pairwise_mlp'):
         return 'mma.sync'
-    need = wgmma_chain_smem_bytes(widths, rows,
-                                  pair_scratch_bytes(name, widths[0], rows))
+    count = wgmma_int8_chain_smem_bytes if int8 else wgmma_chain_smem_bytes
+    need = count(widths, rows, pair_scratch_bytes(name, widths[0], rows))
     return 'wgmma' if rows == 128 or need <= WGMMA_SMEM else 'mma.sync'
 
 
@@ -150,10 +183,11 @@ def block_bytes(name: str, widths: Sequence[int], rows: int,
     widths = [int(w) for w in widths]
     if name.startswith('attention'):
         return attention_smem_bytes(name, widths, rows, *mode)
-    scratch = pair_scratch_bytes(name, widths[0], rows)
-    if pair_chain_kind(name, widths, rows, bool(mode[0])) == 'wgmma':
-        return wgmma_chain_smem_bytes(widths, rows, scratch)
-    return chain_smem_bytes(widths, rows, scratch, bool(mode[0]))
+    scratch, int8 = pair_scratch_bytes(name, widths[0], rows), bool(mode[0])
+    if pair_chain_kind(name, widths, rows, int8) == 'wgmma':
+        count = wgmma_int8_chain_smem_bytes if int8 else wgmma_chain_smem_bytes
+        return count(widths, rows, scratch)
+    return chain_smem_bytes(widths, rows, scratch, int8)
 
 
 @pytest.fixture

@@ -51,10 +51,13 @@ def attention_head(d, heads, widths):
 # (128 rows; 64 where it fits): the swizzled buffers (a layer whose output
 # fits one group of 32,768 / rows columns writes over its input), then 16
 # KB ring stages up to 8, at least 4 at 128 rows and 8 at 64, and 64 B of
-# barriers. int8: rows x (max even + 16 + max odd + 16) B, the last
-# hidden layer's row being its partial sums (4 B x 256 / rows column groups
-# x 128-column passes, padded to 32, + 16), then the 30,720 B ring (3 x 128
-# x 80) or the scratch.
+# barriers. int8 on the mma.sync chain (K1q everywhere; K2q and K3q at 32
+# and 16 rows, and at 64 where the s8 block does not fit): rows x (max even
+# + 16 + max odd + 16) B, the last hidden layer's row being its partial
+# sums (4 B x 256 / rows column groups x 128-column passes, padded to 32, +
+# 16), then the 30,720 B ring (3 x 128 x 80) or the scratch. int8 on the
+# s8 wgmma chain (K2q and K3q at 128 rows; 64 where it fits): the wgmma
+# layout in bytes, buffers rounded up to 128 B a row, 16 KB stages.
 @pytest.mark.parametrize('kernel, widths, int8, rows, nbytes', [
     # the flagship on the wgmma chain: every layer (256 and 128 wide) fits
     # a group of 256 and writes over its input, one buffer of 128 x 512 x 2
@@ -67,8 +70,13 @@ def attention_head(d, heads, widths):
     ('K1', (512, 256, 128), False, 128, 229440),
     ('K2', (512, 256, 128), False, 128, 229440),
     ('K3', (512, 256, 128), False, 128, 229440),
-    # its int8 modes: 128 x (528 + 272) + 30,720
+    # its int8 modes: K1q on mma.sync, 128 x (528 + 272) + 30,720; K2q
+    # and K3q on the s8 wgmma chain, one buffer of 128 x 512 B = 65,536
+    # that every layer writes over, then the eight 16 KB stages that fit
+    # and the barriers, 131,136 (their scratch within)
     ('K1', (512, 256, 128), True, 128, 133120),
+    ('K2', (512, 256, 128), True, 128, 196672),
+    ('K3', (512, 256, 128), True, 128, 196672),
     # [1024, 512, 256]: 128 rows would take 128 x (1,032 + 520) x 2 + 26,112
     # = 423,424 (K1 on the wgmma chain: buffers of 1,024 and 512 columns,
     # 393,216); 64 x 1,552 x 2 + 26,112 = 224,768. K1's 64-row wgmma block
@@ -78,15 +86,18 @@ def attention_head(d, heads, widths):
     ('K1', (1024, 512, 256), False, 64, 224768),
     ('K2', (1024, 512, 256), False, 64, 224768),
     ('K3', (1024, 512, 256), False, 64, 224768),
-    # int8: 128 x (1,040 + 528) + 30,720 = 231,424 fits K1q; K2q's scratch,
-    # (8 x 1,024 + 128 x 8) x 4 = 36,864, and K3q's, (8 x 1,032 + 256) x 4
-    # = 34,048, pass the ring: 64 x 1,568 + 30,720 = 131,072
+    # int8: 128 x (1,040 + 528) + 30,720 = 231,424 fits K1q. K2q and K3q:
+    # their 128-row s8 block needs 128 x (1,024 + 512) + 4 x 16,384 + 64 =
+    # 262,208; at 64 rows a group is 512 columns, every layer writes over
+    # its input, 64 x 1,024 + 8 x 16,384 + 64 = 196,672 (on mma.sync their
+    # 64-row block took 64 x 1,568 + 30,720 = 131,072)
     ('K1', (1024, 512, 256), True, 128, 231424),
-    ('K2', (1024, 512, 256), True, 64, 131072),
-    ('K3', (1024, 512, 256), True, 64, 131072),
+    ('K2', (1024, 512, 256), True, 64, 196672),
+    ('K3', (1024, 512, 256), True, 64, 196672),
     # h1 2048: 32 x (2,056 + 520) x 2 + 26,112 = 190,976; int8 64 x (2,064 +
     # 528) + 30,720 = 196,608 (K2q: its scratch (4 x 2,048 + 512) x 4 =
-    # 34,816 = 200,704)
+    # 34,816 = 200,704; its 64-row s8 block would need 64 x 2,048 + 8 x
+    # 16,384 + 64 = 262,208, so it takes 64 rows on mma.sync)
     ('K1', (2048, 512, 256), False, 32, 190976),
     ('K2', (2048, 512, 256), False, 32, 190976),
     ('K1', (2048, 512, 256), True, 64, 196608),
@@ -108,28 +119,47 @@ def test_pair_block_rows(hand_count, kernel, widths, int8, rows, nbytes):
 
 
 # (chain widths from h1 on, int8, the chain of each of the four blocks by
-# hand): the bf16 modes of K1, K2 and K3 run the wgmma chain at 128 rows
-# and at 64 where that block fits, in one fixed order by fit (128 wgmma, 64
-# wgmma, 64 mma.sync, 32, 16); their int8 modes K1q, K2q and K3q run
-# mma.sync at every row count. Each kernel's scratch lies within the ring,
-# so the three choose alike.
+# hand, per kernel where they differ): the bf16 modes of K1, K2 and K3 run
+# the wgmma chain at 128 rows and at 64 where that block fits, in one fixed
+# order by fit (128 wgmma, 64 wgmma, 64 mma.sync, 32, 16), and so do the
+# int8 modes K2q and K3q on the s8 wgmma chain; K1q runs mma.sync at every
+# row count. Each kernel's scratch lies within the ring, so K1, K2 and K3
+# choose alike in the bf16 mode.
 @pytest.mark.parametrize('name', ['pairwise_mlp', 'gated_pairwise_mlp',
                                   'gated_factored_mlp'])
 @pytest.mark.parametrize('widths, int8, chains', [
     ((512, 256, 128), False, ('wgmma', 'wgmma', 'mma.sync', 'mma.sync')),
     ((1024, 512, 256), False, ('wgmma', 'mma.sync', 'mma.sync',
                                'mma.sync')),
-    ((512, 256, 128), True, ('mma.sync',) * 4),
+    ((512, 256, 128), True, {
+        'pairwise_mlp': ('mma.sync',) * 4,
+        'gated_pairwise_mlp': ('wgmma', 'wgmma', 'mma.sync', 'mma.sync'),
+        'gated_factored_mlp': ('wgmma', 'wgmma', 'mma.sync', 'mma.sync')}),
+    ((1024, 512, 256), True, {
+        'pairwise_mlp': ('mma.sync',) * 4,
+        'gated_pairwise_mlp': ('wgmma', 'wgmma', 'mma.sync', 'mma.sync'),
+        'gated_factored_mlp': ('wgmma', 'wgmma', 'mma.sync', 'mma.sync')}),
 ])
 def test_k1_chain_by_fit(hand_count, widths, int8, chains, name):
     """The chain the block of K1, K2 or K3 runs on each row count, by hand;
     the flagship fits the 128-row wgmma block and the wide chain [1024,
     512, 256] takes 64 rows on mma.sync (its 64-row wgmma block does not
-    fit), so its block rows stay those of the mma.sync chain."""
+    fit), so its block rows stay those of the mma.sync chain. In the int8
+    mode K2q and K3q take 128 rows on the s8 wgmma chain at the flagship
+    (196,672 B) and 64 on it on the wide chain (the same bytes: a group of
+    512 columns at 64 rows, every layer in place)."""
+    if isinstance(chains, dict):
+        chains = chains[name]
     got = tuple(hand.pair_chain_kind(name, widths, rows, int8)
                 for rows in tpm.BLOCK_ROWS)
     assert got == chains
     rows = tpm.block_rows(name, widths, (int(int8),))
+    if int8 and name != 'pairwise_mlp':
+        assert rows == (128 if widths[0] == 512 else 64)
+        assert hand.block_bytes(name, widths, rows, (1,)) \
+            == hand.wgmma_int8_chain_smem_bytes(widths, rows) == 196672
+        assert hand.wgmma_int8_chain_smem_bytes(widths, 128) \
+            > tpm.SMEM_OPTIN or rows == 128
     if not int8 and widths[0] == 1024:
         assert rows == 64 and hand.block_bytes(
             name, widths, 64, (0,)) == hand.chain_smem_bytes(
@@ -374,7 +404,8 @@ def test_wgmma_weights_follow_their_chain():
     """Packed weights cached in a chain dict are read only with the weights
     they were packed from: a dict copied from another chain and given its
     own ``w`` packs anew (its scores never come from the other chain's
-    weights), and an int8 chain takes none."""
+    weights), and a chain whose weights are not of its mode's type (an
+    int8 chain's are int8 codes) is refused."""
     widths = (512, 256, 128)
     a = _chain_of(_random_weights(widths, 1), widths)
     stale = tpm.wgmma_weights(a)

@@ -869,6 +869,8 @@ def test_pair_kernels_at_wide_chains(dev, kid, h1, int8, exact):
     assert rows < 128 or (int8 and kid == 'K1' and h1 == 1024)
     assert tpm.block_bytes(name, full, rows, mode) \
         == hand.block_bytes(name, full, rows, mode)
+    assert tpm.chain_kind(name, rows, full, mode) \
+        == hand.pair_chain_kind(name, full, rows, int8)
     out = kernel(head, *args)
     torch.cuda.synchronize()
     ref = plain(head, *args, compute_dtype=torch.bfloat16)
@@ -941,8 +943,9 @@ def test_kernels_report_their_chain(dev, name):
     and the mma.sync chain in blocks of 32 and 16, as their libraries
     report it (``<name>_chain_kind``). K1, K2 and K3 choose by fit
     (``<name>_block_chain_kind``): their 64-row block on the wide chain
-    [1024, 512, 256] runs mma.sync, and their int8 modes K1q, K2q and K3q
-    run mma.sync at every row count, as the hand count says."""
+    [1024, 512, 256] runs mma.sync; K1q runs mma.sync at every row count,
+    and K2q and K3q the s8 wgmma chain at 128 rows and at 64 (it fits
+    both chains), as the hand count says."""
     assert [tpm.chain_kind(name, rows) for rows in tpm.BLOCK_ROWS] == [
         'wgmma', 'wgmma', 'mma.sync', 'mma.sync']
     with pytest.raises(ValueError, match='no chain'):
@@ -957,7 +960,8 @@ def test_kernels_report_their_chain(dev, name):
             assert got == [hand.pair_chain_kind(name, widths, rows, int8)
                            for rows in tpm.BLOCK_ROWS], (widths, int8)
             if int8:
-                assert set(got) == {'mma.sync'}
+                assert got == (['mma.sync'] * 4 if name == 'pairwise_mlp'
+                               else ['wgmma'] * 2 + ['mma.sync'] * 2)
             for rows in tpm.BLOCK_ROWS:
                 assert tpm.block_bytes(name, widths, rows, (int8,)) \
                     == hand.block_bytes(name, widths, rows, (int8,))
@@ -1122,6 +1126,85 @@ def test_int8_smaller_blocks_agree(dev, kid):
     for rows in (64, 32, 16):
         assert (kernel(head, *args, _block_rows=rows) - full).abs().max() \
             .item() <= 1e-6 * scale
+
+
+def int8_pair_call(kid, widths, dev, activation='gelu', final='sigmoid',
+                   B=300, C=1000, seed=11):
+    """(quantized head, rows) of K1q, K2q or K3q on a head of ``widths``
+    (``wide_head``; gated, M = 6, for K2q and K3q), calibrated on seeded
+    rows of 16 x 64 pairs, and the kernel's seeded rows of a [B] x [C]
+    block."""
+    base = kid.rstrip('q')
+    head = head_on(wide_head(widths, activation, final,
+                             None if base == 'K1' else 5, seed=seed), dev)
+    cal = pair_args(head, 'K1' if base == 'K1' else 'K2', 16, 64, dev, 13)
+    ranges = (tpm.calibrate_head_ranges(head, *cal) if base == 'K1' else
+              tpm.calibrate_head_ranges_gated(head, cal[:2], cal[2:]))
+    return (tpm.quantize_head(head, ranges),
+            pair_args(head, base, B, C, dev))
+
+
+@pytest.mark.parametrize('activation', ['relu', 'gelu', 'silu'])
+@pytest.mark.parametrize('kid', ['K2q', 'K3q'])
+def test_int8_gated_blocks_on_the_s8_chain(dev, kid, activation):
+    """K2q and K3q at the flagship chain [512, 256, 128] run the s8 wgmma
+    chain in their 128-row block (196,672 B, as the hand count says) and
+    in a forced 64-row block: the int32 sums are exact and the last dot
+    keeps the 128-row float32 order, so the 64 rows give the 128 rows'
+    scores bit for bit. The 32- and 16-row blocks on the mma.sync chain
+    agree within 1e-6 of the score's scale; every block against the
+    plain int8 version under the gates."""
+    head, args = int8_pair_call(kid, (512, 256, 128), dev, activation)
+    name = {'K2q': 'gated_pairwise_mlp', 'K3q': 'gated_factored_mlp'}[kid]
+    widths = tpm.chain_widths(head)
+    assert tpm.block_rows(name, widths, (1,)) == 128
+    assert [tpm.chain_kind(name, rows, widths, (1,))
+            for rows in tpm.BLOCK_ROWS] == ['wgmma', 'wgmma', 'mma.sync',
+                                            'mma.sync']
+    assert tpm.block_bytes(name, widths, 128, (1,)) \
+        == hand.block_bytes(name, widths, 128, (1,)) == 196672
+    kernel, plain = INT8[kid]
+    before = (kernel.launches, kernel.launches_int8)
+    outs = {rows: kernel(head, *args, _block_rows=rows)
+            for rows in tpm.BLOCK_ROWS}
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.launches_int8) == (before[0],
+                                                       before[1] + 4)
+    assert torch.equal(outs[64], outs[128])
+    scale = max(1.0, outs[128].abs().max().item())
+    for rows in (32, 16):
+        assert (outs[rows] - outs[128]).abs().max().item() <= 1e-6 * scale
+    assert_gated(outs[128], plain(head, *args, compute_dtype=torch.bfloat16),
+                 2 * MAX_DIFFERING_PER_LAYER)
+
+
+@pytest.mark.parametrize('kid', ['K2q', 'K3q'])
+def test_int8_never_launches_packed_weights_of_another_chain(dev, kid):
+    """A K2q or K3q chain dict that carries another int8 chain's packed
+    weights (copied with it, then given its own weights) does not launch
+    them: the scores are those of its own weights, bit for bit, and the
+    packed weights in the dict after the launch are its own; packed bf16
+    weights are refused, never launched."""
+    heads = [int8_pair_call(kid, (512, 256, 128), dev, seed=s)
+             for s in (22, 23)]
+    kernel = INT8[kid][0]
+    args = heads[0][1]
+    own = kernel(heads[1][0], *args)
+    stale = tpm.wgmma_weights(tpm.kernel_chain(heads[0][0]))
+    chain = tpm.kernel_chain(heads[1][0])
+    chain['w_wgmma'] = stale
+    heads[1][0]['kernel'] = chain
+    out = kernel(heads[1][0], *args)
+    assert chain['w_wgmma'] is not stale and chain['w_wgmma'].dtype \
+        == torch.int8
+    assert torch.equal(out, own)
+    assert not torch.equal(out, kernel(heads[0][0], *args))
+    bf16 = dict(chain, w=chain['w'].to(torch.bfloat16))
+    heads[1][0]['kernel'] = bf16
+    launches = kernel.launches_int8
+    with pytest.raises(ValueError, match='int8'):
+        kernel(heads[1][0], *args)
+    assert kernel.launches_int8 == launches
 
 
 def d512_head(act_final, heads, dev, exact=False):

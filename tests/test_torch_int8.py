@@ -378,12 +378,14 @@ def test_precision_gate(monkeypatch, capsys):
 def test_precision_gate_by_fusion(monkeypatch, capsys):
     """A concatenate head passes the gate at its own flip point
     (``INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT``), a gated head at the gated
-    one; each is independent of the other. Since K2 and K3 run the wgmma
-    chain as K1 does, the H100 measured both at the same ratio, from which
-    int8 is the faster only on chains deeper than the flagship's."""
+    one; each is independent of the other. Since K2q and K3q run the s8
+    wgmma chain, the H100 measured the gated int8 modes the faster on
+    every chain (from 64, the least ratio of any head), while K1q, on the
+    mma.sync s8 chain, is the faster only on chains deeper than the
+    flagship's."""
     flagship = 2 * (512 * 256 + 256 * 128) / 512  # chain [512, 256, 128]
-    assert tpm.INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT \
-        == tpm.INT8_MIN_CHAIN_FLOPS_PER_LANE > flagship
+    assert tpm.INT8_MIN_CHAIN_FLOPS_PER_LANE <= 64 < flagship \
+        < tpm.INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT
     rho = tpm.int8_chain_flops_per_lane(small_scorer()._head)
     monkeypatch.setattr(tsc, 'INT8_MIN_CHAIN_FLOPS_PER_LANE', rho)
     monkeypatch.setattr(tsc, 'INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT', rho + 1)
@@ -398,6 +400,21 @@ def test_precision_gate_by_fusion(monkeypatch, capsys):
     assert small_scorer(precision='int8').precision == 'int8'
     assert capsys.readouterr().err == ''
     assert small_scorer('gated', precision='int8').precision == 'bf16'
+
+
+def test_precision_gate_routes_the_flagship_heads(capsys):
+    """With the constants as the code has them, precision='int8' at the
+    flagship widths [512, 256, 128] (640 hidden-chain operations per lane)
+    quantizes a gated head, whose int8 kernels the H100 measured the faster
+    from 64, and serves a concatenate head in bf16, below its 2,560."""
+    gated = small_scorer('gated', hidden=(512, 256, 128), precision='int8')
+    assert tpm.int8_chain_flops_per_lane(gated._head) == 640
+    assert gated.precision == 'int8' and gated._head['kernel']['int8']
+    assert capsys.readouterr().err == ''
+    concat = small_scorer(hidden=(512, 256, 128), precision='int8')
+    assert tpm.int8_chain_flops_per_lane(concat._head) == 640
+    assert concat.precision == 'bf16' and 'qlayers' not in concat._head
+    assert 'flip point' in capsys.readouterr().err
 
 
 def test_precision_refusals():
@@ -523,3 +540,75 @@ def test_int8_product_is_exact(k):
     exact = codes.long() @ wq.long()
     assert torch.equal(tpm._int8_product(codes, wq), exact.float())
     assert exact.abs().max() > 2 ** 16  # sums far from any rounding slack
+
+
+def _unswizzled_int8(packed, widths):
+    """The int8 chain's packed weights (``tpm.wgmma_weights``) read back by
+    hand, layer by layer, as the s8 wgmma chain's descriptors read them:
+    tile (k slice ks of 128 codes, column group g of 64) at (ks * N64 / 64
+    + g) * 8,192 bytes past the layer's offset (layers of N64 x K128
+    bytes), row n of a tile 128 bytes whose 16-byte chunk c lies at c ^ n
+    % 8. Returns each layer's [N64, K128] matrix, and every byte's place
+    once."""
+    out, seen, off = [], [], 0
+    for k, n in zip(widths[:-1], widths[1:]):
+        k128, n64 = -(-k // 128) * 128, -(-n // 64) * 64
+        nn, kk = np.meshgrid(np.arange(n64), np.arange(k128), indexing='ij')
+        idx = (off + ((kk // 128) * (n64 // 64) + nn // 64) * 8192
+               + (nn % 64) * 128 + ((((kk % 128) // 16) ^ (nn % 8)) * 16)
+               + kk % 16)
+        out.append(packed[idx])
+        seen.append(idx.reshape(-1))
+        off += k128 * n64
+    return out, np.concatenate(seen), off
+
+
+@pytest.mark.parametrize('widths', [(96, 64, 32), (128, 256),
+                                    (64, 32, 96, 32), (512, 256, 128),
+                                    (1024, 512, 256)])
+def test_int8_wgmma_weights_layout(widths):
+    """``tpm.wgmma_weights`` packs an int8 chain (wq^T [N, K] per layer,
+    back to back) for the s8 wgmma chain: every tile, its swizzle undone
+    here, equals wq^T, every pad byte (columns past N, codes past K) is
+    zero, and every byte of the packing has one place. Built once per
+    chain dict, anew for a dict whose ``w`` changed."""
+    rng = np.random.default_rng(len(widths) * 1000 + widths[0])
+    wqs = [rng.integers(-127, 128, (k, n)).astype(np.int8)
+           for k, n in zip(widths[:-1], widths[1:])]
+    chain = {'int8': True, 'widths': np.asarray(widths, np.int32),
+             'w': torch.cat([torch.from_numpy(w.T.copy()).reshape(-1)
+                             for w in wqs])}
+    packed = tpm.wgmma_weights(chain)
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert tpm.wgmma_weights(chain) is packed
+    layers, seen, size = _unswizzled_int8(packed.numpy(), widths)
+    assert packed.numel() == size
+    assert np.array_equal(np.sort(seen), np.arange(size))
+    for got, wq in zip(layers, wqs):
+        k, n = wq.shape
+        np.testing.assert_array_equal(got[:n, :k], wq.T)
+        assert not got[n:].any() and not got[:, k:].any()
+    other = dict(chain, w=chain['w'].neg())
+    assert tpm.wgmma_weights(other) is not packed
+    np.testing.assert_array_equal(tpm.wgmma_weights(other).numpy(),
+                                  packed.neg().numpy())
+
+
+def test_int8_wgmma_weights_of_a_quantized_gated_head():
+    """A quantized gated head's int8 chain (K2q's and K3q's) packs its
+    ``qlayers``' wq as the layout says; the bf16 chain's packing of the
+    same head is another (it is not reused for the int8 mode)."""
+    jh, th = heads('gated', 'gelu', 'tanh')
+    ju, ji, _, _ = gated_rows(jh)
+    _, tq = quantized(jh, th, (ju, ji))
+    chain = tq['kernel']
+    widths = [int(w) for w in chain['widths']]
+    packed = tpm.wgmma_weights(chain)
+    assert packed.dtype == torch.int8 and chain['w_wgmma'] is packed
+    layers, _, size = _unswizzled_int8(packed.numpy(), widths)
+    assert packed.numel() == size
+    for got, q in zip(layers, tq['qlayers']):
+        k, n = q['wq'].shape
+        np.testing.assert_array_equal(got[:n, :k], q['wq'].t().numpy())
+        assert not got[n:].any() and not got[:, k:].any()
+    assert tpm.wgmma_weights(tpm.kernel_chain(th)).dtype == torch.bfloat16
