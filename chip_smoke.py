@@ -19,11 +19,12 @@ int8 through K2q and K3q, then its attention-fusion twin through K4,
 stream, and K5, gram, then the attention cascade at
 scripts/bench_cascade.py's geometry: its screens through K6, token 0, and
 K1, additive, each tier of ``top_k_cascade`` and ``auto_cascade``, then
-the chain alone of K1, K4 and K6 (the kernel whole less the kernel cut
-after the assembly), then the wide models that take smaller blocks: attention at d 512, K4 and the
-token-0 screen K6, and concat and gated chains [1024, 512, 256] in bf16
-and int8), checks what comes out against the plain versions and the exact
-scan, and times the kernels. Every phase prints one JSON line;
+the chain alone of K1, K4, K6, K2, K3, K2q, K3q and K1q (the kernel whole
+less the kernel cut after the assembly), then the wide models that take
+smaller blocks: attention at d 512, K4 and the token-0 screen K6, and
+concat and gated chains [1024, 512, 256] in bf16 and int8), checks what
+comes out against the plain versions and the exact scan, and times the
+kernels. Every phase prints one JSON line;
 any failure raises and exits non-zero. The second-to-last line is the
 ``kernels`` JSON object and the last line is ``{"ok": true, "device":
 {...}}``.
@@ -129,8 +130,8 @@ FLIP_CHAINS = tuple((h1, n) for h1 in (32, 128, 512)
 # [1024, 512, 256].
 WIDE_USERS, WIDE_EMB, WIDE_HIDDEN = 1024, 512, (1024, 512, 256)
 # The int8 modes take one hidden layer at least: the `chain` phase cuts
-# K2q and K3q after the assembly's quantize to one layer of this width,
-# the narrowest they take.
+# K1q, K2q and K3q after the assembly's quantize to one layer of this
+# width, the narrowest they take.
 INT8_CUT_WIDTH = 32
 # The probes against their plain versions: P1's FMA rounds once where the
 # plain a*x + 1 rounds twice and its exp is the card's expf against
@@ -598,8 +599,9 @@ def kernel_line(name, kernel_id, source, replaces, tpu, head, h1, args,
 
 def probe_checks(dev) -> dict:
     """Each probe against its plain version on the card at a small grid
-    (three passes; P3 on 1,000 rows), PROBE_TOL relative to the output's
-    scale (int8 modes: equal). Returns (max_abs_err, tol) per probe."""
+    (three passes; P3 on 1,000 rows, in its block and, where that is 128
+    rows, in a 64-row block too), PROBE_TOL relative to the output's scale
+    (int8 modes: equal). Returns (max_abs_err, tol) per probe."""
     from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
     from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
     out = {}
@@ -627,18 +629,27 @@ def probe_checks(dev) -> dict:
          shape=[tvr.BC_TB, tvr.BC_TC, tvr.BC_DP], k=tvr.BC_K_HI)
     for mode in tmx.MODES:
         t = tmx.inputs(mode, dev, rows=1000, seed=SEED)
-        hold(f'P3 {mode}', tmx.mxu_chain(*t, mode, instances=3),
-             tmx.chain_plain(*t, mode), PROBE_TOL.get(f'P3 {mode}', 0.0),
-             rows=1000, k=tmx.K)
+        ref = tmx.chain_plain(*t, mode)
+        hold(f'P3 {mode}', tmx.mxu_chain(*t, mode, instances=3), ref,
+             PROBE_TOL.get(f'P3 {mode}', 0.0), rows=1000, k=tmx.K,
+             block_rows=tmx.block_rows(mode))
+        if tmx.block_rows(mode) != 64:  # the block probe_rates times too
+            hold(f'P3 {mode} block 64', tmx.mxu_chain(
+                *t, mode, instances=3, _block_rows=64), ref,
+                PROBE_TOL.get(f'P3 {mode}', 0.0), rows=1000, k=tmx.K,
+                block_rows=64)
     return out
 
 
 def probe_rates(smi) -> dict:
     """The probes' rates at the Pallas scripts' sizes, with every probe's
     launch count set to 0 just before and read just after, and the library's
-    square products. Sets PEAKS: bf16 and int8 the higher of P3's rate and
-    the square product's, ffma and exp P1's; raises if one passes its
-    data-sheet figure. Returns the measurements by probe."""
+    square products; P3 in the block its library chooses by fit, and its
+    modes whose chosen block is 128 rows (int8) in the 64-row block beside
+    it (``P3_block_64``). Sets PEAKS: bf16 and int8 the higher of P3's rate
+    in its chosen block and the square product's, ffma and exp P1's;
+    raises if one passes its data-sheet figure. Returns the measurements by
+    probe."""
     from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
     from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
     for fn in (tvr.vpu_chain, tvr.vpu_bcast, tmx.mxu_chain):
@@ -647,6 +658,9 @@ def probe_rates(smi) -> dict:
         rates = {'P1': {k: tvr.measure_chain(k) for k in tvr.KINDS},
                  'P2': tvr.measure_bcast(),
                  'P3': {m: tmx.measure(m) for m in tmx.MODES}}
+        rates['P3_block_64'] = {m: tmx.measure(m, block=64)
+                                for m in tmx.MODES
+                                if tmx.block_rows(m) != 64}
     launches = {'P1': tvr.vpu_chain.launches, 'P2': tvr.vpu_bcast.launches,
                 'P3': tmx.mxu_chain.launches}
     if not all(launches.values()):
@@ -654,7 +668,9 @@ def probe_rates(smi) -> dict:
     rates['square'] = tmx.measure_square()
     for key in ('P1', 'P2', 'P3'):
         emit(f'probe_{key}', launches=launches[key], nvidia_smi=smi,
-             **({'rates': rates[key]} if key != 'P2' else rates[key]))
+             **({'rates': rates[key]} if key != 'P2' else rates[key]),
+             **({'rates_block_64': rates['P3_block_64']} if key == 'P3'
+                else {}))
     sq = rates['square']
     PEAKS.update(
         bf16=max(rates['P3']['bf16']['ops_per_s'],
@@ -756,6 +772,10 @@ def probe_lines(rates: dict, errs: dict, dev) -> list:
             r = rates['P3'][mode]
             modes[mode] = {'ms': r['ms'], 'plain_ms': plain,
                            'ops_per_s': r['ops_per_s'],
+                           'block_rows': r['block_rows'],
+                           'block_bytes': r['block_bytes'],
+                           'ms_block_64': rates['P3_block_64'].get(
+                               mode, r)['ms'],
                            'bound_ms': n_mxu / ds * 1e3,
                            'bound_ms_measured': n_mxu / peak * 1e3,
                            'library_chain_ms': r['library_chain_ms'],
@@ -972,18 +992,20 @@ def assembly_only_chain(d: int, gen, dev) -> dict:
 
 
 def chain_phase(smi, dev) -> list:
-    """The chain of K1, K4, K6, K2, K3, K2q and K3q alone: each kernel at
-    the TIME_B x TIME_C block with the flagship chain whole and cut after
-    the assembly (K1, K2, K3: h1 512 -> 1, K2 and K3 on seeded gated rows
-    of M = 6; K4, K6: the last dot on the fused vector, d 64 -> 1; K2q and
-    K3q, which take one hidden layer at least, on the same gated rows: cut
-    after the assembly's quantize to the narrowest chain, h1 512 ->
-    INT8_CUT_WIDTH -> 1), relu, sigmoid, random weights and rows from a
-    generator of its own; the chain's time is the difference (its
-    products, epilogues and last dot), its rate the hidden products of the
-    difference over that time (tera-operations per second: bf16 FLOP, int8
-    OP in K2q and K3q). Prints one ``chain`` line per kernel with the
-    chain kind and block rows of the whole chain and returns the lines."""
+    """The chain of K1, K4, K6, K2, K3, K2q, K3q and K1q alone: each kernel
+    at the TIME_B x TIME_C block with the flagship chain whole and cut
+    after the assembly (K1, K2, K3: h1 512 -> 1, K2 and K3 on seeded gated
+    rows of M = 6; K4, K6: the last dot on the fused vector, d 64 -> 1;
+    K2q and K3q, which take one hidden layer at least, on the same gated
+    rows, and K1q on K1's rows: cut after the assembly's quantize to the
+    narrowest chain, h1 512 -> INT8_CUT_WIDTH -> 1), relu, sigmoid, random
+    weights and rows from a generator of its own (K1q last, so that the
+    others draw what they drew before it); the chain's time is the
+    difference (its products, epilogues and last dot), its rate the hidden
+    products of the difference over that time (tera-operations per second:
+    bf16 FLOP, int8 OP in K1q, K2q and K3q). Prints one ``chain`` line per
+    kernel with the chain kind and block rows of the whole chain and
+    returns the lines."""
     from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
     from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
     from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
@@ -993,17 +1015,18 @@ def chain_phase(smi, dev) -> list:
     d, heads = EMB, 4
     gated_rows = None
     lines = []
-    for kid in ('K1', 'K4', 'K6', 'K2', 'K3', 'K2q', 'K3q'):
+    for kid in ('K1', 'K4', 'K6', 'K2', 'K3', 'K2q', 'K3q', 'K1q'):
         ms, prods = {}, 0
         for cut in (False, True):
-            if kid in ('K2q', 'K3q'):  # after K2 and K3: gated_rows are set
+            if kid in ('K1q', 'K2q', 'K3q'):  # after K2, K3: gated_rows set
                 _, head = int8_head(
                     (HIDDEN[0], INT8_CUT_WIDTH) if cut else HIDDEN, 'relu',
-                    'sigmoid', gen, dev, 5)
-                fn, args = ((tpm.pairwise_scores_gated, gated_rows[0])
-                            if kid == 'K2q' else
-                            (tpm.pairwise_scores_gated_factored,
-                             gated_rows[1]))
+                    'sigmoid', gen, dev, None if kid == 'K1q' else 5)
+                fn, args = {
+                    'K1q': (tpm.pairwise_scores, (uf, itf)),
+                    'K2q': (tpm.pairwise_scores_gated, gated_rows[0]),
+                    'K3q': (tpm.pairwise_scores_gated_factored,
+                            gated_rows[1])}[kid]
                 call = (lambda f, h, a: lambda: f(h, *a))(fn, head, args)
             elif kid in ('K1', 'K2', 'K3'):
                 head = random_head(HIDDEN[:1] if cut else HIDDEN, 'relu',
@@ -1184,7 +1207,7 @@ def wide_main_paths(users, smi, dev):
                  widths=scorer._head['kernel']['widths'].tolist(),
                  scorer_block_rows=scorer.block_rows, **block)
             if scorer.block_rows != block['block_rows'] \
-                    or block['block_rows'] != 64 + 64 * (k == 'K1q'):
+                    or block['block_rows'] != 64:
                 raise AssertionError(f'{k}: rows {scorer.block_rows} / '
                                      f'{block}')
             v, i, _, _ = drive_top_k(
@@ -1816,8 +1839,8 @@ def main() -> int:
     lines[-1]['launches_screen_token0'] = screen_launches['K6']
     lines[0]['launches_additive_cascade'] = cascade_launches['K1']
 
-    # ---- 17b. the chain alone of K1, K4, K6, K2, K3, K2q and K3q (whole
-    # less the cut after the assembly): its time and rate
+    # ---- 17b. the chain alone of K1, K4, K6, K2, K3, K2q, K3q and K1q
+    # (whole less the cut after the assembly): its time and rate
     chains = {c['kernel']: c for c in chain_phase(smi, dev)}
     for line in lines:
         if line['kernel'] in chains:

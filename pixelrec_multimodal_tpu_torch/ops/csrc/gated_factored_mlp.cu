@@ -269,7 +269,7 @@ int forward(const void* uf, const void* a, const void* T, const void* igb,
   const cudaError_t err = block_chain<Q>(n_hidden, widths, rows, &ch);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch_chain<Q, true>(rows, ch, [&](auto tb, auto wg) {
+  return dispatch_chain(rows, ch, [&](auto tb, auto wg) {
     return launch<Q, decltype(tb)::value, decltype(wg)::value>(
         uf, a, T, igb, w_sw, w, bias, w_last, b_last, out, B, C, n_mod, ch,
         act, fin, rows, s);

@@ -5,15 +5,13 @@
 // assembles its first-layer activations as in its bf16 mode, rounds them to
 // bf16 where that mode does, and ends the assembly by quantizing them into
 // int8 codes in buf_a; run_chain_int8 then runs the quantized hidden chain
-// and the last layer on mma.sync. K1q runs it in every block; K2q and K3q
-// only in blocks of 32 and 16 rows and in a 64-row block whose s8 wgmma
-// layout does not fit: at 128 and 64 rows they run the s8 wgmma chain of
-// mlp_chain_wgmma_int8.cuh, which keeps this chain's contract, its codes
-// and its 128-row block's float32 order in the last dot. Bound on this
-// card: P3 measured this product loop at 329 TOP/s, a sixth of the data
-// sheet's 1,979 and no faster than the bf16 wgmma chain, so K1q loses to
-// K1 at the flagship (ops/pairwise_mlp.py:INT8_MIN_CHAIN_FLOPS_PER_LANE_
-// CONCAT); moving K1q onto the s8 wgmma chain is the lever.
+// and the last layer on mma.sync, in blocks of 32 and 16 rows and in a
+// 64-row block whose s8 wgmma layout does not fit. At 128 and 64 rows the
+// three kernels run the s8 wgmma chain of mlp_chain_wgmma_int8.cuh, which
+// keeps this chain's contract, its codes and its 128-row block's float32
+// order in the last dot. Bound on this card: P3 measured this product loop
+// at 329 TOP/s, a sixth of the data sheet's 1,979 and no faster than the
+// bf16 wgmma chain; that is why the larger blocks left it.
 //
 // Counterpart of pixelrec_multimodal_tpu/ops/pairwise_mlp.py:_quantize_rows
 // and _mlp_chain_int8 (quantize_mlp_chain builds the operands):
@@ -358,20 +356,6 @@ inline size_t smem_bytes_int8(const Chain& ch, size_t scratch, int rows) {
   const size_t ring = (size_t)STAGES * NB * QWSTRIDE;
   return (size_t)rows * (ch.stride_a + ch.stride_b) +
          (ring > scratch ? ring : scratch);
-}
-
-// The chain of a launch in either mode and its block's shared memory, from
-// the HOST width array.
-template <bool Q>
-inline cudaError_t make_chain_of(int n_hidden, const void* widths, int rows,
-                                 Chain* ch) {
-  const int* wd = static_cast<const int*>(widths);
-  return Q ? make_chain_int8(n_hidden, wd, rows, ch)
-           : make_chain(n_hidden, wd, ch);
-}
-template <bool Q>
-inline size_t smem_of(const Chain& ch, size_t scratch, int rows) {
-  return Q ? smem_bytes_int8(ch, scratch, rows) : smem_bytes(ch, scratch, rows);
 }
 
 }  // namespace pairwise

@@ -10,14 +10,15 @@
 // 512-column buffer (131,072 B) that every layer writes over, six 16 KB
 // stages and their barriers (98,368 B), the assembly's scratch within the
 // ring. Its s8 form, in mlp_chain_wgmma_int8.cuh, runs the int8 modes of
-// the gated kernels (K2q, K3q) at 128 and 64 rows on this header's
+// the pair kernels (K1q, K2q, K3q) at 128 and 64 rows on this header's
 // descriptors, ring and weight stream (WeightStream<TB, int8_t>): an s8
 // product reads 32 bytes of k as a bf16 one does, so a stage and a packed
-// tile are the same bytes; K1q keeps mlp_chain_int8.cuh. It keeps
-// run_chain's contract: the assembly's bf16 activations in buf_a, the
-// epilogue's rounding points (an f32 bias add, one bf16 rounding, the
-// activation on the bf16 pair), the warp-shuffle last dot, the scores into
-// out. Blocks of 32 and 16 rows keep run_chain (wgmma takes 64-row tiles).
+// tile are the same bytes; probe P3 (probes/csrc/int8_mxu.cu) runs the
+// same loop in both forms. It keeps run_chain's contract: the assembly's
+// bf16 activations in buf_a, the epilogue's rounding points (an f32 bias
+// add, one bf16 rounding, the activation on the bf16 pair), the
+// warp-shuffle last dot, the scores into out. Blocks of 32 and 16 rows
+// keep run_chain (wgmma takes 64-row tiles).
 //
 // Why: mma.sync fed by ldmatrix runs the chain's product loop at 174
 // TFLOP/s bf16 (P3, 18% of the data sheet's 989); wgmma is the card's only
@@ -498,19 +499,18 @@ inline cudaError_t make_chain_fit(int rows, int n_hidden, const int* wd,
   return make_chain(n_hidden, wd, ch);
 }
 
-// f(tb, wg) for the block of `rows` pair rows of a pair kernel (K1-K3):
-// tb the tile's users (std::integral_constant<int, TB>, as dispatch_rows
-// gives it), wg whether the block runs a wgmma chain
-// (std::bool_constant): never at 32 and 16 rows, always at 128, and at 64
-// where the layout chosen by fit says so (ch.stages: make_chain_fit, or
-// make_chain_fit_int8 in the int8 mode). QWG: the int8 mode (Q) runs the
-// s8 wgmma chain of mlp_chain_wgmma_int8.cuh (K2q, K3q); without it the
-// int8 mode runs mma.sync at every row count (K1q).
-template <bool Q, bool QWG = false, typename F>
+// f(tb, wg) for the block of `rows` pair rows of a pair kernel (K1-K3 and
+// their int8 modes): tb the tile's users (std::integral_constant<int, TB>,
+// as dispatch_rows gives it), wg whether the block runs a wgmma chain
+// (std::bool_constant; the s8 one of mlp_chain_wgmma_int8.cuh in the int8
+// mode): never at 32 and 16 rows, always at 128, and at 64 where the
+// layout chosen by fit says so (ch.stages: make_chain_fit, or
+// make_chain_fit_int8 in the int8 mode).
+template <typename F>
 inline cudaError_t dispatch_chain(int rows, const WgChain& ch, F&& f) {
   return dispatch_rows(rows, [&](auto tb) -> cudaError_t {
     constexpr int TB = decltype(tb)::value;
-    if constexpr ((Q && !QWG) || !wgmma_rows<TB>())
+    if constexpr (!wgmma_rows<TB>())
       return f(tb, std::false_type());
     else if constexpr (TB == 4)
       return ch.stages ? f(tb, std::true_type()) : f(tb, std::false_type());

@@ -2,10 +2,10 @@
 //
 // The int8 chain of mlp_chain_int8.cuh on Hopper's warpgroup products
 // (wgmma.mma_async m64n128k32 s8 x s8 -> s32), for the int8 modes of the
-// gated pair kernels K2q (gated_pairwise_mlp.cu) and K3q
+// pair kernels K1q (pairwise_mlp.cu), K2q (gated_pairwise_mlp.cu) and K3q
 // (gated_factored_mlp.cu) at blocks of 128 rows, and of 64 where that
-// block fits (make_chain_fit_int8). K1q (pairwise_mlp.cu) and every block
-// of 32 and 16 rows keep run_chain_int8. It keeps run_chain_int8's
+// block fits (make_chain_fit_int8). Every block of 32 and 16 rows keeps
+// run_chain_int8. It keeps run_chain_int8's
 // contract: layer 0's codes in buffer A, w the quantized weights, qp the
 // (inv_a, off) slots then each layer's out_scale and bias_eff; each hidden
 // layer's epilogue act(f32(acc) * out_scale + bias_eff), every product and
@@ -40,8 +40,8 @@
 // keeps one partial sum per half tile (j 0-7, 8-15), added in j order,
 // sums the quad by __shfl_xor 1 and 2, and stores one float per (row, tile,
 // half): the (row, pass, column group) order of the mma.sync chain at 128
-// rows (CG = 2, WN = 64), whatever the row count. K2q and K3q at 128 and 64
-// rows give the mma.sync chain's 128-row scores bit for bit.
+// rows (CG = 2, WN = 64), whatever the row count. K1q, K2q and K3q at 128
+// and 64 rows give the mma.sync chain's 128-row scores bit for bit.
 //
 // Bound at the flagship [512, 256, 128]: 327,680 int8 products a pair
 // (0.347 ms for a 256 x 8,192 block at 1,979 TOP/s) beside about the same

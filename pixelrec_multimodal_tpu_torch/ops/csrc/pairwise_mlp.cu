@@ -41,31 +41,42 @@
 //
 // int8 mode (K1q, the template flag Q): the same bf16 assembly, each
 // activation then quantized with layer 0's (inv_a, off) into an int8 code
-// instead of stored as bf16, and the int8 chain of mlp_chain_int8.cuh. Its
-// bound: 327,680 int8 tensor-core operations per pair at the flagship head,
-// half the bf16 time at the data-sheet rates (1,979 TOP/s int8), with the
-// quantize and rescale of every hidden layer's input and output on the f32
-// units beside it.
+// instead of stored as bf16, and an int8 chain: the s8 wgmma chain of
+// mlp_chain_wgmma_int8.cuh in blocks of 128 rows and of 64 where that block
+// fits (make_chain_fit_int8; the codes at the byte sw_byte_offset, four
+// codes of a store inside one 16-byte chunk; the quantized weights packed
+// by ops/pairwise_mlp.py:wgmma_weights), the mma.sync chain of
+// mlp_chain_int8.cuh below. At the flagship a 128-row block takes 196,672
+// B: one 64 KB code buffer that every layer writes over and eight 16 KB
+// stages, the bf16 user rows within the ring; the wide chain [1024, 512,
+// 256] needs 262,208 B at 128 rows and takes 64 rows on the s8 chain
+// (196,672 B), as K2q does. Both blocks give the 128-row mma.sync block's
+// scores bit for bit (the integer sums are exact, the last dot keeps its
+// float32 order). Its bound: 327,680 int8 tensor-core operations per pair
+// at the flagship head (0.347 ms for a 256 x 8,192 block at 1,979 TOP/s),
+// with the quantize and rescale of every hidden layer's input and output
+// on the f32 units beside it; on mma.sync s8 (329 TOP/s, P3) the products
+// alone took about 2 ms of that block.
 
 #include "mlp_chain_int8.cuh"
 #include "mlp_chain_wgmma.cuh"
+#include "mlp_chain_wgmma_int8.cuh"
 
 namespace {
 
 using namespace pairwise;
 
-// WG: the wgmma chain (bf16 mode at 128 and 64 rows, by fit), else the
-// mma.sync chain of the mode.
+// WG: the mode's wgmma chain (bf16 or s8, at 128 and 64 rows, by fit),
+// else its mma.sync chain.
 template <bool Q, int TB, bool WG>
 __global__ void __launch_bounds__(THREADS)
 pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
-                    const __nv_bfloat16* __restrict__ w_sw,
+                    const Weight<Q>* __restrict__ w_sw,
                     const Weight<Q>* __restrict__ w,
                     const float* __restrict__ bias,
                     const float* __restrict__ w_last,
                     const float* __restrict__ b_last, float* __restrict__ out,
                     int B, int C, WgChain ch, int act, int fin) {
-  static_assert(!(Q && WG), "the int8 mode runs the mma.sync chain");
   extern __shared__ __align__(1024) unsigned char smem[];
   __nv_bfloat16* buf_a = reinterpret_cast<__nv_bfloat16*>(smem);
 
@@ -112,7 +123,11 @@ pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
       const __nv_bfloat162 hi = __hadd2(as_bf162(u.y), as_bf162(it.y));
       const uint2 x =
           make_uint2(as_u32(act_pair(lo, act)), as_u32(act_pair(hi, act)));
-      if constexpr (Q) {
+      if constexpr (Q && WG) {
+        *reinterpret_cast<uint32_t*>(
+            smem + sw_byte_offset<Tile<TB>::ROWS>(bu * TC + ci, k)) =
+            quantize_bf16x4(x, inv_a, off);
+      } else if constexpr (Q) {
         *reinterpret_cast<uint32_t*>(smem + (bu * TC + ci) * ch.stride_a + k) =
             quantize_bf16x4(x, inv_a, off);
       } else if constexpr (WG) {
@@ -125,8 +140,8 @@ pairwise_mlp_kernel(const float* __restrict__ uf, const float* __restrict__ itf,
   }
   __syncthreads();
   if constexpr (Q) {
-    run_chain_int8<TB>(smem, w, bias, w_last, b_last, out, B, C, u0, c0, ch,
-                       act, fin);
+    run_chain_int8_of<TB, WG>(smem, w, w_sw, bias, w_last, b_last, out, B,
+                              C, u0, c0, ch, act, fin);
   } else {
     run_chain_of<TB, WG>(buf_a, w, w_sw, bias, w_last, b_last, out, B, C, u0,
                          c0, ch, act, fin);
@@ -139,22 +154,23 @@ inline size_t scratch_bytes(int h1, int rows) {
 }
 
 // The chain of a block of `rows` pair rows in either mode, from the HOST
-// width array: the int8 layout (K1q, mma.sync), or the bf16 chain by fit
-// (make_chain_fit: wgmma at 128 and 64 rows where its block fits); and the
-// block's shared memory.
+// width array, by fit: the bf16 chain (make_chain_fit) or the int8 one
+// (make_chain_fit_int8), a wgmma chain at 128 and 64 rows where its block
+// fits; and the block's shared memory.
 template <bool Q>
 inline cudaError_t block_chain(int n_hidden, const void* widths, int rows,
                                WgChain* ch) {
   *ch = WgChain{};
   if (!valid_rows(rows)) return cudaErrorInvalidValue;
-  if (Q) return make_chain_of<true>(n_hidden, widths, rows, ch);
   const int* wd = static_cast<const int*>(widths);
-  return make_chain_fit(rows, n_hidden, wd, scratch_bytes(wd[0], rows), ch);
+  const size_t scratch = scratch_bytes(wd[0], rows);
+  return Q ? make_chain_fit_int8(rows, n_hidden, wd, scratch, ch)
+           : make_chain_fit(rows, n_hidden, wd, scratch, ch);
 }
 template <bool Q>
 inline size_t block_smem(const WgChain& ch, int rows) {
   const size_t scratch = scratch_bytes(ch.width[0], rows);
-  return Q ? smem_of<true>(ch, scratch, rows)
+  return Q ? smem_bytes_int8_for(ch, scratch, rows)
            : smem_bytes_for(ch, scratch, rows);
 }
 
@@ -171,7 +187,7 @@ cudaError_t launch(const void* uf, const void* itf, const void* w_sw,
   if (err != cudaSuccess) return err;
   pairwise_mlp_kernel<Q, TB, WG><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(uf), static_cast<const float*>(itf),
-      static_cast<const __nv_bfloat16*>(w_sw),
+      static_cast<const Weight<Q>*>(w_sw),
       static_cast<const Weight<Q>*>(w), static_cast<const float*>(bias),
       static_cast<const float*>(w_last), static_cast<const float*>(b_last),
       static_cast<float*>(out), B, C, ch, act, fin);
@@ -187,7 +203,7 @@ int forward(const void* uf, const void* itf, const void* w_sw, const void* w,
   const cudaError_t err = block_chain<Q>(n_hidden, widths, rows, &ch);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch_chain<Q>(rows, ch, [&](auto tb, auto wg) {
+  return dispatch_chain(rows, ch, [&](auto tb, auto wg) {
     return launch<Q, decltype(tb)::value, decltype(wg)::value>(
         uf, itf, w_sw, w, bias, w_last, b_last, out, B, C, ch, act, fin, rows,
         s);
@@ -219,24 +235,28 @@ int pairwise_mlp_forward(const void* uf, const void* itf, const void* w_sw,
                         n_hidden, widths, act, fin, rows, stream);
 }
 
-// The int8 mode (K1q): the arguments of pairwise_mlp_forward without w_sw,
-// with w the hidden layers' transposed int8 weights [N, K] back to back,
-// bias the quantization parameters (mlp_chain_int8.cuh), w_last the
-// unrounded live column; widths are multiples of 32, 1 <= n_hidden <=
-// MAX_HIDDEN. It runs the int8 mma.sync chain at every row count.
-int pairwise_mlp_int8_forward(const void* uf, const void* itf, const void* w,
+// The int8 mode (K1q): the arguments of pairwise_mlp_forward, with w_sw
+// the quantized weights packed for the s8 wgmma chain
+// (ops/pairwise_mlp.py:wgmma_weights of the int8 chain; read in the blocks
+// that run it: 128 rows, and 64 where that block fits), w the hidden
+// layers' transposed int8 weights [N, K] back to back (read by the int8
+// mma.sync chain below), bias the quantization parameters
+// (mlp_chain_int8.cuh), w_last the unrounded live column; widths are
+// multiples of 32, 1 <= n_hidden <= MAX_HIDDEN.
+int pairwise_mlp_int8_forward(const void* uf, const void* itf,
+                              const void* w_sw, const void* w,
                               const void* bias, const void* w_last,
                               const void* b_last, void* out, int B, int C,
                               int n_hidden, const void* widths, int act,
                               int fin, int rows, void* stream) {
-  return forward<true>(uf, itf, nullptr, w, bias, w_last, b_last, out, B, C,
+  return forward<true>(uf, itf, w_sw, w, bias, w_last, b_last, out, B, C,
                        n_hidden, widths, act, fin, rows, stream);
 }
 
 // Shared memory a block of `rows` pair rows takes in either mode (int8 != 0:
-// K1q), as the launch set-up counts it (the bf16 mode's on the chain
-// make_chain_fit chooses); a negative CUDA error for widths or rows the
-// kernel does not take.
+// K1q), as the launch set-up counts it (on the chain make_chain_fit or
+// make_chain_fit_int8 chooses); a negative CUDA error for widths or rows
+// the kernel does not take.
 int pairwise_mlp_block_bytes(int n_hidden, const void* widths, int int8,
                              int rows) {
   WgChain ch;
@@ -251,9 +271,10 @@ int pairwise_mlp_block_bytes(int n_hidden, const void* widths, int int8,
 int pairwise_mlp_chain_kind(int rows) { return chain_kind(rows); }
 
 // The chain a block of `rows` pair rows runs on these widths, in either
-// mode (int8 != 0: K1q, mma.sync at every row count): 2 wgmma, 1 mma.sync
-// (make_chain_fit); a negative CUDA error for widths or rows the kernel
-// does not take.
+// mode (int8 != 0: K1q), as chosen by fit (make_chain_fit,
+// make_chain_fit_int8): 2 a wgmma chain (bf16, or s8 in the int8 mode), 1
+// mma.sync; a negative CUDA error for widths or rows the kernel does not
+// take.
 int pairwise_mlp_block_chain_kind(int n_hidden, const void* widths, int int8,
                                   int rows) {
   WgChain ch;

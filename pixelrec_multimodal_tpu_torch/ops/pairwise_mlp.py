@@ -34,12 +34,11 @@ A head that carries ``qlayers`` (``quantize_head``) scores in int8: each
 hidden Dense quantizes its input affinely to int8 codes, multiplies them
 with per-column int8 weights into int32 sums and rescales in float32
 (``_chain_scores_int8``). The same three kernels then run their int8 mode
-(K1q, K2q, K3q): the assembly of the bf16 mode, then an int8 chain: for
-K2q and K3q the s8 wgmma chain of ``csrc/mlp_chain_wgmma_int8.cuh`` (the
-quantized weights packed by ``wgmma_weights``) in blocks of 128 rows and
-of 64 where that block fits, and the ``mma.sync`` chain of
-``csrc/mlp_chain_int8.cuh`` below; K1q the ``mma.sync`` chain in every
-block.
+(K1q, K2q, K3q): the assembly of the bf16 mode, then an int8 chain: the
+s8 wgmma chain of ``csrc/mlp_chain_wgmma_int8.cuh`` (the quantized weights
+packed by ``wgmma_weights``) in blocks of 128 rows and of 64 where that
+block fits, and the ``mma.sync`` chain of ``csrc/mlp_chain_int8.cuh``
+below.
 
 A kernel's block holds 8, 4, 2 or 1 users x 16 items (128 to 16 pair
 rows): ``block_rows`` takes the largest whose shared memory, as the
@@ -308,17 +307,16 @@ def factor_gated_tables(head: dict, item_first: torch.Tensor,
 # its products are faster than the bf16 wgmma chain's by more than that.
 # On an NVIDIA H100 80GB HBM3 (700.00 W; chip_smoke.py's int8_flip_point
 # phase, PERF.md), on the chains whose h1 is a multiple of 128, as the
-# scorer's heads are:
-#   gated heads (K2q against K2, K3q against K3): since K2q and K3q run
-#     the s8 wgmma chain, the int8 modes are the faster on every chain
-#     measured, from 64 (the least ratio of any head the int8 mode takes:
-#     K2q 0.94x K2's time at the flagship's 640, K3q 0.91x K3's);
-#   concatenate heads (K1q against K1, the mma.sync s8 chain): the faster
-#     only from 2,560 (at 640 K1q takes 1.25x K1's time), so 'int8' serves
-#     them in bf16 below that.
+# scorer's heads are: since all three int8 modes run the s8 wgmma chain,
+# each is the faster on every chain measured, from 64 (the least ratio of
+# any head the int8 mode takes):
+#   gated heads (K2q against K2, K3q against K3): 0.93x and 0.91x the bf16
+#     time at the flagship's 640;
+#   concatenate heads (K1q against K1): 0.86x at 640, 0.79x at 64 (h1
+#     512), so 'int8' serves the flagship concat head through K1q.
 # The JAX package's 1000 is the TPU's.
 INT8_MIN_CHAIN_FLOPS_PER_LANE = 64
-INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT = 2560
+INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT = 64
 
 
 def int8_chain_flops_per_lane(head: dict) -> float:
@@ -719,9 +717,10 @@ def wgmma_weights(chain: dict) -> torch.Tensor:
     """The chain's hidden weights packed for a wgmma chain: the bf16
     chain's for ``csrc/mlp_chain_wgmma.cuh`` (the bf16 modes of K1, K2 and
     K3, and K4, K5 and K6, at blocks of 128 and 64 pair rows), an int8
-    chain's for the s8 chain of ``csrc/mlp_chain_wgmma_int8.cuh`` (K2q and
-    K3q). Per layer, W^T [N, K] (the int8 chain's ``wq`` is stored so
-    already) zero-padded to a multiple of 64 columns and of one k slice
+    chain's for the s8 chain of ``csrc/mlp_chain_wgmma_int8.cuh`` (K1q,
+    K2q and K3q; probe P3 packs its two layers so too). Per layer, W^T
+    [N, K] (the int8 chain's ``wq`` is stored so already) zero-padded to a
+    multiple of 64 columns and of one k slice
     (64 bf16 or 128 int8 codes: a 128-byte row) and cut into tiles of 64
     columns x one k slice, 8 KB each, in the order (k slice, column group),
     each tile's rows 128 bytes whose 16-byte chunks are swizzled by the row
@@ -910,9 +909,8 @@ def chain_kind(name: str, rows: int,
     chooses the chain by fit (K1, K2, K3: ``<name>_block_chain_kind``, a
     64-row block whose wgmma layout does not fit runs mma.sync) reports
     the chain of that block on those widths; in the int8 mode 'wgmma' is
-    the s8 chain of ``csrc/mlp_chain_wgmma_int8.cuh`` (K2q and K3q by
-    fit), and K1q runs mma.sync at every row count. Loads the kernel's
-    library."""
+    the s8 chain of ``csrc/mlp_chain_wgmma_int8.cuh`` (K1q, K2q and K3q,
+    by fit). Loads the kernel's library."""
     lib = _build.load(name)
     fn = (getattr(lib, f'{name}_block_chain_kind', None)
           if widths is not None else None)
@@ -1039,12 +1037,13 @@ def pairwise_scores(head: dict, user_first: torch.Tensor,
     CUDA tensors launch the kernel on the current stream (bf16 operands,
     float32 accumulation); B and C need not be tile multiples. The kernel's
     tensors come from ``head['kernel']`` when they lie on the rows' device,
-    else ``kernel_chain`` builds them for this call; the bf16 mode reads
-    the hidden weights packed for the wgmma chain too (``wgmma_weights``,
+    else ``kernel_chain`` builds them for this call; either mode reads the
+    hidden weights packed for its wgmma chain too (``wgmma_weights``,
     cached in that dict). The block's pair rows are ``block_rows``'s (a
     head that fits no block raises ValueError; ``_block_rows`` forces a
-    smaller block, for tests): the wgmma chain at 128 and 64 rows where its
-    block fits, the mma.sync chain below (``chain_kind``). CPU tensors take
+    smaller block, for tests): the mode's wgmma chain (bf16, or s8 in the
+    int8 mode) at 128 and 64 rows where its block fits, its mma.sync chain
+    below (``chain_kind``). CPU tensors take
     ``pairwise_scores_plain`` in float32. Anything else raises.
     ``pairwise_scores.launches`` counts kernel launches of the bf16 mode,
     ``pairwise_scores.launches_int8`` those of the int8 mode (K1q), which a
@@ -1062,9 +1061,7 @@ def pairwise_scores(head: dict, user_first: torch.Tensor,
     out = torch.empty((B, C), dtype=torch.float32, device=device)
     if B == 0 or C == 0:
         return out
-    tensors = (user_first, item_first)
-    if not chain['int8']:  # K1q runs the int8 mma.sync chain
-        tensors += (wgmma_weights(chain),)
+    tensors = (user_first, item_first, wgmma_weights(chain))  # either mode's
     _launch('pairwise_mlp', out, tensors, chain, B, C, forced=_block_rows)
     if chain['int8']:
         pairwise_scores.launches_int8 += 1

@@ -3,11 +3,13 @@
 
 Counterpart of ``scripts/profile_int8_mxu.py`` (its Pallas kernels
 ``bf16_chain_kernel`` and ``int8_chain_kernel``), with the kernel in
-``probes/csrc/int8_mxu.cu``, built on the pair kernels' own product loops
-(``ops/csrc/mlp_chain.cuh``, ``mlp_chain_int8.cuh``). Per row of x
-[8,192, 512], K = 8 steps of ``z = relu(x @ w1) @ w2`` ([512, 256],
-[256, 128]) summed into acc [8,192, 128] f32, each z folded back into x's
-first 128 columns, in three modes:
+``probes/csrc/int8_mxu.cu``, built on the pair kernels' own product loop:
+the wgmma chain of ``ops/csrc/mlp_chain_wgmma.cuh`` in bf16 and its s8 form
+(``mlp_chain_wgmma_int8.cuh``) in int8, the weights packed as
+``ops/pairwise_mlp.py:wgmma_weights`` packs a chain (``pack_weights``).
+Per row of x [8,192, 512], K = 8 steps of ``z = relu(x @ w1) @ w2``
+([512, 256], [256, 128]) summed into acc [8,192, 128] f32, each z folded
+back into x's first 128 columns, in three modes:
 
   * ``bf16``: bf16 operands, f32 sums, h and the fold rounded to bf16;
   * ``int8_raw``: int8 operands, int32 sums, h = int8(h32 >> 8) and the fold
@@ -16,11 +18,12 @@ first 128 columns, in three modes:
     truncated toward zero; otherwise as raw.
 
 The Pallas grid runs 64 instances over the same rows; the kernel's grid does
-too (``INSTANCES``). The rate (``measure``) is the tensor-core operations
-2 * R * (512 * 256 + 256 * 128) * K * instances over the launch's time.
-Beside it, as yardsticks the port never calls: ``torch.matmul`` of the same
-bf16 chain, one square bf16 product of 8,192^3 and ``torch._int_mm`` of an
-8,192^3 int8 product.
+too (``INSTANCES``). A block holds 128 rows where x, h, acc and the ring fit
+(int8), else 64 (bf16): ``block_rows``. The rate (``measure``) is the
+tensor-core operations 2 * R * (512 * 256 + 256 * 128) * K * instances over
+the launch's time. Beside it, as yardsticks the port never calls:
+``torch.matmul`` of the same bf16 chain, one square bf16 product of 8,192^3
+and ``torch._int_mm`` of an 8,192^3 int8 product.
 
 The plain version (``chain_plain``) is the same function on tensors. Its
 int8 products are exact (float64: every sum is an integer below 2^53) and
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 from ..ops import _build
-from ..ops.pairwise_mlp import _check_tensor, _device_of
+from ..ops.pairwise_mlp import _check_tensor, _device_of, wgmma_weights
 from . import cuda_ms
 
 H1, H2, H3 = 512, 256, 128
@@ -46,9 +49,9 @@ K = 8                # chain steps per instance
 INSTANCES = 64       # passes over all the rows (the Pallas grid)
 MODES = ('bf16', 'int8_raw', 'int8_rescale')
 SQUARE = 8192        # the library yardsticks' square product
-# Tensor-core operations of one warp-wide mma.sync: m16n8k16 bf16 and
-# m16n8k32 s8 (two per multiply-add).
-MMA_OPS = {'bf16': 2 * 16 * 8 * 16, 'int8': 2 * 16 * 8 * 32}
+# Tensor-core operations of one warpgroup-wide wgmma: m64n128k16 bf16 and
+# m64n128k32 s8 (two per multiply-add).
+MMA_OPS = {'bf16': 2 * 64 * 128 * 16, 'int8': 2 * 64 * 128 * 32}
 
 
 def flops(rows: int = ROWS, k: int = K, instances: int = INSTANCES) -> int:
@@ -88,40 +91,81 @@ def chain_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return acc
 
 
+def pack_weights(w1: torch.Tensor, w2: torch.Tensor, mode: str
+                 ) -> torch.Tensor:
+    """w1 [K, N1] and w2 [N1, N2] (bf16 in the bf16 mode, int8 otherwise)
+    packed for the kernel's wgmma chain, as ``wgmma_weights`` packs the
+    chain [K, N1, N2] of that mode (an int8 chain keeps each layer's
+    weights transposed, [N, K])."""
+    int8 = mode != 'bf16'
+    layers = (w.t() if int8 else w for w in (w1, w2))
+    return wgmma_weights({
+        'int8': int8, 'widths': np.asarray(
+            (w1.shape[0], w1.shape[1], w2.shape[1]), np.int32),
+        'w': torch.cat([w.contiguous().reshape(-1) for w in layers])})
+
+
+def _lib():
+    lib = _build.load('int8_mxu')
+    if lib.int8_mxu_forward.argtypes is None:
+        lib.int8_mxu_forward.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.int8_mxu_block_rows.argtypes = [ctypes.c_int]
+        lib.int8_mxu_block_bytes.argtypes = [ctypes.c_int] * 2
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def block_rows(mode: str) -> int:
+    """The rows of the probe's block in ``mode``, as its library chooses
+    them by fit: 128 where x, h, acc and the ring fit, else 64."""
+    return _lib().int8_mxu_block_rows(MODES.index(mode))
+
+
+def block_bytes(mode: str, rows: int) -> int:
+    """The shared memory of the probe's block of ``rows`` rows in ``mode``,
+    as its launch counts it; negative where that block does not fit."""
+    return _lib().int8_mxu_block_bytes(MODES.index(mode), rows)
+
+
+def _launch(x: torch.Tensor, packed: torch.Tensor, mode: str, k: int,
+            instances: int, rows: Optional[int]) -> torch.Tensor:
+    """One launch of the probe on x's device, in blocks of ``rows`` rows
+    (``block_rows`` by default)."""
+    lib = _lib()
+    rows = block_rows(mode) if rows is None else rows
+    out = torch.empty((x.shape[0], H3), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.int8_mxu_forward(
+            x.data_ptr(), packed.data_ptr(), out.data_ptr(), x.shape[0], k,
+            MODES.index(mode), instances, rows,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f'P3 probe failed: '
+                           f'{lib.kernel_error_string(err).decode()} ({err})')
+    mxu_chain.launches += 1
+    return out
+
+
 def mxu_chain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-              mode: str, k: int = K, instances: int = 1) -> torch.Tensor:
+              mode: str, k: int = K, instances: int = 1,
+              _block_rows: Optional[int] = None) -> torch.Tensor:
     """P3: CUDA tensors launch the probe (``instances`` passes over all the
-    rows, each writing the same acc); CPU tensors take ``chain_plain``.
-    Anything else raises. ``mxu_chain.launches`` counts launches."""
+    rows, each writing the same acc; ``_block_rows`` forces a block of 64
+    rows where 128 is chosen); CPU tensors take ``chain_plain``. Anything
+    else raises. ``mxu_chain.launches`` counts launches."""
     if mode not in MODES:
         raise ValueError(f'mode must be one of {MODES}, got {mode!r}')
     device = _device_of('mxu_chain', x, w1, w2)
     if device is None:
         return chain_plain(x, w1, w2, mode, k)
     dtype = torch.bfloat16 if mode == 'bf16' else torch.int8
-    R = x.shape[0]
     _check_tensor('x', x, device, dtype, -1, (H1,))
     _check_tensor('w1', w1, device, dtype, H1, (H2,))
     _check_tensor('w2', w2, device, dtype, H2, (H3,))
-    if mode != 'bf16':  # the int8 products take B K-contiguous per column
-        w1, w2 = w1.t().contiguous(), w2.t().contiguous()
-    out = torch.empty((R, H3), dtype=torch.float32, device=device)
-    lib = _build.load('int8_mxu')
-    fn = lib.int8_mxu_forward
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-    with torch.cuda.device(device):
-        err = fn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
-                 R, k, MODES.index(mode), instances,
-                 torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(f'P3 probe failed: '
-                           f'{lib.kernel_error_string(err).decode()} ({err})')
-    mxu_chain.launches += 1
-    return out
+    return _launch(x, pack_weights(w1, w2, mode), mode, k, instances,
+                   _block_rows)
 
 
 mxu_chain.launches = 0
@@ -173,19 +217,25 @@ def library_chain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 
 
 def measure(mode: str, rows: int = ROWS, instances: int = INSTANCES,
-            reps: int = 5, tensors: Optional[tuple] = None) -> dict:
+            reps: int = 5, tensors: Optional[tuple] = None,
+            block: Optional[int] = None) -> dict:
     """P3's rate in ``mode`` on the card: the mean time of one launch of
-    ``instances`` passes over ``rows`` rows, and its tensor-core operations
-    per second (TFLOP/s in bf16, TOP/s in int8) and ``mma.sync``
-    instructions per second, beside the time of ``library_chain`` for the
-    same work."""
+    ``instances`` passes over ``rows`` rows (the weights packed once,
+    before), in blocks of ``block`` rows (``block_rows`` by default), and
+    its tensor-core operations per second (TFLOP/s in bf16, TOP/s in int8)
+    and ``wgmma`` instructions per second (``mma_per_s``), beside the time
+    of ``library_chain`` for the same work."""
     x, w1, w2 = inputs(mode, 'cuda', rows) if tensors is None else tensors
-    ms = cuda_ms(lambda: mxu_chain(x, w1, w2, mode, K, instances), reps)
+    block = block_rows(mode) if block is None else block
+    packed = pack_weights(w1, w2, mode)
+    ms = cuda_ms(lambda: _launch(x, packed, mode, K, instances, block), reps)
     lib_ms = cuda_ms(lambda: [library_chain(x, w1, w2, mode)
                               for _ in range(instances)], 1)
     n = flops(rows, K, instances)
     return {'probe': 'P3', 'mode': mode, 'rows': rows, 'k': K,
-            'instances': instances, 'ms': ms, 'ops_per_s': n / (ms * 1e-3),
+            'instances': instances, 'block_rows': block,
+            'block_bytes': block_bytes(mode, block), 'ms': ms,
+            'ops_per_s': n / (ms * 1e-3),
             'mma_per_s': n / (ms * 1e-3) / MMA_OPS[
                 'bf16' if mode == 'bf16' else 'int8'],
             'library_chain_ms': lib_ms,

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""The pair-scoring kernels K1-K6 and the int8 modes K1q-K3q of another
-checkout against this one's, on one CUDA card.
+"""The pair-scoring kernels K1-K6, the int8 modes K1q-K3q and the probes
+P1 and P2 of another checkout against this one's, on one CUDA card.
 
     python3 scripts/torch_parent_compare.py OTHER_CHECKOUT
 
 Builds ``pairwise_mlp.cu`` (K1), ``gated_pairwise_mlp.cu`` (K2),
 ``gated_factored_mlp.cu`` (K3), ``attention_mlp.cu`` (K4),
 ``attention_gram_mlp.cu`` (K5) and ``attention_screen_mlp.cu`` (K6) from
-``OTHER_CHECKOUT/pixelrec_multimodal_tpu_torch/ops/csrc`` (for example a
+``OTHER_CHECKOUT/pixelrec_multimodal_tpu_torch/ops/csrc``, and
+``probes/csrc/vpu_roofline.cu`` (P1, P2), from that checkout (for example a
 parent commit unpacked with ``git archive``) into ``build/other/``, beside
 this checkout's builds, and runs both through this checkout's wrappers on
 the same inputs at the 256 x 8,192 block: the flagship chain [512, 256,
@@ -15,7 +16,11 @@ the same inputs at the 256 x 8,192 block: the flagship chain [512, 256,
 on the gated rows of M = 6 modalities for K2 and K3, and after the
 flagship attention head (d 64, 4 heads) for K4, K5 and K6 (with its
 screen tail), and the int8 modes of K1-K3 on the same rows with the
-flagship chain quantized. Prints one JSON
+flagship chain quantized, K1q also in a forced block of 64 rows of this
+checkout against the other's 128-row K1q, and K1q on the wide chain
+[1024, 512, 256] (``K1q_wide``, relu, sigmoid, rows of h1 1,024) in the
+block each checkout chooses, and P1 (the FMA and exp chains) and P2 at
+the Pallas scripts' sizes. Prints one JSON
 line per measurement, the card's ``nvidia-smi`` name and power limit
 first: whether the scores are equal bit for bit; for K1-K6, whose chains
 may differ between the checkouts (the wgmma chain against the mma.sync
@@ -31,12 +36,13 @@ chain: a checkout whose kernels take no rows (every block 128 rows) is
 called without them, with this checkout's count of the block's shared
 memory, and only where that count chooses 128 rows; one whose K1-K6 take
 no packed weights (no ``<name>_chain_kind``) is called without them, and
-so is one whose K2q and K3q take none (their int8 block of 128 rows on
-the flagship chain runs mma.sync there: ``<name>_block_chain_kind``). The
-int8 modes are held bit for bit: the s8 wgmma chain of K2q and K3q keeps
-the mma.sync chain's 128-row float32 order.
-Exits 2 without a CUDA device, 1 if an int8 mode (K1q-K3q) differs from
-the other checkout's or one of K1-K6 fails a gate.
+so is one whose K1q, K2q and K3q take none (their int8 block of 128 rows
+on the flagship chain runs mma.sync there: ``<name>_block_chain_kind``).
+The int8 modes are held bit for bit: the s8 wgmma chain keeps the
+mma.sync chain's 128-row float32 order, at 128 rows and at 64.
+Exits 2 without a CUDA device, 1 if an int8 mode (K1q-K3q, K1q at 64 rows)
+or P1 or P2 differs from the other checkout's or one of K1-K6 fails a
+gate.
 """
 from __future__ import annotations
 
@@ -60,6 +66,7 @@ from chip_smoke import (  # noqa: E402
     SEED,
     TIME_B,
     TIME_C,
+    WIDE_HIDDEN,
     cuda_ms,
     random_attention_head,
     random_attention_rows,
@@ -70,13 +77,14 @@ from chip_smoke import (  # noqa: E402
 
 KERNELS = ('pairwise_mlp', 'gated_pairwise_mlp', 'gated_factored_mlp',
            'attention_mlp', 'attention_gram_mlp', 'attention_screen_mlp')
+PROBES = ('vpu_roofline',)  # P1 and P2, in probes/csrc
 # the kernels that take the packed weights, and where: the argument's
 # place counted from the end of the entry point's arguments (the int8 entry
-# points of K2 and K3 take them at the same place as their bf16 ones)
+# points of K1, K2 and K3 take them at the same place as their bf16 ones)
 PACKED = {'pairwise_mlp': 14, 'gated_pairwise_mlp': 15,
           'gated_factored_mlp': 15, 'attention_mlp': 16,
           'attention_gram_mlp': 16, 'attention_screen_mlp': 16}
-PACKED_INT8 = ('gated_pairwise_mlp', 'gated_factored_mlp')
+PACKED_INT8 = ('pairwise_mlp', 'gated_pairwise_mlp', 'gated_factored_mlp')
 # held to the other checkout by the gates, not bits (their chain may be
 # another one there)
 GATED = ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')
@@ -119,7 +127,7 @@ class WithoutRows:
 
 class WithoutPackedWeights:
     """A library whose entry points ``entries`` (``<name>_forward`` of
-    K1-K6, ``<name>_int8_forward`` of K2q and K3q) take no packed weights
+    K1-K6, ``<name>_int8_forward`` of K1q-K3q) take no packed weights
     (a checkout from before that mode's wgmma chain): each drops the
     pointer to them, which the wrappers pass PACKED[name] arguments from
     the end (after the LayerNorm affine, or after the pair kernels' item
@@ -148,8 +156,8 @@ class WithoutPackedWeights:
 def unpacked_entries(lib, name: str) -> list:
     """The entry points of ``lib`` (``csrc/<name>.cu`` of another checkout)
     that take no packed weights though this checkout's do: ``<name>_forward``
-    where it has no ``<name>_chain_kind``; ``<name>_int8_forward`` of K2
-    and K3 where its 128-row int8 block on the flagship chain runs
+    where it has no ``<name>_chain_kind``; ``<name>_int8_forward`` of K1,
+    K2 and K3 where its 128-row int8 block on the flagship chain runs
     mma.sync."""
     entries = []
     if name in PACKED and not hasattr(lib, f'{name}_chain_kind'):
@@ -167,19 +175,23 @@ def unpacked_entries(lib, name: str) -> list:
 
 
 def compile_other(checkout: Path) -> dict:
-    """The other checkout's kernels, built in parallel: their paths."""
+    """The other checkout's kernels and probes, built in parallel: their
+    paths."""
     from pixelrec_multimodal_tpu_torch.ops import _build
-    src = checkout / 'pixelrec_multimodal_tpu_torch' / 'ops' / 'csrc'
+    package = checkout / 'pixelrec_multimodal_tpu_torch'
+    src = package / 'ops' / 'csrc'
     out = _build.BUILD_DIR.parent / 'other'
     out.mkdir(parents=True, exist_ok=True)
     procs = {n: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, '-o', str(out / f'{n}.so'),
-         str(src / f'{n}.cu')], stdout=subprocess.DEVNULL)
-        for n in KERNELS}
+        [_build._nvcc(), *_build.NVCC_FLAGS, '-I', str(src), '-o',
+         str(out / f'{n}.so'),
+         str((package / 'probes' / 'csrc' if n in PROBES else src)
+             / f'{n}.cu')], stdout=subprocess.DEVNULL)
+        for n in KERNELS + PROBES}
     for n, proc in procs.items():
         if proc.wait() != 0:
             raise RuntimeError(f'{n} of {checkout} did not build')
-    return {n: out / f'{n}.so' for n in KERNELS}
+    return {n: out / f'{n}.so' for n in KERNELS + PROBES}
 
 
 def build_other(checkout: Path, this: dict) -> dict:
@@ -188,6 +200,9 @@ def build_other(checkout: Path, this: dict) -> dict:
     libs = {}
     for n, path in compile_other(checkout).items():
         lib = ctypes.CDLL(str(path))
+        if n in PROBES:
+            libs[n] = lib
+            continue
         if not hasattr(lib, f'{n}_block_bytes'):
             lib = WithoutRows(lib, this[n])
         entries = unpacked_entries(lib, n)
@@ -227,15 +242,17 @@ def main() -> int:
     from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
     from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
     from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+    from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     emit('card', nvidia_smi=smi, torch=torch.__version__)
-    this = {n: _build.load(n) for n in KERNELS}
+    this = {n: _build.load(n) for n in KERNELS + PROBES}
     libs = {'other': build_other(Path(sys.argv[1]), this), 'this': this}
 
-    def use(tag):  # route the wrappers' launches to one build
+    def use(tag):  # route the wrappers' launches (and block choice) to one
         _build._loaded.update(libs[tag])
+        tpm.block_rows.cache_clear()
 
     dev = torch.device('cuda')
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -255,6 +272,11 @@ def main() -> int:
         tail = tac.compute_screen_tail(head, items)
         _, qhead = int8_head(HIDDEN, 'relu', 'sigmoid', gen, dev,
                              n_item_mods=5)
+        _, qwide = int8_head(WIDE_HIDDEN, 'relu', 'sigmoid', gen, dev)
+        wide = (torch.randn(TIME_B, WIDE_HIDDEN[0], generator=gen).to(dev),
+                torch.randn(TIME_C, WIDE_HIDDEN[0], generator=gen).to(dev))
+        chain_x = tvr.chain_inputs(dev, SEED)
+        bcast_wv = tvr.bcast_inputs(dev, SEED)
         # kernel: a call of this checkout's wrapper on the shared inputs
         calls = {
             'K1': lambda: tpm.pairwise_scores(pair_head, *concat),
@@ -268,14 +290,27 @@ def main() -> int:
             'K1q': lambda: tpm.pairwise_scores(qhead, *concat),
             'K2q': lambda: tpm.pairwise_scores_gated(qhead, *exact),
             'K3q': lambda: tpm.pairwise_scores_gated_factored(qhead,
-                                                              *factored)}
-        scores = {}
+                                                              *factored),
+            'K1q_wide': lambda: tpm.pairwise_scores(qwide, *wide),
+            'P1_fma': lambda: tvr.vpu_chain(chain_x, tvr.K_HI, 'fma',
+                                            tvr.STEPS),
+            'P1_exp': lambda: tvr.vpu_chain(chain_x, tvr.K_HI, 'exp',
+                                            tvr.STEPS),
+            'P2': lambda: tvr.vpu_bcast(*bcast_wv, tvr.BC_K_HI, tvr.STEPS)}
+        scores, wide_rows = {}, {}
         for tag in ('other', 'this'):
             use(tag)
             scores[tag] = {k: fn().clone() for k, fn in calls.items()}
+            wide_rows[tag] = tpm.block_rows('pairwise_mlp', WIDE_HIDDEN, (1,))
         equal = {k: bool(torch.equal(scores['other'][k], scores['this'][k]))
                  for k in calls}
-        emit('scores', shape=[TIME_B, TIME_C],
+        # K1q in a 64-row block of this checkout against the other's 128
+        use('this')
+        k1q_64 = lambda: tpm.pairwise_scores(qhead, *concat,  # noqa: E731
+                                             _block_rows=64)
+        equal['K1q_64_vs_128'] = bool(torch.equal(scores['other']['K1q'],
+                                                  k1q_64()))
+        emit('scores', shape=[TIME_B, TIME_C], k1q_wide_rows=wide_rows,
              **{f'{k}_bit_equal': v for k, v in equal.items()})
         held = {k: gates(scores['other'][k], scores['this'][k],
                          head['kernel']['n_hidden']) for k in GATED}
@@ -286,11 +321,17 @@ def main() -> int:
             use(tag)
             for k, fn in calls.items():
                 times[k][tag].append(cuda_ms(fn, reps=20))
+        shapes = {'P1_fma': [tvr.STEPS, *chain_x.shape],
+                  'P1_exp': [tvr.STEPS, *chain_x.shape],
+                  'P2': [tvr.STEPS, tvr.BC_TB, tvr.BC_TC, tvr.BC_DP]}
         for k, t in times.items():
-            emit('time', kernel=k, shape=[TIME_B, TIME_C], ms=t,
-                 this_over_other=sum(t['this']) / sum(t['other']))
-    use('this')
-    return 0 if all(equal[k] for k in calls if k not in GATED) \
+            emit('time', kernel=k, shape=shapes.get(k, [TIME_B, TIME_C]),
+                 ms=t, this_over_other=sum(t['this']) / sum(t['other']))
+        use('this')
+        ms_64 = cuda_ms(k1q_64, reps=20)
+        emit('time', kernel='K1q', block_rows=64, shape=[TIME_B, TIME_C],
+             ms=ms_64, over_this_128=ms_64 / (sum(times['K1q']['this']) / 2))
+    return 0 if all(v for k, v in equal.items() if k not in GATED) \
         and all(g['held'] for g in held.values()) else 1
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time goes inside the kernels on the wgmma chains (K1 concat,
-K2 exact and K3 factored gated, their int8 modes K2q and K3q, K4 stream
-and K5 gram attention, K6 the token-0 screen), phase by phase, and what
-the attention kernels' grid order costs, on one CUDA card.
+K2 exact and K3 factored gated, their int8 modes K1q (in blocks of 128
+and of 64 rows), K2q and K3q, K4 stream and K5 gram attention, K6 the
+token-0 screen), phase by phase, and what the attention kernels' grid
+order costs, on one CUDA card.
 
     python3 scripts/torch_phase_profile.py [OTHER_CHECKOUT]
 
@@ -17,7 +18,7 @@ Builds altered copies of ``ops/csrc/pairwise_mlp.cu`` (K1),
   kernel functions it calls (K1: the user rows, the assembly, the chain;
   K2 and K3: the user rows, the gates (K2) or coefficients (K3), the
   assembly, the chain, the copy with one more barrier before the gates or
-  coefficients; K2q and K3q the same phases of the same copy, their
+  coefficients; K1q, K2q and K3q the same phases of the same copy, their
   assembly ending in its quantize to codes and their chain the s8 one,
   which quantizes every later layer's input; K4 and K6: the user rows,
   logits, softmax, assembly,
@@ -34,14 +35,14 @@ headers and called through this checkout's wrappers as
 ``scripts/torch_parent_compare.py`` calls them, so that the shares before
 and after a change print side by side. The copies replace the built
 kernels in this process only. Each kernel scores the flagship block (256
-users x 8,192 items; K1 on seeded rows of h1 512, K2 and K3 on seeded
-gated rows of h1 512 and M = 6, the others d 64, 4 heads, Mi 5; the chain
-[512, 256, 128], relu, sigmoid, random weights from a seed). Prints one JSON line per checkout
-and kernel: the mean SM cycles per block of each phase and its share, the
-kernel's time by CUDA events as built and with the counters (and, for this
-checkout, with the other grid order, and whether it gives the same scores
-bit for bit); beside the card's ``nvidia-smi`` name and power limit. Exits
-2 without a CUDA device.
+users x 8,192 items; K1 and K1q on seeded rows of h1 512, K2 and K3 on
+seeded gated rows of h1 512 and M = 6, the others d 64, 4 heads, Mi 5;
+the chain [512, 256, 128], relu, sigmoid, random weights from a seed).
+Prints one JSON line per checkout and kernel: the mean SM cycles per block
+of each phase and its share, the kernel's time by CUDA events as built and
+with the counters (and, for this checkout, with the other grid order, and
+whether it gives the same scores bit for bit); beside the card's
+``nvidia-smi`` name and power limit. Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -73,8 +74,11 @@ from scripts.torch_parent_compare import (  # noqa: E402
 )
 
 B, C = 256, 8192
-# (kernel, source, kernel function): the int8 modes share their source
+# (kernel, source, kernel function): the int8 modes share their source;
+# K1q@64 is K1q in a forced block of 64 rows
 KERNELS = (('K1', 'pairwise_mlp', 'pairwise_mlp_kernel'),
+           ('K1q', 'pairwise_mlp', 'pairwise_mlp_kernel'),
+           ('K1q@64', 'pairwise_mlp', 'pairwise_mlp_kernel'),
            ('K2', 'gated_pairwise_mlp', 'gated_pairwise_kernel'),
            ('K3', 'gated_factored_mlp', 'gated_factored_kernel'),
            ('K2q', 'gated_pairwise_mlp', 'gated_pairwise_kernel'),
@@ -213,7 +217,11 @@ def main() -> int:
     exact, factored = random_gated_rows(gated, B, C, gen, dev)
     _, qgated = int8_head((512, 256, 128), 'relu', 'sigmoid', gen, dev,
                           n_item_mods=5)
+    _, qpair = int8_head((512, 256, 128), 'relu', 'sigmoid', gen, dev)
     calls = {'K1': lambda: tpm.pairwise_scores(pair, uf, itf),
+             'K1q': lambda: tpm.pairwise_scores(qpair, uf, itf),
+             'K1q@64': lambda: tpm.pairwise_scores(qpair, uf, itf,
+                                                   _block_rows=64),
              'K2': lambda: tpm.pairwise_scores_gated(gated, *exact),
              'K3': lambda: tpm.pairwise_scores_gated_factored(gated,
                                                              *factored),
@@ -228,11 +236,12 @@ def main() -> int:
     if len(sys.argv) > 1:
         checkouts.insert(0, ('other', Path(sys.argv[1]) / 'pixelrec_'
                              'multimodal_tpu_torch' / 'ops' / 'csrc'))
-    blocks = -(-B // 8) * -(-C // 16)
     built = {}  # (checkout, source): the phases copy and its phase names
     for tag, csrc in checkouts:
         for kid, name, kernel in KERNELS:
             call = calls[kid]
+            tile_users = 4 if kid.endswith('@64') else 8  # a block's
+            blocks = -(-B // tile_users) * -(-C // 16)
             line = {'what': 'phases', 'checkout': tag, 'kernel': kid,
                     'nvidia_smi': smi, 'B': B, 'C': C, 'blocks': blocks}
             with torch.no_grad():

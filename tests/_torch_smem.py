@@ -88,7 +88,7 @@ def wgmma_chain_smem_bytes(widths: Sequence[int], rows: int,
 
 def wgmma_int8_layout(widths: Sequence[int], rows: int) -> Tuple[int, ...]:
     """The s8 wgmma chain's buffers and ring (``mlp_chain_wgmma_int8.cuh``:
-    K2q and K3q) for a block of 128 or 64 rows, as ``wgmma_layout`` with
+    K1q, K2q and K3q) for a block of 128 or 64 rows, as ``wgmma_layout`` with
     widths in bytes, one byte a code: (bytes of a row of buffer A, of
     buffer B, ring stages, bytes a stage). Each buffer is as wide as the
     widest it holds, rounded up to 128 bytes (a swizzle atom); the last
@@ -164,12 +164,11 @@ def attention_smem_bytes(name: str, widths: Sequence[int], rows: int,
 def pair_chain_kind(name: str, widths: Sequence[int], rows: int,
                     int8: bool) -> str:
     """The chain a pair kernel's block runs, by hand: the bf16 modes of K1,
-    K2 and K3 the wgmma chain, and the int8 modes of K2 and K3 (K2q, K3q)
-    the s8 wgmma chain, at 128 rows and at 64 where that block (buffers,
-    at least two k slices' stages, the kernel's own scratch over the ring)
-    fits, the mode's mma.sync chain otherwise; K1q mma.sync at every row
-    count."""
-    if rows < 64 or (int8 and name == 'pairwise_mlp'):
+    K2 and K3 the wgmma chain, and their int8 modes (K1q, K2q, K3q) the s8
+    wgmma chain, at 128 rows and at 64 where that block (buffers, at least
+    two k slices' stages, the kernel's own scratch over the ring) fits, the
+    mode's mma.sync chain otherwise."""
+    if rows < 64:
         return 'mma.sync'
     count = wgmma_int8_chain_smem_bytes if int8 else wgmma_chain_smem_bytes
     need = count(widths, rows, pair_scratch_bytes(name, widths[0], rows))

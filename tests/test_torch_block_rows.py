@@ -51,12 +51,12 @@ def attention_head(d, heads, widths):
 # (128 rows; 64 where it fits): the swizzled buffers (a layer whose output
 # fits one group of 32,768 / rows columns writes over its input), then 16
 # KB ring stages up to 8, at least 4 at 128 rows and 8 at 64, and 64 B of
-# barriers. int8 on the mma.sync chain (K1q everywhere; K2q and K3q at 32
-# and 16 rows, and at 64 where the s8 block does not fit): rows x (max even
-# + 16 + max odd + 16) B, the last hidden layer's row being its partial
-# sums (4 B x 256 / rows column groups x 128-column passes, padded to 32, +
-# 16), then the 30,720 B ring (3 x 128 x 80) or the scratch. int8 on the
-# s8 wgmma chain (K2q and K3q at 128 rows; 64 where it fits): the wgmma
+# barriers. int8 on the mma.sync chain (K1q, K2q and K3q at 32 and 16
+# rows, and at 64 where the s8 block does not fit): rows x (max even + 16
+# + max odd + 16) B, the last hidden layer's row being its partial sums (4
+# B x 256 / rows column groups x 128-column passes, padded to 32, + 16),
+# then the 30,720 B ring (3 x 128 x 80) or the scratch. int8 on the s8
+# wgmma chain (K1q, K2q and K3q at 128 rows; 64 where it fits): the wgmma
 # layout in bytes, buffers rounded up to 128 B a row, 16 KB stages.
 @pytest.mark.parametrize('kernel, widths, int8, rows, nbytes', [
     # the flagship on the wgmma chain: every layer (256 and 128 wide) fits
@@ -70,11 +70,11 @@ def attention_head(d, heads, widths):
     ('K1', (512, 256, 128), False, 128, 229440),
     ('K2', (512, 256, 128), False, 128, 229440),
     ('K3', (512, 256, 128), False, 128, 229440),
-    # its int8 modes: K1q on mma.sync, 128 x (528 + 272) + 30,720; K2q
-    # and K3q on the s8 wgmma chain, one buffer of 128 x 512 B = 65,536
-    # that every layer writes over, then the eight 16 KB stages that fit
-    # and the barriers, 131,136 (their scratch within)
-    ('K1', (512, 256, 128), True, 128, 133120),
+    # its int8 modes on the s8 wgmma chain, one buffer of 128 x 512 B =
+    # 65,536 that every layer writes over, then the eight 16 KB stages that
+    # fit and the barriers, 131,136 (each kernel's scratch within; K1q on
+    # mma.sync took 128 x (528 + 272) + 30,720 = 133,120)
+    ('K1', (512, 256, 128), True, 128, 196672),
     ('K2', (512, 256, 128), True, 128, 196672),
     ('K3', (512, 256, 128), True, 128, 196672),
     # [1024, 512, 256]: 128 rows would take 128 x (1,032 + 520) x 2 + 26,112
@@ -86,12 +86,13 @@ def attention_head(d, heads, widths):
     ('K1', (1024, 512, 256), False, 64, 224768),
     ('K2', (1024, 512, 256), False, 64, 224768),
     ('K3', (1024, 512, 256), False, 64, 224768),
-    # int8: 128 x (1,040 + 528) + 30,720 = 231,424 fits K1q. K2q and K3q:
-    # their 128-row s8 block needs 128 x (1,024 + 512) + 4 x 16,384 + 64 =
-    # 262,208; at 64 rows a group is 512 columns, every layer writes over
-    # its input, 64 x 1,024 + 8 x 16,384 + 64 = 196,672 (on mma.sync their
-    # 64-row block took 64 x 1,568 + 30,720 = 131,072)
-    ('K1', (1024, 512, 256), True, 128, 231424),
+    # int8: the 128-row s8 block of K1q, K2q and K3q needs 128 x (1,024 +
+    # 512) + 4 x 16,384 + 64 = 262,208; at 64 rows a group is 512 columns,
+    # every layer writes over its input, 64 x 1,024 + 8 x 16,384 + 64 =
+    # 196,672 (K1q's 128-row mma.sync block took 128 x (1,040 + 528) +
+    # 30,720 = 231,424; K2q's and K3q's 64-row one 64 x 1,568 + 30,720 =
+    # 131,072)
+    ('K1', (1024, 512, 256), True, 64, 196672),
     ('K2', (1024, 512, 256), True, 64, 196672),
     ('K3', (1024, 512, 256), True, 64, 196672),
     # h1 2048: 32 x (2,056 + 520) x 2 + 26,112 = 190,976; int8 64 x (2,064 +
@@ -119,42 +120,33 @@ def test_pair_block_rows(hand_count, kernel, widths, int8, rows, nbytes):
 
 
 # (chain widths from h1 on, int8, the chain of each of the four blocks by
-# hand, per kernel where they differ): the bf16 modes of K1, K2 and K3 run
-# the wgmma chain at 128 rows and at 64 where that block fits, in one fixed
-# order by fit (128 wgmma, 64 wgmma, 64 mma.sync, 32, 16), and so do the
-# int8 modes K2q and K3q on the s8 wgmma chain; K1q runs mma.sync at every
-# row count. Each kernel's scratch lies within the ring, so K1, K2 and K3
-# choose alike in the bf16 mode.
+# hand): the bf16 modes of K1, K2 and K3 run the wgmma chain at 128 rows
+# and at 64 where that block fits, in one fixed order by fit (128 wgmma, 64
+# wgmma, 64 mma.sync, 32, 16), and so do the int8 modes K1q, K2q and K3q
+# on the s8 wgmma chain. Each kernel's scratch lies within the ring, so K1,
+# K2 and K3 choose alike in either mode.
 @pytest.mark.parametrize('name', ['pairwise_mlp', 'gated_pairwise_mlp',
                                   'gated_factored_mlp'])
 @pytest.mark.parametrize('widths, int8, chains', [
     ((512, 256, 128), False, ('wgmma', 'wgmma', 'mma.sync', 'mma.sync')),
     ((1024, 512, 256), False, ('wgmma', 'mma.sync', 'mma.sync',
                                'mma.sync')),
-    ((512, 256, 128), True, {
-        'pairwise_mlp': ('mma.sync',) * 4,
-        'gated_pairwise_mlp': ('wgmma', 'wgmma', 'mma.sync', 'mma.sync'),
-        'gated_factored_mlp': ('wgmma', 'wgmma', 'mma.sync', 'mma.sync')}),
-    ((1024, 512, 256), True, {
-        'pairwise_mlp': ('mma.sync',) * 4,
-        'gated_pairwise_mlp': ('wgmma', 'wgmma', 'mma.sync', 'mma.sync'),
-        'gated_factored_mlp': ('wgmma', 'wgmma', 'mma.sync', 'mma.sync')}),
+    ((512, 256, 128), True, ('wgmma', 'wgmma', 'mma.sync', 'mma.sync')),
+    ((1024, 512, 256), True, ('wgmma', 'wgmma', 'mma.sync', 'mma.sync')),
 ])
 def test_k1_chain_by_fit(hand_count, widths, int8, chains, name):
     """The chain the block of K1, K2 or K3 runs on each row count, by hand;
     the flagship fits the 128-row wgmma block and the wide chain [1024,
     512, 256] takes 64 rows on mma.sync (its 64-row wgmma block does not
     fit), so its block rows stay those of the mma.sync chain. In the int8
-    mode K2q and K3q take 128 rows on the s8 wgmma chain at the flagship
-    (196,672 B) and 64 on it on the wide chain (the same bytes: a group of
-    512 columns at 64 rows, every layer in place)."""
-    if isinstance(chains, dict):
-        chains = chains[name]
+    mode K1q, K2q and K3q take 128 rows on the s8 wgmma chain at the
+    flagship (196,672 B) and 64 on it on the wide chain (the same bytes: a
+    group of 512 columns at 64 rows, every layer in place)."""
     got = tuple(hand.pair_chain_kind(name, widths, rows, int8)
                 for rows in tpm.BLOCK_ROWS)
     assert got == chains
     rows = tpm.block_rows(name, widths, (int(int8),))
-    if int8 and name != 'pairwise_mlp':
+    if int8:
         assert rows == (128 if widths[0] == 512 else 64)
         assert hand.block_bytes(name, widths, rows, (1,)) \
             == hand.wgmma_int8_chain_smem_bytes(widths, rows) == 196672
@@ -169,6 +161,25 @@ def test_k1_chain_by_fit(hand_count, widths, int8, chains, name):
         assert rows == 128 and hand.block_bytes(
             name, widths, 64, (0,)) == hand.wgmma_chain_smem_bytes(
                 widths, 64) == 196672
+
+
+@pytest.mark.parametrize('kernel', ['K1', 'K2', 'K3'])
+def test_int8_wide_head_passes_over_the_128_row_s8_block(hand_count, kernel):
+    """On the wide chain [1024, 512, 256] the int8 modes' 128-row s8 wgmma
+    block needs 128 x (1,024 + 512) B of code buffers and four 16 KB stages
+    with their barriers, 262,208 B, past the 232,448 B a block may take:
+    ``block_rows`` passes it over for the 64-row s8 block (196,672 B), as
+    the launch would refuse it; K1q's 128-row mma.sync block (231,424 B)
+    is never chosen, the fit's order being 128 and 64 on the s8 chain
+    first."""
+    name, widths, mode = NAME[kernel], (1024, 512, 256), (1,)
+    assert hand.pair_chain_kind(name, widths, 128, True) == 'wgmma'
+    assert hand_count(name, widths, 128, mode) == 262208 > tpm.SMEM_OPTIN
+    assert hand.pair_chain_kind(name, widths, 64, True) == 'wgmma'
+    assert hand_count(name, widths, 64, mode) == 196672
+    assert tpm.block_rows(name, widths, mode) == 64
+    with pytest.raises(ValueError, match='_block_rows'):
+        tpm.launch_rows(name, {'widths': list(widths)}, mode, 128)
 
 
 @pytest.mark.parametrize('int8', [False, True])

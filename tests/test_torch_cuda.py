@@ -2,8 +2,9 @@
 and their int8 modes K1q, K2q, K3q; K4 stream attention, K5 gram
 attention, K6 the attention cascade's token-0 screen), their blocks of
 fewer pair rows for wide heads, the two chains (wgmma for the bf16 modes
-of K1, K2 and K3, and K4, K5 and K6, at 128 and 64 rows where the block
-fits, mma.sync everywhere else), the probes P1-P3, and its scorer,
+of K1, K2 and K3, and K4, K5 and K6, and its s8 form for K1q, K2q and K3q,
+at 128 and 64 rows where the block fits, mma.sync everywhere else), the
+probes P1-P3 (P3 on the wgmma chains), and its scorer,
 int8 and the attention cascade included, on a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -866,11 +867,14 @@ def test_pair_kernels_at_wide_chains(dev, kid, h1, int8, exact):
     chain = tpm.kernel_chain(head)
     full, mode = tuple(int(w) for w in chain['widths']), (int(int8),)
     rows = tpm.block_rows(name, full, mode)
-    assert rows < 128 or (int8 and kid == 'K1' and h1 == 1024)
+    assert rows < 128
     assert tpm.block_bytes(name, full, rows, mode) \
         == hand.block_bytes(name, full, rows, mode)
     assert tpm.chain_kind(name, rows, full, mode) \
         == hand.pair_chain_kind(name, full, rows, int8)
+    if int8 and h1 == 1024:  # K1q, K2q, K3q: 64 rows on the s8 chain
+        assert rows == 64 and tpm.chain_kind(name, 64, full, mode) == 'wgmma'
+        assert tpm.block_bytes(name, full, 128, mode) == 262208
     out = kernel(head, *args)
     torch.cuda.synchronize()
     ref = plain(head, *args, compute_dtype=torch.bfloat16)
@@ -943,9 +947,9 @@ def test_kernels_report_their_chain(dev, name):
     and the mma.sync chain in blocks of 32 and 16, as their libraries
     report it (``<name>_chain_kind``). K1, K2 and K3 choose by fit
     (``<name>_block_chain_kind``): their 64-row block on the wide chain
-    [1024, 512, 256] runs mma.sync; K1q runs mma.sync at every row count,
-    and K2q and K3q the s8 wgmma chain at 128 rows and at 64 (it fits
-    both chains), as the hand count says."""
+    [1024, 512, 256] runs mma.sync; K1q, K2q and K3q run the s8 wgmma
+    chain at 128 rows and at 64 (it fits both chains), as the hand count
+    says."""
     assert [tpm.chain_kind(name, rows) for rows in tpm.BLOCK_ROWS] == [
         'wgmma', 'wgmma', 'mma.sync', 'mma.sync']
     with pytest.raises(ValueError, match='no chain'):
@@ -960,8 +964,7 @@ def test_kernels_report_their_chain(dev, name):
             assert got == [hand.pair_chain_kind(name, widths, rows, int8)
                            for rows in tpm.BLOCK_ROWS], (widths, int8)
             if int8:
-                assert got == (['mma.sync'] * 4 if name == 'pairwise_mlp'
-                               else ['wgmma'] * 2 + ['mma.sync'] * 2)
+                assert got == ['wgmma'] * 2 + ['mma.sync'] * 2
             for rows in tpm.BLOCK_ROWS:
                 assert tpm.block_bytes(name, widths, rows, (int8,)) \
                     == hand.block_bytes(name, widths, rows, (int8,))
@@ -1144,18 +1147,20 @@ def int8_pair_call(kid, widths, dev, activation='gelu', final='sigmoid',
             pair_args(head, base, B, C, dev))
 
 
-@pytest.mark.parametrize('activation', ['relu', 'gelu', 'silu'])
-@pytest.mark.parametrize('kid', ['K2q', 'K3q'])
-def test_int8_gated_blocks_on_the_s8_chain(dev, kid, activation):
-    """K2q and K3q at the flagship chain [512, 256, 128] run the s8 wgmma
-    chain in their 128-row block (196,672 B, as the hand count says) and
-    in a forced 64-row block: the int32 sums are exact and the last dot
-    keeps the 128-row float32 order, so the 64 rows give the 128 rows'
-    scores bit for bit. The 32- and 16-row blocks on the mma.sync chain
-    agree within 1e-6 of the score's scale; every block against the
-    plain int8 version under the gates."""
+INT8_NAME = {'K1q': 'pairwise_mlp', 'K2q': 'gated_pairwise_mlp',
+             'K3q': 'gated_factored_mlp'}
+
+
+def check_int8_blocks_on_the_s8_chain(kid, activation, dev):
+    """``kid`` at the flagship chain [512, 256, 128] runs the s8 wgmma
+    chain in its 128-row block (196,672 B, as the hand count says) and in
+    a forced 64-row block: the int32 sums are exact and the last dot keeps
+    the 128-row float32 order, so the 64 rows give the 128 rows' scores
+    bit for bit. The 32- and 16-row blocks on the mma.sync chain agree
+    within 1e-6 of the score's scale; every block against the plain int8
+    version under the gates."""
     head, args = int8_pair_call(kid, (512, 256, 128), dev, activation)
-    name = {'K2q': 'gated_pairwise_mlp', 'K3q': 'gated_factored_mlp'}[kid]
+    name = INT8_NAME[kid]
     widths = tpm.chain_widths(head)
     assert tpm.block_rows(name, widths, (1,)) == 128
     assert [tpm.chain_kind(name, rows, widths, (1,))
@@ -1178,9 +1183,25 @@ def test_int8_gated_blocks_on_the_s8_chain(dev, kid, activation):
                  2 * MAX_DIFFERING_PER_LAYER)
 
 
+@pytest.mark.parametrize('activation', ['relu', 'gelu', 'silu'])
 @pytest.mark.parametrize('kid', ['K2q', 'K3q'])
+def test_int8_gated_blocks_on_the_s8_chain(dev, kid, activation):
+    """K2q and K3q on the s8 wgmma chain at 128 and 64 rows
+    (``check_int8_blocks_on_the_s8_chain``)."""
+    check_int8_blocks_on_the_s8_chain(kid, activation, dev)
+
+
+@pytest.mark.parametrize('activation', list(tpm.ACTIVATIONS))
+def test_int8_concat_blocks_on_the_s8_chain(dev, activation):
+    """K1q on the s8 wgmma chain at 128 and 64 rows, bit for bit between
+    them, its smaller blocks within 1e-6 of the scale, every activation
+    (``check_int8_blocks_on_the_s8_chain``)."""
+    check_int8_blocks_on_the_s8_chain('K1q', activation, dev)
+
+
+@pytest.mark.parametrize('kid', ['K1q', 'K2q', 'K3q'])
 def test_int8_never_launches_packed_weights_of_another_chain(dev, kid):
-    """A K2q or K3q chain dict that carries another int8 chain's packed
+    """A K1q, K2q or K3q chain dict that carries another int8 chain's packed
     weights (copied with it, then given its own weights) does not launch
     them: the scores are those of its own weights, bit for bit, and the
     packed weights in the dict after the launch are its own; packed bf16
@@ -1299,7 +1320,7 @@ def test_attention_assembly_at_d512_is_exact(dev, kid, heads):
 WIDE_SCORERS = [('concatenate', None, 'bf16', 64),
                 ('gated', 'exact', 'bf16', 64),
                 ('gated', 'factored', 'bf16', 64),
-                ('concatenate', None, 'int8!', 128),
+                ('concatenate', None, 'int8!', 64),
                 ('gated', 'exact', 'int8!', 64),
                 ('gated', 'factored', 'int8!', 64),
                 ('attention', None, 'bf16', 64)]
@@ -1368,3 +1389,35 @@ def test_probes_match_plain(dev):
             assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
         else:
             assert torch.equal(out, ref)
+
+
+# P3's blocks: (mode, block rows, shared memory as the kernel counts it).
+# bf16 takes 64 rows (x 64 KB, h 32 KB, acc 32 KB, six 16 KB stages and 64
+# B of barriers); its 128-row block would need 256 KB before the ring.
+# int8 takes 128 rows (x 64 KB, h 32 KB, acc 64 KB, four stages), and 64
+# rows where forced (80 KB, eight stages).
+P3_BLOCKS = [('bf16', 64, 229440), ('int8_raw', 128, 229440),
+             ('int8_raw', 64, 213056), ('int8_rescale', 128, 229440),
+             ('int8_rescale', 64, 213056)]
+
+
+@pytest.mark.parametrize('mode, rows, nbytes', P3_BLOCKS)
+def test_p3_wgmma_blocks_match_plain(dev, mode, rows, nbytes):
+    """P3 on the wgmma chains at 1,000 rows (not a multiple of either
+    block: the last block's rows past R load zeros and write nothing), two
+    instances, against ``chain_plain``: the int8 modes bit for bit, bf16
+    within 2e-2 of the scale; the block chosen by fit and its bytes."""
+    assert tmx.block_rows(mode) == (64 if mode == 'bf16' else 128)
+    assert tmx.block_bytes(mode, rows) == nbytes
+    assert tmx.block_bytes('bf16', 128) < 0
+    t = tmx.inputs(mode, dev, rows=1000, seed=6)
+    before = tmx.mxu_chain.launches
+    out = tmx.mxu_chain(*t, mode, instances=2, _block_rows=rows)
+    torch.cuda.synchronize()
+    assert tmx.mxu_chain.launches == before + 1
+    ref = tmx.chain_plain(*t, mode)
+    assert out.shape == (1000, tmx.H3) and torch.isfinite(out).all()
+    if mode == 'bf16':
+        assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
+    else:
+        assert torch.equal(out, ref)

@@ -359,6 +359,7 @@ def test_precision_gate(monkeypatch, capsys):
     rho = tpm.int8_chain_flops_per_lane(small_scorer()._head)
     assert rho == 2 * 128 * 128 / 128  # one hidden layer, 128 -> 128
     monkeypatch.setattr(tsc, 'INT8_MIN_CHAIN_FLOPS_PER_LANE', rho + 1)
+    monkeypatch.setattr(tsc, 'INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT', rho + 1)
     below = small_scorer(precision='int8')
     err = capsys.readouterr().err
     assert 'flip point' in err and 'PERF.md' in err and 'int8!' in err
@@ -378,14 +379,13 @@ def test_precision_gate(monkeypatch, capsys):
 def test_precision_gate_by_fusion(monkeypatch, capsys):
     """A concatenate head passes the gate at its own flip point
     (``INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT``), a gated head at the gated
-    one; each is independent of the other. Since K2q and K3q run the s8
-    wgmma chain, the H100 measured the gated int8 modes the faster on
-    every chain (from 64, the least ratio of any head), while K1q, on the
-    mma.sync s8 chain, is the faster only on chains deeper than the
-    flagship's."""
+    one; each is independent of the other. Since K1q, K2q and K3q run the
+    s8 wgmma chain, the H100 measured every int8 mode the faster on every
+    chain (from 64, the least ratio of any head), the flagship's
+    included."""
     flagship = 2 * (512 * 256 + 256 * 128) / 512  # chain [512, 256, 128]
-    assert tpm.INT8_MIN_CHAIN_FLOPS_PER_LANE <= 64 < flagship \
-        < tpm.INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT
+    assert tpm.INT8_MIN_CHAIN_FLOPS_PER_LANE <= 64 < flagship
+    assert tpm.INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT <= flagship
     rho = tpm.int8_chain_flops_per_lane(small_scorer()._head)
     monkeypatch.setattr(tsc, 'INT8_MIN_CHAIN_FLOPS_PER_LANE', rho)
     monkeypatch.setattr(tsc, 'INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT', rho + 1)
@@ -405,16 +405,17 @@ def test_precision_gate_by_fusion(monkeypatch, capsys):
 def test_precision_gate_routes_the_flagship_heads(capsys):
     """With the constants as the code has them, precision='int8' at the
     flagship widths [512, 256, 128] (640 hidden-chain operations per lane)
-    quantizes a gated head, whose int8 kernels the H100 measured the faster
-    from 64, and serves a concatenate head in bf16, below its 2,560."""
+    quantizes a gated head and a concatenate head, whose int8 kernels the
+    H100 measured the faster from 64, with no warning."""
     gated = small_scorer('gated', hidden=(512, 256, 128), precision='int8')
     assert tpm.int8_chain_flops_per_lane(gated._head) == 640
     assert gated.precision == 'int8' and gated._head['kernel']['int8']
     assert capsys.readouterr().err == ''
     concat = small_scorer(hidden=(512, 256, 128), precision='int8')
     assert tpm.int8_chain_flops_per_lane(concat._head) == 640
-    assert concat.precision == 'bf16' and 'qlayers' not in concat._head
-    assert 'flip point' in capsys.readouterr().err
+    assert concat.precision == 'int8' and concat._head['kernel']['int8']
+    assert concat._head['qlayers']
+    assert capsys.readouterr().err == ''
 
 
 def test_precision_refusals():
@@ -610,5 +611,29 @@ def test_int8_wgmma_weights_of_a_quantized_gated_head():
     for got, q in zip(layers, tq['qlayers']):
         k, n = q['wq'].shape
         np.testing.assert_array_equal(got[:n, :k], q['wq'].t().numpy())
+        assert not got[n:].any() and not got[:, k:].any()
+    assert tpm.wgmma_weights(tpm.kernel_chain(th)).dtype == torch.bfloat16
+
+
+def test_int8_wgmma_weights_of_a_quantized_concat_head():
+    """A quantized concat head's int8 chain (K1q's, which runs the s8 wgmma
+    chain at 128 and 64 rows) packs its ``qlayers``' wq as the layout
+    says, ``wq`` JAX's bit for bit; the bf16 chain's packing of the same
+    head is another (it is not reused for the int8 mode)."""
+    jh, th = heads('concatenate', 'gelu', 'sigmoid')
+    jrows, _ = concat_rows(jh['b1'].shape[0])
+    jq, tq = quantized(jh, th, jrows)
+    chain = tq['kernel']
+    widths = [int(w) for w in chain['widths']]
+    assert widths == [th['b1'].shape[0]] + [q['wq'].shape[1]
+                                            for q in tq['qlayers']]
+    packed = tpm.wgmma_weights(chain)
+    assert packed.dtype == torch.int8 and chain['w_wgmma'] is packed
+    layers, seen, size = _unswizzled_int8(packed.numpy(), widths)
+    assert packed.numel() == size
+    assert np.array_equal(np.sort(seen), np.arange(size))
+    for got, q, jqq in zip(layers, tq['qlayers'], jq['qlayers']):
+        k, n = q['wq'].shape
+        np.testing.assert_array_equal(got[:n, :k], np.asarray(jqq['wq']).T)
         assert not got[n:].any() and not got[:, k:].any()
     assert tpm.wgmma_weights(tpm.kernel_chain(th)).dtype == torch.bfloat16

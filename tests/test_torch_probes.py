@@ -118,6 +118,50 @@ def test_mxu_plain_matches_pallas(mode, monkeypatch):
         np.testing.assert_array_equal(out, ref)
 
 
+def hand_packed(ws, ks, chunk):
+    """The wgmma packing of the layers ``ws`` (numpy [K, N] each) by hand:
+    W^T zero-padded to [N64, K rounded to ks], tile (k slice of ks, column
+    group of 64) at (k // ks * N64 / 64 + n // 64) * 64 * ks past the
+    layer's offset, row n of a tile ks elements (128 bytes) whose chunks of
+    ``chunk`` elements are swizzled by n % 8."""
+    parts = []
+    for w in ws:
+        k, n = w.shape
+        kp, n64 = -(-k // ks) * ks, -(-n // 64) * 64
+        layer = np.zeros(kp * n64, w.dtype)
+        kk, nn = np.meshgrid(np.arange(k), np.arange(n), indexing='ij')
+        idx = (((kk // ks) * (n64 // 64) + nn // 64) * 64 * ks
+               + (nn % 64) * ks + (((kk % ks) // chunk) ^ (nn % 8)) * chunk
+               + kk % chunk)
+        layer[idx] = w
+        parts.append(layer)
+    return np.concatenate(parts)
+
+
+# P3's weights reach the kernel packed as the pair kernels' wgmma chains
+# read theirs: bf16 in 64 x 64 tiles of 8-element chunks, int8 (each layer
+# transposed, as an int8 chain keeps it) in 64 x 128 tiles of 16-code
+# chunks; held at small widths (w1 [K, N1] with K past one k slice, N1 and
+# N2 not multiples of 128) against the hand packing.
+@pytest.mark.parametrize('mode', tmx.MODES)
+def test_mxu_weights_are_packed_as_the_chains(mode):
+    rng = np.random.default_rng(4)
+    shapes = ((192, 96), (96, 64)) if mode == 'bf16' else ((256, 96),
+                                                          (96, 64))
+    if mode == 'bf16':
+        ws = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              .to(torch.bfloat16) for s in shapes]
+        expect = hand_packed([w.float().numpy() for w in ws], 64, 8)
+        got = tmx.pack_weights(*ws, mode).float().numpy()
+    else:
+        ws = [torch.from_numpy(rng.integers(-127, 127, s).astype(np.int8))
+              for s in shapes]
+        expect = hand_packed([w.numpy() for w in ws], 128, 16)
+        got = tmx.pack_weights(*ws, mode).numpy()
+    assert got.shape == expect.shape
+    np.testing.assert_array_equal(got, expect)
+
+
 def test_probes_refuse_what_they_do_not_take():
     """Other devices, types and shapes raise; nothing falls back or counts
     a launch."""
