@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from ``pixelrec_multimodal_tpu_torch/ops/
 csrc`` and its probes from ``pixelrec_multimodal_tpu_torch/probes/csrc``
 into ``build/kernels/``, runs the probes (P1: the FFMA and expf rates; P2:
-K4's weighted-sum pattern; P3: the pair kernels' bf16 and int8 product
+the broadcast multiply-accumulate, fused and in K4's unfused pattern; P3: the pair kernels' bf16 and int8 product
 loop; beside the library's square bf16 and int8 products) against their
 plain versions and measures the card's peaks, which every kernel's bound
 then divides by, holds each kernel against its plain PyTorch
@@ -136,15 +136,43 @@ INT8_CUT_WIDTH = 32
 # The probes against their plain versions: P1's FMA rounds once where the
 # plain a*x + 1 rounds twice and its exp is the card's expf against
 # torch.exp, each an ulp or so per step of a contracting chain: 1e-5 of the
-# value's scale; P2 rounds where its plain version does: 1e-6; P3's int8
-# modes multiply exactly on both sides and round once per step: equal; its
-# bf16 mode sums in another order than the plain float32 products, which
-# moves a bf16 rounding of h or of the fold now and then: 2e-2 of the
-# output's scale.
-PROBE_TOL = {'P1': 1e-5, 'P2': 1e-6, 'P3 bf16': 2e-2}
+# value's scale; P2's fused instance likewise rounds each multiply-add once
+# where its plain version rounds the product and the sum (an ulp or so per
+# step; on the CPU, the fused steps emulated in float64 land within 2e-7 of
+# the scale of the plain version's at K 16 to 48): 1e-5 of the value's
+# scale, as P1; P2's unfused instance rounds where its plain version does:
+# equal; P3's int8 modes multiply exactly on both sides and round once per
+# step: equal; its bf16 mode sums in another order than the plain float32
+# products, which moves a bf16 rounding of h or of the fold now and then:
+# 2e-2 of the output's scale.
+PROBE_TOL = {'P1': 1e-5, 'P2': 1e-5, 'P2 unfused': 0.0, 'P3 bf16': 2e-2}
 # Small int8 widths for the kernel checks (multiples of 32, at least one
 # hidden layer).
 INT8_WIDTHS = ((96, 64, 32), (128, 256), (64, 32, 96, 32))
+# The train phase: the JAX package's own frozen training profile
+# (scripts/profile_frozen_roofline.py:40-50, 105-116, 160): the flagship
+# widths over 4,096 users, 65,536 items and 64 tags, MLP [512, 256, 128]
+# with BatchNorm, dropout 0.1, bf16 compute; AdamW at 1e-3, weight decay
+# 0.01, clip 1.0; 16 batches of 32,768 an epoch, features in one packed
+# table on the card, data from SEED. Timed: the median of TRAIN_EPOCHS
+# epochs after a warm-up epoch.
+TRAIN_USERS, TRAIN_BATCH, TRAIN_BATCHES, TRAIN_EPOCHS = 4096, 32768, 16, 3
+TRAIN_LR, TRAIN_WD, TRAIN_CLIP, TRAIN_DROPOUT = 1e-3, 0.01, 1.0, 0.1
+# Then the card against the CPU: TRAIN_CHECK_STEPS steps at batch
+# TRAIN_CHECK_BATCH, float32, dropout 0, TF32 off, from the same weights,
+# once with SGD and once with AdamW (the phase's optimizer). The float32
+# sums run in other orders on the two sides. The losses hold TRAIN_TOL in
+# both. SGD's update is linear in the gradient, so every parameter and
+# BatchNorm statistic holds TRAIN_TOL too. AdamW divides each moment by its
+# own root, and an entry whose moment changes sign between steps turns a
+# rounding difference into an lr-sized one: on the CPU alone, the same 3
+# steps on the same rows in another order (so other summation orders) put
+# 0.0%-1.0% of the entries past 1e-5, at most 2.6e-3 apart (lr 1e-3). An
+# AdamW step moves an entry by at most about lr, so AdamW's entries hold
+# 2 lr a step: TRAIN_ADAM_DRIFT.
+TRAIN_CHECK_BATCH, TRAIN_CHECK_STEPS = 1024, 3
+TRAIN_TOL = 1e-5
+TRAIN_ADAM_DRIFT = 2 * TRAIN_LR * TRAIN_CHECK_STEPS
 # The JAX package's bound for the top-50 agreement of int8 with the
 # unquantized scores (tests/unit/test_pairwise_mlp.py:274-312); printed
 # beside the int8 main paths, not held.
@@ -624,9 +652,11 @@ def probe_checks(dev) -> dict:
              tvr.chain_plain(x, tvr.K_LO, kind), PROBE_TOL['P1'],
              shape=list(x.shape), k=tvr.K_LO)
     w, v = tvr.bcast_inputs(dev, SEED)
-    hold('P2', tvr.vpu_bcast(w, v, tvr.BC_K_HI, steps=3),
-         tvr.bcast_plain(w, v, tvr.BC_K_HI), PROBE_TOL['P2'],
-         shape=[tvr.BC_TB, tvr.BC_TC, tvr.BC_DP], k=tvr.BC_K_HI)
+    ref = tvr.bcast_plain(w, v, tvr.BC_K_HI)
+    for key, fused in (('P2', True), ('P2 unfused', False)):
+        hold(key, tvr.vpu_bcast(w, v, tvr.BC_K_HI, steps=3, fused=fused),
+             ref, PROBE_TOL[key], shape=[tvr.BC_TB, tvr.BC_TC, tvr.BC_DP],
+             k=tvr.BC_K_HI, fused=fused)
     for mode in tmx.MODES:
         t = tmx.inputs(mode, dev, rows=1000, seed=SEED)
         ref = tmx.chain_plain(*t, mode)
@@ -657,6 +687,7 @@ def probe_rates(smi) -> dict:
     with torch.no_grad():
         rates = {'P1': {k: tvr.measure_chain(k) for k in tvr.KINDS},
                  'P2': tvr.measure_bcast(),
+                 'P2_unfused': tvr.measure_bcast(fused=False),
                  'P3': {m: tmx.measure(m) for m in tmx.MODES}}
         rates['P3_block_64'] = {m: tmx.measure(m, block=64)
                                 for m in tmx.MODES
@@ -668,7 +699,8 @@ def probe_rates(smi) -> dict:
     rates['square'] = tmx.measure_square()
     for key in ('P1', 'P2', 'P3'):
         emit(f'probe_{key}', launches=launches[key], nvidia_smi=smi,
-             **({'rates': rates[key]} if key != 'P2' else rates[key]),
+             **({'rates': rates[key]} if key != 'P2' else
+                {**rates[key], 'unfused': rates['P2_unfused']}),
              **({'rates_block_64': rates['P3_block_64']} if key == 'P3'
                 else {}))
     sq = rates['square']
@@ -679,14 +711,20 @@ def probe_rates(smi) -> dict:
                  sq['int_mm_ops_per_s']),
         ffma=rates['P1']['fma']['ffma_per_s'],
         exp=rates['P1']['exp']['exp_per_s'])
+    p2_ffma = rates['P2']['instructions_per_s']
     emit('peaks', measured=PEAKS, datasheet=DATASHEET, square=sq,
+         p2_ffma_per_s=p2_ffma,
          units='bf16, int8: tensor-core operations/s; ffma: FFMA '
-               'instructions/s (two operations each on the data sheet); '
+               'instructions/s (two operations each on the data sheet), '
+               "P1's chain; p2_ffma_per_s: P2's fused multiply-adds/s; "
                'exp: expf calls/s', nvidia_smi=smi)
     for key, limit in DATASHEET.items():
         if PEAKS[key] > limit:
             raise AssertionError(f'measured {key} rate {PEAKS[key]} passes '
                                  f'its data-sheet figure {limit}')
+    if p2_ffma > DATASHEET['ffma']:
+        raise AssertionError(f'P2 measured {p2_ffma} FFMA/s, past the data '
+                             f"sheet's {DATASHEET['ffma']}")
     rates['launches'] = launches
     return rates
 
@@ -694,7 +732,8 @@ def probe_rates(smi) -> dict:
 def probe_lines(rates: dict, errs: dict, dev) -> list:
     """The ``kernels`` entries of P1-P3 at the Pallas scripts' sizes: each
     launch's time and its plain version's on the same work (P1: the FMA
-    chain at K_HI, the exp chain beside it; P2 at BC_K_HI; P3 the bf16 mode,
+    chain at K_HI, the exp chain beside it; P2 fused at BC_K_HI, the
+    unfused instance beside it; P3 the bf16 mode,
     the int8 modes beside it, with the torch.matmul chain of the same work
     as the library's time), the bound of that work at the data sheet's
     rates (P1: an FFMA, or an exp on the special-function units, per
@@ -751,6 +790,8 @@ def probe_lines(rates: dict, errs: dict, dev) -> list:
             'launches': rates['launches']['P2'],
             'max_abs_err': errs['P2'][0], 'tol': errs['P2'][1],
             'ms': rates['P2']['ms'][1], 'plain_ms': p2_plain,
+            'unfused_ms': rates['P2_unfused']['ms'][1],
+            'unfused_max_abs_err': errs['P2 unfused'][0],
             'bound_ms': n_bcast / DATASHEET['ffma'] * 1e3,
             'bound_by': 'operations',
             'bound_ms_measured': n_bcast / PEAKS['ffma'] * 1e3,
@@ -758,8 +799,11 @@ def probe_lines(rates: dict, errs: dict, dev) -> list:
             'library_note': 'no PyTorch call computes the dependent chain',
             'shape': [steps, tvr.BC_TB, tvr.BC_TC, tvr.BC_DP],
             'k': tvr.BC_K_HI,
-            'fp32_instructions_per_s': rates['P2']['fp32_instructions_per_s'],
-            'share_of_ffma_rate': rates['P2']['fp32_instructions_per_s']
+            'entries_per_thread': rates['P2']['entries_per_thread'],
+            'ffma_per_s': rates['P2']['instructions_per_s'],
+            'unfused_instructions_per_s':
+                rates['P2_unfused']['instructions_per_s'],
+            'share_of_ffma_rate': rates['P2']['instructions_per_s']
             / PEAKS['ffma']})
         n_mxu = tmx.flops()
         modes = {}
@@ -1219,6 +1263,179 @@ def wide_main_paths(users, smi, dev):
             del scorer
             torch.cuda.empty_cache()
         del model, store
+
+
+def train_data(gen: torch.Generator, dev, n_items: int = N_ITEMS,
+               n_users: int = TRAIN_USERS, batch: int = TRAIN_BATCH,
+               n_batches: int = TRAIN_BATCHES):
+    """(tables, batches) of the train phase, drawn on ``dev`` from ``gen``
+    (a generator on ``dev``): the item features in one packed table
+    [n_items, 2048 + 384 + 7], and ``n_batches`` stacked batches of (user,
+    item, the item's tag, label, weight)."""
+    key = (f'packed::vision_emb={VISION_DIM}+language_emb={LANG_DIM}'
+           f'+numerical={NUM_FEAT}')
+    tags = torch.randint(0, N_TAGS, (n_items,), generator=gen, device=dev)
+    tables = {key: torch.randn(n_items, VISION_DIM + LANG_DIM + NUM_FEAT,
+                               generator=gen, device=dev)}
+    shape = (n_batches, batch)
+    items = torch.randint(0, n_items, shape, generator=gen, device=dev)
+    batches = {
+        'user_idx': torch.randint(0, n_users, shape, generator=gen,
+                                  device=dev).to(torch.int32),
+        'item_idx': items.to(torch.int32),
+        'tag_idx': tags[items].to(torch.int32),
+        'label': torch.randint(0, 2, shape, generator=gen,
+                               device=dev).to(torch.float32),
+        'weight': torch.ones(shape, device=dev)}
+    return tables, batches
+
+
+def train_model(dev, dtype=torch.bfloat16, dropout: float = TRAIN_DROPOUT,
+                seed: int = SEED, **kw):
+    """The train phase's model: the flagship widths at TRAIN_USERS users,
+    random weights from ``seed``; ``kw`` overrides the widths."""
+    from pixelrec_multimodal_tpu_torch.models.multimodal import (
+        MultimodalRecommender,
+    )
+    args = dict(n_users=TRAIN_USERS, n_items=N_ITEMS, n_tags=N_TAGS,
+                num_numerical_features=NUM_FEAT, embedding_dim=EMB,
+                vision_feature_dim=VISION_DIM, language_feature_dim=LANG_DIM,
+                use_contrastive=False, fusion_hidden_dims=HIDDEN,
+                fusion_type='concatenate', use_batch_norm=True,
+                dropout_rate=dropout)
+    args.update(kw)
+    return MultimodalRecommender(**args, dtype=dtype, device=dev,
+                                 generator=torch.Generator().manual_seed(seed))
+
+
+def train_card_vs_cpu(model, tables: dict, batches: dict, dev) -> dict:
+    """``model`` (float32, on the CPU) and a copy of it on ``dev`` each
+    take the stacked ``batches``' steps, TF32 off, once with SGD and once
+    with AdamW (the train phase's settings, each from ``model``'s
+    weights); returns by optimizer each side's losses and how far the
+    parameters and BatchNorm statistics lie apart, and raises unless the
+    losses hold TRAIN_TOL and the rest TRAIN_TOL (SGD) or TRAIN_ADAM_DRIFT
+    (AdamW)."""
+    import copy
+    from pixelrec_multimodal_tpu_torch.training import (
+        build_optimizer,
+        init_train_state,
+        make_step_fns,
+    )
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for kind, tol in (('sgd', TRAIN_TOL), ('adamw', TRAIN_ADAM_DRIFT)):
+            sides = {'cpu': copy.deepcopy(model),
+                     'card': copy.deepcopy(model).to(dev)}
+            losses = {}
+            for side, m in sides.items():
+                state = init_train_state(m, build_optimizer(
+                    kind, TRAIN_LR, TRAIN_WD, gradient_clip=TRAIN_CLIP))
+                _, _, train_epoch, _ = make_step_fns(
+                    m, {k: v.to(m.device) for k, v in tables.items()},
+                    use_contrastive=False, return_epoch_fns=True)
+                _, metrics = train_epoch(state, batches)
+                losses[side] = metrics['total_loss'].cpu().numpy().tolist()
+            ref = sides['cpu'].state_dict()
+            got = {k: v.cpu() for k, v in sides['card'].state_dict().items()}
+            past = total = 0
+            worst = 0.0
+            for k, r in ref.items():
+                if k.endswith('num_batches_tracked'):
+                    continue
+                d = (r - got[k]).abs()
+                past += int((d > TRAIN_TOL).sum())
+                total += d.numel()
+                worst = max(worst, d.max().item())
+            loss_diff = float(np.abs(np.subtract(losses['card'],
+                                                 losses['cpu'])).max())
+            out[kind] = {
+                'losses_card': losses['card'], 'losses_cpu': losses['cpu'],
+                'loss_max_abs_diff': loss_diff, 'loss_tol': TRAIN_TOL,
+                'param_max_abs_diff': worst, 'param_tol': tol,
+                'entries_past_1e-5': past, 'entries': total}
+            if not (np.isfinite(losses['card']).all()
+                    and loss_diff <= TRAIN_TOL and worst <= tol):
+                raise AssertionError(f'train: the card and the CPU disagree '
+                                     f'({kind}): {out[kind]}')
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    return out
+
+
+def train_phase(smi, dev) -> dict:
+    """The port's frozen train path on the card at the JAX package's
+    training profile geometry (``train_epoch`` over 16 batches of 32,768):
+    samples/s and ms a step over the median of TRAIN_EPOCHS epochs after a
+    warm-up, finite losses, peak device memory, no kernel of the serving
+    path launched; then 3 steps at batch 1,024 against the CPU."""
+    from pixelrec_multimodal_tpu_torch.training import (
+        build_optimizer,
+        init_train_state,
+        make_step_fns,
+    )
+    t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tables, batches = train_data(gen, dev)
+    model = train_model(dev)
+    state = init_train_state(model, build_optimizer(
+        'adamw', TRAIN_LR, TRAIN_WD, gradient_clip=TRAIN_CLIP))
+    _, _, train_epoch, _ = make_step_fns(model, tables,
+                                         use_contrastive=False,
+                                         return_epoch_fns=True)
+    drop = torch.Generator(device=dev).manual_seed(SEED + 1)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    reset_launches()
+    state, metrics = train_epoch(state, batches, drop)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = [], []
+    for _ in range(TRAIN_EPOCHS):
+        t0 = time.time()
+        state, metrics = train_epoch(state, batches, drop)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        losses.append(metrics['total_loss'].cpu().numpy().tolist())
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    median = statistics.median(times)
+    samples = TRAIN_BATCHES * TRAIN_BATCH
+    fields = dict(
+        users=TRAIN_USERS, items=N_ITEMS, batch=TRAIN_BATCH,
+        batches_per_epoch=TRAIN_BATCHES, dropout=TRAIN_DROPOUT,
+        optimizer='adamw', lr=TRAIN_LR, weight_decay=TRAIN_WD,
+        clip=TRAIN_CLIP, setup_seconds=setup_s, epoch_seconds=times,
+        median_epoch_seconds=median, samples_per_sec=samples / median,
+        ms_per_step=median / TRAIN_BATCHES * 1e3, losses=losses,
+        steps_taken=int(state.step), peak_memory_bytes=peak,
+        kernel_launches=counts, nvidia_smi=smi)
+    emit('train', **fields)
+    if not np.isfinite(losses).all() or int(state.step) != \
+            (TRAIN_EPOCHS + 1) * TRAIN_BATCHES:
+        raise AssertionError(f'train: non-finite losses or skipped steps: '
+                             f'{losses}, {int(state.step)} steps')
+    if any(counts.values()):
+        raise AssertionError(f'train: the train path launched serving '
+                             f'kernels: {counts}')
+    del state, model, metrics
+    # the card against the CPU, from the same weights, on the same data
+    check = {k: v[:TRAIN_CHECK_STEPS, :TRAIN_CHECK_BATCH].cpu()
+             for k, v in batches.items()}
+    cpu_tables = {k: v.cpu() for k, v in tables.items()}
+    del tables, batches
+    torch.cuda.empty_cache()
+    out = train_card_vs_cpu(train_model('cpu', torch.float32, 0.0),
+                            cpu_tables, check, dev)
+    emit('train_card_vs_cpu', batch=TRAIN_CHECK_BATCH,
+         steps=TRAIN_CHECK_STEPS, dtype='float32', dropout=0.0, tf32=False,
+         **out, nvidia_smi=smi)
+    return fields
 
 
 def main() -> int:
@@ -1853,6 +2070,11 @@ def main() -> int:
 
     # ---- 18. the wide models that take smaller blocks, at WIDE_USERS users
     wide_main_paths(users[:WIDE_USERS], smi, dev)
+    torch.cuda.empty_cache()
+
+    # ---- 19. the frozen train path at the training profile's geometry,
+    # then against the CPU
+    train_phase(smi, dev)
 
     lines += probe_lines(probe_rate, probe_errs, dev)
     emit('timing', seconds_total=round(time.time() - t_start, 3))

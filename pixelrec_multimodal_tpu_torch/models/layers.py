@@ -2,9 +2,17 @@
 """Layer building blocks of the port's model, in PyTorch.
 
 Counterpart of ``pixelrec_multimodal_tpu/models/layers.py``: the gated
-and attention fusion layers, plus the Flax-style Dense helpers the model's
-modules share. ``CrossModalAttention`` is not ported yet (ROADMAP item A2:
-the recommender does not use it).
+and attention fusion layers, ``CrossModalAttention`` (a library module the
+recommender does not use, as in JAX), dropout, and the Flax-style Dense
+helpers the model's modules share.
+
+Every layer takes ``train`` (Flax's ``train=``, not ``nn.Module.training``:
+the scorer's towers run in eval mode whatever mode the module is in) and a
+``generator`` for its dropout masks. Dropout follows Flax's: a rate of 0
+is the identity, otherwise a kept entry is ``x / keep_prob`` with
+``keep_prob = 1 - rate``. The masks come from torch's generator, so they
+differ from JAX's for the same seed; tests compare at dropout 0 and hold
+the mask rate.
 """
 from __future__ import annotations
 
@@ -14,6 +22,25 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """A bool keep-mask of ``shape``: each entry kept with probability
+    ``1 - rate``, drawn from ``generator`` (torch's default one when
+    None) on ``device``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Flax ``nn.Dropout(rate, deterministic=not train)``: the identity out
+    of training or at rate 0, else ``where(keep, x / keep_prob, 0)``."""
+    if not train or rate == 0.0:
+        return x
+    keep = dropout_mask(x.shape, rate, generator, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
 
 
 def variance_scaling(shape: Tuple[int, int], scale: float, mode: str,
@@ -53,11 +80,41 @@ def apply_dense(layer: nn.Linear, x: torch.Tensor,
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+class CrossModalAttention(nn.Module):
+    """Single-head scaled dot-product attention, vision queries text:
+    pooled (B, D) or token-level (B, T, D) features, the output shaped as
+    the query. A library module: like the JAX package's, the recommender
+    does not use it. The projections carry the Flax names
+    (``query_projection``, ``key_projection``, ``value_projection``) and
+    compute in float32."""
+
+    def __init__(self, vision_dim: int, text_dim: int, dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dim = dim
+        self.query_projection = dense(vision_dim, dim, generator)
+        self.key_projection = dense(text_dim, dim, generator)
+        self.value_projection = dense(text_dim, dim, generator)
+
+    def forward(self, vision_features: torch.Tensor,
+                text_features: torch.Tensor) -> torch.Tensor:
+        q = self.query_projection(vision_features)
+        k = self.key_projection(text_features)
+        v = self.value_projection(text_features)
+        squeeze_out = q.dim() == 2
+        q, k, v = (t[:, None, :] if t.dim() == 2 else t for t in (q, k, v))
+        scores = torch.einsum('bqd,bkd->bqk', q, k) / math.sqrt(self.dim)
+        out = torch.einsum('bqk,bkd->bqd', torch.softmax(scores, dim=-1), v)
+        if squeeze_out and out.shape[1] == 1:
+            out = out[:, 0, :]
+        return out
+
+
 class GatedFusionLayer(nn.Module):
-    """Softmax-gated weighted sum of the modalities, eval mode (dropout is
-    then the identity). The child Linear is named ``gating`` as the Flax
-    Dense is, so ``params/fusion_layer/gating/{kernel,bias}`` converts by
-    name."""
+    """Softmax-gated weighted sum of the modalities, with dropout on the
+    concatenated modalities before the gate in training. The child Linear
+    is named ``gating`` as the Flax Dense is, so
+    ``params/fusion_layer/gating/{kernel,bias}`` converts by name."""
 
     def __init__(self, embedding_dim: int, num_modalities: int,
                  dropout_rate: float, dtype: torch.dtype = torch.float32,
@@ -70,27 +127,33 @@ class GatedFusionLayer(nn.Module):
         self.gating = dense(num_modalities * embedding_dim, num_modalities,
                             generator)
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
+    def forward(self, features: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """features: (B, num_modalities, D) -> (B, D)."""
         concat = features.reshape(features.shape[0],
                                   self.num_modalities * self.embedding_dim)
+        concat = dropout(concat, self.dropout_rate, train, generator)
         gates = torch.softmax(apply_dense(self.gating, concat, self.dtype),
                               dim=-1)
         return (features * gates[:, :, None]).sum(dim=1)
 
 
 class MultiHeadAttention(nn.Module):
-    """Flax ``MultiHeadDotProductAttention`` in eval mode, called as
-    ``(x, x)``: queries, keys and values all come from the same tokens. The
-    query is scaled by 1/sqrt(dh) before the logits, and the softmax runs
-    over the keys. ``query``, ``key``, ``value`` and ``out`` are the Flax
-    names; the heads of each projection are flattened heads-major
+    """Flax ``MultiHeadDotProductAttention`` called as ``(x, x)``: queries,
+    keys and values all come from the same tokens. The query is scaled by
+    1/sqrt(dh) before the logits, and the softmax runs over the keys; in
+    training, dropout at ``dropout_rate`` on the attention weights with one
+    [T, T] mask broadcast over the batch and the heads (Flax's
+    ``broadcast_dropout``). ``query``, ``key``, ``value`` and ``out`` are
+    the Flax names; the heads of each projection are flattened heads-major
     (``utils/flax_convert.py`` reshapes Flax's [D, H, dh] kernels)."""
 
     def __init__(self, embedding_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         if embedding_dim % num_heads:
             raise ValueError(f'embedding_dim {embedding_dim} is not a '
                              f'multiple of num_heads {num_heads}')
@@ -102,7 +165,8 @@ class MultiHeadAttention(nn.Module):
                                       generator))
         self.out = dense(embedding_dim, embedding_dim, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, T, D) -> (B, T, D)."""
         B, T, _ = x.shape
         H, dh = self.num_heads, self.head_dim
@@ -113,13 +177,19 @@ class MultiHeadAttention(nn.Module):
         q = heads(self.query) / math.sqrt(dh)
         k, v = heads(self.key), heads(self.value)
         w = torch.softmax(torch.einsum('bqhd,bkhd->bhqk', q, k), dim=-1)
+        if train and self.dropout_rate > 0.0:
+            keep_prob = 1.0 - self.dropout_rate
+            keep = dropout_mask((1, 1, T, T), self.dropout_rate, generator,
+                                x.device)
+            w = w * (keep.to(w.dtype) / torch.tensor(keep_prob, dtype=w.dtype))
         o = torch.einsum('bhqk,bkhd->bqhd', w, v).reshape(B, T, H * dh)
         return apply_dense(self.out, o, self.dtype)
 
 
 class AttentionFusionLayer(nn.Module):
-    """Self-attention fusion over the modality tokens, eval mode (dropout
-    is then the identity): multi-head self-attention, the residual,
+    """Self-attention fusion over the modality tokens: multi-head
+    self-attention (attention dropout at ``dropout_rate`` in training),
+    dropout on its output, the residual,
     LayerNorm with Flax's eps 1e-6 (torch's default is 1e-5) in float32,
     then the mean over tokens. The children are named ``attention`` and
     ``norm`` as in Flax, so ``params/fusion_layer/{attention,norm}``
@@ -133,11 +203,14 @@ class AttentionFusionLayer(nn.Module):
         self.dropout_rate = dropout_rate
         self.dtype = dtype
         self.attention = MultiHeadAttention(embedding_dim, num_heads, dtype,
-                                            generator)
+                                            generator, dropout_rate)
         self.norm = nn.LayerNorm(embedding_dim, eps=1e-6)
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
+    def forward(self, features: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """features: (B, T, D) -> (B, D) float32."""
-        x = (features + self.attention(features)).float()
+        attn = dropout(self.attention(features, train, generator),
+                       self.dropout_rate, train, generator)
+        x = (features + attn).float()
         return F.layer_norm(x, (self.embedding_dim,), self.norm.weight,
                             self.norm.bias, self.norm.eps).mean(dim=1)

@@ -15,15 +15,23 @@ Semantics kept from the JAX model:
   the scores are float32;
 * ``gelu`` is the tanh approximation (Flax ``nn.gelu``), not torch's
   exact default;
-* BatchNorm is eps 1e-5 (torch momentum 0.1 is Flax momentum 0.9);
+* BatchNorm is eps 1e-5; in training it normalises by the batch's
+  statistics in float32, the variance Flax's fast biased one (E[x^2] -
+  E[x]^2, clipped at 0), and moves the running statistics as Flax's
+  momentum 0.9 does, ``r = 0.9 r + 0.1 b`` (``F.batch_norm`` would move the
+  variance by the unbiased one);
+* dropout follows ``models/layers.py:dropout``, its masks drawn from the
+  ``generator`` the caller passes to ``forward``;
 * Dense kernels start from Flax's default init (LeCun normal, zero bias)
   and embeddings from ``embedding_init``, drawn from an explicit
   ``torch.Generator``. The numbers differ from JAX's for the same seed;
   parity tests convert Flax weights instead.
 
-Eval mode of ``concatenate``, ``gated`` and ``attention`` fusion is
-ported: the module is built in eval mode and its forward raises in train
-mode until training is ported.
+``forward`` runs in training mode when the module is (``model.train()``,
+Flax's ``train=True``); the towers the scorer calls (``item_tower``,
+``user_tower``, ``score_from_towers``) always run in eval mode, as in JAX.
+The module is built in eval mode. ``build_model`` builds one from a
+``config.ModelConfig``.
 """
 from __future__ import annotations
 
@@ -34,14 +42,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config import MODEL_CONFIGS, ModelConfig
 from ..device import resolve_device
 from .layers import (
     AttentionFusionLayer,
     GatedFusionLayer,
     apply_dense,
     dense,
+    dropout,
     variance_scaling,
 )
+from .losses import l2_normalize
 
 MODALITY_ORDER = ('user', 'item', 'tag', 'vision', 'language', 'numerical')
 
@@ -90,12 +101,6 @@ def _init_with(shape, generator, *, scale, mode, distribution):
     return variance_scaling(shape, scale, mode, distribution, generator)
 
 
-def l2_normalize(x: torch.Tensor, dim: int = -1,
-                 eps: float = 1e-12) -> torch.Tensor:
-    return x / torch.clamp(torch.linalg.norm(x, dim=dim, keepdim=True),
-                           min=eps)
-
-
 def nan_guard(out: torch.Tensor) -> torch.Tensor:
     """NaN/Inf guard on scores (JAX ``jnp.nan_to_num(nan=0, posinf=10,
     neginf=-10)``)."""
@@ -104,35 +109,58 @@ def nan_guard(out: torch.Tensor) -> torch.Tensor:
 
 class ProjectionMLP(nn.Module):
     """Per-modality projection into the embedding space: one or two Dense
-    layers, each followed by the activation."""
+    layers, each followed by the activation and dropout."""
 
     def __init__(self, in_dim: int, out_dim: int, hidden_dim: Optional[int],
                  activation: str, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.activation = activation
+        self.dropout_rate = dropout_rate
         self.dtype = dtype
         dims = [in_dim] + ([hidden_dim] if hidden_dim else []) + [out_dim]
         self.n_layers = len(dims) - 1
         for i in range(self.n_layers):
             setattr(self, f'Dense_{i}', dense(dims[i], dims[i + 1], generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         act = activation_fn(self.activation)
         for i in range(self.n_layers):
             x = act(apply_dense(getattr(self, f'Dense_{i}'), x, self.dtype))
+            x = dropout(x, self.dropout_rate, train, generator)
         return x
 
 
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d,
+                     momentum: float = 0.9) -> torch.Tensor:
+    """Flax ``nn.BatchNorm(use_running_average=False)`` on x [B, C]: the
+    batch's mean and fast biased variance in float32, the running
+    statistics moved to ``momentum * r + (1 - momentum) * b`` in place, and
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32."""
+    xf = x.float()
+    mean = xf.mean(dim=0)
+    var = torch.clamp((xf * xf).mean(dim=0) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(momentum * bn.running_mean
+                              + (1.0 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var
+                             + (1.0 - momentum) * var)
+    return (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+
+
 class PredictionMLP(nn.Module):
-    """Scoring head: Dense -> act -> [BatchNorm] per hidden layer, then a
-    float32 Dense(1) and sigmoid / tanh / none."""
+    """Scoring head: Dense -> act -> [BatchNorm] -> dropout per hidden
+    layer, then a float32 Dense(1) and sigmoid / tanh / none."""
 
     def __init__(self, in_dim: int, hidden_dims: Sequence[int],
                  activation: str, use_batch_norm: bool,
                  final_activation: str, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.hidden_dims = tuple(hidden_dims)
         self.activation = activation
         self.use_batch_norm = use_batch_norm
@@ -148,7 +176,8 @@ class PredictionMLP(nn.Module):
         setattr(self, f'Dense_{len(self.hidden_dims)}',
                 dense(prev, 1, generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         act = activation_fn(self.activation)
         x = x.to(self.dtype)
         for i in range(len(self.hidden_dims)):
@@ -156,9 +185,13 @@ class PredictionMLP(nn.Module):
             if self.use_batch_norm:
                 bn = getattr(self, f'BatchNorm_{i}')
                 # Statistics are float32: normalise in float32, then cast.
-                x = F.batch_norm(x.float(), bn.running_mean, bn.running_var,
-                                 bn.weight, bn.bias, False, 0.0,
-                                 bn.eps).to(self.dtype)
+                if train:
+                    x = batch_norm_train(x, bn).to(self.dtype)
+                else:
+                    x = F.batch_norm(x.float(), bn.running_mean,
+                                     bn.running_var, bn.weight, bn.bias,
+                                     False, 0.0, bn.eps).to(self.dtype)
+            x = dropout(x, self.dropout_rate, train, generator)
         last = getattr(self, f'Dense_{len(self.hidden_dims)}')
         x = apply_dense(last, x.float(), torch.float32)
         return final_activation_fn(x, self.final_activation)
@@ -168,7 +201,7 @@ class MultimodalRecommender(nn.Module):
     """Fuses ID embeddings with projected encoder features and scores pairs.
 
     Built on the CPU from ``generator`` (a fresh one seeded 0 when None),
-    then moved to ``device``; evaluation mode only in this slice.
+    then moved to ``device``, in eval mode.
     """
 
     def __init__(self, n_users: int, n_items: int, n_tags: int,
@@ -230,7 +263,8 @@ class MultimodalRecommender(nn.Module):
 
         def projection(in_dim):
             return ProjectionMLP(in_dim, d, projection_hidden_dim,
-                                 fusion_activation, dtype, generator)
+                                 fusion_activation, dtype, generator,
+                                 dropout_rate)
 
         if vision_feature_dim:
             self.vision_projection = projection(vision_feature_dim)
@@ -255,7 +289,7 @@ class MultimodalRecommender(nn.Module):
             self.num_modalities * d if fusion_type == 'concatenate' else d,
             self.fusion_hidden_dims,
             fusion_activation, use_batch_norm, final_activation, dtype,
-            generator)
+            generator, dropout_rate)
         self.to(device)
         self.eval()
 
@@ -277,14 +311,18 @@ class MultimodalRecommender(nn.Module):
         return F.embedding(idx.long(), table.weight).to(self.dtype)
 
     def _item_side(self, vision_features, language_features,
-                   numerical_features) -> List[torch.Tensor]:
+                   numerical_features, train: bool = False,
+                   generator: Optional[torch.Generator] = None
+                   ) -> List[torch.Tensor]:
         feats = []
-        if self.vision_feature_dim and vision_features is not None:
-            feats.append(self.vision_projection(vision_features))
-        if self.language_feature_dim and language_features is not None:
-            feats.append(self.language_projection(language_features))
-        if self.num_numerical_features > 0 and numerical_features is not None:
-            feats.append(self.numerical_projection(numerical_features))
+        for dim, name, x in (
+                (self.vision_feature_dim, 'vision', vision_features),
+                (self.language_feature_dim, 'language', language_features),
+                (self.num_numerical_features, 'numerical',
+                 numerical_features)):
+            if dim and x is not None:
+                feats.append(getattr(self, f'{name}_projection')(
+                    x, train, generator))
         return feats
 
     # ------------------------------------------------------------------ towers
@@ -292,25 +330,23 @@ class MultimodalRecommender(nn.Module):
                           tag_idx: torch.Tensor,
                           vision_features: Optional[torch.Tensor] = None,
                           language_features: Optional[torch.Tensor] = None,
-                          numerical_features: Optional[torch.Tensor] = None
+                          numerical_features: Optional[torch.Tensor] = None,
+                          train: bool = False,
+                          generator: Optional[torch.Generator] = None
                           ) -> List[torch.Tensor]:
         """Per-modality embeddings in fusion order, each (B, D)."""
         return [self._embed(self.user_embedding, user_idx),
                 self._embed(self.item_embedding, item_idx),
                 self._embed(self.tag_embedding, tag_idx),
                 *self._item_side(vision_features, language_features,
-                                 numerical_features)]
+                                 numerical_features, train, generator)]
 
-    def fuse(self, feats: List[torch.Tensor]) -> torch.Tensor:
+    def fuse(self, feats: List[torch.Tensor], train: bool = False,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.fusion_type == 'concatenate':
             return torch.cat(feats, dim=-1)
-        return self.fusion_layer(torch.stack(feats, dim=1))  # (B, M, D)
-
-    def _check_eval(self):
-        if self.training:
-            raise NotImplementedError(
-                'training mode is not ported yet (ROADMAP item A6); call '
-                '.eval()')
+        return self.fusion_layer(torch.stack(feats, dim=1),  # (B, M, D)
+                                 train, generator)
 
     def forward(self, user_idx: torch.Tensor, item_idx: torch.Tensor,
                 tag_idx: torch.Tensor,
@@ -318,14 +354,20 @@ class MultimodalRecommender(nn.Module):
                 language_features: Optional[torch.Tensor] = None,
                 numerical_features: Optional[torch.Tensor] = None,
                 clip_text_features: Optional[torch.Tensor] = None,
-                return_embeddings: bool = False):
-        """Eval-mode scores (B, 1); with ``return_embeddings`` the tuple
-        (scores, vision_contrastive, text_contrastive, projected_vision)."""
-        self._check_eval()
+                return_embeddings: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Scores (B, 1); with ``return_embeddings`` the tuple (scores,
+        vision_contrastive, text_contrastive, projected_vision). In training
+        mode (``self.training``) dropout draws its masks from ``generator``
+        (on the model's device; torch's default one when None) and
+        BatchNorm uses the batch's statistics and moves its running
+        ones."""
+        train = self.training
         feats = self.modality_features(user_idx, item_idx, tag_idx,
                                        vision_features, language_features,
-                                       numerical_features)
-        out = nan_guard(self.prediction_network(self.fuse(feats)))
+                                       numerical_features, train, generator)
+        out = nan_guard(self.prediction_network(
+            self.fuse(feats, train, generator), train, generator))
         if not return_embeddings:
             return out
         vis_contr = txt_contr = proj_vis = None
@@ -335,7 +377,8 @@ class MultimodalRecommender(nn.Module):
             if clip_text_features is not None:
                 txt_contr = l2_normalize(self.text_contrastive_projection(
                     clip_text_features.float()))
-            proj_vis = self.vision_projection(vision_features)
+            proj_vis = self.vision_projection(vision_features, train,
+                                              generator)
         return out, vis_contr, txt_contr, proj_vis
 
     # -------------------------------------------------------------- inference
@@ -358,6 +401,41 @@ class MultimodalRecommender(nn.Module):
                           item_feats: torch.Tensor) -> torch.Tensor:
         """Score (B, D) users against (B, M_item, D) item stacks -> (B, 1),
         as ``forward`` in eval mode given precomputed towers."""
-        self._check_eval()
         feats = [user_emb] + list(item_feats.unbind(dim=1))
         return nan_guard(self.prediction_network(self.fuse(feats)))
+
+
+def build_model(model_config: ModelConfig, n_users: int, n_items: int,
+                n_tags: int, num_numerical_features: int,
+                dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None,
+                device: Union[str, torch.device] = 'cuda'
+                ) -> MultimodalRecommender:
+    """The recommender of a ``ModelConfig``: the backbones' output widths
+    from ``MODEL_CONFIGS``, and contrastive learning only with CLIP vision
+    (the JAX package's and the reference's gate)."""
+    v = model_config.vision_model
+    lang = model_config.language_model
+    return MultimodalRecommender(
+        n_users=n_users, n_items=n_items, n_tags=n_tags,
+        num_numerical_features=num_numerical_features,
+        embedding_dim=model_config.embedding_dim,
+        vision_feature_dim=MODEL_CONFIGS['vision'][v]['dim'] if v else None,
+        language_feature_dim=(MODEL_CONFIGS['language'][lang]['dim']
+                              if lang else None),
+        clip_text_feature_dim=MODEL_CONFIGS['vision']['clip'].get(
+            'text_dim', 512),
+        use_contrastive=model_config.use_contrastive and v == 'clip',
+        dropout_rate=model_config.dropout_rate,
+        num_attention_heads=model_config.num_attention_heads,
+        attention_dropout=model_config.attention_dropout,
+        fusion_hidden_dims=tuple(model_config.fusion_hidden_dims),
+        fusion_activation=model_config.fusion_activation,
+        use_batch_norm=model_config.use_batch_norm,
+        projection_hidden_dim=model_config.projection_hidden_dim,
+        final_activation=model_config.final_activation,
+        init_method=model_config.init_method,
+        contrastive_temperature=model_config.contrastive_temperature,
+        fusion_type=model_config.fusion_type,
+        vision_model_name=v, language_model_name=lang,
+        dtype=dtype, generator=generator, device=device)

@@ -22,20 +22,39 @@
 //
 // P2, bcast_kernel: weights w [TB, TC] times vectors v [TC, dp] accumulated
 // into [TB, TC, dp]; each of the K - 1 later steps' weight is the
-// accumulator's entry 0 times 1e-6 plus 1, so the loop cannot fold. It is
-// laid out the way K4's assembly is (attention_mlp.cu): one warp per
-// (tb, tc) pair, dp = 128 across the lanes as two float2 slots each, every
-// step K4's unfused f2_add_mul (a multiply and an add per entry, each
-// rounded, attention_common.cuh), the step's weight a shuffle from lane 0.
-// Its rate is the rate of K4's weighted sums of d-wide rows. The output is
-// entry 0 alone, as the Pallas probe's is; the kernel also takes a pointer
-// for the whole accumulator, written only when it is not null, so that the
-// compiler cannot drop the other entries' work (the probe passes null).
+// accumulator's entry 0 times 1e-6 plus 1, so the loop cannot fold. The
+// output is entry 0 alone, as the Pallas probe's is; the kernel also takes
+// a pointer for the whole accumulator, written only when it is not null, so
+// that the compiler cannot drop the other entries' work (the probe passes
+// null). Laid out for the issue rate, not for K4's warps: BC_DP / E threads
+// a (tb, tc) pair, E consecutive entries each, v's E entries in registers
+// for the whole chain. Entry 0's recurrence depends only on itself and
+// v[tc, 0], so every thread carries its own copy of it (two more
+// multiply-adds a step; in the thread that owns entry 0 the copy equals
+// its own entry) and no thread waits on another: no shuffle, no shared
+// memory. E = 32: 34 multiply-adds a step for 32 entries, 79 to 96
+// registers (the launch bounds cap them at 128; E = 64 would spill); the
+// sweep (scripts/torch_profile_vpu_roofline.py) chose it over E = 16. The
+// grid covers the card once and each block loops over its share of the
+// `steps` passes, its inputs in registers throughout (each pass starts
+// again from them, behind an opaque register copy of w, so no pass is
+// folded into another). The slope between two chain lengths is a rate only
+// if a pass's fixed cost adds to its chain: a block launched per pass, or
+// loads in every pass, set a floor (about 1.1 ms over 8,192 passes on an
+// H100) that hides a K 16 chain but not a K 48 one.
+// FUSED issues each multiply-add as one FFMA (__fmaf_rn), the unit the
+// data-sheet bound counts; FUSED = false issues K4's unfused pattern, a
+// __fmul_rn then a __fadd_rn in attn::f2_add_mul's order, which rounds where
+// the plain version does (bit for bit) and gives the rate K4's assembly can
+// reach while it keeps that rounding order.
 //
 // Bound: both are bound by the instructions they issue (no bytes move but
 // the block, read once per pass): P1 FMA at the FFMA rate (128 a cycle on
-// each SM), P1 EXP at the MUFU rate (16 a cycle), P2 at the FMUL/FADD rate
-// plus a shuffle and two instructions per warp and step.
+// each SM), P1 EXP at the MUFU rate (16 a cycle), P2 fused at the FFMA rate
+// (E + 2 FFMAs a step for E entries), P2 unfused at the FMUL/FADD rate (two
+// instructions a multiply-add).
+
+#include <algorithm>
 
 #include "attention_common.cuh"
 
@@ -78,39 +97,88 @@ chain_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
                   __fadd_rn(a[2], b[2]), __fadd_rn(a[3], b[3]));
 }
 
-constexpr int BC_DP = 128;          // the vectors' width
-constexpr int BC_J = BC_DP / 64;    // float2 slots per lane
-constexpr int BC_WARPS = 16;
+constexpr int BC_DP = 128;        // the vectors' width
+constexpr int BC_THREADS = 128;
 
-__global__ void __launch_bounds__(BC_WARPS * 32)
+// y + s*v: one FFMA, or K4's unfused product then sum.
+template <bool FUSED>
+__device__ __forceinline__ float bc_mul_add(float y, float s, float v) {
+  return FUSED ? __fmaf_rn(s, v, y) : __fadd_rn(y, __fmul_rn(s, v));
+}
+
+template <bool FUSED, int E>
+__global__ void __launch_bounds__(BC_THREADS, 4)
 bcast_kernel(const float* __restrict__ w, const float* __restrict__ v,
              float* __restrict__ out, float* __restrict__ acc_out,
-             int n_pairs, int TC, int K) {
-  const int pair = blockIdx.x * BC_WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
+             int n_pairs, int TC, int K, int steps) {
+  constexpr int TPP = BC_DP / E;  // threads a pair
+  static_assert(BC_DP % E == 0 && E % 4 == 0 && BC_THREADS % TPP == 0,
+                "E must divide the width in float4s");
+  const int pair = blockIdx.x * (BC_THREADS / TPP) + threadIdx.x / TPP;
+  const int q = threadIdx.x % TPP;
   if (pair >= n_pairs) return;
-  const int tc = pair % TC;
-  const float wt = __ldg(w + pair);
-  float2 vv[BC_J], acc[BC_J];
+  const float* row = v + (size_t)(pair % TC) * BC_DP;
+  // The block's inputs stay in registers across its passes, as the Pallas
+  // block stays in VMEM across the grid's steps.
+  float vv[E];
 #pragma unroll
-  for (int j = 0; j < BC_J; ++j) {
-    vv[j] = __ldg(reinterpret_cast<const float2*>(v + (size_t)tc * BC_DP) +
-                  lane + 32 * j);
-    acc[j] = make_float2(__fmul_rn(wt, vv[j].x), __fmul_rn(wt, vv[j].y));
+  for (int j = 0; j < E / 4; ++j) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(row + q * E) + j);
+    vv[4 * j] = t.x;
+    vv[4 * j + 1] = t.y;
+    vv[4 * j + 2] = t.z;
+    vv[4 * j + 3] = t.w;
   }
-  for (int k = 1; k < K; ++k) {
-    const float s =
-        __fadd_rn(__fmul_rn(__shfl_sync(attn::FULL, acc[0].x, 0), 1e-6f), 1.f);
+  const float v0 = __ldg(row);
+  const float w_pair = __ldg(w + pair);
+  for (int pass = blockIdx.y; pass < steps; pass += gridDim.y) {
+    float wt = w_pair;
+    asm volatile("" : "+f"(wt));  // opaque: every pass computes anew
+    float acc[E];
 #pragma unroll
-    for (int j = 0; j < BC_J; ++j) acc[j] = attn::f2_add_mul(acc[j], s, vv[j]);
-  }
-  if (lane == 0) out[pair] = acc[0].x;
-  if (acc_out != nullptr) {
+    for (int e = 0; e < E; ++e) acc[e] = __fmul_rn(wt, vv[e]);
+    float e0 = __fmul_rn(wt, v0);  // this thread's copy of entry 0
+#pragma unroll 2
+    for (int k = 1; k < K; ++k) {
+      const float s = FUSED ? __fmaf_rn(e0, 1e-6f, 1.f)
+                            : __fadd_rn(__fmul_rn(e0, 1e-6f), 1.f);
+      e0 = bc_mul_add<FUSED>(e0, s, v0);
 #pragma unroll
-    for (int j = 0; j < BC_J; ++j)
-      reinterpret_cast<float2*>(acc_out + (size_t)pair * BC_DP)[lane + 32 * j] =
-          acc[j];
+      for (int e = 0; e < E; ++e) acc[e] = bc_mul_add<FUSED>(acc[e], s, vv[e]);
+    }
+    if (q == 0) out[pair] = acc[0];
+    if (acc_out != nullptr) {
+      float4* dst =
+          reinterpret_cast<float4*>(acc_out + (size_t)pair * BC_DP + q * E);
+#pragma unroll
+      for (int j = 0; j < E / 4; ++j)
+        dst[j] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                             acc[4 * j + 3]);
+    }
   }
+}
+
+// The grid covers the card once: as many blocks as fit on every SM at
+// once, each looping over its share of the passes, so that a pass costs no
+// block launch (the Pallas grid's sequential passes become a loop).
+template <bool FUSED, int E>
+cudaError_t launch_bcast(const float* w, const float* v, float* out,
+                         float* acc_out, int n_pairs, int TC, int K,
+                         int steps, cudaStream_t s) {
+  constexpr int pairs_per_block = BC_THREADS / (BC_DP / E);
+  const int gx = (n_pairs + pairs_per_block - 1) / pairs_per_block;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bcast_kernel<FUSED, E>, BC_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  const int gy = std::max(1, std::min(steps, per_sm * sms / gx));
+  bcast_kernel<FUSED, E><<<dim3(gx, gy), BC_THREADS, 0, s>>>(
+      w, v, out, acc_out, n_pairs, TC, K, steps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -136,21 +204,29 @@ int vpu_chain_forward(const void* x, void* out, int n, int K, int exp,
   return cudaGetLastError();
 }
 
-// P2: out[TB, TC] (f32) from w [TB, TC] and v [TC, 128] (f32, 8-byte
-// aligned rows), K >= 1 steps, over `steps` passes; acc_out, when not null,
-// receives the whole accumulator [TB, TC, 128]. Returns cudaSuccess or the
-// first CUDA error (launch included).
+// P2: out[TB, TC] (f32) from w [TB, TC] and v [TC, 128] (f32, 16-byte
+// aligned), K >= 1 steps, over `steps` passes, fused (one FFMA a
+// multiply-add) or not (K4's FMUL then FADD); `entries` a thread (16 or 32,
+// the sweep's choices); acc_out, when not null, receives the whole
+// accumulator [TB, TC, 128]. Returns cudaSuccess or the first CUDA error
+// (launch included).
 int vpu_bcast_forward(const void* w, const void* v, void* out, void* acc_out,
-                      int TB, int TC, int K, int steps, void* stream) {
-  if (TB < 1 || TC < 1 || K < 1 || steps < 1 || steps > 65535)
+                      int TB, int TC, int K, int steps, int fused,
+                      int entries, void* stream) {
+  if (TB < 1 || TC < 1 || K < 1 || steps < 1 ||
+      (entries != 16 && entries != 32))
     return cudaErrorInvalidValue;
-  const int n_pairs = TB * TC;
-  const dim3 grid((n_pairs + BC_WARPS - 1) / BC_WARPS, steps);
-  bcast_kernel<<<grid, BC_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), static_cast<const float*>(v),
-      static_cast<float*>(out), static_cast<float*>(acc_out), n_pairs, TC,
-      K);
-  return cudaGetLastError();
+  const float* wf = static_cast<const float*>(w);
+  const float* vf = static_cast<const float*>(v);
+  float* o = static_cast<float*>(out);
+  float* a = static_cast<float*>(acc_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = TB * TC;
+  if (entries == 32)
+    return fused ? launch_bcast<true, 32>(wf, vf, o, a, n, TC, K, steps, s)
+                 : launch_bcast<false, 32>(wf, vf, o, a, n, TC, K, steps, s);
+  return fused ? launch_bcast<true, 16>(wf, vf, o, a, n, TC, K, steps, s)
+               : launch_bcast<false, 16>(wf, vf, o, a, n, TC, K, steps, s);
 }
 
 }  // extern "C"

@@ -15,14 +15,17 @@ with the kernels in ``probes/csrc/vpu_roofline.cu``:
   * P2 (``vpu_bcast``): [TB 8, TC 128] weights times [TC, dp 128] vectors
     accumulated into [TB, TC, dp], each step's weight ``acc[..., 0]*1e-6 +
     1``; the slope between K 16 and 48 (``measure_bcast``). The Pallas
-    script counts a multiply and an add as two element-ops, and on the card
-    they are two instructions (K4's unfused pattern), so the two rates are
-    equal.
+    script counts a multiply and an add as two element-ops. The fused
+    instance issues them as one FFMA, so its instructions are half its
+    element-ops; the unfused instance (K4's pattern, FMUL then FADD) issues
+    two, as many as its element-ops.
 
-The plain versions repeat the probes' arithmetic on tensors: P2 rounds
-where its kernel does (bit for bit); P1's FMA rounds once where the plain
-``a*x + 1`` rounds twice, and its EXP calls the card's expf where the plain
-version calls ``torch.exp``, so they agree to a relative tolerance.
+The plain versions repeat the probes' arithmetic on tensors, each product
+and sum rounded on its own: P2's unfused instance rounds where its plain
+version does (bit for bit); P2's fused instance and P1's FMA round once
+where the plain version rounds twice, and P1's EXP calls the card's expf
+where the plain version calls ``torch.exp``, so they agree to a relative
+tolerance.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ K_LO, K_HI = 64, 192      # P1's chain lengths
 STEPS = 8192              # passes over the block (the Pallas grid)
 BC_TB, BC_TC, BC_DP = 8, 128, 128   # P2's weights [TB, TC], vectors [TC, dp]
 BC_K_LO, BC_K_HI = 16, 48           # P2's chain lengths
+BC_ENTRIES = (32, 16)               # P2's entries a thread; the first is used
 KINDS = ('fma', 'exp')
 
 
@@ -82,7 +86,7 @@ def _lib():
         lib.vpu_chain_forward.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.vpu_bcast_forward.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
@@ -126,24 +130,33 @@ def vpu_chain(x: torch.Tensor, K: int, kind: str = 'fma',
 vpu_chain.launches = 0
 
 
-def vpu_bcast(w: torch.Tensor, v: torch.Tensor, K: int,
-              steps: int = 1) -> torch.Tensor:
+def vpu_bcast(w: torch.Tensor, v: torch.Tensor, K: int, steps: int = 1,
+              fused: bool = True, _entries: int = BC_ENTRIES[0]
+              ) -> torch.Tensor:
     """P2: w [TB, TC], v [TC, 128] (f32) -> [TB, TC]: CUDA tensors launch
-    the probe (``steps`` passes), CPU tensors take ``bcast_plain``.
+    the probe (``steps`` passes; ``fused``: one FFMA a multiply-add, else
+    K4's FMUL then FADD), CPU tensors take ``bcast_plain``. ``_entries``
+    (one of BC_ENTRIES) sets the entries a thread carries, for the sweep.
     ``vpu_bcast.launches`` counts launches."""
     if K < 1:
         raise ValueError(f'P2 takes K >= 1, got {K}')
+    if not isinstance(fused, bool):
+        raise ValueError(f'P2 takes fused True or False, got {fused!r}')
+    if _entries not in BC_ENTRIES:
+        raise ValueError(f'P2 takes entries a thread in {BC_ENTRIES}, got '
+                         f'{_entries}')
     device = _device_of('vpu_bcast', w, v)
     if device is None:
         return bcast_plain(w, v, K)
     TB, TC = w.shape
     _check_tensor('w', w, device, torch.float32, TB, (TC,), align=4)
-    _check_tensor('v', v, device, torch.float32, TC, (BC_DP,), align=8)
+    _check_tensor('v', v, device, torch.float32, TC, (BC_DP,))
     out = torch.empty((TB, TC), dtype=torch.float32, device=device)
     lib = _lib()
     with torch.cuda.device(device):
         err = lib.vpu_bcast_forward(
             w.data_ptr(), v.data_ptr(), out.data_ptr(), None, TB, TC, K, steps,
+            int(fused), _entries,
             torch.cuda.current_stream(device).cuda_stream)
     _raise_on(lib, err, 'P2')
     vpu_bcast.launches += 1
@@ -189,18 +202,28 @@ def measure_chain(kind: str, x: Optional[torch.Tensor] = None,
 
 def measure_bcast(w: Optional[torch.Tensor] = None,
                   v: Optional[torch.Tensor] = None, steps: int = STEPS,
-                  reps: int = 10) -> dict:
+                  reps: int = 10, fused: bool = True,
+                  _entries: int = BC_ENTRIES[0]) -> dict:
     """P2's rate on the card: the slope of the mean launch time between
-    BC_K_LO and BC_K_HI over ``steps`` passes; element-ops per second as
-    the Pallas script counts them (a multiply and an add each per entry and
-    step), equal to the FMUL + FADD instructions per second."""
+    BC_K_LO and BC_K_HI over ``steps`` passes. ``element_ops_per_s`` counts
+    as the Pallas script does, a multiply and an add each per entry and
+    step; ``instructions_per_s`` counts what the card issues for them: one
+    FFMA a multiply-add when fused (half the element-ops), an FMUL and an
+    FADD when not (as many as the element-ops)."""
     if w is None:
         w, v = bcast_inputs('cuda')
     TB, TC = w.shape
-    t_lo = cuda_ms(lambda: vpu_bcast(w, v, BC_K_LO, steps), reps)
-    t_hi = cuda_ms(lambda: vpu_bcast(w, v, BC_K_HI, steps), reps)
+
+    def run(K):
+        return vpu_bcast(w, v, K, steps, fused, _entries)
+
+    t_lo = cuda_ms(lambda: run(BC_K_LO), reps)
+    t_hi = cuda_ms(lambda: run(BC_K_HI), reps)
     ops = steps * TB * TC * BC_DP * 2
     rate = ops * (BC_K_HI - BC_K_LO) / ((t_hi - t_lo) * 1e-3)
-    return {'probe': 'P2', 'shape': [TB, TC, BC_DP], 'steps': steps,
+    return {'probe': 'P2', 'fused': fused, 'entries_per_thread': _entries,
+            'shape': [TB, TC, BC_DP], 'steps': steps,
             'k': [BC_K_LO, BC_K_HI], 'ms': [t_lo, t_hi],
-            'element_ops_per_s': rate, 'fp32_instructions_per_s': rate}
+            'element_ops_per_s': rate,
+            'instructions_per_s': rate / 2 if fused else rate,
+            'instructions': 'FFMA' if fused else 'FMUL + FADD'}

@@ -1,0 +1,232 @@
+# pixelrec_multimodal_tpu_torch/training/steps.py
+"""Train and eval steps of the frozen-feature path, in PyTorch.
+
+Counterpart of ``pixelrec_multimodal_tpu/training/steps.py``: item features
+are gathered by item index from tables on the model's device (one row
+gather for a packed table), then the forward, the loss, the gradients, the
+clip and the update, and the classification sums at threshold 0.5, all on
+the device. The non-finite-loss skip is a device-side flag: a batch whose
+loss is not finite leaves the parameters, the optimizer state and the
+BatchNorm statistics as they were, and the epoch functions read nothing on
+the host, so an epoch's per-batch metrics come back in one transfer when
+the caller reads them.
+
+JAX's steps return a new state; these update the ``TrainState`` in place
+(parameters, optimizer state and BatchNorm buffers) and return it. The
+dropout masks come from a ``torch.Generator`` on the model's device, which
+``train_epoch`` draws from batch after batch, where JAX splits a key. The
+model's device is the one everything runs on: ``'cuda'`` unless the model
+was built on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from ..models.losses import recommender_loss
+from .optimizers import Optimizer, OptState
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The step count (int64 tensor: finite steps taken), the model (its
+    parameters and BatchNorm statistics), the optimizer and its state."""
+    step: torch.Tensor
+    model: torch.nn.Module
+    opt_state: OptState
+    tx: Optimizer
+
+    @classmethod
+    def create(cls, *, model: torch.nn.Module, tx: Optimizer) -> 'TrainState':
+        """Bind ``tx`` to ``model``'s parameters (``Optimizer.init``)."""
+        return cls(step=torch.zeros((), dtype=torch.int64,
+                                    device=model.device),
+                   model=model, opt_state=tx.init(model.named_parameters()),
+                   tx=tx)
+
+    @property
+    def batch_stats(self) -> Dict[str, torch.Tensor]:
+        """The BatchNorm running statistics by state-dict name."""
+        return {n: b for n, b in self.model.named_buffers()
+                if n.endswith(('running_mean', 'running_var'))}
+
+
+# kwarg name + model-dim attribute for each float feature table
+_FEATURE_TABLE_SPEC = {
+    'vision_emb': ('vision_features', 'vision_feature_dim'),
+    'language_emb': ('language_features', 'language_feature_dim'),
+    'numerical': ('numerical_features', 'num_numerical_features'),
+    'clip_text_emb': ('clip_text_features', 'clip_text_feature_dim'),
+}
+PACKED_PREFIX = 'packed::'
+
+
+def gather_feature_kwargs(model, tables: Dict[str, torch.Tensor],
+                          batch: Dict[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+    """Item-index gathers from the feature tables -> model kwargs.
+
+    A modality the model declares whose table is absent gets zero features
+    (the reference's placeholders for missing features), so the forward's
+    shapes always follow the model. A key
+    ``packed::<name>=<width>+<name>=<width>+...`` holds the listed float
+    tables concatenated along the feature axis: one row gather serves them
+    all, and slices of the row recover each modality.
+    """
+    it = batch['item_idx'].long()
+    B = it.shape[0]
+    kw: Dict[str, torch.Tensor] = {}
+    packed_key = next((k for k in tables if k.startswith(PACKED_PREFIX)),
+                      None)
+    if packed_key is not None:
+        row = torch.index_select(tables[packed_key], 0, it)
+        off = 0
+        for part in packed_key[len(PACKED_PREFIX):].split('+'):
+            name, _, width = part.partition('=')
+            width = int(width)
+            kwarg, dim_attr = _FEATURE_TABLE_SPEC[name]
+            wanted = (int(getattr(model, dim_attr) or 0) > 0
+                      if name != 'clip_text_emb' else model.contrastive_active)
+            if wanted:
+                kw[kwarg] = row[:, off:off + width]
+            off += width
+
+    for name, (kwarg, dim_attr) in _FEATURE_TABLE_SPEC.items():
+        if kwarg in kw:
+            continue
+        dim = int(getattr(model, dim_attr) or 0)
+        needed = (dim > 0 if name != 'clip_text_emb'
+                  else model.contrastive_active)
+        if needed:
+            kw[kwarg] = (torch.index_select(tables[name], 0, it)
+                         if name in tables else
+                         torch.zeros((B, dim), dtype=torch.float32,
+                                     device=it.device))
+    return kw
+
+
+def _classification_sums(preds: torch.Tensor, labels: torch.Tensor,
+                         weight: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Weighted tp/fp/fn/correct/count sums at threshold 0.5."""
+    hard = (preds > 0.5).float()
+    pos = labels > 0.5
+    return {
+        'correct': (weight * (hard == labels)).sum(),
+        'tp': (weight * ((hard == 1) & pos)).sum(),
+        'fp': (weight * ((hard == 1) & ~pos)).sum(),
+        'fn': (weight * ((hard == 0) & pos)).sum(),
+        'count': weight.sum(),
+    }
+
+
+def _stack(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+
+def make_step_fns(model, tables: Dict[str, torch.Tensor],
+                  bce_weight: float = 1.0,
+                  contrastive_weight: float = 0.1,
+                  use_contrastive: Optional[bool] = None,
+                  extra_features_fn: Optional[Callable] = None,
+                  return_epoch_fns: bool = False):
+    """(train_step, eval_step) over ``model`` and its feature ``tables``
+    (tensors on the model's device); with ``return_epoch_fns`` also
+    (train_epoch, eval_epoch), which run a whole epoch of stacked batches
+    and return the per-batch metrics stacked ([num_batches] each).
+
+    ``train_step(state, batch, generator)`` -> (state, metrics);
+    ``eval_step(state, batch)`` -> metrics; ``train_epoch(state, batches,
+    generator)`` -> (state, metrics); ``eval_epoch(state, batches)`` ->
+    metrics. A batch holds ``user_idx``, ``item_idx``, ``tag_idx``,
+    ``label`` and optionally ``weight`` (0/1 per row); ``batches`` the same
+    with a leading batch axis. ``extra_features_fn(batch) -> kwargs`` adds
+    or replaces features (default: the table gathers alone).
+    """
+    contrastive = (model.contrastive_active if use_contrastive is None
+                   else use_contrastive and model.contrastive_active)
+    device = model.device
+
+    def forward(batch, generator):
+        kw = gather_feature_kwargs(model, tables, batch)
+        if extra_features_fn is not None:
+            kw.update(extra_features_fn(batch))
+        out = model(batch['user_idx'], batch['item_idx'], batch['tag_idx'],
+                    return_embeddings=contrastive, generator=generator, **kw)
+        if contrastive:
+            scores, vis_c, txt_c, _ = out
+        else:
+            scores, vis_c, txt_c = out, None, None
+        temp = (model.temperature if contrastive
+                and hasattr(model, 'temperature')
+                else model.contrastive_temperature)
+        loss = recommender_loss(
+            scores.squeeze(-1), batch['label'], vis_c, txt_c, temp,
+            use_contrastive=contrastive,
+            contrastive_weight=contrastive_weight, bce_weight=bce_weight,
+            weight=batch.get('weight'))
+        return scores, loss
+
+    def metrics_of(scores, loss, batch):
+        weight = batch.get('weight', torch.ones_like(batch['label']))
+        return {'total_loss': loss['total'].detach(),
+                'bce_loss': loss['bce'].detach(),
+                'contrastive_loss': loss['contrastive'].detach(),
+                **_classification_sums(scores.squeeze(-1).detach(),
+                                       batch['label'], weight)}
+
+    def on_device(batch):
+        return {k: v.to(device) for k, v in batch.items()}
+
+    def train_step(state: TrainState, batch, generator=None):
+        batch = on_device(batch)
+        stats = list(state.batch_stats.values())
+        saved = [b.clone() for b in stats]
+        model.train()
+        scores, loss = forward(batch, generator)
+        grads = torch.autograd.grad(loss['total'], state.opt_state.params,
+                                    allow_unused=True)
+        finite = torch.isfinite(loss['total'])
+        state.tx.update(state.opt_state,
+                        state.tx.flat_grads(state.opt_state, grads), finite)
+        with torch.no_grad():
+            for b, s in zip(stats, saved):
+                b.copy_(torch.where(finite, b, s))
+            state.step.add_(finite.long())
+        return state, metrics_of(scores, loss, batch)
+
+    def eval_step(state: TrainState, batch):
+        batch = on_device(batch)
+        model.eval()
+        with torch.no_grad():
+            scores, loss = forward(batch, None)
+        return metrics_of(scores, loss, batch)
+
+    def train_epoch(state: TrainState, batches, generator=None):
+        batches = on_device(batches)
+        n = batches['item_idx'].shape[0]
+        metrics = []
+        for i in range(n):
+            state, m = train_step(state, {k: v[i] for k, v in
+                                          batches.items()}, generator)
+            metrics.append(m)
+        return state, _stack(metrics)
+
+    def eval_epoch(state: TrainState, batches):
+        batches = on_device(batches)
+        n = batches['item_idx'].shape[0]
+        return _stack([eval_step(state, {k: v[i] for k, v in
+                                         batches.items()})
+                       for i in range(n)])
+
+    fns = (train_step, eval_step, train_epoch, eval_epoch)
+    return fns if return_epoch_fns else fns[:2]
+
+
+def init_train_state(model, tx: Optimizer) -> TrainState:
+    """The train state of a built model (its parameters come from the
+    model's own generator, where JAX's ``init_train_state`` initializes
+    them from a key): ``tx`` bound to the model's parameters on the
+    model's device."""
+    return TrainState.create(model=model, tx=tx)

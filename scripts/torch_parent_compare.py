@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The pair-scoring kernels K1-K6, the int8 modes K1q-K3q and the probes
-P1 and P2 of another checkout against this one's, on one CUDA card.
+P1-P3 of another checkout against this one's, on one CUDA card.
 
     python3 scripts/torch_parent_compare.py OTHER_CHECKOUT
 
@@ -8,7 +8,8 @@ Builds ``pairwise_mlp.cu`` (K1), ``gated_pairwise_mlp.cu`` (K2),
 ``gated_factored_mlp.cu`` (K3), ``attention_mlp.cu`` (K4),
 ``attention_gram_mlp.cu`` (K5) and ``attention_screen_mlp.cu`` (K6) from
 ``OTHER_CHECKOUT/pixelrec_multimodal_tpu_torch/ops/csrc``, and
-``probes/csrc/vpu_roofline.cu`` (P1, P2), from that checkout (for example a
+``probes/csrc/vpu_roofline.cu`` (P1, P2) and ``probes/csrc/int8_mxu.cu``
+(P3), from that checkout (for example a
 parent commit unpacked with ``git archive``) into ``build/other/``, beside
 this checkout's builds, and runs both through this checkout's wrappers on
 the same inputs at the 256 x 8,192 block: the flagship chain [512, 256,
@@ -19,8 +20,12 @@ screen tail), and the int8 modes of K1-K3 on the same rows with the
 flagship chain quantized, K1q also in a forced block of 64 rows of this
 checkout against the other's 128-row K1q, and K1q on the wide chain
 [1024, 512, 256] (``K1q_wide``, relu, sigmoid, rows of h1 1,024) in the
-block each checkout chooses, and P1 (the FMA and exp chains) and P2 at
-the Pallas scripts' sizes. Prints one JSON
+block each checkout chooses, and P1 (the FMA and exp chains), P2 (fused,
+and K4's unfused pattern: ``P2_unfused``) and P3 in each mode at the
+Pallas scripts' sizes. A checkout whose P2 takes no ``fused`` argument
+(one design, unfused) runs that design for both; its fused row is then
+the two designs' times, and only the unfused one is held bit for bit.
+Prints one JSON
 line per measurement, the card's ``nvidia-smi`` name and power limit
 first: whether the scores are equal bit for bit; for K1-K6, whose chains
 may differ between the checkouts (the wgmma chain against the mma.sync
@@ -41,8 +46,8 @@ on the flagship chain runs mma.sync there: ``<name>_block_chain_kind``).
 The int8 modes are held bit for bit: the s8 wgmma chain keeps the
 mma.sync chain's 128-row float32 order, at 128 rows and at 64.
 Exits 2 without a CUDA device, 1 if an int8 mode (K1q-K3q, K1q at 64 rows)
-or P1 or P2 differs from the other checkout's or one of K1-K6 fails a
-gate.
+or P1, P2 unfused or P3 differs from the other checkout's or one of K1-K6
+fails a gate.
 """
 from __future__ import annotations
 
@@ -77,7 +82,7 @@ from chip_smoke import (  # noqa: E402
 
 KERNELS = ('pairwise_mlp', 'gated_pairwise_mlp', 'gated_factored_mlp',
            'attention_mlp', 'attention_gram_mlp', 'attention_screen_mlp')
-PROBES = ('vpu_roofline',)  # P1 and P2, in probes/csrc
+PROBES = ('vpu_roofline', 'int8_mxu')  # P1 and P2, P3, in probes/csrc
 # the kernels that take the packed weights, and where: the argument's
 # place counted from the end of the entry point's arguments (the int8 entry
 # points of K1, K2 and K3 take them at the same place as their bf16 ones)
@@ -88,6 +93,9 @@ PACKED_INT8 = ('pairwise_mlp', 'gated_pairwise_mlp', 'gated_factored_mlp')
 # held to the other checkout by the gates, not bits (their chain may be
 # another one there)
 GATED = ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')
+# neither bits nor gates: P2 fused against a checkout whose P2 has one
+# design (chip_smoke.py holds each checkout's to its plain version)
+UNHELD = ('P2',)
 TOP = 50
 
 
@@ -153,6 +161,27 @@ class WithoutPackedWeights:
         return self._calls[attr]
 
 
+class BcastWithoutFused:
+    """The P2 library of a checkout whose ``vpu_bcast_forward`` takes no
+    ``fused`` and ``entries`` arguments (one design, K4's unfused
+    pattern): each call drops them."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        fn = lib.vpu_bcast_forward
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def call(*args):
+            return fn(*args[:8], args[-1])
+        call.argtypes = None  # the wrappers set this one's; fn keeps its own
+        self.vpu_bcast_forward = call
+
+    def __getattr__(self, attr):
+        return getattr(self._lib, attr)
+
+
 def unpacked_entries(lib, name: str) -> list:
     """The entry points of ``lib`` (``csrc/<name>.cu`` of another checkout)
     that take no packed weights though this checkout's do: ``<name>_forward``
@@ -201,6 +230,10 @@ def build_other(checkout: Path, this: dict) -> dict:
     for n, path in compile_other(checkout).items():
         lib = ctypes.CDLL(str(path))
         if n in PROBES:
+            source = (checkout / 'pixelrec_multimodal_tpu_torch' / 'probes'
+                      / 'csrc' / f'{n}.cu').read_text()
+            if n == 'vpu_roofline' and 'int fused' not in source:
+                lib = BcastWithoutFused(lib)
             libs[n] = lib
             continue
         if not hasattr(lib, f'{n}_block_bytes'):
@@ -242,6 +275,7 @@ def main() -> int:
     from pixelrec_multimodal_tpu_torch.ops import attention_cascade as tac
     from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
     from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+    from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
     from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -277,6 +311,7 @@ def main() -> int:
                 torch.randn(TIME_C, WIDE_HIDDEN[0], generator=gen).to(dev))
         chain_x = tvr.chain_inputs(dev, SEED)
         bcast_wv = tvr.bcast_inputs(dev, SEED)
+        mxu = {m: tmx.inputs(m, dev, seed=SEED) for m in tmx.MODES}
         # kernel: a call of this checkout's wrapper on the shared inputs
         calls = {
             'K1': lambda: tpm.pairwise_scores(pair_head, *concat),
@@ -296,7 +331,11 @@ def main() -> int:
                                             tvr.STEPS),
             'P1_exp': lambda: tvr.vpu_chain(chain_x, tvr.K_HI, 'exp',
                                             tvr.STEPS),
-            'P2': lambda: tvr.vpu_bcast(*bcast_wv, tvr.BC_K_HI, tvr.STEPS)}
+            'P2': lambda: tvr.vpu_bcast(*bcast_wv, tvr.BC_K_HI, tvr.STEPS),
+            'P2_unfused': lambda: tvr.vpu_bcast(*bcast_wv, tvr.BC_K_HI,
+                                                tvr.STEPS, fused=False),
+            **{f'P3_{m}': (lambda m=m: tmx.mxu_chain(
+                *mxu[m], m, instances=tmx.INSTANCES)) for m in tmx.MODES}}
         scores, wide_rows = {}, {}
         for tag in ('other', 'this'):
             use(tag)
@@ -323,7 +362,11 @@ def main() -> int:
                 times[k][tag].append(cuda_ms(fn, reps=20))
         shapes = {'P1_fma': [tvr.STEPS, *chain_x.shape],
                   'P1_exp': [tvr.STEPS, *chain_x.shape],
-                  'P2': [tvr.STEPS, tvr.BC_TB, tvr.BC_TC, tvr.BC_DP]}
+                  'P2': [tvr.STEPS, tvr.BC_TB, tvr.BC_TC, tvr.BC_DP],
+                  'P2_unfused': [tvr.STEPS, tvr.BC_TB, tvr.BC_TC,
+                                 tvr.BC_DP],
+                  **{f'P3_{m}': [tmx.INSTANCES, tmx.ROWS, tmx.H1]
+                     for m in tmx.MODES}}
         for k, t in times.items():
             emit('time', kernel=k, shape=shapes.get(k, [TIME_B, TIME_C]),
                  ms=t, this_over_other=sum(t['this']) / sum(t['other']))
@@ -331,7 +374,8 @@ def main() -> int:
         ms_64 = cuda_ms(k1q_64, reps=20)
         emit('time', kernel='K1q', block_rows=64, shape=[TIME_B, TIME_C],
              ms=ms_64, over_this_128=ms_64 / (sum(times['K1q']['this']) / 2))
-    return 0 if all(v for k, v in equal.items() if k not in GATED) \
+    return 0 if all(v for k, v in equal.items()
+                    if k not in GATED + UNHELD) \
         and all(g['held'] for g in held.values()) else 1
 
 

@@ -35,11 +35,15 @@ from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
 from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
 from chip_smoke import (
     MAX_DIFFERING_PER_LAYER,
+    TRAIN_TOL,
     WIDE_MAX_DIFFERING,
     random_attention_head,
     random_attention_rows,
     random_gated_rows,
     random_head,
+    train_card_vs_cpu,
+    train_data,
+    train_model,
 )
 from tests import _torch_smem as hand
 
@@ -1362,11 +1366,33 @@ def test_scorer_serves_wide_models_on_card(dev, fusion, variant, precision,
                           device=dev)
 
 
+@pytest.mark.parametrize('steps', [1, 3])
+def test_train_steps_on_card_match_cpu(dev, steps):
+    """The frozen train path on the card (the flagship widths over 1,000
+    items, float32, dropout 0, TF32 off) against the CPU's from the same
+    weights, ``chip_smoke.train_card_vs_cpu``: with SGD and with AdamW the
+    losses within TRAIN_TOL; SGD's parameters and BatchNorm statistics
+    within it too, AdamW's within TRAIN_ADAM_DRIFT (it raises
+    otherwise)."""
+    gen = torch.Generator().manual_seed(3)
+    tables, batches = train_data(gen, 'cpu', n_items=N_ITEMS,
+                                 n_users=N_USERS, batch=512, n_batches=steps)
+    model = train_model('cpu', torch.float32, 0.0, n_items=N_ITEMS,
+                        n_users=N_USERS)
+    out = train_card_vs_cpu(model, tables, batches, dev)
+    for kind in ('sgd', 'adamw'):
+        assert len(out[kind]['losses_card']) == steps
+        assert out[kind]['loss_max_abs_diff'] <= TRAIN_TOL
+    assert out['sgd']['param_max_abs_diff'] <= TRAIN_TOL
+
+
 def test_probes_match_plain(dev):
     """P1-P3 at small grids against their plain versions: P1 within 1e-5
     of the value's scale (one FFMA rounding against two; the card's expf
-    against torch.exp), P2 bit for bit (each product and sum rounded on its
-    own on both sides), P3's int8 modes bit for bit (exact integer
+    against torch.exp), P2's fused instance within 1e-5 of the scale (one
+    FFMA rounding against two, as P1), its unfused instance bit for bit
+    (each product and sum rounded on its own on both sides, in the same
+    order), P3's int8 modes bit for bit (exact integer
     products, one rounding per float32 step), its bf16 mode within 2e-2 of
     the scale (the tensor cores' float32 sums run in another order, which
     moves a bf16 rounding now and then); one launch each."""
@@ -1379,8 +1405,12 @@ def test_probes_match_plain(dev):
         ref = tvr.chain_plain(x, 24, kind)
         assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
     w, v = tvr.bcast_inputs(dev)
-    assert torch.equal(tvr.vpu_bcast(w, v, 16, steps=3),
-                       tvr.bcast_plain(w, v, 16))
+    ref = tvr.bcast_plain(w, v, 16)
+    for entries in tvr.BC_ENTRIES:
+        assert torch.equal(tvr.vpu_bcast(w, v, 16, steps=3, fused=False,
+                                         _entries=entries), ref)
+        out = tvr.vpu_bcast(w, v, 16, steps=3, _entries=entries)
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
     for mode in tmx.MODES:
         t = tmx.inputs(mode, dev, rows=300)
         out = tmx.mxu_chain(*t, mode, instances=2)

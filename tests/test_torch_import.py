@@ -54,14 +54,22 @@ def test_import_leaves_jax_out():
     # the Hopper probes P1-P3 stand alone too
     assert {'pixelrec_multimodal_tpu_torch.probes.int8_mxu',
             'pixelrec_multimodal_tpu_torch.probes.vpu_roofline'} <= set(loaded)
+    # and so does the training core; its config needs no PyYAML to import
+    assert {'pixelrec_multimodal_tpu_torch.config',
+            'pixelrec_multimodal_tpu_torch.models.losses',
+            'pixelrec_multimodal_tpu_torch.training.optimizers',
+            'pixelrec_multimodal_tpu_torch.training.steps'} <= set(loaded)
+    assert 'yaml' not in loaded
 
 
 def test_probe_sources_are_checked():
-    """The probes' modules and entry scripts are among the sources held to
-    importing nothing forbidden."""
+    """The probes' modules and entry scripts, and the training core's
+    modules, are among the sources held to importing nothing
+    forbidden."""
     names = {p.name for p in port_sources()}
     assert {'int8_mxu.py', 'vpu_roofline.py', 'torch_profile_int8_mxu.py',
-            'torch_profile_vpu_roofline.py'} <= names
+            'torch_profile_vpu_roofline.py', 'config.py', 'losses.py',
+            'optimizers.py', 'steps.py'} <= names
 
 
 @pytest.mark.parametrize('path', port_sources(), ids=lambda p: p.name)
@@ -169,7 +177,3 @@ def test_unported_options_raise():
         CatalogScorer(model, store, device='cpu', precision='int4')
     with pytest.raises(NotImplementedError, match='A11'):
         CatalogScorer(model, store, device='cpu', mesh=object())
-    model.train()
-    idx = torch.zeros(1, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match='A6'):
-        model(idx, idx, idx)

@@ -83,6 +83,27 @@ def test_bcast_plain_matches_pallas():
                                atol=1e-6 * np.abs(ref).max())
 
 
+# Both of P2's instances take the plain version on the CPU (the fused one
+# is held to it within a tolerance on the card, the unfused one bit for
+# bit); the arguments that choose an instance are checked before the
+# device is.
+@pytest.mark.parametrize('fused', [True, False])
+def test_bcast_instances_take_the_plain_path_on_cpu(fused):
+    w, v = tvr.bcast_inputs('cpu', seed=2)
+    before = tvr.vpu_bcast.launches
+    for entries in tvr.BC_ENTRIES:
+        out = tvr.vpu_bcast(w, v, 5, fused=fused, _entries=entries)
+        assert torch.equal(out, tvr.bcast_plain(w, v, 5))
+    assert tvr.vpu_bcast.launches == before
+    with pytest.raises(ValueError, match='fused'):
+        tvr.vpu_bcast(w, v, 5, fused=int(fused))
+    with pytest.raises(ValueError, match='entries'):
+        tvr.vpu_bcast(w, v, 5, fused=fused, _entries=64)
+    with pytest.raises(ValueError, match='cuda or cpu'):
+        tvr.vpu_bcast(w.to('meta'), v.to('meta'), 5, fused=fused)
+    assert tvr.vpu_bcast.launches == before
+
+
 def mxu_reference(mode, x, w1, w2, monkeypatch, rows, k):
     monkeypatch.setattr(MXU, 'ROWS', rows)
     monkeypatch.setattr(MXU, 'K', k)
