@@ -1,1 +1,3 @@
-# pixelrec_multimodal_tpu_torch/data/__init__.py
+"""Data layer: the dataset, negative sampling, tokenization, the item
+feature store and the prefetching loader."""
+from .loader import PrefetchLoader, prefetch_to_device  # noqa: F401

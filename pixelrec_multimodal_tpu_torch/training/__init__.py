@@ -1,5 +1,6 @@
-"""Training of the port: optimizers and schedules, and the frozen-feature
-train and eval steps (``make_step_fns``)."""
+"""Training of the port: optimizers and schedules, the frozen-feature
+train and eval steps (``make_step_fns``) and the ``Trainer`` that drives
+them over a dataset."""
 from .optimizers import (  # noqa: F401
     LRScheduler,
     build_optimizer,
@@ -8,3 +9,4 @@ from .optimizers import (  # noqa: F401
     with_frozen,
 )
 from .steps import TrainState, init_train_state, make_step_fns  # noqa: F401
+from .trainer import Trainer  # noqa: F401

@@ -5,7 +5,9 @@ fewer pair rows for wide heads, the two chains (wgmma for the bf16 modes
 of K1, K2 and K3, and K4, K5 and K6, and its s8 form for K1q, K2q and K3q,
 at 128 and 64 rows where the block fits, mma.sync everywhere else), the
 probes P1-P3 (P3 on the wgmma chains), and its scorer,
-int8 and the attention cascade included, on a card.
+int8 and the attention cascade included, the train steps and a toy
+``Trainer`` run against the CPU's, checkpoints written from the card,
+``device_tables`` and ``PrefetchLoader`` on a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX:
@@ -1451,3 +1453,104 @@ def test_p3_wgmma_blocks_match_plain(dev, mode, rows, nbytes):
         assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
     else:
         assert torch.equal(out, ref)
+
+
+# ------------------------------------------------------------------ Trainer
+def toy_trainer_data(tmp_path):
+    """Small datasets by chip_smoke's trainer helpers (64 users, 512
+    items, 8 tags), with 64-wide vision and 32-wide language tables."""
+    from chip_smoke import NUM_FEAT, trainer_datasets, trainer_tables
+    items, train, val = trainer_tables(seed=4, n_users=64, n_items=512,
+                                       n_tags=8, train_pos=16, val_pos=4)
+    full, tr, va, _ = trainer_datasets(items, train, val,
+                                       [f'num_{c}' for c in range(NUM_FEAT)])
+    rng = np.random.default_rng(5)
+    tr.feature_store.set_embedding_table('vision_emb', rng.standard_normal(
+        (full.n_items, 64), dtype=np.float32))
+    tr.feature_store.set_embedding_table('language_emb', rng.standard_normal(
+        (full.n_items, 32), dtype=np.float32))
+    kw = dict(n_users=full.n_users, n_items=full.n_items,
+              n_tags=full.n_tags, vision_feature_dim=64,
+              language_feature_dim=32, fusion_hidden_dims=(64, 32))
+    return tr, va, kw
+
+
+def test_trainer_on_card_matches_cpu(dev, tmp_path):
+    """A toy ``Trainer`` run of 2 epochs on the card (SGD, float32, dropout
+    0, TF32 off) against the same run on the CPU: losses within TRAIN_TOL,
+    checkpoints written from the card's tensors."""
+    from pixelrec_multimodal_tpu_torch.training import Trainer
+    tr, va, kw = toy_trainer_data(tmp_path)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        losses = {}
+        for side in ('cpu', dev):
+            model = train_model(side, torch.float32, 0.0, **kw)
+            t = Trainer(model, checkpoint_dir=str(tmp_path / str(side)),
+                        use_contrastive=False)
+            losses[str(side)] = t.train(tr, va, epochs=2, lr=0.05,
+                                        optimizer_type='sgd',
+                                        batch_size=256)
+            assert (tmp_path / str(side) / 'last_model' / 'state.pt').exists()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    got, ref = losses[str(dev)], losses['cpu']
+    assert np.isfinite(got).all() and len(got[0]) == 2
+    np.testing.assert_allclose(got, ref, atol=TRAIN_TOL)
+
+
+def test_checkpoint_from_card_loads_bit_equal(dev, tmp_path):
+    """State saved from CUDA tensors lands as CPU tensors in state.pt and
+    loads back onto the card bit for bit."""
+    from pixelrec_multimodal_tpu_torch.utils import checkpointing as ck
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = {'params': {'w': torch.randn(33, 7, generator=gen, device=dev)},
+             'step': torch.tensor(5, device=dev),
+             'opt_state': {'names': ['w'], 'lr': torch.tensor(
+                 1e-3, device=dev)}}
+    ck.save_checkpoint(tmp_path, 'last_model', state, {'epoch': 2})
+    raw = torch.load(tmp_path / 'last_model' / 'state.pt',
+                     weights_only=True)
+    assert raw['params']['w'].device.type == 'cpu'
+    back = ck.load_checkpoint(tmp_path, 'last_model', device=dev)
+    assert back['meta'] == {'epoch': 2}
+    assert back['state']['params']['w'].device.type == 'cuda'
+    assert torch.equal(back['state']['params']['w'], state['params']['w'])
+    assert torch.equal(back['state']['step'], state['step'])
+    assert back['state']['opt_state']['names'] == ['w']
+
+
+def test_device_tables_land_on_card(dev, tmp_path):
+    """``device_tables`` through pinned memory: the packed table and the
+    index tables on the card, equal to the CPU's, bf16 cast after the
+    copy."""
+    tr, _, _ = toy_trainer_data(tmp_path)
+    store = tr.feature_store
+    for dtype in (None, torch.bfloat16):
+        card = store.device_tables(device=dev, pack=True, dtype=dtype)
+        host = store.device_tables(device='cpu', pack=True, dtype=dtype)
+        torch.cuda.synchronize()
+        assert sorted(card) == sorted(host)
+        assert any(k.startswith('packed::') for k in card)
+        for k, v in card.items():
+            assert v.device.type == 'cuda' and v.dtype == host[k].dtype
+            assert torch.equal(v.cpu(), host[k]), k
+
+
+def test_prefetch_loader_yields_card_tensors(dev):
+    """Batches through pinned memory and the side stream arrive on the
+    card in order and intact, consumed on the current stream."""
+    from pixelrec_multimodal_tpu_torch.data.loader import PrefetchLoader
+    rng = np.random.default_rng(0)
+    host = [{'x': rng.standard_normal((4096, 16)).astype(np.float32),
+             'i': np.full(8, b, np.int32)} for b in range(6)]
+    total = torch.zeros((), device=dev)
+    for b, batch in enumerate(PrefetchLoader(iter(host), prefetch=2,
+                                             device=dev)):
+        assert batch['x'].device.type == 'cuda'
+        assert int(batch['i'][0]) == b
+        total += batch['x'].sum()
+        assert torch.equal(batch['x'].cpu(), torch.from_numpy(host[b]['x']))
+    assert torch.isclose(total.cpu(), torch.tensor(
+        float(sum(h['x'].sum(dtype=np.float64) for h in host))), rtol=1e-4)

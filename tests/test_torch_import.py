@@ -2,6 +2,7 @@
 package, and its entry points refuse to fall back to the CPU silently."""
 import ast
 import json
+import os
 import pkgutil
 import subprocess
 import sys
@@ -62,14 +63,67 @@ def test_import_leaves_jax_out():
     assert 'yaml' not in loaded
 
 
+# What the machine with the card lacks; the port's data path and Trainer
+# must not load them.
+CARD_ABSENT = {'pandas', 'sklearn', 'PIL', 'yaml', 'transformers'}
+
+
+def test_data_path_stands_alone(tmp_path):
+    """A fresh interpreter imports every port module, builds a small
+    MultimodalDataset from dicts of numpy columns (numerical scaling,
+    tags, tokenized descriptions, negatives) and its device tables, and
+    loads none of JAX, the JAX package, pandas, scikit-learn, PIL, PyYAML
+    or transformers."""
+    code = (
+        'import importlib, json, sys\n'
+        'import numpy as np\n'
+        f'for m in {port_modules()!r}: importlib.import_module(m)\n'
+        'from pixelrec_multimodal_tpu_torch.data.dataset import '
+        'MultimodalDataset\n'
+        'from pixelrec_multimodal_tpu_torch.data.processors.'
+        'numerical_processor import StandardScaler\n'
+        'items = {"item_id": np.array(["a", "b", "c", "d"]),\n'
+        '         "tag": np.array(["x", None, "y", "x"], dtype=object),\n'
+        '         "price": np.array([1.0, np.nan, 3.0, 4.0]),\n'
+        '         "description": np.array(["red", "blue", None, "hat"],\n'
+        '                                 dtype=object)}\n'
+        'inter = {"user_id": np.array(["u1", "u2", "u1", "u3"]),\n'
+        '         "item_id": np.array(["a", "b", "c", "zz"])}\n'
+        'ds = MultimodalDataset(inter, items, "/nonexistent",\n'
+        '    vision_model_name=None, language_model_name="sentence-bert",\n'
+        '    numerical_feat_cols=["price"], categorical_feat_cols=["tag"],\n'
+        '    numerical_normalization_method="standardization",\n'
+        '    numerical_scaler=StandardScaler(), max_text_length=8)\n'
+        'tables = ds.feature_store.device_tables(device="cpu", pack=True)\n'
+        'assert len(ds) == 6 and ds.n_items == 4 and ds.n_users == 2\n'
+        'assert ds.feature_store.tables["text_input_ids"].shape == (4, 8)\n'
+        'print(json.dumps(sorted(sys.modules)))\n')
+    env = dict(os.environ, HF_HOME=str(tmp_path), HF_HUB_CACHE='',
+               TRANSFORMERS_CACHE='')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded
+           if m.split('.')[0] in FORBIDDEN | CARD_ABSENT]
+    assert not bad, bad
+    assert {'pixelrec_multimodal_tpu_torch.training.trainer',
+            'pixelrec_multimodal_tpu_torch.utils.checkpointing',
+            'pixelrec_multimodal_tpu_torch.data.loader'} <= set(loaded)
+
+
 def test_probe_sources_are_checked():
-    """The probes' modules and entry scripts, and the training core's
-    modules, are among the sources held to importing nothing
+    """The probes' modules and entry scripts, the training core's modules
+    and the data path's are among the sources held to importing nothing
     forbidden."""
     names = {p.name for p in port_sources()}
     assert {'int8_mxu.py', 'vpu_roofline.py', 'torch_profile_int8_mxu.py',
             'torch_profile_vpu_roofline.py', 'config.py', 'losses.py',
-            'optimizers.py', 'steps.py'} <= names
+            'optimizers.py', 'steps.py', 'trainer.py', 'dataset.py',
+            'feature_store.py', 'loader.py', 'negative_sampling.py',
+            'tokenization.py', 'label_encoder.py', 'columns.py',
+            'numerical_processor.py', 'checkpointing.py',
+            'logging.py'} <= names
 
 
 @pytest.mark.parametrize('path', port_sources(), ids=lambda p: p.name)
