@@ -26,7 +26,9 @@ concat and gated chains [1024, 512, 256] in bf16 and int8), then trains:
 the frozen train step at the JAX package's training profile geometry and
 against the CPU, and the ``Trainer`` at that geometry from synthetic
 interactions through the data path, with checkpoints and a resume, whose
-best checkpoint then serves through K1 and K1q; it checks what comes out
+best checkpoint then serves through K1 and K1q, then the same data split
+and trained through the port's command-line entry points (CSV files, a
+YAML config), whose best checkpoint serves through K1; it checks what comes out
 against the plain versions and the exact scan, and times the kernels.
 Every phase prints one JSON line; any failure raises and exits non-zero. The second-to-last line is the
 ``kernels`` JSON object and the last line is ``{"ok": true, "device":
@@ -188,6 +190,11 @@ TRAIN_ADAM_DRIFT = 2 * TRAIN_LR * TRAIN_CHECK_STEPS
 # N_USERS users, and SEEN_USERS of them with their histories masked.
 TRAINER_LIKED, TRAINER_TRAIN_POS, TRAINER_VAL_POS = 2, 64, 8
 TRAINER_EPOCHS, TRAINER_PATIENCE, SEEN_USERS = 5, 2, 1024
+# The cli phase: the trainer phase's items and interactions (all 72
+# positives a user, split by the config's 'stratified' strategy at 0.8)
+# through the port's split and train entry points, CLI_EPOCHS epochs in the
+# JAX train script's float32, then CLI_SERVE_USERS users served.
+CLI_EPOCHS, CLI_SERVE_USERS = 5, 1024
 # The keys of JAX's meta.json (pixelrec_multimodal_tpu/training/
 # trainer.py:355-369, with a config).
 META_KEYS = {'epoch', 'best_early_stopping_score', 'early_stopping_metric',
@@ -561,21 +568,37 @@ def plain_bf16_other_order(head: dict, user_first: torch.Tensor,
 
 
 def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
-                        trained=False):
+                        gate='raw'):
     """The main path's top-50 over 64 users against the plain bf16 version
     of the same tables at the full catalog: overlap >= MIN_OVERLAP, values
     and ``score_full`` within KERNEL_TOL. Optionally reports the overlap
     with the plain float32 version too (bf16 against f32, not a fault).
 
-    ``trained`` (a concat head of a trained model): KERNEL_TOL was read
-    on random weights. On the trained flagship head one bf16 rounding that
-    falls the other way moves a score further: two plain bf16 versions
-    summing in other orders (``plain_bf16_other_order``) already lie past
-    KERNEL_TOL on a few pairs of ``score_full`` (9.9e-3 on an NVIDIA
-    H100). There ``score_full`` is held instead to lie no farther from
-    the plain float32 version than the plain bf16 version does, plus
+    ``gate='score_full_vs_f32'`` (a concat head of a trained model):
+    KERNEL_TOL was read on random weights. On the trained flagship head one
+    bf16 rounding that falls the other way moves a score further: two plain
+    bf16 versions summing in other orders (``plain_bf16_other_order``)
+    already lie past KERNEL_TOL on a few pairs of ``score_full`` (9.9e-3 on
+    an NVIDIA H100). There ``score_full`` is held instead to lie no farther
+    from the plain float32 version than the plain bf16 version does, plus
     KERNEL_TOL; every distance is printed. Overlap and top-50 values keep
-    their gates."""
+    their gates.
+
+    ``gate='score_full_vs_f32_top50_flips'`` (the cli phase's float32-trained
+    head served in bf16): ``score_full`` as above, and the top-50 values
+    held pair by pair against the plain bf16 scores of the same items. On
+    that head two plain bf16 summation orders put top-50 values up to
+    2.79e-3 apart (NVIDIA H100), past KERNEL_TOL, so a bf16 rounding that
+    falls the other way may move a top-50 value past it too: at most
+    MAX_DIFFERING_PER_LAYER of the pairs per hidden layer may lie past
+    KERNEL_TOL, and none past FLIP_TOL (both relative to max(1, |score|)),
+    the same share and bound that hold the flips of the attention kernels.
+    The two plain orders' count on the same pairs is printed beside the
+    kernel's."""
+    if gate not in ('raw', 'score_full_vs_f32',
+                    'score_full_vs_f32_top50_flips'):
+        raise ValueError(f'unknown gate {gate!r}')
+    trained = gate != 'raw'
     with torch.no_grad():
         side = scorer._fast_user_side(
             torch.from_numpy(users[:64].astype(np.int64)).to('cuda'))
@@ -604,7 +627,29 @@ def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
     full = scorer.score_full(users[:64])
     full_err = float(np.abs(full - ref.cpu().numpy()).max())
     tol = KERNEL_TOL * max(1.0, float(np.abs(ref_v).max()))
+    values_ok = value_err <= tol
     full_ok = full_err <= tol
+    if gate == 'score_full_vs_f32_top50_flips':
+        with torch.no_grad():
+            at = torch.from_numpy(i[:64].astype(np.int64)).to(ref.device)
+            ref_at = ref.gather(1, at).cpu().numpy()
+            other_at = other.gather(1, at).cpu().numpy()
+        scale = np.maximum(1.0, np.abs(ref_at))
+        rel = np.abs(v[:64] - ref_at) / scale
+        hidden = len(scorer._head['layers']) - 1
+        allowed = int(MAX_DIFFERING_PER_LAYER * hidden * rel.size)
+        past = int((rel > KERNEL_TOL).sum())
+        values_ok = past <= allowed and float(rel.max()) <= FLIP_TOL
+        extra.update(
+            top50_same_item_max_abs_diff=float(np.abs(v[:64] - ref_at).max()),
+            top50_pairs=int(rel.size), top50_pairs_past_tol=past,
+            top50_pairs_allowed_past_tol=allowed, flip_tol=FLIP_TOL,
+            plain_other_order_top50_pairs_past_tol=int(
+                (np.abs(other_at - ref_at) / scale > KERNEL_TOL).sum()),
+            plain_other_order_top50_same_item_max_abs_diff=float(
+                np.abs(other_at - ref_at).max()),
+            top50_values_gate='pairs past tol <= MAX_DIFFERING_PER_LAYER x '
+                              'hidden layers, none past FLIP_TOL')
     if trained:
         exact = exact.cpu().numpy()
         kernel_f32 = np.abs(full - exact)
@@ -623,7 +668,7 @@ def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
          top50_overlap_vs_plain_bf16=overlap, min_overlap=MIN_OVERLAP,
          top50_value_max_abs_diff=value_err,
          score_full_max_abs_diff=full_err, tol=tol, **extra)
-    if overlap < MIN_OVERLAP or not value_err <= tol or not full_ok:
+    if overlap < MIN_OVERLAP or not values_ok or not full_ok:
         raise AssertionError(f'{phase}: main path disagrees with the plain '
                              f'version')
     if v.min() <= -1e30 / 2:
@@ -1760,7 +1805,8 @@ def trainer_phase(smi, dev, bare_samples_per_sec: float) -> dict:
     v, i, _, _ = drive_top_k(scorer, users, 'K1', 'trainer_main_path',
                              nvidia_smi=smi)
     check_against_plain(scorer, pairwise_scores_plain, users, v, i,
-                        'trainer_main_path_vs_plain', trained=True)
+                        'trainer_main_path_vs_plain',
+                        gate='score_full_vs_f32')
     indptr, hist_items = train_ds.user_history_matrix()
     few = users[:SEEN_USERS]
     seen = np.zeros((len(few), full.n_items), dtype=bool)
@@ -1783,6 +1829,276 @@ def trainer_phase(smi, dev, bare_samples_per_sec: float) -> dict:
     del qscorer, served
     torch.cuda.empty_cache()
     return {'epochs': epochs}
+
+
+def cli_phase(smi, dev, trainer_samples_per_sec: float) -> dict:
+    """The command line on the card at the trainer phase's geometry: the
+    trainer phase's items and interactions (train and validation
+    positives together, a timestamp each) written as the processed CSV
+    files by the port's ``write_csv``, random vision and language tables
+    written as ``feature_tables.npz`` by ``ItemFeatureStore.save`` (as
+    scripts/precompute_cache.py:97 does), and a config YAML; then the
+    port's ``create_splits.main`` and ``train.main(['--config', ...,
+    '--device', 'cuda'])`` in this process; then the model rebuilt from
+    ``training_run_config_validated.yaml``, ``best_model`` loaded, the item
+    encoder unpickled, and CLI_SERVE_USERS users served through K1 (launches
+    counted, ``score_full`` held against the plain float32 version as the
+    trainer phase holds it, the top-50 values pair by pair against the plain
+    bf16 version's, ``check_against_plain``), their seen items masked, the
+    ids mapped back. Also times the text tokenizer (every
+    ``feature_store.batch_encode`` call) inside ``train.main``'s dataset
+    builds. Returns K1's launches."""
+    import contextlib
+    import pickle
+    import tempfile
+    from pixelrec_multimodal_tpu_torch.config import Config
+    from pixelrec_multimodal_tpu_torch.data import feature_store
+    from pixelrec_multimodal_tpu_torch.data.columns import (
+        read_csv,
+        write_csv,
+    )
+    from pixelrec_multimodal_tpu_torch.data.feature_store import (
+        ItemFeatureStore,
+    )
+    from pixelrec_multimodal_tpu_torch.data.processors import (
+        NumericalProcessor,
+    )
+    from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
+    from pixelrec_multimodal_tpu_torch.models.multimodal import build_model
+    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
+        pairwise_scores_plain,
+    )
+    from pixelrec_multimodal_tpu_torch.scripts import create_splits, train
+    from pixelrec_multimodal_tpu_torch.utils import yaml_io
+    from pixelrec_multimodal_tpu_torch.utils.checkpointing import (
+        load_checkpoint,
+        load_model_state,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ws = Path(tmp)
+        proc, split = ws / 'processed', ws / 'splits' / 'split_1'
+        cache, ckpt, results = ws / 'cache', ws / 'checkpoints', \
+            ws / 'results'
+        cols = [f'num_{c}' for c in range(NUM_FEAT)]
+        # ---- 1. the workspace: processed CSV files, precomputed tables,
+        # the config
+        t0 = time.time()
+        items, train_pos, val_pos = trainer_tables()
+        rng = np.random.default_rng(SEED + 21)
+        inter = {k: np.concatenate([train_pos[k], val_pos[k]])
+                 for k in train_pos}
+        inter['timestamp'] = rng.integers(0, 10 ** 6, len(inter['user_id']))
+        tables_s = time.time() - t0
+        t0 = time.time()
+        write_csv(items, proc / 'item_info.csv')
+        write_csv(inter, proc / 'interactions.csv')
+        write_s = time.time() - t0
+        t0 = time.time()
+        store = ItemFeatureStore(N_ITEMS, np.unique(items['item_id']),
+                                 'resnet', 'sentence-bert')
+        store.set_embedding_table('vision_emb', rng.standard_normal(
+            (N_ITEMS, VISION_DIM), dtype=np.float32))
+        store.set_embedding_table('language_emb', rng.standard_normal(
+            (N_ITEMS, LANG_DIM), dtype=np.float32))
+        store.save(str(cache))
+        npz_s = time.time() - t0
+        del store
+        config = {
+            'model': {'vision_model': 'resnet',
+                      'language_model': 'sentence-bert',
+                      'embedding_dim': EMB, 'fusion_type': 'concatenate',
+                      'fusion_hidden_dims': list(HIDDEN),
+                      'use_contrastive': False, 'use_batch_norm': True,
+                      'dropout_rate': TRAIN_DROPOUT},
+            'training': {'batch_size': TRAIN_BATCH,
+                         'epochs': CLI_EPOCHS,
+                         'learning_rate': TRAIN_LR,
+                         'weight_decay': TRAIN_WD,
+                         'gradient_clip': TRAIN_CLIP,
+                         'patience': TRAINER_PATIENCE,
+                         'optimizer_type': 'adamw',
+                         'use_lr_scheduler': True,
+                         'lr_scheduler_type': 'reduce_on_plateau'},
+            'data': {
+                'processed_item_info_path': str(proc / 'item_info.csv'),
+                'processed_interactions_path':
+                    str(proc / 'interactions.csv'),
+                'scaler_path': str(proc / 'numerical_scaler.pkl'),
+                'split_data_path': str(split),
+                'train_data_path': str(split / 'train.csv'),
+                'val_data_path': str(split / 'val.csv'),
+                'test_data_path': str(split / 'test.csv'),
+                'numerical_features_cols': cols,
+                'categorical_features_cols': ['tag'],
+                'negative_sampling_ratio': 1.0,
+                'cache_config': {'enabled': True, 'use_disk': True,
+                                 'cache_directory': str(cache)},
+                'splitting': {'strategy': 'stratified',
+                              'train_final_ratio': 0.8,
+                              'min_interactions_per_user': 1,
+                              'min_interactions_per_item': 1,
+                              'random_state': SEED}},
+            'checkpoint_dir': str(ckpt), 'results_dir': str(results)}
+        cfg_path = ws / 'config.yaml'
+        yaml_io.dump_file(config, cfg_path)
+        emit('cli_workspace', items=N_ITEMS,
+             interactions=len(inter['user_id']),
+             tables_seconds=tables_s, write_csv_seconds=write_s,
+             feature_tables_npz_seconds=npz_s,
+             bytes={p.name: p.stat().st_size
+                    for p in (proc / 'item_info.csv',
+                              proc / 'interactions.csv',
+                              cache / 'vision_resnet_lang_sentence-bert' /
+                              'feature_tables.npz')})
+
+        # ---- 2. split, then train, through the entry points
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(sys.stderr):
+            split_out = create_splits.main(str(cfg_path))
+        split_wall = time.time() - t0
+        # the text tokenizer's share of the dataset builds: every call of
+        # feature_store.batch_encode during train.main, timed
+        encode, tokenize = feature_store.batch_encode, {
+            'seconds': 0.0, 'calls': 0, 'texts': 0, 'tokenizers': []}
+
+        def timed_encode(tok, texts, *args, **kwargs):
+            t = time.time()
+            try:
+                return encode(tok, texts, *args, **kwargs)
+            finally:
+                tokenize['seconds'] += time.time() - t
+                tokenize['calls'] += 1
+                tokenize['texts'] += len(texts)
+                tokenize['tokenizers'].append(type(tok).__name__)
+        feature_store.batch_encode = timed_encode
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                res = train.main(['--config', str(cfg_path), '--device',
+                                  'cuda'])
+        finally:
+            feature_store.batch_encode = encode
+        train_wall = time.time() - t0
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        serving = launch_counts()
+        stats = split_out['stats']
+        per_epoch = [res['train_samples'] / e['train']
+                     for e in res['epoch_seconds']]
+        emit('cli', split_seconds=split_out['seconds'],
+             split_wall_seconds=split_wall, split_rows=split_out['rows'],
+             split_stats=stats, train_seconds=res['seconds'],
+             train_wall_seconds=train_wall,
+             tokenize=tokenize, tokenize_share_of_datasets=(
+                 tokenize['seconds'] / res['seconds']['datasets']),
+             epochs_run=res['epochs_completed'],
+             train_losses=res['train_losses'], val_losses=res['val_losses'],
+             epoch_seconds=res['epoch_seconds'],
+             train_samples=res['train_samples'],
+             cli_trainer_samples_per_sec=per_epoch,
+             cli_trainer_samples_per_sec_median=statistics.median(
+                 per_epoch),
+             trainer_phase_samples_per_sec_median=trainer_samples_per_sec,
+             share_of_trainer_phase=statistics.median(per_epoch) /
+             trainer_samples_per_sec,
+             model_dtype='float32', trainer_phase_dtype='bfloat16',
+             peak_memory_bytes=peak, kernel_launches=serving,
+             device_info=res['metadata']['device_info'], nvidia_smi=smi)
+        model_dir = ckpt / 'resnet_sentence-bert'
+        enc_dir = ckpt / 'encoders'
+        wanted = [results / 'training_metadata.json',
+                  results / 'training_run_config.yaml',
+                  results / 'training_run_config_validated.yaml',
+                  enc_dir / 'user_encoder.pkl', enc_dir / 'item_encoder.pkl',
+                  enc_dir / 'tag_encoder.pkl',
+                  model_dir / 'best_model' / 'state.pt',
+                  model_dir / 'last_model' / 'state.pt',
+                  split / 'train.csv', split / 'val.csv']
+        absent = [str(p.relative_to(ws)) for p in wanted if not p.exists()]
+        if absent:
+            raise AssertionError(f'cli: files not written: {absent}')
+        if not (np.isfinite(res['train_losses']).all()
+                and np.isfinite(res['val_losses']).all()):
+            raise AssertionError(f'cli: non-finite losses '
+                                 f'{res["train_losses"]}, '
+                                 f'{res["val_losses"]}')
+        if stats['user_overlap_ratio_val'] != 1.0 or \
+                stats['user_overlap_val'] != stats['val_users']:
+            raise AssertionError(f'cli: validation users missing from '
+                                 f'train: {stats}')
+        if sum(split_out['rows'].values()) != len(inter['user_id']):
+            raise AssertionError(f'cli: the split lost rows: '
+                                 f'{split_out["rows"]}')
+        if any(serving.values()):
+            raise AssertionError(f'cli: the train path launched serving '
+                                 f'kernels: {serving}')
+
+        # ---- 3. serve best_model as a user would: the model from the
+        # validated config, the encoders and the scaler unpickled, the
+        # tables built from the item file plus the precomputed ones
+        t0 = time.time()
+        cfg = Config.from_yaml(str(results /
+                                   'training_run_config_validated.yaml'))
+        ds = res['metadata']['data_stats']
+        model = build_model(cfg.model, ds['total_users'], ds['total_items'],
+                            ds['total_tags'], ds['numerical_features'],
+                            device=dev)
+        best = load_checkpoint(model_dir, 'best_model', device=dev)
+        load_model_state(model, best['state'])
+        encoders = {name: pickle.loads((enc_dir / f'{name}_encoder.pkl')
+                                       .read_bytes())
+                    for name in ('user', 'item', 'tag')}
+        numerical = NumericalProcessor(
+            numerical_cols=cfg.data.numerical_features_cols,
+            normalization_method=cfg.data.numerical_normalization_method)
+        numerical.load_scaler(cfg.data.scaler_path)
+        store = ItemFeatureStore.build(
+            read_csv(cfg.data.processed_item_info_path), encoders['item'],
+            tag_encoder=encoders['tag'], vision_model=cfg.model.vision_model,
+            language_model=cfg.model.language_model,
+            numerical_processor=numerical)
+        if not store.load_tables(cfg.data.cache_config.cache_directory):
+            raise AssertionError('cli: the precomputed tables did not load')
+        scorer = CatalogScorer(model, store, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        train_rows = read_csv(cfg.data.train_data_path)
+    seen_u = encoders['user'].transform(train_rows['user_id'].astype(str))
+    seen_i = encoders['item'].transform(train_rows['item_id'].astype(str))
+    users = np.sort(np.random.default_rng(SEED + 22).choice(
+        np.unique(seen_u), CLI_SERVE_USERS, replace=False)).astype(np.int32)
+    v, i, launches, _ = drive_top_k(scorer, users, 'K1', 'cli_main_path',
+                                    setup_seconds=setup_s,
+                                    best_epoch=best['meta']['epoch'],
+                                    nvidia_smi=smi)
+    check_against_plain(scorer, pairwise_scores_plain, users, v, i,
+                        'cli_main_path_vs_plain',
+                        gate='score_full_vs_f32_top50_flips')
+    row_of = np.full(ds['total_users'], -1)
+    row_of[users] = np.arange(len(users))
+    seen = np.zeros((len(users), ds['total_items']), dtype=bool)
+    hit = row_of[seen_u] >= 0
+    seen[row_of[seen_u[hit]], seen_i[hit]] = True
+    sv, si = scorer.top_k(users, TOP_K, seen_mask=seen)
+    hits = int(seen[np.arange(len(users))[:, None], np.maximum(si, 0)][
+        si >= 0].sum())
+    ids = encoders['item'].inverse_transform(si.reshape(-1))
+    known = set(items['item_id'].tolist())
+    mapped = all(x in known for x in ids.tolist())
+    emit('cli_seen_mask', users=len(users), k=TOP_K,
+         seen_items=int(seen.sum()), seen_items_returned=hits,
+         ids_mapped_back=mapped, first_user_top5=ids[:5].tolist(),
+         unseen_overlap_with_unmasked=topc_overlap(si, i))
+    if hits or not mapped or (si < 0).any() or not np.isfinite(sv).all():
+        raise AssertionError(f'cli: {hits} seen items returned, ids mapped '
+                             f'back: {mapped}')
+    del scorer, model, store
+    torch.cuda.empty_cache()
+    return {'launches': launches}
 
 
 def main() -> int:
@@ -2426,7 +2742,13 @@ def main() -> int:
     # ---- 20. the Trainer and the data path at that geometry: datasets,
     # epochs, checkpoints, a resume, then the best checkpoint served
     # through K1 and K1q
-    trainer_phase(smi, dev, bare['samples_per_sec'])
+    trained = trainer_phase(smi, dev, bare['samples_per_sec'])
+
+    # ---- 21. the command line at that geometry: split and train through
+    # the entry points, then serve the best checkpoint through K1
+    cli = cli_phase(smi, dev, statistics.median(
+        e['trainer_samples_per_sec'] for e in trained['epochs']))
+    lines[0]['launches_cli'] = cli['launches']
 
     lines += probe_lines(probe_rate, probe_errs, dev)
     emit('timing', seconds_total=round(time.time() - t_start, 3))

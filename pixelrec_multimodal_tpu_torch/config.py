@@ -3,16 +3,18 @@
 
 The port's own copy of ``pixelrec_multimodal_tpu/config.py`` (which is
 framework-free): the same sections, fields, defaults and legacy flat cache
-keys, so the same YAML files load in both packages. PyYAML is imported by
-``from_yaml`` and ``to_yaml`` alone: the rest of the port, and the machine
-with the card, need none of it.
+keys, so the same YAML files load in both packages. ``from_yaml`` and
+``to_yaml`` read and write through the port's own YAML reader and writer
+(``utils/yaml_io.py``), as ``yaml.safe_load`` reads and ``yaml.dump``
+writes: the machine with the card has no PyYAML.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, fields, is_dataclass
-from pathlib import Path
 import typing
 from typing import Any, Dict, List, Optional, Union
+
+from .utils import yaml_io
 
 # Registry of the supported pretrained backbones: HF identifier + output dims.
 # Parity: the reference src/config.py:18-31.
@@ -431,19 +433,13 @@ class Config:
 
     @classmethod
     def from_yaml(cls, path: str) -> 'Config':
-        import yaml
-        with open(path, 'r') as f:
-            raw = yaml.safe_load(f) or {}
-        return cls.from_dict(raw)
+        return cls.from_dict(yaml_io.load_file(path) or {})
 
     def to_dict(self) -> Dict[str, Any]:
         return _to_plain(self)
 
     def to_yaml(self, path: str):
-        import yaml
-        Path(path).parent.mkdir(parents=True, exist_ok=True)
-        with open(path, 'w') as f:
-            yaml.dump(self.to_dict(), f, default_flow_style=False, sort_keys=False)
+        yaml_io.dump_file(self.to_dict(), path)
 
     def get_model_info(self) -> Dict[str, Any]:
         """Names and dims of the configured backbones (reference config.py:700-721)."""

@@ -4,10 +4,11 @@
 Counterpart of ``pixelrec_multimodal_tpu/data/loader.py``: one background
 thread assembles the next host batches and starts their copies to the
 device while the current step runs, through a bounded queue (double
-buffering at ``prefetch=2``). Cancellation and errors behave as in the JAX
-package: a consumer that stops early makes the thread stop after the batch
-in flight, and an exception raised while assembling a batch reaches the
-consumer after the batches before it.
+buffering at ``prefetch=2``). Errors behave as in the JAX package: an
+exception raised while assembling a batch reaches the consumer after the
+batches before it. A consumer that stops early makes the thread stop after
+the batch in flight; it pulls no batch from the iterable once the consumer
+has cancelled (the JAX package's thread may pull one more).
 
 On a CUDA device a batch goes through pinned host memory and a
 ``non_blocking`` copy on a side stream; the consumer's stream waits on
@@ -92,6 +93,10 @@ class PrefetchLoader:
                             break
                         except queue.Full:
                             pass
+                    # A put that a cancelled consumer's drain let through
+                    # must not pull another batch from the iterable.
+                    if stop.is_set():
+                        return
             except BaseException as e:  # surfaced in the consumer's thread
                 err.append(e)
             finally:

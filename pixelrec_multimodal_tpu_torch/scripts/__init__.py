@@ -1,0 +1,8 @@
+"""The port's command-line entry points, run as modules:
+
+    python -m pixelrec_multimodal_tpu_torch.scripts.create_splits --config X.yaml
+    python -m pixelrec_multimodal_tpu_torch.scripts.train --config X.yaml
+
+Each takes the JAX package's script's flags (``scripts/*.py`` at the root
+of the repo) and writes the same files; the train entry point runs on the
+CUDA device unless ``--device cpu`` is given."""

@@ -1,0 +1,281 @@
+"""The port's split and train entry points against the JAX package's
+scripts, on the CPU: one small ID-only workspace (15 users, 40 items,
+processed CSV files written by pandas, ``vision_model: null`` and
+``language_model: null``), copied twice. The JAX ``scripts/
+create_splits.py`` and ``scripts/train.py`` (imported by path, ``--device
+cpu``, 1 epoch) run on one copy, the port's
+``pixelrec_multimodal_tpu_torch.scripts`` on the other.
+
+Held equal: the split CSV files byte for byte (the config's strategy,
+which merges the stratification column from the item table, and a loop
+of strategies through the split step alone), the encoders' classes, the
+training ``data_stats``, the metadata's keys and parameter count, both
+written configs as dicts and as text (workspace paths aside), and the set
+of files each run writes beside its checkpoint format. The losses must be
+finite: loss parity is ``tests/test_torch_trainer.py``'s, since the two
+scripts initialize their models differently.
+"""
+import contextlib
+import importlib.util
+import io
+import json
+import math
+import pickle
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+import yaml
+
+from pixelrec_multimodal_tpu_torch.scripts import create_splits as tsplits
+from pixelrec_multimodal_tpu_torch.scripts import train as ttrain
+
+ROOT = Path(__file__).resolve().parents[1]
+SPLIT_FILES = ('train.csv', 'val.csv', 'test.csv')
+
+
+def load_script(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f'_cli_script_{name}', ROOT / 'scripts' / f'{name}.py')
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def quiet(fn, *a, **kw):
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*a, **kw)
+
+
+def make_workspace(root: Path) -> Path:
+    """Processed CSV files and a config, as the verify recipe's workspace
+    (ID-only models); user ids zero-padded integers, which pandas reads as
+    integers; descriptions with quoted commas and newlines; a tag missing
+    on some items; timestamps over 12 values (ties)."""
+    rng = np.random.default_rng(7)
+    n_users, n_items = 15, 40
+    proc = root / 'data' / 'processed'
+    proc.mkdir(parents=True)
+    items = pd.DataFrame({
+        'item_id': [f'i{j}' for j in range(n_items)],
+        'title': [f'<b>Title {j}</b>' for j in range(n_items)],
+        'tag': [f'tag{j % 4}' if j % 7 else None for j in range(n_items)],
+        'category': [f'c{j % 3}' for j in range(n_items)],
+        'description': [f'Item {j}, a "quoted" description\nover two lines'
+                        for j in range(n_items)],
+        'view_number': rng.integers(0, 5000, n_items).astype(float),
+        'comment_number': rng.integers(0, 100, n_items).astype(float)})
+    items.loc[3, 'view_number'] = np.nan
+    items.to_csv(proc / 'item_info.csv', index=False)
+    rows = [(f'{u:04d}', f'i{it}', int(rng.integers(0, 12)))
+            for u in range(n_users)
+            for it in rng.choice(n_items, size=8, replace=False)]
+    pd.DataFrame(rows, columns=['user_id', 'item_id', 'timestamp']).to_csv(
+        proc / 'interactions.csv', index=False)
+    split = root / 'data' / 'splits' / 'split_1'
+    cfg = {
+        'model': {'vision_model': None, 'language_model': None,
+                  'embedding_dim': 16, 'fusion_hidden_dims': [32, 16],
+                  'fusion_type': 'concatenate', 'use_contrastive': False,
+                  'use_batch_norm': True},
+        'training': {'batch_size': 32, 'epochs': 1, 'learning_rate': 0.01,
+                     'patience': 5, 'num_workers': 0},
+        'data': {
+            'processed_item_info_path': str(proc / 'item_info.csv'),
+            'processed_interactions_path': str(proc / 'interactions.csv'),
+            'scaler_path': str(proc / 'numerical_scaler.pkl'),
+            'split_data_path': str(split),
+            'train_data_path': str(split / 'train.csv'),
+            'val_data_path': str(split / 'val.csv'),
+            'test_data_path': str(split / 'test.csv'),
+            'numerical_features_cols': ['view_number', 'comment_number',
+                                        'absent_feature'],
+            'categorical_features_cols': ['tag'],
+            'cache_config': {'enabled': True, 'use_disk': True,
+                             'cache_directory': str(root / 'cache')},
+            'splitting': {'strategy': 'stratified_temporal',
+                          'stratify_by': 'tag',
+                          'min_interactions_per_user': 3,
+                          'min_interactions_per_item': 1,
+                          'random_state': 42}},
+        'checkpoint_dir': str(root / 'models' / 'checkpoints'),
+        'results_dir': str(root / 'results')}
+    path = root / 'config.yaml'
+    path.write_text(yaml.dump(cfg))
+    return path
+
+
+@pytest.fixture(scope='module')
+def runs(tmp_path_factory):
+    """The workspace copied twice; the JAX scripts split and train on one
+    copy, the port's entry points on the other."""
+    base = tmp_path_factory.mktemp('cli')
+    make_workspace(base / 'seed')
+    shutil.copytree(base / 'seed', base / 'jax')
+    shutil.copytree(base / 'seed', base / 'torch')
+    for name in ('jax', 'torch'):
+        cfg = base / name / 'config.yaml'
+        cfg.write_text(cfg.read_text().replace(str(base / 'seed'),
+                                               str(base / name)))
+    jsplit, jtrain = load_script('create_splits'), load_script('train')
+    jcfg, tcfg = str(base / 'jax' / 'config.yaml'), \
+        str(base / 'torch' / 'config.yaml')
+    quiet(jsplit.main, jcfg)
+    split = quiet(tsplits.main, tcfg)
+    jres = quiet(jtrain.main, ['--config', jcfg, '--device', 'cpu'])
+    tres = quiet(ttrain.main, ['--config', tcfg, '--device', 'cpu'])
+    return {'base': base, 'jax': jres, 'torch': tres, 'split': split,
+            'jsplit': jsplit}
+
+
+def test_split_files_equal_byte_for_byte(runs):
+    base = runs['base']
+    for name in SPLIT_FILES:
+        want = (base / 'jax' / 'data/splits/split_1' / name).read_bytes()
+        got = (base / 'torch' / 'data/splits/split_1' / name).read_bytes()
+        assert got == want, name
+    rows = runs['split']['rows']
+    assert rows == {n: len(pd.read_csv(base / 'torch/data/splits/split_1'
+                                       / f'{n}.csv')) for n in rows}
+    # the merged stratification column, missing on some rows, made the
+    # stratified split fall back to the random one on both sides
+    assert runs['split']['stats']['user_overlap_ratio_val'] == 1.0
+
+
+@pytest.mark.parametrize('strategy', ['leave_one_out', 'stratified', 'user',
+                                      'item', 'temporal', 'simple_random',
+                                      'stratified_by_column'])
+def test_split_step_alone_per_strategy(runs, strategy, tmp_path):
+    """Each strategy through both split entry points on fresh copies of
+    the workspace: the same files, byte for byte."""
+    out = {}
+    for name in ('jax', 'torch'):
+        ws = tmp_path / name
+        ws.mkdir()
+        shutil.copytree(runs['base'] / 'seed' / 'data' / 'processed',
+                        ws / 'processed')
+        cfg = yaml.safe_load((runs['base'] / 'seed' / 'config.yaml')
+                             .read_text())
+        cfg['data']['processed_interactions_path'] = \
+            str(ws / 'processed' / 'interactions.csv')
+        cfg['data']['processed_item_info_path'] = \
+            str(ws / 'processed' / 'item_info.csv')
+        cfg['data']['split_data_path'] = str(ws / 'split')
+        cfg['data']['splitting'].update(
+            strategy=strategy, train_final_ratio=0.7, val_final_ratio=0.15,
+            test_final_ratio=0.15,
+            stratify_by='category' if strategy == 'stratified_by_column'
+            else None)
+        (ws / 'config.yaml').write_text(yaml.dump(cfg))
+        main = runs['jsplit'].main if name == 'jax' else tsplits.main
+        quiet(main, str(ws / 'config.yaml'))
+        out[name] = {p.name: p.read_bytes()
+                     for p in sorted((ws / 'split').glob('*.csv'))}
+    assert out['torch'] == out['jax']
+    assert set(out['torch']) >= {'train.csv', 'val.csv'}
+
+
+def test_encoders_equal(runs):
+    base = runs['base']
+    for name in ('user', 'item', 'tag'):
+        files = [base / side / 'models/checkpoints/encoders'
+                 / f'{name}_encoder.pkl' for side in ('jax', 'torch')]
+        want, got = (pickle.loads(f.read_bytes()) for f in files)
+        assert [str(c) for c in got.classes_] == \
+            [str(c) for c in want.classes_], name
+    users = pickle.loads((base / 'torch/models/checkpoints/encoders/'
+                          'user_encoder.pkl').read_bytes())
+    assert '7' in set(users.classes_.tolist())  # '0007' read as an integer
+
+
+def test_metadata_and_stats_equal(runs):
+    jmeta, tmeta = runs['jax']['metadata'], runs['torch']['metadata']
+    assert tmeta['data_stats'] == jmeta['data_stats']
+    assert sorted(tmeta) == sorted(jmeta)
+    assert tmeta['model_params'] == jmeta['model_params']
+    assert tmeta['numerical_features_validation'] == \
+        jmeta['numerical_features_validation']
+    assert tmeta['numerical_features_validation']['missing_features'] == \
+        ['absent_feature']
+    assert tmeta['model_config'] == jmeta['model_config']
+    assert tmeta['training_config'] == jmeta['training_config']
+    assert tmeta['device_info'] == {'devices': ['cpu'], 'backend': 'cpu'}
+    on_disk = json.loads((runs['base'] / 'torch' / 'results' /
+                          'training_metadata.json').read_text())
+    assert sorted(on_disk) == sorted(jmeta)
+
+
+def test_losses_finite(runs):
+    for side in ('jax', 'torch'):
+        res = runs[side]
+        assert res['epochs_completed'] == 1
+        assert all(math.isfinite(v) for v in
+                   res['train_losses'] + res['val_losses']), side
+
+
+@pytest.mark.parametrize('name', ['training_run_config_validated.yaml',
+                                  'training_run_config.yaml'])
+def test_written_configs_equal(runs, name):
+    """As dicts (PyYAML reads both) and as text: the port's writer writes
+    what PyYAML's dump writes."""
+    base = runs['base']
+    texts = {side: (base / side / 'results' / name).read_text()
+             .replace(str(base / side), '<ws>') for side in ('jax', 'torch')}
+    assert yaml.safe_load(texts['torch']) == yaml.safe_load(texts['jax'])
+    assert texts['torch'] == texts['jax']
+
+
+def test_written_files_match(runs):
+    """Every file the JAX run writes, the port's writes too; the
+    checkpoints in each package's own format (``state.pt`` here, Orbax's
+    directory there)."""
+    base = runs['base']
+
+    def files(side):
+        out = set()
+        for p in (base / side).rglob('*'):
+            rel = p.relative_to(base / side).as_posix()
+            if p.is_file() and '/best_model/' not in rel and \
+                    '/last_model/' not in rel:
+                out.add(rel)
+        return out
+    assert files('torch') == files('jax')
+    for ckpt in ('best_model', 'last_model'):
+        d = base / 'torch' / 'models/checkpoints/None_None' / ckpt
+        assert (d / 'state.pt').exists() and (d / 'meta.json').exists()
+        assert (base / 'jax' / 'models/checkpoints/None_None' / ckpt /
+                'meta.json').exists()
+    assert runs['torch']['seconds']['train'] > 0
+
+
+def test_train_entry_point_refusals(runs, monkeypatch):
+    """Without a card the default device raises; a device other than
+    cuda or cpu raises; more than one device raises, naming A11."""
+    cfg = str(runs['base'] / 'torch' / 'config.yaml')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        quiet(ttrain.main, ['--config', cfg])
+    with pytest.raises((ValueError, RuntimeError)):
+        quiet(ttrain.main, ['--config', cfg, '--device', 'tpu'])
+    for flag in (['--data_parallel', '2'], ['--model_parallel', '4']):
+        with pytest.raises(NotImplementedError, match='A11'):
+            quiet(ttrain.main, ['--config', cfg, '--device', 'cpu', *flag])
+
+
+def test_split_entry_point_raises_where_jax_carries_on(tmp_path):
+    """A missing item table for the merge, or nothing left after the
+    filter: the JAX script prints and carries on or stops quietly; the
+    port raises."""
+    cfg_path = make_workspace(tmp_path)
+    cfg = yaml.safe_load(cfg_path.read_text())
+    cfg['data']['processed_item_info_path'] = str(tmp_path / 'nope.csv')
+    cfg_path.write_text(yaml.dump(cfg))
+    with pytest.raises(FileNotFoundError):
+        quiet(tsplits.main, str(cfg_path))
+    cfg['data']['splitting']['min_interactions_per_user'] = 10 ** 6
+    cfg_path.write_text(yaml.dump(cfg))
+    with pytest.raises(ValueError, match='No data left'):
+        quiet(tsplits.main, str(cfg_path))

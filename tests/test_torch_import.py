@@ -123,7 +123,9 @@ def test_probe_sources_are_checked():
             'feature_store.py', 'loader.py', 'negative_sampling.py',
             'tokenization.py', 'label_encoder.py', 'columns.py',
             'numerical_processor.py', 'checkpointing.py',
-            'logging.py'} <= names
+            'logging.py', 'yaml_io.py', 'splitting.py', 'preprocessing.py',
+            'text_processor.py', 'data_filter.py', 'simple_cache.py',
+            'create_splits.py', 'train.py'} <= names
 
 
 @pytest.mark.parametrize('path', port_sources(), ids=lambda p: p.name)
@@ -231,3 +233,66 @@ def test_unported_options_raise():
         CatalogScorer(model, store, device='cpu', precision='int4')
     with pytest.raises(NotImplementedError, match='A11'):
         CatalogScorer(model, store, device='cpu', mesh=object())
+
+
+def test_cli_path_stands_alone(tmp_path):
+    """A fresh interpreter imports the split and train entry points, reads
+    a config through the port's YAML reader and CSV files through its CSV
+    reader, splits, trains one epoch on the CPU and writes every file, and
+    loads none of JAX, the JAX package, pandas, scikit-learn, PIL, PyYAML
+    or transformers."""
+    proc = tmp_path / 'processed'
+    proc.mkdir()
+    (proc / 'item_info.csv').write_text(
+        'item_id,tag,price,description\n' + ''.join(
+            f'i{j},t{j % 3},{j * 1.5},"item {j}, red"\n' for j in range(12)))
+    (proc / 'interactions.csv').write_text(
+        'user_id,item_id,timestamp\n' + ''.join(
+            f'{u:03d},i{(u * 5 + k) % 12},{k}\n'
+            for u in range(6) for k in range(5)))
+    split = tmp_path / 'split'
+    (tmp_path / 'config.yaml').write_text(f"""\
+model:
+  vision_model: null
+  language_model: null
+  embedding_dim: 8
+  fusion_hidden_dims: [16]
+  use_contrastive: false
+training: {{batch_size: 16, epochs: 1}}
+data:
+  processed_item_info_path: {proc / 'item_info.csv'}
+  processed_interactions_path: {proc / 'interactions.csv'}
+  scaler_path: {proc / 'scaler.pkl'}
+  split_data_path: {split}
+  train_data_path: {split / 'train.csv'}
+  val_data_path: {split / 'val.csv'}
+  numerical_features_cols: [price]
+  splitting:
+    strategy: leave_one_out
+    min_interactions_per_user: 3
+    min_interactions_per_item: 1
+checkpoint_dir: {tmp_path / 'ckpt'}
+results_dir: {tmp_path / 'results'}
+""")
+    code = (
+        'import contextlib, io, json, sys\n'
+        'from pixelrec_multimodal_tpu_torch.scripts import create_splits, '
+        'train\n'
+        f'cfg = {str(tmp_path / "config.yaml")!r}\n'
+        'with contextlib.redirect_stdout(io.StringIO()):\n'
+        '    out = create_splits.main(cfg)\n'
+        '    res = train.main(["--config", cfg, "--device", "cpu"])\n'
+        'assert out["rows"] == {"train": 18, "val": 6, "test": 6}, out\n'
+        'assert res["epochs_completed"] == 1\n'
+        'print(json.dumps(sorted(sys.modules)))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded
+           if m.split('.')[0] in FORBIDDEN | CARD_ABSENT]
+    assert not bad, bad
+    assert {'pixelrec_multimodal_tpu_torch.utils.yaml_io',
+            'pixelrec_multimodal_tpu_torch.data.splitting',
+            'pixelrec_multimodal_tpu_torch.training.trainer'} <= set(loaded)
+    assert (tmp_path / 'results' / 'training_metadata.json').exists()
