@@ -28,7 +28,9 @@ against the CPU, and the ``Trainer`` at that geometry from synthetic
 interactions through the data path, with checkpoints and a resume, whose
 best checkpoint then serves through K1 and K1q, then the same data split
 and trained through the port's command-line entry points (CSV files, a
-YAML config), whose best checkpoint serves through K1; it checks what comes out
+YAML config), whose best checkpoint serves through K1, then through the
+generate entry point (bf16 through K1, MMR, int8 through K1q), with the
+checkpoint tools run on the same workspace; it checks what comes out
 against the plain versions and the exact scan, and times the kernels.
 Every phase prints one JSON line; any failure raises and exits non-zero. The second-to-last line is the
 ``kernels`` JSON object and the last line is ``{"ok": true, "device":
@@ -39,10 +41,13 @@ non-zero and prints no result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -195,6 +200,10 @@ TRAINER_EPOCHS, TRAINER_PATIENCE, SEEN_USERS = 5, 2, 1024
 # through the port's split and train entry points, CLI_EPOCHS epochs in the
 # JAX train script's float32, then CLI_SERVE_USERS users served.
 CLI_EPOCHS, CLI_SERVE_USERS = 5, 1024
+# The recommend phase: the cli phase's checkpoint served through the
+# generate entry point for RECOMMEND_USERS users sampled by its seed, top-K
+# TOP_K (the config's default), in bf16, with MMR and in int8.
+RECOMMEND_USERS = 1024
 # The keys of JAX's meta.json (pixelrec_multimodal_tpu/training/
 # trainer.py:355-369, with a config).
 META_KEYS = {'epoch', 'best_early_stopping_score', 'early_stopping_metric',
@@ -568,11 +577,14 @@ def plain_bf16_other_order(head: dict, user_first: torch.Tensor,
 
 
 def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
-                        gate='raw'):
+                        gate='raw', seen=None):
     """The main path's top-50 over 64 users against the plain bf16 version
     of the same tables at the full catalog: overlap >= MIN_OVERLAP, values
     and ``score_full`` within KERNEL_TOL. Optionally reports the overlap
     with the plain float32 version too (bf16 against f32, not a fault).
+    ``seen`` ([users, N_ITEMS] bool, True = excluded): the main path ran
+    with these items masked, so the plain versions' top-50 is taken over
+    the rest too.
 
     ``gate='score_full_vs_f32'`` (a concat head of a trained model):
     KERNEL_TOL was read on random weights. On the trained flagship head one
@@ -610,12 +622,16 @@ def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
                                  *(t[c:min(c + 4096, N_ITEMS)]
                                    for t in scorer._scan_tables), **kw)
                               for c in range(0, N_ITEMS, 4096)], dim=1)
+        masked = (lambda t: t) if seen is None else (
+            lambda t: t.masked_fill(torch.from_numpy(seen[:64]).to(t.device),
+                                    float('-inf')))
         ref = scores(torch.bfloat16)
-        ref_v, ref_i = (t.cpu().numpy() for t in torch.topk(ref, TOP_K, 1))
+        ref_v, ref_i = (t.cpu().numpy()
+                        for t in torch.topk(masked(ref), TOP_K, 1))
         extra = {}
         if f32 or trained:
             exact = scores(torch.float32)
-            f32_i = torch.topk(exact, TOP_K, 1)[1]
+            f32_i = torch.topk(masked(exact), TOP_K, 1)[1]
             extra['top50_overlap_vs_plain_f32'] = float(np.mean(
                 [len(set(a) & set(b)) / TOP_K
                  for a, b in zip(i[:64], f32_i.cpu().numpy())]))
@@ -664,7 +680,7 @@ def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
             score_full_vs_plain_f32_max_abs_diff=float(kernel_f32.max()),
             plain_bf16_vs_plain_f32_max_abs_diff=float(plain_f32.max()),
             score_full_gate='vs plain f32 <= plain bf16 vs plain f32 + tol')
-    emit(phase, users=64, items=N_ITEMS,
+    emit(phase, users=64, items=N_ITEMS, seen_masked=seen is not None,
          top50_overlap_vs_plain_bf16=overlap, min_overlap=MIN_OVERLAP,
          top50_value_max_abs_diff=value_err,
          score_full_max_abs_diff=full_err, tol=tol, **extra)
@@ -1831,7 +1847,8 @@ def trainer_phase(smi, dev, bare_samples_per_sec: float) -> dict:
     return {'epochs': epochs}
 
 
-def cli_phase(smi, dev, trainer_samples_per_sec: float) -> dict:
+def cli_phase(smi, dev, trainer_samples_per_sec: float,
+              workspace: Path = None) -> dict:
     """The command line on the card at the trainer phase's geometry: the
     trainer phase's items and interactions (train and validation
     positives together, a timestamp each) written as the processed CSV
@@ -1847,7 +1864,8 @@ def cli_phase(smi, dev, trainer_samples_per_sec: float) -> dict:
     bf16 version's, ``check_against_plain``), their seen items masked, the
     ids mapped back. Also times the text tokenizer (every
     ``feature_store.batch_encode`` call) inside ``train.main``'s dataset
-    builds. Returns K1's launches."""
+    builds. The workspace is a temporary directory, or ``workspace``,
+    which then outlives the phase. Returns K1's launches."""
     import contextlib
     import pickle
     import tempfile
@@ -1875,7 +1893,8 @@ def cli_phase(smi, dev, trainer_samples_per_sec: float) -> dict:
         load_model_state,
     )
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with (tempfile.TemporaryDirectory() if workspace is None
+          else contextlib.nullcontext(workspace)) as tmp:
         ws = Path(tmp)
         proc, split = ws / 'processed', ws / 'splits' / 'split_1'
         cache, ckpt, results = ws / 'cache', ws / 'checkpoints', \
@@ -2099,6 +2118,258 @@ def cli_phase(smi, dev, trainer_samples_per_sec: float) -> dict:
     del scorer, model, store
     torch.cuda.empty_cache()
     return {'launches': launches}
+
+
+@contextlib.contextmanager
+def timed_calls(seconds: dict, targets):
+    """Wrap each ``(owner, attribute, key)`` so that its calls add their
+    host seconds to ``seconds[key]``; restored on exit."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in
+             targets]
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[key] = seconds.get(key, 0.0) + time.time() - t0
+        return wrapper
+    for (owner, name, key), (_, _, fn) in zip(targets, saved):
+        setattr(owner, name, timed(fn, key))
+    try:
+        yield seconds
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def run_generate(cfg_path: Path, out: Path, *flags) -> tuple:
+    """``generate_recommendations.main`` on the card (the default device)
+    for RECOMMEND_USERS sampled users, its stdout to stderr: (the returned
+    report, the Recommender it built, host seconds by step, the launch
+    counts of the run). Every launch count is set to 0 just before."""
+    from pixelrec_multimodal_tpu_torch.data import feature_store
+    from pixelrec_multimodal_tpu_torch.inference import recommender as rmod
+    from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
+    from pixelrec_multimodal_tpu_torch.scripts import (
+        generate_recommendations as gr,
+    )
+    built, load = {}, gr.load_model_and_data
+
+    def capture(*args, **kwargs):
+        built['recommender'], built['dataset'] = load(*args, **kwargs)
+        return built['recommender'], built['dataset']
+    targets = [(gr, 'read_csv', 'csv_reads'),
+               (gr, 'MultimodalDataset', 'dataset_build'),
+               (feature_store, 'batch_encode', 'batch_encode'),
+               (gr, 'load_precomputed_tables', 'tables_load'),
+               (gr, 'build_model', 'model_build'),
+               (gr, 'load_checkpoint', 'checkpoint_load'),
+               (gr, 'load_model_state', 'checkpoint_load'),
+               (gr, 'Recommender', 'scorer_setup'),
+               (rmod.Recommender, '_seen_mask', 'seen_mask'),
+               (CatalogScorer, 'top_k', 'top_k'),
+               (rmod.Recommender, 'get_diverse_recommendations_batch',
+                'mmr_total'),
+               (rmod, 'mmr_select', 'mmr_select'),
+               (gr, 'dump_json', 'json_write')]
+    seconds = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    gr.load_model_and_data = capture
+    try:
+        with timed_calls(seconds, targets), \
+                contextlib.redirect_stdout(sys.stderr):
+            t0 = time.time()
+            report = gr.main(['--config', str(cfg_path), '--sample_users',
+                              str(RECOMMEND_USERS), '--output', str(out),
+                              *flags])
+            torch.cuda.synchronize()
+            seconds['wall'] = time.time() - t0
+    finally:
+        gr.load_model_and_data = load
+    counts = launch_counts()
+    if json.loads(out.read_text()) != json.loads(json.dumps(report)):
+        raise AssertionError(f'recommend {flags}: the written report is not '
+                             'the returned one')
+    return report, built['recommender'], seconds, counts
+
+
+def report_arrays(report: dict, dataset) -> tuple:
+    """(user positions [U], item positions [U, k], scores [U, k]) of a
+    report; raises unless every list holds TOP_K known items."""
+    recs = report['recommendations']
+    lists = list(recs.values())
+    if any(len(items) != TOP_K for items in lists):
+        raise AssertionError(f'recommend: lists of lengths '
+                             f'{sorted({len(x) for x in lists})}, not '
+                             f'{TOP_K}')
+    users = dataset.user_encoder.transform(list(recs)).astype(np.int32)
+    items = dataset.item_encoder.transform(
+        [e['item_id'] for x in lists for e in x]).reshape(len(lists), TOP_K)
+    scores = np.asarray([[e['score'] for e in x] for x in lists],
+                        dtype=np.float32)
+    return users, items, scores
+
+
+def recommend_phase(smi, dev, ws: Path) -> dict:
+    """Recommend from the command line on the cli phase's workspace
+    ``ws``: ``generate_recommendations.main`` for RECOMMEND_USERS sampled
+    users in bf16 (K1's launches counted through the entry point; the
+    lists held against the plain bf16 version under the same seen mask by
+    the cli phase's gate; no seen item, every id in the item file, TOP_K
+    items each), with ``--use_diversity`` (MMR: no duplicate, the user's
+    top item leads, every item in the user's bf16 pool of 5 TOP_K, no seen
+    item) and with ``--precision int8`` (K1q and no K1 launched; its lists
+    against the plain int8 version; the top-50 agreement with the bf16
+    run printed beside INT8_FIDELITY); host seconds by step for each run.
+    Then the checkpoint tools on the same workspace: the manager lists
+    best_model and last_model and writes checkpoint_info.json, the
+    inspector passes best_model, and extract_encoders writes the train
+    script's classes. Returns K1's and K1q's launches over the three
+    generate runs."""
+    import pickle
+    from pixelrec_multimodal_tpu_torch.config import Config
+    from pixelrec_multimodal_tpu_torch.data.columns import read_csv
+    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
+        pairwise_scores_plain,
+    )
+    from pixelrec_multimodal_tpu_torch.scripts import (
+        checkpoint_manager,
+        extract_encoders,
+        inspect_checkpoint,
+    )
+
+    t_phase = time.time()
+    cfg_path, out_dir = ws / 'config.yaml', ws / 'recommend'
+    config = Config.from_yaml(str(cfg_path))
+    inter = read_csv(config.data.processed_interactions_path)
+    seen_pairs = set(zip(inter['user_id'].astype(str).tolist(),
+                         inter['item_id'].astype(str).tolist()))
+    item_file = set(read_csv(config.data.processed_item_info_path)[
+        'item_id'].astype(str).tolist())
+
+    def check_lists(report, what):
+        recs = report['recommendations']
+        seen = sum((u, e['item_id']) in seen_pairs
+                   for u, x in recs.items() for e in x)
+        unknown = sum(e['item_id'] not in item_file
+                      for x in recs.values() for e in x)
+        dups = sum(len({e['item_id'] for e in x}) != len(x)
+                   for x in recs.values())
+        if len(recs) != RECOMMEND_USERS or seen or unknown or dups:
+            raise AssertionError(f'recommend {what}: {len(recs)} users, '
+                                 f'{seen} seen items, {unknown} ids not in '
+                                 f'the item file, {dups} lists with '
+                                 'duplicates')
+        return {'seen_items_returned': seen, 'ids_not_in_item_file': unknown}
+
+    # ---- bf16: K1 through the entry point, against the plain version
+    report, rec, secs, counts = run_generate(cfg_path, out_dir / 'bf16.json')
+    scorer, dataset = rec.scorer, rec.dataset
+    users, items, scores = report_arrays(report, dataset)
+    per_call = (-(-len(users) // scorer.user_chunk)
+                * (scorer.n_pad // scorer.item_chunk))
+    expected = {k: per_call if k == 'K1' else 0 for k in counts}
+    if counts != expected or scorer.precision != 'bf16':
+        raise AssertionError(f'recommend: kernel launches {counts} != '
+                             f'expected {expected}')
+    lists = check_lists(report, 'bf16')
+    emit('recommend', users=len(users), items=scorer.n_items, k=TOP_K,
+         host_seconds=secs, tokenize_share_of_dataset_build=(
+             secs.get('batch_encode', 0.0) / secs['dataset_build']),
+         top_k_pairs_per_sec=len(users) * scorer.n_items / secs['top_k'],
+         top_k_share_of_wall=secs['top_k'] / secs['wall'],
+         kernel_launches=counts, expected_launches=expected,
+         block_rows=scorer.block_rows, **lists, nvidia_smi=smi)
+    seen_mask = rec._seen_mask(users)
+    check_against_plain(scorer, pairwise_scores_plain, users, scores, items,
+                        'recommend_vs_plain',
+                        gate='score_full_vs_f32_top50_flips', seen=seen_mask)
+    pool = 5 * TOP_K
+    pools = rec.get_recommendations_batch(list(report['recommendations']),
+                                          top_k=pool)
+    k1_launches = counts['K1']
+    del scorer, rec
+    torch.cuda.empty_cache()
+
+    # ---- MMR: the same users with --use_diversity
+    mmr, rec, secs, counts = run_generate(cfg_path, out_dir / 'mmr.json',
+                                          '--use_diversity')
+    lists = check_lists(mmr, 'mmr')
+    report_arrays(mmr, rec.dataset)
+    lead = outside = 0
+    for user, x in mmr['recommendations'].items():
+        ranked = [i for i, _ in pools[user]]
+        lead += x[0]['item_id'] != ranked[0]
+        outside += len({e['item_id'] for e in x} - set(ranked))
+    emit('recommend_mmr', users=RECOMMEND_USERS, k=TOP_K, pool=pool,
+         host_seconds=secs,
+         mmr_host_seconds=secs['mmr_total'] - secs['top_k']
+         - secs.get('seen_mask', 0.0),
+         lists_not_led_by_top_item=lead, items_outside_pool=outside,
+         kernel_launches=counts, **lists)
+    if lead or outside or counts['K1'] == 0:
+        raise AssertionError(f'recommend mmr: {lead} lists not led by the '
+                             f'top item, {outside} items outside the pool')
+    k1_launches += counts['K1']
+    del rec
+    torch.cuda.empty_cache()
+
+    # ---- int8: K1q and no K1 through the entry point
+    q, rec, secs, counts = run_generate(cfg_path, out_dir / 'int8.json',
+                                        '--precision', 'int8')
+    lists = check_lists(q, 'int8')
+    q_users, q_items, q_scores = report_arrays(q, rec.dataset)
+    agree = topc_overlap(q_items, items)
+    emit('recommend_int8', users=RECOMMEND_USERS, k=TOP_K,
+         precision=rec.scorer.precision, host_seconds=secs,
+         kernel_launches=counts,
+         top50_overlap_vs_bf16_run=agree, jax_package_bound=INT8_FIDELITY,
+         **lists)
+    if rec.scorer.precision != 'int8' or counts['K1'] \
+            or not counts['K1q'] or (q_users != users).any():
+        raise AssertionError(f'recommend int8: precision '
+                             f'{rec.scorer.precision}, launches {counts}')
+    check_against_plain(rec.scorer, pairwise_scores_plain, q_users,
+                        q_scores, q_items, 'recommend_int8_vs_plain',
+                        f32=False, seen=seen_mask)
+    k1q_launches = counts['K1q']
+    del rec
+    torch.cuda.empty_cache()
+
+    # ---- the checkpoint tools
+    t0 = time.time()
+    ckpt = Path(config.checkpoint_dir)
+    listing = io.StringIO()
+    with contextlib.redirect_stdout(listing):
+        checkpoint_manager.main(['list', '--checkpoint_dir', str(ckpt)])
+    with contextlib.redirect_stdout(sys.stderr):
+        checkpoint_manager.main(['info', '--checkpoint_dir', str(ckpt)])
+        inspected = inspect_checkpoint.main(
+            [str(Path(config.model_specific_checkpoint_dir) / 'best_model')])
+    info = json.loads((ckpt / 'checkpoint_info.json').read_text())
+    enc_dir = Path(config.shared_encoders_dir)
+    trained = {n: pickle.loads((enc_dir / f'{n}_encoder.pkl').read_bytes())
+               for n in ('user', 'item', 'tag')}
+    with contextlib.redirect_stdout(sys.stderr):
+        extract_encoders.main(['--config', str(cfg_path)])
+    extracted = {n: pickle.loads((enc_dir / f'{n}_encoder.pkl').read_bytes())
+                 for n in trained}
+    same = {n: bool(np.array_equal(extracted[n].classes_,
+                                   trained[n].classes_)) for n in trained}
+    found = {c['path'].split('/')[-1] for c in info['checkpoints']}
+    emit('recommend_checkpoint_tools', seconds=time.time() - t0,
+         listed=listing.getvalue().count('combo='), info=info,
+         inspect_exit_code=inspected, encoders_equal_train=same)
+    if not {'best_model', 'last_model'} <= found or inspected \
+            or not all(same.values()) \
+            or 'best_model' not in listing.getvalue():
+        raise AssertionError(f'recommend: checkpoint tools: found {found}, '
+                             f'inspect exit {inspected}, encoders {same}')
+    emit('recommend_phase', seconds=time.time() - t_phase)
+    return {'launches': k1_launches, 'launches_int8': k1q_launches}
 
 
 def main() -> int:
@@ -2745,10 +3016,18 @@ def main() -> int:
     trained = trainer_phase(smi, dev, bare['samples_per_sec'])
 
     # ---- 21. the command line at that geometry: split and train through
-    # the entry points, then serve the best checkpoint through K1
-    cli = cli_phase(smi, dev, statistics.median(
-        e['trainer_samples_per_sec'] for e in trained['epochs']))
+    # the entry points, then serve the best checkpoint through K1; then
+    # recommend from it through the generate entry point (K1, MMR, K1q)
+    # and run the checkpoint tools on the same workspace
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = cli_phase(smi, dev, statistics.median(
+            e['trainer_samples_per_sec'] for e in trained['epochs']),
+            workspace=Path(tmp))
+        recommended = recommend_phase(smi, dev, Path(tmp))
     lines[0]['launches_cli'] = cli['launches']
+    lines[0]['launches_recommend'] = recommended['launches']
+    next(line for line in lines if line['kernel'] == 'K1q')[
+        'launches_recommend_int8'] = recommended['launches_int8']
 
     lines += probe_lines(probe_rate, probe_errs, dev)
     emit('timing', seconds_total=round(time.time() - t_start, 3))

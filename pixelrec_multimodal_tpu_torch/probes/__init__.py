@@ -12,7 +12,7 @@ function that times it on the card. ``scripts/torch_profile_int8_mxu.py``
 and ``scripts/torch_profile_vpu_roofline.py`` print the rates;
 ``chip_smoke.py`` divides every kernel's bound by them.
 """
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
@@ -30,3 +30,19 @@ def cuda_ms(fn: Callable[[], object], reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def slope_ms(lo: Callable[[], object], hi: Callable[[], object], reps: int,
+             rounds: int = 5) -> Tuple[float, float]:
+    """Mean milliseconds of ``lo`` and of ``hi``, each the least of
+    ``rounds`` interleaved ``cuda_ms`` readings. A rate taken from the slope
+    between the two divides by their difference, so a clock that moves
+    between two single readings (the card ramping up from idle, or easing
+    under load) can push it past what the card can issue; interleaving
+    exposes both to the same drift, and the least reading of each is the
+    one taken at the card's highest clock."""
+    t_lo, t_hi = [], []
+    for _ in range(rounds):
+        t_lo.append(cuda_ms(lo, reps))
+        t_hi.append(cuda_ms(hi, reps))
+    return min(t_lo), min(t_hi)

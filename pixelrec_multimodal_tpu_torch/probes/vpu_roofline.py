@@ -36,7 +36,7 @@ import torch
 
 from ..ops import _build
 from ..ops.pairwise_mlp import _check_tensor, _device_of
-from . import cuda_ms
+from . import cuda_ms, slope_ms
 
 SHAPE = (512, 128)        # P1's block
 K_LO, K_HI = 64, 192      # P1's chain lengths
@@ -184,13 +184,13 @@ def bcast_inputs(device, seed: int = 0):
 def measure_chain(kind: str, x: Optional[torch.Tensor] = None,
                   steps: int = STEPS, reps: int = 10) -> dict:
     """P1's rate on the card: the slope of the mean launch time between
-    K_LO and K_HI over ``steps`` passes of the block. Element-ops (chain
-    steps) per second, which are FFMA instructions (FMA) or MUFU.EX2
-    instructions (EXP) per second."""
+    K_LO and K_HI over ``steps`` passes of the block (``slope_ms``).
+    Element-ops (chain steps) per second, which are FFMA instructions (FMA)
+    or MUFU.EX2 instructions (EXP) per second."""
     x = chain_inputs('cuda') if x is None else x
     n = x.numel() * steps
-    t_lo = cuda_ms(lambda: vpu_chain(x, K_LO, kind, steps), reps)
-    t_hi = cuda_ms(lambda: vpu_chain(x, K_HI, kind, steps), reps)
+    t_lo, t_hi = slope_ms(lambda: vpu_chain(x, K_LO, kind, steps),
+                          lambda: vpu_chain(x, K_HI, kind, steps), reps)
     rate = n * (K_HI - K_LO) / ((t_hi - t_lo) * 1e-3)
     return {'probe': 'P1', 'kind': kind, 'block': list(x.shape),
             'steps': steps, 'k': [K_LO, K_HI], 'ms': [t_lo, t_hi],
@@ -205,9 +205,9 @@ def measure_bcast(w: Optional[torch.Tensor] = None,
                   reps: int = 10, fused: bool = True,
                   _entries: int = BC_ENTRIES[0]) -> dict:
     """P2's rate on the card: the slope of the mean launch time between
-    BC_K_LO and BC_K_HI over ``steps`` passes. ``element_ops_per_s`` counts
-    as the Pallas script does, a multiply and an add each per entry and
-    step; ``instructions_per_s`` counts what the card issues for them: one
+    BC_K_LO and BC_K_HI over ``steps`` passes (``slope_ms``).
+    ``element_ops_per_s`` counts as the Pallas script does, a multiply and an
+    add each per entry and step; ``instructions_per_s`` counts what the card issues for them: one
     FFMA a multiply-add when fused (half the element-ops), an FMUL and an
     FADD when not (as many as the element-ops)."""
     if w is None:
@@ -217,8 +217,7 @@ def measure_bcast(w: Optional[torch.Tensor] = None,
     def run(K):
         return vpu_bcast(w, v, K, steps, fused, _entries)
 
-    t_lo = cuda_ms(lambda: run(BC_K_LO), reps)
-    t_hi = cuda_ms(lambda: run(BC_K_HI), reps)
+    t_lo, t_hi = slope_ms(lambda: run(BC_K_LO), lambda: run(BC_K_HI), reps)
     ops = steps * TB * TC * BC_DP * 2
     rate = ops * (BC_K_HI - BC_K_LO) / ((t_hi - t_lo) * 1e-3)
     return {'probe': 'P2', 'fused': fused, 'entries_per_thread': _entries,

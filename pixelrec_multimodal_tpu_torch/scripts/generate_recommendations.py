@@ -1,0 +1,256 @@
+# pixelrec_multimodal_tpu_torch/scripts/generate_recommendations.py
+"""Top-K recommendation entry point.
+
+    python -m pixelrec_multimodal_tpu_torch.scripts.generate_recommendations \\
+        --config X.yaml [--users U1 U2 | --user_file F | --sample_users N] \\
+        [--use_diversity] [--precision bf16|int8|int8!] [--device cpu]
+
+Counterpart of the repo's ``scripts/generate_recommendations.py`` with no
+JAX, pandas, scikit-learn or PyYAML: the same flags, the same target
+users (the list, else the file, else a seeded sample, else the first
+five), the same JSON report. It loads the processed CSV files, the
+scaler, the encoders the port's train script pickled and the port's
+checkpoint (``state.pt``), and serves on the CUDA device unless
+``--device cpu`` is given; it raises without a card, on any other device,
+and for ``--data_parallel`` or ``--model_parallel`` above 1 (ROADMAP item
+A11).
+
+Where the config enables the feature cache, the precomputed item tables
+(``feature_tables.npz``, written by the train script's datasets or by
+``ItemFeatureStore.save``) are loaded from its directory; a model that
+takes vision or language features and finds no such table raises rather
+than score zero features.
+"""
+from __future__ import annotations
+
+import argparse
+from datetime import datetime
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from ..config import Config
+from ..data.columns import read_csv
+from ..data.dataset import MultimodalDataset
+from ..data.processors import NumericalProcessor
+from ..inference import Recommender
+from ..models.multimodal import build_model
+from ..utils.checkpointing import load_checkpoint, load_model_state
+from ..utils.logging import dump_json
+from .evaluate import cascade_arg, find_encoders, find_model_checkpoint
+from .train import check_single_device, setup_device
+
+
+def load_model_and_data(config: Config, checkpoint_name: str = 'best_model',
+                        mesh=None, precision: str = 'bf16',
+                        cascade=None,
+                        cascade_screen: str = 'additive',
+                        cascade_recall: float = 1.0,
+                        cascade_c1=None, device='cuda'):
+    """(Recommender, dataset) rebuilt from the artifacts of a training
+    run: the processed CSV files, the scaler, the encoders, the model of
+    the config with the checkpoint's weights, and the precomputed item
+    tables."""
+    item_info = read_csv(config.data.processed_item_info_path)
+    interactions = read_csv(config.data.processed_interactions_path)
+
+    numerical_processor = NumericalProcessor()
+    scaler = None
+    feature_cols = config.data.numerical_features_cols
+    if Path(config.data.scaler_path).exists():
+        numerical_processor.load_scaler(Path(config.data.scaler_path))
+        scaler = numerical_processor.scaler
+        if numerical_processor.fitted_columns is not None:
+            feature_cols = list(numerical_processor.fitted_columns)
+    feature_cols = [c for c in feature_cols if c in item_info]
+
+    encoders = find_encoders(config)
+    dataset = MultimodalDataset(
+        interactions_df=interactions,
+        item_info_df=item_info,
+        image_folder=(config.data.processed_image_destination_folder
+                      or config.data.image_folder),
+        vision_model_name=config.model.vision_model,
+        language_model_name=config.model.language_model,
+        create_negative_samples=False,
+        numerical_feat_cols=feature_cols,
+        categorical_feat_cols=config.data.categorical_features_cols,
+        numerical_scaler=scaler,
+        numerical_normalization_method=config.data.numerical_normalization_method,
+        user_encoder=encoders.get('user_encoder') if encoders else None,
+        item_encoder=encoders.get('item_encoder') if encoders else None,
+        tag_encoder=encoders.get('tag_encoder') if encoders else None)
+    load_precomputed_tables(config, dataset.feature_store)
+
+    model = build_model(config.model, dataset.n_users, dataset.n_items,
+                        dataset.n_tags,
+                        num_numerical_features=len(feature_cols),
+                        device=device)
+    ckpt = find_model_checkpoint(config, checkpoint_name)
+    if ckpt is None:
+        raise FileNotFoundError(
+            f"No model checkpoint found under {config.checkpoint_dir}")
+    print(f"Loading checkpoint: {ckpt}")
+    restored = load_checkpoint(ckpt.parent, ckpt.name, device=device)
+    load_model_state(model, restored['state'])
+    return (Recommender(model, dataset, mesh=mesh, precision=precision,
+                        cascade_candidates=cascade,
+                        cascade_screen=cascade_screen,
+                        cascade_recall=cascade_recall,
+                        cascade_c1=cascade_c1, device=device), dataset)
+
+
+def load_precomputed_tables(config: Config, store) -> None:
+    """Load the cached item tables into ``store`` where the config
+    enables the cache; raise if the model needs a vision or language
+    table that is not there."""
+    cache = config.data.cache_config
+    if cache.enabled and cache.cache_directory:
+        store.load_tables(cache.cache_directory)
+    wanted = [t for t, m in (('vision_emb', config.model.vision_model),
+                             ('language_emb', config.model.language_model))
+              if m and not store.has(t)]
+    if wanted:
+        raise FileNotFoundError(
+            f'no precomputed {wanted} for vision={config.model.vision_model}'
+            f', language={config.model.language_model} under the cache '
+            f'directory {cache.cache_directory!r} (enabled={cache.enabled})')
+
+
+def resolve_users(args, dataset) -> List[str]:
+    """CLI list > file > seeded random sample > first 5."""
+    if args.users:
+        return [str(u) for u in args.users]
+    if args.user_file:
+        with open(args.user_file) as f:
+            return [line.strip() for line in f if line.strip()]
+    all_users = [str(u) for u in dataset.user_encoder.classes_]
+    if args.sample_users:
+        rng = np.random.default_rng(42)
+        n = min(args.sample_users, len(all_users))
+        return list(rng.choice(all_users, size=n, replace=False))
+    return all_users[:5]
+
+
+def main(cli_args: Optional[List[str]] = None) -> Dict[str, Any]:
+    parser = argparse.ArgumentParser(
+        description='Generate top-K recommendations')
+    parser.add_argument('--config', type=str,
+                        default='configs/simple_config.yaml',
+                        help='Path to configuration file.')
+    parser.add_argument('--users', type=str, nargs='+',
+                        help='A list of user IDs to generate recommendations '
+                             'for.')
+    parser.add_argument('--user_file', type=str,
+                        help='Path to a file containing user IDs, one per '
+                             'line.')
+    parser.add_argument('--sample_users', type=int,
+                        help='Number of random users to sample from the '
+                             'dataset.')
+    parser.add_argument('--use_diversity', action='store_true',
+                        help='Use a diversity-aware recommendation algorithm.')
+    parser.add_argument('--diversity_weight', type=float, default=0.3,
+                        help='MMR trade-off: 0 = pure relevance, '
+                             '1 = pure diversity (default 0.3).')
+    parser.add_argument('--output', type=str, default='recommendations.json',
+                        help='Name of the output JSON file.')
+    parser.add_argument('--device', type=str, default='cuda',
+                        help="Torch device: 'cuda' (the default) or 'cpu'")
+    parser.add_argument('--checkpoint_name', type=str, default='best_model',
+                        help='Checkpoint to load.')
+    parser.add_argument('--data_parallel', type=int, default=None,
+                        help='Devices over the users; above 1 raises '
+                             '(ROADMAP item A11)')
+    parser.add_argument('--model_parallel', type=int, default=1,
+                        help='Devices over the item tables; above 1 '
+                             'raises (ROADMAP item A11)')
+    parser.add_argument('--precision', type=str, default='bf16',
+                        choices=['bf16', 'int8', 'int8!'],
+                        help='Scoring precision. int8 quantizes the fused '
+                             'concat/gated head (calibrated; below the '
+                             'flip point it serves bf16); int8! forces '
+                             'it. Scores are approximate.')
+    parser.add_argument('--cascade', type=cascade_arg, default=None,
+                        metavar='C|auto',
+                        help='Attention fusion only: two-stage cascaded '
+                             'top-K — screen the catalog with a cheap '
+                             'kernel, exact-rescore the top C candidates '
+                             'per user. "auto" calibrates C and the screen '
+                             'tier on the users (measured recall, falls '
+                             'back to the exact scan); an explicit C must '
+                             'be calibrated against the selected '
+                             '--cascade_screen tier with '
+                             'CatalogScorer.calibrate_cascade.')
+    parser.add_argument('--cascade_recall', type=float, default=1.0,
+                        help='Recall target for --cascade auto: 1.0 '
+                             '(default) = exact results only; < 1.0 '
+                             'admits faster approximate screen tiers at '
+                             'their measured recall.')
+    parser.add_argument('--cascade_screen', type=str, default='additive',
+                        choices=['additive', 'token0', 'funnel'],
+                        help='Cascade screen tier for an explicit '
+                             '--cascade C: additive, token0, or funnel '
+                             '(additive to --cascade_c1 survivors, token0 '
+                             'candidate screen to C, exact rescore). '
+                             'Ignored by --cascade auto.')
+    parser.add_argument('--cascade_c1', type=int, default=None,
+                        help='Stage-1 survivor count for '
+                             '--cascade_screen funnel (default 8*C, '
+                             'floor 4096).')
+    args = parser.parse_args(cli_args)
+    if not 0.0 <= args.diversity_weight <= 1.0:
+        parser.error(f"--diversity_weight must be in [0, 1], "
+                     f"got {args.diversity_weight}")
+
+    check_single_device(args.data_parallel, args.model_parallel)
+    device = setup_device(args.device)
+
+    config = Config.from_yaml(args.config)
+    recommender, dataset = load_model_and_data(
+        config, args.checkpoint_name, precision=args.precision,
+        cascade=args.cascade, cascade_screen=args.cascade_screen,
+        cascade_recall=args.cascade_recall, cascade_c1=args.cascade_c1,
+        device=device)
+    users = resolve_users(args, dataset)
+    print(f"Generating recommendations for {len(users)} users "
+          f"(top_k={config.recommendation.top_k}, "
+          f"filter_seen={config.recommendation.filter_seen})")
+
+    if args.use_diversity:
+        print(f"Using diversity-aware MMR reranking "
+              f"(diversity_weight={args.diversity_weight})")
+        recs = recommender.get_diverse_recommendations_batch(
+            users, top_k=config.recommendation.top_k,
+            diversity_weight=args.diversity_weight,
+            filter_seen=config.recommendation.filter_seen)
+    else:
+        recs = recommender.get_recommendations_batch(
+            users, top_k=config.recommendation.top_k,
+            filter_seen=config.recommendation.filter_seen)
+
+    output = {
+        'metadata': {
+            'generated_at': datetime.now().isoformat(),
+            'config': args.config,
+            'num_users': len(users),
+            'top_k': config.recommendation.top_k,
+            'filter_seen': config.recommendation.filter_seen,
+            'use_diversity': args.use_diversity,
+            'vision_model': config.model.vision_model,
+            'language_model': config.model.language_model,
+        },
+        'recommendations': {
+            u: [{'item_id': i, 'score': s} for i, s in items]
+            for u, items in recs.items()
+        },
+    }
+    out_path = Path(config.results_dir) / args.output \
+        if not Path(args.output).is_absolute() else Path(args.output)
+    dump_json(output, out_path)
+    print(f"Recommendations saved to {out_path}")
+    return output
+
+
+if __name__ == '__main__':
+    main()

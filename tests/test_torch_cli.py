@@ -15,16 +15,11 @@ of files each run writes beside its checkpoint format. The losses must be
 finite: loss parity is ``tests/test_torch_trainer.py``'s, since the two
 scripts initialize their models differently.
 """
-import contextlib
-import importlib.util
-import io
 import json
 import math
 import pickle
 import shutil
-from pathlib import Path
 
-import numpy as np
 import pandas as pd
 import pytest
 import torch
@@ -32,80 +27,9 @@ import yaml
 
 from pixelrec_multimodal_tpu_torch.scripts import create_splits as tsplits
 from pixelrec_multimodal_tpu_torch.scripts import train as ttrain
+from tests._torch_port import load_jax_script, make_workspace, quiet
 
-ROOT = Path(__file__).resolve().parents[1]
 SPLIT_FILES = ('train.csv', 'val.csv', 'test.csv')
-
-
-def load_script(name: str):
-    spec = importlib.util.spec_from_file_location(
-        f'_cli_script_{name}', ROOT / 'scripts' / f'{name}.py')
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-def quiet(fn, *a, **kw):
-    with contextlib.redirect_stdout(io.StringIO()):
-        return fn(*a, **kw)
-
-
-def make_workspace(root: Path) -> Path:
-    """Processed CSV files and a config, as the verify recipe's workspace
-    (ID-only models); user ids zero-padded integers, which pandas reads as
-    integers; descriptions with quoted commas and newlines; a tag missing
-    on some items; timestamps over 12 values (ties)."""
-    rng = np.random.default_rng(7)
-    n_users, n_items = 15, 40
-    proc = root / 'data' / 'processed'
-    proc.mkdir(parents=True)
-    items = pd.DataFrame({
-        'item_id': [f'i{j}' for j in range(n_items)],
-        'title': [f'<b>Title {j}</b>' for j in range(n_items)],
-        'tag': [f'tag{j % 4}' if j % 7 else None for j in range(n_items)],
-        'category': [f'c{j % 3}' for j in range(n_items)],
-        'description': [f'Item {j}, a "quoted" description\nover two lines'
-                        for j in range(n_items)],
-        'view_number': rng.integers(0, 5000, n_items).astype(float),
-        'comment_number': rng.integers(0, 100, n_items).astype(float)})
-    items.loc[3, 'view_number'] = np.nan
-    items.to_csv(proc / 'item_info.csv', index=False)
-    rows = [(f'{u:04d}', f'i{it}', int(rng.integers(0, 12)))
-            for u in range(n_users)
-            for it in rng.choice(n_items, size=8, replace=False)]
-    pd.DataFrame(rows, columns=['user_id', 'item_id', 'timestamp']).to_csv(
-        proc / 'interactions.csv', index=False)
-    split = root / 'data' / 'splits' / 'split_1'
-    cfg = {
-        'model': {'vision_model': None, 'language_model': None,
-                  'embedding_dim': 16, 'fusion_hidden_dims': [32, 16],
-                  'fusion_type': 'concatenate', 'use_contrastive': False,
-                  'use_batch_norm': True},
-        'training': {'batch_size': 32, 'epochs': 1, 'learning_rate': 0.01,
-                     'patience': 5, 'num_workers': 0},
-        'data': {
-            'processed_item_info_path': str(proc / 'item_info.csv'),
-            'processed_interactions_path': str(proc / 'interactions.csv'),
-            'scaler_path': str(proc / 'numerical_scaler.pkl'),
-            'split_data_path': str(split),
-            'train_data_path': str(split / 'train.csv'),
-            'val_data_path': str(split / 'val.csv'),
-            'test_data_path': str(split / 'test.csv'),
-            'numerical_features_cols': ['view_number', 'comment_number',
-                                        'absent_feature'],
-            'categorical_features_cols': ['tag'],
-            'cache_config': {'enabled': True, 'use_disk': True,
-                             'cache_directory': str(root / 'cache')},
-            'splitting': {'strategy': 'stratified_temporal',
-                          'stratify_by': 'tag',
-                          'min_interactions_per_user': 3,
-                          'min_interactions_per_item': 1,
-                          'random_state': 42}},
-        'checkpoint_dir': str(root / 'models' / 'checkpoints'),
-        'results_dir': str(root / 'results')}
-    path = root / 'config.yaml'
-    path.write_text(yaml.dump(cfg))
-    return path
 
 
 @pytest.fixture(scope='module')
@@ -120,7 +44,7 @@ def runs(tmp_path_factory):
         cfg = base / name / 'config.yaml'
         cfg.write_text(cfg.read_text().replace(str(base / 'seed'),
                                                str(base / name)))
-    jsplit, jtrain = load_script('create_splits'), load_script('train')
+    jsplit, jtrain = load_jax_script('create_splits'), load_jax_script('train')
     jcfg, tcfg = str(base / 'jax' / 'config.yaml'), \
         str(base / 'torch' / 'config.yaml')
     quiet(jsplit.main, jcfg)

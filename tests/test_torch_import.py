@@ -125,7 +125,10 @@ def test_probe_sources_are_checked():
             'numerical_processor.py', 'checkpointing.py',
             'logging.py', 'yaml_io.py', 'splitting.py', 'preprocessing.py',
             'text_processor.py', 'data_filter.py', 'simple_cache.py',
-            'create_splits.py', 'train.py'} <= names
+            'create_splits.py', 'train.py', 'recommender.py',
+            'evaluate.py', 'generate_recommendations.py',
+            'checkpoint_manager.py', 'inspect_checkpoint.py',
+            'extract_encoders.py'} <= names
 
 
 @pytest.mark.parametrize('path', port_sources(), ids=lambda p: p.name)
@@ -296,3 +299,81 @@ results_dir: {tmp_path / 'results'}
             'pixelrec_multimodal_tpu_torch.data.splitting',
             'pixelrec_multimodal_tpu_torch.training.trainer'} <= set(loaded)
     assert (tmp_path / 'results' / 'training_metadata.json').exists()
+
+
+def test_recommend_path_stands_alone(tmp_path):
+    """A fresh interpreter splits and trains on the CPU, then runs the
+    recommend entry point (top-K and MMR), the checkpoint manager, the
+    inspector and extract_encoders, and loads none of JAX, the JAX
+    package, pandas, scikit-learn, scipy, PIL, PyYAML or transformers."""
+    proc = tmp_path / 'processed'
+    proc.mkdir()
+    (proc / 'item_info.csv').write_text(
+        'item_id,tag,price\n' + ''.join(
+            f'i{j},t{j % 3},{j * 1.5}\n' for j in range(12)))
+    (proc / 'interactions.csv').write_text(
+        'user_id,item_id,timestamp\n' + ''.join(
+            f'{u:03d},i{(u * 5 + k) % 12},{k}\n'
+            for u in range(6) for k in range(5)))
+    split, ckpt = tmp_path / 'split', tmp_path / 'ckpt'
+    (tmp_path / 'config.yaml').write_text(f"""\
+model:
+  vision_model: null
+  language_model: null
+  embedding_dim: 8
+  fusion_hidden_dims: [16]
+  use_contrastive: false
+training: {{batch_size: 16, epochs: 1}}
+recommendation: {{top_k: 3}}
+data:
+  processed_item_info_path: {proc / 'item_info.csv'}
+  processed_interactions_path: {proc / 'interactions.csv'}
+  scaler_path: {proc / 'scaler.pkl'}
+  split_data_path: {split}
+  train_data_path: {split / 'train.csv'}
+  val_data_path: {split / 'val.csv'}
+  numerical_features_cols: [price]
+  splitting:
+    strategy: leave_one_out
+    min_interactions_per_user: 3
+    min_interactions_per_item: 1
+checkpoint_dir: {ckpt}
+results_dir: {tmp_path / 'results'}
+""")
+    code = (
+        'import contextlib, io, json, sys\n'
+        'from pixelrec_multimodal_tpu_torch.scripts import (\n'
+        '    checkpoint_manager, create_splits, extract_encoders,\n'
+        '    generate_recommendations, inspect_checkpoint, train)\n'
+        f'cfg = {str(tmp_path / "config.yaml")!r}\n'
+        f'ckpt = {str(ckpt)!r}\n'
+        'with contextlib.redirect_stdout(io.StringIO()):\n'
+        '    create_splits.main(cfg)\n'
+        '    train.main(["--config", cfg, "--device", "cpu"])\n'
+        '    out = generate_recommendations.main(\n'
+        '        ["--config", cfg, "--device", "cpu"])\n'
+        '    mmr = generate_recommendations.main(\n'
+        '        ["--config", cfg, "--device", "cpu", "--use_diversity",\n'
+        '         "--output", "mmr.json"])\n'
+        '    checkpoint_manager.main(["list", "--checkpoint_dir", ckpt])\n'
+        '    checkpoint_manager.main(["info", "--checkpoint_dir", ckpt])\n'
+        '    code = inspect_checkpoint.main(\n'
+        '        [ckpt + "/None_None/best_model"])\n'
+        '    extract_encoders.main(["--config", cfg])\n'
+        'assert code == 0\n'
+        'for report in (out, mmr):\n'
+        '    recs = report["recommendations"]\n'
+        '    assert len(recs) == 5 and all(len(v) == 3 for v in '
+        'recs.values())\n'
+        'print(json.dumps(sorted(sys.modules)))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded
+           if m.split('.')[0] in FORBIDDEN | CARD_ABSENT | {'scipy'}]
+    assert not bad, bad
+    assert {'pixelrec_multimodal_tpu_torch.inference.recommender',
+            'pixelrec_multimodal_tpu_torch.scripts.evaluate'} <= set(loaded)
+    assert (ckpt / 'checkpoint_info.json').exists()
+    assert (tmp_path / 'results' / 'mmr.json').exists()

@@ -206,3 +206,22 @@ def test_probes_refuse_what_they_do_not_take():
     assert (tvr.vpu_chain.launches, tvr.vpu_bcast.launches,
             tmx.mxu_chain.launches) == counts
     assert tmx.flops(8192, 8, 64) == 2 * 8192 * (512 * 256 + 256 * 128) * 512
+
+
+def test_slope_ms_interleaves_and_keeps_each_least(monkeypatch):
+    """The rate probes' two times are read in turn, ``rounds`` times each,
+    and each is the least of its readings: a slow first reading (a card
+    still ramping up its clock) moves neither, so it cannot widen the
+    slope's rate."""
+    import pixelrec_multimodal_tpu_torch.probes as probes
+    order, readings = [], {'lo': [1.6, 1.3, 1.35], 'hi': [3.5, 3.45, 3.4]}
+
+    def fake_ms(fn, reps):
+        key = fn()
+        order.append(key)
+        return readings[key][sum(k == key for k in order) - 1]
+
+    monkeypatch.setattr(probes, 'cuda_ms', fake_ms)
+    assert probes.slope_ms(lambda: 'lo', lambda: 'hi', 10, rounds=3) == (
+        1.3, 3.4)
+    assert order == ['lo', 'hi'] * 3

@@ -51,9 +51,7 @@ from pixelrec_multimodal_tpu_torch.models.multimodal import (
 from pixelrec_multimodal_tpu_torch.training import Trainer
 from pixelrec_multimodal_tpu_torch.training.steps import make_step_fns
 from pixelrec_multimodal_tpu_torch.utils import checkpointing
-from pixelrec_multimodal_tpu_torch.utils.flax_convert import (
-    load_flax_variables,
-)
+from tests._torch_port import port_model, port_state_of
 
 TOL, ADAM_TOL = 1e-5, 1e-4
 N_USERS, N_TAGS, PER_TAG, VISION, LANGUAGE = 12, 6, 8, 24, 12
@@ -140,13 +138,6 @@ def jax_variables(jmodel, seed=0):
                                      'batch_stats': st.batch_stats})
 
 
-def port_model(kw, variables=None, dtype=torch.float32):
-    model = MultimodalRecommender(**kw, dtype=dtype, device='cpu')
-    if variables is not None:
-        load_flax_variables(model, variables)
-    return model
-
-
 def configs(tmp):
     out = []
     for mod in (jconfig, tconfig):
@@ -184,13 +175,6 @@ def run_pair(tmp, **train_kw):
     return dict(jax=jt, port=tt, jlosses=jt.train(jtr, jva, **args),
                 tlosses=tt.train(ttr, tva, **args), jlr=jlr, tlr=tlr,
                 jmodel=jmodel, tmodel=tmodel, data=(jtr, ttr))
-
-
-def port_state_of(jmodel_kw, jstate):
-    """JAX's trained variables in a port model's state dict."""
-    return port_model(jmodel_kw, jax.tree.map(np.asarray, {
-        'params': jstate.params,
-        'batch_stats': jstate.batch_stats})).state_dict()
 
 
 def assert_close_tree(got, ref, tol, path='meta'):
