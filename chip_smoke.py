@@ -30,7 +30,10 @@ best checkpoint then serves through K1 and K1q, then the same data split
 and trained through the port's command-line entry points (CSV files, a
 YAML config), whose best checkpoint serves through K1, then through the
 generate entry point (bf16 through K1, MMR, int8 through K1q), with the
-checkpoint tools run on the same workspace; it checks what comes out
+checkpoint tools run on the same workspace, then through the evaluate
+entry point (sampled candidates against the port's CPU run, the full
+catalog through K1, int8 through K1q, ranking, the four baselines); it
+checks what comes out
 against the plain versions and the exact scan, and times the kernels.
 Every phase prints one JSON line; any failure raises and exits non-zero. The second-to-last line is the
 ``kernels`` JSON object and the last line is ``{"ok": true, "device":
@@ -204,6 +207,20 @@ CLI_EPOCHS, CLI_SERVE_USERS = 5, 1024
 # generate entry point for RECOMMEND_USERS users sampled by its seed, top-K
 # TOP_K (the config's default), in bf16, with MMR and in int8.
 RECOMMEND_USERS = 1024
+# The evaluate phase: the same checkpoint through the evaluate entry point
+# on a test file of the validation rows of RECOMMEND_USERS users drawn by
+# EVALUATE_SEED, the workspace's train file as --train_data: the CLI's
+# defaults (20 random negatives a user, the float32 candidate chain), then
+# --full_catalog (K1); then, on that run's dataset, int8 over the full
+# catalog (K1q), ranking and the four baselines. The card's default run
+# against the port's CPU run of the same evaluation: the lists equal but
+# where two scores lie within EVALUATE_TIE of each other (the float32
+# chain sums in another order on each side: 4 of about 36,000 positions
+# swapped on an H100), every metric within EVALUATE_TOL of the CPU
+# evaluator's on those lists.
+EVALUATE_SEED = SEED + 23
+EVALUATE_TOL, EVALUATE_TIE = 1e-6, 1e-5
+BASELINES = ('random', 'popularity', 'item_knn', 'user_knn')
 # The keys of JAX's meta.json (pixelrec_multimodal_tpu/training/
 # trainer.py:355-369, with a config).
 META_KEYS = {'epoch', 'best_early_stopping_score', 'early_stopping_metric',
@@ -2144,12 +2161,28 @@ def timed_calls(seconds: dict, targets):
             setattr(owner, name, fn)
 
 
+def load_step_targets() -> list:
+    """``timed_calls`` targets of the steps that rebuild a dataset and a
+    recommender from a training run's artifacts (``scripts/evaluate.py``:
+    ``load_dataset``, ``create_recommender``), which both the generate and
+    the evaluate entry point call."""
+    from pixelrec_multimodal_tpu_torch.data import feature_store
+    from pixelrec_multimodal_tpu_torch.scripts import evaluate as ev
+    return [(ev, 'read_csv', 'csv_reads'),
+            (ev, 'MultimodalDataset', 'dataset_build'),
+            (feature_store, 'batch_encode', 'batch_encode'),
+            (ev, 'load_precomputed_tables', 'tables_load'),
+            (ev, 'build_model', 'model_build'),
+            (ev, 'load_checkpoint', 'checkpoint_load'),
+            (ev, 'load_model_state', 'checkpoint_load'),
+            (ev, 'Recommender', 'scorer_setup')]
+
+
 def run_generate(cfg_path: Path, out: Path, *flags) -> tuple:
     """``generate_recommendations.main`` on the card (the default device)
     for RECOMMEND_USERS sampled users, its stdout to stderr: (the returned
     report, the Recommender it built, host seconds by step, the launch
     counts of the run). Every launch count is set to 0 just before."""
-    from pixelrec_multimodal_tpu_torch.data import feature_store
     from pixelrec_multimodal_tpu_torch.inference import recommender as rmod
     from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
     from pixelrec_multimodal_tpu_torch.scripts import (
@@ -2160,20 +2193,12 @@ def run_generate(cfg_path: Path, out: Path, *flags) -> tuple:
     def capture(*args, **kwargs):
         built['recommender'], built['dataset'] = load(*args, **kwargs)
         return built['recommender'], built['dataset']
-    targets = [(gr, 'read_csv', 'csv_reads'),
-               (gr, 'MultimodalDataset', 'dataset_build'),
-               (feature_store, 'batch_encode', 'batch_encode'),
-               (gr, 'load_precomputed_tables', 'tables_load'),
-               (gr, 'build_model', 'model_build'),
-               (gr, 'load_checkpoint', 'checkpoint_load'),
-               (gr, 'load_model_state', 'checkpoint_load'),
-               (gr, 'Recommender', 'scorer_setup'),
-               (rmod.Recommender, '_seen_mask', 'seen_mask'),
-               (CatalogScorer, 'top_k', 'top_k'),
-               (rmod.Recommender, 'get_diverse_recommendations_batch',
-                'mmr_total'),
-               (rmod, 'mmr_select', 'mmr_select'),
-               (gr, 'dump_json', 'json_write')]
+    targets = load_step_targets() + [
+        (rmod.Recommender, '_seen_mask', 'seen_mask'),
+        (CatalogScorer, 'top_k', 'top_k'),
+        (rmod.Recommender, 'get_diverse_recommendations_batch', 'mmr_total'),
+        (rmod, 'mmr_select', 'mmr_select'),
+        (gr, 'dump_json', 'json_write')]
     seconds = {}
     torch.cuda.synchronize()
     reset_launches()
@@ -2370,6 +2395,294 @@ def recommend_phase(smi, dev, ws: Path) -> dict:
                              f'inspect exit {inspected}, encoders {same}')
     emit('recommend_phase', seconds=time.time() - t_phase)
     return {'launches': k1_launches, 'launches_int8': k1q_launches}
+
+
+def run_evaluate(args: list, out_dir: Path, name: str) -> dict:
+    """``evaluate.main(args)`` on the card (the default device), its stdout
+    to stderr, the results to ``out_dir/<name>.json`` and the predictions
+    to ``out_dir/<name>_predictions.json``: the returned results, the
+    predictions, the dataset and the recommender it built, host seconds by
+    step and the launch counts of the run (every count set to 0 just
+    before)."""
+    from pixelrec_multimodal_tpu_torch.evaluation import tasks
+    from pixelrec_multimodal_tpu_torch.inference import recommender as rmod
+    from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
+    from pixelrec_multimodal_tpu_torch.scripts import evaluate as ev
+    built, load, create = {}, ev.load_dataset, ev.create_recommender
+
+    def capture_dataset(*a, **kw):
+        built['dataset'] = load(*a, **kw)
+        return built['dataset']
+
+    def capture_recommender(*a, **kw):
+        built['recommender'] = create(*a, **kw)
+        return built['recommender']
+    retrieval = tasks.TopKRetrievalEvaluator
+    targets = load_step_targets() + [
+        (retrieval, '_candidate_set', 'candidate_sets'),
+        (rmod.Recommender, 'score_candidates_batch', 'scoring'),
+        (CatalogScorer, 'top_k', 'top_k'),
+        (retrieval, '_accuracy_metrics', 'metric_pass'),
+        (retrieval, '_novelty_metrics', 'novelty_pass'),
+        (ev, 'dump_json', 'json_write')]
+    out = out_dir / f'{name}.json'
+    preds = out_dir / f'{name}_predictions.json'
+    seconds = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    ev.load_dataset, ev.create_recommender = capture_dataset, \
+        capture_recommender
+    try:
+        with timed_calls(seconds, targets), \
+                contextlib.redirect_stdout(sys.stderr):
+            t0 = time.time()
+            results = ev.main([*args, '--output', str(out),
+                               '--save_predictions', str(preds)])
+            torch.cuda.synchronize()
+            seconds['wall'] = time.time() - t0
+    finally:
+        ev.load_dataset, ev.create_recommender = load, create
+    counts = launch_counts()
+    if json.loads(out.read_text()) != json.loads(json.dumps(results)):
+        raise AssertionError(f'evaluate {name}: the written results are not '
+                             'the returned ones')
+    return dict(results=results, predictions=json.loads(preds.read_text()),
+                dataset=built['dataset'], recommender=built['recommender'],
+                seconds=seconds, counts=counts)
+
+
+def checked_metrics(results: dict, what: str) -> dict:
+    """The metrics of an evaluation (its numbers); raises unless it
+    evaluated RECOMMEND_USERS users and every metric is finite."""
+    metrics = {k: v for k, v in results.items()
+               if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if results['num_users_evaluated'] != RECOMMEND_USERS or bad:
+        raise AssertionError(f'evaluate {what}: '
+                             f'{results["num_users_evaluated"]} users, '
+                             f'non-finite {bad}')
+    return metrics
+
+
+def prediction_arrays(predictions: dict, dataset) -> tuple:
+    """``report_arrays`` of an evaluation's predictions (user -> [[item,
+    score], ...])."""
+    return report_arrays({'recommendations': {
+        u: [{'item_id': i, 'score': s} for i, s in x]
+        for u, x in predictions.items()}}, dataset)
+
+
+def evaluate_phase(smi, dev, ws: Path) -> dict:
+    """Evaluate from the command line on the cli phase's workspace ``ws``.
+    A test file of the validation rows of RECOMMEND_USERS users (drawn by
+    EVALUATE_SEED, written by the port's ``write_csv``), the workspace's
+    train file as ``--train_data``. ``evaluate.main`` on the card: with the
+    CLI's defaults (retrieval, 20 random negatives a user, the float32
+    candidate chain, no pair kernel), held against the port's CPU run of
+    the same evaluation on the same dataset and checkpoint (the lists
+    equal but where two scores lie within EVALUATE_TIE, every metric
+    within EVALUATE_TOL of the CPU evaluator's on those lists); with ``--full_catalog`` (K1 once per chunk of one
+    top-K over the users and no other kernel, the lists against the plain
+    bf16 version by the cli phase's gate). Then, through
+    ``create_recommender`` and ``create_evaluator`` on that run's dataset:
+    int8 over the full catalog (K1q and no K1, the lists against the plain
+    int8 version, the top-50 agreement with the bf16 run printed), ranking,
+    and the four baselines on sampled retrieval. Host seconds by step for
+    both entry-point runs, seconds for the rest. Returns K1's launches of
+    the full-catalog run and K1q's of the int8 one."""
+    from pixelrec_multimodal_tpu_torch.config import Config
+    from pixelrec_multimodal_tpu_torch.data.columns import (
+        read_csv,
+        take,
+        write_csv,
+    )
+    from pixelrec_multimodal_tpu_torch.evaluation.tasks import (
+        create_evaluator,
+        get_task_from_string,
+    )
+    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
+        pairwise_scores_plain,
+    )
+    from pixelrec_multimodal_tpu_torch.scripts import evaluate as ev
+
+    t_phase = time.time()
+    cfg_path, out_dir = ws / 'config.yaml', ws / 'evaluate'
+    config = Config.from_yaml(str(cfg_path))
+    val = read_csv(config.data.val_data_path)
+    chosen = np.random.default_rng(EVALUATE_SEED).choice(
+        np.unique(val['user_id']), RECOMMEND_USERS, replace=False)
+    test_csv = out_dir / 'test.csv'
+    write_csv(take(val, np.isin(val['user_id'], chosen)), test_csv)
+    test = read_csv(test_csv)
+    train_csv = config.data.train_data_path
+    args = ['--config', str(cfg_path), '--test_data', str(test_csv),
+            '--train_data', str(train_csv)]
+    retrieval = get_task_from_string('retrieval')
+
+    def device_share(secs):
+        return (secs.get('scoring', 0.0) + secs.get('top_k', 0.0)) \
+            / secs['wall']
+
+    # ---- 1. the CLI's defaults: sampled candidates, the float32 chain
+    run = run_evaluate(args, out_dir, 'defaults')
+    metrics = checked_metrics(run['results'], 'defaults')
+    if any(run['counts'].values()):
+        raise AssertionError(f'evaluate defaults: kernel launches '
+                             f'{run["counts"]} on the candidate path')
+    emit('evaluate', run='defaults', users=RECOMMEND_USERS,
+         test_rows=len(test['user_id']), host_seconds=run['seconds'],
+         device_call_share=device_share(run['seconds']), metrics=metrics,
+         kernel_launches=run['counts'], nvidia_smi=smi)
+    dataset, train_rows = run['dataset'], read_csv(train_csv)
+    del run['recommender']
+    torch.cuda.empty_cache()
+
+    # ... against the port's CPU run on the same dataset and checkpoint
+    # ... against the port's CPU run on the same dataset and checkpoint:
+    # the lists equal but where two scores lie within EVALUATE_TIE, and
+    # every metric within EVALUATE_TOL of the CPU evaluator's on the
+    # card's lists. That is the CPU run's own metrics where no list
+    # differs; a near tie that swaps a test positive with a negative
+    # moves MRR and NDCG by up to 1/users, so the metrics of a run with
+    # swaps are held to what its lists give, and the gap to the CPU run
+    # is printed.
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        cpu_rec = ev.create_recommender('multimodal', config, dataset,
+                                        train_rows, 'best_model.pth',
+                                        device='cpu')
+        cpu_eval = create_evaluator(retrieval, cpu_rec, test, config,
+                                    num_negatives=20)
+        cpu = cpu_eval.evaluate()
+    cpu_s = time.time() - t0
+    cpu_preds, card_preds = cpu.pop('predictions'), run['predictions']
+    swapped = far = 0
+    for user, ref in cpu_preds.items():
+        got = card_preds.get(user, [])
+        if len(got) != len(ref):
+            far += 1
+            continue
+        for (item, _), (ref_item, ref_score) in zip(got, ref):
+            if item != ref_item:
+                swapped += 1
+                far += abs(cpu_rec.get_item_score(user, item)
+                           - ref_score) > EVALUATE_TIE
+    reference = cpu
+    if swapped and not far:
+        with contextlib.redirect_stdout(sys.stderr):
+            reference = cpu_eval._accuracy_metrics(
+                [(u, card_preds[u], pos, [i for i, _ in card_preds[u]])
+                 for u, pos in cpu_eval._user_groups()])
+            reference.update(cpu_eval._novelty_metrics(
+                reference.pop('predictions')))
+    worst = max(abs(metrics[k] - v) for k, v in reference.items()
+                if isinstance(v, float))
+    same = all(run['results'][k] == v for k, v in reference.items()
+               if not isinstance(v, float))
+    emit('evaluate_vs_cpu', cpu_seconds=cpu_s,
+         metric_max_abs_diff=worst, metric_tol=EVALUATE_TOL,
+         metric_max_abs_diff_vs_cpu_run=max(
+             abs(metrics[k] - v) for k, v in cpu.items()
+             if isinstance(v, float)),
+         positions_swapped=swapped, swaps_past_tie=far,
+         tie=EVALUATE_TIE, users=len(cpu_preds))
+    if worst > EVALUATE_TOL or not same or far \
+            or list(cpu_preds) != list(card_preds):
+        raise AssertionError(f'evaluate: the card run disagrees with the '
+                             f'CPU run: metrics {worst}, {far} swaps past '
+                             'the tie')
+    del cpu_rec, cpu_eval
+
+    # ---- 2. --full_catalog: one top-K over the users through K1
+    full = run_evaluate(args + ['--full_catalog'], out_dir, 'full_catalog')
+    full_metrics = checked_metrics(full['results'], 'full_catalog')
+    dataset, rec = full['dataset'], full['recommender']
+    scorer = rec.scorer
+    users, items, scores = prediction_arrays(full['predictions'], dataset)
+    per_call = (-(-len(users) // scorer.user_chunk)
+                * (scorer.n_pad // scorer.item_chunk))
+    expected = {k: per_call if k == 'K1' else 0 for k in full['counts']}
+    if full['counts'] != expected or scorer.precision != 'bf16':
+        raise AssertionError(f'evaluate full catalog: kernel launches '
+                             f'{full["counts"]} != expected {expected}')
+    emit('evaluate', run='full_catalog', users=len(users),
+         items=scorer.n_items, k=TOP_K, host_seconds=full['seconds'],
+         device_call_share=device_share(full['seconds']),
+         top_k_pairs_per_sec=len(users) * scorer.n_items
+         / full['seconds']['top_k'],
+         metrics=full_metrics, defaults_metrics=metrics,
+         kernel_launches=full['counts'], expected_launches=expected,
+         block_rows=scorer.block_rows, nvidia_smi=smi)
+    check_against_plain(scorer, pairwise_scores_plain, users, scores, items,
+                        'evaluate_full_catalog_vs_plain',
+                        gate='score_full_vs_f32_top50_flips')
+
+    # ---- 3. int8 over the full catalog: K1q and no K1
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        rec8 = ev.create_recommender('multimodal', config, dataset,
+                                     train_rows, 'best_model.pth',
+                                     precision='int8', device=dev)
+    setup8 = time.time() - t0
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        res8 = create_evaluator(retrieval, rec8, test, config,
+                                full_catalog=True).evaluate()
+    secs8 = time.time() - t0
+    counts8 = launch_counts()
+    q_users, q_items, q_scores = prediction_arrays(res8.pop('predictions'),
+                                                   dataset)
+    expected8 = {k: per_call if k == 'K1q' else 0 for k in counts8}
+    emit('evaluate_int8', users=len(q_users), precision=rec8.scorer.precision,
+         setup_seconds=setup8, evaluate_seconds=secs8,
+         metrics=checked_metrics(res8, 'int8'),
+         bf16_metrics=full_metrics, kernel_launches=counts8,
+         expected_launches=expected8,
+         top50_overlap_vs_bf16_run=topc_overlap(q_items, items),
+         jax_package_bound=INT8_FIDELITY)
+    if rec8.scorer.precision != 'int8' or counts8 != expected8 \
+            or (q_users != users).any():
+        raise AssertionError(f'evaluate int8: precision '
+                             f'{rec8.scorer.precision}, launches {counts8}')
+    check_against_plain(rec8.scorer, pairwise_scores_plain, q_users,
+                        q_scores, q_items, 'evaluate_int8_vs_plain',
+                        f32=False)
+    del rec8
+    torch.cuda.empty_cache()
+
+    # ---- 4. ranking on the learned recommender, then the baselines
+    ranking = get_task_from_string('ranking')
+    reset_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        ranked = create_evaluator(ranking, rec, test, config).evaluate()
+    emit('evaluate_ranking', seconds=time.time() - t0,
+         metrics=checked_metrics(ranked, 'ranking'),
+         kernel_launches=launch_counts())
+    k1_launches = full['counts']['K1']
+    del rec, scorer, full
+    torch.cuda.empty_cache()
+    for kind in BASELINES:
+        t0 = time.time()
+        with contextlib.redirect_stdout(sys.stderr):
+            base = ev.create_recommender(kind, config, dataset, train_rows)
+        build_s = time.time() - t0
+        t0 = time.time()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = create_evaluator(retrieval, base, test, config,
+                                   num_negatives=20).evaluate()
+        sims = getattr(base, 'item_similarities',
+                       getattr(base, 'user_similarities', None))
+        emit('evaluate_baseline', recommender=kind, build_seconds=build_s,
+             evaluate_seconds=time.time() - t0,
+             similarity_shape=None if sims is None else list(sims.shape),
+             similarity_nnz=None if sims is None else int(sims.nnz),
+             metrics=checked_metrics(res, kind))
+        del base
+    emit('evaluate_phase', seconds=time.time() - t_phase)
+    return {'launches': k1_launches, 'launches_int8': counts8['K1q']}
 
 
 def main() -> int:
@@ -3018,16 +3331,21 @@ def main() -> int:
     # ---- 21. the command line at that geometry: split and train through
     # the entry points, then serve the best checkpoint through K1; then
     # recommend from it through the generate entry point (K1, MMR, K1q)
-    # and run the checkpoint tools on the same workspace
+    # and run the checkpoint tools on the same workspace; then evaluate it
+    # through the evaluate entry point (candidates, full catalog through
+    # K1; int8 through K1q, ranking and the baselines)
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_phase(smi, dev, statistics.median(
             e['trainer_samples_per_sec'] for e in trained['epochs']),
             workspace=Path(tmp))
         recommended = recommend_phase(smi, dev, Path(tmp))
+        evaluated = evaluate_phase(smi, dev, Path(tmp))
     lines[0]['launches_cli'] = cli['launches']
     lines[0]['launches_recommend'] = recommended['launches']
-    next(line for line in lines if line['kernel'] == 'K1q')[
-        'launches_recommend_int8'] = recommended['launches_int8']
+    lines[0]['launches_evaluate'] = evaluated['launches']
+    k1q = next(line for line in lines if line['kernel'] == 'K1q')
+    k1q['launches_recommend_int8'] = recommended['launches_int8']
+    k1q['launches_evaluate_int8'] = evaluated['launches_int8']
 
     lines += probe_lines(probe_rate, probe_errs, dev)
     emit('timing', seconds_total=round(time.time() - t_start, 3))

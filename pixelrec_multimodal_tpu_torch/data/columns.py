@@ -13,7 +13,7 @@ from __future__ import annotations
 import csv
 import re
 from pathlib import Path
-from typing import Dict, List, Union
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 
@@ -36,6 +36,28 @@ def n_rows(cols: Dict[str, np.ndarray]) -> int:
 def take(cols: Dict[str, np.ndarray], rows) -> Dict[str, np.ndarray]:
     """The given rows (an index array or a boolean mask) of every column."""
     return {k: v[rows] for k, v in cols.items()}
+
+
+def value_counts(col) -> Dict[object, int]:
+    """pandas' ``value_counts().to_dict()`` of a column with no missing
+    value: each distinct value's count, the most frequent first, equal
+    counts in order of first appearance (pandas 3 counts in that order,
+    then sorts the counts stably, descending)."""
+    col = np.asarray(col)
+    uniq, first, counts = np.unique(col, return_index=True,
+                                    return_counts=True)
+    appear = np.argsort(first)
+    order = appear[np.argsort(-counts[appear], kind='stable')]
+    return dict(zip(uniq[order].tolist(), counts[order].tolist()))
+
+
+def group_rows(col) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """pandas' ``groupby(col)`` with its default sort: the distinct values,
+    sorted, and each one's row positions in row order."""
+    keys, inverse = np.unique(np.asarray(col), return_inverse=True)
+    order = np.argsort(inverse.reshape(-1), kind='stable')
+    ends = np.cumsum(np.bincount(inverse.reshape(-1), minlength=len(keys)))
+    return keys, np.split(order, ends[:-1])
 
 
 def is_missing(col: np.ndarray) -> np.ndarray:

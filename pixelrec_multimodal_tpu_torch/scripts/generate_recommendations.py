@@ -31,14 +31,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..config import Config
-from ..data.columns import read_csv
-from ..data.dataset import MultimodalDataset
-from ..data.processors import NumericalProcessor
-from ..inference import Recommender
-from ..models.multimodal import build_model
-from ..utils.checkpointing import load_checkpoint, load_model_state
 from ..utils.logging import dump_json
-from .evaluate import cascade_arg, find_encoders, find_model_checkpoint
+from .evaluate import cascade_arg, create_recommender, load_dataset
 from .train import check_single_device, setup_device
 
 
@@ -49,73 +43,14 @@ def load_model_and_data(config: Config, checkpoint_name: str = 'best_model',
                         cascade_recall: float = 1.0,
                         cascade_c1=None, device='cuda'):
     """(Recommender, dataset) rebuilt from the artifacts of a training
-    run: the processed CSV files, the scaler, the encoders, the model of
-    the config with the checkpoint's weights, and the precomputed item
-    tables."""
-    item_info = read_csv(config.data.processed_item_info_path)
-    interactions = read_csv(config.data.processed_interactions_path)
-
-    numerical_processor = NumericalProcessor()
-    scaler = None
-    feature_cols = config.data.numerical_features_cols
-    if Path(config.data.scaler_path).exists():
-        numerical_processor.load_scaler(Path(config.data.scaler_path))
-        scaler = numerical_processor.scaler
-        if numerical_processor.fitted_columns is not None:
-            feature_cols = list(numerical_processor.fitted_columns)
-    feature_cols = [c for c in feature_cols if c in item_info]
-
-    encoders = find_encoders(config)
-    dataset = MultimodalDataset(
-        interactions_df=interactions,
-        item_info_df=item_info,
-        image_folder=(config.data.processed_image_destination_folder
-                      or config.data.image_folder),
-        vision_model_name=config.model.vision_model,
-        language_model_name=config.model.language_model,
-        create_negative_samples=False,
-        numerical_feat_cols=feature_cols,
-        categorical_feat_cols=config.data.categorical_features_cols,
-        numerical_scaler=scaler,
-        numerical_normalization_method=config.data.numerical_normalization_method,
-        user_encoder=encoders.get('user_encoder') if encoders else None,
-        item_encoder=encoders.get('item_encoder') if encoders else None,
-        tag_encoder=encoders.get('tag_encoder') if encoders else None)
-    load_precomputed_tables(config, dataset.feature_store)
-
-    model = build_model(config.model, dataset.n_users, dataset.n_items,
-                        dataset.n_tags,
-                        num_numerical_features=len(feature_cols),
-                        device=device)
-    ckpt = find_model_checkpoint(config, checkpoint_name)
-    if ckpt is None:
-        raise FileNotFoundError(
-            f"No model checkpoint found under {config.checkpoint_dir}")
-    print(f"Loading checkpoint: {ckpt}")
-    restored = load_checkpoint(ckpt.parent, ckpt.name, device=device)
-    load_model_state(model, restored['state'])
-    return (Recommender(model, dataset, mesh=mesh, precision=precision,
-                        cascade_candidates=cascade,
-                        cascade_screen=cascade_screen,
-                        cascade_recall=cascade_recall,
-                        cascade_c1=cascade_c1, device=device), dataset)
-
-
-def load_precomputed_tables(config: Config, store) -> None:
-    """Load the cached item tables into ``store`` where the config
-    enables the cache; raise if the model needs a vision or language
-    table that is not there."""
-    cache = config.data.cache_config
-    if cache.enabled and cache.cache_directory:
-        store.load_tables(cache.cache_directory)
-    wanted = [t for t, m in (('vision_emb', config.model.vision_model),
-                             ('language_emb', config.model.language_model))
-              if m and not store.has(t)]
-    if wanted:
-        raise FileNotFoundError(
-            f'no precomputed {wanted} for vision={config.model.vision_model}'
-            f', language={config.model.language_model} under the cache '
-            f'directory {cache.cache_directory!r} (enabled={cache.enabled})')
+    run: the dataset (``evaluate.load_dataset``) and the model of the
+    config with the checkpoint's weights (``evaluate.create_recommender``)."""
+    dataset = load_dataset(config)
+    return create_recommender(
+        'multimodal', config, dataset, None, checkpoint_name, mesh=mesh,
+        precision=precision, cascade=cascade, cascade_screen=cascade_screen,
+        cascade_recall=cascade_recall, cascade_c1=cascade_c1,
+        device=device), dataset
 
 
 def resolve_users(args, dataset) -> List[str]:

@@ -128,7 +128,8 @@ def test_probe_sources_are_checked():
             'create_splits.py', 'train.py', 'recommender.py',
             'evaluate.py', 'generate_recommendations.py',
             'checkpoint_manager.py', 'inspect_checkpoint.py',
-            'extract_encoders.py'} <= names
+            'extract_encoders.py', 'tasks.py', 'metrics.py', 'novelty.py',
+            'advanced_metrics.py', 'baseline_recommenders.py'} <= names
 
 
 @pytest.mark.parametrize('path', port_sources(), ids=lambda p: p.name)
@@ -377,3 +378,78 @@ results_dir: {tmp_path / 'results'}
             'pixelrec_multimodal_tpu_torch.scripts.evaluate'} <= set(loaded)
     assert (ckpt / 'checkpoint_info.json').exists()
     assert (tmp_path / 'results' / 'mmr.json').exists()
+
+
+def test_evaluate_path_stands_alone(tmp_path):
+    """A fresh interpreter imports the evaluate entry point, the
+    evaluation modules and the baselines without loading scipy, then
+    splits, trains and evaluates on the CPU (the learned model, sampled
+    and over the full catalog, and ItemKNN, which loads scipy), and loads
+    none of JAX, the JAX package, pandas, scikit-learn, PIL, PyYAML or
+    transformers."""
+    proc, split = tmp_path / 'processed', tmp_path / 'split'
+    proc.mkdir()
+    (proc / 'item_info.csv').write_text(
+        'item_id,tag,price\n' + ''.join(
+            f'i{j},t{j % 3},{j * 1.5}\n' for j in range(12)))
+    (proc / 'interactions.csv').write_text(
+        'user_id,item_id,timestamp\n' + ''.join(
+            f'{u:03d},i{(u * 5 + k) % 12},{k}\n'
+            for u in range(6) for k in range(5)))
+    (tmp_path / 'config.yaml').write_text(f"""\
+model:
+  vision_model: null
+  language_model: null
+  embedding_dim: 8
+  fusion_hidden_dims: [16]
+  use_contrastive: false
+training: {{batch_size: 16, epochs: 1}}
+recommendation: {{top_k: 3}}
+data:
+  processed_item_info_path: {proc / 'item_info.csv'}
+  processed_interactions_path: {proc / 'interactions.csv'}
+  scaler_path: {proc / 'scaler.pkl'}
+  split_data_path: {split}
+  train_data_path: {split / 'train.csv'}
+  val_data_path: {split / 'val.csv'}
+  numerical_features_cols: [price]
+  splitting:
+    strategy: leave_one_out
+    min_interactions_per_user: 3
+    min_interactions_per_item: 1
+checkpoint_dir: {tmp_path / 'ckpt'}
+results_dir: {tmp_path / 'results'}
+""")
+    code = (
+        'import contextlib, io, json, sys\n'
+        'import pixelrec_multimodal_tpu_torch.evaluation\n'
+        'import pixelrec_multimodal_tpu_torch.inference.baseline_recommenders\n'
+        'from pixelrec_multimodal_tpu_torch.scripts import (\n'
+        '    create_splits, evaluate, train)\n'
+        'scipy_on_import = "scipy" in sys.modules\n'
+        f'cfg = {str(tmp_path / "config.yaml")!r}\n'
+        f'test = {str(split / "val.csv")!r}\n'
+        'ev = ["--config", cfg, "--device", "cpu", "--test_data", test]\n'
+        'with contextlib.redirect_stdout(io.StringIO()):\n'
+        '    create_splits.main(cfg)\n'
+        '    train.main(["--config", cfg, "--device", "cpu"])\n'
+        '    runs = [evaluate.main(ev),\n'
+        '            evaluate.main(ev + ["--full_catalog", "--output",\n'
+        '                                "full.json"]),\n'
+        '            evaluate.main(ev + ["--recommender_type", "item_knn",\n'
+        '                                "--output", "knn.json"])]\n'
+        'assert not scipy_on_import\n'
+        'assert [r["num_users_evaluated"] for r in runs] == [6, 6, 6], runs\n'
+        'print(json.dumps(sorted(sys.modules)))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded
+           if m.split('.')[0] in FORBIDDEN | CARD_ABSENT]
+    assert not bad, bad
+    assert 'scipy.sparse' in loaded
+    assert {'pixelrec_multimodal_tpu_torch.evaluation.tasks',
+            'pixelrec_multimodal_tpu_torch.evaluation.novelty'} <= set(loaded)
+    for name in ('evaluation_results.json', 'full.json', 'knn.json'):
+        assert (tmp_path / 'results' / name).exists()

@@ -46,6 +46,7 @@ from pixelrec_multimodal_tpu_torch.scripts import train as ttrain
 from pixelrec_multimodal_tpu_torch.scripts.evaluate import (
     find_encoders,
     find_model_checkpoint,
+    load_precomputed_tables,
 )
 from pixelrec_multimodal_tpu_torch.utils import checkpointing
 from tests._torch_port import (
@@ -285,12 +286,12 @@ def test_missing_precomputed_tables_refused(ws):
     raises rather than score zero features."""
     config = Config.from_yaml(str(ws.base / 'torch' / 'config.yaml'))
     store = ItemFeatureStore(3, np.asarray(['a', 'b', 'c']))
-    tgen.load_precomputed_tables(config, store)  # ID-only: nothing needed
+    load_precomputed_tables(config, store)  # ID-only: nothing needed
     config.model.vision_model = 'resnet'
     with pytest.raises(FileNotFoundError, match='vision_emb'):
-        tgen.load_precomputed_tables(config, store)
+        load_precomputed_tables(config, store)
     store.tables['vision_emb'] = np.zeros((3, 2048), np.float32)
-    tgen.load_precomputed_tables(config, store)
+    load_precomputed_tables(config, store)
 
 
 # -------------------------------------------------------- checkpoint tools
