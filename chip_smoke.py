@@ -32,8 +32,13 @@ YAML config), whose best checkpoint serves through K1, then through the
 generate entry point (bf16 through K1, MMR, int8 through K1q), with the
 checkpoint tools run on the same workspace, then through the evaluate
 entry point (sampled candidates against the port's CPU run, the full
-catalog through K1, int8 through K1q, ranking, the four baselines); it
-checks what comes out
+catalog through K1, int8 through K1q, ranking, the four baselines), then
+searches hyperparameters on the same workspace (the training subsets,
+then five trials of the search entry point from its default seed on the
+5% subset, each trial's best checkpoint served with seen items masked:
+three concat heads through K1, a gated head through K2, an attention
+head through K4, and the concat and gated heads in int8 through K1q and
+K2q); it checks what comes out
 against the plain versions and the exact scan, and times the kernels.
 Every phase prints one JSON line; any failure raises and exits non-zero. The second-to-last line is the
 ``kernels`` JSON object and the last line is ``{"ok": true, "device":
@@ -83,6 +88,7 @@ PEAK_HBM_BYTES = 3.35e12
 DATASHEET = {'bf16': PEAK_BF16_FLOPS, 'int8': PEAK_INT8_OPS,
              'ffma': PEAK_F32_FLOPS / 2, 'exp': 132 * 16 * 1.98e9}
 PEAKS: dict = {}
+T_START = time.time()
 
 # Kernel-vs-plain tolerance, relative to max(1, |score|): each kernel and
 # its plain bf16 version round at the same points and differ only in the
@@ -221,6 +227,19 @@ RECOMMEND_USERS = 1024
 EVALUATE_SEED = SEED + 23
 EVALUATE_TOL, EVALUATE_TIE = 1e-6, 1e-5
 BASELINES = ('random', 'popularity', 'item_knn', 'user_knn')
+# The hpo phase: the search entry point on the cli phase's workspace, its
+# first HPO_TRIALS trials from the default seed (42) on the 5% subset,
+# which draw three concat heads, one gated and one attention head
+# (tests/test_torch_hpo.py holds the draws). Beside the cli workspace's
+# resnet/sentence-bert tables they need these vision/language pairs'
+# tables (and the clip pairs a clip_text_emb table, trials 0 and 3 being
+# contrastive), written from SEED before the search. Each trial's best
+# checkpoint then serves HPO_SERVE_USERS users over the full catalog,
+# top-K, seen items masked; the concat and gated heads again in int8.
+HPO_TRIALS = 5
+HPO_NEW_TABLES = (('clip', 'sentence-bert'), ('resnet', 'bert'),
+                  ('clip', 'bert'), ('convnext', None))
+HPO_SERVE_USERS = 1024
 # The keys of JAX's meta.json (pixelrec_multimodal_tpu/training/
 # trainer.py:355-369, with a config).
 META_KEYS = {'epoch', 'best_early_stopping_score', 'early_stopping_metric',
@@ -233,7 +252,10 @@ INT8_FIDELITY = 0.9
 
 
 def emit(phase: str, **fields):
-    print(json.dumps({'phase': phase, **fields}), flush=True)
+    """One JSON line; ``t`` is the host seconds since the script began,
+    so consecutive lines bound each phase's wall time."""
+    print(json.dumps({'phase': phase, 't': round(time.time() - T_START, 3),
+                      **fields}), flush=True)
 
 
 def log(*a):
@@ -623,14 +645,19 @@ def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
     KERNEL_TOL, and none past FLIP_TOL (both relative to max(1, |score|)),
     the same share and bound that hold the flips of the attention kernels.
     The two plain orders' count on the same pairs is printed beside the
-    kernel's."""
+    kernel's. The hpo phase holds its trained gated and attention heads
+    (K2, K4) by the same gate: their other-order plain version is not
+    computed (``plain_bf16_other_order`` is K1's chain), and an attention
+    head's w1 counts as a hidden layer (its products round to bf16 before
+    the chain, as K1's hidden layers' do)."""
     if gate not in ('raw', 'score_full_vs_f32',
                     'score_full_vs_f32_top50_flips'):
         raise ValueError(f'unknown gate {gate!r}')
     trained = gate != 'raw'
     with torch.no_grad():
         side = scorer._fast_user_side(
-            torch.from_numpy(users[:64].astype(np.int64)).to('cuda'))
+            torch.from_numpy(users[:64].astype(np.int64)).to(
+                scorer._scan_tables[0].device))
 
         def scores(dtype, fn=plain):
             kw = {} if fn is plain_bf16_other_order else \
@@ -652,7 +679,8 @@ def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
             extra['top50_overlap_vs_plain_f32'] = float(np.mean(
                 [len(set(a) & set(b)) / TOP_K
                  for a, b in zip(i[:64], f32_i.cpu().numpy())]))
-        if trained:
+        other = None
+        if trained and scorer._head.get('fusion') == 'concatenate':
             other = scores(torch.bfloat16, plain_bf16_other_order)
     overlap = float(np.mean([len(set(a) & set(b)) / TOP_K
                              for a, b in zip(i[:64], ref_i)]))
@@ -666,10 +694,10 @@ def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
         with torch.no_grad():
             at = torch.from_numpy(i[:64].astype(np.int64)).to(ref.device)
             ref_at = ref.gather(1, at).cpu().numpy()
-            other_at = other.gather(1, at).cpu().numpy()
         scale = np.maximum(1.0, np.abs(ref_at))
         rel = np.abs(v[:64] - ref_at) / scale
-        hidden = len(scorer._head['layers']) - 1
+        hidden = len(scorer._head['layers']) - 1 + (
+            scorer._head.get('fusion') == 'attention')
         allowed = int(MAX_DIFFERING_PER_LAYER * hidden * rel.size)
         past = int((rel > KERNEL_TOL).sum())
         values_ok = past <= allowed and float(rel.max()) <= FLIP_TOL
@@ -677,23 +705,30 @@ def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
             top50_same_item_max_abs_diff=float(np.abs(v[:64] - ref_at).max()),
             top50_pairs=int(rel.size), top50_pairs_past_tol=past,
             top50_pairs_allowed_past_tol=allowed, flip_tol=FLIP_TOL,
-            plain_other_order_top50_pairs_past_tol=int(
-                (np.abs(other_at - ref_at) / scale > KERNEL_TOL).sum()),
-            plain_other_order_top50_same_item_max_abs_diff=float(
-                np.abs(other_at - ref_at).max()),
+            hidden_layers=hidden,
             top50_values_gate='pairs past tol <= MAX_DIFFERING_PER_LAYER x '
                               'hidden layers, none past FLIP_TOL')
+        if other is not None:
+            with torch.no_grad():
+                other_at = other.gather(1, at).cpu().numpy()
+            extra.update(
+                plain_other_order_top50_pairs_past_tol=int(
+                    (np.abs(other_at - ref_at) / scale > KERNEL_TOL).sum()),
+                plain_other_order_top50_same_item_max_abs_diff=float(
+                    np.abs(other_at - ref_at).max()))
     if trained:
         exact = exact.cpu().numpy()
         kernel_f32 = np.abs(full - exact)
         plain_f32 = np.abs(ref.cpu().numpy() - exact)
-        order = (other - ref).abs().cpu().numpy()
         full_ok = kernel_f32.max() <= plain_f32.max() + tol
+        if other is not None:
+            order = (other - ref).abs().cpu().numpy()
+            extra.update(
+                plain_other_order_max_abs_diff=float(order.max()),
+                plain_other_order_pairs_past_tol=int((order > tol).sum()))
         extra.update(
             score_full_pairs_past_tol=int((np.abs(full - ref.cpu().numpy())
                                            > tol).sum()),
-            plain_other_order_max_abs_diff=float(order.max()),
-            plain_other_order_pairs_past_tol=int((order > tol).sum()),
             score_full_vs_plain_f32_max_abs_diff=float(kernel_f32.max()),
             plain_bf16_vs_plain_f32_max_abs_diff=float(plain_f32.max()),
             score_full_gate='vs plain f32 <= plain bf16 vs plain f32 + tol')
@@ -2685,6 +2720,375 @@ def evaluate_phase(smi, dev, ws: Path) -> dict:
     return {'launches': k1_launches, 'launches_int8': counts8['K1q']}
 
 
+def hpo_tables(ws: Path) -> dict:
+    """Random precomputed tables from SEED for the HPO_NEW_TABLES pairs
+    (and a CLIP text table for a CLIP vision model, the trials that draw
+    one being contrastive), written into the cli workspace's cache by
+    ``ItemFeatureStore.save`` in the cli phase's item order; returns the
+    seconds and bytes."""
+    from pixelrec_multimodal_tpu_torch.config import MODEL_CONFIGS
+    from pixelrec_multimodal_tpu_torch.data.feature_store import (
+        ItemFeatureStore,
+        cache_subdir_name,
+    )
+    t0 = time.time()
+    cache = ws / 'cache'
+    with np.load(cache / cache_subdir_name('resnet', 'sentence-bert') /
+                 'feature_tables.npz') as z:
+        ids = z['item_ids']
+    rng = np.random.default_rng(SEED + 31)
+    written = {}
+    for vision, language in HPO_NEW_TABLES:
+        store = ItemFeatureStore(len(ids), ids, vision, language)
+        for name, kind, model in (('vision_emb', 'vision', vision),
+                                  ('language_emb', 'language', language)):
+            if model:
+                store.set_embedding_table(name, rng.standard_normal(
+                    (len(ids), MODEL_CONFIGS[kind][model]['dim']),
+                    dtype=np.float32))
+        if vision == 'clip':
+            store.set_embedding_table('clip_text_emb', rng.standard_normal(
+                (len(ids), MODEL_CONFIGS['vision']['clip']['text_dim']),
+                dtype=np.float32))
+        store.save(str(cache))
+        path = cache / cache_subdir_name(vision, language) / \
+            'feature_tables.npz'
+        written[path.parent.name] = path.stat().st_size
+    return {'seconds': time.time() - t0, 'bytes': written}
+
+
+HPO_PLAIN = {'concatenate': ('K1', 'pairwise_scores_plain'),
+             'gated': ('K2', 'pairwise_scores_gated_plain'),
+             'attention': ('K4', 'attention_scores_plain')}
+
+
+def hpo_serve(scorer, users, seen, kid, phase, **fields):
+    """One warm-up and one timed ``top_k`` of ``users`` with ``seen``
+    masked, the launch counts set to 0 just before the timed call and read
+    just after it (then the same call unmasked is timed beside it): fails
+    unless ``kid`` and no other kernel launched once per (user block, item
+    chunk), or if the lists are malformed or hold a seen item. Returns
+    (scores, items, launches, seconds)."""
+    scorer.top_k(users, TOP_K, seen_mask=seen)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    v, i = scorer.top_k(users, TOP_K, seen_mask=seen)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = launch_counts()
+    t0 = time.time()  # the same call with no mask, for the mask's share
+    scorer.top_k(users, TOP_K)
+    torch.cuda.synchronize()
+    unmasked = time.time() - t0
+    per_call = (-(-len(users) // scorer.user_chunk)
+                * (scorer.n_pad // scorer.item_chunk))
+    expected = {k: per_call if k == kid else 0 for k in counts}
+    hits = int(seen[np.arange(len(users))[:, None],
+                    np.maximum(i, 0)].sum())
+    emit(phase, users=len(users), items=scorer.n_items, k=TOP_K,
+         seconds=seconds, pairs_per_sec=len(users) * scorer.n_items / seconds,
+         unmasked_seconds=unmasked,
+         unmasked_pairs_per_sec=len(users) * scorer.n_items / unmasked,
+         kernel_launches=counts, expected_launches=expected,
+         block_rows=scorer.block_rows, seen_items_returned=hits, **fields)
+    if counts != expected:
+        raise AssertionError(f'{phase}: kernel launches {counts} != '
+                             f'expected {expected}')
+    if v.shape != (len(users), TOP_K) or not np.isfinite(v).all() \
+            or (i < 0).any() or (np.diff(v, axis=1) > 0).any() or hits:
+        raise AssertionError(f'{phase}: top_k output malformed or {hits} '
+                             'seen items returned')
+    return v, i, counts[kid], seconds
+
+
+def hpo_int8_vs_plain(scorer, users, v, i, phase) -> dict:
+    """The int8 lists' values against the plain int8 version (bf16 mode,
+    the kernels' rounding points) of the same items for 64 users: every
+    value within AGREE of max(1, |score|)."""
+    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+    plain = (tpm.pairwise_scores_plain
+             if scorer._head['fusion'] == 'concatenate'
+             else tpm.pairwise_scores_gated_plain)
+    with torch.no_grad():
+        side = scorer._fast_user_side(
+            torch.from_numpy(users[:64].astype(np.int64)).to(
+                scorer._scan_tables[0].device))
+        ref = torch.cat([plain(scorer._head, *side,
+                               *(t[c:c + 4096] for t in scorer._scan_tables),
+                               compute_dtype=torch.bfloat16)
+                         for c in range(0, scorer.n_items, 4096)], dim=1)
+        at = torch.from_numpy(i[:64].astype(np.int64)).to(ref.device)
+        ref_at = ref.gather(1, at).cpu().numpy()
+    scale = np.maximum(1.0, np.abs(ref_at))
+    rel = float((np.abs(v[:64] - ref_at) / scale).max())
+    emit(phase, users=64, top50_max_rel_diff_vs_plain_int8=rel, agree=AGREE)
+    if not rel <= AGREE:
+        raise AssertionError(f'{phase}: {rel} from the plain int8 version '
+                             f'> {AGREE}')
+    return {'max_rel_diff': rel}
+
+
+def hpo_phase(smi, dev, ws: Path) -> dict:
+    """Hyperparameter search from the command line on the cli phase's
+    workspace ``ws``. Random tables for the pairs the trials draw
+    (``hpo_tables``); ``create_training_subsets.create_subsets`` on a copy
+    of the cli config at 2 epochs (timed; 5% within 20% within 50%, each
+    within 2 rows of its share); then ``hyperparameter_search.main`` on the
+    card, HPO_TRIALS trials on the 5% subset from the default seed, every
+    trial COMPLETE with a finite value (the objective turns any failure
+    into the worst value, so a device or kernel failure fails here), with
+    ``run_training``'s host seconds by step, the Trainer's epoch split,
+    samples/s and ms a step at each trial's batch. Each trial's best
+    checkpoint then serves HPO_SERVE_USERS users over the full catalog,
+    top-K, their training items masked: concat heads through K1, the gated
+    head through K2 (exact) and the attention head through K4 (stream),
+    each kernel and no other (``hpo_serve``), each held against its plain
+    version by the cli phase's gate (``check_against_plain``,
+    'score_full_vs_f32_top50_flips'); then the concat and gated heads in
+    int8 (``precision='int8'``, else 'int8!' where the flip point keeps a
+    head in bf16; a head with no hidden layer has nothing to quantize and
+    is refused): K1q or K2q and no bf16 kernel, every top-50 value within
+    AGREE of the plain int8 version, the top-50 agreement with the bf16
+    lists printed beside INT8_FIDELITY. Last, the search's files parse,
+    the best trial is the study's minimum, and whether PNGs were written.
+    Returns the launches by kernel."""
+    import pickle
+    from pixelrec_multimodal_tpu_torch.config import Config
+    from pixelrec_multimodal_tpu_torch.data.columns import read_csv
+    from pixelrec_multimodal_tpu_torch.data.feature_store import (
+        ItemFeatureStore,
+    )
+    from pixelrec_multimodal_tpu_torch.data.processors import (
+        NumericalProcessor,
+    )
+    from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
+    from pixelrec_multimodal_tpu_torch.models.multimodal import build_model
+    from pixelrec_multimodal_tpu_torch.ops import attention_scorer as tas
+    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+    from pixelrec_multimodal_tpu_torch.scripts import (
+        create_training_subsets,
+    )
+    from pixelrec_multimodal_tpu_torch.scripts import (
+        hyperparameter_search as hps,
+    )
+    from pixelrec_multimodal_tpu_torch.utils import yaml_io
+    from pixelrec_multimodal_tpu_torch.utils.checkpointing import (
+        load_checkpoint,
+        load_model_state,
+    )
+    t_phase = time.time()
+    tables = hpo_tables(ws)
+    emit('hpo_tables', **tables)
+
+    # ---- the subsets, from a copy of the cli config at 2 epochs
+    config = yaml_io.load_file(ws / 'config.yaml')
+    config['training']['epochs'] = 2
+    cfg_path = ws / 'hpo_config.yaml'
+    yaml_io.dump_file(config, cfg_path)
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        subsets = create_training_subsets.create_subsets(str(cfg_path))
+    subsets_wall = time.time() - t0
+    rows = subsets['rows']
+    keys = {frac: {tuple(r) for r in zip(*(read_csv(path)[c] for c in (
+        'user_id', 'item_id', 'timestamp')))}
+        for frac, path in subsets['paths'].items()}
+    nested = keys['05'] <= keys['20'] <= keys['50']
+    shares = {'50': 0.5, '20': 0.2, '05': 0.05}
+    off = {f: rows[f] - shares[f] * rows['full'] for f in shares}
+    emit('hpo_subsets', wall_seconds=subsets_wall,
+         seconds=subsets['seconds'], rows=rows, rows_off_share=off,
+         nested=nested, monthly_drift=subsets['drift'])
+    if not nested or any(abs(x) > 2 for x in off.values()):
+        raise AssertionError(f'hpo: subsets not nested or off their shares: '
+                             f'{rows}')
+
+    # ---- the search on the card
+    out = ws / 'hpo'
+    results, real = {}, hps.run_training
+
+    def run_training(config, args):
+        t = time.time()
+        res = real(config, args)
+        results[args.trial_info['trial_number']] = dict(
+            res, wall=time.time() - t, batch=config.training.batch_size)
+        return res
+    torch.cuda.synchronize()
+    reset_launches()
+    hps.run_training = run_training
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            study = hps.main([
+                '--config', str(cfg_path), '--n_trials', str(HPO_TRIALS),
+                '--trials_on_5_percent', str(HPO_TRIALS), '--device', 'cuda',
+                '--output_dir', str(out), '--study_name', 'chip_smoke',
+                '--storage', str(ws / 'hpo_study.json')])
+    finally:
+        hps.run_training = real
+    search_wall = time.time() - t0
+    during = launch_counts()
+    trials = study.trials
+    for t in trials:
+        res = results.get(t.number)
+        p = t.params
+        if res is None:
+            emit('hpo_trial', trial=t.number, state=t.state, value=t.value,
+                 params=p, failed=True)
+            continue
+        steps = -(-res['train_samples'] // res['batch'])
+        epoch_train = [e['train'] for e in res['epoch_seconds']]
+        emit('hpo_trial', trial=t.number, state=t.state, value=t.value,
+             params=p, data_fraction=t.user_attrs.get('data_fraction'),
+             wall_seconds=res['wall'], seconds=res['seconds'],
+             epoch_seconds=res['epoch_seconds'],
+             train_samples=res['train_samples'], batch=res['batch'],
+             steps_per_epoch=steps,
+             samples_per_sec=[res['train_samples'] / s for s in epoch_train],
+             ms_per_step=[s / steps * 1e3 for s in epoch_train],
+             train_losses=res['train_losses'], val_losses=res['val_losses'],
+             best_val_loss=res['best_val_loss'], nvidia_smi=smi)
+    bad = [(t.number, t.state, t.value) for t in trials
+           if t.state != 'COMPLETE' or t.value is None
+           or not np.isfinite(t.value) or t.number not in results]
+    emit('hpo_search', trials=len(trials), wall_seconds=search_wall,
+         kernel_launches_during_training=during, failed_trials=bad)
+    if len(trials) != HPO_TRIALS or bad:
+        raise AssertionError(f'hpo: trials not COMPLETE and finite: {bad}')
+    if any(during.values()):
+        raise AssertionError(f'hpo: training launched serving kernels: '
+                             f'{during}')
+
+    # ---- serve each trial's best checkpoint
+    items = read_csv(config['data']['processed_item_info_path'])
+    train_rows = read_csv(config['data']['train_data_path'])
+    launches = {'K1': 0, 'K2': 0, 'K4': 0}
+    launches_int8 = {'K1q': 0, 'K2q': 0}
+    int8_taken = {}
+    for t in trials:
+        trial_dir = out / f'trial_{t.number}'
+        t0 = time.time()
+        cfg = Config.from_yaml(str(trial_dir / 'results' /
+                                   'training_run_config_validated.yaml'))
+        ds = results[t.number]['metadata']['data_stats']
+        model = build_model(cfg.model, ds['total_users'], ds['total_items'],
+                            ds['total_tags'], ds['numerical_features'],
+                            device=dev)
+        combo = f'{cfg.model.vision_model}_{cfg.model.language_model}'
+        best = load_checkpoint(trial_dir / 'checkpoints' / combo,
+                               'best_model', device=dev)
+        load_model_state(model, best['state'])
+        enc_dir = trial_dir / 'checkpoints' / 'encoders'
+        encoders = {name: pickle.loads((enc_dir / f'{name}_encoder.pkl')
+                                       .read_bytes())
+                    for name in ('user', 'item', 'tag')}
+        numerical = NumericalProcessor(
+            numerical_cols=cfg.data.numerical_features_cols,
+            normalization_method=cfg.data.numerical_normalization_method)
+        numerical.load_scaler(cfg.data.scaler_path)
+        store = ItemFeatureStore.build(
+            items, encoders['item'], tag_encoder=encoders['tag'],
+            vision_model=cfg.model.vision_model,
+            language_model=cfg.model.language_model,
+            numerical_processor=numerical, tokenize_text=False)
+        if not store.load_tables(cfg.data.cache_config.cache_directory):
+            raise AssertionError(f'hpo trial {t.number}: the tables did not '
+                                 'load')
+        scorer = CatalogScorer(model, store, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        seen_u = encoders['user'].transform(
+            train_rows['user_id'].astype(str))
+        seen_i = encoders['item'].transform(
+            train_rows['item_id'].astype(str))
+        users = np.sort(np.random.default_rng(SEED + 32).choice(
+            np.unique(seen_u), HPO_SERVE_USERS, replace=False)
+        ).astype(np.int32)
+        row_of = np.full(ds['total_users'], -1)
+        row_of[users] = np.arange(len(users))
+        seen = np.zeros((len(users), ds['total_items']), dtype=bool)
+        hit = row_of[seen_u] >= 0
+        seen[row_of[seen_u[hit]], seen_i[hit]] = True
+        fusion = cfg.model.fusion_type
+        kid, plain_name = HPO_PLAIN[fusion]
+        plain = (user_item_call(tas.attention_scores_plain, 5)
+                 if fusion == 'attention' else getattr(tpm, plain_name))
+        phase = f'hpo_main_path_trial_{t.number}'
+        v, i, n, _ = hpo_serve(
+            scorer, users, seen, kid, phase, trial=t.number, fusion=fusion,
+            embedding_dim=cfg.model.embedding_dim,
+            hidden=list(cfg.model.fusion_hidden_dims),
+            activation=cfg.model.fusion_activation,
+            heads=cfg.model.num_attention_heads, setup_seconds=setup_s,
+            best_epoch=best['meta'].get('epoch'), nvidia_smi=smi)
+        launches[kid] += n
+        check_against_plain(scorer, plain, users, v, i, f'{phase}_vs_plain',
+                            gate='score_full_vs_f32_top50_flips', seen=seen)
+        del scorer
+        torch.cuda.empty_cache()
+        if fusion == 'attention':
+            del model, store
+            continue
+        # ---- int8: 'int8', or 'int8!' where the flip point keeps bf16
+        taken = 'int8'
+        qscorer = CatalogScorer(model, store, precision='int8', device=dev)
+        if qscorer.precision != 'int8':
+            del qscorer
+            taken = 'int8!'
+            try:
+                qscorer = CatalogScorer(model, store, precision='int8!',
+                                        device=dev)
+            except ValueError as e:  # no hidden layer to quantize
+                int8_taken[t.number] = f'refused: {e}'
+                emit(f'{phase}_int8', trial=t.number, refused=str(e),
+                     hidden=list(cfg.model.fusion_hidden_dims))
+                del model, store
+                continue
+        int8_taken[t.number] = taken
+        qkid = kid + 'q'
+        qv, qi, qn, _ = hpo_serve(qscorer, users, seen, qkid,
+                                  f'{phase}_int8', trial=t.number,
+                                  precision_asked=taken,
+                                  precision=qscorer.precision,
+                                  nvidia_smi=smi)
+        launches_int8[qkid] += qn
+        hpo_int8_vs_plain(qscorer, users, qv, qi, f'{phase}_int8_vs_plain')
+        check_against_plain(qscorer, plain, users, qv, qi,
+                            f'{phase}_int8_vs_plain_overlap', f32=False,
+                            seen=seen)
+        emit(f'{phase}_int8_vs_bf16', users=len(users), k=TOP_K,
+             top50_overlap_vs_bf16=topc_overlap(qi, i),
+             jax_package_bound=INT8_FIDELITY)
+        del qscorer, model, store
+        torch.cuda.empty_cache()
+
+    # ---- the search's files
+    best_params = json.loads((out / 'best_params.json').read_text())
+    yaml_io.load_file(out / 'best_config.yaml')
+    table = json.loads((out / 'study_results.json').read_text())
+    summaries = [json.loads((out / f'trial_{t.number}' /
+                             'trial_summary.json').read_text())
+                 for t in trials]
+    minimum = min(trials, key=lambda t: t.value)
+    pngs = sorted(p.name for p in out.glob('*.png'))
+    emit('hpo_files', best_trial=best_params['trial_number'],
+         best_value=best_params['value'], study_minimum=minimum.number,
+         study_results_rows=len(table), trial_summaries=len(summaries),
+         pngs_written=bool(pngs), pngs=pngs, int8_taken=int8_taken,
+         launches=launches, launches_int8=launches_int8)
+    if best_params['trial_number'] != minimum.number \
+            or best_params['value'] != minimum.value \
+            or len(table) != HPO_TRIALS:
+        raise AssertionError(f'hpo: best trial {best_params} is not the '
+                             f'study minimum {minimum.number}')
+    if not all(launches.values()) or not all(launches_int8.values()):
+        raise AssertionError(f'hpo: a kernel was not launched: {launches}, '
+                             f'{launches_int8}')
+    emit('hpo_phase', seconds=time.time() - t_phase)
+    return {'launches': launches, 'launches_int8': launches_int8}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA device (torch.cuda.is_available() is '
@@ -3340,12 +3744,22 @@ def main() -> int:
             workspace=Path(tmp))
         recommended = recommend_phase(smi, dev, Path(tmp))
         evaluated = evaluate_phase(smi, dev, Path(tmp))
+        # ---- 22. hyperparameter search on that workspace: the subsets,
+        # five trials through the search entry point, each trial's best
+        # checkpoint served through K1, K2 or K4, and K1q, K2q in int8
+        searched = hpo_phase(smi, dev, Path(tmp))
     lines[0]['launches_cli'] = cli['launches']
     lines[0]['launches_recommend'] = recommended['launches']
     lines[0]['launches_evaluate'] = evaluated['launches']
     k1q = next(line for line in lines if line['kernel'] == 'K1q')
     k1q['launches_recommend_int8'] = recommended['launches_int8']
     k1q['launches_evaluate_int8'] = evaluated['launches_int8']
+    for line in lines:
+        if line['kernel'] in searched['launches']:
+            line['launches_hpo'] = searched['launches'][line['kernel']]
+        if line['kernel'] in searched['launches_int8']:
+            line['launches_hpo_int8'] = \
+                searched['launches_int8'][line['kernel']]
 
     lines += probe_lines(probe_rate, probe_errs, dev)
     emit('timing', seconds_total=round(time.time() - t_start, 3))

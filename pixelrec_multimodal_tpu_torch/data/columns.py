@@ -17,6 +17,8 @@ from typing import Dict, List, Tuple, Union
 
 import numpy as np
 
+from .timestamps import datetime_cells
+
 
 def as_columns(table) -> Dict[str, np.ndarray]:
     """``table`` (a mapping of columns or a DataFrame) as a dict of numpy
@@ -274,12 +276,15 @@ def read_csv(path: Union[str, Path]) -> Dict[str, np.ndarray]:
 
 def _cells(col: np.ndarray) -> List[str]:
     """A column's cells as ``to_csv`` writes them: floats as numpy's
-    shortest repr (``astype(str)``), missing values empty."""
+    shortest repr (``astype(str)``), datetimes in one format for the
+    column (``timestamps.datetime_cells``), missing values empty."""
     col = np.asarray(col)
     if col.dtype.kind == 'f':
         out = col.astype(str)
         out[np.isnan(col)] = ''
         return out.tolist()
+    if col.dtype.kind == 'M':
+        return datetime_cells(col)
     if col.dtype.kind in 'iubU':
         return col.astype(str).tolist()
     missing = is_missing(col)
@@ -298,3 +303,134 @@ def write_csv(cols, path: Union[str, Path]):
                             quoting=csv.QUOTE_MINIMAL)
         writer.writerow(list(cols))
         writer.writerows(zip(*(_cells(c) for c in cols.values())))
+
+
+# ------------------------------------------------------- JSON records
+_MISSING = object()
+
+
+def _is_null(v) -> bool:
+    return v is None or v is _MISSING or (isinstance(v, float) and v != v)
+
+
+def from_records(rows: List[dict]) -> Dict[str, np.ndarray]:
+    """pandas' ``DataFrame(rows)`` of a list of dicts as numpy columns:
+    the keys in first-seen order, a key a row lacks missing there; a
+    column of ints is int64, of ints or floats with a missing value
+    float64 (NaN), of bools bool, anything else (strings, bools with a
+    missing value, mixed kinds) an object column with None where
+    missing."""
+    names: Dict[str, None] = {}
+    for row in rows:
+        names.update(dict.fromkeys(row))
+    cols = {}
+    for name in names:
+        values = [row.get(name, _MISSING) for row in rows]
+        present = [v for v in values if not _is_null(v)]
+        nulls = len(present) < len(values)
+        is_bool = [isinstance(v, (bool, np.bool_)) for v in present]
+        is_int = [isinstance(v, (int, np.integer)) and not b
+                  for v, b in zip(present, is_bool)]
+        is_num = [isinstance(v, (float, np.floating)) or i
+                  for v, i in zip(present, is_int)]
+        if present and all(is_int) and not nulls:
+            cols[name] = np.array(present, dtype=np.int64)
+        elif present and all(is_num) and any(is_num):
+            cols[name] = np.array([np.nan if _is_null(v) else float(v)
+                                   for v in values], dtype=np.float64)
+        elif present and all(is_bool) and not nulls:
+            cols[name] = np.array(present, dtype=bool)
+        else:
+            out = np.empty(len(values), dtype=object)
+            out[:] = [None if v is _MISSING else v for v in values]
+            cols[name] = out
+    return cols
+
+
+_POW10_INT = [10 ** k for k in range(16)]
+
+
+def _json_float(value: float, precision: int = 10) -> str:
+    """A finite float as pandas' ``to_json`` writes it (ujson's
+    ``Buffer_AppendDoubleUnchecked``, ``double_precision=10``): ``%.10g``
+    past 1e16 - 1 or below 1e-15, else the whole part, a point and at
+    most ``precision`` fractional digits rounded half to odd-or-zero,
+    trailing zeros dropped, at least one digit after the point."""
+    neg = value < 0
+    if neg:
+        value = -value
+    if value > 1e16 - 1 or (value != 0.0 and value < 1e-15):
+        return '%.*g' % (precision, -value if neg else value)
+    pow10 = float(_POW10_INT[precision])
+    whole = int(value)
+    tmp = (value - whole) * pow10
+    frac = int(tmp)
+    diff = tmp - frac
+    if diff > 0.5 or (diff == 0.5 and (frac == 0 or frac & 1)):
+        frac += 1
+    if frac >= _POW10_INT[precision]:
+        frac = 0
+        whole += 1
+    if frac:
+        digits = str(frac).rjust(precision, '0').rstrip('0')
+    else:
+        digits = '0'
+    return f"{'-' if neg else ''}{whole}.{digits}"
+
+
+def _json_str(s: str) -> str:
+    """ujson's string escapes (pandas' ``to_json``): quotes, backslashes,
+    forward slashes, control characters, and every non-ASCII character as
+    ``\\u`` escapes."""
+    out = ['"']
+    for ch in s:
+        o = ord(ch)
+        if ch in '"\\/':
+            out.append('\\' + ch)
+        elif ch in '\b\f\n\r\t':
+            out.append({'\b': '\\b', '\f': '\\f', '\n': '\\n',
+                        '\r': '\\r', '\t': '\\t'}[ch])
+        elif o < 0x20 or o >= 0x80:
+            if o > 0xffff:
+                o -= 0x10000
+                out.append('\\u%04x\\u%04x' % (0xd800 + (o >> 10),
+                                               0xdc00 + (o & 0x3ff)))
+            else:
+                out.append('\\u%04x' % o)
+        else:
+            out.append(ch)
+    out.append('"')
+    return ''.join(out)
+
+
+def _json_value(v) -> str:
+    if _is_null(v):
+        return 'null'
+    if isinstance(v, (bool, np.bool_)):
+        return 'true' if v else 'false'
+    if isinstance(v, (int, np.integer)):
+        return str(int(v))
+    if isinstance(v, (float, np.floating)):
+        return _json_float(float(v)) if np.isfinite(v) else 'null'
+    if isinstance(v, str):
+        return _json_str(v)
+    raise TypeError(f'cannot write {type(v).__name__} as JSON')
+
+
+def write_json_records(cols, path: Union[str, Path], indent: int = 2):
+    """Write a table (dict of numpy columns or a DataFrame) as pandas'
+    ``to_json(path, orient='records', indent=indent)`` does: one object a
+    row, no space after a colon, floats at ``double_precision=10``
+    (``_json_float``), NaN and infinities as null, no newline at the
+    end; a table with no row as ``[``, an empty line, ``]``."""
+    cols = as_columns(cols)
+    pad, inner = ' ' * indent, ' ' * 2 * indent
+    rows = [',\n'.join(f'{inner}{_json_str(k)}:{_json_value(v)}'
+                        for k, v in zip(cols, values))
+            for values in zip(*(c.tolist() for c in cols.values()))]
+    if not rows:
+        text = '[\n\n]'
+    else:
+        text = '[\n' + ',\n'.join(f'{pad}{{\n{r}\n{pad}}}'
+                                   for r in rows) + '\n]'
+    Path(path).write_text(text, encoding='ascii')

@@ -288,7 +288,10 @@ class CatalogScorer:
         ``INT8_MIN_CHAIN_FLOPS_PER_LANE_CONCAT`` (a concatenate head)
         hidden-chain operations per first-layer lane, where the H100
         measured the int8 kernel no faster than the bf16 one, 'int8' warns
-        on stderr and serves bf16; 'int8!' quantizes whatever the head."""
+        on stderr and serves bf16; 'int8!' quantizes whatever the head has
+        past its first layer, and raises where that is no hidden layer
+        (before the kernels' fit is checked, on the CPU and the card
+        alike)."""
         if precision == 'bf16':
             return precision
         if self._head is None or self._head['fusion'] not in (
@@ -309,6 +312,12 @@ class CatalogScorer:
                   f'bf16 one; PERF.md). Serving in bf16; pass '
                   f"precision='int8!' to force.", file=sys.stderr)
             return 'bf16'
+        if len(self._head['layers']) < 2:
+            raise ValueError(
+                "precision='int8!': an int8 head carries one quantized layer "
+                '(qlayers) per hidden layer, at least one; this head has no '
+                'hidden layer between the first layer and the last dot '
+                f'(fusion_hidden_dims {list(self.model.fusion_hidden_dims)})')
         return 'int8'
 
     def _quantize(self):

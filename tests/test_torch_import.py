@@ -129,7 +129,9 @@ def test_probe_sources_are_checked():
             'evaluate.py', 'generate_recommendations.py',
             'checkpoint_manager.py', 'inspect_checkpoint.py',
             'extract_encoders.py', 'tasks.py', 'metrics.py', 'novelty.py',
-            'advanced_metrics.py', 'baseline_recommenders.py'} <= names
+            'advanced_metrics.py', 'baseline_recommenders.py',
+            'search.py', 'visualization.py', 'timestamps.py',
+            'create_training_subsets.py', 'hyperparameter_search.py'} <= names
 
 
 @pytest.mark.parametrize('path', port_sources(), ids=lambda p: p.name)
@@ -453,3 +455,40 @@ results_dir: {tmp_path / 'results'}
             'pixelrec_multimodal_tpu_torch.evaluation.novelty'} <= set(loaded)
     for name in ('evaluation_results.json', 'full.json', 'knn.json'):
         assert (tmp_path / 'results' / name).exists()
+
+
+def test_hpo_path_stands_alone(tmp_path):
+    """A fresh interpreter imports the search engine, its plots and both
+    entry points, then writes the training subsets, and loads none of
+    JAX, the JAX package, pandas, scikit-learn, PyYAML, optuna,
+    matplotlib or scipy (matplotlib only inside the plotting
+    functions)."""
+    split = tmp_path / 'split'
+    split.mkdir()
+    (split / 'train.csv').write_text('user_id,item_id,timestamp\n' + ''.join(
+        f'u{k % 7},i{k % 11},2023-{1 + k % 6:02d}-0{1 + k % 9} 10:00:00\n'
+        for k in range(80)))
+    (tmp_path / 'config.yaml').write_text(
+        f'data:\n  train_data_path: {split / "train.csv"}\n')
+    code = (
+        'import contextlib, io, json, sys\n'
+        'import pixelrec_multimodal_tpu_torch.hpo\n'
+        'from pixelrec_multimodal_tpu_torch.scripts import (\n'
+        '    create_training_subsets, hyperparameter_search)\n'
+        'with contextlib.redirect_stdout(io.StringIO()):\n'
+        f'    out = create_training_subsets.main(["--config", '
+        f'{str(tmp_path / "config.yaml")!r}])\n'
+        'assert out["rows"] == {"full": 80, "50": 40, "20": 16, "05": 4}\n'
+        'print(json.dumps(sorted(sys.modules)))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if m.split('.')[0] in
+           FORBIDDEN | CARD_ABSENT | {'optuna', 'matplotlib', 'scipy'}]
+    assert not bad, bad
+    assert {'pixelrec_multimodal_tpu_torch.hpo.search',
+            'pixelrec_multimodal_tpu_torch.hpo.visualization',
+            'pixelrec_multimodal_tpu_torch.data.timestamps'} <= set(loaded)
+    for frac in ('50', '20', '05'):
+        assert (split / f'train_{frac}_percent.csv').exists()
