@@ -38,7 +38,10 @@ then five trials of the search entry point from its default seed on the
 5% subset, each trial's best checkpoint served with seen items masked:
 three concat heads through K1, a gated head through K2, an attention
 head through K4, and the concat and gated heads in int8 through K1q and
-K2q); it checks what comes out
+K2q), then runs the nine frozen encoder towers on the card against the
+CPU, makes a catalog's language table through the precompute entry point
+and its vision table through ResNet-50, and serves the flagship head on
+those tables through K1; it checks what comes out
 against the plain versions and the exact scan, and times the kernels.
 Every phase prints one JSON line; any failure raises and exits non-zero. The second-to-last line is the
 ``kernels`` JSON object and the last line is ``{"ok": true, "device":
@@ -50,6 +53,7 @@ non-zero and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import statistics
@@ -249,6 +253,28 @@ META_KEYS = {'epoch', 'best_early_stopping_score', 'early_stopping_metric',
 # unquantized scores (tests/unit/test_pairwise_mlp.py:274-312); printed
 # beside the int8 main paths, not held.
 INT8_FIDELITY = 0.9
+# The precompute phase: each of the nine frozen towers at its published
+# geometry (random weights from SEED, the constant-initialized layer
+# scales and BatchNorm statistics drawn too, so every block counts) on
+# TOWER_CHECK_ITEMS items on the card and on the CPU in this process,
+# float32 with TF32 off, pooled outputs within TOWER_TOL (the JAX
+# package's full-size tolerance, tests/unit/test_encoders_fullsize.py:58)
+# and within TOWER_FP32_TOL, which holds the card to float32 without TF32:
+# the same forward with TF32 on lies past it (its reading is printed as
+# tf32_max_scaled_err); then its items/s on the card at batch
+# TOWER_RATE_BATCH. Then a
+# PRECOMPUTE_ITEMS workspace through the precompute entry point on cuda
+# (resnet + sentence-bert, no image folder: language_emb at 512 tokens),
+# ResNet-50 over as many seeded uint8 224 x 224 frames through the same
+# batching and device-side normalize (vision_emb), and the flagship head
+# served on those two tables to PRECOMPUTE_USERS users through K1.
+TOWERS = (('vision', 'resnet'), ('vision', 'clip'), ('clip_text', 'clip'),
+          ('vision', 'dino'), ('vision', 'convnext'),
+          ('language', 'sentence-bert'), ('language', 'bert'),
+          ('language', 'roberta'), ('language', 'mpnet'))
+TOWER_CHECK_ITEMS, TOWER_RATE_BATCH, TOWER_TOL = 4, 64, 2e-3
+TOWER_FP32_TOL = 1e-4
+PRECOMPUTE_ITEMS, PRECOMPUTE_USERS = 16384, 1024
 
 
 def emit(phase: str, **fields):
@@ -262,21 +288,18 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def build_flagship(seed: int = SEED, device='cuda',
+def flagship_model(seed: int = SEED, device='cuda',
                    fusion_type: str = 'concatenate', emb: int = EMB,
-                   hidden: tuple = HIDDEN):
-    """(model, store) at bench.py's geometry: random weights from ``seed``,
-    BatchNorm with non-trivial running statistics, bf16 compute; ``emb``
-    and ``hidden`` change the embedding width and the MLP's widths."""
-    from pixelrec_multimodal_tpu_torch.data.feature_store import (
-        ItemFeatureStore,
-    )
+                   hidden: tuple = HIDDEN, n_items: int = N_ITEMS):
+    """The flagship model of ``n_items`` items: random weights from
+    ``seed``, BatchNorm with non-trivial running statistics, bf16
+    compute."""
     from pixelrec_multimodal_tpu_torch.models.multimodal import (
         MultimodalRecommender,
     )
     gen = torch.Generator().manual_seed(seed)
     model = MultimodalRecommender(
-        n_users=N_MODEL_USERS, n_items=N_ITEMS, n_tags=N_TAGS,
+        n_users=N_MODEL_USERS, n_items=n_items, n_tags=N_TAGS,
         num_numerical_features=NUM_FEAT, embedding_dim=emb,
         vision_feature_dim=VISION_DIM, language_feature_dim=LANG_DIM,
         use_contrastive=False, fusion_hidden_dims=hidden,
@@ -290,6 +313,19 @@ def build_flagship(seed: int = SEED, device='cuda',
             bn.running_var.copy_(torch.rand(n, generator=gen) * 1.5 + 0.5)
             bn.weight.copy_(torch.rand(n, generator=gen) + 0.5)
             bn.bias.copy_(torch.randn(n, generator=gen) * 0.1)
+    return model
+
+
+def build_flagship(seed: int = SEED, device='cuda',
+                   fusion_type: str = 'concatenate', emb: int = EMB,
+                   hidden: tuple = HIDDEN):
+    """(model, store) at bench.py's geometry: ``flagship_model`` and random
+    item tables from ``seed``; ``emb`` and ``hidden`` change the embedding
+    width and the MLP's widths."""
+    from pixelrec_multimodal_tpu_torch.data.feature_store import (
+        ItemFeatureStore,
+    )
+    model = flagship_model(seed, device, fusion_type, emb, hidden)
     rng = np.random.default_rng(seed)
     store = ItemFeatureStore(N_ITEMS, np.arange(N_ITEMS).astype(str))
     store.tables['tag_idx'] = rng.integers(0, N_TAGS, N_ITEMS).astype(np.int32)
@@ -579,12 +615,13 @@ def drive_top_k(scorer, users, kernel: str, phase: str, calls: int = 3,
         raise AssertionError(f'{phase}: kernel launches {counts} != '
                              f'expected {expected}')
     if v.shape != (len(users), TOP_K) or not np.isfinite(v).all() \
-            or (i < 0).any() or (i >= N_ITEMS).any() \
+            or (i < 0).any() or (i >= scorer.n_items).any() \
             or (np.diff(v, axis=1) > 0).any():
         raise AssertionError(f'{phase}: top_k output malformed')
     median = statistics.median(times)
-    emit(phase, users=len(users), items=N_ITEMS, k=TOP_K, seconds=times,
-         median_seconds=median, pairs_per_sec=len(users) * N_ITEMS / median,
+    emit(phase, users=len(users), items=scorer.n_items, k=TOP_K,
+         seconds=times, median_seconds=median,
+         pairs_per_sec=len(users) * scorer.n_items / median,
          kernel_launches=counts, expected_launches=expected,
          launches_per_call=per_call, block_rows=scorer.block_rows, **fields)
     return v, i, counts[kernel], median
@@ -654,6 +691,7 @@ def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
                     'score_full_vs_f32_top50_flips'):
         raise ValueError(f'unknown gate {gate!r}')
     trained = gate != 'raw'
+    n_items = scorer.n_items
     with torch.no_grad():
         side = scorer._fast_user_side(
             torch.from_numpy(users[:64].astype(np.int64)).to(
@@ -663,9 +701,9 @@ def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
             kw = {} if fn is plain_bf16_other_order else \
                 {'compute_dtype': dtype}
             return torch.cat([fn(scorer._head, *side,
-                                 *(t[c:min(c + 4096, N_ITEMS)]
+                                 *(t[c:min(c + 4096, n_items)]
                                    for t in scorer._scan_tables), **kw)
-                              for c in range(0, N_ITEMS, 4096)], dim=1)
+                              for c in range(0, n_items, 4096)], dim=1)
         masked = (lambda t: t) if seen is None else (
             lambda t: t.masked_fill(torch.from_numpy(seen[:64]).to(t.device),
                                     float('-inf')))
@@ -732,7 +770,7 @@ def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
             score_full_vs_plain_f32_max_abs_diff=float(kernel_f32.max()),
             plain_bf16_vs_plain_f32_max_abs_diff=float(plain_f32.max()),
             score_full_gate='vs plain f32 <= plain bf16 vs plain f32 + tol')
-    emit(phase, users=64, items=N_ITEMS, seen_masked=seen is not None,
+    emit(phase, users=64, items=n_items, seen_masked=seen is not None,
          top50_overlap_vs_plain_bf16=overlap, min_overlap=MIN_OVERLAP,
          top50_value_max_abs_diff=value_err,
          score_full_max_abs_diff=full_err, tol=tol, **extra)
@@ -3089,6 +3127,338 @@ def hpo_phase(smi, dev, ws: Path) -> dict:
     return {'launches': launches, 'launches_int8': launches_int8}
 
 
+def tower_model(modality: str, key: str, seed: int = SEED):
+    """One frozen tower at its published geometry on the CPU, in eval
+    mode: random weights from ``seed`` (``encoders.common.random_init_``,
+    as the precompute draws them without a checkpoint), then its layer
+    scales and frozen BatchNorm statistics drawn from ``seed + 1``."""
+    from pixelrec_multimodal_tpu_torch.encoders import registry
+    from pixelrec_multimodal_tpu_torch.encoders.common import random_init_
+    model = (registry.build_clip_text_encoder() if modality == 'clip_text'
+             else registry.build_vision_encoder(key) if modality == 'vision'
+             else registry.build_language_encoder(key))
+    random_init_(model, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(
+                model.named_buffers()):
+            leaf = name.rsplit('.', 1)[-1]
+            if leaf in ('layerscale1', 'layerscale2', 'layer_scale',
+                        'running_var'):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+            elif leaf == 'running_mean':
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+    return model.eval()
+
+
+def tower_inputs(modality: str, key: str, n: int, seed: int = SEED) -> tuple:
+    """``n`` items' inputs from ``seed``: uint8 224 x 224 frames, or token
+    ids and masks at the tower's length (512; CLIP text 77), the first row
+    full, the others with padded tails; a CLIP row closes with its EOT,
+    the highest id."""
+    from pixelrec_multimodal_tpu_torch.encoders.clip import CLIPTextConfig
+    from pixelrec_multimodal_tpu_torch.encoders.text_models import (
+        TEXT_CONFIGS,
+    )
+    rng = np.random.default_rng(seed)
+    if modality == 'vision':
+        return (rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8),)
+    if modality == 'clip_text':
+        length, vocab, pad = 77, CLIPTextConfig().vocab_size, 0
+    else:
+        cfg = TEXT_CONFIGS[key]
+        length, vocab, pad = 512, cfg.vocab_size, cfg.pad_token_id
+    ids = rng.integers(pad + 2, vocab - 1, (n, length))
+    lengths = rng.integers(length // 4, length + 1, n)
+    lengths[0] = length
+    mask = np.arange(length)[None, :] < lengths[:, None]
+    if modality == 'clip_text':
+        ids[np.arange(n), lengths - 1] = vocab - 1
+    ids[~mask] = pad
+    return ids.astype(np.int32), mask.astype(np.int32)
+
+
+def tower_forward(model, modality: str, key: str, dev):
+    """The tower's pooled forward as the precompute runs it (vision: uint8
+    frames normalized on ``dev``)."""
+    from pixelrec_multimodal_tpu_torch.data.processors.image_processor \
+        import PREPROCESS_SPECS
+    from pixelrec_multimodal_tpu_torch.encoders.precompute import (
+        vision_pooled_fn,
+    )
+    if modality == 'vision':
+        return vision_pooled_fn(model, PREPROCESS_SPECS[key], dev)
+    return model.pooled
+
+
+def held_to_tower_tol(got: np.ndarray, ref: np.ndarray) -> dict:
+    """``got`` against ``ref`` at rtol = atol = TOWER_TOL and at
+    TOWER_FP32_TOL: ``max_scaled_err`` is the largest
+    |got - ref| / (1 + |ref|)."""
+    err = np.abs(got - ref)
+    scaled = float((err / (1 + np.abs(ref))).max())
+    return {'max_abs_err': float(err.max()),
+            'max_excess': float((err - TOWER_TOL * (1 + np.abs(ref))).max()),
+            'max_scaled_err': scaled, 'fp32_tol': TOWER_FP32_TOL,
+            'ref_max_abs': float(np.abs(ref).max()),
+            'ok': bool(np.isfinite(got).all() and got.shape == ref.shape
+                       and (err <= TOWER_TOL * (1 + np.abs(ref))).all()
+                       and scaled <= TOWER_FP32_TOL)}
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 allowed in float32 products and convolutions for the block."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def tower_card_vs_cpu(modality: str, key: str, dev,
+                      n: int = TOWER_CHECK_ITEMS, seed: int = SEED):
+    """The tower (``tower_model``) on the CPU and a copy of it on ``dev``
+    over the same ``n`` items, float32 with TF32 off: (the pooled outputs
+    held to TOWER_TOL and TOWER_FP32_TOL, the tower on ``dev``). The
+    check also reads the card's forward with TF32 on
+    (``tf32_max_scaled_err``), the error the TF32 gate is to catch."""
+    from pixelrec_multimodal_tpu_torch.encoders.common import no_tf32
+    from pixelrec_multimodal_tpu_torch.encoders.registry import pooled_dim
+    cpu = tower_model(modality, key, seed)
+    card = copy.deepcopy(cpu).to(dev)
+    inputs = [torch.from_numpy(a) for a in tower_inputs(modality, key, n,
+                                                        seed)]
+    with torch.no_grad(), no_tf32():
+        ref = tower_forward(cpu, modality, key, torch.device('cpu'))(*inputs)
+        got = tower_forward(card, modality, key, dev)(
+            *(t.to(dev) for t in inputs))
+    with torch.no_grad(), tf32_on():
+        got_tf32 = tower_forward(card, modality, key, dev)(
+            *(t.to(dev) for t in inputs))
+    ref, got = ref.numpy(), got.float().cpu().numpy()
+    out = held_to_tower_tol(got, ref)
+    out['tf32_max_scaled_err'] = held_to_tower_tol(
+        got_tf32.float().cpu().numpy(), ref)['max_scaled_err']
+    out['ok'] &= got.shape == (n, pooled_dim(modality, key))
+    return out, card
+
+
+def precompute_phase(smi, dev) -> dict:
+    """The precompute on the card. 1. Each of the nine towers (TOWERS)
+    card against CPU (``tower_card_vs_cpu``), then its items/s on the card
+    at batch TOWER_RATE_BATCH (median of 3 after a warm-up). 2. A
+    PRECOMPUTE_ITEMS workspace (an item file with tags, NUM_FEAT
+    numerical columns and descriptions; resnet + sentence-bert, no image
+    folder) through ``precompute_cache.main`` on its default device,
+    cuda: ``language_emb`` at 512 tokens, timed by part (the tokenizer,
+    the forwards, the npz write), its first rows against the same tower
+    on the CPU. 3. ResNet-50 over as many seeded uint8 frames through
+    ``_batched_pooled`` and ``vision_pooled_fn``, installed as
+    ``vision_emb``, its first rows against the CPU. 4. The flagship head
+    (``flagship_model`` over these items) served on the two tables to
+    PRECOMPUTE_USERS users through K1 (``drive_top_k``,
+    ``check_against_plain``). Returns K1's launches."""
+    from pixelrec_multimodal_tpu_torch.data import feature_store
+    from pixelrec_multimodal_tpu_torch.data.columns import write_csv
+    from pixelrec_multimodal_tpu_torch.data.feature_store import (
+        ItemFeatureStore,
+    )
+    from pixelrec_multimodal_tpu_torch.encoders import precompute as tpre
+    from pixelrec_multimodal_tpu_torch.encoders.common import no_tf32
+    from pixelrec_multimodal_tpu_torch.encoders.registry import (
+        build_language_encoder,
+        build_vision_encoder,
+    )
+    from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
+    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
+        pairwise_scores_plain,
+    )
+    from pixelrec_multimodal_tpu_torch.scripts import precompute_cache
+    from pixelrec_multimodal_tpu_torch.utils import yaml_io
+
+    t_phase = time.time()
+    # ---- 1. the nine towers, card against CPU, then items/s on the card
+    towers = {}
+    for modality, key in TOWERS:
+        t0 = time.time()
+        check, card = tower_card_vs_cpu(modality, key, dev)
+        check_s = time.time() - t0
+        fwd = tower_forward(card, modality, key, dev)
+        batch = [torch.from_numpy(a).to(dev) for a in tower_inputs(
+            modality, key, TOWER_RATE_BATCH, SEED + 1)]
+        times = []
+        with torch.no_grad(), no_tf32():
+            fwd(*batch)
+            torch.cuda.synchronize()
+            for _ in range(3):
+                t = time.time()
+                fwd(*batch)
+                torch.cuda.synchronize()
+                times.append(time.time() - t)
+        name = f'{modality}/{key}'
+        towers[name] = TOWER_RATE_BATCH / statistics.median(times)
+        emit('precompute_tower', tower=name, items=TOWER_CHECK_ITEMS,
+             tol=TOWER_TOL, **check, check_seconds=check_s,
+             batch=TOWER_RATE_BATCH, batch_seconds=times,
+             items_per_sec=towers[name], dtype='float32', tf32=False,
+             nvidia_smi=smi)
+        del card, fwd, batch
+        torch.cuda.empty_cache()
+        if not check['ok']:
+            raise AssertionError(f'precompute: the {name} tower on the card '
+                                 f'disagrees with the CPU: {check}')
+
+    n = PRECOMPUTE_ITEMS
+    rng = np.random.default_rng(SEED + 31)
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 2. the entry point: language_emb on the card
+        ws = Path(tmp)
+        proc, cache = ws / 'processed', ws / 'cache'
+        cols = [f'num_{c}' for c in range(NUM_FEAT)]
+        words = np.array([f'word{k}' for k in range(20000)])
+        items = {'item_id': np.array([f'item{j:05d}' for j in range(n)]),
+                 'tag': np.array([f'tag{t}' for t in
+                                  rng.integers(0, N_TAGS, n)]),
+                 'description': np.array(
+                     [' '.join(rng.choice(words, k))
+                      for k in rng.integers(8, 160, n)], dtype=object),
+                 **{c: rng.standard_normal(n) for c in cols}}
+        write_csv(items, proc / 'item_info.csv')
+        config = {
+            'model': {'vision_model': 'resnet',
+                      'language_model': 'sentence-bert'},
+            'data': {'processed_item_info_path': str(proc / 'item_info.csv'),
+                     'scaler_path': str(proc / 'numerical_scaler.pkl'),
+                     'image_folder': None,
+                     'processed_image_destination_folder': None,
+                     'numerical_features_cols': cols,
+                     'categorical_features_cols': ['tag'],
+                     'cache_config': {'enabled': True, 'use_disk': True,
+                                      'cache_directory': str(cache)}}}
+        cfg_path = ws / 'config.yaml'
+        yaml_io.dump_file(config, cfg_path)
+        seconds = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with timed_calls(seconds, [
+                (precompute_cache, 'read_csv', 'read_csv'),
+                (precompute_cache, 'MultimodalDataset', 'dataset_build'),
+                (feature_store, 'batch_encode', 'tokenizer'),
+                (precompute_cache, 'precompute_embedding_tables',
+                 'embedding_tables'),
+                (tpre, 'params_or_random', 'weights'),
+                (tpre, '_batched_pooled', 'forwards'),
+                (ItemFeatureStore, 'save', 'npz_write')]), \
+                contextlib.redirect_stdout(sys.stderr):
+            store = precompute_cache.main(['--config', str(cfg_path)])
+        entry_s = time.time() - t0
+        # tokenizer lies inside dataset_build; weights and forwards inside
+        # embedding_tables, whose rest is the towers' build and copy to
+        # the card.
+        seconds['tables_rest'] = seconds['embedding_tables'] - seconds[
+            'weights'] - seconds['forwards']
+        seconds['other'] = entry_s - sum(
+            seconds[k] for k in ('read_csv', 'dataset_build',
+                                 'embedding_tables', 'npz_write'))
+        npz = cache / 'vision_resnet_lang_sentence-bert' / 'feature_tables.npz'
+        with np.load(npz, allow_pickle=False) as z:
+            saved = {k: z[k].shape for k in z.files}
+            saved_equal = np.array_equal(z['language_emb'],
+                                         store.tables['language_emb'])
+        npz_bytes = npz.stat().st_size
+    language = store.tables['language_emb']
+    ids = store.tables['text_input_ids']
+    with torch.no_grad(), contextlib.redirect_stdout(sys.stderr):
+        ref = tpre.params_or_random(
+            'language', 'sentence-bert',
+            build_language_encoder('sentence-bert')).eval().pooled(
+                torch.from_numpy(ids[:TOWER_CHECK_ITEMS]),
+                torch.from_numpy(store.tables['text_attention_mask'][
+                    :TOWER_CHECK_ITEMS])).numpy()
+    lang_check = held_to_tower_tol(language[:TOWER_CHECK_ITEMS], ref)
+    host_s = seconds.get('tokenizer', 0.0) + seconds.get('npz_write', 0.0)
+    emit('precompute_entry_point', items=n, device='cuda',
+         dataset_build_includes_tokenizer=True,
+         tables=saved, npz_bytes=npz_bytes, text_tokens=ids.shape[1],
+         seconds=entry_s, seconds_by_part=seconds,
+         language_emb_items_per_sec=n / seconds['forwards'],
+         host_share=host_s / entry_s,
+         forwards_share=seconds['forwards'] / entry_s,
+         language_vs_cpu=lang_check, nvidia_smi=smi)
+    expected = {'item_ids', 'tag_idx', 'numerical', 'text_input_ids',
+                'text_attention_mask', 'language_emb'}
+    if set(saved) != expected or saved['language_emb'] != (n, LANG_DIM) \
+            or ids.shape != (n, 512) or not saved_equal:
+        raise AssertionError(f'precompute: the entry point wrote {saved}')
+    if not (np.isfinite(language).all() and np.abs(language).max() <= 1.0
+            and lang_check['ok']):
+        raise AssertionError(f'precompute: language_emb malformed or off '
+                             f'the CPU: {lang_check}')
+
+    # ---- 3. vision_emb: ResNet-50 over seeded uint8 frames, the same
+    # batching and device-side normalize
+    frame_s = [0.0]
+
+    def frames(idx):
+        t = time.time()
+        out = np.random.default_rng(SEED + 32 + int(idx[0])).integers(
+            0, 256, (len(idx), 224, 224, 3), dtype=np.uint8)
+        frame_s[0] += time.time() - t
+        return (out,)
+    with contextlib.redirect_stdout(sys.stderr):
+        model = tpre.params_or_random('vision', 'resnet',
+                                      build_vision_encoder('resnet'))
+    card = copy.deepcopy(model).to(dev).eval()
+    fwd = tower_forward(card, 'vision', 'resnet', dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr), no_tf32():
+        vision = tpre._batched_pooled(fwd, n, VISION_DIM, TOWER_RATE_BATCH,
+                                      frames, dev)
+    vision_s = time.time() - t0
+    store.set_embedding_table('vision_emb', vision)
+    with torch.no_grad():
+        ref = tower_forward(model.eval(), 'vision', 'resnet',
+                            torch.device('cpu'))(torch.from_numpy(frames(
+                                np.arange(TOWER_RATE_BATCH))[0][
+                                    :TOWER_CHECK_ITEMS])).numpy()
+    vision_check = held_to_tower_tol(vision[:TOWER_CHECK_ITEMS], ref)
+    emit('precompute_vision', items=n, batch=TOWER_RATE_BATCH,
+         seconds=vision_s, vision_emb_items_per_sec=n / vision_s,
+         frame_seconds_on_the_worker=frame_s[0], vision_vs_cpu=vision_check,
+         nvidia_smi=smi)
+    del model, card, fwd
+    torch.cuda.empty_cache()
+    if not (np.isfinite(vision).all() and vision.min() >= 0.0
+            and vision.shape == (n, VISION_DIM) and vision_check['ok']):
+        raise AssertionError(f'precompute: vision_emb malformed or off the '
+                             f'CPU: {vision_check}')
+
+    # ---- 4. the flagship head served on the two tables through K1
+    t0 = time.time()
+    model = flagship_model(SEED + 33, dev, n_items=n)
+    scorer = CatalogScorer(model, store, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    users = np.sort(np.random.default_rng(SEED + 34).choice(
+        N_MODEL_USERS, PRECOMPUTE_USERS, replace=False)).astype(np.int32)
+    v, i, launches, _ = drive_top_k(scorer, users, 'K1',
+                                    'precompute_main_path',
+                                    setup_seconds=setup_s, nvidia_smi=smi)
+    check_against_plain(scorer, pairwise_scores_plain, users, v, i,
+                        'precompute_main_path_vs_plain')
+    emit('precompute', seconds=time.time() - t_phase,
+         tower_items_per_sec=towers, nvidia_smi=smi)
+    del scorer, model, store
+    torch.cuda.empty_cache()
+    return {'launches': launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA device (torch.cuda.is_available() is '
@@ -3748,7 +4118,13 @@ def main() -> int:
         # five trials through the search entry point, each trial's best
         # checkpoint served through K1, K2 or K4, and K1q, K2q in int8
         searched = hpo_phase(smi, dev, Path(tmp))
+    # ---- 23. the encoder towers card against CPU, then the item tables
+    # made on the card (the precompute entry point's language_emb,
+    # ResNet-50's vision_emb) and the flagship head served on them
+    # through K1
+    precomputed = precompute_phase(smi, dev)
     lines[0]['launches_cli'] = cli['launches']
+    lines[0]['launches_precompute'] = precomputed['launches']
     lines[0]['launches_recommend'] = recommended['launches']
     lines[0]['launches_evaluate'] = evaluated['launches']
     k1q = next(line for line in lines if line['kernel'] == 'K1q')

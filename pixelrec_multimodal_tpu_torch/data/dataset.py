@@ -197,8 +197,8 @@ class MultimodalDataset:
         return len(self.samples['user_idx'])
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
-        """One sample in the reference's batch schema (its image, with a
-        vision model, raises: the image tier is not ported)."""
+        """One sample in the reference's batch schema (with a vision model,
+        its image decoded by the feature store's image tier)."""
         item_pos = int(self.samples['item_idx'][idx])
         out = {
             'user_idx': np.int64(self.samples['user_idx'][idx]),
@@ -243,8 +243,8 @@ class MultimodalDataset:
         Yields {'user_idx', 'item_idx', 'tag_idx', 'label', 'weight'} with
         ``batch_size`` rows; the last partial batch is padded with sample 0
         and masked by 'weight'. ``include_raw`` adds per-item token inputs
-        ('text', 'clip_text'); 'image' raises (the image tier is not
-        ported). The frozen path needs none of them.
+        ('text', 'clip_text') and the decoded 'image' pixels. The frozen
+        path needs none of them.
         """
         n = len(self)
         order = (np.random.default_rng(seed).permutation(n) if shuffle

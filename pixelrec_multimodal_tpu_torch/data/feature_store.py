@@ -9,19 +9,25 @@ integer ids:
     vision_emb     float32[n_items, Dv]   (precomputed encoder outputs)
     language_emb   float32[n_items, Dl]
     clip_text_emb  float32[n_items, 512]
+    images         uint8  [n_items, H, W, 3] (lazy decode, bounded cache)
 
 Counterpart of ``pixelrec_multimodal_tpu/data/feature_store.py``: the
 tables built from item metadata (a dict of numpy columns or a DataFrame),
 the precomputed-embedding install, the ``.npz`` disk tier under
 ``<cache_dir>/vision_<v>_lang_<l>/`` (the same file the JAX package
-writes), and ``device_tables``, which puts the tables on the card
+writes), ``device_tables``, which puts the tables on the card
 (pinned host memory, then asynchronous copies), packed into one row
-table if asked. The image tier (raw pixels for the unfrozen encoders)
-is not ported yet and raises (ROADMAP item A12); sharding the tables
-over several devices raises too (A11).
+table if asked, and the image tier: raw pixels decoded on demand (an LRU
+bounded cache of normalized frames, misses decoded concurrently on a
+thread pool, as in JAX), which the vision encoders' precompute reads as
+uint8 frames. Decoding needs PIL and raises without it. Sharding the
+tables over several devices raises (ROADMAP item A11).
 """
 from __future__ import annotations
 
+import os
+import threading
+from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, List, Optional, Union
 
@@ -31,6 +37,7 @@ import torch
 from ..config import MODEL_CONFIGS
 from ..device import resolve_device
 from .columns import as_columns, fill_str, n_rows, take
+from .processors.image_processor import ImageProcessor, PREPROCESS_SPECS
 from .processors.numerical_processor import NumericalProcessor
 from .tokenization import (
     CLIP_TEXT_MAX_LENGTH,
@@ -42,10 +49,6 @@ from .tokenization import (
 # The float tables ``device_tables(pack=True)`` concatenates, in order.
 PACKED_ORDER = ('vision_emb', 'language_emb', 'numerical', 'clip_text_emb')
 
-_NO_IMAGES = ('the image tier (raw pixels for the unfrozen encoders) is not '
-              'ported yet (ROADMAP item A12)')
-
-
 def cache_subdir_name(vision_model: Optional[str],
                       language_model: Optional[str]) -> str:
     """Model-combo cache directory name."""
@@ -53,7 +56,8 @@ def cache_subdir_name(vision_model: Optional[str],
 
 
 class ItemFeatureStore:
-    """Host-side item feature tables (numpy), built once."""
+    """Host-side item feature tables (numpy), built once, plus a lazy
+    image tier."""
 
     def __init__(self, n_items: int, item_ids: np.ndarray,
                  vision_model: Optional[str] = None,
@@ -66,6 +70,39 @@ class ItemFeatureStore:
         self.language_model = language_model
         self.image_folder = image_folder
         self.tables: Dict[str, np.ndarray] = {}
+        self._image_processor = (
+            ImageProcessor(model_name=vision_model) if vision_model else None)
+        self._image_cache: "OrderedDict[int, np.ndarray]" = OrderedDict()
+        self._max_image_cache_items = max_image_cache_items
+        self._hits = 0
+        self._misses = 0
+        # PIL releases the GIL while it decodes, so a thread pool overlaps
+        # the decodes of a batch's misses.
+        self._decode_workers = min(8, os.cpu_count() or 1)
+        self._image_lock = threading.Lock()
+        self._decode_pool = None
+
+    # -------------------------------------------------------- pickling/threads
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state['_image_lock'] = None
+        state['_decode_pool'] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._image_lock = threading.Lock()
+        self._decode_pool = None
+
+    def _get_decode_pool(self):
+        if self._decode_workers < 2:
+            return None
+        if self._decode_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._decode_pool = ThreadPoolExecutor(
+                max_workers=self._decode_workers,
+                thread_name_prefix='pixelrec-decode')
+        return self._decode_pool
 
     # ----------------------------------------------------------------- build
     @classmethod
@@ -153,17 +190,85 @@ class ItemFeatureStore:
         return name in self.tables
 
     # ---------------------------------------------------------------- images
+    def _image_path(self, item_pos: int) -> str:
+        return f"{self.image_folder}/{self.item_ids[item_pos]}.jpg"
+
     def get_image(self, item_pos: int) -> np.ndarray:
-        raise NotImplementedError(_NO_IMAGES)
+        """Normalized float32 CHW pixels for one catalog position (lazy,
+        LRU-bounded). Zero placeholder when missing or undecodable."""
+        if self._image_processor is None:
+            raise RuntimeError("No vision model configured for this store.")
+        with self._image_lock:
+            if item_pos in self._image_cache:
+                self._hits += 1
+                self._image_cache.move_to_end(item_pos)
+                return self._image_cache[item_pos]
+            self._misses += 1
+        img = self._image_processor.load_and_transform_image(
+            self._image_path(item_pos))
+        self._cache_put(item_pos, img)
+        return img
+
+    def _cache_put(self, item_pos: int, img: np.ndarray):
+        with self._image_lock:
+            self._image_cache[item_pos] = img
+            if len(self._image_cache) > self._max_image_cache_items:
+                self._image_cache.popitem(last=False)
+
+    def _ensure_images_cached(self, positions: List[int]):
+        """Decode the cache-missing positions concurrently."""
+        with self._image_lock:
+            missing = sorted({p for p in positions
+                              if p not in self._image_cache})
+        pool = self._get_decode_pool()
+        if pool is None or len(missing) < 2:
+            return
+
+        def decode(p):
+            return p, self._image_processor.load_and_transform_image(
+                self._image_path(p))
+
+        for p, img in pool.map(decode, missing):
+            self._misses += 1
+            self._cache_put(p, img)
 
     def image_batch(self, item_pos: np.ndarray) -> np.ndarray:
-        raise NotImplementedError(_NO_IMAGES)
+        """Stacked normalized pixels for a batch of catalog positions; the
+        misses decode in parallel before the (cache-hitting) stack."""
+        positions = [int(i) for i in item_pos]
+        self._ensure_images_cached(positions)
+        return np.stack([self.get_image(i) for i in positions])
 
     def image_batch_uint8(self, item_pos: np.ndarray) -> np.ndarray:
-        raise NotImplementedError(_NO_IMAGES)
+        """Raw uint8 HWC frames for the device-side normalization path
+        (zeros for a missing or undecodable file), decoded concurrently;
+        not cached."""
+        spec = PREPROCESS_SPECS[self.vision_model]
+        positions = [int(i) for i in item_pos]
+        out = np.zeros((len(positions), spec.crop_size, spec.crop_size, 3),
+                       dtype=np.uint8)
+
+        def decode(i):
+            return self._image_processor.load_image_uint8(
+                self._image_path(i))
+
+        pool = self._get_decode_pool()
+        frames = (pool.map(decode, positions) if pool is not None
+                  else map(decode, positions))
+        for j, frame in enumerate(frames):
+            if frame is not None:
+                out[j] = frame
+        return out
 
     def get_stats(self) -> Dict[str, float]:
-        raise NotImplementedError(_NO_IMAGES)
+        """Image-tier hit/miss statistics."""
+        total = self._hits + self._misses
+        return {
+            'memory_items': len(self._image_cache),
+            'hits': self._hits,
+            'misses': self._misses,
+            'hit_rate': self._hits / total if total else 0.0,
+        }
 
     # ------------------------------------------------------------- per-item
     def item_features(self, item_pos: int, include_image: bool = True

@@ -5,8 +5,8 @@ Counterpart of ``pixelrec_multimodal_tpu/data/preprocessing.py`` on numpy
 and the standard library: word-level text augmentation, numerical scaling
 (with the port's scalers in scikit-learn's arithmetic,
 ``processors/numerical_processor.py``), HTML stripping and unicode
-normalization. The image checks need an image decoder, which comes with
-the image tier (ROADMAP item A12); until then they raise.
+normalization. The image checks belong to the image tier's offline mode,
+which is not ported yet (ROADMAP item A12); until then they raise.
 """
 from __future__ import annotations
 
@@ -20,8 +20,8 @@ import numpy as np
 from .processors.numerical_processor import MinMaxScaler, StandardScaler
 
 _HTML_TAG_RE = re.compile(r'<.*?>')
-_NO_IMAGES = ('image checks need the image tier, which is not ported yet '
-              '(ROADMAP item A12)')
+_NO_IMAGES = ('image checks (the image tier\'s offline mode) are not ported '
+              'yet (ROADMAP item A12)')
 
 
 def augment_text(text: str, augmentation_type: str = 'random_delete',

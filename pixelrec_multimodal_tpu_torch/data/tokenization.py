@@ -95,10 +95,11 @@ class HFTokenizerAdapter:
                 np.asarray(out['attention_mask'], dtype=np.int32))
 
 
-def _hf_files_present(hf_name: str) -> bool:
+def hf_files_present(hf_name: str) -> bool:
     """Whether ``hf_name`` is a local directory or has a snapshot in the
     Hugging Face cache: without one, a ``local_files_only`` load fails, so
-    ``transformers`` is not imported at all."""
+    ``transformers`` is not imported at all (the tokenizers here, the
+    encoder checkpoints in ``encoders/convert.py``)."""
     if Path(hf_name).is_dir():
         return True
     env = os.environ
@@ -109,7 +110,7 @@ def _hf_files_present(hf_name: str) -> bool:
 
 
 def _try_hf_tokenizer(hf_name: str, max_length: Optional[int]):
-    if not _hf_files_present(hf_name):
+    if not hf_files_present(hf_name):
         return None
     try:
         from transformers import AutoTokenizer

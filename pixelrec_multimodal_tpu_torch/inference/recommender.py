@@ -16,7 +16,6 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..data.feature_store import _NO_IMAGES
 from .scorer import CatalogScorer
 
 
@@ -290,10 +289,13 @@ class Recommender:
 
     # -------------------------------------------------------------- cache API
     def print_cache_stats(self):
-        """The image tier's statistics: the tier is not ported (A12), so
-        this raises as the feature store does."""
-        self.dataset.feature_store.get_stats()
+        """The feature store's image-tier statistics and its tables."""
+        stats = self.dataset.feature_store.get_stats()
+        print(f"Feature store image tier: {stats['memory_items']} items, "
+              f"hit rate {stats['hit_rate']:.2f}")
+        print(f"Packed tables: {sorted(self.dataset.feature_store.tables)}")
 
     def clear_cache(self):
-        """Clear the image tier: not ported (A12), raises."""
-        raise NotImplementedError(_NO_IMAGES)
+        """Clear the lazy image tier (the tables stay)."""
+        self.dataset.feature_store._image_cache.clear()
+        print("Feature cache cleared")

@@ -16,6 +16,14 @@ kernels and the attention projections:
 
 The tree comes in as nested dicts of numpy arrays, e.g.
 ``jax.tree.map(np.asarray, variables)``; this module imports no JAX.
+
+``encoder_state_dict`` does the same for a frozen encoder tower's Flax
+``params`` (``encoders/``): Dense ``[in, out]`` -> ``[out, in]``, Conv
+HWIO -> OIHW (the depthwise ``[kh, kw, 1, dim]`` kernels too), LayerNorm
+and frozen BatchNorm ``scale`` -> ``weight``, BatchNorm ``mean``/``var``
+-> the ``running_mean``/``running_var`` buffers, Embed tables (MPNet's
+``relative_attention_bias`` among them) -> ``weight``; bare parameters
+(class and position tokens, layer scales) keep their names.
 """
 from __future__ import annotations
 
@@ -107,3 +115,34 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> List[str]:
     if required:
         raise KeyError(f'Flax variables do not set {required}')
     return missing
+
+
+# Flax leaf name -> tensor name in the encoder towers.
+_ENCODER_NAMES = {'kernel': 'weight', 'embedding': 'weight',
+                  'scale': 'weight', 'mean': 'running_mean',
+                  'var': 'running_var'}
+
+
+def encoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """An encoder tower's Flax ``params`` as the port tower's state dict
+    (float32 tensors)."""
+    out = {}
+    for path, value in _leaves(params):
+        if path[-1] == 'kernel':
+            if value.ndim == 2:
+                value = value.T
+            elif value.ndim == 4:  # HWIO -> OIHW
+                value = value.transpose(3, 2, 0, 1)
+            else:
+                raise ValueError(f"no torch layout for the {value.ndim}-D "
+                                 f"kernel {'/'.join(path)} {value.shape}")
+        key = '.'.join(path[:-1] + (_ENCODER_NAMES.get(path[-1], path[-1]),))
+        out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return out
+
+
+def load_encoder_params(model: nn.Module, params: Mapping) -> nn.Module:
+    """Copy an encoder tower's Flax ``params`` into ``model``; raises
+    unless every tensor of the model is set, by a leaf of its shape."""
+    model.load_state_dict(encoder_state_dict(params), strict=True)
+    return model

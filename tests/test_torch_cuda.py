@@ -7,7 +7,8 @@ at 128 and 64 rows where the block fits, mma.sync everywhere else), the
 probes P1-P3 (P3 on the wgmma chains), and its scorer,
 int8 and the attention cascade included, the train steps and a toy
 ``Trainer`` run against the CPU's, checkpoints written from the card,
-``device_tables`` and ``PrefetchLoader`` on a card.
+``device_tables`` and ``PrefetchLoader`` on a card, and the nine frozen
+encoder towers on the card against the CPU.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX:
@@ -37,12 +38,16 @@ from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
 from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
 from chip_smoke import (
     MAX_DIFFERING_PER_LAYER,
+    TOWER_FP32_TOL,
+    TOWER_TOL,
+    TOWERS,
     TRAIN_TOL,
     WIDE_MAX_DIFFERING,
     random_attention_head,
     random_attention_rows,
     random_gated_rows,
     random_head,
+    tower_card_vs_cpu,
     train_card_vs_cpu,
     train_data,
     train_model,
@@ -1554,3 +1559,30 @@ def test_prefetch_loader_yields_card_tensors(dev):
         assert torch.equal(batch['x'].cpu(), torch.from_numpy(host[b]['x']))
     assert torch.isclose(total.cpu(), torch.tensor(
         float(sum(h['x'].sum(dtype=np.float64) for h in host))), rtol=1e-4)
+
+
+@pytest.mark.parametrize('modality,key', TOWERS,
+                         ids=lambda v: v.replace('-', '_'))
+def test_tower_on_card_matches_cpu(dev, modality, key):
+    """Each frozen tower at its published geometry (ResNet-50, CLIP
+    ViT-B/32 and its text tower at 77, DINOv2-base and ConvNeXt-base at
+    224 px, MiniLM-L6, BERT, RoBERTa and MPNet at 512 tokens), random
+    weights from a seed: 4 items on the card against the CPU, float32 with
+    TF32 off, within TOWER_TOL (rtol = atol)."""
+    check, _ = tower_card_vs_cpu(modality, key, dev)
+    assert check['ok'], check
+    assert check['max_abs_err'] <= TOWER_TOL * (1 + check['ref_max_abs'])
+    assert check['max_scaled_err'] <= TOWER_FP32_TOL
+    assert check['tf32_max_scaled_err'] > TOWER_FP32_TOL, check
+
+
+def test_no_tf32_is_scoped(dev):
+    """The precompute's forwards turn TF32 off for their scope only."""
+    from pixelrec_multimodal_tpu_torch.encoders.common import no_tf32
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    with no_tf32():
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == before

@@ -279,15 +279,45 @@ def test_device_tables_packed_key_and_values_match_jax(stores, bf16):
     assert sorted(only) == ['numerical', 'tag_idx']
 
 
-def test_unported_tiers_raise(stores):
-    """The image tier names A12; sharded tables name A11; asking an item's
-    features without its image works."""
-    _, ts = stores
-    for call in (lambda: ts.get_image(0), lambda: ts.image_batch([0]),
-                 lambda: ts.image_batch_uint8([0]), ts.get_stats,
-                 lambda: ts.item_features(0)):
-        with pytest.raises(NotImplementedError, match='A12'):
-            call()
+def write_jpegs(folder, item_ids, positions, seed=5):
+    """Random JPEGs of assorted sizes for ``item_ids[positions]``."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    for k, pos in enumerate(positions):
+        Image.fromarray(rng.integers(0, 256, (40 + 9 * k, 60 - 7 * k, 3),
+                                     dtype=np.uint8)).save(
+            folder / f'{item_ids[pos]}.jpg')
+
+
+def test_unported_tiers_raise(stores, tmp_path):
+    """The image tier against JAX's on the same JPEGs: the same uint8
+    frames and normalized pixels (zeros for a missing and for an
+    undecodable file), the same LRU statistics after each of the same
+    calls; sharded tables still name A11, and an item's features without
+    its image still work."""
+    js, ts = stores
+    write_jpegs(tmp_path, ts.item_ids, (0, 1, 2, 3, 5))
+    (tmp_path / f'{ts.item_ids[6]}.jpg').write_bytes(b'not a jpeg')
+    kw = dict(vision_model='resnet', image_folder=str(tmp_path),
+              max_image_cache_items=3)
+    jimg, timg = JaxStore(js.n_items, js.item_ids, **kw), \
+        ItemFeatureStore(ts.n_items, ts.item_ids, **kw)
+    jimg.tables, timg.tables = js.tables, ts.tables
+    calls = (lambda s: s.get_image(0), lambda s: s.get_image(0),
+             lambda s: s.image_batch([1, 2, 3, 1, 6]),
+             lambda s: s.image_batch_uint8([0, 4, 2, 6]),
+             lambda s: s.get_image(4), lambda s: s.get_image(1),
+             lambda s: s.item_features(5)['image'])
+    for n, call in enumerate(calls):
+        got, ref = call(timg), call(jimg)
+        assert got.dtype == ref.dtype and got.shape == ref.shape, n
+        np.testing.assert_array_equal(got, ref, err_msg=str(n))
+        assert timg.get_stats() == jimg.get_stats(), n
+    frames = timg.image_batch_uint8([0, 4, 6])
+    assert frames.shape == (3, 224, 224, 3) and frames[0].any()
+    assert not frames[1:].any()
+    stats = timg.get_stats()
+    assert stats['memory_items'] == 3 and stats['hits'] >= 2
     with pytest.raises(NotImplementedError, match='A11'):
         ts.device_tables(device='cpu', mesh=object())
     assert 'tag_idx' in ts.item_features(0, include_image=False)

@@ -131,7 +131,11 @@ def test_probe_sources_are_checked():
             'extract_encoders.py', 'tasks.py', 'metrics.py', 'novelty.py',
             'advanced_metrics.py', 'baseline_recommenders.py',
             'search.py', 'visualization.py', 'timestamps.py',
-            'create_training_subsets.py', 'hyperparameter_search.py'} <= names
+            'create_training_subsets.py', 'hyperparameter_search.py',
+            'common.py', 'text_models.py', 'resnet.py', 'clip.py',
+            'dinov2.py', 'convnext.py', 'registry.py', 'convert.py',
+            'precompute.py', 'image_processor.py', 'flax_convert.py',
+            'precompute_cache.py'} <= names
 
 
 @pytest.mark.parametrize('path', port_sources(), ids=lambda p: p.name)
@@ -492,3 +496,56 @@ def test_hpo_path_stands_alone(tmp_path):
             'pixelrec_multimodal_tpu_torch.data.timestamps'} <= set(loaded)
     for frac in ('50', '20', '05'):
         assert (split / f'train_{frac}_percent.csv').exists()
+
+
+def test_precompute_path_stands_alone(tmp_path):
+    """A fresh interpreter imports every port module, the encoder towers
+    and the image tier among them, and loads neither PIL nor transformers
+    (they are imported only inside the calls that decode or load a
+    checkpoint); then packs a catalog's input tables through the
+    precompute entry point (``--skip_encoders``), and still loads none of
+    JAX, the JAX package, pandas, scikit-learn, PIL, PyYAML or
+    transformers."""
+    proc = tmp_path / 'processed'
+    proc.mkdir()
+    (proc / 'item_info.csv').write_text(
+        'item_id,tag,price,description\n' + ''.join(
+            f'i{j},t{j % 3},{j * 1.5},item {j} red\n' for j in range(12)))
+    (tmp_path / 'config.yaml').write_text(f"""\
+model:
+  vision_model: resnet
+  language_model: sentence-bert
+data:
+  processed_item_info_path: {proc / 'item_info.csv'}
+  scaler_path: {proc / 'scaler.pkl'}
+  processed_image_destination_folder: {tmp_path / 'images'}
+  numerical_features_cols: [price]
+  categorical_features_cols: [tag]
+  cache_config: {{cache_directory: {tmp_path / 'cache'}}}
+""")
+    code = (
+        'import contextlib, importlib, io, json, sys\n'
+        f'for m in {port_modules()!r}: importlib.import_module(m)\n'
+        'on_import = sorted(sys.modules)\n'
+        'from pixelrec_multimodal_tpu_torch.scripts import precompute_cache\n'
+        'with contextlib.redirect_stdout(io.StringIO()):\n'
+        '    store = precompute_cache.main(["--config", '
+        f'{str(tmp_path / "config.yaml")!r}, "--device", "cpu", '
+        '"--skip_encoders"])\n'
+        'assert store.tables["text_input_ids"].shape == (12, 512)\n'
+        'print(json.dumps([on_import, sorted(sys.modules)]))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    on_import, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert {'pixelrec_multimodal_tpu_torch.encoders.precompute',
+            'pixelrec_multimodal_tpu_torch.encoders.convert',
+            'pixelrec_multimodal_tpu_torch.data.processors.image_processor',
+            'pixelrec_multimodal_tpu_torch.scripts.precompute_cache'} <= set(
+        on_import)
+    for modules in (on_import, loaded):
+        bad = [m for m in modules
+               if m.split('.')[0] in FORBIDDEN | CARD_ABSENT]
+        assert not bad, bad
+    assert (tmp_path / 'cache' / 'vision_resnet_lang_sentence-bert' /
+            'feature_tables.npz').exists()

@@ -450,9 +450,36 @@ def test_cascade_arguments_set_and_refused():
 
 
 # ------------------------------------------------------------- cache API
-def test_cache_api_raises_the_image_tier_error():
-    _, trec = recommenders('concatenate')
-    with pytest.raises(NotImplementedError, match='A12'):
-        trec.print_cache_stats()
-    with pytest.raises(NotImplementedError, match='A12'):
-        trec.clear_cache()
+def test_cache_api_raises_the_image_tier_error(tmp_path, capsys):
+    """The cache API over the image tier, against JAX's: after the same
+    decodes, the same statistics printed; after ``clear_cache``, the same
+    output and an empty tier on both sides."""
+    from PIL import Image
+    jmodel, variables, tmodel, jdata, tdata = models('concatenate', N_ITEMS)
+    rng = np.random.default_rng(6)
+    for j in (0, 2, 4):
+        Image.fromarray(rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+                        ).save(tmp_path / f'{ITEM_IDS[j]}.jpg')
+    kw = dict(vision_model='clip', image_folder=str(tmp_path))
+    jstore = JaxStore(N_ITEMS, np.asarray(ITEM_IDS), **kw)
+    tstore = ItemFeatureStore(N_ITEMS, np.asarray(ITEM_IDS), **kw)
+    jstore.tables.update(jdata.feature_store.tables)
+    tstore.tables.update(tdata.feature_store.tables)
+    chunks = dict(item_chunk=ITEM_CHUNK, user_chunk=USER_CHUNK)
+    jrec = JaxRecommender(jmodel, variables,
+                          StubDataset(jstore, jdata._history), **chunks)
+    trec = Recommender(tmodel, StubDataset(tstore, tdata._history),
+                       device='cpu', **chunks)
+    outputs = []
+    for rec in (jrec, trec):
+        store = rec.dataset.feature_store
+        store.image_batch([0, 1, 2, 3])
+        store.get_image(2)
+        capsys.readouterr()
+        rec.print_cache_stats()
+        stats = store.get_stats()
+        rec.clear_cache()
+        outputs.append((capsys.readouterr().out, stats, store.get_stats()))
+    assert outputs[1] == outputs[0]
+    assert outputs[1][1]['memory_items'] == 4
+    assert outputs[1][2]['memory_items'] == 0
