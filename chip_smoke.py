@@ -41,7 +41,12 @@ head through K4, and the concat and gated heads in int8 through K1q and
 K2q), then runs the nine frozen encoder towers on the card against the
 CPU, makes a catalog's language table through the precompute entry point
 and its vision table through ResNet-50, and serves the flagship head on
-those tables through K1; it checks what comes out
+those tables through K1, then trains the towers inside the step (the
+unfrozen path at scripts/bench_training.py's geometry: a small model card
+against CPU, the augmentation card against CPU, ResNet-50 and MiniLM-L6 in
+bf16 with remat, without it, augmented and frozen, CLIP with contrastive
+learning) and serves the fine-tuned scorer on the fine-tuned towers'
+tables through K1; it checks what comes out
 against the plain versions and the exact scan, and times the kernels.
 Every phase prints one JSON line; any failure raises and exits non-zero. The second-to-last line is the
 ``kernels`` JSON object and the last line is ``{"ok": true, "device":
@@ -62,6 +67,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -275,6 +281,50 @@ TOWERS = (('vision', 'resnet'), ('vision', 'clip'), ('clip_text', 'clip'),
 TOWER_CHECK_ITEMS, TOWER_RATE_BATCH, TOWER_TOL = 4, 64, 2e-3
 TOWER_FP32_TOL = 1e-4
 PRECOMPUTE_ITEMS, PRECOMPUTE_USERS = 16384, 1024
+# The e2e phase: the unfrozen path (models/end_to_end.py,
+# training/e2e_steps.py) at scripts/bench_training.py:191-265's geometry:
+# ResNet-50 at 224 px and MiniLM-L6 at E2E_TEXT_LEN tokens inside the step,
+# embedding EMB, head HIDDEN with BatchNorm, no numerical features, no
+# contrastive loss, dropout TRAIN_DROPOUT, TRAIN_USERS users, N_ITEMS items,
+# N_TAGS tags, bf16 towers under remat, AdamW E2E_LR (weight decay
+# TRAIN_WD, clip TRAIN_CLIP), one batch of E2E_BATCH seeded pixels and
+# tokens made on the card (as the JAX bench keeps one): a warm-up step and
+# E2E_STEPS timed, with remat, without it, and with both towers frozen.
+# The utilization's FLOPs a sample: the towers' forward, E2E_FORWARD_FLOPS
+# (ResNet-50 at 224 px about 8.2 GFLOP, MiniLM-L6 at 64 tokens about 1.4,
+# a multiply-add counted as two), times 3 when trained (the forward and
+# the backward's two products a forward product), plus 1 under remat (the
+# recompute), times 1 when frozen; the head's 1 MFLOP or so is left out.
+# Before that the card against the CPU (e2e_card_vs_cpu) and the
+# augmentation with every op on at E2E_BATCH x 3 x 224 x 224, its draws
+# made on the card and fed to the CPU, within E2E_AUG_TOL of the image
+# scale; after it the fine-tuned towers make the catalog's tables in eval
+# mode, served to E2E_SERVE_USERS users through K1, and E2E_PAIRS pairs of
+# the model's own forward against the scorer's; last CLIP ViT-B/32 with
+# contrastive learning (its text tower at E2E_CLIP_TEXT_LEN tokens).
+E2E_BATCH, E2E_STEPS, E2E_TEXT_LEN, E2E_LR = 256, 8, 64, 1e-4
+E2E_FORWARD_FLOPS = 8.2e9 + 1.4e9
+E2E_CLIP_STEPS, E2E_CLIP_TEXT_LEN = 3, 77
+E2E_SERVE_USERS, E2E_PAIRS = 1024, 4096
+E2E_AUG_TOL = 1e-5
+# The card against the CPU: a 2-stage ResNet (embedding 8, stages 16 and
+# 32, two blocks each) on E2E_CHECK_PX px and a 1-layer text tower at 8
+# tokens, unfrozen, batch E2E_CHECK_BATCH, float32, TF32 off, dropout 0,
+# one SGD step and one AdamW step (lr TRAIN_LR) from the same weights: the
+# losses within TRAIN_TOL, SGD's parameters within TRAIN_TOL, and remat on
+# within TRAIN_TOL of remat off (SGD). AdamW's first step moves an entry by
+# about lr either way, so a card that applied no update would lie within
+# 2 lr of the CPU: AdamW's parameters are held as tests/_torch_e2e.py
+# holds them against JAX, at most E2E_ADAM_MAX_SHARE of the entries past
+# TRAIN_TOL and none past lr, but for the entries whose gradient is
+# analytically zero (E2E_ZERO_GRADIENT: the attention key bias, softmax
+# being shift invariant), which Adam moves by about lr on the sign of a
+# rounding and which hold 2.1 lr. Each step on the CPU must move more
+# entries past TRAIN_TOL than its gate lets through, so that a card that
+# did not update fails the gate.
+E2E_CHECK_PX, E2E_CHECK_BATCH = 64, 16
+E2E_ADAM_MAX_SHARE = 2e-3
+E2E_ZERO_GRADIENT = ('language_encoder.layer_0.attention.key.bias',)
 
 
 def emit(phase: str, **fields):
@@ -3139,9 +3189,11 @@ def tower_model(modality: str, key: str, seed: int = SEED):
              else registry.build_language_encoder(key))
     random_init_(model, seed)
     gen = torch.Generator().manual_seed(seed + 1)
+    stats = ('running_mean', 'running_var')
     with torch.no_grad():
-        for name, t in list(model.named_parameters()) + list(
-                model.named_buffers()):
+        # the statistics last, in module order, as when they were buffers
+        for name, t in sorted(model.named_parameters(),
+                              key=lambda nt: nt[0].endswith(stats)):
             leaf = name.rsplit('.', 1)[-1]
             if leaf in ('layerscale1', 'layerscale2', 'layer_scale',
                         'running_var'):
@@ -3456,6 +3508,543 @@ def precompute_phase(smi, dev) -> dict:
          tower_items_per_sec=towers, nvidia_smi=smi)
     del scorer, model, store
     torch.cuda.empty_cache()
+    return {'launches': launches}
+
+
+def e2e_tiny_model(remat: bool = False, seed: int = SEED):
+    """The card-against-CPU model on the CPU: a small scorer with BatchNorm
+    behind a 2-stage ResNet and a 1-layer text tower, weights from
+    ``seed``, the ResNet's frozen BatchNorm statistics drawn too."""
+    from pixelrec_multimodal_tpu_torch.encoders.common import random_init_
+    from pixelrec_multimodal_tpu_torch.encoders.resnet import (
+        ResNetConfig,
+        ResNetTower,
+    )
+    from pixelrec_multimodal_tpu_torch.encoders.text_models import (
+        TextEncoderConfig,
+        TextTransformer,
+    )
+    from pixelrec_multimodal_tpu_torch.models.end_to_end import (
+        EndToEndRecommender,
+    )
+    from pixelrec_multimodal_tpu_torch.models.multimodal import (
+        MultimodalRecommender,
+    )
+    gen = torch.Generator().manual_seed(seed)
+    scorer = MultimodalRecommender(
+        64, 256, 8, 0, embedding_dim=16, vision_feature_dim=32,
+        language_feature_dim=16, use_contrastive=False,
+        fusion_hidden_dims=(32, 16), use_batch_norm=True, dropout_rate=0.0,
+        generator=gen, device='cpu')
+    vision = random_init_(ResNetTower(ResNetConfig(8, (16, 32), (2, 2))),
+                          seed)
+    text = random_init_(TextTransformer(TextEncoderConfig(
+        1000, 16, 1, 2, 32, 16)), seed)
+    with torch.no_grad():
+        for name, p in vision.named_parameters():
+            if name.endswith('running_var'):
+                p.copy_(torch.rand(p.shape, generator=gen) + 0.5)
+            elif name.endswith('running_mean'):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+    return EndToEndRecommender(scorer, vision_encoder=vision,
+                               language_encoder=text, remat_encoders=remat)
+
+
+def e2e_tiny_batch(seed: int = SEED) -> dict:
+    """E2E_CHECK_BATCH rows of the tiny model's inputs, numpy, from
+    ``seed``; row 1's tokens padded after 5."""
+    rng = np.random.default_rng(seed)
+    b = E2E_CHECK_BATCH
+    mask = np.ones((b, 8), np.int64)
+    mask[1, 5:] = 0
+    return {'user_idx': rng.integers(0, 64, b), 'item_idx':
+            rng.integers(0, 256, b), 'tag_idx': rng.integers(0, 8, b),
+            'label': rng.integers(0, 2, b).astype(np.float32),
+            'weight': np.ones(b, np.float32),
+            'image': rng.standard_normal(
+                (b, 3, E2E_CHECK_PX, E2E_CHECK_PX)).astype(np.float32),
+            'text_input_ids': rng.integers(1, 1000, (b, 8)) * mask,
+            'text_attention_mask': mask}
+
+
+def e2e_card_vs_cpu(dev) -> dict:
+    """The tiny end-to-end model (``e2e_tiny_model``), unfrozen, one step
+    on ``e2e_tiny_batch`` on the CPU and on the card from the same
+    weights, TF32 off: with SGD and with AdamW, and on the card with SGD
+    under remat beside it. Returns each run's loss and how far the
+    parameters lie apart; raises unless the losses hold TRAIN_TOL, the
+    parameters their gate (SGD TRAIN_TOL; AdamW the share rule above
+    E2E_ADAM_MAX_SHARE), the CPU's step moves more entries past TRAIN_TOL
+    than the gate lets through, and remat holds TRAIN_TOL of no remat."""
+    from pixelrec_multimodal_tpu_torch.encoders.common import no_tf32
+    from pixelrec_multimodal_tpu_torch.training import build_optimizer
+    from pixelrec_multimodal_tpu_torch.training.e2e_steps import (
+        init_e2e_train_state,
+        make_e2e_step_fns,
+    )
+    batch = e2e_tiny_batch()
+
+    def weights(model):
+        return {k: v.detach().cpu().clone()
+                for k, v in model.state_dict().items()
+                if not k.endswith('num_batches_tracked')}
+
+    def one_step(kind, device, remat=False):
+        model = e2e_tiny_model(remat).to(device)
+        before = weights(model)
+        state = init_e2e_train_state(model, build_optimizer(
+            kind, TRAIN_LR, TRAIN_WD, gradient_clip=TRAIN_CLIP))
+        step = make_e2e_step_fns(model, {})[0]
+        _, m = step(state, batch, torch.Generator(device=device))
+        return float(m['total_loss']), before, weights(model)
+
+    def apart(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    def held(kind, before, cpu, card):
+        adam = kind == 'adamw'
+        past = moved = total = 0
+        worst = excused = 0.0
+        for k, ref in cpu.items():
+            d = (card[k] - ref).abs()
+            if adam and k in E2E_ZERO_GRADIENT:
+                excused = max(excused, float(d.max()))
+                continue
+            past += int((d > TRAIN_TOL).sum())
+            moved += int(((ref - before[k]).abs() > TRAIN_TOL).sum())
+            total += d.numel()
+            worst = max(worst, float(d.max()))
+        allowed = int(E2E_ADAM_MAX_SHARE * total) if adam else 0
+        tol = TRAIN_LR if adam else TRAIN_TOL
+        return {'param_max_abs_diff': worst, 'param_tol': tol,
+                'entries': total, 'past_tol': past,
+                'allowed_past_tol': allowed, 'moved_past_tol_cpu': moved,
+                'zero_gradient_max_abs_diff': excused if adam else None,
+                'ok': (past <= allowed and worst <= tol
+                       and excused <= 2.1 * TRAIN_LR and moved > allowed)}
+
+    out = {}
+    with no_tf32():
+        for kind in ('sgd', 'adamw'):
+            cpu_loss, before, cpu = one_step(kind, 'cpu')
+            card_loss, _, card = one_step(kind, dev)
+            out[kind] = {'loss_cpu': cpu_loss, 'loss_card': card_loss,
+                         'loss_abs_diff': abs(card_loss - cpu_loss),
+                         **held(kind, before, cpu, card)}
+            if not (np.isfinite(card_loss) and out[kind]['ok']
+                    and out[kind]['loss_abs_diff'] <= TRAIN_TOL):
+                raise AssertionError(f'e2e: the card and the CPU disagree '
+                                     f'({kind}): {out[kind]}')
+        remat_loss, _, remat = one_step('sgd', dev, remat=True)
+        plain_loss, _, plain = one_step('sgd', dev)
+    out['remat'] = {'loss_abs_diff': abs(remat_loss - plain_loss),
+                    'param_max_abs_diff': apart(remat, plain),
+                    'tol': TRAIN_TOL}
+    if not (out['remat']['loss_abs_diff'] <= TRAIN_TOL
+            and out['remat']['param_max_abs_diff'] <= TRAIN_TOL):
+        raise AssertionError(f'e2e: remat changes the step: {out["remat"]}')
+    return out
+
+
+def augment_card_vs_cpu(dev, shape, seed: int = SEED) -> dict:
+    """``augment_batch`` with every op on (noise too) over seeded images
+    of ``shape`` on the card, its draws made on the card, against the same
+    images and draws on the CPU: the largest difference over the image
+    scale (max |image|), ``ok`` within E2E_AUG_TOL, and the card's ms a
+    batch (CUDA events, after a warm-up)."""
+    from pixelrec_multimodal_tpu_torch.config import ImageAugmentationConfig
+    from pixelrec_multimodal_tpu_torch.ops.augment import (
+        augment_batch,
+        augment_draws,
+    )
+    cfg = ImageAugmentationConfig(enabled=True, gaussian_noise=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev)
+    draws = augment_draws(gen, shape, cfg)
+    card = augment_batch(None, x, cfg, draws).cpu()
+    ms = cuda_ms(lambda: augment_batch(None, x, cfg, draws), 5)
+    ref = augment_batch(None, x.cpu(), cfg, {
+        op: {k: v.cpu() for k, v in d.items()} for op, d in draws.items()})
+    scale = float(x.abs().max())
+    err = float((card - ref).abs().max())
+    return {'shape': list(shape), 'ops': sorted(draws), 'ms': ms,
+            'max_abs_err': err, 'image_scale': scale,
+            'max_scaled_err': err / scale, 'tol': E2E_AUG_TOL,
+            'ok': bool(torch.isfinite(card).all()) and err <= E2E_AUG_TOL
+            * scale}
+
+
+def e2e_batch(gen, dev, clip: bool = False) -> dict:
+    """One E2E_BATCH batch on the card from ``gen``, as the JAX bench's:
+    normal pixels at 224 px, token ids in [1, 30000) with full masks,
+    random labels; ``clip`` adds CLIP text ids at E2E_CLIP_TEXT_LEN, each
+    row closed by the EOT id (the highest)."""
+    from pixelrec_multimodal_tpu_torch.encoders.clip import CLIPTextConfig
+    b = E2E_BATCH
+
+    def ints(high, size):
+        return torch.randint(0, high, size, generator=gen, device=dev)
+    batch = {'user_idx': ints(TRAIN_USERS, (b,)),
+             'item_idx': ints(N_ITEMS, (b,)), 'tag_idx': ints(N_TAGS, (b,)),
+             'label': ints(2, (b,)).float(),
+             'weight': torch.ones(b, device=dev),
+             'image': torch.randn((b, 3, 224, 224), generator=gen,
+                                  device=dev),
+             'text_input_ids': 1 + ints(29999, (b, E2E_TEXT_LEN)),
+             'text_attention_mask': torch.ones((b, E2E_TEXT_LEN),
+                                               dtype=torch.int64,
+                                               device=dev)}
+    if clip:
+        eot = CLIPTextConfig().vocab_size - 1
+        ids = 1 + ints(eot - 1, (b, E2E_CLIP_TEXT_LEN))
+        ids[:, -1] = eot
+        batch['clip_text_input_ids'] = ids
+        batch['clip_text_attention_mask'] = torch.ones_like(ids)
+    return batch
+
+
+def e2e_steps(model, tx, batch, steps: int,
+              flops_per_sample: Optional[float], peak: float,
+              augmentation=None) -> dict:
+    """A warm-up step, then ``steps`` timed ones (a synchronize at each
+    end, ``utils/profiling.ThroughputMeter``), dropout and augmentation
+    drawn from a card generator seeded per step; ms a step, samples/s,
+    the utilization at ``flops_per_sample`` (None: not counted) against
+    ``peak``, the peak
+    bytes of the timed steps (``device_memory_stats``), the losses."""
+    from pixelrec_multimodal_tpu_torch.training.e2e_steps import (
+        init_e2e_train_state,
+        make_e2e_step_fns,
+    )
+    from pixelrec_multimodal_tpu_torch.utils.profiling import (
+        ThroughputMeter,
+        device_memory_stats,
+    )
+    dev = model.device
+    state = init_e2e_train_state(model, tx)
+    step = make_e2e_step_fns(model, {},
+                             augmentation_config=augmentation)[0]
+    gen = torch.Generator(device=dev)
+    t0 = time.time()
+    state, m = step(state, batch, gen.manual_seed(SEED))
+    warm = [float(m['total_loss'])]
+    first_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    meter = ThroughputMeter(unit='samples', peak_flops=peak,
+                            flops_per_unit=flops_per_sample)
+    metrics = []
+    for s in range(steps):
+        with meter.measure(E2E_BATCH):
+            state, m = step(state, batch, gen.manual_seed(SEED + 1 + s))
+        metrics.append(m)
+    mem = device_memory_stats()[f'cuda:{torch.cuda.current_device()}']
+    losses = [float(m['total_loss']) for m in metrics]
+    return {'steps': steps, 'batch': E2E_BATCH,
+            'first_step_seconds': first_s, 'warm_up_loss': warm[0],
+            'ms_per_step': meter.total_seconds / steps * 1e3,
+            'samples_per_sec': meter.rate,
+            'flops_per_sample': flops_per_sample,
+            'utilization_vs_measured_bf16_peak': meter.utilization(),
+            'peak_bytes': mem['peak_bytes_in_use'],
+            'losses': losses,
+            'contrastive_losses': [float(m['contrastive_loss'])
+                                   for m in metrics],
+            'finite': bool(np.isfinite(warm + losses).all())}
+
+
+# Kinds of the kernels of a traced step, by the first pattern their
+# lowercased name holds: cuDNN's layout transposes first, then GEMMs and
+# convolutions (cuBLAS's Hopper GEMMs are `nvjet_*`), reductions, copies
+# and casts, other elementwise ops.
+KERNEL_KINDS = (('layout', ('nchwtonhwc', 'nhwctonchw')),
+                ('matrix', ('gemm', 'conv', 'xmma', 'cutlass', 'wgrad',
+                            'dgrad', 'fprop', 'implicit', 'sm90', 'nvjet')),
+                ('reduction', ('reduce',)),
+                ('copy_cast', ('copy',)),
+                ('elementwise', ('elementwise',)))
+
+
+def kernel_kind(name: str) -> str:
+    name = name.lower()
+    return next((kind for kind, marks in KERNEL_KINDS
+                 if any(m in name for m in marks)), 'other')
+
+
+def e2e_trace(model, tx, batch, top: int = 12) -> dict:
+    """One train step of ``model`` (after a warm-up step) under
+    ``utils/profiling.trace``: the card's time by kernel from
+    ``key_averages()`` (self device time of the CUDA events that are not
+    annotations), the ``top`` largest kernels and their shares of it, the
+    shares of each kind (``KERNEL_KINDS``), the card's busy share of the
+    step's wall time (synchronized at each end; the profiler's overhead
+    in it) and the Chrome trace's size."""
+    from pixelrec_multimodal_tpu_torch.training.e2e_steps import (
+        init_e2e_train_state,
+        make_e2e_step_fns,
+    )
+    from pixelrec_multimodal_tpu_torch.utils.profiling import (
+        TRACE_FILE,
+        step_annotation,
+        trace,
+    )
+    state = init_e2e_train_state(model, tx)
+    step = make_e2e_step_fns(model, {})[0]
+    gen = torch.Generator(device=model.device)
+    step(state, batch, gen.manual_seed(SEED))
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d) as prof:
+            t0 = time.perf_counter()
+            with step_annotation('e2e_train_step'):
+                step(state, batch, gen.manual_seed(SEED + 1))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        trace_bytes = (Path(d) / TRACE_FILE).stat().st_size
+
+    def device_us(e):
+        return e.self_device_time_total
+    kernels = sorted((e for e in prof.key_averages()
+                      if str(e.device_type).endswith('CUDA')
+                      and not e.is_user_annotation and device_us(e) > 0),
+                     key=device_us, reverse=True)
+    total = sum(device_us(e) for e in kernels)
+    kinds = {kind: 0.0 for kind, _ in KERNEL_KINDS + (('other', ()),)}
+    for e in kernels:
+        kinds[kernel_kind(e.key)] += device_us(e)
+    return {'remat': model.remat_encoders, 'batch': E2E_BATCH,
+            'step_wall_ms': wall * 1e3, 'device_ms': total / 1e3,
+            'device_busy_share': total / 1e3 / (wall * 1e3),
+            'kernel_names': len(kernels),
+            'kernel_launches': sum(e.count for e in kernels),
+            'kind_ms': {k: v / 1e3 for k, v in kinds.items()},
+            'kind_share': {k: v / total if total else None
+                           for k, v in kinds.items()},
+            'top': [{'kernel': e.key[:120], 'kind': kernel_kind(e.key),
+                     'launches': e.count, 'ms': device_us(e) / 1e3,
+                     'share': device_us(e) / total} for e in kernels[:top]],
+            'trace_bytes': trace_bytes}
+
+
+def e2e_phase(smi, dev) -> dict:
+    """The unfrozen path on the card (constants above E2E_BATCH). 1. The
+    card against the CPU (``e2e_card_vs_cpu``). 2. The augmentation card
+    against CPU (``augment_card_vs_cpu``). 3. Full width: remat, no remat,
+    one augmented step, frozen towers (bit for bit unchanged). 4. The
+    fine-tuned towers make the catalog's tables in eval mode, batch by
+    batch from seeded frames and tokens made on the card; the scorer
+    subtree serves E2E_SERVE_USERS users through K1, against plain bf16;
+    the model's own forward on E2E_PAIRS pairs against the scorer's. 5.
+    CLIP ViT-B/32 with contrastive learning. After the remat run, a
+    tower weight, a ResNet convolution and a ResNet statistic must have
+    moved, and one remat step is traced (``e2e_trace``). Returns K1's
+    launches."""
+    from pixelrec_multimodal_tpu_torch.config import (
+        ImageAugmentationConfig,
+        ModelConfig,
+    )
+    from pixelrec_multimodal_tpu_torch.data.feature_store import (
+        ItemFeatureStore,
+    )
+    from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
+    from pixelrec_multimodal_tpu_torch.models.end_to_end import (
+        build_end_to_end_model,
+        trainable_mask,
+    )
+    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
+        pairwise_scores_plain,
+    )
+    from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
+    from pixelrec_multimodal_tpu_torch.training import (
+        build_optimizer,
+        with_frozen,
+    )
+
+    t_phase = time.time()
+    # ---- 1. the card against the CPU at a small geometry
+    t0 = time.time()
+    check = e2e_card_vs_cpu(dev)
+    emit('e2e_card_vs_cpu', **check, seconds=time.time() - t0,
+         nvidia_smi=smi)
+
+    # ---- 2. the augmentation, card against CPU, at full size
+    aug = augment_card_vs_cpu(dev, (E2E_BATCH, 3, 224, 224))
+    emit('e2e_augment', **aug, nvidia_smi=smi)
+    if not aug['ok']:
+        raise AssertionError(f'e2e: the augmentation on the card disagrees '
+                             f'with the CPU: {aug}')
+    torch.cuda.empty_cache()
+
+    # ---- 3. full width: remat, no remat, augmented, frozen
+    peak = PEAKS.get('bf16') or tmx.measure_square()['matmul_bf16_ops_per_s']
+    mc = ModelConfig(vision_model='resnet', language_model='sentence-bert',
+                     embedding_dim=EMB, fusion_hidden_dims=list(HIDDEN),
+                     use_contrastive=False, dropout_rate=TRAIN_DROPOUT)
+    t0 = time.time()
+    model = build_end_to_end_model(mc, TRAIN_USERS, N_ITEMS, N_TAGS, 0,
+                                   encoder_dtype=torch.bfloat16,
+                                   remat_encoders=True, seed=SEED, device=dev)
+    build_s = time.time() - t0
+
+    def adamw():
+        return build_optimizer('adamw', E2E_LR, TRAIN_WD,
+                               gradient_clip=TRAIN_CLIP)
+    batch = e2e_batch(torch.Generator(device=dev).manual_seed(SEED + 40), dev)
+    runs = {}
+
+    def run(name, tx, steps, flops, **kw):
+        runs[name] = e2e_steps(model, tx, batch, steps, flops, peak, **kw)
+        emit(f'e2e_train_{name}', **runs[name], model_build_seconds=build_s,
+             vision='resnet', language='sentence-bert',
+             text_len=E2E_TEXT_LEN, encoder_dtype='bfloat16',
+             remat=model.remat_encoders, measured_bf16_peak=peak,
+             nvidia_smi=smi)
+        if not runs[name]['finite']:
+            raise AssertionError(f'e2e: a loss of {name} is not finite: '
+                                 f'{runs[name]["losses"]}')
+    sd = model.state_dict()
+    watched = [next(k for k in sd if k.startswith('vision_encoder.')
+                    and k.endswith('running_var')),
+               next(k for k in sd if k.startswith('vision_encoder.')
+                    and sd[k].dim() == 4),
+               next(k for k in sd if k.startswith('language_encoder.')
+                    and sd[k].dim() == 2 and '.layer_' in k)]
+    watched = {k: sd[k].detach().clone() for k in watched}
+    run('remat', adamw(), E2E_STEPS, 4 * E2E_FORWARD_FLOPS)
+    sd = model.state_dict()
+    moved = {k: float((sd[k] - v).abs().max()) for k, v in watched.items()}
+    emit('e2e_unfrozen_moved', max_abs_change=moved)
+    if not all(m > 0 for m in moved.values()):
+        raise AssertionError(f'e2e: the unfrozen steps left a tower tensor '
+                             f'or a ResNet statistic where it was: {moved}')
+    del sd, watched
+    trace = e2e_trace(model, adamw(), batch)
+    emit('e2e_trace', **trace, nvidia_smi=smi)
+    model.remat_encoders = False
+    run('no_remat', adamw(), E2E_STEPS, 3 * E2E_FORWARD_FLOPS)
+    model.remat_encoders = True
+    run('augmented', adamw(), 1, 4 * E2E_FORWARD_FLOPS,
+        augmentation=ImageAugmentationConfig(enabled=True,
+                                             gaussian_noise=True))
+    towers = {k: v.detach().clone() for k, v in model.state_dict().items()
+              if not k.startswith('scorer.')}
+    scorer_before = {k: v.detach().clone()
+                     for k, v in model.scorer.state_dict().items()}
+    run('frozen', with_frozen(adamw(), trainable_mask(model)), E2E_STEPS,
+        E2E_FORWARD_FLOPS)
+    unchanged = all(torch.equal(v, model.state_dict()[k])
+                    for k, v in towers.items())
+    scorer_moved = any(not torch.equal(v, model.scorer.state_dict()[k])
+                       for k, v in scorer_before.items())
+    emit('e2e_frozen_towers', towers_bit_for_bit_unchanged=unchanged,
+         tower_tensors=len(towers), scorer_moved=scorer_moved,
+         ms_per_step=runs['frozen']['ms_per_step'])
+    if not (unchanged and scorer_moved):
+        raise AssertionError(f'e2e: the frozen run moved a tower '
+                             f'({not unchanged}) or left the scorer '
+                             f'({not scorer_moved})')
+    del towers, scorer_before
+    del batch
+    torch.cuda.empty_cache()
+
+    # ---- 4. the fine-tuned towers make the catalog's tables; the scorer
+    # subtree serves them through K1
+    model.eval()
+    n_batches = N_ITEMS // E2E_BATCH
+
+    def catalog_inputs(b):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1000 + b)
+        ids = 1 + torch.randint(0, 29999, (E2E_BATCH, E2E_TEXT_LEN),
+                                generator=gen, device=dev)
+        return (torch.randn((E2E_BATCH, 3, 224, 224), generator=gen,
+                            device=dev), ids, torch.ones_like(ids))
+    vision = torch.empty((N_ITEMS, VISION_DIM), device=dev)
+    language = torch.empty((N_ITEMS, LANG_DIM), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.no_grad():
+        for b in range(n_batches):
+            frames, ids, mask = catalog_inputs(b)
+            rows = slice(b * E2E_BATCH, (b + 1) * E2E_BATCH)
+            vision[rows] = model.vision_encoder.pooled(frames).float()
+            language[rows] = model.language_encoder.pooled(ids, mask).float()
+    torch.cuda.synchronize()
+    tables_s = time.time() - t0
+    rng = np.random.default_rng(SEED + 41)
+    store = ItemFeatureStore(N_ITEMS, np.arange(N_ITEMS).astype(str))
+    store.tables['tag_idx'] = rng.integers(0, N_TAGS, N_ITEMS).astype(
+        np.int32)
+    store.tables['vision_emb'] = vision.cpu().numpy()
+    store.tables['language_emb'] = language.cpu().numpy()
+    del vision, language
+    emit('e2e_tables', items=N_ITEMS, batch=E2E_BATCH, seconds=tables_s,
+         items_per_sec=N_ITEMS / tables_s, encoder_dtype='bfloat16',
+         finite=bool(np.isfinite(store.tables['vision_emb']).all()
+                     and np.isfinite(store.tables['language_emb']).all()),
+         nvidia_smi=smi)
+    t0 = time.time()
+    scorer = CatalogScorer(model.scorer, store, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    users = np.sort(rng.choice(TRAIN_USERS, E2E_SERVE_USERS,
+                               replace=False)).astype(np.int32)
+    v, i, launches, _ = drive_top_k(scorer, users, 'K1', 'e2e_main_path',
+                                    setup_seconds=setup_s, nvidia_smi=smi)
+    check_against_plain(scorer, pairwise_scores_plain, users, v, i,
+                        'e2e_main_path_vs_plain')
+    # the model's own eval forward on E2E_PAIRS pairs (the items of
+    # E2E_PAIRS / E2E_BATCH catalog batches, made again) against the
+    # scorer's float32 scores of the same pairs
+    picked = np.sort(rng.choice(n_batches, E2E_PAIRS // E2E_BATCH,
+                                replace=False))
+    pair_users = rng.integers(0, TRAIN_USERS, E2E_PAIRS).astype(np.int32)
+    pair_items = np.concatenate([np.arange(b * E2E_BATCH,
+                                           (b + 1) * E2E_BATCH)
+                                 for b in picked]).astype(np.int32)
+    own = []
+    with torch.no_grad():
+        for k, b in enumerate(picked):
+            frames, ids, mask = catalog_inputs(int(b))
+            rows = slice(k * E2E_BATCH, (k + 1) * E2E_BATCH)
+            it = torch.from_numpy(pair_items[rows].astype(np.int64)).to(dev)
+            own.append(model(
+                torch.from_numpy(pair_users[rows].astype(np.int64)).to(dev),
+                it, torch.from_numpy(store.tables['tag_idx'][
+                    pair_items[rows]].astype(np.int64)).to(dev),
+                image=frames, text_input_ids=ids,
+                text_attention_mask=mask)[:, 0].float().cpu().numpy())
+    own = np.concatenate(own)
+    served = scorer.score_candidates(pair_users, pair_items[:, None])[:, 0]
+    pair_err = float(np.abs(own - served).max())
+    pair_tol = KERNEL_TOL * max(1.0, float(np.abs(served).max()))
+    emit('e2e_model_vs_scorer', pairs=E2E_PAIRS, max_abs_err=pair_err,
+         tol=pair_tol, finite=bool(np.isfinite(own).all()))
+    if not (np.isfinite(own).all() and pair_err <= pair_tol):
+        raise AssertionError(f'e2e: the model and its served scorer '
+                             f'disagree: {pair_err} > {pair_tol}')
+    del scorer, store, model
+    torch.cuda.empty_cache()
+
+    # ---- 5. contrastive: CLIP ViT-B/32, its text tower in the step
+    mc.vision_model, mc.use_contrastive = 'clip', True
+    model = build_end_to_end_model(mc, TRAIN_USERS, N_ITEMS, N_TAGS, 0,
+                                   encoder_dtype=torch.bfloat16,
+                                   remat_encoders=True, seed=SEED + 1,
+                                   device=dev)
+    temp0 = model.scorer.temperature.item()
+    clip = e2e_steps(model, adamw(), e2e_batch(torch.Generator(
+        device=dev).manual_seed(SEED + 42), dev, clip=True),
+        E2E_CLIP_STEPS, None, peak)
+    emit('e2e_train_contrastive', **clip, vision='clip',
+         language='sentence-bert', clip_text_len=E2E_CLIP_TEXT_LEN,
+         temperature_before=temp0,
+         temperature_after=model.scorer.temperature.item(), nvidia_smi=smi)
+    if not (clip['finite'] and all(np.isfinite(clip['contrastive_losses']))
+            and min(clip['contrastive_losses']) > 0):
+        raise AssertionError(f'e2e: the contrastive run is not finite or '
+                             f'has no contrastive loss: {clip}')
+    del model
+    torch.cuda.empty_cache()
+    emit('e2e', seconds=time.time() - t_phase, nvidia_smi=smi)
     return {'launches': launches}
 
 
@@ -4123,6 +4712,11 @@ def main() -> int:
     # ResNet-50's vision_emb) and the flagship head served on them
     # through K1
     precomputed = precompute_phase(smi, dev)
+    # ---- 24. the unfrozen path: towers trained inside the step (card
+    # against CPU, remat, the augmentation, frozen towers, contrastive
+    # CLIP), the fine-tuned scorer served through K1
+    e2e = e2e_phase(smi, dev)
+    lines[0]['launches_e2e'] = e2e['launches']
     lines[0]['launches_cli'] = cli['launches']
     lines[0]['launches_precompute'] = precomputed['launches']
     lines[0]['launches_recommend'] = recommended['launches']

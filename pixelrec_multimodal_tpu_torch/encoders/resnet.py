@@ -7,7 +7,9 @@ Counterpart of ``pixelrec_multimodal_tpu/encoders/resnet.py``
 7x7/2 stem conv + frozen BN + ReLU + 3x3/2 max pool, four bottleneck
 stages [3, 4, 6, 3] with channels [256, 512, 1024, 2048], the stride on
 the 3x3 conv (v1.5), stride 1 in the first stage. BatchNorm runs on its
-stored running statistics (the backbone is frozen).
+stored running statistics, which are parameters as in JAX: a frozen
+tower never moves them, and an unfrozen one (``models/end_to_end.py``)
+trains, decays and clips them with the rest.
 
 The JAX tower evaluates the stem as a 4x4/1 conv on space-to-depth
 packed input, a rewrite for the TPU's matrix unit whose parameter is the
@@ -36,17 +38,20 @@ class ResNetConfig:
 
 
 class FrozenBatchNorm(nn.Module):
-    """Inference-mode BatchNorm over NCHW channels: ``weight``, ``bias``
-    and the running statistics as buffers (Flax's scale, bias, mean,
-    var)."""
+    """Inference-mode BatchNorm over NCHW channels. Its four values are
+    parameters, as Flax's ``scale``, ``bias``, ``mean`` and ``var`` are:
+    ``weight``, ``bias``, ``running_mean`` and ``running_var`` (the
+    names of torch's BatchNorm, so state dicts keep their keys). The
+    forward never updates the statistics; an optimizer over the tower's
+    parameters moves, decays and clips them, as optax does in JAX."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer('running_mean', torch.zeros(features))
-        self.register_buffer('running_var', torch.ones(features))
+        self.running_mean = nn.Parameter(torch.zeros(features))
+        self.running_var = nn.Parameter(torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         def c(t):

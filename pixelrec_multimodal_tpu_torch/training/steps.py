@@ -121,6 +121,41 @@ def _classification_sums(preds: torch.Tensor, labels: torch.Tensor,
     }
 
 
+def step_metrics(scores: torch.Tensor, loss: Dict[str, torch.Tensor],
+                 batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A step's metrics: the three losses and the classification sums."""
+    weight = batch.get('weight', torch.ones_like(batch['label']))
+    return {'total_loss': loss['total'].detach(),
+            'bce_loss': loss['bce'].detach(),
+            'contrastive_loss': loss['contrastive'].detach(),
+            **_classification_sums(scores.squeeze(-1).detach(),
+                                   batch['label'], weight)}
+
+
+def gated_train_update(state: 'TrainState', forward: Callable[[], tuple]
+                       ) -> tuple:
+    """Run ``forward() -> (scores, loss)`` in training mode and take one
+    update on the gradients of ``loss['total']`` for the optimizer's
+    parameters, where that loss is finite; where it is not, the
+    parameters, the optimizer state and the BatchNorm statistics the
+    forward moved stay as they were, with no host round trip. Returns
+    (scores, loss)."""
+    stats = list(state.batch_stats.values())
+    saved = [b.clone() for b in stats]
+    state.model.train()
+    scores, loss = forward()
+    grads = torch.autograd.grad(loss['total'], state.opt_state.params,
+                                allow_unused=True)
+    finite = torch.isfinite(loss['total'])
+    state.tx.update(state.opt_state,
+                    state.tx.flat_grads(state.opt_state, grads), finite)
+    with torch.no_grad():
+        for b, s in zip(stats, saved):
+            b.copy_(torch.where(finite, b, s))
+        state.step.add_(finite.long())
+    return scores, loss
+
+
 def _stack(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
@@ -168,40 +203,21 @@ def make_step_fns(model, tables: Dict[str, torch.Tensor],
             weight=batch.get('weight'))
         return scores, loss
 
-    def metrics_of(scores, loss, batch):
-        weight = batch.get('weight', torch.ones_like(batch['label']))
-        return {'total_loss': loss['total'].detach(),
-                'bce_loss': loss['bce'].detach(),
-                'contrastive_loss': loss['contrastive'].detach(),
-                **_classification_sums(scores.squeeze(-1).detach(),
-                                       batch['label'], weight)}
-
     def on_device(batch):
         return {k: v.to(device) for k, v in batch.items()}
 
     def train_step(state: TrainState, batch, generator=None):
         batch = on_device(batch)
-        stats = list(state.batch_stats.values())
-        saved = [b.clone() for b in stats]
-        model.train()
-        scores, loss = forward(batch, generator)
-        grads = torch.autograd.grad(loss['total'], state.opt_state.params,
-                                    allow_unused=True)
-        finite = torch.isfinite(loss['total'])
-        state.tx.update(state.opt_state,
-                        state.tx.flat_grads(state.opt_state, grads), finite)
-        with torch.no_grad():
-            for b, s in zip(stats, saved):
-                b.copy_(torch.where(finite, b, s))
-            state.step.add_(finite.long())
-        return state, metrics_of(scores, loss, batch)
+        scores, loss = gated_train_update(
+            state, lambda: forward(batch, generator))
+        return state, step_metrics(scores, loss, batch)
 
     def eval_step(state: TrainState, batch):
         batch = on_device(batch)
         model.eval()
         with torch.no_grad():
             scores, loss = forward(batch, None)
-        return metrics_of(scores, loss, batch)
+        return step_metrics(scores, loss, batch)
 
     def train_epoch(state: TrainState, batches, generator=None):
         batches = on_device(batches)

@@ -20,14 +20,17 @@ The tree comes in as nested dicts of numpy arrays, e.g.
 ``encoder_state_dict`` does the same for a frozen encoder tower's Flax
 ``params`` (``encoders/``): Dense ``[in, out]`` -> ``[out, in]``, Conv
 HWIO -> OIHW (the depthwise ``[kh, kw, 1, dim]`` kernels too), LayerNorm
-and frozen BatchNorm ``scale`` -> ``weight``, BatchNorm ``mean``/``var``
--> the ``running_mean``/``running_var`` buffers, Embed tables (MPNet's
+and frozen BatchNorm ``scale`` -> ``weight``, frozen BatchNorm
+``mean``/``var`` -> the ``running_mean``/``running_var`` parameters, Embed
+tables (MPNet's
 ``relative_attention_bias`` among them) -> ``weight``; bare parameters
 (class and position tokens, layer scales) keep their names.
+``end_to_end_state_dict`` carries an end-to-end model's tree: its towers
+that way and its ``scorer`` subtree as a model's.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Mapping, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +88,17 @@ def _to_torch_layout(path: Tuple[str, ...], value: np.ndarray) -> np.ndarray:
     return value
 
 
+def _model_tensors(variables: Mapping
+                   ) -> Iterator[Tuple[str, str, np.ndarray]]:
+    """(Flax leaf path, torch key, value in the torch layout) of each leaf
+    of a model's ``params`` and ``batch_stats``."""
+    for collection, names in (('params', _PARAM_NAMES),
+                              ('batch_stats', _STAT_NAMES)):
+        for path, value in _leaves(variables.get(collection, {})):
+            yield (f"{collection}/{'/'.join(path)}", _torch_key(path, names),
+                   _to_torch_layout(path, value))
+
+
 def load_flax_variables(model: nn.Module, variables: Mapping) -> List[str]:
     """Copy ``{'params': ..., 'batch_stats': ...}`` into ``model``.
 
@@ -94,21 +108,16 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> List[str]:
     """
     state = model.state_dict()
     filled = set()
-    for collection, names in (('params', _PARAM_NAMES),
-                              ('batch_stats', _STAT_NAMES)):
-        for path, value in _leaves(variables.get(collection, {})):
-            key = _torch_key(path, names)
-            if key not in state:
-                raise KeyError(f"Flax leaf {collection}/{'/'.join(path)} "
-                               f"has no torch tensor {key!r}")
-            value = _to_torch_layout(path, value)
-            target = state[key]
-            if tuple(value.shape) != tuple(target.shape):
-                raise ValueError(f'{key}: Flax shape {value.shape} != torch '
-                                 f'shape {tuple(target.shape)}')
-            with torch.no_grad():
-                target.copy_(torch.from_numpy(np.array(value)))
-            filled.add(key)
+    for leaf, key, value in _model_tensors(variables):
+        if key not in state:
+            raise KeyError(f"Flax leaf {leaf} has no torch tensor {key!r}")
+        target = state[key]
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(f'{key}: Flax shape {value.shape} != torch '
+                             f'shape {tuple(target.shape)}')
+        with torch.no_grad():
+            target.copy_(torch.from_numpy(np.array(value)))
+        filled.add(key)
     missing = [k for k in state if k not in filled]
     required = [k for k in missing if not k.endswith(_OPTIONAL_SUFFIXES)
                 and not k.startswith(_OPTIONAL_PREFIXES)]
@@ -146,3 +155,34 @@ def load_encoder_params(model: nn.Module, params: Mapping) -> nn.Module:
     unless every tensor of the model is set, by a leaf of its shape."""
     model.load_state_dict(encoder_state_dict(params), strict=True)
     return model
+
+
+# The encoder subtrees of an end-to-end model's Flax tree.
+_E2E_TOWERS = ('vision_encoder', 'language_encoder', 'clip_text_encoder')
+
+
+def end_to_end_state_dict(params: Mapping,
+                          batch_stats: Optional[Mapping] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """A JAX ``EndToEndRecommender``'s ``params`` (and the scorer's
+    ``batch_stats``) as the port's ``models/end_to_end.py`` state dict:
+    each tower's subtree through ``encoder_state_dict`` (ResNet's frozen
+    BatchNorm ``mean``/``var`` to its ``running_mean``/``running_var``
+    parameters), the ``scorer`` subtree as ``load_flax_variables`` lays
+    out a ``MultimodalRecommender``, each under its subtree's name. Load
+    it with ``strict=False``: the scorer's BatchNorm step counters have
+    no Flax counterpart."""
+    out = {}
+    for top, sub in params.items():
+        if top == 'scorer':
+            scorer = {'params': sub,
+                      'batch_stats': (batch_stats or {}).get('scorer', {})}
+            for _, key, value in _model_tensors(scorer):
+                out[f'scorer.{key}'] = torch.from_numpy(
+                    np.array(value, dtype=np.float32))
+        elif top in _E2E_TOWERS:
+            out.update({f'{top}.{k}': v
+                        for k, v in encoder_state_dict(sub).items()})
+        else:
+            raise KeyError(f'no end-to-end subtree {top!r}')
+    return out

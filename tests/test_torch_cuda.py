@@ -7,8 +7,10 @@ at 128 and 64 rows where the block fits, mma.sync everywhere else), the
 probes P1-P3 (P3 on the wgmma chains), and its scorer,
 int8 and the attention cascade included, the train steps and a toy
 ``Trainer`` run against the CPU's, checkpoints written from the card,
-``device_tables`` and ``PrefetchLoader`` on a card, and the nine frozen
-encoder towers on the card against the CPU.
+``device_tables`` and ``PrefetchLoader`` on a card, the nine frozen
+encoder towers on the card against the CPU, and the unfrozen path: an
+end-to-end train step and the augmentation on the card against the CPU,
+and the profiling module's memory readings.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX:
@@ -37,12 +39,15 @@ from pixelrec_multimodal_tpu_torch.ops.topk import NEG_INF
 from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
 from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
 from chip_smoke import (
+    E2E_AUG_TOL,
     MAX_DIFFERING_PER_LAYER,
     TOWER_FP32_TOL,
     TOWER_TOL,
     TOWERS,
     TRAIN_TOL,
     WIDE_MAX_DIFFERING,
+    augment_card_vs_cpu,
+    e2e_card_vs_cpu,
     random_attention_head,
     random_attention_rows,
     random_gated_rows,
@@ -1586,3 +1591,47 @@ def test_no_tf32_is_scoped(dev):
         assert not torch.backends.cudnn.allow_tf32
     assert (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32) == before
+
+
+def test_e2e_step_on_card_matches_cpu(dev):
+    """One unfrozen end-to-end step (a 2-stage ResNet and a 1-layer text
+    tower, float32, TF32 off) on the card against the CPU,
+    ``chip_smoke.e2e_card_vs_cpu``: SGD's loss and parameters within
+    TRAIN_TOL, AdamW's parameters by the share rule (a few entries past
+    TRAIN_TOL, none past lr), each gate passing fewer entries than the
+    CPU's step moved past TRAIN_TOL, remat within TRAIN_TOL of no remat
+    (it raises otherwise)."""
+    out = e2e_card_vs_cpu(dev)
+    assert out['sgd']['param_max_abs_diff'] <= TRAIN_TOL
+    for kind in ('sgd', 'adamw'):
+        assert out[kind]['loss_abs_diff'] <= TRAIN_TOL
+        assert (out[kind]['past_tol'] <= out[kind]['allowed_past_tol']
+                < out[kind]['moved_past_tol_cpu']), out[kind]
+
+
+def test_augment_on_card_matches_cpu(dev):
+    """``augment_batch`` with every op on, its draws made on the card, on
+    8 x 3 x 224 x 224 seeded images, against the same draws on the CPU
+    within E2E_AUG_TOL of the image scale."""
+    out = augment_card_vs_cpu(dev, (8, 3, 224, 224), seed=5)
+    assert out['ok'], out
+    assert out['max_scaled_err'] <= E2E_AUG_TOL
+    assert out['ops'] == ['blur', 'crop', 'flip', 'jitter', 'noise',
+                          'rotation']
+
+
+def test_device_memory_stats_on_card(dev):
+    """One entry per card, JAX's two keys, the peak at least what is in
+    use and at least the bytes of a tensor allocated since the reset."""
+    from pixelrec_multimodal_tpu_torch.utils.profiling import (
+        device_memory_stats,
+    )
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.empty(1 << 24, dtype=torch.uint8, device=dev)
+    stats = device_memory_stats()
+    assert sorted(stats) == [f'cuda:{i}'
+                             for i in range(torch.cuda.device_count())]
+    for v in stats.values():
+        assert sorted(v) == ['bytes_in_use', 'peak_bytes_in_use']
+    here = stats[f'cuda:{x.device.index}']
+    assert here['peak_bytes_in_use'] >= here['bytes_in_use'] >= x.numel()

@@ -549,3 +549,69 @@ data:
         assert not bad, bad
     assert (tmp_path / 'cache' / 'vision_resnet_lang_sentence-bert' /
             'feature_tables.npz').exists()
+
+
+def test_e2e_path_stands_alone(tmp_path):
+    """A fresh interpreter imports every port module, then builds a small
+    end-to-end model (a 2-stage ResNet, a 1-layer text tower, remat on),
+    takes one augmented SGD step and one eval step under the profiling
+    utilities and a trace, and loads none of JAX, the JAX package,
+    pandas, scikit-learn, PIL, PyYAML or transformers."""
+    code = (
+        'import importlib, json, sys\n'
+        'import numpy as np, torch\n'
+        f'for m in {port_modules()!r}: importlib.import_module(m)\n'
+        'from pixelrec_multimodal_tpu_torch.config import (\n'
+        '    ImageAugmentationConfig)\n'
+        'from pixelrec_multimodal_tpu_torch.encoders.resnet import (\n'
+        '    ResNetConfig, ResNetTower)\n'
+        'from pixelrec_multimodal_tpu_torch.encoders.text_models import (\n'
+        '    TextEncoderConfig, TextTransformer)\n'
+        'from pixelrec_multimodal_tpu_torch.models.end_to_end import (\n'
+        '    EndToEndRecommender, trainable_mask)\n'
+        'from pixelrec_multimodal_tpu_torch.models.multimodal import (\n'
+        '    MultimodalRecommender)\n'
+        'from pixelrec_multimodal_tpu_torch.training import e2e_steps\n'
+        'from pixelrec_multimodal_tpu_torch.training.optimizers import (\n'
+        '    build_optimizer, with_frozen)\n'
+        'from pixelrec_multimodal_tpu_torch.utils import profiling\n'
+        'scorer = MultimodalRecommender(6, 10, 3, 0, embedding_dim=8,\n'
+        '    vision_feature_dim=32, language_feature_dim=16,\n'
+        '    use_contrastive=False, fusion_hidden_dims=(16,),\n'
+        '    device="cpu")\n'
+        'model = EndToEndRecommender(scorer,\n'
+        '    vision_encoder=ResNetTower(ResNetConfig(8, (16, 32), (2, 2))),\n'
+        '    language_encoder=TextTransformer(TextEncoderConfig(\n'
+        '        50, 16, 1, 2, 32, 16)), remat_encoders=True)\n'
+        'tx = with_frozen(build_optimizer("sgd", 1e-2),\n'
+        '    trainable_mask(model, freeze_vision=False))\n'
+        'state = e2e_steps.init_e2e_train_state(model, tx)\n'
+        'train, evaluate = e2e_steps.make_e2e_step_fns(model, {},\n'
+        '    augmentation_config=ImageAugmentationConfig(enabled=True))\n'
+        'rng = np.random.default_rng(0)\n'
+        'batch = dict(user_idx=np.arange(4) % 6, item_idx=np.arange(4),\n'
+        '    tag_idx=np.arange(4) % 3, label=np.array([0., 1., 1., 0.]),\n'
+        '    image=rng.standard_normal((4, 3, 32, 32)).astype("float32"),\n'
+        '    text_input_ids=rng.integers(1, 50, (4, 8)),\n'
+        '    text_attention_mask=np.ones((4, 8), "int64"))\n'
+        'meter, timer = profiling.ThroughputMeter(), profiling.StepTimer()\n'
+        f'with profiling.trace({str(tmp_path)!r}), meter.measure(4), \\\n'
+        '        timer.phase("step"), profiling.step_annotation("e2e"):\n'
+        '    state, m = train(state, batch,\n'
+        '                     torch.Generator().manual_seed(1))\n'
+        'assert int(state.step) == 1 and np.isfinite(float(m["total_loss"]))\n'
+        'assert np.isfinite(float(evaluate(state, batch)["total_loss"]))\n'
+        'assert meter.calls == 1 and "step" in timer.phases\n'
+        'assert profiling.device_memory_stats() == {}\n'
+        'print(json.dumps(sorted(sys.modules)))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert {'pixelrec_multimodal_tpu_torch.ops.augment',
+            'pixelrec_multimodal_tpu_torch.models.end_to_end',
+            'pixelrec_multimodal_tpu_torch.training.e2e_steps',
+            'pixelrec_multimodal_tpu_torch.utils.profiling'} <= set(loaded)
+    bad = [m for m in loaded if m.split('.')[0] in FORBIDDEN | CARD_ABSENT]
+    assert not bad, bad
+    assert (tmp_path / 'trace.json').exists()
