@@ -4,9 +4,14 @@
 Counterpart of ``pixelrec_multimodal_tpu/data/preprocessing.py`` on numpy
 and the standard library: word-level text augmentation, numerical scaling
 (with the port's scalers in scikit-learn's arithmetic,
-``processors/numerical_processor.py``), HTML stripping and unicode
-normalization. The image checks belong to the image tier's offline mode,
-which is not ported yet (ROADMAP item A12); until then they raise.
+``processors/numerical_processor.py``), HTML stripping, unicode
+normalization and the image checks of the image tier's offline mode.
+
+The image checks take a decoder (``data/image_codecs.py``): PIL's verify
+and load and ``img.size``, as in JAX, or nvJPEG on the card where PIL is
+missing. The decoder is chosen before the per-file ``try``
+(``image_decoder``), so a missing decoder raises instead of marking every
+file corrupt.
 """
 from __future__ import annotations
 
@@ -17,11 +22,10 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 
+from .image_codecs import ImageCodecMissing, image_decoder
 from .processors.numerical_processor import MinMaxScaler, StandardScaler
 
 _HTML_TAG_RE = re.compile(r'<.*?>')
-_NO_IMAGES = ('image checks (the image tier\'s offline mode) are not ported '
-              'yet (ROADMAP item A12)')
 
 
 def augment_text(text: str, augmentation_type: str = 'random_delete',
@@ -92,9 +96,29 @@ def normalize_unicode_text(text: str) -> str:
     return unicodedata.normalize('NFKC', text)
 
 
-def is_image_corrupted(image_path: str) -> bool:
-    raise NotImplementedError(_NO_IMAGES)
+def is_image_corrupted(image_path: str, decoder=None) -> bool:
+    """True if the file fails ``decoder``'s full decode (PIL: verify, then
+    load). The decoder defaults to ``image_decoder()``, chosen outside the
+    ``try``; ``ImageCodecMissing`` (a format the decoder cannot read)
+    passes through."""
+    decoder = decoder or image_decoder()
+    try:
+        return decoder.corrupted(image_path)
+    except ImageCodecMissing:
+        raise
+    except Exception:
+        return True
 
 
-def check_image_dimensions(image_path: str, min_width: int, min_height: int) -> bool:
-    raise NotImplementedError(_NO_IMAGES)
+def check_image_dimensions(image_path: str, min_width: int, min_height: int,
+                           decoder=None) -> bool:
+    """True if the image is at least min_width x min_height; False when
+    its size cannot be read."""
+    decoder = decoder or image_decoder()
+    try:
+        w, h = decoder.size(image_path)
+        return w >= min_width and h >= min_height
+    except ImageCodecMissing:
+        raise
+    except Exception:
+        return False

@@ -1,5 +1,7 @@
 # pixelrec_multimodal_tpu_torch/data/processors/image_processor.py
-"""Image decode and preprocessing for the image tier, online mode.
+"""Image decode and preprocessing for the image tier: the online mode
+(the dataset's decode path) and the offline mode (validation and
+compression of the raw images, the preprocess entry point's step 3).
 
 Counterpart of ``pixelrec_multimodal_tpu/data/processors/
 image_processor.py``: each vision backbone has a static
@@ -12,18 +14,40 @@ The resample filters are stored as PIL's integer values, so importing this
 module loads no PIL. The decoder is imported when an image is loaded,
 outside the per-image ``try``: without PIL, loading raises instead of
 turning every frame into the zero placeholder. A file that cannot be
-decoded still gives the placeholder, as in JAX. The offline mode
-(validation and compression of the raw images) is not ported yet and
-raises (ROADMAP item A12).
+decoded still gives the placeholder, as in JAX.
+
+The offline mode copies JAX's ``process_items_images`` and its helpers,
+quirks included: an existing destination file counts as valid;
+``_should_compress_image`` tests the file's size alone, and
+``_compress_and_save`` resizes (LANCZOS) when
+``resize_if_pixels_larger_than`` is set and the longest edge passes
+``resize_target_longest_edge``; ``.jpg``/``.jpeg`` are saved with
+``quality`` and ``optimize=True``, anything else with a plain ``save``.
+Its decoder is chosen once per run, before the per-file ``try``
+(``data/image_codecs.image_decoder``: PIL, else nvJPEG on ``cuda``, else
+``ImageCodecMissing``), and logged. The per-file ``try`` turns any failure
+into an invalid file, as JAX's does, but lets ``ImageCodecMissing``
+through: a PNG under nvJPEG, or a file to compress where PIL (the
+encoder) is missing, raises naming ROADMAP item A12.
 """
 from __future__ import annotations
 
+import os
+import shutil
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from pathlib import Path
 from typing import List, Optional, Set, Tuple
 
 import numpy as np
 
-from ...config import MODEL_CONFIGS
+from ...config import (
+    ImageValidationConfig,
+    MODEL_CONFIGS,
+    OfflineImageCompressionConfig,
+)
+from ..image_codecs import ImageCodecMissing, image_decoder, pil_image
+from .. import preprocessing  # its image checks; imports this package
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -31,10 +55,9 @@ _CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 _CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 # PIL.Image.Resampling values.
-BILINEAR, BICUBIC = 2, 3
-
-_NO_OFFLINE = ('the image processor\'s offline mode (validation and '
-               'compression) is not ported yet (ROADMAP item A12)')
+LANCZOS, BILINEAR, BICUBIC = 1, 2, 3
+# Threads of the offline mode's per-item work.
+OFFLINE_WORKERS = min(8, os.cpu_count() or 1)
 
 
 @dataclass(frozen=True)
@@ -65,18 +88,6 @@ PREPROCESS_SPECS = {
 }
 
 
-def pil_image():
-    """PIL's ``Image`` module; raises ImportError naming the missing
-    decoder where PIL is not installed."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(
-            'decoding images needs PIL, which is not installed here; the '
-            'image tier has no other decoder yet (ROADMAP item A12)') from e
-    return Image
-
-
 def resize_and_center_crop(image, spec: ImagePreprocessSpec):
     """Resize a PIL image's shortest edge to ``spec.resize_shortest``,
     then center-crop to ``spec.crop_size``."""
@@ -100,10 +111,20 @@ def normalize_chw(frame_uint8: np.ndarray, spec: ImagePreprocessSpec
 
 
 class ImageProcessor:
-    """The image processor's online mode (the dataset's decode path)."""
+    """Dual-mode image processor: the online mode (``model_name``) and the
+    offline mode (``validation_config``, ``compression_config``; ``device``
+    chooses nvJPEG where PIL is missing)."""
 
-    def __init__(self, model_name: Optional[str] = None):
+    def __init__(self, model_name: Optional[str] = None,
+                 compression_config: Optional[
+                     OfflineImageCompressionConfig] = None,
+                 validation_config: Optional[ImageValidationConfig] = None,
+                 device='cpu'):
         self.model_name = model_name
+        self.compression_config = compression_config
+        self.validation_config = validation_config
+        self.device = device
+        self.decoder = None
         if model_name:
             if model_name not in MODEL_CONFIGS['vision']:
                 raise ValueError(
@@ -146,4 +167,84 @@ class ImageProcessor:
     # ----------------------------------------------------------- offline mode
     def process_items_images(self, item_ids: List[str], source_folder,
                              dest_folder) -> Set[str]:
-        raise NotImplementedError(_NO_OFFLINE)
+        """Validate, compress or copy each item's image; returns the ids
+        that passed. Chooses the decoder first (``self.decoder``) and
+        raises ``ImageCodecMissing`` where there is none. The items run on
+        OFFLINE_WORKERS threads (JAX's loop runs them in turn): the work is
+        file reads, copies and decodes, which release the GIL, and each
+        item's outcome is its own."""
+        if not self.validation_config:
+            raise RuntimeError(
+                "ImageProcessor not initialized for offline mode. "
+                "Provide 'validation_config'.")
+        self.decoder = image_decoder(self.device)
+        print(f"Validating images with {self.decoder.name}")
+        source_folder, dest_folder = Path(source_folder), Path(dest_folder)
+        dest_folder.mkdir(parents=True, exist_ok=True)
+
+        def passes(item_id) -> bool:
+            src = self._find_image_for_item(str(item_id), source_folder)
+            return bool(src) and self._process_single_image(
+                src, dest_folder / src.name)
+        pool = ThreadPoolExecutor(max_workers=OFFLINE_WORKERS)
+        try:
+            flags = list(pool.map(passes, item_ids))
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+        return {item_id for item_id, ok in zip(item_ids, flags) if ok}
+
+    def _find_image_for_item(self, item_id: str, source_folder: Path
+                             ) -> Optional[Path]:
+        for ext in self.validation_config.allowed_extensions:
+            p = source_folder / f"{item_id}{ext}"
+            if p.exists():
+                return p
+        return None
+
+    def _process_single_image(self, source_path: Path, dest_path: Path
+                              ) -> bool:
+        if dest_path.exists():
+            return True
+        dest_path.parent.mkdir(parents=True, exist_ok=True)
+        decoder = self.decoder or image_decoder(self.device)
+        vc = self.validation_config
+        try:
+            if not source_path.exists():
+                return False
+            if vc.check_corrupted and preprocessing.is_image_corrupted(
+                    str(source_path), decoder):
+                return False
+            if not preprocessing.check_image_dimensions(
+                    str(source_path), vc.min_width, vc.min_height, decoder):
+                return False
+            if self._should_compress_image(source_path):
+                self._compress_and_save(source_path, dest_path)
+            else:
+                shutil.copy2(source_path, dest_path)
+            return True
+        except ImageCodecMissing:
+            raise
+        except Exception:
+            return False
+
+    def _should_compress_image(self, image_path: Path) -> bool:
+        cc = self.compression_config
+        if not cc or not cc.enabled:
+            return False
+        return image_path.stat().st_size / 1024 > cc.compress_if_kb_larger_than
+
+    def _compress_and_save(self, source_path: Path, dest_path: Path):
+        """Re-encode with PIL (``ImageCodecMissing`` without it)."""
+        cc = self.compression_config
+        Image = pil_image()
+        with Image.open(source_path) as img:
+            img = img.convert('RGB')
+            if cc.resize_if_pixels_larger_than and \
+                    max(img.size) > cc.resize_target_longest_edge:
+                scale = cc.resize_target_longest_edge / max(img.size)
+                img = img.resize((int(img.width * scale),
+                                  int(img.height * scale)), LANCZOS)
+            if dest_path.suffix.lower() in ('.jpg', '.jpeg'):
+                img.save(dest_path, quality=cc.target_quality, optimize=True)
+            else:
+                img.save(dest_path)

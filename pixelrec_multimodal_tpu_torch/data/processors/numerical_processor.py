@@ -154,7 +154,11 @@ class NumericalProcessor:
             self.scaler = MinMaxScaler()
         else:
             return None
-        self.scaler.fit(numeric_matrix(table, numerical_columns))
+        # column by column, as pandas lays out the ``.values`` JAX fits
+        # on: scikit-learn's sums then run along each column's contiguous
+        # memory, which rounds otherwise than summing across rows
+        self.scaler.fit(np.asfortranarray(numeric_matrix(table,
+                                                         numerical_columns)))
         self.fitted_columns = list(numerical_columns)
         return self.scaler
 

@@ -1,6 +1,7 @@
 # pixelrec_multimodal_tpu_torch/ops/_build.py
-"""Build and load the hand-written CUDA kernels in ``ops/csrc`` and the
-measurement probes in ``probes/csrc``.
+"""Build and load the hand-written CUDA kernels in ``ops/csrc``, the
+measurement probes in ``probes/csrc`` and any source a caller registers
+(``register_source``: the nvJPEG binding of the image tier).
 
 Each ``<dir>/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface,
@@ -8,8 +9,9 @@ into a shared library with a plain C interface,
 use. The hash covers the source, the shared headers (``*.cuh`` of its
 directory and of ``ops/csrc``, which every source may include) and the
 compiler flags, so an edited source or header builds anew and an unchanged
-one loads the library already built. Names are unique across the two
-directories. Libraries load through ``ctypes``: every
+one loads the library already built. Names are unique across the
+directories. A registered source may link libraries of the CUDA toolkit
+(``link_flags``), and its link flags are in its hash too. Libraries load through ``ctypes``: every
 pointer and the stream pass as ``c_void_p``, every integer as ``c_int``.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -24,7 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 PROBES_CSRC = Path(__file__).resolve().parents[1] / 'probes' / 'csrc'
@@ -33,6 +35,9 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Sources outside ops/csrc and probes/csrc: name -> (directory, the
+# toolkit libraries it links), set by their callers.
+_registered: Dict[str, Tuple[Path, Tuple[str, ...]]] = {}
 _lock = threading.Lock()
 
 
@@ -45,9 +50,49 @@ def _nvcc() -> str:
     return path
 
 
+def register_source(name: str, directory, libraries: Iterable[str] = ()):
+    """Make ``<directory>/<name>.cu`` buildable by name, linked with the
+    CUDA toolkit's ``lib<stem>`` for each stem of ``libraries``."""
+    _registered[name] = (Path(directory), tuple(libraries))
+
+
 def _source_dir(name: str) -> Path:
-    """``ops/csrc`` for a kernel, ``probes/csrc`` for a probe."""
+    """``ops/csrc`` for a kernel, ``probes/csrc`` for a probe, the
+    registered directory for a registered source."""
+    if name in _registered:
+        return _registered[name][0]
     return PROBES_CSRC if (PROBES_CSRC / f'{name}.cu').exists() else CSRC
+
+
+def toolkit_library(stem: str) -> Optional[Path]:
+    """The CUDA toolkit's ``lib<stem>.so*`` (under ``$CUDA_HOME`` or
+    ``/usr/local/cuda``, in ``lib64`` or ``targets/x86_64-linux/lib``), or
+    None."""
+    for root in filter(None, (os.environ.get('CUDA_HOME'),
+                              '/usr/local/cuda')):
+        for sub in ('lib64', 'targets/x86_64-linux/lib'):
+            found = sorted((Path(root) / sub).glob(f'lib{stem}.so*'))
+            if found:
+                return found[0]
+    return None
+
+
+def link_flags(name: str) -> tuple:
+    """The toolkit libraries a registered source links, each with its
+    directory searched at link and at load time (``-l<stem>`` alone where
+    it is not found, and the link then fails); nothing for the kernels and
+    the probes."""
+    flags = ()
+    for stem in _registered.get(name, (None, ()))[1]:
+        lib = toolkit_library(stem)
+        if lib is None:
+            flags += (f'-l{stem}',)
+            continue
+        d = str(lib.parent)
+        flag = (f'-l{stem}' if (lib.parent / f'lib{stem}.so').exists()
+                else f'-l:{lib.name}')
+        flags += ('-L', d, flag, '-Xlinker', f'-rpath={d}')
+    return flags
 
 
 def library_path(name: str) -> Path:
@@ -60,7 +105,7 @@ def library_path(name: str) -> Path:
     headers = {p.resolve() for d in (src, CSRC) for p in d.glob('*.cuh')}
     for header in sorted(headers, key=lambda p: (p.name, str(p))):
         h.update(header.name.encode() + b'\0' + header.read_bytes())
-    h.update(' '.join(NVCC_FLAGS).encode())
+    h.update(' '.join(NVCC_FLAGS + link_flags(name)).encode())
     return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
 
 
@@ -77,7 +122,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
             continue
         tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
         cmd = [_nvcc(), *NVCC_FLAGS, '-I', str(CSRC), '-o', str(tmp),
-               str(_source_dir(name) / f'{name}.cu')]
+               str(_source_dir(name) / f'{name}.cu'), *link_flags(name)]
         procs.append((name, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []

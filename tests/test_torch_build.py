@@ -53,3 +53,26 @@ def test_probes_build_beside_the_kernels(tmp_path, monkeypatch):
     first = _build.library_path('p')
     (ops / 'shared.cuh').write_text('// chain v2\n')
     assert _build.library_path('p') != first
+
+
+def test_nvjpeg_binding_links_its_library_into_its_name(monkeypatch):
+    """The nvJPEG binding (``data/csrc/jpeg_decode.cu``), registered by
+    the image tier, lives apart from the kernels, links the toolkit's
+    libnvjpeg from the directory it was found in, and that link line is in
+    its library's name; the kernels link nothing."""
+    from pixelrec_multimodal_tpu_torch.data import image_codecs
+    assert image_codecs.JPEG_SOURCE == 'jpeg_decode'
+    assert _build._source_dir('jpeg_decode') == \
+        _build.Path(image_codecs.__file__).resolve().parent / 'csrc'
+    assert 'jpeg_decode' not in _build.all_sources()
+    assert all(_build.link_flags(n) == () for n in _build.all_sources())
+    names = []
+    for d in ('/cuda-a/lib64', '/cuda-b/lib64'):
+        monkeypatch.setattr(_build, 'toolkit_library',
+                            lambda stem, d=d: _build.Path(d) / f'lib{stem}.so')
+        flags = _build.link_flags('jpeg_decode')
+        assert flags[:2] == ('-L', d) and f'-rpath={d}' in flags
+        names.append(_build.library_path('jpeg_decode'))
+    assert names[0] != names[1]
+    monkeypatch.setattr(_build, 'toolkit_library', lambda stem: None)
+    assert _build.link_flags('jpeg_decode') == ('-lnvjpeg',)

@@ -10,7 +10,9 @@ int8 and the attention cascade included, the train steps and a toy
 ``device_tables`` and ``PrefetchLoader`` on a card, the nine frozen
 encoder towers on the card against the CPU, and the unfrozen path: an
 end-to-end train step and the augmentation on the card against the CPU,
-and the profiling module's memory readings.
+the profiling module's memory readings, and nvJPEG (the image tier's
+decoder on the card) against PIL's verdicts, sizes and frames of the
+committed JPEG fixtures.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX:
@@ -40,6 +42,8 @@ from pixelrec_multimodal_tpu_torch.probes import int8_mxu as tmx
 from pixelrec_multimodal_tpu_torch.probes import vpu_roofline as tvr
 from chip_smoke import (
     E2E_AUG_TOL,
+    JPEG_FRAME_MAX_ERR,
+    JPEG_FRAME_MEAN_ERR,
     MAX_DIFFERING_PER_LAYER,
     TOWER_FP32_TOL,
     TOWER_TOL,
@@ -48,6 +52,7 @@ from chip_smoke import (
     WIDE_MAX_DIFFERING,
     augment_card_vs_cpu,
     e2e_card_vs_cpu,
+    jpeg_fixture_check,
     random_attention_head,
     random_attention_rows,
     random_gated_rows,
@@ -1635,3 +1640,31 @@ def test_device_memory_stats_on_card(dev):
         assert sorted(v) == ['bytes_in_use', 'peak_bytes_in_use']
     here = stats[f'cuda:{x.device.index}']
     assert here['peak_bytes_in_use'] >= here['bytes_in_use'] >= x.numel()
+
+
+def test_nvjpeg_matches_pil_on_the_fixtures(dev, tmp_path):
+    """nvJPEG against the committed fixtures' manifest
+    (``chip_smoke.jpeg_fixture_check``; ``tests/data/jpeg``, made by PIL):
+    every verdict (the truncated baseline and progressive files corrupt)
+    and size PIL's, every frame (a photo-sized file's crops) within
+    JPEG_FRAME_MAX_ERR uint8 levels at any pixel and JPEG_FRAME_MEAN_ERR on
+    average (an H100 read at most 5 and 0.97), each frame's inversion
+    outside that gate; the photo-sized files decode on several threads at
+    once. A PNG raises naming A12: nvJPEG decodes JPEG only."""
+    from pixelrec_multimodal_tpu_torch.data.image_codecs import (
+        ImageCodecMissing,
+        NvjpegDecoder,
+    )
+    out = jpeg_fixture_check(dev)
+    assert out['ok'], out
+    assert out['max_abs_err'] <= JPEG_FRAME_MAX_ERR
+    assert out['mean_abs_err'] <= JPEG_FRAME_MEAN_ERR
+    assert out['files']['truncated.jpg']['corrupted']
+    assert out['files']['truncated_progressive.jpg']['corrupted']
+    photos = [n for n in out['files'] if n.startswith('photo_')]
+    assert len(photos) == 3
+    assert all('max_abs_err' in out['files'][n] for n in photos)
+    png = tmp_path / 'x.png'
+    png.write_bytes(b'\x89PNG\r\n\x1a\n' + bytes(64))
+    with pytest.raises(ImageCodecMissing, match='A12'):
+        NvjpegDecoder(dev).corrupted(str(png))

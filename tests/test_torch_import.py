@@ -615,3 +615,55 @@ def test_e2e_path_stands_alone(tmp_path):
     bad = [m for m in loaded if m.split('.')[0] in FORBIDDEN | CARD_ABSENT]
     assert not bad, bad
     assert (tmp_path / 'trace.json').exists()
+
+
+def test_preprocess_path_stands_alone(tmp_path):
+    """A fresh interpreter imports the preprocess entry point, the image
+    processor and the image decoders, and loads none of JAX, the JAX
+    package, pandas, scikit-learn, PIL, PyYAML or transformers; with PIL
+    blocked and ``--device cpu`` the entry point then raises at the image
+    step naming A12, and still loads none of them."""
+    raw = tmp_path / 'raw'
+    (raw / 'images').mkdir(parents=True)
+    (raw / 'item_info.csv').write_text(
+        'item_id,tag,title\n' + ''.join(f'i{j},t{j % 2},<b>T{j}</b>\n'
+                                        for j in range(4)))
+    (raw / 'interactions.csv').write_text(
+        'user_id,item_id,timestamp\n' + ''.join(
+            f'u{u},i{j},{u + j}\n' for u in range(3) for j in range(4)))
+    (tmp_path / 'config.yaml').write_text(f"""\
+data:
+  item_info_path: {raw / 'item_info.csv'}
+  interactions_path: {raw / 'interactions.csv'}
+  image_folder: {raw / 'images'}
+  processed_image_destination_folder: {tmp_path / 'processed' / 'images'}
+""")
+    code = (
+        'import contextlib, io, json, sys\n'
+        'from pixelrec_multimodal_tpu_torch.scripts import preprocess_data\n'
+        'from pixelrec_multimodal_tpu_torch.data.processors import '
+        'image_processor\n'
+        'from pixelrec_multimodal_tpu_torch.data import image_codecs\n'
+        'on_import = sorted(sys.modules)\n'
+        'sys.modules["PIL"] = None\n'
+        'try:\n'
+        '    with contextlib.redirect_stdout(io.StringIO()):\n'
+        '        preprocess_data.main(["--config", '
+        f'{str(tmp_path / "config.yaml")!r}, "--device", "cpu"])\n'
+        'except image_codecs.ImageCodecMissing as e:\n'
+        '    assert "A12" in str(e), e\n'
+        'else:\n'
+        '    raise AssertionError("no decoder, and no raise")\n'
+        'print(json.dumps([on_import, sorted(\n'
+        '    k for k, v in sys.modules.items() if v is not None)]))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    on_import, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert {'pixelrec_multimodal_tpu_torch.scripts.preprocess_data',
+            'pixelrec_multimodal_tpu_torch.data.image_codecs'} <= set(
+        on_import)
+    for modules in (on_import, loaded):
+        bad = [m for m in modules
+               if m.split('.')[0] in FORBIDDEN | CARD_ABSENT]
+        assert not bad, bad
