@@ -33,21 +33,26 @@ generate entry point (bf16 through K1, MMR, int8 through K1q), with the
 checkpoint tools run on the same workspace, then through the evaluate
 entry point (sampled candidates against the port's CPU run, the full
 catalog through K1, int8 through K1q, ranking, the four baselines), then
-searches hyperparameters on the same workspace (the training subsets,
+runs the nine frozen encoder towers on the card against the CPU, makes a
+catalog's language table through the precompute entry point and its
+vision table through ResNet-50, and serves the flagship head on those
+tables through K1, then runs the meshed paths in rank processes that
+share the card (the flagship's top-K through K1 on a 1x1 NCCL mesh and
+2x2 and 1x2 gloo meshes against the single-process K1, the token-0
+cascade through K6, the generate, evaluate and precompute entry points
+across two ranks against their single-process outputs), then searches
+hyperparameters on the cli workspace (the training subsets,
 then five trials of the search entry point from its default seed on the
 5% subset, each trial's best checkpoint served with seen items masked:
 three concat heads through K1, a gated head through K2, an attention
 head through K4, and the concat and gated heads in int8 through K1q and
-K2q), then runs the nine frozen encoder towers on the card against the
-CPU, makes a catalog's language table through the precompute entry point
-and its vision table through ResNet-50, and serves the flagship head on
-those tables through K1, then trains the towers inside the step (the
-unfrozen path at scripts/bench_training.py's geometry: a small model card
-against CPU, the augmentation card against CPU, ResNet-50 and MiniLM-L6 in
-bf16 with remat, without it, augmented and frozen, CLIP with contrastive
-learning) and serves the fine-tuned scorer on the fine-tuned towers'
-tables through K1; it checks what comes out
-against the plain versions and the exact scan, and times the kernels.
+K2q), then preprocesses raw files, then trains the towers inside the
+step (the unfrozen path at scripts/bench_training.py's geometry: a
+small model card against CPU, the augmentation card against CPU,
+ResNet-50 and MiniLM-L6 in bf16 with remat, without it, augmented and
+frozen, CLIP with contrastive learning) and serves the fine-tuned
+scorer on the fine-tuned towers' tables through K1; it checks what comes
+out against the plain versions and the exact scan, and times the kernels.
 Every phase prints one JSON line; any failure raises and exits non-zero. The second-to-last line is the
 ``kernels`` JSON object and the last line is ``{"ok": true, "device":
 {...}}``.
@@ -374,6 +379,20 @@ PREPROCESS_MIN_SIDE, PREPROCESS_EPOCHS = 64, 2
 # build and the hpo phase ran 40 s and 75 s slower than the run before.
 PREPROCESS_ITEMS, PREPROCESS_USERS = N_ITEMS // 4, TRAIN_USERS // 4
 PREPROCESS_COMPARE_ITEMS = 1024
+# The mesh phase: the port's meshed paths (parallel/mesh.py) in MESH_RANKS
+# spawned rank processes that share the machine's one card. NCCL refuses
+# two ranks of one communicator on one device ("Duplicate GPU detected",
+# ncclInvalidUsage, NCCL 2.28.9 on an NVIDIA H100 80GB HBM3 at 700.00 W),
+# so NCCL runs at world size 1, through a forced 1x1 mesh that takes the
+# sharded path, and 4 ranks (2x2) and 2 ranks (1x2) run gloo, whose
+# collectives take the CUDA tensors as they are. Each mesh serves the
+# flagship's top-K at bench.py's geometry, a warm-up and MESH_CALLS timed
+# calls, held against the concat main path's single-process K1 top-K;
+# at 1x2 the token-0 cascade, then the generate and evaluate entry points
+# on the cli workspace and the precompute entry point on the precompute
+# phase's workspace. Ranks that share a card take turns on it: their
+# pairs/s is no scaling figure.
+MESH_RANKS, MESH_CALLS, MESH_TIMEOUT = 4, 3, 900
 
 
 def emit(phase: str, **fields):
@@ -3977,9 +3996,11 @@ def tower_card_vs_cpu(modality: str, key: str, dev,
     return out, card
 
 
-def precompute_phase(smi, dev) -> dict:
-    """The precompute on the card. 1. Each of the nine towers (TOWERS)
-    card against CPU (``tower_card_vs_cpu``), then its items/s on the card
+def precompute_phase(smi, dev, workspace: Optional[Path] = None) -> dict:
+    """The precompute on the card (the entry point's workspace in
+    ``workspace`` where given, kept for the mesh phase). 1. Each of the
+    nine towers (TOWERS) card against CPU (``tower_card_vs_cpu``), then
+    its items/s on the card
     at batch TOWER_RATE_BATCH (median of 3 after a warm-up). 2. A
     PRECOMPUTE_ITEMS workspace (an item file with tags, NUM_FEAT
     numerical columns and descriptions; resnet + sentence-bert, no image
@@ -4044,7 +4065,8 @@ def precompute_phase(smi, dev) -> dict:
 
     n = PRECOMPUTE_ITEMS
     rng = np.random.default_rng(SEED + 31)
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(str(workspace)) if workspace is not None
+          else tempfile.TemporaryDirectory()) as tmp:
         # ---- 2. the entry point: language_emb on the card
         ws = Path(tmp)
         proc, cache = ws / 'processed', ws / 'cache'
@@ -4725,6 +4747,380 @@ def e2e_phase(smi, dev) -> dict:
     return {'launches': launches}
 
 
+def mesh_rank(job: Path, rank: int) -> int:
+    """One rank of the mesh phase (``chip_smoke.py --mesh-rank JOB RANK``),
+    on cuda:0 with the others. Rank 0 first serves the flagship through a
+    1x1 mesh over an NCCL group of one; then all MESH_RANKS ranks join a
+    gloo group and serve it at 2x2; then ranks 0 and 1 join another and
+    serve it at 1x2, run the attention flagship's token-0 cascade, the
+    generate, evaluate and precompute entry points (``--model_parallel 2``,
+    ``--data_parallel 2``), and last try an NCCL group of two on the one
+    card, whose refusal is recorded. Every call counts its launches; the
+    results go to ``JOB/rank<r>.json`` and ``.npz``."""
+    import torch.distributed as dist
+    from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
+    from pixelrec_multimodal_tpu_torch.parallel import make_mesh
+    from pixelrec_multimodal_tpu_torch.scripts import evaluate as ev
+    from pixelrec_multimodal_tpu_torch.scripts import (
+        generate_recommendations as gr,
+    )
+    from pixelrec_multimodal_tpu_torch.scripts import precompute_cache
+
+    spec = json.loads((job / 'job.json').read_text())
+    dev = torch.device('cpu')
+    if spec['device'] == 'cuda':
+        dev = torch.device('cuda', 0)
+        torch.cuda.set_device(dev)
+    users = np.load(job / 'users.npy')
+    out, arrays = {}, {}
+
+    def join(name, backend, world):
+        dist.init_process_group(backend, init_method=f'file://{job / name}',
+                                rank=rank, world_size=world)
+
+    def counted(name, fn, expected=None):
+        """``fn()`` with every launch count set to 0 just before and read
+        just after, and its host seconds."""
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = {'seconds': time.time() - t0,
+                     'launches': launch_counts()}
+        if expected is not None and out[name]['launches'] != expected:
+            raise AssertionError(f'{name} on rank {rank}: launches '
+                                 f'{out[name]["launches"]} != {expected}')
+        return result
+
+    def expected(kernel, scorer, calls):
+        blocks = len(list(scorer._user_blocks(len(users))))
+        per_call = blocks * (scorer.n_local // scorer.item_chunk)
+        return {k: calls * per_call if k == kernel else 0
+                for k in launch_counts()}
+
+    def serve(name, model, store, mesh):
+        t0 = time.time()
+        scorer = CatalogScorer(model, store, mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        setup = time.time() - t0
+        scorer.top_k(users, TOP_K)  # warm-up
+        times = []
+
+        def calls():
+            for _ in range(MESH_CALLS):
+                t = time.time()
+                v, i = scorer.top_k(users, TOP_K)
+                times.append(time.time() - t)
+            return v, i
+        v, i = counted(name, calls, expected('K1', scorer, MESH_CALLS))
+        out[name].update(
+            call_seconds=times, setup_seconds=setup, shape=mesh.shape,
+            backend=dist.get_backend(), n_local=scorer.n_local,
+            block_rows=scorer.block_rows, traffic_bytes=dict(mesh.traffic))
+        arrays[f'{name}_v'], arrays[f'{name}_i'] = v, i
+        del scorer
+        torch.cuda.empty_cache()
+
+    model, store = build_flagship(device=dev)
+    if rank == 0:
+        join('nccl_1', 'nccl' if dev.type == 'cuda' else 'gloo', 1)
+        serve('1x1_nccl', model, store, make_mesh(data_parallel=1,
+                                                   model_parallel=1))
+        dist.destroy_process_group()
+    join('gloo_4', 'gloo', MESH_RANKS)
+    serve('2x2_gloo', model, store, make_mesh(data_parallel=2,
+                                              model_parallel=2))
+    dist.destroy_process_group()
+    if rank < 2:
+        join('gloo_2', 'gloo', 2)
+        mesh = make_mesh(data_parallel=1, model_parallel=2)
+        serve('1x2_gloo', model, store, mesh)
+        del model, store
+        amodel, astore = build_flagship(device=dev, fusion_type='attention')
+        s = CatalogScorer(amodel, astore, mesh=mesh, device=dev)
+        s.top_k_cascade(users, TOP_K, screen='token0')  # warm-up
+        v, i = counted('cascade_token0', lambda: s.top_k_cascade(
+            users, TOP_K, screen='token0'), expected('K6', s, 1))
+        arrays['cascade_token0_v'], arrays['cascade_token0_i'] = v, i
+        del s, amodel, astore
+        torch.cuda.empty_cache()
+        with contextlib.redirect_stdout(sys.stderr):
+            counted('generate', lambda: gr.main(spec['generate']))
+            counted('evaluate', lambda: ev.main(spec['evaluate']))
+            counted('precompute', lambda: precompute_cache.main(
+                spec['precompute']))
+        dist.destroy_process_group()
+        if dev.type == 'cuda':
+            out['nccl_two_ranks_one_card'] = nccl_two_ranks(join, dev)
+    np.savez(job / f'rank{rank}.npz', **arrays)
+    (job / f'rank{rank}.json').write_text(json.dumps(out))
+    return 0
+
+
+def nccl_two_ranks(join, dev) -> str:
+    """Two ranks of one NCCL group on the one card: what NCCL answers."""
+    import torch.distributed as dist
+    join('nccl_2', 'nccl', 2)
+    t = torch.ones(4, device=dev)
+    try:
+        parts = [torch.empty_like(t) for _ in range(2)]
+        dist.all_gather(parts, t)
+        torch.cuda.synchronize()
+        answer = 'accepted'
+    except Exception as e:  # the refusal is the finding, not a fault
+        answer = f'{type(e).__name__}: {e}'
+    dist.destroy_process_group()
+    return answer
+
+
+def mesh_rank_command(job: Path, rank: int) -> list:
+    return [sys.executable, str(Path(__file__).resolve()), '--mesh-rank',
+            str(job), str(rank)]
+
+
+def same_top_k(v, i, ref_v, ref_i) -> dict:
+    """A meshed top-K against the single-process one: bit for bit (the
+    values, and the ids as sets a row), else the overlap of the lists and
+    the largest difference of a shared item's score."""
+    rows = [(set(a.tolist()), dict(zip(b.tolist(), c.tolist())),
+             dict(zip(a.tolist(), d.tolist())))
+            for a, b, c, d in zip(i, ref_i, ref_v, v)]
+    shared = [abs(got[x] - ref[x]) for ids, ref, got in rows
+              for x in ids if x in ref]
+    return {'bit_equal': bool(np.array_equal(v, ref_v) and all(
+                ids == set(ref) for ids, ref, _ in rows)),
+            'overlap': float(np.mean([len(ids & set(ref)) / len(ids)
+                                      for ids, ref, _ in rows])),
+            'shared_max_abs_diff': float(max(shared, default=0.0)),
+            'scale': float(max(1.0, np.abs(ref_v).max()))}
+
+
+def held_or_gated(what: str, check: dict):
+    """Bit for bit, or the overlap and KERNEL_TOL that hold a main path
+    against its plain version (``check_against_plain``)."""
+    if check['bit_equal']:
+        return
+    if check['overlap'] < MIN_OVERLAP or check['shared_max_abs_diff'] > \
+            KERNEL_TOL * check['scale']:
+        raise AssertionError(f'{what}: the meshed lists disagree with the '
+                             f'single-process ones: {check}')
+
+
+def mesh_phase(smi, dev, ws: Path, pre_ws: Path, flagship: dict,
+               cascade: dict) -> dict:
+    """The meshed paths on the one card (``mesh_rank`` in MESH_RANKS
+    spawned processes; any rank's failure fails the phase). The flagship's
+    top-K through a 1x1 NCCL mesh and 2x2 and 1x2 gloo meshes against the
+    concat main path's (``flagship``: users, v, i, median seconds): bit for
+    bit, else by ``check_against_plain`` on a scorer rebuilt here; K1
+    launched on every rank. The token-0 cascade at 1x2 against the
+    single-process one (``cascade``: v, i), K6 launched on both ranks. The
+    generate and evaluate entry points at 1x2 on the cli workspace ``ws``
+    against the recommend and evaluate phases' reports, and the precompute
+    entry point at 2x1 on the precompute workspace ``pre_ws`` against its
+    single-process tables (the towers' card gate). Returns K1's and K6's
+    launches over the ranks."""
+    from pixelrec_multimodal_tpu_torch.ops.pairwise_mlp import (
+        pairwise_scores_plain,
+    )
+    from pixelrec_multimodal_tpu_torch.utils import yaml_io
+
+    t_phase = time.time()
+    users = flagship['users']
+    with tempfile.TemporaryDirectory() as tmp:
+        job = Path(tmp)
+        np.save(job / 'users.npy', users)
+        cfg = str(ws / 'config.yaml')
+        pre_cfg = yaml_io.load_file(pre_ws / 'config.yaml')
+        pre_cfg['data']['cache_config']['cache_directory'] = str(
+            pre_ws / 'cache_mesh')
+        yaml_io.dump_file(pre_cfg, pre_ws / 'config_mesh.yaml')
+        evaluate_args = ['--config', cfg, '--test_data',
+                         str(ws / 'evaluate' / 'test.csv'), '--train_data',
+                         yaml_io.load_file(ws / 'config.yaml')['data'][
+                             'train_data_path'], '--full_catalog']
+        device = ['--device', dev.type]
+        (job / 'job.json').write_text(json.dumps({
+            'device': dev.type,
+            'generate': ['--config', cfg, '--sample_users',
+                         str(RECOMMEND_USERS), '--output',
+                         str(job / 'generate.json'), '--model_parallel',
+                         '2', *device],
+            'evaluate': evaluate_args + [
+                '--output', str(job / 'evaluate.json'), '--save_predictions',
+                str(job / 'evaluate_predictions.json'), '--model_parallel',
+                '2', *device],
+            'precompute': ['--config', str(pre_ws / 'config_mesh.yaml'),
+                           '--data_parallel', '2', *device]}))
+        procs = []
+        try:
+            for r in range(MESH_RANKS):
+                with open(job / f'log{r}.txt', 'w') as rank_log:
+                    procs.append(subprocess.Popen(
+                        mesh_rank_command(job, r), stdout=rank_log,
+                        stderr=subprocess.STDOUT))
+            deadline = time.time() + MESH_TIMEOUT
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        logs = {r: (job / f'log{r}.txt').read_text()[-4000:]
+                for r in range(MESH_RANKS)}
+        if any(p.returncode for p in procs):
+            for r, text in logs.items():
+                log(f'--- mesh rank {r} exited {procs[r].returncode}\n{text}')
+            raise AssertionError(f'mesh: rank exit codes '
+                                 f'{[p.returncode for p in procs]}')
+        outs = [json.loads((job / f'rank{r}.json').read_text())
+                for r in range(MESH_RANKS)]
+        arrays = [dict(np.load(job / f'rank{r}.npz'))
+                  for r in range(MESH_RANKS)]
+        generated = json.loads((job / 'generate.json').read_text())
+        evaluated = (json.loads((job / 'evaluate.json').read_text()),
+                     json.loads((job / 'evaluate_predictions.json')
+                                .read_text()))
+        mesh_npz = pre_ws / 'cache_mesh' / \
+            'vision_resnet_lang_sentence-bert' / 'feature_tables.npz'
+        one_npz = pre_ws / 'cache' / 'vision_resnet_lang_sentence-bert' / \
+            'feature_tables.npz'
+        with np.load(mesh_npz) as a, np.load(one_npz) as b:
+            tables = ({k: a[k] for k in a.files}, {k: b[k] for k in b.files})
+
+    # ---- the flagship's top-K on each mesh
+    k1 = k6 = 0
+    for name, ranks in (('1x1_nccl', [0]), ('2x2_gloo', range(MESH_RANKS)),
+                        ('1x2_gloo', [0, 1])):
+        v, i = arrays[0][f'{name}_v'], arrays[0][f'{name}_i']
+        for r in ranks:
+            if not (np.array_equal(arrays[r][f'{name}_v'], v)
+                    and np.array_equal(arrays[r][f'{name}_i'], i)):
+                raise AssertionError(f'mesh {name}: rank {r} returned '
+                                     'another top-K than rank 0')
+        check = same_top_k(v, i, flagship['v'], flagship['i'])
+        launches = {r: outs[r][name]['launches']['K1'] for r in ranks}
+        k1 += sum(launches.values())
+        median = statistics.median(outs[0][name]['call_seconds'])
+        emit(f'mesh_top_k_{name}', shape=outs[0][name]['shape'],
+             backend=outs[0][name]['backend'], ranks=len(ranks),
+             users=len(users), items=N_ITEMS, k=TOP_K,
+             seconds=outs[0][name]['call_seconds'], median_seconds=median,
+             pairs_per_sec=len(users) * N_ITEMS / median,
+             single_process_pairs_per_sec=len(users) * N_ITEMS
+             / flagship['median'],
+             note='the ranks take turns on one card: no scaling figure',
+             setup_seconds=[outs[r][name]['setup_seconds'] for r in ranks],
+             n_local=outs[0][name]['n_local'],
+             block_rows=outs[0][name]['block_rows'],
+             k1_launches_by_rank=launches,
+             traffic_bytes_rank0=outs[0][name]['traffic_bytes'],
+             vs_single_process_k1=check, nvidia_smi=smi)
+        if not check['bit_equal']:
+            model, store = build_flagship()
+            from pixelrec_multimodal_tpu_torch.inference.scorer import (
+                CatalogScorer,
+            )
+            check_against_plain(CatalogScorer(model, store), 
+                                pairwise_scores_plain, users, v, i,
+                                f'mesh_top_k_{name}_vs_plain')
+            del model, store
+            torch.cuda.empty_cache()
+
+    # ---- the token-0 cascade at 1x2
+    v, i = arrays[0]['cascade_token0_v'], arrays[0]['cascade_token0_i']
+    if not (np.array_equal(arrays[1]['cascade_token0_v'], v)
+            and np.array_equal(arrays[1]['cascade_token0_i'], i)):
+        raise AssertionError('mesh cascade: the ranks disagree')
+    check = same_top_k(v, i, cascade['v'], cascade['i'])
+    launches = {r: outs[r]['cascade_token0']['launches'] for r in (0, 1)}
+    k6 = sum(c['K6'] for c in launches.values())
+    emit('mesh_cascade_token0', shape={'data': 1, 'model': 2},
+         backend='gloo', users=len(users), items=N_ITEMS, k=TOP_K,
+         seconds=outs[0]['cascade_token0']['seconds'],
+         effective_pairs_per_sec=len(users) * N_ITEMS
+         / outs[0]['cascade_token0']['seconds'],
+         note='the ranks take turns on one card: no scaling figure',
+         launches_by_rank=launches, vs_single_process=check,
+         nvidia_smi=smi)
+    held_or_gated('mesh cascade token0', check)
+    if any(c['K6'] == 0 or c['K4'] for c in launches.values()):
+        raise AssertionError(f'mesh cascade: launches {launches}')
+
+    # ---- the generate and evaluate entry points at 1x2
+    ref = json.loads((ws / 'recommend' / 'bf16.json').read_text())
+    gen = [generated['recommendations'], ref['recommendations']]
+    check = report_check(*gen)
+    entry = {r: {n: outs[r][n]['launches']['K1']
+                 for n in ('generate', 'evaluate')} for r in (0, 1)}
+    k1 += sum(sum(e.values()) for e in entry.values())
+    ev_ref = (json.loads((ws / 'evaluate' / 'full_catalog.json')
+                         .read_text()),
+              json.loads((ws / 'evaluate' / 'full_catalog_predictions.json')
+                         .read_text()))
+    ev_check = report_check(
+        {u: [{'item_id': a, 'score': b} for a, b in x]
+         for u, x in evaluated[1].items()},
+        {u: [{'item_id': a, 'score': b} for a, b in x]
+         for u, x in ev_ref[1].items()})
+    metric_diff = max(abs(evaluated[0][k] - v) for k, v in ev_ref[0].items()
+                      if isinstance(v, float))
+    others_equal = all(evaluated[0][k] == v for k, v in ev_ref[0].items()
+                       if not isinstance(v, float))
+    emit('mesh_entry_points', shape={'data': 1, 'model': 2},
+         backend='gloo', generate_seconds=[outs[r]['generate']['seconds']
+                                           for r in (0, 1)],
+         evaluate_seconds=[outs[r]['evaluate']['seconds'] for r in (0, 1)],
+         k1_launches_by_rank=entry, generate_vs_recommend_phase=check,
+         evaluate_vs_evaluate_phase=ev_check,
+         metric_max_abs_diff=metric_diff, metric_tol=EVALUATE_TOL,
+         other_results_equal=others_equal, nvidia_smi=smi)
+    held_or_gated('mesh generate', check)
+    held_or_gated('mesh evaluate', ev_check)
+    if metric_diff > EVALUATE_TOL or not others_equal or any(
+            e['generate'] == 0 or e['evaluate'] == 0
+            for e in entry.values()):
+        raise AssertionError(f'mesh evaluate: metrics {metric_diff}, '
+                             f'launches {entry}')
+
+    # ---- the precompute entry point at 2x1
+    got, ref_tables = tables
+    lang = held_to_tower_tol(got['language_emb'], ref_tables['language_emb'])
+    same = {k: bool(np.array_equal(got[k], ref_tables[k]))
+            for k in ref_tables if k != 'language_emb'}
+    emit('mesh_precompute', shape={'data': 2, 'model': 1}, backend='gloo',
+         items=PRECOMPUTE_ITEMS,
+         seconds=[outs[r]['precompute']['seconds'] for r in (0, 1)],
+         language_emb_vs_single_process=lang, other_tables_equal=same,
+         nvidia_smi=smi)
+    if sorted(got) != sorted(ref_tables) or not lang['ok'] \
+            or not all(same.values()):
+        raise AssertionError(f'mesh precompute: {lang}, {same}')
+    emit('mesh_nccl_two_ranks_one_card',
+         result=[outs[r].get('nccl_two_ranks_one_card') for r in (0, 1)])
+    emit('mesh_phase', seconds=time.time() - t_phase, nvidia_smi=smi)
+    return {'launches': k1, 'launches_k6': k6}
+
+
+def report_check(got: dict, ref: dict) -> dict:
+    """``same_top_k`` of two reports' lists (user -> [{item_id, score}]):
+    the same users; -1-free id arrays by the item ids' order of first
+    appearance."""
+    if list(got) != list(ref):
+        raise AssertionError('mesh: the reports hold other users')
+    ids = {}
+    def arr(rep):
+        i = np.array([[ids.setdefault(e['item_id'], len(ids)) for e in x]
+                      for x in rep.values()])
+        v = np.array([[e['score'] for e in x] for x in rep.values()],
+                     dtype=np.float64)
+        return v, i
+    (v, i), (rv, ri) = arr(got), arr(ref)
+    return same_top_k(v, i, rv, ri)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA device (torch.cuda.is_available() is '
@@ -4825,9 +5221,11 @@ def main() -> int:
              seconds=round(time.time() - t0, 3))
 
     # ---- 4. the concat main path: top_k for 8,192 users over 65,536 items
-    v, i, k1_launches, _ = drive_top_k(scorer, users, 'K1', 'main_path')
+    v, i, k1_launches, k1_median = drive_top_k(scorer, users, 'K1',
+                                               'main_path')
     check_against_plain(scorer, pairwise_scores_plain, users, v, i,
                         'main_path_vs_plain')
+    flagship_top_k = {'users': users, 'v': v, 'i': i, 'median': k1_median}
 
     # ---- 5. K1's time at one flagship-width call
     lines = [kernel_line(
@@ -5258,6 +5656,8 @@ def main() -> int:
             raise AssertionError(f'main_path_cascade_{tier}: output '
                                  f'malformed')
         cascade_launches[kid] = counts[kid]
+        if tier == 'token0':
+            token0_cascade = {'v': v, 'i': i}
         # the rescore alone, on as many candidates per user
         _, cands = stream.top_k(users, n_cand, _screen=(
             'additive' if tier == 'additive' else 'token0'))
@@ -5376,22 +5776,28 @@ def main() -> int:
     # K1; int8 through K1q, ranking and the baselines)
     trainer_rate = statistics.median(
         e['trainer_samples_per_sec'] for e in trained['epochs'])
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            tempfile.TemporaryDirectory() as pre_tmp:
         cli = cli_phase(smi, dev, trainer_rate, workspace=Path(tmp))
         recommended = recommend_phase(smi, dev, Path(tmp))
         evaluated = evaluate_phase(smi, dev, Path(tmp))
-        # ---- 22. hyperparameter search on that workspace: the subsets,
+        # ---- 21b. the encoder towers card against CPU, then the item
+        # tables made on the card (the precompute entry point's
+        # language_emb, ResNet-50's vision_emb) and the flagship head
+        # served on them through K1
+        precomputed = precompute_phase(smi, dev, workspace=Path(pre_tmp))
+        # ---- 21c. the meshed paths in rank processes on the one card: the
+        # flagship's top-K at 1x1 (NCCL), 2x2 and 1x2 (gloo), the token-0
+        # cascade, the generate, evaluate and precompute entry points
+        meshed = mesh_phase(smi, dev, Path(tmp), Path(pre_tmp),
+                            flagship_top_k, token0_cascade)
+        # ---- 22. hyperparameter search on the cli workspace: the subsets,
         # five trials through the search entry point, each trial's best
         # checkpoint served through K1, K2 or K4, and K1q, K2q in int8
         searched = hpo_phase(smi, dev, Path(tmp))
     # ---- 22b. raw files through the preprocess entry point (nvJPEG on the
     # card validates the images), then split, train and serve through K1
     preprocessed = preprocess_phase(smi, dev, trainer_rate)
-    # ---- 23. the encoder towers card against CPU, then the item tables
-    # made on the card (the precompute entry point's language_emb,
-    # ResNet-50's vision_emb) and the flagship head served on them
-    # through K1
-    precomputed = precompute_phase(smi, dev)
     # ---- 24. the unfrozen path: towers trained inside the step (card
     # against CPU, remat, the augmentation, frozen towers, contrastive
     # CLIP), the fine-tuned scorer served through K1
@@ -5402,6 +5808,9 @@ def main() -> int:
     lines[0]['launches_precompute'] = precomputed['launches']
     lines[0]['launches_recommend'] = recommended['launches']
     lines[0]['launches_evaluate'] = evaluated['launches']
+    lines[0]['launches_mesh'] = meshed['launches']
+    next(line for line in lines
+         if line['kernel'] == 'K6')['launches_mesh'] = meshed['launches_k6']
     k1q = next(line for line in lines if line['kernel'] == 'K1q')
     k1q['launches_recommend_int8'] = recommended['launches_int8']
     k1q['launches_evaluate_int8'] = evaluated['launches_int8']
@@ -5422,4 +5831,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--mesh-rank']:
+        sys.exit(mesh_rank(Path(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -20,8 +20,9 @@ writes), ``device_tables``, which puts the tables on the card
 table if asked, and the image tier: raw pixels decoded on demand (an LRU
 bounded cache of normalized frames, misses decoded concurrently on a
 thread pool, as in JAX), which the vision encoders' precompute reads as
-uint8 frames. Decoding needs PIL and raises without it. Sharding the
-tables over several devices raises (ROADMAP item A11).
+uint8 frames. Decoding needs PIL and raises without it. With a mesh,
+``device_tables`` gives each rank its rows of the item axis
+(``shard_items``) or the whole tables.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ import torch
 
 from ..config import MODEL_CONFIGS
 from ..device import resolve_device
+from ..parallel.mesh import item_table_sharding
 from .columns import as_columns, fill_str, n_rows, take
 from .processors.image_processor import ImageProcessor, PREPROCESS_SPECS
 from .processors.numerical_processor import NumericalProcessor
@@ -326,11 +328,13 @@ class ItemFeatureStore:
         the same values, as its first Dense casts the gathered rows to bf16
         anyway. On a CUDA device each table goes through pinned host memory
         and an asynchronous copy on the current stream.
+
+        With a ``mesh`` (``parallel/mesh.py``) and ``shard_items``, each
+        rank gets only its rows of the item axis, split over 'model' (the
+        rows must divide evenly, as JAX's ``device_put`` requires);
+        otherwise every rank gets the whole tables (and without a mesh,
+        ``shard_items`` changes nothing, as in the JAX package).
         """
-        if mesh is not None or shard_items:
-            raise NotImplementedError(
-                'sharding the item tables over several devices is not '
-                'ported yet (ROADMAP item A11)')
         dev = resolve_device(device)
         keys = keys if keys is not None else list(self.tables)
         host = {k: self.tables[k] for k in keys}
@@ -345,6 +349,8 @@ class ItemFeatureStore:
                     axis=1)
         out = {}
         for k, arr in host.items():
+            if shard_items and mesh is not None:
+                arr = arr[item_table_sharding(mesh, arr.shape[0])]
             t = torch.from_numpy(np.ascontiguousarray(arr))
             t = (t.pin_memory().to(dev, non_blocking=True)
                  if dev.type == 'cuda' else t.clone())

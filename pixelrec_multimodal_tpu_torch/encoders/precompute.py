@@ -11,7 +11,9 @@ giving the float32 tables
 
 that training and full-catalog scoring gather from. The host decodes the
 images (the feature store's image tier) and stages the batches; the vision
-forward normalizes the uint8 frames on the device. The forwards run in
+forward normalizes the uint8 frames on the device. With a mesh
+(``parallel/mesh.py``) each data rank stages and runs its share of every
+batch, and the pooled rows are all-gathered in item order. The forwards run in
 float32 with neither the products nor the convolutions in TF32
 (``common.no_tf32``), for their scope only.
 """
@@ -30,6 +32,12 @@ from ..data.processors.image_processor import (
     ImagePreprocessSpec,
 )
 from ..device import resolve_device
+from ..parallel.mesh import (
+    DATA_AXIS,
+    all_gather,
+    batch_sharding,
+    pad_to_multiple,
+)
 from .common import no_tf32, random_init_
 from .convert import load_pretrained_params
 from .registry import (
@@ -49,19 +57,26 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _batched_pooled(apply_fn: Callable, n_items: int, out_dim: int,
                     batch_size: int, make_batch: Callable,
-                    device: torch.device) -> np.ndarray:
+                    device: torch.device, mesh=None) -> np.ndarray:
     """``apply_fn`` over the catalog in static-shape batches (the last one
     padded with item 0), into a float32 [n_items, out_dim] table.
 
     The next batch's host work (``make_batch``: gathering token rows or
     decoding JPEGs, then the copy to ``device``) runs on one worker thread
-    while the device computes the current batch."""
+    while the device computes the current batch. Under a ``mesh`` the
+    batch is padded to a multiple of the 'data' axis, each data rank takes
+    its rows of it, and the pooled rows are all-gathered over 'data'."""
+    if mesh is not None:
+        batch_size = pad_to_multiple(batch_size, mesh.shape[DATA_AXIS])
+
     def staged(start):
         idx = np.arange(start, min(start + batch_size, n_items))
         valid = len(idx)
         if valid < batch_size:
             idx = np.concatenate(
                 [idx, np.zeros(batch_size - valid, dtype=idx.dtype)])
+        if mesh is not None:
+            idx = idx[batch_sharding(mesh, batch_size)]
         return [_to_device(b, device) for b in make_batch(idx)], valid
 
     out = np.zeros((n_items, out_dim), dtype=np.float32)
@@ -74,8 +89,10 @@ def _batched_pooled(apply_fn: Callable, n_items: int, out_dim: int,
             batch, valid = fut.result()
             if i + 1 < len(starts):
                 fut = ex.submit(staged, starts[i + 1])
-            pooled = apply_fn(*batch)
-            out[start:start + valid] = pooled[:valid].float().cpu().numpy()
+            pooled = apply_fn(*batch).float()
+            if mesh is not None:
+                pooled = all_gather(mesh, DATA_AXIS, pooled.contiguous())
+            out[start:start + valid] = pooled[:valid].cpu().numpy()
     return out
 
 
@@ -111,11 +128,12 @@ def vision_pooled_fn(model: nn.Module, spec: ImagePreprocessSpec,
 
 
 def precompute_embedding_tables(store, config, batch_size: int = 64,
-                                device: Union[str, torch.device] = 'cuda'
-                                ) -> List[str]:
+                                device: Union[str, torch.device] = 'cuda',
+                                mesh=None) -> List[str]:
     """Fill a feature store's encoder-embedding tables on ``device``,
-    the towers in float32; returns the names of the tables added.
-    ``store`` is a ``data.feature_store.ItemFeatureStore``."""
+    the towers in float32, each batch split over the ``mesh``'s 'data'
+    axis; returns the names of the tables added. ``store`` is a
+    ``data.feature_store.ItemFeatureStore``."""
     dev = resolve_device(device)
     added: List[str] = []
     n = store.n_items
@@ -129,7 +147,7 @@ def precompute_embedding_tables(store, config, batch_size: int = 64,
             table = _batched_pooled(forward(model) if forward else
                                     model.pooled, n,
                                     pooled_dim(modality, key), batch_size,
-                                    make_batch, dev)
+                                    make_batch, dev, mesh)
         store.set_embedding_table(name, table)
         added.append(name)
         print(f"{name}: {n} items in {time.time() - t0:.1f}s")

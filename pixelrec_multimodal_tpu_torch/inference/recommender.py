@@ -62,8 +62,10 @@ class Recommender:
 
     The JAX package's constructor takes the model's ``variables``; here
     the weights live in ``model`` itself, which ``CatalogScorer`` reads
-    (and moves to ``device``). ``mesh`` is not ported (ROADMAP item A11):
-    anything but None raises. ``cascade_candidates`` (an int C or
+    (and moves to ``device``). ``mesh`` (``parallel/mesh.py:Mesh``) goes
+    to the scorer, which shards the catalog over it; every rank of the
+    mesh then makes the same calls and gets the same lists.
+    ``cascade_candidates`` (an int C or
     ``'auto'``) applies to attention fusion only; ``cascade_recall`` is the
     recall target of ``'auto'`` and lies in (0, 1].
     """
@@ -184,11 +186,8 @@ class Recommender:
         if not all_items:
             return {u: recs[:top_k] for u, recs in ranked.items()}
         all_idx = np.asarray(self.dataset.item_encoder.transform(all_items))
-        with torch.no_grad():
-            feats = self.scorer._item_feats[
-                torch.from_numpy(all_idx.astype(np.int64)).to(
-                    self.scorer._item_feats.device)]
-            emb = feats.float().cpu().numpy().reshape(len(all_idx), -1)
+        feats = self.scorer.item_rows(all_idx)
+        emb = feats.float().cpu().numpy().reshape(len(all_idx), -1)
         emb /= np.linalg.norm(emb, axis=1, keepdims=True) + 1e-12
         row_of = {iid: r for r, iid in enumerate(all_items)}
 

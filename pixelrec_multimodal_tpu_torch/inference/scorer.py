@@ -33,6 +33,18 @@ cascade:
 Blocks and chunks may be ragged: the kernel masks its own edges, so user
 blocks are not padded to size classes (the JAX package pads them to keep
 one compiled shape per class; PyTorch compiles nothing per shape).
+
+With a ``mesh`` (``parallel/mesh.py``) the catalog is sharded over its
+'model' axis and the user rows of a call over its 'data' axis, as the JAX
+package's ``shard_map`` does: each rank builds and holds only its
+``n_pad / model_size`` rows of every item table and scans them with global
+ids, the k candidates of each shard merge through one all-gather over
+'model' (``ops/topk.py:gather_topk``), and the rows over 'data' are
+all-gathered, so every rank returns the whole result. Candidates that may
+lie on any shard (``score_candidates``, the cascade's rescore) are scored
+by the rank that holds them, the others writing NEG_INF, and merged by one
+max all-reduce over 'model' of the [users, candidates] scores: the traffic
+scales with the candidates, not the catalog.
 """
 from __future__ import annotations
 
@@ -85,8 +97,16 @@ from ..ops.pairwise_mlp import (
     pairwise_scores_gated_factored,
     quantize_head,
 )
-from ..ops.topk import NEG_INF, init_topk, merge_topk
-from ..parallel.mesh import pad_to_multiple
+from ..ops.topk import NEG_INF, gather_topk, init_topk, merge_topk
+from ..parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    agree_max,
+    all_gather,
+    all_reduce,
+    batch_sharding,
+    pad_to_multiple,
+)
 
 # (item_chunk, user_chunk) by device type. CUDA: the fastest pair of
 # scripts/torch_chunk_sweep.py on the H100 (PERF.md, "Layers"); the sweep
@@ -138,9 +158,15 @@ class CatalogScorer:
 
     ``fast_path=False`` scores through the model's own layers
     (``score_from_towers``) instead of the factorized head and kernel.
-    ``mesh`` is not ported yet. The model is moved to ``device`` and put in
-    eval mode. Every call runs its float32 products with TF32 off
-    (``_exact_f32``).
+    ``mesh`` (``parallel/mesh.py:Mesh``) shards the catalog over its
+    'model' axis and the users of a call over 'data' (module docstring);
+    every rank of the mesh makes the same calls in the same order, and
+    each returns the whole result. Under a mesh ``n_pad`` is a multiple of
+    ``item_chunk`` x the model axis, and the gated variant is
+    ``'exact'`` (``'factored'`` raises), as in the JAX package; the
+    precision, the kernel and its block are those of one device. The model
+    is moved to ``device`` and put in eval mode. Every call runs its
+    float32 products with TF32 off (``_exact_f32``).
 
     ``precision``: ``'bf16'``, or opt-in int8 scoring of a concatenate or
     gated fast path (``'int8'`` or ``'int8!'``; anything else, an attention
@@ -197,10 +223,10 @@ class CatalogScorer:
                  gated_variant: Optional[str] = None,
                  attention_variant: Optional[str] = None,
                  device: Union[str, torch.device] = 'cuda'):
-        if mesh is not None:
-            raise NotImplementedError(
-                'catalog sharding over several devices is not ported yet '
-                '(ROADMAP item A11)')
+        if mesh is not None and gated_variant == 'factored':
+            raise ValueError("gated_variant='factored' is not served under "
+                             "a mesh: the meshed gated path is 'exact', as "
+                             "the JAX package's")
         if precision not in ('bf16', 'int8', 'int8!'):
             raise ValueError(f"precision must be 'bf16', 'int8' or "
                              f"'int8!' (force), got {precision!r}")
@@ -214,10 +240,18 @@ class CatalogScorer:
         self.model = model.to(self.device).eval()
         self.store = feature_store
         self.n_items = feature_store.n_items
+        self.mesh = mesh
+        self._model_size = mesh.shape[MODEL_AXIS] if mesh is not None else 1
+        self._data_size = mesh.shape[DATA_AXIS] if mesh is not None else 1
         default_items, default_users = DEFAULT_CHUNKS[self.device.type]
         item_chunk = item_chunk or default_items
         self.item_chunk = min(item_chunk, pad_to_multiple(self.n_items, 128))
-        self.n_pad = pad_to_multiple(self.n_items, self.item_chunk)
+        self.n_pad = pad_to_multiple(self.n_items,
+                                     self.item_chunk * self._model_size)
+        # This rank's rows of the catalog: [_base, _base + n_local).
+        self.n_local = self.n_pad // self._model_size
+        self._base = (mesh.index(MODEL_AXIS) * self.n_local
+                      if mesh is not None else 0)
         self.user_chunk = user_chunk or default_users
         if model.fusion_type == 'attention' and not fast_path:
             self.user_chunk = min(self.user_chunk, 64)
@@ -254,7 +288,7 @@ class CatalogScorer:
                     if self.attention_variant else check_pair_kernel_fits(
                         head, self.gated_variant, self.precision == 'int8'))
 
-            self._item_feats = self._build_item_tower()  # [n_pad, M, D]
+            self._item_feats = self._build_item_tower()  # [n_local, M, D]
             # ``_item_fast`` is the tuple of per-item tables (concat:
             # (item_first,); gated: (item_first, item_gates)); attention:
             # the d-wide tables); ``_scan_tables`` the tuple the kernel
@@ -337,11 +371,12 @@ class CatalogScorer:
         if head['fusion'] == 'gated':
             ranges = calibrate_head_ranges_gated(
                 head, compute_user_side_gated(head, user_emb),
-                tuple(t[cal_items] for t in self._item_fast))
+                tuple(self._global_rows(t, cal_items)
+                      for t in self._item_fast))
         else:
             ranges = calibrate_head_ranges(
                 head, compute_user_first(head, user_emb),
-                self._item_fast[0][cal_items])
+                self._global_rows(self._item_fast[0], cal_items))
         quantize_head(head, ranges)
 
     def _check_factored_budget(self):
@@ -360,14 +395,74 @@ class CatalogScorer:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _global_rows(self, table: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+        """Rows ``idx`` (global item positions) of an item table; under a
+        mesh each rank holds only its rows, so the owner gives each row and
+        the others zeros, summed over 'model' (exact: x + 0 = x)."""
+        if self.mesh is None:
+            return table[idx]
+        own = (idx >= self._base) & (idx < self._base + self.n_local)
+        rows = table[torch.where(own, idx - self._base, 0)]
+        rows = rows.masked_fill(
+            ~own.view((-1,) + (1,) * (rows.dim() - 1)), 0)
+        return all_reduce(self.mesh, MODEL_AXIS, rows.contiguous(), 'sum')
+
+    def item_rows(self, idx: np.ndarray) -> torch.Tensor:
+        """The item tower's rows [len(idx), M, D] of global item positions
+        ``idx`` (the representations MMR compares), on every rank."""
+        with torch.no_grad():
+            return self._global_rows(self._item_feats,
+                                     self._tensor(idx.astype(np.int64)))
+
+    def _owned_scores(self, score: Callable, cands: torch.Tensor
+                      ) -> torch.Tensor:
+        """[b, C] scores of global candidate positions ``cands`` (>= 0),
+        ``score`` taking local positions. Under a mesh the rank that holds
+        a candidate scores it and the others write NEG_INF; one max
+        all-reduce over 'model' of the [b, C] scores merges them."""
+        if self.mesh is None:
+            return score(cands)
+        own = (cands >= self._base) & (cands < self._base + self.n_local)
+        v = score(torch.where(own, cands - self._base, 0))
+        v = v.float().masked_fill(~own, NEG_INF).contiguous()
+        return all_reduce(self.mesh, MODEL_AXIS, v, 'max')
+
+    def _user_blocks(self, n: int):
+        """(start, size, rows) of each block of ``user_chunk`` of ``n``
+        users: ``rows`` are the positions this rank scores. Under a mesh
+        the block is padded to a multiple of the 'data' axis (-1: padding,
+        scored as the block's first user, as the JAX package pads) and
+        each data coordinate takes its share."""
+        for s in range(0, n, self.user_chunk):
+            B = min(self.user_chunk, n - s)
+            rows = np.arange(s, s + B)
+            if self.mesh is not None:
+                Bp = pad_to_multiple(B, self._data_size)
+                rows = np.concatenate([rows, np.full(Bp - B, -1)])
+                rows = rows[batch_sharding(self.mesh, Bp)]
+            yield s, B, rows
+
+    def _users_of(self, user_indices: np.ndarray, s: int,
+                  rows: np.ndarray) -> torch.Tensor:
+        return self._tensor(user_indices[np.where(rows >= 0, rows, s)]
+                            .astype(np.int64))
+
+    def _whole_block(self, t: torch.Tensor, B: int) -> np.ndarray:
+        """This rank's rows of a user block, all-gathered over 'data' into
+        the block's B rows, on the host."""
+        if self.mesh is not None:
+            t = all_gather(self.mesh, DATA_AXIS, t, dim=0)
+        return t[:B].cpu().numpy()
+
     # ------------------------------------------------------------- item tower
     def _build_item_tower(self) -> torch.Tensor:
-        """Item tower over the padded catalog. Rows past n_items are built
-        from item 0, tag 0 and zero features, as in the JAX scorer; a
-        missing feature table gives zero features."""
+        """Item tower over this rank's rows of the padded catalog. Rows
+        past n_items are built from item 0, tag 0 and zero features, as in
+        the JAX scorer; a missing feature table gives zero features."""
         t = self.store.tables
-        n, n_pad = self.n_items, self.n_pad
-        chunk = min(self._TOWER_BUILD_CHUNK, n_pad)
+        n, lo, hi = self.n_items, self._base, self._base + self.n_local
+        chunk = min(self._TOWER_BUILD_CHUNK, hi - lo)
         names = [('vision_features', 'vision_emb',
                   self.model.vision_feature_dim),
                  ('language_features', 'language_emb',
@@ -375,8 +470,8 @@ class CatalogScorer:
                  ('numerical_features', 'numerical',
                   self.model.num_numerical_features)]
         parts = []
-        for start in range(0, n_pad, chunk):
-            rows = min(chunk, n_pad - start)
+        for start in range(lo, hi, chunk):
+            rows = min(chunk, hi - start)
             live = max(0, min(start + rows, n) - start)
 
             def padded(arr, dtype):
@@ -400,19 +495,19 @@ class CatalogScorer:
     def _build_item_fast(self, compute: Callable,
                          sources: Optional[Sequence[torch.Tensor]] = None
                          ) -> Tuple[torch.Tensor, ...]:
-        """Apply a per-item table compute over the padded catalog in
-        chunks written into preallocated tables, so the transient memory is
-        one chunk's temporaries. ``compute`` takes a chunk of each of
-        ``sources`` (default: the item tower)."""
+        """Apply a per-item table compute over this rank's rows of the
+        padded catalog in chunks written into preallocated tables, so the
+        transient memory is one chunk's temporaries. ``compute`` takes a
+        chunk of each of ``sources`` (default: the item tower)."""
         sources = (self._item_feats,) if sources is None else tuple(sources)
-        n_pad = self.n_pad
-        chunk = min(self._TOWER_BUILD_CHUNK, n_pad)
+        n_rows = sources[0].shape[0]
+        chunk = min(self._TOWER_BUILD_CHUNK, n_rows)
         first = compute(*(t[:chunk] for t in sources))
-        outs = tuple(torch.empty((n_pad,) + f.shape[1:], dtype=f.dtype,
+        outs = tuple(torch.empty((n_rows,) + f.shape[1:], dtype=f.dtype,
                                  device=self.device) for f in first)
         for o, f in zip(outs, first):
             o[:chunk] = f
-        for start in range(chunk, n_pad, chunk):
+        for start in range(chunk, n_rows, chunk):
             for o, p in zip(outs, compute(
                     *(t[start:start + chunk] for t in sources))):
                 o[start:start + chunk] = p
@@ -433,17 +528,32 @@ class CatalogScorer:
     def _generic_topk_body(self, user_idx: torch.Tensor,
                            invalid_mask: torch.Tensor, k: int
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Streaming exact top-k through the model; invalid_mask [B, n_pad]
-        (True = seen or padding) is excluded."""
+        """Streaming exact top-k through the model over this rank's rows;
+        invalid_mask [B, n_local] (True = seen or padding) is excluded."""
         B, C = user_idx.shape[0], self.item_chunk
         carry = init_topk(B, k, self.device)
-        for off in range(0, self.n_pad, C):
+        for off in range(0, self.n_local, C):
             s = self._score_block(self._item_feats[off:off + C], user_idx)
             s = s.masked_fill(invalid_mask[:, off:off + C], NEG_INF)
-            idx = torch.arange(off, off + C, dtype=torch.int32,
+            g = self._base + off
+            idx = torch.arange(g, g + C, dtype=torch.int32,
                                device=self.device).expand(B, C)
             carry = merge_topk(*carry, s, idx, k)
         return carry
+
+    def _invalid_rows(self, seen_mask: Optional[np.ndarray],
+                      rows: np.ndarray) -> np.ndarray:
+        """[len(rows), n_local] bool over this rank's catalog rows: True
+        for padding items and the seen items of each user row (none for
+        a padding row, -1)."""
+        lo, hi = self._base, self._base + self.n_local
+        invalid = np.broadcast_to(self._pad_mask[lo:hi],
+                                  (len(rows), self.n_local)).copy()
+        if seen_mask is not None:
+            cols = seen_mask[np.maximum(rows, 0), lo:min(hi, self.n_items)]
+            cols[rows < 0] = False
+            invalid[:, :cols.shape[1]] |= cols
+        return invalid
 
     # ------------------------------------------------------ fast (factorized)
     def _fast_user_side(self, user_idx: torch.Tensor
@@ -483,10 +593,12 @@ class CatalogScorer:
                         seen_items: torch.Tensor, k: int,
                         screen: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Streaming exact top-k over the catalog through the fused kernel.
+        """Streaming exact top-k over this rank's rows of the catalog
+        through the fused kernel, with global ids.
 
-        seen_items: [B, H] per-user excluded item positions padded with -1
-        (a compact form of the seen mask: no dense [B, n_pad] transfer).
+        seen_items: [B, H] per-user excluded global item positions padded
+        with -1 (a compact form of the seen mask: no dense [B, n_pad]
+        transfer).
         ``screen`` scores through a cascade screen instead (its tables
         built): ``'token0'`` scans (k, vo, tail) through K6, ``'additive'``
         the additive item table through K1 against the user rows, computed
@@ -515,27 +627,30 @@ class CatalogScorer:
         rows = torch.arange(B, device=self.device)[:, None].expand(
             seen_items.shape)
         carry = init_topk(B, k, self.device)
-        for off in range(0, self.n_pad, C):
+        for off in range(0, self.n_local, C):
+            g = self._base + off  # the chunk's first global id
             s = score(tuple(a[off:off + C] for a in tables))
-            if off + C > self.n_items:  # catalog padding
-                s[:, max(0, self.n_items - off):] = NEG_INF
+            if g + C > self.n_items:  # catalog padding
+                s[:, max(0, self.n_items - g):] = NEG_INF
             if seen_items.shape[1] > 0:
-                local = seen_items.long() - off
+                local = seen_items.long() - g
                 hit = (local >= 0) & (local < C)
                 s[rows[hit], local[hit]] = NEG_INF
-            idx = torch.arange(off, off + C, dtype=torch.int32,
+            idx = torch.arange(g, g + C, dtype=torch.int32,
                                device=self.device).expand(B, C)
             carry = merge_topk(*carry, s, idx, k)
         return carry
 
-    def _seen_items(self, seen_mask: Optional[np.ndarray], start: int,
-                    B: int) -> torch.Tensor:
-        """The compact seen lists of users [start, start + B) on the
-        device: [B, H] item positions padded with -1 (H = 0 without a
-        mask)."""
+    def _seen_items(self, seen_mask: Optional[np.ndarray],
+                    rows: np.ndarray) -> torch.Tensor:
+        """The compact seen lists of the users at ``rows`` of the request
+        on the device: [len(rows), H] item positions padded with -1 (H = 0
+        without a mask; no item for a padding row, -1)."""
+        B = len(rows)
         seen = np.zeros((B, 0), dtype=np.int32)
         if seen_mask is not None:
-            lists = [np.flatnonzero(r) for r in seen_mask[start:start + B]]
+            lists = [np.flatnonzero(seen_mask[r]) if r >= 0
+                     else np.zeros(0, np.int64) for r in rows]
             seen = np.full((B, max(map(len, lists), default=0)), -1,
                            dtype=np.int32)
             for bi, r in enumerate(lists):
@@ -574,50 +689,49 @@ class CatalogScorer:
             self._ensure_screen(_screen)
         out_v, out_i = [], []
         with _exact_f32():
-            for s in range(0, len(user_indices), self.user_chunk):
-                users = user_indices[s:s + self.user_chunk]
-                B = len(users)
-                users_t = self._tensor(users.astype(np.int64))
+            for s, B, rows in self._user_blocks(len(user_indices)):
+                users_t = self._users_of(user_indices, s, rows)
                 if self._head is not None:
                     v, i = self._fast_topk_body(
-                        users_t, self._seen_items(seen_mask, s, B), k,
+                        users_t, self._seen_items(seen_mask, rows), k,
                         _screen)
                 else:
-                    invalid = np.broadcast_to(self._pad_mask,
-                                              (B, self.n_pad)).copy()
-                    if seen_mask is not None:
-                        invalid[:, :self.n_items] |= \
-                            seen_mask[s:s + self.user_chunk]
                     v, i = self._generic_topk_body(
-                        users_t, self._tensor(invalid), k)
-                v, i = v.cpu().numpy(), i.cpu().numpy()
+                        users_t, self._tensor(self._invalid_rows(seen_mask,
+                                                                 rows)), k)
+                if self.mesh is not None:
+                    v, i = gather_topk(v, i, k, self.mesh)
+                v, i = self._whole_block(v, B), self._whole_block(i, B)
                 i[v <= float(NEG_INF) / 2] = -1
                 out_v.append(v)
                 out_i.append(i)
         return np.concatenate(out_v), np.concatenate(out_i)
 
     def score_full(self, user_indices: np.ndarray) -> np.ndarray:
-        """Dense [B, n_items] score matrix (ranking eval / analysis)."""
+        """Dense [B, n_items] score matrix (ranking eval / analysis). Under
+        a mesh each rank scores its catalog columns for its users, and the
+        matrix is all-gathered over 'model', then over 'data'."""
         user_indices = np.asarray(user_indices, np.int32)
         C = self.item_chunk
-        rows = []
+        out = []
         with _exact_f32():
-            for s in range(0, len(user_indices), self.user_chunk):
-                users_t = self._tensor(
-                    user_indices[s:s + self.user_chunk].astype(np.int64))
+            for s, B, rows in self._user_blocks(len(user_indices)):
+                users_t = self._users_of(user_indices, s, rows)
                 if self._head is not None:
                     user_side = self._fast_user_side(users_t)
                     parts = [self._fast_pair_scores(
                         user_side, tuple(a[off:off + C]
                                          for a in self._scan_tables))
-                        for off in range(0, self.n_pad, C)]
+                        for off in range(0, self.n_local, C)]
                 else:
                     parts = [self._score_block(self._item_feats[off:off + C],
                                                users_t)
-                             for off in range(0, self.n_pad, C)]
-                rows.append(torch.cat(parts, dim=1)[:, :self.n_items]
-                            .cpu().numpy())
-        return np.concatenate(rows)
+                             for off in range(0, self.n_local, C)]
+                dense = torch.cat(parts, dim=1)
+                if self.mesh is not None:
+                    dense = all_gather(self.mesh, MODEL_AXIS, dense, dim=1)
+                out.append(self._whole_block(dense, B)[:, :self.n_items])
+        return np.concatenate(out)
 
     def score_candidates(self, user_indices: np.ndarray,
                          candidate_idx: np.ndarray,
@@ -634,46 +748,51 @@ class CatalogScorer:
         Attention gathers its per-item tables and scores them in float32
         (``ops/attention_cascade.py:attention_candidate_scores``), in user
         sub-blocks of at most ``_CANDIDATE_BLOCK_BYTES`` of gathered rows.
+        Under a mesh each candidate is scored by the rank that holds it
+        (``_owned_scores``).
         """
         user_indices = np.asarray(user_indices, np.int32)
         candidate_idx = np.asarray(candidate_idx, np.int32)
         out = []
         with _exact_f32():
-            for s in range(0, len(user_indices), self.user_chunk):
-                users_t = self._tensor(
-                    user_indices[s:s + self.user_chunk].astype(np.int64))
-                cands = self._tensor(
-                    candidate_idx[s:s + self.user_chunk].astype(np.int64))
-                if self._head is not None:
-                    user_emb = self.model.user_tower(users_t)
-                    if self._head['fusion'] == 'attention':
-                        v = self._attention_candidates(user_emb, cands)
-                    elif self._head['fusion'] == 'concatenate':
-                        v = candidate_scores(
-                            self._head,
-                            compute_user_first(self._head, user_emb),
-                            self._item_fast[0][cands])
-                    else:
-                        v = candidate_scores_gated(
-                            self._head,
-                            compute_user_side_gated(self._head, user_emb),
-                            self._item_fast[0][cands],
-                            self._item_fast[1][cands])
-                else:
-                    B, C = cands.shape
-                    user_emb = self.model.user_tower(users_t)
-                    ue = user_emb[:, None, :].expand(B, C, user_emb.shape[-1])
-                    feats = self._item_feats[cands]  # [B, C, M, D]
-                    v = self.model.score_from_towers(
-                        ue.reshape(B * C, -1),
-                        feats.reshape((B * C,) + tuple(feats.shape[2:]))
-                    ).reshape(B, C)
-                v = v.cpu().numpy()
+            for s, B, rows in self._user_blocks(len(user_indices)):
+                users_t = self._users_of(user_indices, s, rows)
+                cands = self._tensor(candidate_idx[
+                    np.where(rows >= 0, rows, s)].astype(np.int64))
+                user_emb = self.model.user_tower(users_t)
+                score = self._candidate_fn(user_emb)
+                v = self._whole_block(self._owned_scores(score, cands), B)
                 if candidate_mask is not None:
-                    v = np.where(candidate_mask[s:s + self.user_chunk], v,
-                                 float(NEG_INF))
+                    v = np.where(candidate_mask[s:s + B], v, float(NEG_INF))
                 out.append(v)
         return np.concatenate(out)
+
+    def _candidate_fn(self, user_emb: torch.Tensor) -> Callable:
+        """The [b, C] scores of local candidate positions for users with
+        tower rows ``user_emb``: the fused head's float32 chain on the
+        gathered first-layer rows, attention's exact math on the gathered
+        tables, or the model's own layers on the gathered item tower."""
+        head = self._head
+        if head is not None and head['fusion'] == 'attention':
+            return partial(self._attention_candidates, user_emb)
+        if head is not None and head['fusion'] == 'concatenate':
+            user_first = compute_user_first(head, user_emb)
+            return lambda c: candidate_scores(head, user_first,
+                                              self._item_fast[0][c])
+        if head is not None:
+            side = compute_user_side_gated(head, user_emb)
+            return lambda c: candidate_scores_gated(
+                head, side, self._item_fast[0][c], self._item_fast[1][c])
+
+        def generic(c):
+            B, C = c.shape
+            ue = user_emb[:, None, :].expand(B, C, user_emb.shape[-1])
+            feats = self._item_feats[c]  # [B, C, M, D]
+            return self.model.score_from_towers(
+                ue.reshape(B * C, -1),
+                feats.reshape((B * C,) + tuple(feats.shape[2:]))
+            ).reshape(B, C)
+        return generic
 
     def _gathered_blocks(self, score: Callable, user_emb: torch.Tensor,
                          cands: torch.Tensor,
@@ -778,21 +897,62 @@ class CatalogScorer:
         scores = self._attention_candidates(user_emb, si2.long().clamp(min=0))
         return self._final_topk(scores.masked_fill(si2 < 0, NEG_INF), si2, k)
 
-    def _screen_candidate_blocks(self, user_indices: np.ndarray,
-                                 cand_idx: np.ndarray) -> np.ndarray:
-        """Token-0 screen scores of per-user candidate lists in user blocks
+    def _candidate_blocks(self, score_of: Callable, user_indices: np.ndarray,
+                          cand_idx: np.ndarray) -> np.ndarray:
+        """Scores of per-user candidate lists in user blocks, ``score_of``
+        (the user tower rows, local candidate positions) -> [b, C]
         (invalid ids < 0 are scored at item 0; callers mask them)."""
         out = []
         with _exact_f32():
-            for s in range(0, len(user_indices), self.user_chunk):
-                users_t = self._tensor(
-                    user_indices[s:s + self.user_chunk].astype(np.int64))
+            for s, B, rows in self._user_blocks(len(user_indices)):
+                users_t = self._users_of(user_indices, s, rows)
                 cands = self._tensor(np.clip(
-                    cand_idx[s:s + self.user_chunk], 0, None).astype(
+                    cand_idx[np.where(rows >= 0, rows, s)], 0, None).astype(
                         np.int64))
-                out.append(self._screen_candidates(
-                    self.model.user_tower(users_t), cands).cpu().numpy())
+                user_emb = self.model.user_tower(users_t)
+                out.append(self._whole_block(self._owned_scores(
+                    partial(score_of, user_emb), cands), B))
         return np.concatenate(out)
+
+    def _screen_candidate_blocks(self, user_indices: np.ndarray,
+                                 cand_idx: np.ndarray) -> np.ndarray:
+        """Token-0 screen scores of per-user candidate lists."""
+        return self._candidate_blocks(self._screen_candidates, user_indices,
+                                      cand_idx)
+
+    def _meshed_cascade(self, user_indices: np.ndarray, k: int,
+                        n_candidates: int, seen_mask: Optional[np.ndarray],
+                        screen: str, funnel_c1: int
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """The cascade under a mesh, in stages as the JAX package's: the
+        sharded screen scan with its merge at C (the funnel: the additive
+        scan at C1, then the token-0 screen on the survivors and a host
+        top-C2), then the rescore on the sharded tables and a host top-k
+        (stable: ties keep the screen's order)."""
+        if screen == 'funnel':
+            _, si = self.top_k(user_indices, funnel_c1, seen_mask,
+                               _screen='additive')
+            s2 = self._screen_candidate_blocks(user_indices, si)
+            s2 = np.where(si < 0, float(NEG_INF), s2)
+            pos2 = np.argsort(-s2, kind='stable', axis=1)[:, :n_candidates]
+            v2 = np.take_along_axis(s2, pos2, axis=1)
+            si = np.take_along_axis(si, pos2, axis=1)
+            si[v2 <= float(NEG_INF) / 2] = -1
+        else:
+            _, si = self.top_k(user_indices, n_candidates, seen_mask,
+                               _screen=screen)
+        scores = self._candidate_blocks(self._attention_candidates,
+                                        user_indices, si)
+        scores = np.where(si < 0, float(NEG_INF), scores).astype(np.float32)
+        if si.shape[1] < k:  # tiny catalogs: pad to k
+            pad = ((0, 0), (0, k - si.shape[1]))
+            scores = np.pad(scores, pad, constant_values=float(NEG_INF))
+            si = np.pad(si, pad, constant_values=-1)
+        pos = np.argsort(-scores, kind='stable', axis=1)[:, :k]
+        v = np.take_along_axis(scores, pos, axis=1)
+        i = np.take_along_axis(si, pos, axis=1)
+        i[v <= float(NEG_INF) / 2] = -1
+        return v, i
 
     def top_k_cascade(self, user_indices: np.ndarray, k: int,
                       n_candidates: Optional[int] = None,
@@ -839,12 +999,16 @@ class CatalogScorer:
             if funnel_c1 is None:
                 funnel_c1 = max(8 * n_candidates, 4096)
             funnel_c1 = min(max(funnel_c1, n_candidates), self.n_items)
+        if self.mesh is not None:
+            return self._meshed_cascade(user_indices, k, n_candidates,
+                                        seen_mask, screen, funnel_c1)
         out_v, out_i = [], []
         with _exact_f32():
             for s in range(0, len(user_indices), self.user_chunk):
                 users = user_indices[s:s + self.user_chunk]
                 users_t = self._tensor(users.astype(np.int64))
-                seen = self._seen_items(seen_mask, s, len(users))
+                seen = self._seen_items(seen_mask,
+                                        np.arange(s, s + len(users)))
                 if screen == 'funnel':
                     v, i = self._funnel_block(users_t, seen, k, funnel_c1,
                                               n_candidates)
@@ -1026,11 +1190,13 @@ class CatalogScorer:
                           'c1': c1s, 'calibrated_c': c2,
                           'calibrated_c1': c1, 'recall': rec})
         # The speed gate: both calls return numpy, so the host clock waits
-        # for the card.
+        # for the card. Under a mesh every rank takes the slowest rank's
+        # times, so that all install the same plan.
         self.top_k(sample, k, seen_mask=sample_mask, _exact=True)
         t0 = time.perf_counter()
         self.top_k(sample, k, seen_mask=sample_mask, _exact=True)
-        t_exact = report['exact_seconds'] = time.perf_counter() - t0
+        t_exact = report['exact_seconds'] = self._agreed(
+            time.perf_counter() - t0)
         report['plans'] = plans
         for p in plans:
             kw = dict(n_candidates=p['n_candidates'], screen=p['screen'],
@@ -1040,7 +1206,8 @@ class CatalogScorer:
             t0 = time.perf_counter()
             self.top_k_cascade(sample, k, **kw)
             p['measured_speedup'] = round(
-                t_exact / max(time.perf_counter() - t0, 1e-9), 3)
+                t_exact / max(self._agreed(time.perf_counter() - t0), 1e-9),
+                3)
         best = max(plans, key=lambda p: p['measured_speedup'])
         if best['measured_speedup'] < min_speedup:
             print(f"auto_cascade: screen={best['screen']} "
@@ -1060,6 +1227,12 @@ class CatalogScorer:
               f"{best['measured_speedup']:.2f}x the exact scan); top_k now "
               f'routes through the cascade.', file=sys.stderr)
         return dict(self._cascade_plan)
+
+    def _agreed(self, seconds: float) -> float:
+        """The slowest rank's ``seconds`` under a mesh (else ``seconds``)."""
+        if self.mesh is None:
+            return seconds
+        return agree_max(self.mesh, seconds, self.device)
 
     def disable_cascade(self) -> None:
         """Drop an installed ``auto_cascade`` plan: ``top_k`` returns to the

@@ -15,11 +15,16 @@ It rebuilds the dataset from a training run's artifacts (``load_dataset``,
 which the generate entry point calls too), builds the learned recommender
 from the port's checkpoint (``state.pt``) or one of the four baselines
 (``create_recommender``), and evaluates on the CUDA device unless
-``--device cpu`` is given; it raises without a card, on any other device,
-and for ``--data_parallel`` or ``--model_parallel`` above 1 (ROADMAP item
-A11). ``--full_catalog`` ranks every test user over the whole catalog
+``--device cpu`` is given; it raises without a card and on any other
+device. ``--full_catalog`` ranks every test user over the whole catalog
 through the scorer's top-K (kernel K1 for a concatenate head on the card,
 K1q under ``--precision int8``).
+
+Over several devices it runs as the generate entry point does (``torchrun
+--nproc_per_node N -m pixelrec_multimodal_tpu_torch.scripts.evaluate ...
+--model_parallel M``, one rank a card): the learned recommender's scorer
+shards the catalog over the mesh, every rank evaluates, rank 0 alone
+prints and writes the results, and all ranks pass a closing barrier.
 
 Also the helpers the generate entry point imports from here, as the JAX
 script does: checkpoint and encoder discovery and the ``--cascade``
@@ -40,6 +45,13 @@ from ..data.processors import NumericalProcessor
 from ..evaluation.tasks import create_evaluator, get_task_from_string
 from ..inference import Recommender
 from ..models.multimodal import build_model
+from ..parallel import (
+    barrier,
+    init_distributed,
+    is_main_rank,
+    main_rank_stdout,
+    mesh_from_flags,
+)
 from ..utils.checkpointing import (
     STATE_FILE,
     find_checkpoint,
@@ -48,7 +60,7 @@ from ..utils.checkpointing import (
     normalize_checkpoint_name,
 )
 from ..utils.logging import dump_json
-from .train import check_single_device, setup_device
+from .train import setup_device
 
 
 def _refuse_orbax(path: Path):
@@ -288,11 +300,11 @@ def main(cli_args: Optional[List[str]] = None) -> Dict[str, Any]:
                         default='best_model.pth',
                         help='Name of checkpoint file to load')
     parser.add_argument('--data_parallel', type=int, default=None,
-                        help='Devices over the users; above 1 raises '
-                             '(ROADMAP item A11)')
+                        help='Mesh data-axis size (default: all ranks / '
+                             'model_parallel)')
     parser.add_argument('--model_parallel', type=int, default=1,
-                        help='Devices over the item tables; above 1 '
-                             'raises (ROADMAP item A11)')
+                        help='Mesh model-axis size: shards the catalog '
+                             '(item tables) across ranks')
     parser.add_argument('--precision', type=str, default='bf16',
                         choices=['bf16', 'int8', 'int8!'],
                         help='Scoring precision for the multimodal '
@@ -302,8 +314,18 @@ def main(cli_args: Optional[List[str]] = None) -> Dict[str, Any]:
                              'Scores are approximate.')
     args = parser.parse_args(cli_args)
 
-    check_single_device(args.data_parallel, args.model_parallel)
-    device = setup_device(args.device)
+    device = init_distributed(args.device)
+    mesh = mesh_from_flags(args.data_parallel, args.model_parallel)
+    with main_rank_stdout():
+        results = _evaluate(args, setup_device(device), mesh)
+    barrier(mesh)
+    return results
+
+
+def _evaluate(args, device, mesh) -> Dict[str, Any]:
+    """The results of ``main``'s arguments, written on rank 0."""
+    if mesh is not None:
+        print(f"Device mesh: {mesh.shape}")
     config = Config.from_yaml(args.config)
 
     print(f"Loading test data from: {args.test_data}")
@@ -316,8 +338,9 @@ def main(cli_args: Optional[List[str]] = None) -> Dict[str, Any]:
     dataset = load_dataset(config)
     recommender = create_recommender(
         args.recommender_type, config, dataset, train_data,
-        checkpoint_name=args.checkpoint_name, precision=args.precision,
-        cascade=args.cascade, cascade_screen=args.cascade_screen,
+        checkpoint_name=args.checkpoint_name, mesh=mesh,
+        precision=args.precision, cascade=args.cascade,
+        cascade_screen=args.cascade_screen,
         cascade_recall=args.cascade_recall, cascade_c1=args.cascade_c1,
         device=device)
 
@@ -334,7 +357,7 @@ def main(cli_args: Optional[List[str]] = None) -> Dict[str, Any]:
     evaluator.print_summary(results)
 
     predictions = results.pop('predictions', None)
-    if args.save_predictions and predictions is not None:
+    if args.save_predictions and predictions is not None and is_main_rank():
         dump_json(predictions, args.save_predictions)
         print(f"Predictions saved to {args.save_predictions}")
 
@@ -351,7 +374,8 @@ def main(cli_args: Optional[List[str]] = None) -> Dict[str, Any]:
         'test_data': args.test_data,
         'config': args.config,
     }
-    dump_json(results, output_path)
+    if is_main_rank():
+        dump_json(results, output_path)
     print(f"Results saved to {output_path}")
     return results
 

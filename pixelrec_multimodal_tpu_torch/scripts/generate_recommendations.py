@@ -11,9 +11,21 @@ users (the list, else the file, else a seeded sample, else the first
 five), the same JSON report. It loads the processed CSV files, the
 scaler, the encoders the port's train script pickled and the port's
 checkpoint (``state.pt``), and serves on the CUDA device unless
-``--device cpu`` is given; it raises without a card, on any other device,
-and for ``--data_parallel`` or ``--model_parallel`` above 1 (ROADMAP item
-A11).
+``--device cpu`` is given; it raises without a card and on any other
+device.
+
+Over several devices, one rank a card (``parallel/mesh.py``):
+
+    torchrun --nproc_per_node N -m \
+        pixelrec_multimodal_tpu_torch.scripts.generate_recommendations \
+        --config X.yaml --device cuda --model_parallel M
+
+``--data_parallel``/``--model_parallel`` build the (data, model) mesh as
+the JAX script does (``mesh_from_flags``: every rank on the data axis
+unless given); the ranks start NCCL on ``cuda`` and gloo on ``cpu``. The
+scorer shards the catalog over 'model' and the users over 'data'; every
+rank computes, rank 0 alone prints and writes the report, and all ranks
+pass a closing barrier.
 
 Where the config enables the feature cache, the precomputed item tables
 (``feature_tables.npz``, written by the train script's datasets or by
@@ -31,9 +43,16 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..config import Config
+from ..parallel import (
+    barrier,
+    init_distributed,
+    is_main_rank,
+    main_rank_stdout,
+    mesh_from_flags,
+)
 from ..utils.logging import dump_json
 from .evaluate import cascade_arg, create_recommender, load_dataset
-from .train import check_single_device, setup_device
+from .train import setup_device
 
 
 def load_model_and_data(config: Config, checkpoint_name: str = 'best_model',
@@ -95,11 +114,11 @@ def main(cli_args: Optional[List[str]] = None) -> Dict[str, Any]:
     parser.add_argument('--checkpoint_name', type=str, default='best_model',
                         help='Checkpoint to load.')
     parser.add_argument('--data_parallel', type=int, default=None,
-                        help='Devices over the users; above 1 raises '
-                             '(ROADMAP item A11)')
+                        help='Mesh data-axis size (default: all ranks / '
+                             'model_parallel)')
     parser.add_argument('--model_parallel', type=int, default=1,
-                        help='Devices over the item tables; above 1 '
-                             'raises (ROADMAP item A11)')
+                        help='Mesh model-axis size: shards the catalog '
+                             '(item tables) across ranks')
     parser.add_argument('--precision', type=str, default='bf16',
                         choices=['bf16', 'int8', 'int8!'],
                         help='Scoring precision. int8 quantizes the fused '
@@ -138,12 +157,21 @@ def main(cli_args: Optional[List[str]] = None) -> Dict[str, Any]:
         parser.error(f"--diversity_weight must be in [0, 1], "
                      f"got {args.diversity_weight}")
 
-    check_single_device(args.data_parallel, args.model_parallel)
-    device = setup_device(args.device)
+    device = init_distributed(args.device)
+    mesh = mesh_from_flags(args.data_parallel, args.model_parallel)
+    with main_rank_stdout():
+        output = _generate(args, setup_device(device), mesh)
+    barrier(mesh)
+    return output
 
+
+def _generate(args, device, mesh) -> Dict[str, Any]:
+    """The report of ``main``'s arguments, written on rank 0."""
+    if mesh is not None:
+        print(f"Device mesh: {mesh.shape}")
     config = Config.from_yaml(args.config)
     recommender, dataset = load_model_and_data(
-        config, args.checkpoint_name, precision=args.precision,
+        config, args.checkpoint_name, mesh=mesh, precision=args.precision,
         cascade=args.cascade, cascade_screen=args.cascade_screen,
         cascade_recall=args.cascade_recall, cascade_c1=args.cascade_c1,
         device=device)
@@ -182,7 +210,8 @@ def main(cli_args: Optional[List[str]] = None) -> Dict[str, Any]:
     }
     out_path = Path(config.results_dir) / args.output \
         if not Path(args.output).is_absolute() else Path(args.output)
-    dump_json(output, out_path)
+    if is_main_rank():
+        dump_json(output, out_path)
     print(f"Recommendations saved to {out_path}")
     return output
 

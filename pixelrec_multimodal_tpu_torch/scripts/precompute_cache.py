@@ -13,10 +13,16 @@ sub-directory (``ItemFeatureStore.save``). The vision table needs the
 config's image folder and an image decoder (PIL).
 
 It takes the JAX script's flags. Where it differs: ``--device`` defaults
-to ``cuda`` and any device but ``cuda`` or ``cpu`` raises;
-``--data_parallel`` or ``--model_parallel`` above 1 raises (ROADMAP item
-A11); and a failed encoder forward raises, where the JAX script prints a
-warning and saves the input tables alone.
+to ``cuda`` and any device but ``cuda`` or ``cpu`` raises; and a failed
+encoder forward raises, where the JAX script prints a warning and saves
+the input tables alone.
+
+Over several devices (``torchrun --nproc_per_node N -m
+pixelrec_multimodal_tpu_torch.scripts.precompute_cache ...
+--data_parallel N``, one rank a card), each data rank runs its share of
+every encoder batch and the pooled rows are all-gathered in item order;
+rank 0 alone prints and saves the store, and all ranks pass a closing
+barrier.
 """
 from __future__ import annotations
 
@@ -31,15 +37,23 @@ from ..data.columns import n_rows, read_csv, take
 from ..data.dataset import MultimodalDataset
 from ..data.processors import NumericalProcessor
 from ..encoders.precompute import precompute_embedding_tables
-from .train import check_single_device, setup_device
+from ..parallel import (
+    barrier,
+    init_distributed,
+    is_main_rank,
+    main_rank_stdout,
+    mesh_from_flags,
+)
+from .train import setup_device
 
 
 def precompute_features_cache(config: Config, force_recompute: bool = False,
                               max_items: int = None,
                               skip_encoders: bool = False,
-                              device: str = 'cuda'):
-    """Pack the feature tables and the encoder embedding tables; returns
-    the ``ItemFeatureStore``."""
+                              device: str = 'cuda', mesh=None):
+    """Pack the feature tables and the encoder embedding tables (the
+    forwards' batches split over the ``mesh``'s 'data' axis); returns the
+    ``ItemFeatureStore``, saved by rank 0."""
     start = time.time()
     item_info = read_csv(config.data.processed_item_info_path)
     if max_items:
@@ -86,12 +100,14 @@ def precompute_features_cache(config: Config, force_recompute: bool = False,
     if not skip_encoders and (config.model.vision_model
                               or config.model.language_model):
         t0 = time.time()
-        added = precompute_embedding_tables(store, config, device=device)
+        added = precompute_embedding_tables(store, config, device=device,
+                                            mesh=mesh)
         if added:
             print(f"Computed embedding tables {added} in "
                   f"{time.time() - t0:.1f}s")
 
-    store.save(cache_dir)
+    if is_main_rank():
+        store.save(cache_dir)
     rate = store.n_items / max(time.time() - start, 1e-9)
     print(f"Done: {store.n_items} items in {time.time() - start:.1f}s "
           f"({rate:,.0f} items/sec)")
@@ -112,24 +128,29 @@ def main(cli_args=None):
     parser.add_argument('--skip_encoders', action='store_true',
                         help='Pack input tables only; skip encoder forwards.')
     parser.add_argument('--data_parallel', type=int, default=None,
-                        help='Devices for the forwards; above 1 raises '
-                             '(ROADMAP item A11)')
+                        help='Mesh data-axis size for the batched encoder '
+                             'forwards (default: all ranks)')
     parser.add_argument('--model_parallel', type=int, default=1,
-                        help='Model-axis size; above 1 raises (ROADMAP item '
-                             'A11)')
+                        help='Mesh model-axis size')
     parser.add_argument('--device', type=str, default='cuda',
                         help="Torch device: 'cuda' (the default) or 'cpu'")
     args = parser.parse_args(cli_args)
     if args.device.split(':')[0] not in ('cuda', 'cpu'):
         raise ValueError(f"--device must be 'cuda' or 'cpu', got "
                          f"{args.device!r}")
-    check_single_device(args.data_parallel, args.model_parallel)
-    device = setup_device(args.device)
-    config = Config.from_yaml(args.config)
-    return precompute_features_cache(
-        config, force_recompute=args.force_recompute,
-        max_items=args.max_items, skip_encoders=args.skip_encoders,
-        device=device)
+    device = init_distributed(args.device)
+    mesh = mesh_from_flags(args.data_parallel, args.model_parallel)
+    with main_rank_stdout():
+        device = setup_device(device)
+        if mesh is not None:
+            print(f"Device mesh: {mesh.shape}")
+        config = Config.from_yaml(args.config)
+        store = precompute_features_cache(
+            config, force_recompute=args.force_recompute,
+            max_items=args.max_items, skip_encoders=args.skip_encoders,
+            device=device, mesh=mesh)
+    barrier(mesh)
+    return store
 
 
 if __name__ == '__main__':

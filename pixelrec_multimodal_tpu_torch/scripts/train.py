@@ -11,7 +11,7 @@ and tag encoders in the shared encoders directory,
 ``training_run_config_validated.yaml``). It trains on the CUDA device
 unless ``--device cpu`` is given, and raises without a card; any other
 device raises, and so does ``--data_parallel`` or ``--model_parallel``
-above 1 (training over several devices is ROADMAP item A11).
+above 1 (training over several devices is ROADMAP item A11b).
 
 ``--resume`` restores the checkpoint's weights, optimizer and scheduler
 state before training (the JAX script's trainer keeps them aside and
@@ -69,7 +69,7 @@ def check_single_device(data_parallel: Optional[int], model_parallel: int):
         raise NotImplementedError(
             f'data_parallel={data_parallel}, model_parallel={model_parallel}:'
             ' training over several devices is not ported yet (ROADMAP '
-            'item A11)')
+            'item A11b)')
 
 
 def run_training(config: Config, args: argparse.Namespace) -> Dict[str, Any]:
@@ -402,10 +402,10 @@ def main(cli_args: Optional[List[str]] = None):
                         help='Enable verbose output')
     parser.add_argument('--data_parallel', type=int, default=None,
                         help='Devices over the batch; above 1 raises '
-                             '(ROADMAP item A11)')
+                             '(ROADMAP item A11b)')
     parser.add_argument('--model_parallel', type=int, default=1,
                         help='Devices over the item tables; above 1 '
-                             'raises (ROADMAP item A11)')
+                             'raises (ROADMAP item A11b)')
     args = parser.parse_args(cli_args)
 
     print_progress_header(1, "Loading Configuration")

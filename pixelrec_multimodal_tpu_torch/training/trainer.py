@@ -104,7 +104,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 'data-parallel training over several devices is not ported '
-                'yet (ROADMAP item A11)')
+                'yet (ROADMAP item A11b)')
         self.model = model
         self.config = config
         self.mesh = mesh

@@ -61,14 +61,19 @@ def randomize_batchnorm(variables, seed=3):
 
 
 def make_pair(n_items, activation='relu', final='sigmoid', seed=0,
-              use_batch_norm=True, fusion_type='concatenate', heads=4):
+              use_batch_norm=True, fusion_type='concatenate', heads=4,
+              jit=False):
     """(jax_model, numpy variables, torch_model on the CPU) with equal
-    weights; ``heads`` is the attention model's head count."""
+    weights; ``heads`` is the attention model's head count. ``jit``
+    compiles the initialization (faster than running it op by op; the
+    draws may differ from the eager ones in the last bits)."""
     kw = model_kwargs(n_items, activation, final, use_batch_norm,
                       fusion_type, heads)
     jmodel = JaxRecommender(**kw)
     B = 4
-    variables = jmodel.init(
+    init = (jax.jit(jmodel.init, static_argnames='train') if jit
+            else jmodel.init)
+    variables = init(
         {'params': jax.random.PRNGKey(seed)}, jnp.zeros(B, jnp.int32),
         jnp.zeros(B, jnp.int32), jnp.zeros(B, jnp.int32),
         vision_features=jnp.zeros((B, VISION)),

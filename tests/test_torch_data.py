@@ -293,8 +293,9 @@ def test_unported_tiers_raise(stores, tmp_path):
     """The image tier against JAX's on the same JPEGs: the same uint8
     frames and normalized pixels (zeros for a missing and for an
     undecodable file), the same LRU statistics after each of the same
-    calls; sharded tables still name A11, and an item's features without
-    its image still work."""
+    calls; the tables shard over a mesh (one process: a 1x1 mesh, the
+    whole tables), and an item's features without its image still
+    work."""
     js, ts = stores
     write_jpegs(tmp_path, ts.item_ids, (0, 1, 2, 3, 5))
     (tmp_path / f'{ts.item_ids[6]}.jpg').write_bytes(b'not a jpeg')
@@ -318,8 +319,11 @@ def test_unported_tiers_raise(stores, tmp_path):
     assert not frames[1:].any()
     stats = timg.get_stats()
     assert stats['memory_items'] == 3 and stats['hits'] >= 2
-    with pytest.raises(NotImplementedError, match='A11'):
-        ts.device_tables(device='cpu', mesh=object())
+    from pixelrec_multimodal_tpu_torch.parallel import make_mesh
+    sharded = ts.device_tables(device='cpu', mesh=make_mesh(),
+                               shard_items=True)
+    for k, v in ts.tables.items():
+        np.testing.assert_array_equal(sharded[k].numpy(), v)
     assert 'tag_idx' in ts.item_features(0, include_image=False)
 
 

@@ -10,7 +10,9 @@ same relative paths (the split's test file, ``--train_data`` its train
 file, ``--save_predictions``), so the results JSON must match: every
 metric within 1e-6 and ``evaluation_metadata`` equal. The predictions
 hold the same items per user (value sets: tie order may differ) with
-scores within 1e-5, and the baselines' to the bit.
+scores within 1e-5, and the baselines' to the bit. Over two gloo ranks
+(``torchrun`` with ``--model_parallel 2``) the port's results equal its
+one-process results and JAX's on a 1x2 mesh of its forced CPU devices.
 """
 import json
 import shutil
@@ -29,6 +31,7 @@ from pixelrec_multimodal_tpu_torch.scripts import create_splits as tsplits
 from pixelrec_multimodal_tpu_torch.scripts import evaluate as tevaluate
 from pixelrec_multimodal_tpu_torch.scripts import train as ttrain
 from pixelrec_multimodal_tpu_torch.utils import checkpointing
+from tests._torch_mesh import Torchrun
 from tests._torch_port import (
     load_jax_script,
     make_workspace,
@@ -82,16 +85,18 @@ def ws(tmp_path_factory):
     return SimpleNamespace(base=base, jeval=load_jax_script('evaluate'))
 
 
-def evaluate_both(ws, monkeypatch, *args):
-    """Both entry points from their own workspace on the same flags: (the
-    port's results and predictions as written, JAX's)."""
+def evaluate_both(ws, monkeypatch, *args, jax_args=()):
+    """Both entry points from their own workspace on the same flags (JAX's
+    with ``jax_args`` after them): (the port's results and predictions as
+    written, JAX's)."""
     out = {}
-    for side, main in (('jax', ws.jeval.main), ('torch', tevaluate.main)):
+    for side, main, extra in (('jax', ws.jeval.main, jax_args),
+                              ('torch', tevaluate.main, ())):
         monkeypatch.chdir(ws.base / side)
         returned = quiet(main, [
             '--config', 'config.yaml', '--device', 'cpu', '--test_data',
             str(SPLIT / 'test.csv'), '--output', 'eval.json',
-            '--save_predictions', 'preds.json', *args])
+            '--save_predictions', 'preds.json', *args, *extra])
         written = json.loads((ws.base / side / 'results' / 'eval.json')
                              .read_text())
         assert written == json.loads(json.dumps(returned))
@@ -139,6 +144,41 @@ def test_multimodal_matches_jax(ws, monkeypatch, args):
         assert results['avg_personalization'] > 0
 
 
+RANKED = {'sampled': [], 'full_catalog': ['--full_catalog']}
+
+
+@pytest.fixture(scope='module')
+def ranked(ws):
+    """The evaluate entry point under ``torchrun`` (two gloo ranks,
+    ``--model_parallel 2``) for each of RANKED, all started at once."""
+    return {name: Torchrun('evaluate', [
+        '--config', 'config.yaml', '--device', 'cpu', '--test_data',
+        SPLIT / 'test.csv', '--output', f'eval_mesh_{name}.json',
+        '--save_predictions', f'preds_mesh_{name}.json',
+        '--model_parallel', '2', *args], ws.base / 'torch')
+        for name, args in RANKED.items()}
+
+
+@pytest.mark.parametrize('name', list(RANKED))
+def test_evaluate_over_two_ranks(ws, ranked, monkeypatch, name):
+    """``torchrun`` with two gloo ranks and ``--model_parallel 2``: rank 0
+    alone prints and writes results and predictions equal to the
+    one-process run's, which equal JAX's on its own 1x2 mesh (sampled
+    candidates: each scored by the rank that holds it)."""
+    args = RANKED[name]
+    got, ref = evaluate_both(ws, monkeypatch, *args, jax_args=[
+        '--data_parallel', '1', '--model_parallel', '2'])
+    assert_same_results(got, ref)
+    out = ranked[name].wait()
+    assert out.count('Results saved to') == 1
+    torch_ws = ws.base / 'torch'
+    mesh = (json.loads((torch_ws / 'results' / f'eval_mesh_{name}.json')
+                       .read_text()),
+            json.loads((torch_ws / f'preds_mesh_{name}.json').read_text()))
+    assert_same_results(mesh, got)
+    assert_same_results(mesh, ref)
+
+
 @pytest.mark.parametrize('kind', ['random', 'popularity', 'item_knn',
                                   'user_knn'])
 def test_baselines_match_jax(ws, monkeypatch, kind):
@@ -162,14 +202,15 @@ def test_absolute_output_path(ws, monkeypatch, tmp_path):
 
 def test_evaluate_refusals(ws, monkeypatch, tmp_path):
     """Without a card the default device raises; a device other than cuda
-    or cpu raises; more than one device raises, naming A11; a JAX-package
-    checkpoint (an Orbax state/ directory) raises."""
+    or cpu raises; a mesh past the one process raises JAX's message; a
+    JAX-package checkpoint (an Orbax state/ directory) raises."""
     monkeypatch.chdir(ws.base / 'torch')
     cfg = ['--config', 'config.yaml', '--test_data', str(SPLIT / 'test.csv')]
     with pytest.raises((ValueError, RuntimeError)):
         quiet(tevaluate.main, [*cfg, '--device', 'tpu'])
     for flag in (['--model_parallel', '2'], ['--data_parallel', '2']):
-        with pytest.raises(NotImplementedError, match='A11'):
+        with pytest.raises(ValueError,
+                           match=r'mesh but only 1 device\(s\) visible'):
             quiet(tevaluate.main, [*cfg, '--device', 'cpu', *flag])
     jax_cfg = yaml.safe_load((ws.base / 'torch' / 'config.yaml').read_text())
     jax_cfg['checkpoint_dir'] = str(ws.base / 'jax' / 'models' /

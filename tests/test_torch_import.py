@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,19 +32,22 @@ def port_modules():
 
 def port_sources():
     """The package and everything that runs on the machine with the card,
-    which has no JAX."""
+    which has no JAX, or as the port's gloo ranks on the CPU."""
     return sorted(Path(port.__path__[0]).rglob('*.py')) + [
         ROOT / 'chip_smoke.py', ROOT / 'tests' / 'test_torch_cuda.py',
-        ROOT / 'tests' / '_torch_smem.py',
+        ROOT / 'tests' / '_torch_smem.py', ROOT / 'tests' / '_torch_mesh.py',
         *sorted((ROOT / 'scripts').glob('torch_*.py'))]
 
 
 def test_import_leaves_jax_out():
     """A fresh interpreter imports every port module (and chip_smoke's
-    helpers) without loading JAX, Flax or the JAX package."""
+    helpers) without loading JAX, Flax or the JAX package, and without
+    starting a process group."""
     code = (
         'import importlib, json, sys\n'
         f'for m in {port_modules()!r}: importlib.import_module(m)\n'
+        'import torch.distributed as dist\n'
+        'assert not dist.is_initialized()\n'
         'print(json.dumps(sorted(sys.modules)))\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, check=True,
@@ -52,6 +56,7 @@ def test_import_leaves_jax_out():
     bad = [m for m in loaded if m.split('.')[0] in FORBIDDEN]
     assert not bad, bad
     assert 'pixelrec_multimodal_tpu_torch.inference.scorer' in loaded
+    assert 'pixelrec_multimodal_tpu_torch.parallel.mesh' in loaded
     # the Hopper probes P1-P3 stand alone too
     assert {'pixelrec_multimodal_tpu_torch.probes.int8_mxu',
             'pixelrec_multimodal_tpu_torch.probes.vpu_roofline'} <= set(loaded)
@@ -135,7 +140,8 @@ def test_probe_sources_are_checked():
             'common.py', 'text_models.py', 'resnet.py', 'clip.py',
             'dinov2.py', 'convnext.py', 'registry.py', 'convert.py',
             'precompute.py', 'image_processor.py', 'flax_convert.py',
-            'precompute_cache.py'} <= names
+            'precompute_cache.py', 'mesh.py', 'topk.py',
+            '_torch_mesh.py'} <= names
 
 
 @pytest.mark.parametrize('path', port_sources(), ids=lambda p: p.name)
@@ -241,8 +247,13 @@ def test_unported_options_raise():
         CatalogScorer(model, store, device='cpu', precision='int8!')
     with pytest.raises(ValueError, match='precision'):
         CatalogScorer(model, store, device='cpu', precision='int4')
-    with pytest.raises(NotImplementedError, match='A11'):
-        CatalogScorer(model, store, device='cpu', mesh=object())
+    # a mesh is ported: one process is a 1x1 mesh, served as without one
+    from pixelrec_multimodal_tpu_torch.parallel import make_mesh
+    meshed = CatalogScorer(model, store, device='cpu', mesh=make_mesh())
+    for a, b in zip(meshed.top_k([0, 1, 2], 4),
+                    CatalogScorer(model, store, device='cpu').top_k(
+                        [0, 1, 2], 4)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_cli_path_stands_alone(tmp_path):

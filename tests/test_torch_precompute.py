@@ -169,14 +169,16 @@ def test_entry_point_matches_jax_script(tmp_path, monkeypatch,
 
 
 def test_entry_point_refusals(tmp_path, monkeypatch):
-    """Another device, a mesh and a failed forward raise; without a card
-    the default device raises; nothing is written."""
+    """Another device, a mesh past the one process (JAX's message) and
+    a failed forward raise; without a card the default device raises;
+    nothing is written."""
     cfg = make_workspace(tmp_path)
     base = ['--config', str(cfg), '--max_items', '4']
     with pytest.raises(ValueError, match='cuda'):
         quiet(precompute_cache.main, base + ['--device', 'tpu'])
     for flag in ('--data_parallel', '--model_parallel'):
-        with pytest.raises(NotImplementedError, match='A11'):
+        with pytest.raises(ValueError,
+                           match=r'mesh but only 1 device\(s\) visible'):
             quiet(precompute_cache.main, base + [flag, '2', '--device',
                                                  'cpu'])
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)

@@ -9,7 +9,9 @@ written into the port's checkpoints (``port_state_of``), so both
 its own workspace with the config given as ``config.yaml``, so the JSON
 reports must match in every key but ``generated_at``: item lists as value
 sets, scores to 1e-5 (int8 codes: at most 1% of the pairs past 1e-5,
-none past 1e-2, as ``tests/test_torch_int8.py``).
+none past 1e-2, as ``tests/test_torch_int8.py``). Over two gloo ranks
+(``torchrun`` with ``--model_parallel 2``) the port's report equals its
+one-process report and JAX's on a 1x2 mesh of its forced CPU devices.
 
 The checkpoint manager runs on twin trees (``state.pt`` against an Orbax
 ``state/`` directory of the same bytes) with equal outputs apart from
@@ -49,6 +51,7 @@ from pixelrec_multimodal_tpu_torch.scripts.evaluate import (
     load_precomputed_tables,
 )
 from pixelrec_multimodal_tpu_torch.utils import checkpointing
+from tests._torch_mesh import Torchrun
 from tests._torch_port import (
     load_jax_script,
     make_workspace,
@@ -217,16 +220,49 @@ def test_generate_recommends_no_seen_item(ws, monkeypatch):
     assert rec.scorer.device.type == 'cpu'
 
 
+RANKED = {'top_k': ['--sample_users', '8'],
+          'mmr': ['--use_diversity', '--sample_users', '6']}
+
+
+@pytest.fixture(scope='module')
+def ranked(ws):
+    """The generate entry point under ``torchrun`` (two gloo ranks,
+    ``--model_parallel 2``) for each of RANKED, all started at once."""
+    return {name: Torchrun('generate_recommendations', [
+        '--config', 'config.yaml', '--device', 'cpu', '--model_parallel',
+        '2', '--output', f'recs_mesh_{name}.json', *args], ws.base / 'torch')
+        for name, args in RANKED.items()}
+
+
+@pytest.mark.parametrize('name', list(RANKED))
+def test_generate_over_two_ranks(ws, ranked, monkeypatch, name):
+    """``torchrun`` with two gloo ranks and ``--model_parallel 2``: rank 0
+    alone prints and writes a report equal to the one-process report, which
+    equals JAX's on its own 1x2 mesh."""
+    args = RANKED[name]
+    got, ref = generate_both(ws, monkeypatch, *args, jax_args=[
+        *args, '--data_parallel', '1', '--model_parallel', '2'])
+    assert_same_report(got, ref)
+    out = ranked[name].wait()
+    assert out.count('Recommendations saved to') == 1
+    assert "Device mesh: {'data': 1, 'model': 2}" in out
+    mesh = json.loads((ws.base / 'torch' / 'results' /
+                       f'recs_mesh_{name}.json').read_text())
+    assert_same_report(mesh, got)
+    assert_same_report(mesh, ref)
+
+
 def test_generate_refusals(ws, monkeypatch):
     """Without a card the default device raises; a device other than
-    cuda or cpu raises; more than one device raises, naming A11; a
-    diversity weight out of [0, 1] is a usage error."""
+    cuda or cpu raises; a mesh past the one process raises JAX's message;
+    a diversity weight out of [0, 1] is a usage error."""
     monkeypatch.chdir(ws.base / 'torch')
     cfg = ['--config', 'config.yaml', '--users', '0']
     with pytest.raises((ValueError, RuntimeError)):
         quiet(tgen.main, [*cfg, '--device', 'tpu'])
     for flag in (['--model_parallel', '2'], ['--data_parallel', '2']):
-        with pytest.raises(NotImplementedError, match='A11'):
+        with pytest.raises(ValueError,
+                           match=r'mesh but only 1 device\(s\) visible'):
             quiet(tgen.main, [*cfg, '--device', 'cpu', *flag])
     with pytest.raises(SystemExit):
         with contextlib.redirect_stderr(io.StringIO()):

@@ -219,7 +219,9 @@ def stub_recommender(cls, pools, feats):
     rec = cls.__new__(cls)
     rec.dataset = SimpleNamespace(item_encoder=LabelEncoder().fit(ITEM_IDS),
                                   n_items=N_ITEMS)
-    rec.scorer = SimpleNamespace(_item_feats=feats)
+    rec.scorer = SimpleNamespace(
+        _item_feats=feats,
+        item_rows=lambda idx: torch.from_numpy(np.asarray(feats)[idx]))
     rec._user_classes = set(pools)
     rec.get_recommendations_batch = \
         lambda user_ids, top_k, filter_seen: {u: pools[u] for u in user_ids}
@@ -423,8 +425,8 @@ def test_auto_cascade_installs_a_plan_and_routes(monkeypatch):
 
 def test_cascade_arguments_set_and_refused():
     """The constructor maps an int C and 'auto' to the settings the
-    routing reads; a cascade on a non-attention model, a recall outside
-    (0, 1] and a mesh raise."""
+    routing reads; a cascade on a non-attention model and a recall outside
+    (0, 1] raise; a 1x1 mesh serves the lists of no mesh."""
     _, _, amodel, _, adata = models('attention', N_ATT)
     rec = Recommender(amodel, adata, cascade_candidates='auto',
                       cascade_recall=0.5, device='cpu')
@@ -445,8 +447,12 @@ def test_cascade_arguments_set_and_refused():
     for recall in (0.0, 1.5):
         with pytest.raises(ValueError, match='cascade_recall'):
             Recommender(tmodel, data, cascade_recall=recall, device='cpu')
-    with pytest.raises(NotImplementedError, match='A11'):
-        Recommender(tmodel, data, mesh=object(), device='cpu')
+    # a mesh is ported: one process is a 1x1 mesh, served as without one
+    from pixelrec_multimodal_tpu_torch.parallel import make_mesh
+    users = USER_IDS[:5]
+    meshed = Recommender(tmodel, data, mesh=make_mesh(), device='cpu')
+    assert meshed.get_recommendations_batch(users, K) == Recommender(
+        tmodel, data, device='cpu').get_recommendations_batch(users, K)
 
 
 # ------------------------------------------------------------- cache API
