@@ -70,6 +70,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional, Tuple
@@ -372,12 +373,14 @@ PREPROCESS_SHARES = {None: 1 / 64, 'truncated.jpg': 1 / 128,
                      'truncated_progressive.jpg': 1 / 128,
                      'small_16.jpg': 1 / 128, 'baseline_420.jpg': 1 / 128}
 PREPROCESS_MIN_SIDE, PREPROCESS_EPOCHS = 64, 2
-# A quarter of the cli phase's items and users. At its full geometry the
+# An eighth of the cli phase's items and users. At its full geometry the
 # phase took 325.8 s alone on an NVIDIA H100 80GB HBM3 at 700.00 W (the
 # image step 2.9 ms an item, mostly the file system's copies); at half of
 # it the whole script took 1,054 s of its 1,200 s on a host where the
-# build and the hpo phase ran 40 s and 75 s slower than the run before.
-PREPROCESS_ITEMS, PREPROCESS_USERS = N_ITEMS // 4, TRAIN_USERS // 4
+# build and the hpo phase ran 40 s and 75 s slower than the run before;
+# at a quarter, with the mesh_train phase, 1,258.7 s on a host where the
+# build took 90.4 s (57.1 s on the faster host of a 924.8 s run).
+PREPROCESS_ITEMS, PREPROCESS_USERS = N_ITEMS // 8, TRAIN_USERS // 8
 PREPROCESS_COMPARE_ITEMS = 1024
 # The mesh phase: the port's meshed paths (parallel/mesh.py) in MESH_RANKS
 # spawned rank processes that share the machine's one card. NCCL refuses
@@ -393,6 +396,36 @@ PREPROCESS_COMPARE_ITEMS = 1024
 # phase's workspace. Ranks that share a card take turns on it: their
 # pairs/s is no scaling figure.
 MESH_RANKS, MESH_CALLS, MESH_TIMEOUT = 4, 3, 900
+# The mesh_train phase: training over the mesh (parallel/mesh.py,
+# parallel/tensor_parallel.py, the meshed steps, the Trainer) in MESH_RANKS
+# rank processes sharing the card (``--mesh-train-rank``), as the mesh
+# phase's: NCCL for a world of one, gloo for 2 and 4 ranks. The Trainer at
+# the flagship's widths (``train_model``: bf16, dropout TRAIN_DROPOUT, AdamW
+# TRAIN_LR, batch TRAIN_BATCH) on the trainer phase's data cut to
+# MESH_TRAIN_POS training positives a user (MESH_TRAIN_BATCHES batches an
+# epoch where the trainer phase has TRAIN_BATCHES), MESH_TRAIN_EPOCHS
+# epochs, on a 1x1 NCCL mesh and on 2x1 and 2x2 gloo meshes, each held
+# against one process on the card: at 1x1 bit for bit (else the AdamW
+# gate); at 2x1 and 2x2 the first step's loss within TRAIN_TOL and its
+# parameters within 2 lr (the gradient summed in another order flips
+# AdamW's first update, lr * sign(g), where g is near 0), the last
+# validation loss within MESH_VAL_BOUND (bf16 and other summation orders
+# let later epochs drift; PERF.md). The train entry point at 2x1 on the cli
+# workspace, MESH_CLI_EPOCHS epochs, its best checkpoint served through K1
+# (``cli_serve``). The unfrozen step at 2x1 at the e2e phase's geometry,
+# its towers in float32 with TF32 off (in bf16 each rank rounds its
+# partial weight gradients to bf16 before the sum), MESH_E2E_STEPS steps
+# against one process under the e2e phase's card-against-CPU gates: the
+# losses within TRAIN_TOL, the parameters at most E2E_ADAM_MAX_SHARE past
+# TRAIN_TOL and none past 2 E2E_LR a step. The Trainer's comparisons keep
+# bf16 products' split-K sums in float32 (``full_precision_bf16_sums``).
+# ``parallel/dryrun.dryrun_multichip(MESH_RANKS)`` runs first, while the
+# ranks start and load their data; then the one-process references, alone
+# on the card, while the ranks wait; then the ranks' timed stages, which
+# share the card with one another only.
+MESH_TRAIN_POS, MESH_TRAIN_EPOCHS, MESH_VAL_BOUND = 16, 3, 5e-3
+MESH_TRAIN_BATCHES = TRAIN_USERS * MESH_TRAIN_POS * 2 // TRAIN_BATCH
+MESH_CLI_EPOCHS, MESH_E2E_STEPS = 2, 2
 
 
 def emit(phase: str, **fields):
@@ -5121,6 +5154,510 @@ def report_check(got: dict, ref: dict) -> dict:
     return same_top_k(v, i, rv, ri)
 
 
+MESH_TRAIN_ARGS = dict(lr=TRAIN_LR, weight_decay=TRAIN_WD,
+                       patience=TRAINER_PATIENCE, gradient_clip=TRAIN_CLIP,
+                       optimizer_type='adamw',
+                       lr_scheduler_type='reduce_on_plateau',
+                       batch_size=TRAIN_BATCH)
+
+
+@contextlib.contextmanager
+def full_precision_bf16_sums():
+    """bf16 products with their split-K partial sums kept in float32
+    (PyTorch's default lets cuBLAS reduce them in bf16, and its choice of
+    split depends on the product's rows, so 16,384 rows of a 32,768-row
+    batch may round otherwise than the whole batch does)."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
+
+
+def mesh_train_data():
+    """The trainer phase's datasets cut to MESH_TRAIN_POS training
+    positives a user, without their vision and language tables (set by
+    ``mesh_train_tables``)."""
+    items, train, val = trainer_tables(train_pos=MESH_TRAIN_POS)
+    full, train_ds, val_ds, seconds = trainer_datasets(
+        items, train, val, [f'num_{c}' for c in range(NUM_FEAT)])
+    if len(train_ds) != MESH_TRAIN_BATCHES * TRAIN_BATCH:
+        raise AssertionError('mesh_train: the datasets miss the geometry')
+    return full, train_ds, val_ds, seconds
+
+
+def mesh_train_tables(train_ds):
+    """The trainer phase's random vision and language tables on the
+    training dataset's store (the Trainer gathers from it)."""
+    random_embedding_tables(train_ds.feature_store,
+                            np.random.default_rng(SEED + 7))
+
+
+def mesh_trainer_run(dev, train_ds, val_ds, mesh, ckpt_dir) -> dict:
+    """On ``mesh`` (None: one process): the first step of the Trainer's
+    step function from the train phase's weights on the epoch-0 shuffle's
+    first global batch (this rank's rows), its loss and parameters; then
+    the Trainer, MESH_TRAIN_EPOCHS epochs, from the same weights: the
+    losses, the final state, seconds and samples/s a rank, the bytes this
+    rank handed to each kind of collective. bf16 products sum in float32
+    (``full_precision_bf16_sums``)."""
+    with full_precision_bf16_sums():
+        return _mesh_trainer_run(dev, train_ds, val_ds, mesh, ckpt_dir)
+
+
+def _mesh_trainer_run(dev, train_ds, val_ds, mesh, ckpt_dir) -> tuple:
+    from pixelrec_multimodal_tpu_torch.config import Config
+    from pixelrec_multimodal_tpu_torch.parallel import batch_sharding
+    from pixelrec_multimodal_tpu_torch.training import (
+        Trainer,
+        build_optimizer,
+        init_train_state,
+        make_step_fns,
+    )
+    model = train_model(dev)
+    tables = train_ds.feature_store.device_tables(
+        device=dev, pack=True, dtype=torch.bfloat16)
+    step, _ = make_step_fns(model, tables, use_contrastive=False, mesh=mesh)
+    first = {k: v[0] for k, v in train_ds.stacked_batches(
+        TRAIN_BATCH, shuffle=True, seed=SEED).items()}
+    if mesh is not None:
+        rows = batch_sharding(mesh, TRAIN_BATCH)
+        first = {k: v[rows] for k, v in first.items()}
+    state = init_train_state(model, build_optimizer(
+        'adamw', TRAIN_LR, TRAIN_WD, gradient_clip=TRAIN_CLIP))
+    state, m = step(state, {k: torch.from_numpy(np.ascontiguousarray(v))
+                            for k, v in first.items()},
+                    torch.Generator(device=dev).manual_seed(SEED + 5))
+    first_loss = float(m['total_loss'])
+    first_params = {k: p.detach().float().cpu().numpy()
+                    for k, p in model.named_parameters()}
+    del state, model, step
+    cfg = Config()
+    cfg.model.vision_model, cfg.model.language_model = 'resnet', \
+        'sentence-bert'
+    model = train_model(dev)
+    trainer = Trainer(model, config=cfg, checkpoint_dir=str(ckpt_dir),
+                      use_contrastive=False, seed=SEED, mesh=mesh)
+    before = dict(mesh.traffic) if mesh is not None else {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        losses, val_losses = trainer.train(train_ds, val_ds,
+                                           epochs=MESH_TRAIN_EPOCHS,
+                                           **MESH_TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    train_s = [e['train'] for e in trainer.epoch_seconds]
+    local_rows = TRAIN_BATCH // (mesh.shape['data'] if mesh else 1)
+    out = {'first_loss': first_loss, 'losses': losses,
+           'val_losses': val_losses, 'wall_seconds': wall,
+           'epoch_seconds': trainer.epoch_seconds,
+           'ms_per_step': [1e3 * t / MESH_TRAIN_BATCHES for t in train_s],
+           'samples_per_sec_rank': [MESH_TRAIN_BATCHES * local_rows / t
+                                    for t in train_s],
+           'traffic_bytes': {k: v - before.get(k, 0) for k, v in
+                             (mesh.traffic if mesh else {}).items()},
+           'steps': int(trainer.state.step)}
+    state = {k: v.detach().float().cpu().numpy()
+             for k, v in model.state_dict().items()}
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out, first_params, state
+
+
+def mesh_e2e_run(dev, mesh) -> tuple:
+    """The unfrozen step at the e2e phase's geometry (ResNet-50 and
+    MiniLM-L6 under remat, the flagship head, AdamW E2E_LR), its towers in
+    float32 with TF32 off, as the e2e phase's card-against-CPU check: in
+    bf16 each rank would round its partial weight gradients to bf16
+    before they sum, which one process does not. On ``mesh`` (None: one
+    process): MESH_E2E_STEPS steps on this rank's rows of the e2e phase's
+    seeded global batch, dropout from a card generator seeded a step;
+    (losses, seconds a step, the trainable parameters, the model's build
+    seconds)."""
+    from pixelrec_multimodal_tpu_torch.encoders.common import no_tf32
+    with no_tf32():
+        return _mesh_e2e_run(dev, mesh)
+
+
+def _mesh_e2e_run(dev, mesh) -> tuple:
+    from pixelrec_multimodal_tpu_torch.config import ModelConfig
+    from pixelrec_multimodal_tpu_torch.models.end_to_end import (
+        build_end_to_end_model,
+    )
+    from pixelrec_multimodal_tpu_torch.parallel import shard_batch
+    from pixelrec_multimodal_tpu_torch.training import build_optimizer
+    from pixelrec_multimodal_tpu_torch.training.e2e_steps import (
+        init_e2e_train_state,
+        make_e2e_step_fns,
+    )
+    mc = ModelConfig(vision_model='resnet', language_model='sentence-bert',
+                     embedding_dim=EMB, fusion_hidden_dims=list(HIDDEN),
+                     use_contrastive=False, dropout_rate=TRAIN_DROPOUT)
+    t0 = time.time()
+    model = build_end_to_end_model(mc, TRAIN_USERS, N_ITEMS, N_TAGS, 0,
+                                   encoder_dtype=torch.float32,
+                                   remat_encoders=True, seed=SEED, device=dev)
+    build_s = time.time() - t0
+    state = init_e2e_train_state(model, build_optimizer(
+        'adamw', E2E_LR, TRAIN_WD, gradient_clip=TRAIN_CLIP))
+    step = make_e2e_step_fns(model, {}, mesh=mesh)[0]
+    batch = e2e_batch(torch.Generator(device=dev).manual_seed(SEED + 40), dev)
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    gen = torch.Generator(device=dev)
+    losses, seconds = [], []
+    for s in range(MESH_E2E_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, m = step(state, batch, gen.manual_seed(SEED + 1 + s))
+        losses.append(float(m['total_loss']))
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+    trained = set(state.opt_state.names)
+    params = {k: p.detach().cpu() for k, p in model.named_parameters()
+              if k in trained}
+    del state, model, step
+    torch.cuda.empty_cache()
+    return losses, seconds, params, build_s
+
+
+def adam_gate(ref: dict, got: dict, tol: float, most: float) -> dict:
+    """Parameters against a reference: the largest difference, the share
+    of entries past TRAIN_TOL, and whether none passes ``tol`` and at most
+    ``most`` of them pass TRAIN_TOL."""
+    past = total = 0
+    worst = 0.0
+    for k, r in ref.items():
+        d = np.abs(np.asarray(got[k], np.float64) - np.asarray(r, np.float64))
+        past += int((d > TRAIN_TOL).sum())
+        total += d.size
+        worst = max(worst, float(d.max()))
+    return {'max_abs_diff': worst, 'share_past_train_tol': past / total,
+            'entries': total, 'tol': tol,
+            'ok': worst <= tol and past <= most * total}
+
+
+def mesh_train_rank(job: Path, rank: int) -> int:
+    """One rank of the mesh_train phase (``chip_smoke.py
+    --mesh-train-rank JOB RANK``), on cuda:0 with the others: rank 0 first
+    trains on a 1x1 mesh over an NCCL group of one; all MESH_RANKS ranks
+    then on a 2x2 gloo mesh; ranks 0 and 1 on a 2x1 gloo mesh, then run the
+    train entry point at 2x1 (``--data_parallel 2``) and the unfrozen step
+    at 2x1, rank 0 holding it against the one-process run in
+    ``JOB/e2e_ref.pt``. Each rank loads its data, writes ``JOB/ready<r>``
+    and waits for ``JOB/go``, which the parent writes once its one-process
+    references are done: no timed stage of a rank shares the card with
+    them. Results go to ``JOB/rank<r>.json`` and ``.npz``."""
+    import pickle
+
+    import torch.distributed as dist
+    from pixelrec_multimodal_tpu_torch.parallel import make_mesh
+    from pixelrec_multimodal_tpu_torch.scripts import train
+
+    spec = json.loads((job / 'job.json').read_text())
+    dev = torch.device('cpu')
+    if spec['device'] == 'cuda':
+        dev = torch.device('cuda', 0)
+        torch.cuda.set_device(dev)
+    t_rank = time.time()
+    train_ds, val_ds = pickle.loads((job / 'datasets.pkl').read_bytes())
+    mesh_train_tables(train_ds)
+    out, arrays = {'stage_seconds': {'data': time.time() - t_rank}}, {}
+    (job / f'ready{rank}').touch()
+    if not wait_for_files([job / 'go']):
+        raise TimeoutError('mesh_train: no go from the parent')
+    out['stage_seconds']['waited_for_references'] = (
+        time.time() - t_rank - out['stage_seconds']['data'])
+
+    def join(name, backend, world):
+        dist.init_process_group(backend, init_method=f'file://{job / name}',
+                                rank=rank, world_size=world)
+
+    def trainer(name, mesh):
+        t0 = time.time()
+        res, first, state = mesh_trainer_run(dev, train_ds, val_ds, mesh,
+                                             job / f'ckpt_{name}')
+        out['stage_seconds'][name] = time.time() - t0
+        out[name] = dict(res, shape=mesh.shape, backend=dist.get_backend())
+        if rank == 0:
+            arrays.update({f'{name}/first/{k}': v for k, v in first.items()})
+            arrays.update({f'{name}/state/{k}': v for k, v in state.items()})
+
+    if rank == 0:
+        join('nccl_1', 'nccl' if dev.type == 'cuda' else 'gloo', 1)
+        trainer('1x1_nccl', make_mesh(data_parallel=1, model_parallel=1))
+        dist.destroy_process_group()
+    join('gloo_4', 'gloo', MESH_RANKS)
+    trainer('2x2_gloo', make_mesh(data_parallel=2, model_parallel=2))
+    dist.destroy_process_group()
+    if rank < 2:
+        join('gloo_2', 'gloo', 2)
+        mesh = make_mesh(data_parallel=2, model_parallel=1)
+        trainer('2x1_gloo', mesh)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = train.main(spec['train'])
+        torch.cuda.synchronize()
+        out['entry'] = {'seconds': time.time() - t0,
+                        'launches': launch_counts(),
+                        'train_losses': res['train_losses'],
+                        'val_losses': res['val_losses'],
+                        'epoch_seconds': res['epoch_seconds']}
+        out['stage_seconds']['entry'] = out['entry']['seconds']
+        before = dict(mesh.traffic)
+        t0 = time.time()
+        losses, seconds, params, build_s = mesh_e2e_run(dev, mesh)
+        out['stage_seconds']['e2e'] = time.time() - t0
+        out['e2e'] = {'losses': losses, 'seconds': seconds,
+                      'build_seconds': build_s,
+                      'traffic_bytes': {k: v - before.get(k, 0)
+                                        for k, v in mesh.traffic.items()}}
+        if rank == 0:
+            ref = torch.load(job / 'e2e_ref.pt', weights_only=True)
+            out['e2e']['vs_one_process'] = adam_gate(
+                {k: v.float().numpy() for k, v in ref['params'].items()},
+                {k: v.float().numpy() for k, v in params.items()},
+                2 * E2E_LR * MESH_E2E_STEPS, E2E_ADAM_MAX_SHARE)
+        dist.destroy_process_group()
+    out['stage_seconds']['rank'] = time.time() - t_rank
+    np.savez(job / f'rank{rank}.npz', **arrays)
+    (job / f'rank{rank}.json').write_text(json.dumps(out))
+    return 0
+
+
+def wait_for_files(paths, procs=()) -> bool:
+    """Wait up to MESH_TIMEOUT seconds until every file of ``paths``
+    exists; False when the time runs out or a process of ``procs``
+    exits first."""
+    deadline = time.time() + MESH_TIMEOUT
+    while not all(p.exists() for p in paths):
+        if time.time() > deadline or any(p.poll() is not None
+                                         for p in procs):
+            return False
+        time.sleep(0.1)
+    return True
+
+
+def mesh_train_rank_command(job: Path, rank: int) -> list:
+    return [sys.executable, str(Path(__file__).resolve()),
+            '--mesh-train-rank', str(job), str(rank)]
+
+
+def mesh_train_phase(smi, dev, ws: Path) -> dict:
+    """Training over the mesh on the one card (MESH_TRAIN_POS and the
+    constants beside it; ``mesh_train_rank`` in MESH_RANKS spawned
+    processes, any rank's failure fails the phase).
+    ``dryrun_multichip(MESH_RANKS)`` runs first, in its own rank
+    processes, while this phase builds its datasets and its ranks start
+    and load their data (host work only, nothing timed). Once both are
+    done the one-process references run here, alone on the card: the
+    unfrozen steps, then the Trainer. Then the ranks run their stages
+    (they take turns on the card with one another and with nothing
+    else); after they exit, the meshed entry point's best checkpoint (the
+    cli workspace ``ws``) is served through K1 by ``cli_serve``. Returns
+    K1's launches."""
+    from pixelrec_multimodal_tpu_torch.parallel.dryrun import (
+        dryrun_multichip,
+    )
+
+    t_phase = time.time()
+    dry = {}
+
+    def dryrun():
+        t0 = time.time()
+        try:
+            dry['line'] = dryrun_multichip(MESH_RANKS, device=dev)
+        except Exception as e:  # re-raised by the phase after the join
+            dry['error'] = e
+        dry['seconds'] = time.time() - t0
+    dry_thread = threading.Thread(target=dryrun, name='mesh-train-dryrun')
+    dry_thread.start()
+    try:
+        return _mesh_train_phase(smi, dev, ws, t_phase, dry, dry_thread)
+    finally:
+        dry_thread.join()
+
+
+def _mesh_train_phase(smi, dev, ws, t_phase, dry, dry_thread) -> dict:
+    import pickle
+
+    from pixelrec_multimodal_tpu_torch.utils import yaml_io
+
+    full, train_ds, val_ds, build_s = mesh_train_data()
+    cfg = yaml_io.load_file(ws / 'config.yaml')
+    cfg['training']['epochs'] = MESH_CLI_EPOCHS
+    cfg['checkpoint_dir'] = str(ws / 'mesh_checkpoints')
+    cfg['results_dir'] = str(ws / 'mesh_results')
+    cfg_path = ws / 'config_mesh_train.yaml'
+    yaml_io.dump_file(cfg, cfg_path)
+    with tempfile.TemporaryDirectory() as tmp:
+        job = Path(tmp)
+        (job / 'datasets.pkl').write_bytes(pickle.dumps((train_ds, val_ds)))
+        (job / 'job.json').write_text(json.dumps({
+            'device': dev.type,
+            'train': ['--config', str(cfg_path), '--data_parallel', '2',
+                      '--device', dev.type]}))
+        t0 = time.time()
+        procs = []
+        try:
+            for r in range(MESH_RANKS):
+                with open(job / f'log{r}.txt', 'w') as rank_log:
+                    procs.append(subprocess.Popen(
+                        mesh_train_rank_command(job, r), stdout=rank_log,
+                        stderr=subprocess.STDOUT))
+            ready = wait_for_files([job / f'ready{r}'
+                                    for r in range(MESH_RANKS)], procs)
+            ready_s = time.time() - t0
+            dry_thread.join()
+            if 'error' in dry:
+                raise dry['error']
+            if ready:
+                t1 = time.time()
+                e2e_losses, e2e_seconds, e2e_params, _ = mesh_e2e_run(
+                    dev, None)
+                torch.save({'params': e2e_params}, job / 'e2e_ref.pt')
+                del e2e_params
+                e2e_ref_s = time.time() - t1
+                t1 = time.time()
+                mesh_train_tables(train_ds)
+                ref, ref_first, ref_state = mesh_trainer_run(
+                    dev, train_ds, val_ds, None, job / 'ckpt_one')
+                trainer_ref_s = time.time() - t1
+                (job / 'go').touch()
+                deadline = time.time() + MESH_TIMEOUT
+                for p in procs:
+                    p.wait(timeout=max(1.0, deadline - time.time()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.time() - t0
+        if not ready or any(p.returncode for p in procs):
+            for r in range(MESH_RANKS):
+                log(f'--- mesh_train rank {r} exited {procs[r].returncode}\n'
+                    + (job / f'log{r}.txt').read_text()[-4000:])
+            raise AssertionError(f'mesh_train: rank exit codes '
+                                 f'{[p.returncode for p in procs]}')
+        outs = [json.loads((job / f'rank{r}.json').read_text())
+                for r in range(MESH_RANKS)]
+        with np.load(job / 'rank0.npz') as z:
+            arrays = {k: z[k] for k in z.files}
+
+    failures = []
+
+    # ---- the Trainer on each mesh against one process
+    def part(name, what):
+        pre = f'{name}/{what}/'
+        return {k[len(pre):]: v for k, v in arrays.items()
+                if k.startswith(pre)}
+    for name, ranks in (('1x1_nccl', [0]), ('2x1_gloo', [0, 1]),
+                        ('2x2_gloo', range(MESH_RANKS))):
+        got = outs[0][name]
+        for r in ranks:
+            if outs[r][name]['losses'] != got['losses'] or \
+                    outs[r][name]['val_losses'] != got['val_losses']:
+                failures.append(f'{name}: rank {r} saw other losses than '
+                                'rank 0')
+        state = part(name, 'state')
+        bit = got['losses'] == ref['losses'] and \
+            got['val_losses'] == ref['val_losses'] and all(
+                np.array_equal(state[k], v) for k, v in ref_state.items())
+        first = adam_gate(ref_first, part(name, 'first'), 2 * TRAIN_LR, 1.0)
+        steps = got['steps']
+        whole = adam_gate(ref_state, state, 2 * TRAIN_LR * steps, 1.0)
+        check = {
+            'bit_for_bit': bit,
+            'first_loss_diff': abs(got['first_loss'] - ref['first_loss']),
+            'first_step_params': first,
+            'last_val_loss_diff': abs(got['val_losses'][-1]
+                                      - ref['val_losses'][-1]),
+            'last_val_loss_bound': MESH_VAL_BOUND,
+            'final_params': whole}
+        emit(f'mesh_train_trainer_{name}', shape=got['shape'],
+             backend=got['backend'], ranks=len(ranks),
+             epochs=MESH_TRAIN_EPOCHS, batches_per_epoch=MESH_TRAIN_BATCHES,
+             global_batch=TRAIN_BATCH, cut=f'{MESH_TRAIN_POS} training '
+             f'positives a user of the trainer phase\'s {TRAINER_TRAIN_POS}',
+             losses=got['losses'], val_losses=got['val_losses'],
+             one_process_losses=ref['losses'],
+             one_process_val_losses=ref['val_losses'],
+             ms_per_step_by_rank={r: outs[r][name]['ms_per_step']
+                                  for r in ranks},
+             samples_per_sec_by_rank={r: outs[r][name]['samples_per_sec_rank']
+                                      for r in ranks},
+             one_process_ms_per_step=ref['ms_per_step'],
+             traffic_bytes_rank0=got['traffic_bytes'],
+             wall_seconds=got['wall_seconds'],
+             note='the ranks take turns on one card: no scaling figure',
+             vs_one_process=check, nvidia_smi=smi)
+        if name == '1x1_nccl':
+            ok = bit or whole['ok']
+        else:
+            ok = (check['first_loss_diff'] <= TRAIN_TOL and first['ok']
+                  and check['last_val_loss_diff'] <= MESH_VAL_BOUND)
+        if not (ok and np.isfinite(got['losses']).all()):
+            failures.append(f'{name}: against one process {check}')
+
+    # ---- the dry run on the card, beside the ranks' start-up
+    emit('mesh_train_dryrun', line=dry['line'], seconds=dry['seconds'],
+         note='ran while the phase built its datasets and its ranks '
+         'started and loaded their data (host work)', nvidia_smi=smi)
+
+    # ---- the train entry point at 2x1, served through K1
+    entry = {r: outs[r]['entry'] for r in (0, 1)}
+    if entry[0]['train_losses'] != entry[1]['train_losses'] or any(
+            any(e['launches'].values()) for e in entry.values()):
+        failures.append(f'entry point: the ranks disagree or launched '
+                        f'serving kernels: {entry}')
+    meta = json.loads((ws / 'mesh_results' / 'training_metadata.json')
+                      .read_text())
+    emit('mesh_train_entry_point', shape={'data': 2, 'model': 1},
+         backend='gloo', epochs=MESH_CLI_EPOCHS,
+         seconds=[entry[r]['seconds'] for r in (0, 1)],
+         train_losses=entry[0]['train_losses'],
+         val_losses=entry[0]['val_losses'],
+         epoch_seconds_rank0=entry[0]['epoch_seconds'],
+         launches_by_rank={r: entry[r]['launches'] for r in (0, 1)},
+         device_info=meta['device_info'], nvidia_smi=smi)
+    served = cli_serve(smi, dev, cfg_path, {'metadata': meta},
+                       phase='mesh_train_cli')
+
+    # ---- the unfrozen step at 2x1
+    e2e = outs[0]['e2e']
+    loss_diff = max(abs(a - b) for a, b in zip(e2e['losses'], e2e_losses))
+    emit('mesh_train_e2e', shape={'data': 2, 'model': 1}, backend='gloo',
+         steps=MESH_E2E_STEPS, global_batch=E2E_BATCH,
+         encoder_dtype='float32', tf32=False, losses=e2e['losses'],
+         one_process_losses=e2e_losses, loss_max_abs_diff=loss_diff,
+         seconds_by_rank={r: outs[r]['e2e']['seconds'] for r in (0, 1)},
+         one_process_seconds=e2e_seconds,
+         one_process_run_seconds=e2e_ref_s,
+         build_seconds_rank0=e2e['build_seconds'],
+         traffic_bytes_rank0=e2e['traffic_bytes'],
+         params_vs_one_process=e2e['vs_one_process'], nvidia_smi=smi)
+    if not (loss_diff <= TRAIN_TOL and e2e['vs_one_process']['ok']
+            and e2e['losses'] == outs[1]['e2e']['losses']):
+        failures.append(f'e2e: against one process {loss_diff}, '
+                        f'{e2e["vs_one_process"]}')
+
+    emit('mesh_train_phase', seconds=time.time() - t_phase,
+         datasets_seconds=build_s, ranks_ready_seconds=ready_s,
+         e2e_reference_seconds=e2e_ref_s,
+         trainer_reference_seconds=trainer_ref_s, ranks_seconds=ranks_s,
+         stage_seconds_by_rank={r: outs[r]['stage_seconds']
+                                for r in range(MESH_RANKS)},
+         failures=failures, nvidia_smi=smi)
+    if failures:
+        raise AssertionError('mesh_train: ' + '; '.join(failures))
+    return {'launches': served['launches']}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA device (torch.cuda.is_available() is '
@@ -5791,6 +6328,11 @@ def main() -> int:
         # cascade, the generate, evaluate and precompute entry points
         meshed = mesh_phase(smi, dev, Path(tmp), Path(pre_tmp),
                             flagship_top_k, token0_cascade)
+        # ---- 21d. training over the mesh in rank processes on the one
+        # card: the Trainer at 1x1 (NCCL), 2x1 and 2x2 (gloo) against one
+        # process, the train entry point at 2x1 served through K1, the
+        # unfrozen step at 2x1, the dry run
+        mesh_trained = mesh_train_phase(smi, dev, Path(tmp))
         # ---- 22. hyperparameter search on the cli workspace: the subsets,
         # five trials through the search entry point, each trial's best
         # checkpoint served through K1, K2 or K4, and K1q, K2q in int8
@@ -5809,6 +6351,7 @@ def main() -> int:
     lines[0]['launches_recommend'] = recommended['launches']
     lines[0]['launches_evaluate'] = evaluated['launches']
     lines[0]['launches_mesh'] = meshed['launches']
+    lines[0]['launches_mesh_train'] = mesh_trained['launches']
     next(line for line in lines
          if line['kernel'] == 'K6')['launches_mesh'] = meshed['launches_k6']
     k1q = next(line for line in lines if line['kernel'] == 'K1q')
@@ -5833,4 +6376,6 @@ def main() -> int:
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--mesh-rank']:
         sys.exit(mesh_rank(Path(sys.argv[2]), int(sys.argv[3])))
+    if sys.argv[1:2] == ['--mesh-train-rank']:
+        sys.exit(mesh_train_rank(Path(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

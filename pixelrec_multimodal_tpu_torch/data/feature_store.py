@@ -291,11 +291,16 @@ class ItemFeatureStore:
 
     # ------------------------------------------------------------------ disk
     def save(self, cache_dir: str):
-        """Persist the tables as one .npz under the model-combo subdir."""
+        """Persist the tables as one .npz under the model-combo subdir,
+        written beside its place and renamed over it, so that a reader
+        (another rank building the same dataset) never sees half a
+        file."""
         d = Path(cache_dir) / cache_subdir_name(self.vision_model,
                                                 self.language_model)
         d.mkdir(parents=True, exist_ok=True)
-        np.savez(d / 'feature_tables.npz', item_ids=self.item_ids, **self.tables)
+        tmp = d / f'feature_tables.{os.getpid()}.tmp.npz'
+        np.savez(tmp, item_ids=self.item_ids, **self.tables)
+        os.replace(tmp, d / 'feature_tables.npz')
 
     def load_tables(self, cache_dir: str) -> bool:
         """Load previously saved tables if present and catalog-compatible."""

@@ -16,6 +16,10 @@ that copy's event before the batch is used, and each tensor records the
 consumer's stream so that its memory is not reused while a step still
 reads it. On the CPU the arrays become tensors as they are (no pinning:
 a CPU-only PyTorch cannot pin memory).
+
+With a ``mesh`` (``parallel/mesh.py``) each rank moves only its rows of
+each batch, the leading axis split over 'data' (JAX's ``batch_sharding``
+in ``device_put``).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import shard_batch
 
 
 class PrefetchLoader:
@@ -45,6 +50,9 @@ class PrefetchLoader:
     transform:
         Optional host-side callable applied to each batch dict before
         transfer (e.g. dtype casts).
+    mesh:
+        Optional mesh: each batch's rows are split over its 'data' axis
+        and this rank moves only its own (every length must divide).
     """
 
     _END = object()
@@ -52,13 +60,15 @@ class PrefetchLoader:
     def __init__(self, batches: Iterable[Dict[str, np.ndarray]],
                  prefetch: int = 2,
                  device: Union[str, torch.device] = 'cuda',
-                 transform: Optional[Callable[[dict], dict]] = None):
+                 transform: Optional[Callable[[dict], dict]] = None,
+                 mesh=None):
         if prefetch < 1:
             raise ValueError(f"prefetch must be >= 1, got {prefetch}")
         self._batches = batches
         self._prefetch = prefetch
         self._device = resolve_device(device)
         self._transform = transform
+        self._mesh = mesh
 
     def _to_device(self, host_batch: dict, stream):
         """(tensors on the device, the copy's event or None)."""
@@ -85,6 +95,8 @@ class PrefetchLoader:
                         return
                     if self._transform is not None:
                         host_batch = self._transform(host_batch)
+                    if self._mesh is not None:
+                        host_batch = shard_batch(host_batch, self._mesh)
                     item = self._to_device(host_batch, stream)
                     # Bounded put that stays responsive to cancellation.
                     while not stop.is_set():

@@ -15,6 +15,7 @@ DataFrame (``data/columns.py``).
 """
 from __future__ import annotations
 
+import os
 import pickle
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Tuple
@@ -176,14 +177,17 @@ class NumericalProcessor:
         return table, x
 
     def save_scaler(self, scaler_path: Path) -> bool:
-        """Pickle {scaler, columns}."""
+        """Pickle {scaler, columns}, written beside its place and renamed
+        over it (a reader never sees half a file)."""
         if self.scaler is None:
             return False
         scaler_path = Path(scaler_path)
         scaler_path.parent.mkdir(parents=True, exist_ok=True)
-        with open(scaler_path, 'wb') as f:
+        tmp = scaler_path.with_name(f'{scaler_path.name}.{os.getpid()}.tmp')
+        with open(tmp, 'wb') as f:
             pickle.dump({'scaler': self.scaler,
                          'columns': self.fitted_columns}, f)
+        os.replace(tmp, scaler_path)
         return True
 
     def load_scaler(self, scaler_path: Path) -> bool:

@@ -105,6 +105,7 @@ from ..parallel.mesh import (
     all_gather,
     all_reduce,
     batch_sharding,
+    owned_rows,
     pad_to_multiple,
 )
 
@@ -399,14 +400,10 @@ class CatalogScorer:
                      idx: torch.Tensor) -> torch.Tensor:
         """Rows ``idx`` (global item positions) of an item table; under a
         mesh each rank holds only its rows, so the owner gives each row and
-        the others zeros, summed over 'model' (exact: x + 0 = x)."""
+        the others zeros, summed over 'model' (``owned_rows``)."""
         if self.mesh is None:
             return table[idx]
-        own = (idx >= self._base) & (idx < self._base + self.n_local)
-        rows = table[torch.where(own, idx - self._base, 0)]
-        rows = rows.masked_fill(
-            ~own.view((-1,) + (1,) * (rows.dim() - 1)), 0)
-        return all_reduce(self.mesh, MODEL_AXIS, rows.contiguous(), 'sum')
+        return owned_rows(self.mesh, table, idx, self._base)
 
     def item_rows(self, idx: np.ndarray) -> torch.Tensor:
         """The item tower's rows [len(idx), M, D] of global item positions

@@ -12,7 +12,11 @@ the scorer's towers run in eval mode whatever mode the module is in) and a
 is the identity, otherwise a kept entry is ``x / keep_prob`` with
 ``keep_prob = 1 - rate``. The masks come from torch's generator, so they
 differ from JAX's for the same seed; tests compare at dropout 0 and hold
-the mask rate.
+the mask rate. In a data-parallel step (``parallel/mesh.data_parallel``)
+a per-example mask is drawn for the global batch and each rank keeps its
+rows, so the ranks draw one process's masks. A Dense whose kernel is
+sharded over the mesh's 'model' axis (``parallel/tensor_parallel.py``)
+computes through its shard.
 """
 from __future__ import annotations
 
@@ -23,13 +27,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import data_shard
+
 
 def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
-                 device) -> torch.Tensor:
+                 device, per_example: bool = False) -> torch.Tensor:
     """A bool keep-mask of ``shape``: each entry kept with probability
     ``1 - rate``, drawn from ``generator`` (torch's default one when
-    None) on ``device``."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    None) on ``device``. A ``per_example`` mask (rows = the batch) inside
+    a data-parallel step is drawn for the global batch, and this rank's
+    rows are kept."""
+    shard = data_shard() if per_example else None
+    if shard is None:
+        return torch.rand(shape, generator=generator,
+                          device=device) < 1.0 - rate
+    full = torch.rand((shard.total,) + tuple(shape[1:]), generator=generator,
+                      device=device)
+    return full[shard.rows] < 1.0 - rate
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
@@ -38,7 +52,7 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     of training or at rate 0, else ``where(keep, x / keep_prob, 0)``."""
     if not train or rate == 0.0:
         return x
-    keep = dropout_mask(x.shape, rate, generator, x.device)
+    keep = dropout_mask(x.shape, rate, generator, x.device, per_example=True)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -77,6 +91,9 @@ def dense(in_dim: int, out_dim: int,
 def apply_dense(layer: nn.Linear, x: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
     """Flax Dense with ``dtype``: input, kernel and bias cast to dtype."""
+    tp = getattr(layer, 'tp', None)
+    if tp is not None:
+        return tp.linear(layer, x, dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 

@@ -22,6 +22,10 @@ Semantics kept from the JAX model:
   variance by the unbiased one);
 * dropout follows ``models/layers.py:dropout``, its masks drawn from the
   ``generator`` the caller passes to ``forward``;
+* in a data-parallel step (``parallel/mesh.data_parallel``) BatchNorm's
+  training statistics are the global batch's: the sums of x and x^2 are
+  summed over 'data' before they divide; an embedding sharded over
+  'model' (``parallel/tensor_parallel.py``) looks up through its shard;
 * Dense kernels start from Flax's default init (LeCun normal, zero bias)
   and embeddings from ``embedding_init``, drawn from an explicit
   ``torch.Generator``. The numbers differ from JAX's for the same seed;
@@ -52,6 +56,7 @@ from .layers import (
     dropout,
     variance_scaling,
 )
+from ..parallel.mesh import data_shard, sum_data
 from .losses import l2_normalize
 
 MODALITY_ORDER = ('user', 'item', 'tag', 'vision', 'language', 'numerical')
@@ -140,8 +145,15 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d,
     statistics moved to ``momentum * r + (1 - momentum) * b`` in place, and
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32."""
     xf = x.float()
-    mean = xf.mean(dim=0)
-    var = torch.clamp((xf * xf).mean(dim=0) - mean * mean, min=0.0)
+    shard = data_shard()
+    if shard is None:
+        mean = xf.mean(dim=0)
+        var = torch.clamp((xf * xf).mean(dim=0) - mean * mean, min=0.0)
+    else:
+        sums = sum_data(shard.mesh, torch.cat([xf.sum(dim=0),
+                                               (xf * xf).sum(dim=0)]))
+        mean, msq = (sums / shard.total).chunk(2)
+        var = torch.clamp(msq - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.copy_(momentum * bn.running_mean
                               + (1.0 - momentum) * mean)
@@ -308,6 +320,9 @@ class MultimodalRecommender(nn.Module):
                 + int(self.num_numerical_features > 0))
 
     def _embed(self, table: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:
+        tp = getattr(table, 'tp', None)
+        if tp is not None:
+            return tp.embedding(table, idx).to(self.dtype)
         return F.embedding(idx.long(), table.weight).to(self.dtype)
 
     def _item_side(self, vision_features, language_features,

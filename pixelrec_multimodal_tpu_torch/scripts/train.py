@@ -10,8 +10,17 @@ and tag encoders in the shared encoders directory,
 ``results/training_metadata.json``, ``training_run_config.yaml`` and
 ``training_run_config_validated.yaml``). It trains on the CUDA device
 unless ``--device cpu`` is given, and raises without a card; any other
-device raises, and so does ``--data_parallel`` or ``--model_parallel``
-above 1 (training over several devices is ROADMAP item A11b).
+device raises.
+
+Over several devices it runs under ``torchrun`` (one rank a card, NCCL;
+gloo with ``--device cpu``), the mesh built from ``--data_parallel`` and
+``--model_parallel`` as the JAX script builds it (``mesh_from_flags``:
+every rank on the data axis unless both are given), and the ``Trainer``
+data-parallel over it. Every rank computes the same results; rank 0
+alone prints and writes the files. Where the batch size does not divide
+by the data axis, the JAX script shrinks the axis to the largest divisor
+and leaves devices idle; here every rank takes a place in the mesh, so
+the script raises before any work and names that divisor.
 
 ``--resume`` restores the checkpoint's weights, optimizer and scheduler
 state before training (the JAX script's trainer keeps them aside and
@@ -39,6 +48,14 @@ from ..data.dataset import MultimodalDataset
 from ..data.processors import NumericalProcessor
 from ..device import resolve_device
 from ..models.multimodal import build_model
+from ..parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    init_distributed,
+    is_main_rank,
+    main_rank_stdout,
+    mesh_from_flags,
+)
 from ..training import Trainer
 from ..utils.logging import maybe_wandb_init, wandb_available
 
@@ -63,13 +80,28 @@ def setup_device(device: Optional[str]) -> torch.device:
     return dev
 
 
-def check_single_device(data_parallel: Optional[int], model_parallel: int):
-    """The port trains on one device: a mesh over several raises."""
-    if (data_parallel or 1) > 1 or (model_parallel or 1) > 1:
-        raise NotImplementedError(
-            f'data_parallel={data_parallel}, model_parallel={model_parallel}:'
-            ' training over several devices is not ported yet (ROADMAP '
-            'item A11b)')
+def build_training_mesh(data_parallel: Optional[int], model_parallel: int,
+                        batch_size: int):
+    """The training mesh (batch rows over 'data'), None when trivial. The
+    data axis must divide the batch size: where it does not, this raises
+    and names the largest divisor below it (the JAX script shrinks the
+    axis to it and leaves devices idle; a port rank outside the mesh
+    would have no work)."""
+    mesh = mesh_from_flags(data_parallel, model_parallel)
+    if mesh is None:
+        return None
+    dp = mesh.shape[DATA_AXIS]
+    if batch_size % dp:
+        new_dp = dp
+        while new_dp > 1 and batch_size % new_dp:
+            new_dp -= 1
+        raise ValueError(
+            f"batch_size={batch_size} not divisible by data_parallel={dp};"
+            f" the largest divisor is data_parallel={new_dp}: start "
+            f"{new_dp * mesh.shape[MODEL_AXIS]} rank(s) with --data_parallel"
+            f" {new_dp}")
+    print(f"Device mesh: {mesh.shape}")
+    return mesh
 
 
 def run_training(config: Config, args: argparse.Namespace) -> Dict[str, Any]:
@@ -111,12 +143,15 @@ def run_training(config: Config, args: argparse.Namespace) -> Dict[str, Any]:
         print("W&B logging disabled")
     print_progress_footer(step_start)
 
-    # STEP 4: device
+    # STEP 4: device + mesh
     print_progress_header(4, "Setting up Device")
     step_start = time.time()
-    check_single_device(getattr(args, 'data_parallel', None),
-                        getattr(args, 'model_parallel', 1))
-    device = setup_device(getattr(args, 'device', None))
+    device = setup_device(init_distributed(getattr(args, 'device', None)
+                                           or 'cuda'))
+    mesh = build_training_mesh(getattr(args, 'data_parallel', None),
+                               getattr(args, 'model_parallel', 1),
+                               training_config.batch_size)
+    writes = is_main_rank()
     print_progress_footer(step_start)
 
     # STEP 5: data
@@ -176,8 +211,9 @@ def run_training(config: Config, args: argparse.Namespace) -> Dict[str, Any]:
         numerical_processor.fit_scaler(
             item_info, valid_numerical,
             method=data_config.numerical_normalization_method)
-        scaler_path.parent.mkdir(parents=True, exist_ok=True)
-        numerical_processor.save_scaler(scaler_path)
+        if writes:
+            scaler_path.parent.mkdir(parents=True, exist_ok=True)
+            numerical_processor.save_scaler(scaler_path)
         print(f"Scaler saved to: {scaler_path}")
     else:
         print("No numerical features found. Skipping scaler fitting.")
@@ -268,25 +304,28 @@ def run_training(config: Config, args: argparse.Namespace) -> Dict[str, Any]:
     trainer = Trainer(model=model, config=config,
                       checkpoint_dir=config.checkpoint_dir,
                       use_contrastive=config.model.use_contrastive,
-                      trial_info=getattr(args, 'trial_info', None))
+                      trial_info=getattr(args, 'trial_info', None),
+                      mesh=mesh)
     if getattr(args, 'resume', None):
         print(f"\nResuming from checkpoint: {args.resume}")
         trainer.load_checkpoint(args.resume)
 
     print("Saving encoders to shared directory...")
     encoders_dir = trainer.get_encoders_dir()
-    with open(encoders_dir / 'user_encoder.pkl', 'wb') as f:
-        pickle.dump(full_dataset.user_encoder, f)
-    with open(encoders_dir / 'item_encoder.pkl', 'wb') as f:
-        pickle.dump(full_dataset.item_encoder, f)
-    if full_dataset.tag_encoder is not None:
-        with open(encoders_dir / 'tag_encoder.pkl', 'wb') as f:
-            pickle.dump(full_dataset.tag_encoder, f)
+    if writes:
+        with open(encoders_dir / 'user_encoder.pkl', 'wb') as f:
+            pickle.dump(full_dataset.user_encoder, f)
+        with open(encoders_dir / 'item_encoder.pkl', 'wb') as f:
+            pickle.dump(full_dataset.item_encoder, f)
+        if full_dataset.tag_encoder is not None:
+            with open(encoders_dir / 'tag_encoder.pkl', 'wb') as f:
+                pickle.dump(full_dataset.tag_encoder, f)
     print(f"Encoders saved to {encoders_dir}")
 
     validated_config_path = Path(config.results_dir) / \
         'training_run_config_validated.yaml'
-    config.to_yaml(str(validated_config_path))
+    if writes:
+        config.to_yaml(str(validated_config_path))
     print(f"Updated configuration saved to {validated_config_path}")
     print_progress_footer(step_start)
 
@@ -333,6 +372,8 @@ def run_training(config: Config, args: argparse.Namespace) -> Dict[str, Any]:
 
     total_params = sum(p.numel() for p in trainer.model.parameters())
     device_info = {'devices': [str(device)], 'backend': device.type}
+    if mesh is not None:
+        device_info['mesh'] = mesh.shape
     if device.type == 'cuda':
         device_info['name'] = torch.cuda.get_device_name(device)
     training_metadata = {
@@ -362,13 +403,13 @@ def run_training(config: Config, args: argparse.Namespace) -> Dict[str, Any]:
         'all_best_metrics': results['all_best_metrics'],
     }
     metadata_path = Path(config.results_dir) / 'training_metadata.json'
-    metadata_path.parent.mkdir(parents=True, exist_ok=True)
-    with open(metadata_path, 'w') as f:
-        json.dump(training_metadata, f, indent=2, default=str)
-    print(f"Training metadata saved to {metadata_path}")
-
     config_save_path = Path(config.results_dir) / 'training_run_config.yaml'
-    config.to_yaml(str(config_save_path))
+    if writes:
+        metadata_path.parent.mkdir(parents=True, exist_ok=True)
+        with open(metadata_path, 'w') as f:
+            json.dump(training_metadata, f, indent=2, default=str)
+        config.to_yaml(str(config_save_path))
+    print(f"Training metadata saved to {metadata_path}")
     print(f"Configuration saved to {config_save_path}")
     print_progress_footer(step_start)
 
@@ -401,13 +442,23 @@ def main(cli_args: Optional[List[str]] = None):
     parser.add_argument('--verbose', action='store_true',
                         help='Enable verbose output')
     parser.add_argument('--data_parallel', type=int, default=None,
-                        help='Devices over the batch; above 1 raises '
-                             '(ROADMAP item A11b)')
+                        help='Mesh data-axis size (default: all ranks / '
+                             'model_parallel); shards batches for dp '
+                             'training')
     parser.add_argument('--model_parallel', type=int, default=1,
-                        help='Devices over the item tables; above 1 '
-                             'raises (ROADMAP item A11b)')
+                        help='Mesh model-axis size (its ranks compute '
+                             'alike in training)')
     args = parser.parse_args(cli_args)
+    init_distributed(args.device)
+    with main_rank_stdout():
+        results = _train(args)
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+    return results
 
+
+def _train(args: argparse.Namespace) -> Dict[str, Any]:
+    """``main``'s pipeline on its parsed arguments."""
     print_progress_header(1, "Loading Configuration")
     step_start = time.time()
     config = Config.from_yaml(args.config)

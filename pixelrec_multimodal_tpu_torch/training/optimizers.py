@@ -27,6 +27,12 @@ parameters and the state as they were without a host round trip. The
 learning rate lives in the state as a float32 tensor the host may change
 between epochs (``set_learning_rate``), as optax's ``inject_hyperparams``
 slot.
+
+Under tensor parallelism (``parallel/tensor_parallel.shard_module``) each
+rank's buffer holds its shards of the sharded parameters, so the layout
+differs by rank; their moments are the shards'. The clip's norm is the
+whole parameters' all the same: the square sums of the sharded entries
+are summed over 'model', and the replicated entries count once.
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ from typing import Callable, Iterable, List, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import MODEL_AXIS, all_reduce
 
 KINDS = ('adamw', 'adam', 'sgd')
 SGD_MOMENTUM = 0.9
@@ -48,7 +56,9 @@ class OptState:
     parameter a view of it), ``lr`` the learning rate (float32 tensor);
     ``count``, ``mu``, ``nu`` Adam's step and moments, ``trace`` SGD's
     momentum; ``mini_step``, ``gradient_step`` and ``acc`` the
-    accumulation's (k > 1)."""
+    accumulation's (k > 1); ``sharded`` a float mask over ``flat``, 1 on
+    the entries of parameters sharded over ``mesh``'s 'model' axis (None
+    without tensor parallelism)."""
     names: List[str]
     params: List[nn.Parameter]
     flat: torch.Tensor
@@ -60,6 +70,8 @@ class OptState:
     mini_step: Optional[torch.Tensor] = None
     gradient_step: Optional[torch.Tensor] = None
     acc: Optional[torch.Tensor] = None
+    sharded: Optional[torch.Tensor] = None
+    mesh: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +122,12 @@ class Optimizer:
         if self.accumulation_steps > 1:
             state.mini_step, state.gradient_step = zero.clone(), zero.clone()
             state.acc = torch.zeros_like(flat)
+        shards = [getattr(p, 'tp', None) for p in params]
+        if any(t is not None for t in shards):
+            state.mesh = next(t.mesh for t in shards if t is not None)
+            state.sharded = torch.cat([torch.full(
+                (p.numel(),), float(t is not None), device=dev)
+                for p, t in zip(params, shards)])
         return state
 
     def flat_grads(self, state: OptState,
@@ -132,7 +150,8 @@ class Optimizer:
                 state.mini_step.to(torch.float32) + 1.0)
             g = acc
         if self.gradient_clip is not None and self.gradient_clip > 0:
-            norm = torch.linalg.vector_norm(g)
+            norm = (torch.linalg.vector_norm(g) if state.sharded is None
+                    else _sharded_norm(state, g))
             g = torch.where(norm < self.gradient_clip, g,
                             g / norm * self.gradient_clip)
         wd = self.weight_decay
@@ -171,6 +190,16 @@ class Optimizer:
         for name, value in new.items():
             old = getattr(state, name)
             old.copy_(torch.where(commit, value, old))
+
+
+def _sharded_norm(state: OptState, g: torch.Tensor) -> torch.Tensor:
+    """The global norm of the whole parameters' gradient of which ``g``
+    holds this rank's shards: the sharded entries' square sum summed over
+    'model', plus the replicated entries' once."""
+    sq = g * g
+    sharded = all_reduce(state.mesh, MODEL_AXIS,
+                         (sq * state.sharded).sum(), op='sum')
+    return torch.sqrt((sq * (1.0 - state.sharded)).sum() + sharded)
 
 
 def build_optimizer(optimizer_type: str = 'adamw',

@@ -26,6 +26,14 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..models.losses import recommender_loss
+from ..parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    all_reduce,
+    data_mesh,
+    data_parallel,
+    owned_rows,
+)
 from .optimizers import Optimizer, OptState
 
 
@@ -63,9 +71,23 @@ _FEATURE_TABLE_SPEC = {
 PACKED_PREFIX = 'packed::'
 
 
+def _take(table: torch.Tensor, it: torch.Tensor, n_items: int,
+          mesh) -> torch.Tensor:
+    """Rows ``it`` of an item table of a catalog of ``n_items``: a table
+    of ``n_items / model-size`` rows under a ``mesh`` with a 'model' axis
+    holds this rank's rows of the item axis split over 'model'
+    (``item_table_sharding``), gathered by ``owned_rows``; any other table
+    is whole."""
+    size = mesh.shape[MODEL_AXIS] if mesh is not None else 1
+    n = table.shape[0]
+    if size == 1 or n * size != n_items:
+        return torch.index_select(table, 0, it)
+    return owned_rows(mesh, table, it, mesh.index(MODEL_AXIS) * n)
+
+
 def gather_feature_kwargs(model, tables: Dict[str, torch.Tensor],
-                          batch: Dict[str, torch.Tensor]
-                          ) -> Dict[str, torch.Tensor]:
+                          batch: Dict[str, torch.Tensor],
+                          mesh=None) -> Dict[str, torch.Tensor]:
     """Item-index gathers from the feature tables -> model kwargs.
 
     A modality the model declares whose table is absent gets zero features
@@ -73,7 +95,9 @@ def gather_feature_kwargs(model, tables: Dict[str, torch.Tensor],
     shapes always follow the model. A key
     ``packed::<name>=<width>+<name>=<width>+...`` holds the listed float
     tables concatenated along the feature axis: one row gather serves them
-    all, and slices of the row recover each modality.
+    all, and slices of the row recover each modality. Under a ``mesh``, a
+    table of ``model.n_items / model-size`` rows holds this rank's rows of
+    the item axis split over 'model' (``_take``).
     """
     it = batch['item_idx'].long()
     B = it.shape[0]
@@ -81,7 +105,7 @@ def gather_feature_kwargs(model, tables: Dict[str, torch.Tensor],
     packed_key = next((k for k in tables if k.startswith(PACKED_PREFIX)),
                       None)
     if packed_key is not None:
-        row = torch.index_select(tables[packed_key], 0, it)
+        row = _take(tables[packed_key], it, model.n_items, mesh)
         off = 0
         for part in packed_key[len(PACKED_PREFIX):].split('+'):
             name, _, width = part.partition('=')
@@ -100,7 +124,7 @@ def gather_feature_kwargs(model, tables: Dict[str, torch.Tensor],
         needed = (dim > 0 if name != 'clip_text_emb'
                   else model.contrastive_active)
         if needed:
-            kw[kwarg] = (torch.index_select(tables[name], 0, it)
+            kw[kwarg] = (_take(tables[name], it, model.n_items, mesh)
                          if name in tables else
                          torch.zeros((B, dim), dtype=torch.float32,
                                      device=it.device))
@@ -121,6 +145,10 @@ def _classification_sums(preds: torch.Tensor, labels: torch.Tensor,
     }
 
 
+_METRIC_NAMES = ('total_loss', 'bce_loss', 'contrastive_loss', 'correct',
+                 'tp', 'fp', 'fn', 'count')
+
+
 def step_metrics(scores: torch.Tensor, loss: Dict[str, torch.Tensor],
                  batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A step's metrics: the three losses and the classification sums."""
@@ -132,28 +160,71 @@ def step_metrics(scores: torch.Tensor, loss: Dict[str, torch.Tensor],
                                    batch['label'], weight)}
 
 
-def gated_train_update(state: 'TrainState', forward: Callable[[], tuple]
-                       ) -> tuple:
+def _local_metrics(scores, loss, batch) -> torch.Tensor:
+    """This rank's parts of a meshed step's metrics, and a last entry 1.0
+    where its predictions are not all finite."""
+    m = step_metrics(scores, loss, batch)
+    bad = (~torch.isfinite(scores.detach()).all()).float()
+    return torch.stack([m[k].float() for k in _METRIC_NAMES] + [bad])
+
+
+def _global_metrics(summed: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The metrics of the global batch from their parts summed over
+    'data': the contrastive loss is 0 where any rank's predictions were
+    not finite, as one process's is."""
+    m = dict(zip(_METRIC_NAMES, summed[:len(_METRIC_NAMES)].unbind()))
+    m['contrastive_loss'] = torch.where(summed[-1] > 0, torch.zeros_like(
+        m['contrastive_loss']), m['contrastive_loss'])
+    return m
+
+
+def reduced_metrics(scores: torch.Tensor, loss: Dict[str, torch.Tensor],
+                    batch: Dict[str, torch.Tensor],
+                    mesh=None) -> Dict[str, torch.Tensor]:
+    """``step_metrics``, over the global batch when ``mesh`` splits it
+    over 'data' (the loss parts and sums summed over 'data', one
+    all-reduce)."""
+    mesh = data_mesh(mesh)
+    if mesh is None:
+        return step_metrics(scores, loss, batch)
+    return _global_metrics(all_reduce(
+        mesh, DATA_AXIS, _local_metrics(scores, loss, batch), op='sum'))
+
+
+def gated_train_update(state: 'TrainState', forward: Callable[[], tuple],
+                       batch: Dict[str, torch.Tensor],
+                       mesh=None) -> Dict[str, torch.Tensor]:
     """Run ``forward() -> (scores, loss)`` in training mode and take one
     update on the gradients of ``loss['total']`` for the optimizer's
     parameters, where that loss is finite; where it is not, the
     parameters, the optimizer state and the BatchNorm statistics the
-    forward moved stay as they were, with no host round trip. Returns
-    (scores, loss)."""
+    forward moved stay as they were, with no host round trip. Returns the
+    step's metrics (``step_metrics``). With a ``mesh`` splitting the batch
+    over 'data', ``loss`` is this rank's part: the flat gradient and the
+    metrics' parts are summed over 'data' in one all-reduce, and the
+    global loss decides."""
+    mesh = data_mesh(mesh)
     stats = list(state.batch_stats.values())
     saved = [b.clone() for b in stats]
     state.model.train()
     scores, loss = forward()
     grads = torch.autograd.grad(loss['total'], state.opt_state.params,
                                 allow_unused=True)
-    finite = torch.isfinite(loss['total'])
-    state.tx.update(state.opt_state,
-                    state.tx.flat_grads(state.opt_state, grads), finite)
+    g = state.tx.flat_grads(state.opt_state, grads)
+    if mesh is None:
+        metrics = step_metrics(scores, loss, batch)
+    else:
+        n = g.numel()
+        summed = all_reduce(mesh, DATA_AXIS, torch.cat(
+            [g, _local_metrics(scores, loss, batch)]), op='sum')
+        g, metrics = summed[:n], _global_metrics(summed[n:])
+    finite = torch.isfinite(metrics['total_loss'])
+    state.tx.update(state.opt_state, g, finite)
     with torch.no_grad():
         for b, s in zip(stats, saved):
             b.copy_(torch.where(finite, b, s))
         state.step.add_(finite.long())
-    return scores, loss
+    return metrics
 
 
 def _stack(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
@@ -165,7 +236,7 @@ def make_step_fns(model, tables: Dict[str, torch.Tensor],
                   contrastive_weight: float = 0.1,
                   use_contrastive: Optional[bool] = None,
                   extra_features_fn: Optional[Callable] = None,
-                  return_epoch_fns: bool = False):
+                  return_epoch_fns: bool = False, mesh=None):
     """(train_step, eval_step) over ``model`` and its feature ``tables``
     (tensors on the model's device); with ``return_epoch_fns`` also
     (train_epoch, eval_epoch), which run a whole epoch of stacked batches
@@ -178,17 +249,27 @@ def make_step_fns(model, tables: Dict[str, torch.Tensor],
     ``label`` and optionally ``weight`` (0/1 per row); ``batches`` the same
     with a leading batch axis. ``extra_features_fn(batch) -> kwargs`` adds
     or replaces features (default: the table gathers alone).
+
+    With a ``mesh`` each batch is this rank's rows of the global batch
+    (``parallel/mesh.batch_sharding``; ``batches``: axis 1), and the
+    metrics are the global batch's on every rank (module docstring); the
+    tables may be whole or this rank's rows of the item axis split over
+    'model' (``item_table_sharding``), told apart by their row count
+    (``gather_feature_kwargs``).
     """
     contrastive = (model.contrastive_active if use_contrastive is None
                    else use_contrastive and model.contrastive_active)
     device = model.device
+    split = data_mesh(mesh)
 
     def forward(batch, generator):
-        kw = gather_feature_kwargs(model, tables, batch)
+        kw = gather_feature_kwargs(model, tables, batch, mesh)
         if extra_features_fn is not None:
             kw.update(extra_features_fn(batch))
-        out = model(batch['user_idx'], batch['item_idx'], batch['tag_idx'],
-                    return_embeddings=contrastive, generator=generator, **kw)
+        with data_parallel(split, batch['item_idx'].shape[0]):
+            out = model(batch['user_idx'], batch['item_idx'],
+                        batch['tag_idx'], return_embeddings=contrastive,
+                        generator=generator, **kw)
         if contrastive:
             scores, vis_c, txt_c, _ = out
         else:
@@ -200,7 +281,7 @@ def make_step_fns(model, tables: Dict[str, torch.Tensor],
             scores.squeeze(-1), batch['label'], vis_c, txt_c, temp,
             use_contrastive=contrastive,
             contrastive_weight=contrastive_weight, bce_weight=bce_weight,
-            weight=batch.get('weight'))
+            weight=batch.get('weight'), mesh=split)
         return scores, loss
 
     def on_device(batch):
@@ -208,16 +289,16 @@ def make_step_fns(model, tables: Dict[str, torch.Tensor],
 
     def train_step(state: TrainState, batch, generator=None):
         batch = on_device(batch)
-        scores, loss = gated_train_update(
-            state, lambda: forward(batch, generator))
-        return state, step_metrics(scores, loss, batch)
+        metrics = gated_train_update(
+            state, lambda: forward(batch, generator), batch, split)
+        return state, metrics
 
     def eval_step(state: TrainState, batch):
         batch = on_device(batch)
         model.eval()
         with torch.no_grad():
             scores, loss = forward(batch, None)
-        return step_metrics(scores, loss, batch)
+            return reduced_metrics(scores, loss, batch, split)
 
     def train_epoch(state: TrainState, batches, generator=None):
         batches = on_device(batches)

@@ -30,6 +30,20 @@ Divergences kept on purpose:
 
 Each epoch's host seconds, split into batching, training, validation and
 checkpoint writes, go to ``epoch_seconds``.
+
+With a ``mesh`` (``parallel/mesh.py``) the trainer is data-parallel with
+replicated state, as JAX's: each rank takes its rows of every batch (the
+stacked batches sliced on axis 1, the per-batch ones through the loader),
+the tables are whole on every rank, and the steps compute the global
+batch's function, their metrics summed over 'data'. Every rank reads the
+same metrics, so early stopping, the scheduler and the non-finite
+accounting decide alike; rank 0 alone writes ``state.pt`` and
+``meta.json`` and the others wait at a barrier. The model axis is idle
+(its ranks compute alike); tensor parallelism is the steps' and
+``parallel/tensor_parallel.py``'s, not the trainer's. A 1x1 mesh runs the
+single-process trainer. Kept on purpose: the rank 0 writes (JAX's Orbax
+checkpoint is written by every process) and dropout's generator drawing
+the global batch's masks with each rank keeping its rows.
 """
 from __future__ import annotations
 
@@ -42,6 +56,7 @@ import numpy as np
 import torch
 
 from ..data.loader import PrefetchLoader
+from ..parallel.mesh import batch_sharding
 from ..utils.checkpointing import (
     load_checkpoint,
     load_model_state,
@@ -86,6 +101,41 @@ def _finalize_epoch_metrics(loss_sums: Dict[str, float], valid_batches: int,
     }
 
 
+def train_state_tensors(state: TrainState) -> Dict[str, Any]:
+    """The train state as the checkpoint holds it: parameters and
+    BatchNorm statistics by state-dict name, the optimizer state by field
+    (its tensors flat in the order of ``names``), the step."""
+    opt = state.opt_state
+    return {
+        'params': dict(state.model.named_parameters()),
+        'batch_stats': state.batch_stats,
+        'opt_state': {'names': list(opt.names),
+                      **{f: getattr(opt, f) for f in _OPT_FIELDS
+                         if getattr(opt, f) is not None}},
+        'step': state.step,
+    }
+
+
+@torch.no_grad()
+def restore_optimizer(state: TrainState, saved: Dict[str, Any]):
+    """Copy a checkpoint's optimizer state and step (``saved``: its
+    state) into ``state``, in place; raises where they were written for
+    another optimizer or other parameters."""
+    opt = state.opt_state
+    fields = saved['opt_state']
+    if list(fields['names']) != list(opt.names):
+        raise ValueError('the checkpoint was written for other trainable '
+                         'parameters than this optimizer holds')
+    for field in _OPT_FIELDS:
+        mine = getattr(opt, field)
+        if (field in fields) != (mine is not None):
+            raise ValueError(f'the checkpoint\'s optimizer state does not '
+                             f'match this optimizer (field {field!r})')
+        if mine is not None:
+            mine.copy_(fields[field])
+    state.step.copy_(saved['step'])
+
+
 def epoch_seed(seed: int, epoch: int) -> int:
     """The dropout generator's seed for ``epoch`` of a trainer seeded
     ``seed``: one stream per (seed + 1, epoch)."""
@@ -101,10 +151,6 @@ class Trainer:
                  use_contrastive: bool = True,
                  trial_info: Optional[Dict[str, Any]] = None,
                  mesh=None, seed: int = 0, compiled_epochs: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                'data-parallel training over several devices is not ported '
-                'yet (ROADMAP item A11b)')
         self.model = model
         self.config = config
         self.mesh = mesh
@@ -164,7 +210,7 @@ class Trainer:
         if self.state is None:
             self.state = init_train_state(self.model, tx)
         if self._pending_opt is not None:
-            self._restore_optimizer(self._pending_opt)
+            restore_optimizer(self.state, self._pending_opt)
             self._pending_opt = None
         if use_lr_scheduler:
             self.scheduler = LRScheduler(
@@ -181,7 +227,7 @@ class Trainer:
         table_dtype = (torch.bfloat16 if self.model.dtype == torch.bfloat16
                        else None)
         tables = train_dataset.feature_store.device_tables(
-            device=device, pack=True, dtype=table_dtype)
+            device=device, pack=True, dtype=table_dtype, mesh=self.mesh)
         cw = bw = None
         if self.config is not None:
             cw = self.config.training.contrastive_weight
@@ -191,7 +237,7 @@ class Trainer:
             bce_weight=1.0 if bw is None else bw,
             contrastive_weight=0.1 if cw is None else cw,
             use_contrastive=self.use_contrastive,
-            return_epoch_fns=True)
+            return_epoch_fns=True, mesh=self.mesh)
         self._eval_step = eval_step
         self._train_epoch_fn = train_epoch if self.compiled_epochs else None
         self._eval_epoch_fn = eval_epoch if self.compiled_epochs else None
@@ -281,7 +327,7 @@ class Trainer:
         loader = iter(PrefetchLoader(
             dataset.batches(batch_size, shuffle=training,
                             seed=self.seed + epoch),
-            prefetch=2, device=self.model.device))
+            prefetch=2, device=self.model.device, mesh=self.mesh))
         bidx = 0
         while True:
             t0 = time.perf_counter()
@@ -317,8 +363,12 @@ class Trainer:
         t0 = time.perf_counter()
         stacked = dataset.stacked_batches(batch_size, shuffle=training,
                                           seed=self.seed + epoch)
+        if self.mesh is not None:
+            # The leading axis is the batch count; the rows are axis 1.
+            rows = batch_sharding(self.mesh, batch_size)
+            stacked = {k: v[:, rows] for k, v in stacked.items()}
         device = self.model.device
-        stacked = {k: torch.from_numpy(v).to(device)
+        stacked = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                    for k, v in stacked.items()}
         t1 = time.perf_counter()
         seconds['batching'] += t1 - t0
@@ -399,20 +449,6 @@ class Trainer:
                 best[name] = max(best[name], value)
 
     # ------------------------------------------------------------ checkpoints
-    def _state_tensors(self) -> Dict[str, Any]:
-        """The train state as tensors: parameters and BatchNorm statistics
-        by state-dict name, the optimizer state by field (its tensors flat
-        in the order of ``names``), the step."""
-        opt = self.state.opt_state
-        return {
-            'params': dict(self.model.named_parameters()),
-            'batch_stats': self.state.batch_stats,
-            'opt_state': {'names': list(opt.names),
-                          **{f: getattr(opt, f) for f in _OPT_FIELDS
-                             if getattr(opt, f) is not None}},
-            'step': self.state.step,
-        }
-
     def save_checkpoint(self, filename: str, is_best: bool = False,
                         additional_info: Optional[Dict[str, Any]] = None):
         """Persist the train state and its metadata."""
@@ -439,7 +475,8 @@ class Trainer:
         if additional_info:
             meta['additional_info'] = additional_info
         path = save_checkpoint(self.model_checkpoint_dir, filename,
-                               self._state_tensors(), meta)
+                               train_state_tensors(self.state), meta,
+                               mesh=self.mesh)
         if self.epoch_seconds:
             self.epoch_seconds[-1]['checkpoint'] += time.perf_counter() - t0
         if is_best:
@@ -460,7 +497,7 @@ class Trainer:
         state, meta = restored['state'], restored['meta']
         load_model_state(self.model, state)
         if self.state is not None:
-            self._restore_optimizer(state)
+            restore_optimizer(self.state, state)
         else:
             self._pending_opt = {'opt_state': state['opt_state'],
                                  'step': state['step']}
@@ -477,22 +514,6 @@ class Trainer:
             self._pending_scheduler = meta['scheduler_state']
         print(f"Loaded checkpoint from {self.model_checkpoint_dir / filename} "
               f"(epoch {self.epoch})")
-
-    @torch.no_grad()
-    def _restore_optimizer(self, state: Dict[str, Any]):
-        opt = self.state.opt_state
-        saved = state['opt_state']
-        if list(saved['names']) != list(opt.names):
-            raise ValueError('the checkpoint was written for other trainable '
-                             'parameters than this optimizer holds')
-        for field in _OPT_FIELDS:
-            mine = getattr(opt, field)
-            if (field in saved) != (mine is not None):
-                raise ValueError(f'the checkpoint\'s optimizer state does not '
-                                 f'match this optimizer (field {field!r})')
-            if mine is not None:
-                mine.copy_(saved[field])
-        self.state.step.copy_(state['step'])
 
     # ----------------------------------------------------------------- helpers
     def _apply_lr(self, lr: float):

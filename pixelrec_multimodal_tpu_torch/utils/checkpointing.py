@@ -19,16 +19,26 @@ The state loads with ``weights_only=True`` (tensors, dicts, lists and
 numbers; no pickled code) onto the device the caller names. The
 reference's ``.pth`` names map to the ``best_model`` / ``last_model``
 directories; the discovery helpers accept both spellings.
+
+On a mesh (``parallel/mesh.py``) the file is the one a single process
+writes, with the same names: the shards of parameters split over 'model'
+(``parallel/tensor_parallel.py``), and of their optimizer moments, are
+gathered by name into the whole tensors first (``gather_state``), rank 0
+writes, and the others wait at a barrier. Loading onto a mesh reads the
+whole file on every rank and keeps the rank's slices (``shard_state``),
+so a checkpoint written on any mesh loads in one process bit for bit, and
+the other way round.
 """
 from __future__ import annotations
 
 import json
 import os
 from pathlib import Path
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import torch
 
+from ..parallel.mesh import MODEL_AXIS, barrier, is_main_rank, param_shard
 from .logging import NumpyJSONEncoder
 
 STATE_FILE = 'state.pt'
@@ -55,12 +65,77 @@ def _on_cpu(tree):
     return tree
 
 
+# The optimizer state's fields that lie over the flat parameter buffer.
+_FLAT_FIELDS = ('mu', 'nu', 'trace', 'acc')
+
+
+def _flat_parts(state: Dict[str, Any], field: str) -> List[torch.Tensor]:
+    """``state['opt_state'][field]`` split into one tensor per trainable
+    parameter, each in its parameter's shape."""
+    opt = state['opt_state']
+    flat, out, offset = opt[field], [], 0
+    for n in opt['names']:
+        shape = state['params'][n].shape
+        k = int(torch.Size(shape).numel())
+        out.append(flat[offset:offset + k].view(shape))
+        offset += k
+    return out
+
+
+def _remap(state: Dict[str, Any], fn) -> Dict[str, Any]:
+    """``state`` with ``fn(name, tensor)`` applied to every parameter and
+    to each parameter's part of the flat optimizer fields."""
+    out = dict(state)
+    out['params'] = {n: fn(n, t) for n, t in state['params'].items()}
+    opt = state.get('opt_state')
+    if opt is not None:
+        out['opt_state'] = dict(opt)
+        for field in _FLAT_FIELDS:
+            if field in opt:
+                parts = [fn(n, t) for n, t in zip(
+                    opt['names'], _flat_parts(state, field))]
+                out['opt_state'][field] = torch.cat(
+                    [t.reshape(-1) for t in parts])
+    return out
+
+
+def gather_state(state: Dict[str, Any], mesh,
+                 shardings: Mapping[str, Optional[int]]) -> Dict[str, Any]:
+    """A train state (``Trainer._state_tensors``' layout) whose sharded
+    parameters and flat optimizer fields hold this rank's shards, as the
+    whole tensors a single process holds: each shard gathered over
+    'model' by name. Collective over the mesh."""
+    from ..parallel.tensor_parallel import gather_parameter
+    return _remap(state, lambda n, t: gather_parameter(
+        mesh, t, shardings.get(n)))
+
+
+def shard_state(state: Dict[str, Any], mesh,
+                shardings: Mapping[str, Optional[int]]) -> Dict[str, Any]:
+    """A whole train state cut to this rank's shards, by name: the
+    inverse of ``gather_state``."""
+    return _remap(state, lambda n, t: param_shard(
+        mesh, t, shardings.get(n)).clone())
+
+
 def save_checkpoint(directory: Union[str, Path], name: str,
-                    state: Dict[str, Any], meta: Dict[str, Any]) -> Path:
+                    state: Dict[str, Any], meta: Dict[str, Any],
+                    mesh=None, shardings: Optional[Mapping[str, Optional[
+                        int]]] = None) -> Path:
     """Write ``state`` (tensors, on any device) to ``state.pt`` and ``meta``
     to ``meta.json`` under directory/name/; each file is written beside its
-    place and then renamed over it, so a reader never sees half a file."""
+    place and then renamed over it, so a reader never sees half a file.
+
+    On a ``mesh`` every rank calls this: the shards of ``shardings``
+    (``param_shardings``) are gathered into whole tensors, rank 0 writes
+    and all ranks meet at a barrier before it returns."""
     root = Path(directory).absolute() / normalize_checkpoint_name(name)
+    if mesh is not None:
+        if shardings and mesh.shape[MODEL_AXIS] > 1:
+            state = gather_state(state, mesh, shardings)
+        if not is_main_rank():
+            barrier(mesh)
+            return root
     root.mkdir(parents=True, exist_ok=True)
     tmp = root / (STATE_FILE + '.tmp')
     torch.save(_on_cpu(state), tmp)
@@ -69,19 +144,25 @@ def save_checkpoint(directory: Union[str, Path], name: str,
     with open(tmp, 'w') as f:
         json.dump(meta, f, indent=2, cls=NumpyJSONEncoder)
     os.replace(tmp, root / META_FILE)
+    if mesh is not None:
+        barrier(mesh)
     return root
 
 
 def load_checkpoint(directory: Union[str, Path], name: str,
-                    device: Union[str, torch.device] = 'cpu'
-                    ) -> Optional[Dict[str, Any]]:
+                    device: Union[str, torch.device] = 'cpu',
+                    mesh=None, shardings: Optional[Mapping[str, Optional[
+                        int]]] = None) -> Optional[Dict[str, Any]]:
     """{'state': ..., 'meta': ...} with the state's tensors on ``device``;
-    None when the checkpoint is absent."""
+    None when the checkpoint is absent. With a ``mesh`` and
+    ``shardings``, the state holds this rank's shards."""
     root = Path(directory).absolute() / normalize_checkpoint_name(name)
     path = root / STATE_FILE
     if not path.exists():
         return None
     state = torch.load(path, map_location=device, weights_only=True)
+    if mesh is not None and shardings and mesh.shape[MODEL_AXIS] > 1:
+        state = shard_state(state, mesh, shardings)
     meta = {}
     if (root / META_FILE).exists():
         with open(root / META_FILE) as f:

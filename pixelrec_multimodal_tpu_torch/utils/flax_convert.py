@@ -27,6 +27,10 @@ tables (MPNet's
 (class and position tokens, layer scales) keep their names.
 ``end_to_end_state_dict`` carries an end-to-end model's tree: its towers
 that way and its ``scorer`` subtree as a model's.
+
+``flax_leaves`` runs the map the other way, from a built module's
+parameters to their Flax leaf names and shapes (the tensor-parallel rule
+of ``parallel/mesh.param_shardings`` reads them).
 """
 from __future__ import annotations
 
@@ -124,6 +128,48 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> List[str]:
     if required:
         raise KeyError(f'Flax variables do not set {required}')
     return missing
+
+
+def _flax_leaf(owner: nn.Module, parent: Optional[nn.Module], pname: str,
+               p: torch.Tensor) -> Tuple[str, Tuple[int, ...]]:
+    """The Flax leaf name and shape of parameter ``pname`` of ``owner``
+    (``parent`` the module holding ``owner``)."""
+    from ..models.layers import MultiHeadAttention
+    shape = tuple(p.shape)
+    if pname == 'weight':
+        if isinstance(owner, nn.Embedding):
+            return 'embedding', shape
+        if isinstance(owner, nn.Linear):
+            if isinstance(parent, MultiHeadAttention):
+                h = parent.num_heads  # DenseGeneral: [D, H, dh] / [H, dh, D]
+                if owner is parent.out:
+                    return 'kernel', (h, shape[1] // h, shape[0])
+                return 'kernel', (shape[1], h, shape[0] // h)
+            return 'kernel', shape[::-1]
+        if isinstance(owner, nn.Conv2d):
+            return 'kernel', (shape[2], shape[3], shape[1], shape[0])
+        return 'scale', shape
+    if pname in ('running_mean', 'running_var'):
+        return pname[len('running_'):], shape
+    return pname, shape
+
+
+def flax_leaves(model: nn.Module
+                ) -> Iterator[Tuple[str, str, Tuple[int, ...]]]:
+    """(state-dict name, Flax leaf name, Flax shape) of each parameter of
+    ``model``: a Linear's weight is the ``kernel`` [in, out] (the fusion
+    attention's projections the 3-D DenseGeneral kernels), an Embedding's
+    the ``embedding``, a convolution's the HWIO ``kernel``, a norm's the
+    ``scale``; biases, frozen BatchNorm statistics and bare parameters
+    keep their names."""
+    parents = {}
+    for name, mod in model.named_modules():
+        for child_name, child in mod.named_children():
+            parents[f'{name}.{child_name}' if name else child_name] = mod
+    for name, mod in model.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            leaf, shape = _flax_leaf(mod, parents.get(name), pname, p)
+            yield (f'{name}.{pname}' if name else pname), leaf, shape
 
 
 # Flax leaf name -> tensor name in the encoder towers.

@@ -7,8 +7,10 @@ file store under the job's directory (no TCP port, so test files can run
 side by side). While they start, the test process prepares the job (the
 models' Flax variables as numpy trees, the item tables and a list of
 calls) and hands it over (``Ranks.submit``); each rank runs every call in
-order, on meshes and scorers it builds once, and pickles the results.
-Each rank's output and errors go to files in the job's directory.
+order, on meshes and scorers it builds once, and pickles the results;
+the training calls (``TRAIN_CALLS``) build their models afresh and run
+with gradients on. Each rank's output and errors go to files in the job's
+directory.
 """
 import os
 import pickle
@@ -215,6 +217,10 @@ class Context:
 
     def run(self, call):
         kind = call['kind']
+        if kind in TRAIN_CALLS:
+            import torch
+            with torch.enable_grad():
+                return TRAIN_CALLS[kind](self, call)
         if kind == 'mesh_info':
             return mesh_info(call['requests'])
         if kind == 'init_distributed':
@@ -248,6 +254,205 @@ class Context:
             return out, {k: v - before.get(k, 0)
                          for k, v in mesh.traffic.items()}
         return out
+
+
+def fresh_model(ctx, call):
+    """A new port model of the job's ``call['model']`` spec on the CPU
+    (``kw`` updated by ``call['kw']``), its Flax variables loaded; cut to
+    this rank's shards when ``call['tp']``. Returns (model, mesh)."""
+    from pixelrec_multimodal_tpu_torch.models.multimodal import (
+        MultimodalRecommender,
+    )
+    from pixelrec_multimodal_tpu_torch.parallel.tensor_parallel import (
+        shard_module,
+    )
+    from pixelrec_multimodal_tpu_torch.utils.flax_convert import (
+        load_flax_variables,
+    )
+    spec = ctx.job['models'][call['model']]
+    model = MultimodalRecommender(**dict(spec['kw'], **call.get('kw', {})),
+                                  device='cpu')
+    load_flax_variables(model, spec['variables'])
+    mesh = ctx.mesh(call['mesh'])
+    if call.get('tp'):
+        shard_module(model, mesh)
+    return model, mesh
+
+
+def local_tables(ctx, call, mesh):
+    """The job's tables, whole or (``call['tables_sharded']``) this rank's
+    rows of the item axis over 'model'."""
+    import torch
+    from pixelrec_multimodal_tpu_torch.parallel import item_table_sharding
+    out = {}
+    for k, v in ctx.job['tables'][call['tables']].items():
+        if call.get('tables_sharded'):
+            v = v[item_table_sharding(mesh, len(v))]
+        out[k] = torch.from_numpy(np.ascontiguousarray(v))
+    return out
+
+
+def local_batch(batch, mesh):
+    import torch
+    from pixelrec_multimodal_tpu_torch.parallel import shard_batch
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in shard_batch(batch, mesh).items()}
+
+
+def whole_state(state, mesh):
+    """The train state with its shards gathered by name, as numpy."""
+    from pixelrec_multimodal_tpu_torch.training.trainer import (
+        train_state_tensors,
+    )
+    from pixelrec_multimodal_tpu_torch.utils.checkpointing import (
+        gather_state,
+    )
+    st = gather_state(train_state_tensors(state), mesh,
+                      getattr(state.model, 'tp_shardings', {}))
+    return {'params': {k: v.detach().numpy().copy()
+                       for k, v in st['params'].items()},
+            'batch_stats': {k: v.numpy().copy()
+                            for k, v in st['batch_stats'].items()},
+            'opt_state': {k: (v if k == 'names' else v.numpy().copy())
+                          for k, v in st['opt_state'].items()}}
+
+
+def train_steps_call(ctx, call):
+    """``call['batches']`` (global, [steps, B]) through the port's meshed
+    train step; the metrics of each step, the whole trained state and the
+    traffic. With ``call['checkpoint']`` the state is then written there
+    on the mesh."""
+    import torch
+    from pixelrec_multimodal_tpu_torch.training.optimizers import (
+        build_optimizer,
+    )
+    from pixelrec_multimodal_tpu_torch.training.steps import (
+        init_train_state,
+        make_step_fns,
+    )
+    from pixelrec_multimodal_tpu_torch.training.trainer import (
+        train_state_tensors,
+    )
+    from pixelrec_multimodal_tpu_torch.utils.checkpointing import (
+        save_checkpoint,
+    )
+    model, mesh = fresh_model(ctx, call)
+    state = init_train_state(model, build_optimizer(**call['optimizer']))
+    step, _ = make_step_fns(model, local_tables(ctx, call, mesh), mesh=mesh)
+    gen = torch.Generator().manual_seed(call.get('seed', 0))
+    bs = call['batches']
+    before = dict(mesh.traffic)
+    metrics = []
+    for i in range(len(bs['item_idx'])):
+        state, m = step(state, local_batch({k: v[i] for k, v in bs.items()},
+                                           mesh), gen)
+        metrics.append({k: float(v) for k, v in m.items()})
+    traffic = {k: v - before.get(k, 0) for k, v in mesh.traffic.items()}
+    if call.get('checkpoint'):
+        save_checkpoint(call['checkpoint'], 'best_model',
+                        train_state_tensors(state), {'epoch': 1}, mesh=mesh,
+                        shardings=model.tp_shardings)
+    return {'metrics': metrics, 'state': whole_state(state, mesh),
+            'traffic': traffic, 'step': int(state.step),
+            'shapes': {k: tuple(p.shape)
+                       for k, p in model.named_parameters()}}
+
+
+def load_checkpoint_call(ctx, call):
+    """A single-process checkpoint loaded onto the mesh with the tensor-
+    parallel model's shardings: this rank's parameters and optimizer
+    fields, as numpy."""
+    from pixelrec_multimodal_tpu_torch.utils.checkpointing import (
+        load_checkpoint,
+    )
+    model, mesh = fresh_model(ctx, call)
+    st = load_checkpoint(call['checkpoint'], 'best_model', mesh=mesh,
+                         shardings=model.tp_shardings)['state']
+    return {'params': {k: v.numpy() for k, v in st['params'].items()},
+            'opt_state': {k: (v if k == 'names' else v.numpy())
+                          for k, v in st['opt_state'].items()},
+            'coords': mesh.coords}
+
+
+def gather_call(ctx, call):
+    """The feature kwargs of a batch gathered from the tables split over
+    'model' and from the whole tables, both under the mesh (the gather
+    tells them apart by their row count)."""
+    import torch
+    from pixelrec_multimodal_tpu_torch.training.steps import (
+        gather_feature_kwargs,
+    )
+    model, mesh = fresh_model(ctx, call)
+    batch = {'item_idx': torch.from_numpy(call['item_idx'])}
+    sharded = gather_feature_kwargs(model, local_tables(
+        ctx, dict(call, tables_sharded=True), mesh), batch, mesh)
+    whole = gather_feature_kwargs(model, local_tables(ctx, call, mesh), batch,
+                                  mesh)
+    return ({k: v.numpy() for k, v in sharded.items()},
+            {k: v.numpy() for k, v in whole.items()})
+
+
+def e2e_steps_call(ctx, call):
+    """The meshed unfrozen step (``e2e`` spec of the job: a tiny CLIP
+    vision tower, a text tower and a CLIP text tower under remat, a
+    contrastive scorer with dropout, augmentation on) for each global
+    batch of ``call['batches']``; the metrics and the whole state."""
+    import torch
+    from pixelrec_multimodal_tpu_torch.parallel.tensor_parallel import (
+        shard_module,
+    )
+    from pixelrec_multimodal_tpu_torch.training.e2e_steps import (
+        init_e2e_train_state,
+        make_e2e_step_fns,
+    )
+    from pixelrec_multimodal_tpu_torch.training.optimizers import (
+        build_optimizer,
+    )
+    from pixelrec_multimodal_tpu_torch.config import ImageAugmentationConfig
+    from pixelrec_multimodal_tpu_torch.parallel.dryrun import e2e_model
+    model = e2e_model(call['n_items'], 'cpu')
+    mesh = ctx.mesh(call['mesh'])
+    if call.get('tp'):
+        shard_module(model, mesh)
+    state = init_e2e_train_state(model, build_optimizer(**call['optimizer']))
+    num = torch.from_numpy(ctx.job['e2e_numerical'])
+    step, _ = make_e2e_step_fns(model, {'numerical': num}, mesh=mesh,
+                                augmentation_config=ImageAugmentationConfig(
+                                    **call['augmentation']))
+    gen = torch.Generator().manual_seed(call.get('seed', 0))
+    bs = call['batches']
+    metrics = []
+    for i in range(len(bs['item_idx'])):
+        state, m = step(state, local_batch({k: v[i] for k, v in bs.items()},
+                                           mesh), gen)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {'metrics': metrics, 'state': whole_state(state, mesh)}
+
+
+def trainer_call(ctx, call):
+    """The port's ``Trainer`` on the mesh over the job's datasets; the
+    loss history, the LR after each epoch, the trained state dict and
+    the checkpoint directory's files."""
+    from pixelrec_multimodal_tpu_torch.training import Trainer
+    model, mesh = fresh_model(ctx, call)
+    train, val = ctx.job['datasets'][call['datasets']]
+    trainer = Trainer(model, config=ctx.job['configs'][call['config']],
+                      checkpoint_dir=call['checkpoint_dir'], mesh=mesh,
+                      compiled_epochs=call.get('compiled', True))
+    lrs = []
+    trainer._print_epoch_summary = lambda *a: lrs.append(
+        trainer.get_learning_rate())
+    losses = trainer.train(train, val, **call['train'])
+    return {'losses': losses, 'lrs': lrs,
+            'history': trainer.training_history,
+            'state': {k: v.numpy().copy()
+                      for k, v in model.state_dict().items()}}
+
+
+TRAIN_CALLS = {'train_steps': train_steps_call,
+               'load_checkpoint': load_checkpoint_call,
+               'gather': gather_call, 'e2e_steps': e2e_steps_call,
+               'trainer': trainer_call}
 
 
 def mesh_info(requests):

@@ -177,7 +177,8 @@ def test_written_files_match(runs):
 
 def test_train_entry_point_refusals(runs, monkeypatch):
     """Without a card the default device raises; a device other than
-    cuda or cpu raises; more than one device raises, naming A11."""
+    cuda or cpu raises; a mesh past the one process raises JAX's
+    message."""
     cfg = str(runs['base'] / 'torch' / 'config.yaml')
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
@@ -185,7 +186,8 @@ def test_train_entry_point_refusals(runs, monkeypatch):
     with pytest.raises((ValueError, RuntimeError)):
         quiet(ttrain.main, ['--config', cfg, '--device', 'tpu'])
     for flag in (['--data_parallel', '2'], ['--model_parallel', '4']):
-        with pytest.raises(NotImplementedError, match='A11'):
+        with pytest.raises(ValueError,
+                           match=r'mesh but only 1 device\(s\) visible'):
             quiet(ttrain.main, ['--config', cfg, '--device', 'cpu', *flag])
 
 

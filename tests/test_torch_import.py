@@ -141,7 +141,7 @@ def test_probe_sources_are_checked():
             'dinov2.py', 'convnext.py', 'registry.py', 'convert.py',
             'precompute.py', 'image_processor.py', 'flax_convert.py',
             'precompute_cache.py', 'mesh.py', 'topk.py',
-            '_torch_mesh.py'} <= names
+            '_torch_mesh.py', 'tensor_parallel.py', 'dryrun.py'} <= names
 
 
 @pytest.mark.parametrize('path', port_sources(), ids=lambda p: p.name)
@@ -178,6 +178,11 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     assert scorer.device.type == 'cpu'
     with pytest.raises(ValueError):
         resolve_device('meta')
+    from pixelrec_multimodal_tpu_torch.parallel.dryrun import (
+        dryrun_multichip,
+    )
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        dryrun_multichip(4)
 
 
 def test_gated_fusion_builds_on_cpu_and_defaults_to_cuda(monkeypatch):

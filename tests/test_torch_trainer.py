@@ -48,6 +48,7 @@ from pixelrec_multimodal_tpu_torch.inference.scorer import CatalogScorer
 from pixelrec_multimodal_tpu_torch.models.multimodal import (
     MultimodalRecommender,
 )
+from pixelrec_multimodal_tpu_torch.parallel import Mesh, make_mesh
 from pixelrec_multimodal_tpu_torch.training import Trainer
 from pixelrec_multimodal_tpu_torch.training.steps import make_step_fns
 from pixelrec_multimodal_tpu_torch.utils import checkpointing
@@ -475,10 +476,22 @@ def test_bf16_tables_give_the_f32_tables_losses():
 
 
 def test_trainer_refuses_a_mesh(tmp_path):
-    _, tr, _ = port_datasets()
-    with pytest.raises(NotImplementedError, match='A11'):
-        Trainer(port_model(model_kwargs(tr)), mesh=object(),
-                checkpoint_dir=str(tmp_path))
+    """A Trainer on a 1x1 mesh is the Trainer without one, bit for bit
+    (losses, parameters; dropout on); a mesh whose data axis does not
+    divide the batch is refused before its first step."""
+    runs = []
+    for name, mesh in (('none', None), ('1x1', make_mesh())):
+        t, tr, va = port_run(tmp_path / name, 2, mesh=mesh)
+        runs.append((t.train(tr, va, epochs=2, batch_size=BATCH),
+                     t.model.state_dict()))
+    assert runs[0][0] == runs[1][0]
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
+    three = Mesh(np.arange(3).reshape(3, 1), 0,
+                 {'data': None, 'model': None})
+    t, tr, va = port_run(tmp_path / 'three', 1, mesh=three)
+    with pytest.raises(ValueError, match="do not divide over the 'data'"):
+        t.train(tr, va, epochs=1, batch_size=BATCH)
     t, tr, va = port_run(tmp_path, 1)
     t.load_checkpoint('missing_model')  # warns, changes nothing
     assert t.epoch == 0 and t._pending_opt is None
