@@ -105,6 +105,10 @@ DATASHEET = {'bf16': PEAK_BF16_FLOPS, 'int8': PEAK_INT8_OPS,
              'ffma': PEAK_F32_FLOPS / 2, 'exp': 132 * 16 * 1.98e9}
 PEAKS: dict = {}
 T_START = time.time()
+# The whole script's wall time: the limit it must end within, and the
+# target each full run keeps to, so that a host whose build and host-bound
+# phases run slow still ends inside the limit (``phase_seconds`` line).
+SCRIPT_LIMIT, SCRIPT_TARGET = 1200, 1000
 
 # Kernel-vs-plain tolerance, relative to max(1, |score|): each kernel and
 # its plain bf16 version round at the same points and differ only in the
@@ -132,6 +136,17 @@ AGREE, MAX_DIFFERING_PER_LAYER, FLIP_TOL = 1e-6, 0.0075, 1e-2
 # that chain within FLIP_MATCH of the kernel's score (relative to
 # max(1, |score|), as FLIP_TOL).
 FLIP_EXPLAIN_MOST, FLIP_MATCH = 2, 1e-5
+# The int8 chain's codes that an activation computed another way may flip
+# (ROADMAP C5; derived in ``exact_chain_int8``): how far the card's
+# activation of a value may lie from the exact one, relative to
+# |z| + |act(z)|; the largest slope of any activation (gelu's 1.13, rounded
+# up); how far K2q's assembled first layer may lie from the plain
+# version's, relative to sum_m g_m |part_m|.
+ACT_REACH, ACT_SLOPE, GATE_REACH = 2.0 ** -20, 1.2, 2.0 ** -19
+# Pairs of each trained int8 head whose kernel score is moved on purpose,
+# log-uniformly between 10 AGREE and FLIP_TOL, to count how many the code
+# flips would wrongly explain.
+INT8_DECOYS = 32
 # Wide heads sum more products per hidden activation (w1 at d 512 sums 512,
 # where the d 64 head sums 64; h1 1,024 and 2,048 likewise), so more of
 # their bf16 activations round to the other neighbour when the tensor cores
@@ -260,7 +275,16 @@ BASELINES = ('random', 'popularity', 'item_knn', 'user_knn')
 # contrastive), written from SEED before the search. Each trial's best
 # checkpoint then serves HPO_SERVE_USERS users over the full catalog,
 # top-K, seen items masked; the concat and gated heads again in int8.
-HPO_TRIALS = 5
+# Each trial trains HPO_EPOCHS epochs (cut from the config's 5 for the
+# script's time; its int8 gate allows code flips, ROADMAP C5) and
+# validates on HPO_VAL_SHARE of the split's validation rows, drawn from a
+# seed (cut for the script's time: the trials train on the 5% subset, and
+# the whole validation split took as long as the training). The subsets
+# are cut from HPO_TRAIN_SHARE of the split's training rows, drawn from a
+# seed (cut for the script's time: the trials' batches of 16 to 64 took
+# 1,460 host-bound steps an epoch on the whole split's 5%).
+HPO_TRIALS, HPO_EPOCHS = 5, 1
+HPO_TRAIN_SHARE, HPO_VAL_SHARE = 0.1, 0.05
 HPO_NEW_TABLES = (('clip', 'sentence-bert'), ('resnet', 'bert'),
                   ('clip', 'bert'), ('convnext', None))
 HPO_SERVE_USERS = 1024
@@ -294,7 +318,10 @@ TOWERS = (('vision', 'resnet'), ('vision', 'clip'), ('clip_text', 'clip'),
           ('language', 'roberta'), ('language', 'mpnet'))
 TOWER_CHECK_ITEMS, TOWER_RATE_BATCH, TOWER_TOL = 4, 64, 2e-3
 TOWER_FP32_TOL = 1e-4
-PRECOMPUTE_ITEMS, PRECOMPUTE_USERS = 16384, 1024
+# The workspace's items are cut by half for the script's time
+# (SCRIPT_TARGET): at 16,384 the phase took 56.2 s on an NVIDIA H100 80GB
+# HBM3 at 700.00 W, the entry point and the vision table 28.3 s of it.
+PRECOMPUTE_ITEMS, PRECOMPUTE_USERS = 8192, 1024
 # The e2e phase: the unfrozen path (models/end_to_end.py,
 # training/e2e_steps.py) at scripts/bench_training.py:191-265's geometry:
 # ResNet-50 at 224 px and MiniLM-L6 at E2E_TEXT_LEN tokens inside the step,
@@ -373,15 +400,19 @@ PREPROCESS_SHARES = {None: 1 / 64, 'truncated.jpg': 1 / 128,
                      'truncated_progressive.jpg': 1 / 128,
                      'small_16.jpg': 1 / 128, 'baseline_420.jpg': 1 / 128}
 PREPROCESS_MIN_SIDE, PREPROCESS_EPOCHS = 64, 2
-# An eighth of the cli phase's items and users. At its full geometry the
-# phase took 325.8 s alone on an NVIDIA H100 80GB HBM3 at 700.00 W (the
-# image step 2.9 ms an item, mostly the file system's copies); at half of
-# it the whole script took 1,054 s of its 1,200 s on a host where the
-# build and the hpo phase ran 40 s and 75 s slower than the run before;
-# at a quarter, with the mesh_train phase, 1,258.7 s on a host where the
-# build took 90.4 s (57.1 s on the faster host of a 924.8 s run).
-PREPROCESS_ITEMS, PREPROCESS_USERS = N_ITEMS // 8, TRAIN_USERS // 8
-PREPROCESS_COMPARE_ITEMS = 1024
+# A sixteenth of the cli phase's items and users. At its full geometry
+# the phase took 325.8 s alone on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (the image step 2.9 ms an item, mostly the file system's copies); at
+# half of it the whole script took 1,054 s of its 1,200 s on a host where
+# the build and the hpo phase ran 40 s and 75 s slower than the run
+# before; at a quarter, with the mesh_train phase, 1,258.7 s on a host
+# where the build took 90.4 s (57.1 s on the faster host of a 924.8 s
+# run); at an eighth the phase took 66.3 s of a 1,147.2 s run, whose
+# target is SCRIPT_TARGET.
+PREPROCESS_ITEMS, PREPROCESS_USERS = N_ITEMS // 16, TRAIN_USERS // 16
+# For the script's time (SCRIPT_TARGET): the two decoders' image steps on
+# 1,024 items took 10.2 s.
+PREPROCESS_COMPARE_ITEMS = 512
 # The mesh phase: the port's meshed paths (parallel/mesh.py) in MESH_RANKS
 # spawned rank processes that share the machine's one card. NCCL refuses
 # two ranks of one communicator on one device ("Duplicate GPU detected",
@@ -433,6 +464,20 @@ def emit(phase: str, **fields):
     so consecutive lines bound each phase's wall time."""
     print(json.dumps({'phase': phase, 't': round(time.time() - T_START, 3),
                       **fields}), flush=True)
+
+
+class PhaseClock:
+    """Wall seconds of each phase of ``main``, for the ``phase_seconds``
+    line: ``lap(name)`` books the seconds since the last lap (or since the
+    clock was made) under ``name``."""
+
+    def __init__(self):
+        self.seconds, self._t = {}, time.time()
+
+    def lap(self, name: str):
+        now = time.time()
+        self.seconds[name] = round(now - self._t, 3)
+        self._t = now
 
 
 def log(*a):
@@ -843,20 +888,108 @@ def exact_chain(chain: dict, x: torch.Tensor, forced=None):
     return tpm.final_activation_fn(s, chain['final_activation']), flippable
 
 
+def _quantize(v: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The int8 codes of float32 values under a quantized layer's
+    ``params``: clamp(floor(v * inv_a + off), -128, 127), each step
+    rounded to float32 (``_chain_scores_int8``)."""
+    return torch.clamp(torch.floor(v * p[2, 0] + p[2, 1]), -128, 127)
+
+
+def _code_flips(v64: torch.Tensor, reach: torch.Tensor, p: torch.Tensor,
+                bf16_in: bool) -> tuple:
+    """(codes, their other values, the mask of the codes that may flip) of
+    the exact activations ``v64`` (float64) under the quantize of ``p``,
+    where the card's activations may lie ``reach`` from them. The codes
+    are the plain version's of ``v64`` rounded to float32 (then to bf16
+    where ``bf16_in``). ``bf16_in``: a code flips where ``v64`` lies within
+    ``reach`` of the tie between its two bf16 neighbours and the other one
+    quantizes to another code. Otherwise where the value before floor,
+    u = v64 inv_a + off (float64), lies within inv_a reach + 2**-24
+    (|v64 inv_a| + |u|) (the float32 product's and sum's roundings) of an
+    integer n in [-127, 127]: the code then takes n's other side (at the
+    clamp's ends both sides give the same code)."""
+    if bf16_in:
+        h = v64.float().to(torch.bfloat16)
+        other = _bf16_other_side(v64, h)
+        codes, flipped = _quantize(h.float(), p), _quantize(other.float(), p)
+        tie = (h.double() + other.double()) / 2
+        return codes, flipped, ((v64 - tie).abs() <= reach) & (
+            codes != flipped)
+    codes = _quantize(v64.float(), p)
+    inv_a, off = p[2, 0].double(), p[2, 1].double()
+    u = v64 * inv_a + off
+    n = torch.round(u)
+    reach_u = inv_a.abs() * reach + 2.0 ** -24 * ((v64 * inv_a).abs()
+                                                  + u.abs())
+    return codes, (2 * n - 1 - codes.double()).float(), (
+        ((u - n).abs() <= reach_u) & (n.abs() <= 127))
+
+
+def exact_chain_int8(head: dict, x: torch.Tensor, forced=None):
+    """The plain int8 chain (``_chain_scores_int8`` after the bf16 rounding
+    of the activated first layer) from the first-layer pre-activations
+    ``x[:, 0]`` [rows, h1] (float32), with every activation exact (float64,
+    rounded to float32), every value before ``floor`` in float64 and the
+    last dot exact (float64). ``x[:, 1]``: how far the kernel's
+    pre-activations may lie from ``x[:, 0]``. ``forced`` (one bool mask
+    [rows, width] per int8 layer): those codes take their other value.
+    Returns the scores [rows] (float64) and, per int8 layer, the mask of
+    the codes that the kernel may take otherwise (``_code_flips``).
+
+    Kernel and plain version round at the same points: the quantize
+    fl(fl(v inv_a) + off), the exact integer products, the rescale
+    fl(fl(f32(acc) out_scale) + bias_eff). They part where each computes
+    an activation: CUDA's tanhf and expf (2 ulp each) in ``act_fn`` against
+    PyTorch's, and gelu's polynomial (six more roundings). Each side lies
+    within 8 ulp of |z| + |v| of the exact v = act(z), so the reach of a
+    value is ACT_REACH (|z| + |v|) = 2**-20 (|z| + |v|), plus ACT_SLOPE
+    times how far the kernel's z may lie from the plain version's; relu is
+    exact on both sides (reach 0 but for that). In a hidden layer the z are
+    equal. In the first, K1q's rows are the plain version's (the bf16 add
+    of the bf16 rows); K2q's softmax gates take the card's expf against
+    torch.exp (3 ulp apart), and the weighted sum of at most 8 parts rounds
+    each product and sum again: its rows lie within 31 ulp of
+    sum_m g_m |part_m| of the plain version's, GATE_REACH = 2**-19 of it,
+    which ``int8_chain_inputs`` puts in ``x[:, 1]``. The last dot differs
+    only in its float32 order (about 1e-7)."""
+    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+    act = tpm.activation_fn(head['activation'])
+    act_reach = 0.0 if tpm.ACTIVATIONS.get(
+        head['activation'].lower(), 0) == 0 else ACT_REACH
+    z, dz = x[:, 0].double(), x[:, 1].double()
+    flippable = []
+    for layer, q in enumerate(head['qlayers']):
+        v64 = act(z)
+        reach = act_reach * (z.abs() + v64.abs()) + ACT_SLOPE * dz
+        codes, flipped, mask = _code_flips(v64, reach, q['params'],
+                                           bf16_in=layer == 0)
+        flippable.append(mask)
+        if forced is not None:
+            codes = torch.where(forced[layer], flipped, codes)
+        p = q['params']
+        acc = (codes.double() @ q['wq'].double()).float()
+        z, dz = (acc * p[0] + p[1]).double(), torch.zeros_like(z[:, :1])
+    w_last, b_last = head['layers'][-1]
+    s = act(z).float().double() @ w_last[:, 0].double() + b_last[0].double()
+    return tpm.final_activation_fn(s, head['final_activation']), flippable
+
+
 def flip_explanation(chain: dict, x: torch.Tensor, target: np.ndarray,
                      scale: np.ndarray, explain,
-                     most: int = FLIP_EXPLAIN_MOST) -> dict:
-    """How far bf16 roundings that fall the other way move the scores of
-    the bf16 rows ``x`` (one pair each) through ``chain``, from the chain
-    with exact sums (``exact_chain``; its scores are ``exact``).
+                     most: int = FLIP_EXPLAIN_MOST,
+                     exact=exact_chain) -> dict:
+    """How far roundings that fall the other way move the scores of the
+    rows ``x`` (one pair each) through ``chain``, from the chain with exact
+    sums (``exact``, ``exact_chain`` for bf16 roundings on bf16 rows,
+    ``exact_chain_int8`` for int8 codes; its scores are ``exact``).
     ``single_move`` [rows]: the largest move, over ``scale``, that one
     flippable rounding of the row makes alone; ``flippable`` [rows]: their
     number. For each row in ``explain``, greedy, the flips that bring the
     exact chain nearest the kernel's score ``target``, at most ``most`` of
     them, each step over the roundings flippable on the path with the
     flips taken so far: ``residuals`` (|target - score| / scale after 0,
-    1, ... flips) and ``flips`` ((hidden layer, unit) each)."""
-    base, flippable = exact_chain(chain, x)
+    1, ... flips) and ``flips`` ((layer, unit) each)."""
+    base, flippable = exact(chain, x)
     widths = [m.shape[1] for m in flippable]
     found = [m.nonzero().cpu().numpy() for m in flippable]
     none = [np.zeros(0, np.int64)]  # a head with no hidden layer
@@ -879,9 +1012,9 @@ def flip_explanation(chain: dict, x: torch.Tensor, target: np.ndarray,
     def scores(rows, var, layer, unit):
         """Exact-sum scores of ``x[rows]`` with ``forced_masks``'s
         flips."""
-        return exact_chain(chain, x[torch.as_tensor(rows, device=x.device)],
-                           forced_masks(len(rows), var, layer, unit)
-                           )[0].cpu().numpy()
+        return exact(chain, x[torch.as_tensor(rows, device=x.device)],
+                     forced_masks(len(rows), var, layer, unit)
+                     )[0].cpu().numpy()
 
     base_np = base.cpu().numpy()
     single, batch = np.zeros(x.shape[0]), 4096
@@ -897,7 +1030,7 @@ def flip_explanation(chain: dict, x: torch.Tensor, target: np.ndarray,
         for _ in range(most):
             # the roundings flippable on the path with ``flips`` taken:
             # a flip moves the next layer's sums
-            now = exact_chain(chain, x[r:r + 1], forced_masks(
+            now = exact(chain, x[r:r + 1], forced_masks(
                 1, np.zeros(len(flips), np.int64),
                 np.array([f[0] for f in flips], np.int64),
                 np.array([f[1] for f in flips], np.int64)))[1]
@@ -924,17 +1057,48 @@ def flip_explanation(chain: dict, x: torch.Tensor, target: np.ndarray,
             'explained': explained}
 
 
-def concat_chain_inputs(scorer, user_first: torch.Tensor,
-                        items: torch.Tensor) -> torch.Tensor:
-    """The bf16 rows that K1's plain bf16 version (``pairwise_scores_plain``)
-    feeds its hidden chain for user row r of ``user_first`` against the
-    items ``items[r]`` (positions, [users, k]), in that order."""
-    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+def concat_first_layer(scorer, user_first: torch.Tensor,
+                       items: torch.Tensor) -> torch.Tensor:
+    """The bf16 first-layer pre-activations that K1's plain bf16 version
+    (``pairwise_scores_plain``) forms for user row r of ``user_first``
+    against the items ``items[r]`` (positions, [users, k]), in that order:
+    [users * k, h1]."""
     bf16 = torch.bfloat16
     x = (user_first.to(bf16).float()[:, None, :]
          + scorer._scan_tables[0][items].to(bf16).float()).to(bf16)
-    x = tpm.activation_fn(scorer._head['activation'])(x.float()).to(bf16)
     return x.reshape(-1, x.shape[-1])
+
+
+def concat_chain_inputs(scorer, user_first: torch.Tensor,
+                        items: torch.Tensor) -> torch.Tensor:
+    """The bf16 rows that K1's plain bf16 version feeds its hidden chain:
+    ``concat_first_layer`` activated and rounded to bf16."""
+    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+    x = concat_first_layer(scorer, user_first, items)
+    return tpm.activation_fn(scorer._head['activation'])(x.float()).to(
+        torch.bfloat16)
+
+
+def int8_chain_inputs(scorer, side: tuple, items: torch.Tensor
+                      ) -> torch.Tensor:
+    """``exact_chain_int8``'s rows [users * k, 2, h1] for user row r of
+    ``side`` (``_fast_user_side``) against the items ``items[r]``
+    (positions, [users, k]): the first-layer pre-activations that the
+    plain int8 version activates and rounds to bf16 before its chain
+    (``concat_first_layer``; a gated head's float32 assembly, as
+    ``pairwise_scores_gated_plain`` forms it), and how far the kernel's
+    may lie from them (0; gated: GATE_REACH sum_m g_m |part_m|)."""
+    from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
+    head = scorer._head
+    if head['fusion'] == 'concatenate':
+        z = concat_first_layer(scorer, side[0], items).float()
+        return torch.stack([z, torch.zeros_like(z)], dim=1)
+    (uf, ug), (itf, ig) = side, (t[items] for t in scorer._scan_tables)
+    z = tpm._gated_first_layer(head, uf[:, None], ug[:, None], itf, ig)
+    parts = tpm._gated_first_layer(head, uf.abs()[:, None], ug[:, None],
+                                   itf.abs(), ig)
+    return torch.stack([z, GATE_REACH * parts], dim=2).reshape(
+        -1, 2, z.shape[-1])
 
 
 def check_against_plain(scorer, plain, users, v, i, phase, f32=True,
@@ -3620,38 +3784,98 @@ def hpo_serve(scorer, users, seen, kid, phase, **fields):
 
 
 def hpo_int8_vs_plain(scorer, users, v, i, phase) -> dict:
-    """The int8 lists' values against the plain int8 version (bf16 mode,
-    the kernels' rounding points) of the same items for 64 users: every
-    value within AGREE of max(1, |score|)."""
+    """The int8 lists' top-50 values for 64 users against the plain int8
+    version (bf16 mode, the kernels' rounding points) of the same items,
+    relative to max(1, |score|), both fed the same user rows (those of
+    ``top_k``'s first block): at most MAX_DIFFERING_PER_LAYER of the
+    pairs per int8 layer past AGREE, as ``int8_kernel_checks`` allows,
+    none past FLIP_TOL, and each pair past AGREE explained by at most
+    FLIP_EXPLAIN_MOST code flips (``flip_explanation`` over
+    ``exact_chain_int8``) to FLIP_MATCH. A code flips where an activation
+    computed another way crosses a quantize boundary; on trained heads one
+    flip moves a score past AGREE (ROADMAP C5). Prints the explained pairs
+    with their residuals and flips, the largest move one flippable code
+    makes alone, the flippable codes per pair, and how many of
+    INT8_DECOYS pairs moved on purpose the flips would explain."""
+    from pixelrec_multimodal_tpu_torch.inference.scorer import _exact_f32
     from pixelrec_multimodal_tpu_torch.ops import pairwise_mlp as tpm
-    plain = (tpm.pairwise_scores_plain
-             if scorer._head['fusion'] == 'concatenate'
+    head = scorer._head
+    plain = (tpm.pairwise_scores_plain if head['fusion'] == 'concatenate'
              else tpm.pairwise_scores_gated_plain)
-    with torch.no_grad():
-        side = scorer._fast_user_side(
-            torch.from_numpy(users[:64].astype(np.int64)).to(
-                scorer._scan_tables[0].device))
-        ref = torch.cat([plain(scorer._head, *side,
+    with _exact_f32():
+        # the user rows as ``top_k`` formed them, from its first block of
+        # users: the user tower's float32 products over another number of
+        # rows may round otherwise, and a user row's bf16 rounding then
+        # moves every pair of that user
+        side = tuple(t[:64] for t in scorer._fast_user_side(
+            torch.from_numpy(users[:scorer.user_chunk].astype(np.int64)).to(
+                scorer._scan_tables[0].device)))
+        ref = torch.cat([plain(head, *side,
                                *(t[c:c + 4096] for t in scorer._scan_tables),
                                compute_dtype=torch.bfloat16)
                          for c in range(0, scorer.n_items, 4096)], dim=1)
         at = torch.from_numpy(i[:64].astype(np.int64)).to(ref.device)
-        ref_at = ref.gather(1, at).cpu().numpy()
+        ref_at = ref.gather(1, at).cpu().numpy().ravel()
+        x = int8_chain_inputs(scorer, side, at)
+    target = v[:64].ravel().astype(np.float64)
     scale = np.maximum(1.0, np.abs(ref_at))
-    rel = float((np.abs(v[:64] - ref_at) / scale).max())
-    emit(phase, users=64, top50_max_rel_diff_vs_plain_int8=rel, agree=AGREE)
-    if not rel <= AGREE:
-        raise AssertionError(f'{phase}: {rel} from the plain int8 version '
-                             f'> {AGREE}')
-    return {'max_rel_diff': rel}
+    rel = np.abs(target - ref_at) / scale
+    layers = len(head['qlayers'])
+    allowed = int(MAX_DIFFERING_PER_LAYER * layers * rel.size)
+    past = np.flatnonzero(rel > AGREE)
+    rng = np.random.default_rng(SEED + 43)
+    decoys = rng.choice(rel.size, INT8_DECOYS, replace=False)
+    moved = target[decoys] + rng.choice([-1, 1], INT8_DECOYS) * np.exp(
+        rng.uniform(np.log(10 * AGREE), np.log(FLIP_TOL), INT8_DECOYS)
+    ) * scale[decoys]
+    with torch.no_grad():
+        flips = flip_explanation(head, x, target, scale, past,
+                                 exact=exact_chain_int8)
+        fake = flip_explanation(
+            head, x[torch.as_tensor(decoys, device=x.device)], moved,
+            scale[decoys], range(INT8_DECOYS),
+            exact=exact_chain_int8)['explained']
+    ex = flips['explained']
+    unexplained = [int(r) for r in past
+                   if ex[r]['residuals'][-1] > FLIP_MATCH]
+    emit(phase, users=min(64, len(users)), pairs=int(rel.size),
+         int8_layers=layers,
+         top50_max_rel_diff_vs_plain_int8=float(rel.max()),
+         top50_pairs_past_agree=len(past),
+         top50_share_past_agree=len(past) / rel.size,
+         top50_pairs_allowed_past_agree=allowed,
+         top50_pairs_past_flip_tol=int((rel > FLIP_TOL).sum()),
+         top50_pairs_past_agree_explained=[
+             {'pair': int(r), 'rel_diff': float(rel[r]), **ex[r]}
+             for r in sorted(ex, key=lambda r: -rel[r])],
+         top50_pairs_past_agree_unexplained=len(unexplained),
+         top50_exact_vs_plain_max_rel_diff=float(np.max(
+             np.abs(flips['exact'] - ref_at) / scale)),
+         top50_max_single_flip_move=float(flips['single_move'].max()),
+         top50_flippable_per_pair_mean=float(flips['flippable'].mean()),
+         top50_flippable_per_pair_max=int(flips['flippable'].max()),
+         decoys=INT8_DECOYS, decoys_explained=int(sum(
+             e['residuals'][-1] <= FLIP_MATCH for e in fake.values())),
+         agree=AGREE, flip_tol=FLIP_TOL, flip_explain_most=FLIP_EXPLAIN_MOST,
+         flip_match=FLIP_MATCH,
+         gate='pairs past AGREE <= MAX_DIFFERING_PER_LAYER x int8 layers, '
+              'none past FLIP_TOL, each explained by code flips')
+    if len(past) > allowed or rel.max() > FLIP_TOL or unexplained:
+        raise AssertionError(
+            f'{phase}: {len(past)} pairs past {AGREE} (allowed {allowed}), '
+            f'largest {rel.max()}, {len(unexplained)} unexplained by code '
+            f'flips')
+    return {'max_rel_diff': float(rel.max()), 'past_agree': len(past)}
 
 
 def hpo_phase(smi, dev, ws: Path) -> dict:
     """Hyperparameter search from the command line on the cli phase's
     workspace ``ws``. Random tables for the pairs the trials draw
     (``hpo_tables``); ``create_training_subsets.create_subsets`` on a copy
-    of the cli config at 2 epochs (timed; 5% within 20% within 50%, each
-    within 2 rows of its share); then ``hyperparameter_search.main`` on the
+    of the cli config at HPO_EPOCHS that trains on HPO_TRAIN_SHARE of the
+    training rows and validates on HPO_VAL_SHARE of the validation rows
+    (timed; 5% within 20% within 50%, each within 2 rows of its share);
+    then ``hyperparameter_search.main`` on the
     card, HPO_TRIALS trials on the 5% subset from the default seed, every
     trial COMPLETE with a finite value (the objective turns any failure
     into the worst value, so a device or kernel failure fails here), with
@@ -3665,14 +3889,21 @@ def hpo_phase(smi, dev, ws: Path) -> dict:
     'score_full_vs_f32_top50_flips'); then the concat and gated heads in
     int8 (``precision='int8'``, else 'int8!' where the flip point keeps a
     head in bf16; a head with no hidden layer has nothing to quantize and
-    is refused): K1q or K2q and no bf16 kernel, every top-50 value within
-    AGREE of the plain int8 version, the top-50 agreement with the bf16
-    lists printed beside INT8_FIDELITY. Last, the search's files parse,
-    the best trial is the study's minimum, and whether PNGs were written.
+    is refused): K1q or K2q and no bf16 kernel, the top-50 values held
+    against the plain int8 version (``hpo_int8_vs_plain``: a pair past
+    AGREE passes where code flips explain it), the top-50 agreement with
+    the bf16 lists printed beside INT8_FIDELITY. Last, the search's files
+    parse, the best trial is the study's minimum, and whether PNGs were
+    written.
     Returns the launches by kernel."""
     import pickle
     from pixelrec_multimodal_tpu_torch.config import Config
-    from pixelrec_multimodal_tpu_torch.data.columns import read_csv
+    from pixelrec_multimodal_tpu_torch.data.columns import (
+        n_rows,
+        read_csv,
+        take,
+        write_csv,
+    )
     from pixelrec_multimodal_tpu_torch.data.feature_store import (
         ItemFeatureStore,
     )
@@ -3698,9 +3929,21 @@ def hpo_phase(smi, dev, ws: Path) -> dict:
     tables = hpo_tables(ws)
     emit('hpo_tables', **tables)
 
-    # ---- the subsets, from a copy of the cli config at 2 epochs
+    # ---- the subsets, from a copy of the cli config at HPO_EPOCHS that
+    # trains on HPO_TRAIN_SHARE of the training rows and validates on
+    # HPO_VAL_SHARE of the validation rows
     config = yaml_io.load_file(ws / 'config.yaml')
-    config['training']['epochs'] = 2
+    config['training']['epochs'] = HPO_EPOCHS
+    rng = np.random.default_rng(SEED + 44)
+    for key, share in (('train_data_path', HPO_TRAIN_SHARE),
+                       ('val_data_path', HPO_VAL_SHARE)):
+        table = read_csv(config['data'][key])
+        n = n_rows(table)
+        path = Path(config['data'][key])
+        path = path.with_name(f'{path.stem}_hpo.csv')
+        write_csv(take(table, np.sort(rng.choice(n, round(share * n),
+                                                 replace=False))), path)
+        config['data'][key] = str(path)
     cfg_path = ws / 'hpo_config.yaml'
     yaml_io.dump_file(config, cfg_path)
     t0 = time.time()
@@ -5679,6 +5922,7 @@ def main() -> int:
     )
 
     t_start = time.time()
+    clock = PhaseClock()
     dev = torch.device('cuda')
     # ---- 1. card
     smi = subprocess.run(
@@ -5691,16 +5935,19 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
+    clock.lap('card')
     # ---- 2. build every kernel and probe source, one nvcc each, in
     # parallel
     t0 = time.time()
     libs = _build.build(_build.all_sources() + _build.probe_sources())
     for lib in libs.values():
         log(lib.with_suffix('.log').read_text())
-    emit('build', seconds=round(time.time() - t0, 3),
+    build_seconds = round(time.time() - t0, 3)
+    emit('build', seconds=build_seconds,
          libraries=[str(p.relative_to(_build.BUILD_DIR.parents[1]))
                     for p in libs.values()])
 
+    clock.lap('build')
     # ---- 2b. the probes: P1-P3 against their plain versions, then the
     # card's rates, which every kernel's bound below divides by
     t0 = time.time()
@@ -5708,6 +5955,7 @@ def main() -> int:
     probe_rate = probe_rates(smi)
     emit('probes', seconds=round(time.time() - t0, 3))
 
+    clock.lap('probes')
     # ---- set-up of the concat main path (catalog tables built on the card)
     t0 = time.time()
     model, store = build_flagship()
@@ -5805,6 +6053,7 @@ def main() -> int:
     del scorer, qscorer, item_first, user_first
     torch.cuda.empty_cache()
 
+    clock.lap('concat')
     # ---- 6. set-up of the gated main paths: bench_fusion.py's gated model
     # (the flagship with fusion_type='gated'), one scorer per variant.
     t0 = time.time()
@@ -5938,6 +6187,7 @@ def main() -> int:
     del gated, qgated, gmodel, gstore, ghead, side
     torch.cuda.empty_cache()
 
+    clock.lap('gated')
     # ---- 9. set-up of the attention main paths: bench_fusion.py's
     # attention model (the flagship with fusion_type='attention', 4 heads),
     # one scorer per variant
@@ -6051,6 +6301,7 @@ def main() -> int:
             tpu_module='attention_scorer',
             function_of='K4' if kid == 'K5' else None))
 
+    clock.lap('attention')
     # ---- 12. set-up of the attention cascade: scripts/bench_cascade.py's
     # geometry, the stream scorer's tables plus the screens' (the tail and
     # the additive item rows), built on first use
@@ -6280,6 +6531,7 @@ def main() -> int:
     lines[-1]['launches_screen_token0'] = screen_launches['K6']
     lines[0]['launches_additive_cascade'] = cascade_launches['K1']
 
+    clock.lap('cascade')
     # ---- 17b. the chain alone of K1, K4, K6, K2, K3, K2q, K3q and K1q
     # (whole less the cut after the assembly): its time and rate
     chains = {c['kernel']: c for c in chain_phase(smi, dev)}
@@ -6292,19 +6544,23 @@ def main() -> int:
     del stream, amodel, astore, it_k, it_vo, tail, add, side
     torch.cuda.empty_cache()
 
+    clock.lap('chain')
     # ---- 18. the wide models that take smaller blocks, at WIDE_USERS users
     wide_main_paths(users[:WIDE_USERS], smi, dev)
     torch.cuda.empty_cache()
 
+    clock.lap('wide')
     # ---- 19. the frozen train path at the training profile's geometry,
     # then against the CPU
     bare = train_phase(smi, dev)
 
+    clock.lap('train')
     # ---- 20. the Trainer and the data path at that geometry: datasets,
     # epochs, checkpoints, a resume, then the best checkpoint served
     # through K1 and K1q
     trained = trainer_phase(smi, dev, bare['samples_per_sec'])
 
+    clock.lap('trainer')
     # ---- 21. the command line at that geometry: split and train through
     # the entry points, then serve the best checkpoint through K1; then
     # recommend from it through the generate entry point (K1, MMR, K1q)
@@ -6316,34 +6572,43 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, \
             tempfile.TemporaryDirectory() as pre_tmp:
         cli = cli_phase(smi, dev, trainer_rate, workspace=Path(tmp))
+        clock.lap('cli')
         recommended = recommend_phase(smi, dev, Path(tmp))
+        clock.lap('recommend')
         evaluated = evaluate_phase(smi, dev, Path(tmp))
+        clock.lap('evaluate')
         # ---- 21b. the encoder towers card against CPU, then the item
         # tables made on the card (the precompute entry point's
         # language_emb, ResNet-50's vision_emb) and the flagship head
         # served on them through K1
         precomputed = precompute_phase(smi, dev, workspace=Path(pre_tmp))
+        clock.lap('precompute')
         # ---- 21c. the meshed paths in rank processes on the one card: the
         # flagship's top-K at 1x1 (NCCL), 2x2 and 1x2 (gloo), the token-0
         # cascade, the generate, evaluate and precompute entry points
         meshed = mesh_phase(smi, dev, Path(tmp), Path(pre_tmp),
                             flagship_top_k, token0_cascade)
+        clock.lap('mesh')
         # ---- 21d. training over the mesh in rank processes on the one
         # card: the Trainer at 1x1 (NCCL), 2x1 and 2x2 (gloo) against one
         # process, the train entry point at 2x1 served through K1, the
         # unfrozen step at 2x1, the dry run
         mesh_trained = mesh_train_phase(smi, dev, Path(tmp))
+        clock.lap('mesh_train')
         # ---- 22. hyperparameter search on the cli workspace: the subsets,
         # five trials through the search entry point, each trial's best
         # checkpoint served through K1, K2 or K4, and K1q, K2q in int8
         searched = hpo_phase(smi, dev, Path(tmp))
+        clock.lap('hpo')
     # ---- 22b. raw files through the preprocess entry point (nvJPEG on the
     # card validates the images), then split, train and serve through K1
     preprocessed = preprocess_phase(smi, dev, trainer_rate)
+    clock.lap('preprocess')
     # ---- 24. the unfrozen path: towers trained inside the step (card
     # against CPU, remat, the augmentation, frozen towers, contrastive
     # CLIP), the fine-tuned scorer served through K1
     e2e = e2e_phase(smi, dev)
+    clock.lap('e2e')
     lines[0]['launches_e2e'] = e2e['launches']
     lines[0]['launches_cli'] = cli['launches']
     lines[0]['launches_preprocess'] = preprocessed['launches']
@@ -6365,7 +6630,10 @@ def main() -> int:
                 searched['launches_int8'][line['kernel']]
 
     lines += probe_lines(probe_rate, probe_errs, dev)
-    emit('timing', seconds_total=round(time.time() - t_start, 3))
+    clock.lap('probe_lines')
+    emit('phase_seconds', build_seconds=build_seconds,
+         seconds=clock.seconds, seconds_total=round(time.time() - t_start, 3),
+         limit_seconds=SCRIPT_LIMIT, target_seconds=SCRIPT_TARGET)
     print(json.dumps({'kernels': lines}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': device_name,
