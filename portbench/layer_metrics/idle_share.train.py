@@ -1,0 +1,4 @@
+"""idle_share.train (%): the share of the untraced training
+window in which no operation ran on the device, from the device-only
+slice's busy seconds a unit of work (``counts.idle_share``)."""
+from portbench.counts import idle_share as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""scan_other_share.eval (%): device time outside the pair kernel over the
+device's busy time in the traced full-catalog slice
+(``counts.scan_other_share``)."""
+from portbench.counts import scan_other_share as read  # noqa: F401
